@@ -1,0 +1,36 @@
+"""Dense layers over `(in, out)`-layout weights (counterpart of
+mingunivision_tpu/ops/linear.py).
+
+fp32 means true fp32 here: `fp32_matmul_precision("high")` and "highest" turn
+TF32 off for both matmuls (`torch.backends.cuda.matmul.allow_tf32`) and
+convolutions (`torch.backends.cudnn.allow_tf32`); "default" allows TF32, the
+card's single-pass reduced-precision mode.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+import torch.nn.functional as F
+
+_ALLOW_TF32 = {"default": True, "high": False, "highest": False}
+
+
+@contextlib.contextmanager
+def fp32_matmul_precision(name: str):
+    """Set the fp32 matmul mode for the block, restoring the previous one after."""
+    allow = _ALLOW_TF32[name]
+    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = allow
+    torch.backends.cudnn.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+def dense(x: torch.Tensor, params: dict) -> torch.Tensor:
+    """x @ w (+ b) in x's dtype, one fused GEMM. Weights are `(in, out)`."""
+    b = params.get("b")
+    return F.linear(x, params["w"].to(x.dtype).t(), None if b is None else b.to(x.dtype))

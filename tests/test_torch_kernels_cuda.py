@@ -1,0 +1,111 @@
+"""PyTorch port: each hand-written CUDA kernel against its plain PyTorch version
+on the card, in bf16. The kernels have no CPU mode, so every test here is
+marked `cuda` and skips without a card. Imports torch and the port only (the
+card's machine has no JAX):
+
+    python -m pytest -q --noconftest -m cuda tests/test_torch_kernels_cuda.py
+"""
+
+import pytest
+import torch
+
+from mingunivision_tpu_torch.ops.kernels.decode_attention import decode_attention, decode_attention_plain
+from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream, moe_experts_stream_plain
+from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm, moe_experts_swiglu_gmm_plain
+
+pytestmark = pytest.mark.cuda
+E, H, M = 8, 256, 384
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _experts(dev, layers=2, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shapes = {"gate_proj": (layers, E, H, M), "up_proj": (layers, E, H, M), "down_proj": (layers, E, M, H)}
+    return {k: torch.empty(s, device=dev, dtype=torch.bfloat16).normal_(0, 0.05, generator=g) for k, s in shapes.items()}
+
+
+def _routing(dev, n, k, choices=None, seed=1):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    scores = torch.rand((n, E), device=dev, generator=g)
+    if choices is not None:
+        allowed = torch.zeros(E, dtype=torch.bool, device=dev)
+        allowed[choices] = True
+        scores = scores.masked_fill(~allowed, -1.0)
+    w, idx = torch.topk(scores, k)
+    return idx, (w / w.sum(-1, keepdim=True)).to(torch.bfloat16)
+
+
+def _close_bf16(got, want):
+    """bf16 keeps about 3 significant digits: max |err| <= 1e-2 * max |want|."""
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-2 * want.float().abs().max().item() + 1e-6, err
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 16], ids=["1row", "2rows", "5rows", "16rows-2chunks-A>E"])
+def test_moe_stream_kernel_matches_plain(dev, n):
+    ex = _experts(dev)
+    idx, w = _routing(dev, n, 6)
+    x = torch.randn(n, H, device=dev).to(torch.bfloat16)
+    before = moe_experts_stream.launches
+    got = moe_experts_stream(ex, x, idx, w, layer_idx=1)
+    torch.cuda.synchronize()
+    assert moe_experts_stream.launches == before + 1
+    _close_bf16(got, moe_experts_stream_plain(ex, x, idx, w, layer_idx=1))
+
+
+@pytest.mark.parametrize("choices", [None, [0, 3, 5]], ids=["spread", "skewed-empty-experts"])
+def test_swiglu_gmm_kernel_matches_plain(dev, choices):
+    ex = _experts(dev, seed=2)
+    idx, w = _routing(dev, 96, 2, choices, seed=3)
+    x = torch.randn(96, H, device=dev).to(torch.bfloat16)
+    before = moe_experts_swiglu_gmm.launches
+    got = moe_experts_swiglu_gmm(ex, x, idx, w, E, layer_idx=0)
+    torch.cuda.synchronize()
+    assert moe_experts_swiglu_gmm.launches == before + 1
+    _close_bf16(got, moe_experts_swiglu_gmm_plain(ex, x, idx, w, E, layer_idx=0))
+
+
+@pytest.mark.parametrize("D,G", [(128, 4), (64, 2)])
+def test_decode_attention_kernel_matches_plain(dev, D, G):
+    B, Hkv, S = 2, 4, 4096
+    q = torch.randn(B, 1, Hkv * G, D, device=dev).to(torch.bfloat16)
+    k = torch.randn(B, Hkv, S, D, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, Hkv, S, D, device=dev).to(torch.bfloat16)
+    mask = torch.zeros(B, S, dtype=torch.bool, device=dev)
+    mask[0, :700] = True
+    mask[1, :321] = True
+    mask[1, 400:450] = True  # CFG-style hole
+    mask[1, 4000] = True  # a lone allowed position in the last tile
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    _close_bf16(got, decode_attention_plain(q, k, v, mask))
+
+
+def test_decode_attention_fully_masked_row_is_zero_not_nan(dev):
+    q = torch.randn(1, 1, 8, 128, device=dev).to(torch.bfloat16)
+    k = torch.randn(1, 2, 512, 128, device=dev).to(torch.bfloat16)
+    out = decode_attention(q, k, k, torch.zeros(1, 512, dtype=torch.bool, device=dev))
+    assert torch.equal(out.float(), torch.zeros_like(out.float()))
+
+
+def test_wrappers_raise_on_unsupported_input(dev):
+    ex = _experts(dev)
+    idx, w = _routing(dev, 2, 6)
+    x = torch.randn(2, H, device=dev)  # fp32: the kernels take bf16
+    with pytest.raises(ValueError):
+        moe_experts_stream(ex, x, idx, w, layer_idx=0)
+    with pytest.raises(ValueError):
+        moe_experts_swiglu_gmm(ex, x, idx, w, E, layer_idx=0)
+    q = torch.randn(1, 1, 8, 96, device=dev).to(torch.bfloat16)  # head_dim 96 is not built
+    kc = torch.randn(1, 2, 64, 96, device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        decode_attention(q, kc, kc, torch.ones(1, 64, dtype=torch.bool, device=dev))
