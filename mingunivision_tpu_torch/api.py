@@ -10,8 +10,8 @@ from __future__ import annotations
 
 from typing import List, Optional
 
-from mingunivision_tpu.config import GenerationConfig, ImageGenConfig, MingUniVisionConfig, RuntimeConfig
-from mingunivision_tpu.processing.processor import BailingMMProcessor
+from mingunivision_tpu_torch.config import GenerationConfig, ImageGenConfig, MingUniVisionConfig, RuntimeConfig
+from mingunivision_tpu_torch.processing.processor import BailingMMProcessor
 from mingunivision_tpu_torch.engine.session import MingUniVisionSession
 
 

@@ -203,20 +203,6 @@ __global__ void __launch_bounds__(kThreads) stream_down_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kThreads) stream_combine_kernel(
-    const float* __restrict__ ybuf, const float* __restrict__ gates, const int* __restrict__ n_unique,
-    bf16* __restrict__ out, int n_rows, int h) {
-  const int n = blockIdx.x;
-  const int c = blockIdx.y * kThreads + threadIdx.x;
-  if (c >= h) return;
-  const int slots = n_unique[0];
-  float s = 0.0f;
-  for (int slot = 0; slot < slots; ++slot) {
-    s = fmaf(gates[slot * n_rows + n], ybuf[((size_t)slot * n_rows + n) * h + c], s);
-  }
-  out[(size_t)n * h + c] = __float2bfloat16(s);
-}
-
 template <int ROWS>
 cudaError_t launch_stream(const bf16* x, const bf16* w1, const bf16* w3, const bf16* w2, const int* slot_expert,
                           const int* n_unique, const float* gates, bf16* hbuf, float* ybuf, bf16* out, int n_rows,
@@ -241,7 +227,7 @@ cudaError_t launch_stream(const bf16* x, const bf16* w1, const bf16* w3, const b
   if (err != cudaSuccess) return err;
 
   dim3 comb_grid(n_rows, (h + kThreads - 1) / kThreads);
-  stream_combine_kernel<<<comb_grid, kThreads, 0, stream>>>(ybuf, gates, n_unique, out, n_rows, h);
+  moe_slot_combine_kernel<<<comb_grid, kThreads, 0, stream>>>(ybuf, gates, n_unique, out, n_rows, h);
   return cudaGetLastError();
 }
 

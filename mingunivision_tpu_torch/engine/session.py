@@ -15,16 +15,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from mingunivision_tpu.config import (  # noqa: F401  (re-exported: framework-free)
-    GenerationConfig,
-    ImageGenConfig,
-    MingUniVisionConfig,
-    RuntimeConfig,
-)
-from mingunivision_tpu.processing.processor import build_cfg_masks  # noqa: F401  (re-exported: framework-free)
+from mingunivision_tpu_torch.config import GenerationConfig, ImageGenConfig
 from mingunivision_tpu_torch.engine.generate import decode_text, generate_image_tokens, pixel_decode, prefill
 from mingunivision_tpu_torch.engine.sampler import sample_token
 from mingunivision_tpu_torch.models.bailing_moe import LLMCache, compute_logits, embed_tokens
+from mingunivision_tpu_torch.utils.quantize import QuantizedArray
 
 PROMPT_BUCKET = 128  # prompts are right-padded to multiples of this for prefill
 
@@ -42,10 +37,15 @@ class RoundOutput:
 class MingUniVisionSession:
     """One conversation on one device: the KV cache and persisted masks across rounds.
 
-    `timings` holds the last round's prefill / image-loop / pixel-decode
-    milliseconds (host clock around synchronised work) and its CFG row count."""
+    The weight tier follows `params`: a tree from `utils/convert.py`, plain or
+    quantized (`quantize_mm_params_inplace`). `timings` holds the last round's
+    prefill / image-loop / pixel-decode milliseconds (host clock around
+    synchronised work) and its CFG row count."""
 
     def __init__(self, params, cfg, runtime, seed: int = 0, device=None):
+        if not runtime.moe_int_dots and isinstance(params["llm"]["layers"]["mlp"]["experts"]["gate_proj"],
+                                                   QuantizedArray):
+            raise NotImplementedError("moe_int_dots=False (exact-dequant quantized decode MoE) is not ported yet")
         self.params = params
         self.cfg = cfg
         self.runtime = runtime

@@ -8,9 +8,12 @@ zero-copy views of the stacked leaves, and the MoE kernels read the layer's
 expert tables as views of the stacked tables.
 
 Dispatch: decode-shape MoE (B*T <= MOE_DECODE_MAX_TOKENS) goes to the
-decode-MoE kernel, larger token counts to the grouped-SwiGLU prefill kernel,
-and one-token attention to the decode-attention kernel; CPU tensors take the
-kernels' plain versions.
+decode-MoE kernel, larger token counts to the grouped-SwiGLU prefill kernel
+(each wrapper picks its bf16 or int4 kernel from the table type), and
+one-token attention to the decode-attention kernel; CPU tensors take the
+kernels' plain versions. Quantized dense weights (attention, shared experts,
+router, lm_head) are dequantized before their product, and an int8 embedding
+is gathered as int8 rows and scaled in fp32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from mingunivision_tpu_torch.ops.linear import dense
 from mingunivision_tpu_torch.ops.norms import rms_norm
 from mingunivision_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from mingunivision_tpu_torch.utils.pytree import layer_view
+from mingunivision_tpu_torch.utils.quantize import QuantizedArray, dequant_weight
 
 # At or below this many rows the decode-shape MoE runs (as in the JAX package).
 MOE_DECODE_MAX_TOKENS = 48
@@ -71,7 +75,7 @@ def moe_route(gate_w: torch.Tensor, x_flat: torch.Tensor, top_k: int, norm_topk_
     """fp32-softmax top-k routing. x_flat (N, h) -> (topk_idx (N, k) int64,
     topk_w (N, k) fp32, logits (N, E) fp32). Logits are exact fp32 sums of the
     input-dtype products."""
-    logits = torch.matmul(x_flat.float(), gate_w.to(x_flat.dtype).float())
+    logits = torch.matmul(x_flat.float(), dequant_weight(gate_w, x_flat.dtype).float())
     scores = torch.softmax(logits, dim=-1)
     topk_w, topk_idx = torch.topk(scores, top_k, dim=-1)
     if top_k > 1 and norm_topk_prob:
@@ -81,10 +85,10 @@ def moe_route(gate_w: torch.Tensor, x_flat: torch.Tensor, top_k: int, norm_topk_
 
 def _expert_mlp(x, gate_w, up_w, down_w):
     """SwiGLU expert (the shared experts): down(silu(gate(x)) * up(x))."""
-    g = torch.matmul(x, gate_w.to(x.dtype)).float()
-    u = torch.matmul(x, up_w.to(x.dtype)).float()
+    g = torch.matmul(x, dequant_weight(gate_w, x.dtype)).float()
+    u = torch.matmul(x, dequant_weight(up_w, x.dtype)).float()
     a = (F.silu(g) * u).to(x.dtype)
-    return torch.matmul(a, down_w.to(x.dtype))
+    return torch.matmul(a, dequant_weight(down_w, x.dtype))
 
 
 # phase -> routed-expert kernel wrapper (each picks its plain version for CPU
@@ -190,10 +194,15 @@ def compute_logits(params, cfg, hidden_states):
     """LM head with optional norm_head (column-L2-normalised weight); fp32 logits."""
     w = params["lm_head"]["w"]
     if cfg.norm_head:
-        wf = w.float()
+        wf = dequant_weight(w, torch.float32)
         w = wf / (torch.linalg.vector_norm(wf, dim=1, keepdim=True) + 1e-7)
-    return torch.matmul(hidden_states, w.to(hidden_states.dtype)).float()
+    return torch.matmul(hidden_states, dequant_weight(w, hidden_states.dtype)).float()
 
 
 def embed_tokens(params, input_ids):
-    return params["word_embeddings"]["w"][input_ids]
+    """Embedding rows; an int8 table gives fp32 rows (int8 rows times its
+    row-invariant (1, h) scale), which the caller casts."""
+    w = params["word_embeddings"]["w"]
+    if isinstance(w, QuantizedArray):
+        return w.q[input_ids].float() * w.s[0]
+    return w[input_ids]

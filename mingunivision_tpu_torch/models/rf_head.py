@@ -1,8 +1,12 @@
 """Rectified-flow head: AdaLN SwiGLU-MLP velocity field + Euler ODE sampler
-(counterpart of mingunivision_tpu/models/rf_head.py, bf16/fp32 path).
+(counterpart of mingunivision_tpu/models/rf_head.py).
 
-The sampler is a Python loop over Euler steps. Randomness is explicit: the
-caller passes `noise` (one row per image, or one per CFG row).
+Linear int4 res_blocks tables take the fused whole-sampler
+(`ops/kernels/rf_sampler.py`: the CUDA kernel on the card, its plain version
+on the CPU), as the JAX package's TPU path does; other tiers run the Euler
+steps as a Python loop, dequantizing any quantized weight in `dense`.
+Randomness is explicit: the caller passes `noise` (one row per image, or one
+per CFG row).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from mingunivision_tpu_torch.ops.activations import swiglu
+from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused, rf_sampler_supported
 from mingunivision_tpu_torch.ops.linear import dense
 from mingunivision_tpu_torch.ops.norms import layer_norm
 
@@ -116,6 +121,11 @@ def rf_sample(
 
     ts, dts = _time_grid(cfg, time_shifting_factor, device=z.device)
     block_mods, final_mods = precompute_modulations(params, cfg, ts, z)
+    if cfg_renorm_type in (None, "channel") and rf_sampler_supported(params, B, cfg_rows):
+        out = rf_sample_fused(params, cfg, x, block_mods, final_mods, dts, text_cfg, image_cfg, cfg_rows=cfg_rows,
+                              renorm_channel=cfg_renorm_type == "channel",
+                              compute_dtype=dtype if dtype != torch.float32 else torch.bfloat16)
+        return out.to(dtype)
     n = B // cfg_rows
     for i in range(cfg.num_sampling_steps):
         combined = x[:n].repeat(cfg_rows, 1) if cfg_rows > 1 else x

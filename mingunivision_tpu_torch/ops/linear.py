@@ -5,6 +5,9 @@ fp32 means true fp32 here: `fp32_matmul_precision("high")` and "highest" turn
 TF32 off for both matmuls (`torch.backends.cuda.matmul.allow_tf32`) and
 convolutions (`torch.backends.cudnn.allow_tf32`); "default" allows TF32, the
 card's single-pass reduced-precision mode.
+
+A quantized weight (`utils/quantize.QuantizedArray`) is dequantized to x's
+dtype before the product, as the JAX package's XLA path does.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ import contextlib
 
 import torch
 import torch.nn.functional as F
+
+from mingunivision_tpu_torch.utils.quantize import dequant_weight
 
 _ALLOW_TF32 = {"default": True, "high": False, "highest": False}
 
@@ -31,6 +36,6 @@ def fp32_matmul_precision(name: str):
 
 
 def dense(x: torch.Tensor, params: dict) -> torch.Tensor:
-    """x @ w (+ b) in x's dtype, one fused GEMM. Weights are `(in, out)`."""
+    """x @ w (+ b) in x's dtype, one fused GEMM. Weights are `(in, out)`, plain or quantized."""
     b = params.get("b")
-    return F.linear(x, params["w"].to(x.dtype).t(), None if b is None else b.to(x.dtype))
+    return F.linear(x, dequant_weight(params["w"], x.dtype).t(), None if b is None else b.to(x.dtype))

@@ -1,8 +1,9 @@
-"""Parameter bridge and on-device random initialisation.
+"""Parameter bridge, on-device random initialisation and the weight tiers.
 
 `params_from_jax` is the one place where layout is decided, and it decides to
 keep the JAX package's: `(in, out)` linear weights, depth-stacked (L, ...)
-layer leaves, expert tables (L, E, h, m) / (L, E, m, h). A tree converted here
+layer leaves, expert tables (L, E, h, m) / (L, E, m, h), and quantized leaves
+in the JAX package's byte formats (`utils/quantize.py`). A tree converted here
 runs through the port and through the JAX package on the same numbers.
 
 The `init_*` functions build the same trees with random weights directly on a
@@ -18,22 +19,29 @@ import numpy as np
 import torch
 
 from mingunivision_tpu_torch.ops.activations import swiglu_hidden_dim
+from mingunivision_tpu_torch.utils.quantize import QuantizedArray, quantize_tree_inplace
 
 STD = 0.02
 
 
-def params_from_jax(tree, device=None, dtype=None):
-    """JAX param tree (numpy or jax array leaves; dicts, lists) -> the same tree
-    of torch tensors on `device`; floating leaves cast to `dtype` when given."""
+def params_from_jax(tree, device="cuda", dtype=None):
+    """JAX param tree (numpy or jax array leaves, and the JAX package's
+    QuantizedArray; dicts, lists) -> the same tree of torch tensors on
+    `device`; floating leaves cast to `dtype` when given. A quantized leaf
+    keeps its bytes (`q` uint8/int8), fp32 scales and `bits`/`groups`/`scheme`."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax(v, device, dtype) for v in tree)
+    if type(tree).__name__ == "QuantizedArray":
+        return QuantizedArray(params_from_jax(tree.q, device), params_from_jax(tree.s, device), tree.bits,
+                              getattr(tree, "groups", 1), getattr(tree, "scheme", "linear"))
     arr = np.asarray(tree)
     if arr.dtype.kind == "V" or str(arr.dtype) == "bfloat16":  # ml_dtypes bf16 has no torch counterpart in numpy
         t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        arr = np.ascontiguousarray(arr)
+        t = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
@@ -192,3 +200,15 @@ def init_mm_params(cfg, *, device, dtype=torch.bfloat16, generator: torch.Genera
         "linear_proj": init_linear_proj_params(cfg.mingtok.feature_dim, cfg.llm.hidden_size, cfg.mlp_depth, init),
         "mingtok": init_mingtok_decoder_params(cfg.mingtok, init),
     }
+
+
+def quantize_mm_params_inplace(params: dict) -> dict:
+    """The int4 tier of the JAX package's checkpoint load, applied in place on
+    the params' device: the LLM and the RF head quantized to linear int4 (the
+    embedding and odd-contraction tables to int8, routers, norms and biases
+    left floating), MingTok, vis_head and linear_proj left as they are. Each
+    floating leaf is freed as its quantized copy replaces it, so a bf16 tree on
+    the card is quantized without a second copy."""
+    for key in ("llm", "rf_head"):
+        quantize_tree_inplace(params[key], bits=4)
+    return params

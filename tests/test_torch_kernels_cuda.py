@@ -1,6 +1,8 @@
 """PyTorch port: each hand-written CUDA kernel against its plain PyTorch version
-on the card, in bf16. The kernels have no CPU mode, so every test here is
-marked `cuda` and skips without a card. Imports torch and the port only (the
+on the card, in bf16 (the int4 kernels on int4 tables of the same weights;
+the RF sampler to the bit, since its plain version sums in its order). The
+kernels have no CPU mode, so every test here is marked `cuda` and skips
+without a card. Imports torch and the port only (the
 card's machine has no JAX):
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_kernels_cuda.py
@@ -9,9 +11,22 @@ card's machine has no JAX):
 import pytest
 import torch
 
+from mingunivision_tpu_torch.config import RFHeadConfig
+from mingunivision_tpu_torch.models.rf_head import _time_grid, precompute_modulations
 from mingunivision_tpu_torch.ops.kernels.decode_attention import decode_attention, decode_attention_plain
-from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream, moe_experts_stream_plain
-from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm, moe_experts_swiglu_gmm_plain
+from mingunivision_tpu_torch.ops.kernels.moe_stream import (
+    moe_experts_stream,
+    moe_experts_stream_plain,
+    moe_experts_stream_q4s8,
+)
+from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import (
+    moe_experts_swiglu_gmm,
+    moe_experts_swiglu_gmm_plain,
+    moe_experts_swiglu_gmm_q4,
+)
+from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused, rf_sample_fused_plain
+from mingunivision_tpu_torch.utils.convert import _Init, init_rf_head_params
+from mingunivision_tpu_torch.utils.quantize import quantize_array, quantize_tree_inplace
 
 pytestmark = pytest.mark.cuda
 E, H, M = 8, 256, 384
@@ -109,3 +124,52 @@ def test_wrappers_raise_on_unsupported_input(dev):
     kc = torch.randn(1, 2, 64, 96, device=dev).to(torch.bfloat16)
     with pytest.raises(ValueError):
         decode_attention(q, kc, kc, torch.ones(1, 64, dtype=torch.bool, device=dev))
+
+
+def _q4(tables):
+    return {k: quantize_array(v, 4) for k, v in tables.items()}
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 16], ids=["1row", "2rows", "5rows-2chunks", "16rows-A>E"])
+def test_moe_stream_q4s8_kernel_matches_plain(dev, n):
+    ex = _q4(_experts(dev, seed=4))
+    idx, w = _routing(dev, n, 6, seed=5)
+    x = torch.randn(n, H, device=dev).to(torch.bfloat16)
+    before = moe_experts_stream_q4s8.launches
+    got = moe_experts_stream(ex, x, idx, w, layer_idx=1)
+    torch.cuda.synchronize()
+    assert moe_experts_stream_q4s8.launches == before + 1
+    _close_bf16(got, moe_experts_stream_plain(ex, x, idx, w, layer_idx=1))
+
+
+@pytest.mark.parametrize("choices", [None, [0, 3, 5]], ids=["spread", "skewed-empty-experts"])
+def test_swiglu_gmm_q4_kernel_matches_plain(dev, choices):
+    ex = _q4(_experts(dev, seed=6))
+    idx, w = _routing(dev, 96, 2, choices, seed=7)
+    x = torch.randn(96, H, device=dev).to(torch.bfloat16)
+    before = moe_experts_swiglu_gmm_q4.launches
+    got = moe_experts_swiglu_gmm(ex, x, idx, w, E, layer_idx=0)
+    torch.cuda.synchronize()
+    assert moe_experts_swiglu_gmm_q4.launches == before + 1
+    _close_bf16(got, moe_experts_swiglu_gmm_plain(ex, x, idx, w, E, layer_idx=0))
+
+
+@pytest.mark.parametrize("rows,renorm", [(1, False), (2, False), (3, True)], ids=["unguided", "cfg2", "cfg3-renorm"])
+def test_rf_sampler_kernel_matches_plain(dev, rows, renorm):
+    cfg = RFHeadConfig(target_channels=8, z_channels=32, width=192, depth=2, mlp_mult=4, num_sampling_steps=4)
+    g = torch.Generator(device=dev).manual_seed(8)
+    rf = init_rf_head_params(cfg, _Init(dev, torch.bfloat16, g))
+    for leaf in (rf["res_blocks"]["adaLN"], rf["final_layer"]["adaLN"], rf["final_layer"]["linear"]):
+        leaf["w"].normal_(0.0, 0.05, generator=g)
+    quantize_tree_inplace(rf, bits=4, min_size=1024)
+    ts, dts = _time_grid(cfg, None, device=dev)
+    z = torch.randn(rows, cfg.z_channels, device=dev, generator=g).to(torch.bfloat16)
+    block_mods, final_mods = precompute_modulations(rf, cfg, ts, z)
+    noise = torch.randn(1, cfg.target_channels, device=dev, generator=g).repeat(rows, 1)
+    args = (rf, cfg, noise, block_mods, final_mods, dts, 3.0, 1.1)
+    kw = dict(cfg_rows=rows, renorm_channel=renorm, compute_dtype=torch.bfloat16)
+    before = rf_sample_fused.launches
+    got = rf_sample_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert rf_sample_fused.launches == before + 1
+    torch.testing.assert_close(got, rf_sample_fused_plain(*args, **kw), rtol=0, atol=0)
