@@ -11,12 +11,17 @@ Phases, one printed line each; any failure exits non-zero:
               inputs, at the main paths' shapes: max abs error, error relative
               to max |plain|, median CUDA-event times of both (and of the one
               PyTorch call that computes the same function, where there is
-              one), and the least time the card could take (bound)
+              one), and the least time the card could take (bound); the
+              prefill MoE kernels also through the capacity-dense dispatch at
+              the understanding prompt's 1,152 tokens, beside the expert-sorted one
   4. reference  a small model on the card, bf16 and then int4, through the
               kernels (bf16 compute) against the plain versions in fp32: same
               tokens; the step-0 hidden state and first RF latent within
               twice the plain bf16 path's own error (+1e-2 of their maximum);
-              the image of the right shape, finite, in [-1, 1]
+              the image of the right shape, finite, in [-1, 1]. Then the same
+              on an image prompt that pads to 512 tokens (flash prefill, the
+              capacity dispatch, text decode): same tokens, the prefill's
+              last-position hidden state within the same bound
   5. slice    single-image text-to-image through MingUniVisionSession.generate
               at the full 16B-A3B width (random weights from a seed, bf16,
               max_seq_len 4096): output checks, launch counts of every kernel,
@@ -24,11 +29,26 @@ Phases, one printed line each; any failure exits non-zero:
   6. slice_int4  the same round with the LLM and RF head quantized to the
               int4 tier on the card (the serving tier): the int4 kernels'
               launch counts, times, resident and peak memory
+  7. understand  image -> text on each tier's full-width model: a 1024-px image
+              (1,024 patch tokens, the prompt pads to 1,152) through the
+              MingTok encoder, flash prefill and the capacity MoE dispatch
+              (the random model's attention outputs damped first, or every
+              image row would route to the same experts and overflow it), then
+              32 greedy text tokens; launch counts, capacity fallbacks, encode
+              / prefill / per-text-token times, peak memory
+  8. edit     image + edit request -> image on each tier's model: a 512-px image
+              (256 patch tokens, the prompt pads to 384), the 256-token image
+              loop with 3 CFG rows; launch counts, ms per AR token
+  9. recon    MingTok reconstruction (encode -> pixel decode) at 512 px, batch
+              1 and 8, on the pixel decoder's "high", "default" and "bf16"
+              tiers: flash-ViT launches, PSNR of the reduced tiers against
+              "high", ms per image
+A tier's model is built once and serves its slice, understand and edit phases.
 Then a JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-`--phases` picks the phases (default: the six above). Three more run only when
-named:
+`--phases` picks the phases (default: the nine above), e.g.
+`--phases device,build,kernels,understand`. Five more run only when named:
   divergence  the small model's plain bf16 path with each kernel swapped in
               alone, and all three, against plain bf16 and fp32: semantic-token
               error at loop step 0 and over the loop, image error
@@ -36,6 +56,12 @@ named:
               device ms per stage, device busy share, device events per token,
               top kernels; then the same round unprofiled (`--tier int4` for
               the int4 slice)
+  profile_understand  the understanding round with 8 text tokens under
+              torch.profiler: device ms of the encode, prefill and text-decode
+              stages, busy share, top kernels (`--tier`)
+  routing     the understanding prompt's expert loads per layer on the
+              full-width random model (`--tier`), as initialised and with the
+              attention outputs damped, against the capacity of the dispatch
   rf_sensitivity  the int4 RF sampler at full width: the kernel against its
               plain version beside the plain version against itself under a
               1-ulp change of its input, over 1 and 12 blocks and 1 and 16
@@ -66,6 +92,8 @@ KERNELS = {
     "moe_stream_q4s8": ("csrc/moe_stream_q4.cu", "mingunivision_tpu/ops/kernels/moe_stream.py:179"),
     "moe_swiglu_gmm_q4": ("csrc/moe_swiglu_gmm_q4.cu", "mingunivision_tpu/ops/kernels/moe_swiglu_gmm.py:356"),
     "rf_sampler_q4s8": ("csrc/rf_sampler_q4.cu", "mingunivision_tpu/ops/kernels/rf_sampler.py:272"),
+    "flash_prefill": ("csrc/flash_attention.cu", "mingunivision_tpu/ops/kernels/flash.py:31"),
+    "flash_vit": ("csrc/flash_attention.cu", "mingunivision_tpu/ops/kernels/flash.py:63"),
 }
 BF16_KERNELS = ("moe_stream", "moe_swiglu_gmm", "decode_attention")
 REL_TOL = 1e-2  # kernel vs plain: max |err| <= REL_TOL * max |plain| (bf16 keeps ~3 digits)
@@ -116,22 +144,27 @@ def bound(nbytes: float, ops: float, kind: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def run_case(torch, results, name, label, kern, plain, nbytes, ops, kind, library=None, iters=20) -> bool:
-    """One kernel case: the kernel against its plain version on the same inputs,
-    their median times (and the library call's), and the bound."""
-    got = kern()
+def run_case(torch, results, name, label, kern, plain, nbytes, ops, kind, library=None, iters=20, rows=None,
+             others=None) -> bool:
+    """One kernel case: the kernel against its plain version on the same inputs
+    (on the rows of the boolean mask `rows` when given), their median times
+    (and the library call's), and the bound. `others`: label -> a callable timed
+    beside them and recorded in the case under `<label>_ms`."""
+    got, want = kern(), plain()
     torch.cuda.synchronize()
-    ok, err, rel = compare(torch, got, plain())
+    ok, err, rel = compare(torch, got, want) if rows is None else compare(torch, got[rows], want[rows])
     ms, plain_ms = cuda_ms(torch, kern, iters), cuda_ms(torch, plain, iters)
     library_ms = cuda_ms(torch, library, iters) if library is not None else None
+    other_ms = {f"{key}_ms": cuda_ms(torch, fn, iters) for key, fn in (others or {}).items()}
     bound_ms, bound_by = bound(nbytes, ops, kind)
     lib = f" library_ms={library_ms:.4f}" if library_ms is not None else ""
+    lib += "".join(f" {key}={val:.4f}" for key, val in other_ms.items())
     print(f"kernel {name} [{label}]: max_abs_err={err:.3e} rel_to_max={rel:.3e} tol_rel={REL_TOL} ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f}{lib} bound_ms={bound_ms:.4f} ({bound_by}: {nbytes / 1e6:.2f} MB, "
           f"{ops / 1e9:.3f} G{'FLOP' if kind == 'bf16' else 'OP ' + kind}) {'ok' if ok else 'MISMATCH'}")
     results.setdefault(name, {}).setdefault("cases", []).append(
         {"shape": label, "max_abs_err": err, "rel_to_max": rel, "ms": ms, "plain_ms": plain_ms,
-         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by, **other_ms})
     return ok
 
 
@@ -228,6 +261,18 @@ def check_kernels(torch, results: dict) -> bool:
     from mingunivision_tpu_torch.config import MingUniVisionConfig
     from mingunivision_tpu_torch.models.rf_head import _time_grid, precompute_modulations
     from mingunivision_tpu_torch.ops.kernels.decode_attention import decode_attention, decode_attention_plain
+    from mingunivision_tpu_torch.ops.kernels.flash import (
+        flash_prefill_attention,
+        flash_prefill_attention_plain,
+        flash_vit_attention,
+        flash_vit_attention_plain,
+    )
+    from mingunivision_tpu_torch.ops.kernels.moe_capacity import (
+        default_capacity,
+        moe_experts_capacity_gmm,
+        moe_experts_capacity_gmm_exact,
+        moe_experts_capacity_gmm_exact_plain,
+    )
     from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream_plain, moe_experts_stream
     from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm, moe_experts_swiglu_gmm_plain
     from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused, rf_sample_fused_plain
@@ -247,6 +292,38 @@ def check_kernels(torch, results: dict) -> bool:
         unique = int(torch.unique(idx).numel())
         return unique * tables_bytes_per_expert + 2 * n * h * act_bytes, 6.0 * idx.numel() * h * m
 
+    # the understanding prompt: 1,060 valid rows and 92 padding rows (one shared embedding, one routing)
+    n_und, n_pad = 1152, 92
+    cap = default_capacity(n_und, k, E, cfg.llm.moe_prefill_capacity_factor)
+    und_valid = torch.arange(n_und, device=dev) < n_und - n_pad
+
+    def capacity_cases(tables, name, per_expert_bytes):
+        """Kernel `name` launched through the capacity-dense dispatch at the
+        understanding prompt's shape, beside the expert-sorted dispatch on the
+        same routing: a natural routing (it fits the slots; padding rows kept
+        out by token_valid) and one skewed to 8 experts (it overflows, and the
+        sorted dispatch runs: a counted fallback). Valid rows are compared."""
+        ok = True
+        for label, choices, fits in ((f"capacity dispatch C={cap}: 1152 tok (92 pads) x k=6", None, True),
+                                     ("capacity dispatch, skewed to 8 experts: overflow -> sorted fallback",
+                                      [0, 5, 9, 17, 33, 34, 50, 63], False)):
+            x = torch.randn((n_und, h), device=dev, generator=g).to(bf)
+            idx, w = routing(n_und, choices)
+            x[~und_valid], idx[~und_valid], w[~und_valid] = x[-1].clone(), idx[-1].clone(), w[-1].clone()
+            launches, fallbacks = moe_experts_capacity_gmm.launches, moe_experts_capacity_gmm_exact.fallbacks
+            args = (tables, x, idx, w, E, cap)
+            kw = dict(token_valid=und_valid, layer_idx=0)
+            nbytes, ops = moe_work(idx[und_valid], n_und, per_expert_bytes, 2)
+            ok &= run_case(torch, results, name, label, lambda: moe_experts_capacity_gmm_exact(*args, **kw),  # noqa: B023
+                           lambda: moe_experts_capacity_gmm_exact_plain(*args, **kw), nbytes, ops, "bf16",  # noqa: B023
+                           iters=5, rows=und_valid,
+                           others={"sorted_dispatch": lambda: moe_experts_swiglu_gmm(*args[:5], layer_idx=0)})  # noqa: B023
+            went = (moe_experts_capacity_gmm.launches > launches, moe_experts_capacity_gmm_exact.fallbacks > fallbacks)
+            print(f"kernel {name} [{label}]: through the slots={went[0]} fell back={went[1]}")
+            ok &= went == (fits, not fits)
+            results[name]["cases"][-1].update(capacity=cap, fell_back=went[1])
+        return ok
+
     # bf16 tables: 3 h m bf16 per routed expert
     for kernel, plain_fn, cases, name in ((moe_experts_stream, moe_experts_stream_plain, decode, "moe_stream"),
                                           (moe_experts_swiglu_gmm, moe_experts_swiglu_gmm_plain, prefill,
@@ -260,6 +337,7 @@ def check_kernels(torch, results: dict) -> bool:
                                lambda: kernel(experts, x, idx, w, *extra, layer_idx=0),  # noqa: B023
                                lambda: plain_fn(experts, x, idx, w, *extra, layer_idx=0),  # noqa: B023
                                nbytes, ops, "bf16")
+    all_ok &= capacity_cases(experts, "moe_swiglu_gmm", 3 * h * m * 2)
 
     # int4 tables of the same weights: 3 h m / 2 bytes and 2 m + h fp32 scales per routed expert
     q4 = {n: quantize_array(t, 4) for n, t in experts.items()}
@@ -278,6 +356,7 @@ def check_kernels(torch, results: dict) -> bool:
                                lambda: kernel(q4, x, idx, w, *extra, layer_idx=0),  # noqa: B023
                                lambda: plain_fn(q4, x, idx, w, *extra, layer_idx=0),  # noqa: B023
                                nbytes, ops, kind)
+    all_ok &= capacity_cases(q4, "moe_swiglu_gmm_q4", per_expert)
     del q4
 
     B, Hq, Hkv, S, D = 2, cfg.llm.num_attention_heads, cfg.llm.num_key_value_heads, 4096, cfg.llm.head_dim
@@ -296,6 +375,36 @@ def check_kernels(torch, results: dict) -> bool:
     all_ok &= run_case(torch, results, "decode_attention", "B=2 S=4096 CFG holes",
                        lambda: decode_attention(q, kc, vc, mask), lambda: decode_attention_plain(q, kc, vc, mask),
                        nbytes, 4.0 * Hq * D * allowed, "bf16", library=sdpa)
+
+    # flash prefill at the understanding prompt's shape (T = 1152 of which 92 padding, and none), against
+    # SDPA with the same mask; operations counted over the allowed query-key pairs
+    sdpa_fn = torch.nn.functional.scaled_dot_product_attention
+    T = n_und
+    for label, pads in ((f"1x{T}x{Hq}/{Hkv}x{D}, {n_pad} pads", n_pad), (f"1x{T}x{Hq}/{Hkv}x{D}, no pads", 0)):
+        q = torch.randn((1, T, Hq, D), device=dev, generator=g).to(bf)
+        kk = torch.randn((1, T, Hkv, D), device=dev, generator=g).to(bf)
+        vv = torch.randn((1, T, Hkv, D), device=dev, generator=g).to(bf)
+        valid = (torch.arange(T, device=dev) < T - pads)[None]
+        pos = torch.arange(T, device=dev)
+        allowed2d = (pos[None, :] <= pos[:, None]) & (valid[0][:, None] == valid[0][None, :])
+        pairs = int(allowed2d.sum())
+        nbytes = (2 * q.numel() + kk.numel() + vv.numel()) * 2 + T
+        all_ok &= run_case(torch, results, "flash_prefill", label,
+                           lambda: flash_prefill_attention(q, kk, vv, valid, scale=D**-0.5),  # noqa: B023
+                           lambda: flash_prefill_attention_plain(q, kk, vv, valid, scale=D**-0.5),  # noqa: B023
+                           nbytes, 4.0 * D * Hq * pairs, "bf16",
+                           library=lambda: sdpa_fn(q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),  # noqa: B023
+                                                   attn_mask=allowed2d[None, None], enable_gqa=True))  # noqa: B023
+    # flash ViT at the pixel decoder's shape (16 heads x 1024 tokens x 64), one image and eight
+    Hv, Nv, Dv = cfg.mingtok.pixel_decoder.num_heads, 1024, cfg.mingtok.pixel_decoder.embed_dim // 16
+    for Bv in (1, 8):
+        q, kk, vv = (torch.randn((Bv, Hv, Nv, Dv), device=dev, generator=g).to(bf) for _ in range(3))
+        all_ok &= run_case(torch, results, "flash_vit", f"{Bv}x{Hv}x{Nv}x{Dv} head-major",
+                           lambda: flash_vit_attention(q, kk, vv, scale=Dv**-0.5),  # noqa: B023
+                           lambda: flash_vit_attention_plain(q, kk, vv, scale=Dv**-0.5),  # noqa: B023
+                           4 * q.numel() * 2, 4.0 * Dv * Hv * Nv * Nv * Bv, "bf16",
+                           library=lambda: sdpa_fn(q, kk, vv))  # noqa: B023
+    del q, kk, vv
 
     # the RF head at full width, int4, its AdaLN weights at the slice's std 0.02. The random head is
     # chaotic there (a 1-ulp change of its input moves the sample by several percent over 16 steps, see
@@ -351,13 +460,63 @@ def t2i_prompt(vocab: int, image_start: int):
     return as_row(ids), as_row([1] * len(ids)), as_row(uncond), as_row(text_uncond)
 
 
-def bias_to_image_start(torch, params, cfg, ids, device):
+USER_TAG, ASSISTANT_TAG = [1001, 1002, 1003], [1001, 1004, 1003]  # stand for the role-prefix id runs
+
+
+def image_prompt(cfg, n_patches: int, n_text: int, seed: int):
+    """An image prompt built by hand (the card's machine has no tokenizer and
+    no PIL): role tag, <image>, `n_patches` image-patch ids, </image>, `n_text`
+    text ids, assistant tag; and its CFG masks from the processor's rule."""
+    import numpy as np
+
+    from mingunivision_tpu_torch.processing.processor import build_cfg_masks
+
+    llm = cfg.llm
+    image_end = llm.image_start_token + 1
+    text = np.random.default_rng(seed).integers(2000, min(llm.vocab_size, llm.image_patch_token) - 1000, n_text).tolist()
+    ids = USER_TAG + [llm.image_start_token] + [llm.image_patch_token] * n_patches + [image_end] + text + ASSISTANT_TAG
+    uncond, text_uncond = build_cfg_masks(ids, USER_TAG, ASSISTANT_TAG,
+                                          {llm.image_start_token, llm.image_patch_token, image_end})
+    as_row = lambda a: np.asarray([a], np.int64)  # noqa: E731
+    return as_row(ids), as_row([1] * len(ids)), as_row(uncond), as_row(text_uncond)
+
+
+def pixel_values(size: int, seed: int, batch: int = 1):
+    """A (batch, 3, size, size) fp32 image in [-1, 1] from a numpy seed."""
+    import numpy as np
+
+    return np.tanh(np.random.default_rng(seed).standard_normal((batch, 3, size, size), dtype=np.float32))
+
+
+def _set_head_columns(params, cols, scale):
+    """Multiply lm_head columns `cols` by `scale` (an int4 table's per-column scales)."""
+    from mingunivision_tpu_torch.utils.quantize import QuantizedArray
+
+    w = params["llm"]["lm_head"]["w"]
+    if isinstance(w, QuantizedArray):
+        w.s[..., cols] = w.s[..., cols] * scale
+    else:
+        w[:, cols] = w[:, cols] * scale
+
+
+def steer_text_head(params, cfg):
+    """Make a greedy text round the same every run and at every precision: the
+    lm_head columns of <eos> and <image> are zeroed, so the round neither stops
+    nor starts an image, and 16 word columns are made 25 times larger, so the
+    argmax is decided among them by gaps far above bf16's rounding."""
+    _set_head_columns(params, [cfg.llm.eos_token_id, cfg.llm.image_start_token], 0.0)
+    _set_head_columns(params, [3000 + 997 * i for i in range(16)], 25.0)
+
+
+def bias_to_image_start(torch, params, cfg, ids, device, pixels=None):
     """Bias the lm_head column of <image> so that greedy decoding picks it after
     the prompt, as the engine tests do. The column is set to +-10 (in an int4
-    table: nibbles +-7 at scale 10/7): a probe prefill of the prompt picks the
-    sign that makes its logit large and positive."""
-    from mingunivision_tpu_torch.engine.generate import prefill
+    table: nibbles +-7 at scale 10/7): a probe prefill of the prompt (with the
+    image `pixels` encoded and scattered over it, when given) picks the sign
+    that makes its logit large and positive."""
+    from mingunivision_tpu_torch.engine.generate import linear_proj_apply, prefill, scatter_image_embeds
     from mingunivision_tpu_torch.models.bailing_moe import LLMCache, embed_tokens
+    from mingunivision_tpu_torch.models.mingtok import mingtok_encode
     from mingunivision_tpu_torch.utils.quantize import QuantizedArray
 
     img = cfg.llm.image_start_token
@@ -372,13 +531,20 @@ def bias_to_image_start(torch, params, cfg, ids, device):
 
     set_column(1)
     T = ids.shape[1]
-    cache = LLMCache.create(cfg.llm, 1, 128, torch.bfloat16, device)
-    mask = torch.zeros((1, 128), dtype=torch.bool, device=device)
+    T_pad = -(-T // 128) * 128
+    cache = LLMCache.create(cfg.llm, 1, T_pad, torch.bfloat16, device)
+    mask = torch.zeros((1, T_pad), dtype=torch.bool, device=device)
     mask[:, :T] = True
-    ids_pad = torch.zeros((1, 128), dtype=torch.long, device=device)
+    ids_pad = torch.zeros((1, T_pad), dtype=torch.long, device=device)
     ids_pad[:, :T] = torch.as_tensor(ids, device=device)
     embeds = embed_tokens(params["llm"], ids_pad).to(torch.bfloat16)
-    logits, _ = prefill(params["llm"], cfg.llm, embeds, cache, mask)
+    image_mask = None
+    if pixels is not None:
+        feats = mingtok_encode(params["mingtok"], cfg.mingtok, torch.as_tensor(pixels, device=device))
+        proj = linear_proj_apply(params["linear_proj"], feats["x_norm_patchtokens"].float())
+        embeds, image_mask = scatter_image_embeds(embeds, ids_pad, proj.reshape(-1, proj.shape[-1]),
+                                                  cfg.llm.image_patch_token)
+    logits, _ = prefill(params["llm"], cfg.llm, embeds, cache, mask, image_mask=image_mask)
     if float(logits[0, img]) < 0:
         set_column(-1)
 
@@ -391,8 +557,9 @@ def randomize_adaln(params, generator):
         leaf["w"].normal_(0.0, 0.02, generator=generator)
 
 
-def _generate(torch, params, cfg, runtime, device, prompt, image_gen=None):
-    """One T2I round through the port's session; returns (output, session, seconds)."""
+def _generate(torch, params, cfg, runtime, device, prompt, image_gen=None, pixels=None, max_new_tokens=1):
+    """One round through the port's session (a new session, so an empty cache);
+    returns (output, session, seconds)."""
     from mingunivision_tpu_torch.config import GenerationConfig
     from mingunivision_tpu_torch.engine.session import MingUniVisionSession
 
@@ -401,14 +568,14 @@ def _generate(torch, params, cfg, runtime, device, prompt, image_gen=None):
     if device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = sess.generate(ids, am, uncond_attention_mask=um, text_uncond_attention_mask=tm,
-                        generation=GenerationConfig(max_new_tokens=1), image_gen=image_gen)
+    out = sess.generate(ids, am, uncond_attention_mask=um, text_uncond_attention_mask=tm, pixel_values=pixels,
+                        generation=GenerationConfig(max_new_tokens=max_new_tokens), image_gen=image_gen)
     if device.type == "cuda":
         torch.cuda.synchronize()
     return out, sess, time.perf_counter() - t0
 
 
-def image_checks(out, sess, cfg, T, size):
+def image_checks(out, sess, cfg, T, size, rows=2):
     import numpy as np
 
     n_tok = cfg.image_gen.num_image_tokens
@@ -420,13 +587,13 @@ def image_checks(out, sess, cfg, T, size):
                    ("in [-1, 1]", bool(img.min() >= -1.0 and img.max() <= 1.0))]
     checks += [("first token <image>", out.token_ids[:1] == [cfg.llm.image_start_token]),
                (f"seq_len == T + {n_tok + 1}", sess.seq_len == T + n_tok + 1),
-               ("2 CFG rows", sess.timings.get("cfg_rows") == 2)]
+               (f"{rows} CFG rows", sess.timings.get("cfg_rows") == rows)]
     return checks
 
 
 # the model-level entry points the main paths call the kernels by (the MoE
 # entries dispatch bf16 and int4 tables to their kernels themselves)
-ENTRIES = ("moe_stream", "moe_swiglu_gmm", "decode_attention", "rf_sampler")
+ENTRIES = ("moe_stream", "moe_swiglu_gmm", "decode_attention", "rf_sampler", "flash_prefill", "moe_capacity", "flash_vit")
 
 
 @contextlib.contextmanager
@@ -434,8 +601,10 @@ def plain_versions(names=ENTRIES):
     """Route the main path's calls of the named entry points to their plain
     versions for the block (the names the model modules call them by are patched)."""
     from mingunivision_tpu_torch.models import bailing_moe as bm
-    from mingunivision_tpu_torch.models import rf_head
+    from mingunivision_tpu_torch.models import rf_head, vit
     from mingunivision_tpu_torch.ops.kernels.decode_attention import decode_attention_plain
+    from mingunivision_tpu_torch.ops.kernels.flash import flash_prefill_attention_plain, flash_vit_attention_plain
+    from mingunivision_tpu_torch.ops.kernels.moe_capacity import moe_experts_capacity_gmm_exact_plain
     from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream_plain
     from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm_plain
     from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused_plain
@@ -443,7 +612,10 @@ def plain_versions(names=ENTRIES):
     swaps = {"moe_stream": (bm, "moe_experts_stream", moe_experts_stream_plain),
              "moe_swiglu_gmm": (bm, "moe_experts_swiglu_gmm", moe_experts_swiglu_gmm_plain),
              "decode_attention": (bm, "decode_attention", decode_attention_plain),
-             "rf_sampler": (rf_head, "rf_sample_fused", rf_sample_fused_plain)}
+             "rf_sampler": (rf_head, "rf_sample_fused", rf_sample_fused_plain),
+             "flash_prefill": (bm, "flash_prefill_attention", flash_prefill_attention_plain),
+             "moe_capacity": (bm, "moe_experts_capacity_gmm_exact", moe_experts_capacity_gmm_exact_plain),
+             "flash_vit": (vit, "flash_vit_attention", flash_vit_attention_plain)}
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps.values()]
     for name in names:
         setattr(*swaps[name])
@@ -579,6 +751,73 @@ def run_reference(torch, device, tier="bfloat16") -> bool:
     return all(p for _, p in checks)
 
 
+@contextlib.contextmanager
+def prefill_capture():
+    """For the block, record the hidden state of the prompt's last valid position
+    that each round's prefill hands to the LM head, (1, 1, h); yields a dict
+    whose "hidden" holds the last round's."""
+    from mingunivision_tpu_torch.engine import generate as gen_mod
+    from mingunivision_tpu_torch.engine import session as session_mod
+
+    seen = {}
+    prefill, logits_fn = session_mod.prefill, gen_mod.compute_logits
+
+    def capture_prefill(*args, **kwargs):
+        seen.pop("hidden", None)
+        return prefill(*args, **kwargs)
+
+    def capture_hidden(params, cfg, hidden):
+        seen.setdefault("hidden", hidden.float().cpu().numpy())  # the round's first call is the prefill's
+        return logits_fn(params, cfg, hidden)
+
+    session_mod.prefill, gen_mod.compute_logits = capture_prefill, capture_hidden
+    try:
+        yield seen
+    finally:
+        session_mod.prefill, gen_mod.compute_logits = prefill, logits_fn
+
+
+def run_reference_image(torch, device, tier="bfloat16") -> bool:
+    """The small model on an image prompt that pads to 512 tokens: a 128-px image
+    (64 patch tokens, the encoder's positional embedding interpolated) and 380
+    text ids, then 4 greedy text tokens. The kernel path (bf16: the encoder,
+    flash prefill, the capacity MoE dispatch, then the decode kernels) against
+    the plain versions in fp32 on the same weights: the same tokens, and the
+    prefill's last-position hidden state within twice the plain bf16 path's own
+    error plus 1e-2 of the reference's maximum."""
+    import numpy as np
+
+    from mingunivision_tpu_torch.config import RuntimeConfig
+
+    cfg, params, _ = small_model(torch, device, tier)
+    steer_text_head(params, cfg)
+    prompt, pixels = image_prompt(cfg, 64, 380, seed=11), pixel_values(128, seed=12)
+    bf16 = RuntimeConfig(max_seq_len=1024)
+    kw = dict(pixels=pixels, max_new_tokens=4)
+    with prefill_capture() as seen:
+        out_k, sess_k, _ = _generate(torch, params, cfg, bf16, device, prompt, **kw)
+        kern = seen["hidden"]
+        with plain_versions():
+            out_r = _generate(torch, as_f32(params), cfg, RuntimeConfig(max_seq_len=1024, compute_dtype="float32"),
+                              device, prompt, **kw)[0]
+            ref = seen["hidden"]
+            out_p = _generate(torch, params, cfg, bf16, device, prompt, **kw)[0]
+            plain = seen["hidden"]
+    scale = float(np.abs(ref).max())
+    err_k, err_p = float(np.abs(kern - ref).max()), float(np.abs(plain - ref).max())
+    tol = 2 * err_p + 1e-2 * scale
+    t = sess_k.timings
+    checks = [("prompt padded to 512", t["prefill_tokens"] == 512), ("flash prefill", bool(t["use_flash"])),
+              ("4 text tokens, no image", len(out_k.token_ids) == 4 and not out_k.images),
+              ("tokens == fp32 reference", out_k.token_ids == out_r.token_ids),
+              (f"prefill last-position hidden err vs fp32 {err_k:.3e} <= {tol:.3e} (plain bf16 err {err_p:.3e}, "
+               f"max |ref| {scale:.3e})", bool(np.isfinite(kern).all()) and err_k <= tol)]
+    print(f"reference ({tier} small model on the card, image prompt: kernels bf16 vs plain fp32): "
+          + "; ".join(f"{label}={'ok' if p else 'FAILED'}" for label, p in checks)
+          + f"; tokens {out_k.token_ids}, plain bf16 {out_p.token_ids}")
+    return all(p for _, p in checks)
+
+
 def run_divergence(torch, device) -> bool:
     """Where the small model's bf16 paths part: the plain bf16 path, each kernel
     alone swapped into it, all three kernels, and the plain fp32 reference.
@@ -623,9 +862,9 @@ def run_divergence(torch, device) -> bool:
 
 
 def full_model(torch, cfg, device, tier="bfloat16"):
-    """Random bf16 weights of `cfg` on the device from seed 0, and the prompt;
-    for `tier` "int4" the LLM and RF head are then quantized in place on the
-    device, leaf by leaf. Returns (params, prompt)."""
+    """Random bf16 weights of `cfg` on the device from seed 0; for `tier` "int4"
+    the LLM and RF head are then quantized in place on the device, leaf by
+    leaf. Returns params."""
     from mingunivision_tpu_torch.utils.convert import init_mm_params, quantize_mm_params_inplace
     from mingunivision_tpu_torch.utils.pytree import leaves
 
@@ -645,24 +884,61 @@ def full_model(torch, cfg, device, tier="bfloat16"):
         print(f"quantize: LLM and RF head to {tier} on device in {time.perf_counter() - t0:.1f} s "
               f"(peak so far {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; resident "
               f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB)")
-    prompt = t2i_prompt(cfg.llm.vocab_size, cfg.llm.image_start_token)
-    bias_to_image_start(torch, params, cfg, prompt[0], device)
-    return params, prompt
+    return params
 
 
 def launch_counters():
-    """kernel name -> the wrapper that counts its launches."""
+    """kernel name -> the wrapper that counts its launches ("moe_capacity": the
+    launches of the prefill MoE kernels that went through the capacity dispatch)."""
     from mingunivision_tpu_torch.ops.kernels.decode_attention import decode_attention
+    from mingunivision_tpu_torch.ops.kernels.flash import flash_prefill_attention, flash_vit_attention
+    from mingunivision_tpu_torch.ops.kernels.moe_capacity import moe_experts_capacity_gmm
     from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream, moe_experts_stream_q4s8
     from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm, moe_experts_swiglu_gmm_q4
     from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused
 
     return {"moe_stream": moe_experts_stream, "moe_swiglu_gmm": moe_experts_swiglu_gmm,
             "decode_attention": decode_attention, "moe_stream_q4s8": moe_experts_stream_q4s8,
-            "moe_swiglu_gmm_q4": moe_experts_swiglu_gmm_q4, "rf_sampler_q4s8": rf_sample_fused}
+            "moe_swiglu_gmm_q4": moe_experts_swiglu_gmm_q4, "rf_sampler_q4s8": rf_sample_fused,
+            "flash_prefill": flash_prefill_attention, "flash_vit": flash_vit_attention,
+            "moe_capacity": moe_experts_capacity_gmm}
 
 
-def run_slice(torch, cfg, device, results: dict, tier="bfloat16") -> bool:
+def counted_round(torch, results, path, run):
+    """Drive one main path: every launch count set to 0 just before `run()`,
+    read just after; peak memory over it. The counts are kept under the
+    kernels' `launches_by_path[path]`. Returns (run's result, launches, peak bytes)."""
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = run()
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name, n in launches.items():
+        results.setdefault(name, {}).setdefault("launches_by_path", {})[path] = n
+    return res, launches, torch.cuda.max_memory_allocated()
+
+
+def report(label, launches, checks) -> bool:
+    print(f"{label} launches: " + ", ".join(f"{name}={n}" for name, n in launches.items()))
+    print(f"{label} checks: " + "; ".join(f"{lab}={'ok' if p else 'FAILED'}" for lab, p in checks))
+    return all(p for _, p in checks)
+
+
+def launch_checks(launches, floors):
+    """The kernels of a path must reach their floors (and none may be 0); the others must not launch."""
+    checks = [(f"{name} launches {launches[name]} >= {floor} > 0", launches[name] >= floor > 0)
+              for name, floor in floors.items()]
+    return checks + [(f"{name} launches {n} == 0", n == 0) for name, n in launches.items() if name not in floors]
+
+
+def tier_kernels(tier):
+    """(decode MoE, prefill MoE) kernel names of a tier."""
+    return ("moe_stream", "moe_swiglu_gmm") if tier == "bfloat16" else ("moe_stream_q4s8", "moe_swiglu_gmm_q4")
+
+
+def run_slice(torch, cfg, params, device, results: dict, tier="bfloat16") -> bool:
     """One full-width T2I round at `tier`, with every kernel's launch count read
     around it; the kernels of the tier's path must reach their floors (per LLM
     step and layer for the decode kernels, per layer for the prefill one, per
@@ -671,38 +947,229 @@ def run_slice(torch, cfg, device, results: dict, tier="bfloat16") -> bool:
 
     L = cfg.llm.num_hidden_layers
     n_tok = cfg.image_gen.num_image_tokens
-    params, prompt = full_model(torch, cfg, device, tier)
+    prompt = t2i_prompt(cfg.llm.vocab_size, cfg.llm.image_start_token)
+    bias_to_image_start(torch, params, cfg, prompt[0], device)
     resident = torch.cuda.memory_allocated()
-    counters = launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    out, sess, total_s = _generate(torch, params, cfg, RuntimeConfig(), device, prompt)
-    launches = {name: fn.launches for name, fn in counters.items()}
-    peak = torch.cuda.max_memory_allocated()
-    del params
-    torch.cuda.empty_cache()
+    label = "slice" if tier == "bfloat16" else f"slice_{tier}"
+    (out, sess, total_s), launches, peak = counted_round(
+        torch, results, label, lambda: _generate(torch, params, cfg, RuntimeConfig(), device, prompt))
 
     T = prompt[0].shape[1]
-    if tier == "bfloat16":
-        floors = {"moe_stream": L * (n_tok + 1), "moe_swiglu_gmm": L, "decode_attention": L * (n_tok + 1)}
-    else:
-        floors = {"moe_stream_q4s8": L * (n_tok + 1), "moe_swiglu_gmm_q4": L, "decode_attention": L * (n_tok + 1),
-                  "rf_sampler_q4s8": n_tok}
-    checks = image_checks(out, sess, cfg, T, 512)
-    checks += [(f"{name} launches {launches[name]} >= {floor}", launches[name] >= floor) for name, floor in floors.items()]
-    checks += [(f"{name} launches {n} == 0", n == 0) for name, n in launches.items() if name not in floors]
+    decode_moe, prefill_moe = tier_kernels(tier)
+    floors = {decode_moe: L * (n_tok + 1), prefill_moe: L, "decode_attention": L * (n_tok + 1)}
+    if tier != "bfloat16":
+        floors["rf_sampler_q4s8"] = n_tok
+    checks = image_checks(out, sess, cfg, T, 512) + launch_checks(launches, floors)
     t = sess.timings
-    label = "slice" if tier == "bfloat16" else f"slice_{tier}"
     print(f"{label} T2I: prompt {T} ids (bucket 128), {L} layers, {tier}, cfg_rows={t.get('cfg_rows')}, "
           f"prefill_ms={t['prefill_ms']:.2f} image_loop_ms={t['image_loop_ms']:.1f} "
           f"ms_per_ar_token={t['image_loop_ms'] / n_tok:.3f} pixel_decode_ms={t['pixel_decode_ms']:.2f} "
           f"total_s={total_s:.3f} resident_gib={resident / 2**30:.3f} max_memory_allocated_gib={peak / 2**30:.3f}")
-    print(f"{label} launches: " + ", ".join(f"{name}={n}" for name, n in launches.items()))
-    print(f"{label} checks: " + "; ".join(f"{lab}={'ok' if p else 'FAILED'}" for lab, p in checks))
     for name in floors:
-        results.setdefault(name, {})["launches"] = launches[name]
-    return all(p for _, p in checks)
+        results[name]["launches"] = launches[name]
+    return report(label, launches, checks)
+
+
+def run_understand(torch, cfg, params, device, results: dict, tier="bfloat16", new_tokens: int = 32) -> bool:
+    """Image -> text at full width on the tier's model: a 1024-px image (1,024
+    patch tokens in a 1,060-id prompt that pads to 1,152) through the MingTok
+    encoder, a first-round prefill through the flash kernel and the capacity
+    MoE dispatch (image rows routed by the image gate), then greedy text decode
+    through the decode kernels. Every kernel of the path must have launched,
+    the prefill MoE kernel at least once through the capacity dispatch.
+
+    The attention outputs of the random model are damped first
+    (`damp_attention_outputs`): as initialised, its 1,024 image rows come out
+    of MingTok nearly parallel, route to the same six experts in every layer
+    and overflow the capacity (`--phases routing` shows both)."""
+    import numpy as np
+
+    from mingunivision_tpu_torch.config import RuntimeConfig
+    from mingunivision_tpu_torch.ops.kernels.moe_capacity import moe_experts_capacity_gmm_exact
+
+    L = cfg.llm.num_hidden_layers
+    steer_text_head(params, cfg)
+    damp_attention_outputs(params)
+    prompt, pixels = image_prompt(cfg, 1024, 28, seed=21), pixel_values(1024, seed=22)
+    fallbacks = moe_experts_capacity_gmm_exact.fallbacks
+    label = f"understand_{tier}"
+    (out, sess, total_s), launches, peak = counted_round(
+        torch, results, label, lambda: _generate(torch, params, cfg, RuntimeConfig(), device, prompt, pixels=pixels,
+                                                 max_new_tokens=new_tokens))
+    fallbacks = moe_experts_capacity_gmm_exact.fallbacks - fallbacks
+    t = sess.timings
+    T, steps = prompt[0].shape[1], t["text_tokens"]
+    decode_moe, prefill_moe = tier_kernels(tier)
+    floors = {"flash_prefill": L, prefill_moe: L, decode_moe: L * steps, "decode_attention": L * steps,
+              "moe_capacity": max(1, L - fallbacks)}
+    checks = [("T_pad == 1152", t["prefill_tokens"] == 1152), ("flash prefill", bool(t["use_flash"])),
+              (f"{new_tokens} text tokens, no image", len(out.token_ids) == new_tokens and not out.images),
+              (f"{new_tokens - 1} decode steps", steps == new_tokens - 1),
+              ("seq_len == T + steps", sess.seq_len == T + steps),
+              ("hidden states finite", bool(np.isfinite(sess.last_hidden_states).all())),
+              (f"flash_prefill launches == {L}", launches["flash_prefill"] == L),
+              (f"capacity dispatch {launches['moe_capacity']} + fallbacks {fallbacks} == {L}",
+               launches["moe_capacity"] + fallbacks == L),
+              (f"{prefill_moe} launches == {L}", launches[prefill_moe] == L)]
+    checks += launch_checks(launches, floors)
+    print(f"{label}: prompt {T} ids (1024 image-patch ids; bucket {t['prefill_tokens']}), {L} layers, {tier}, "
+          f"encode_ms={t['encode_ms']:.2f} prefill_ms={t['prefill_ms']:.2f} "
+          f"prefill_tokens_per_s={t['prefill_tokens'] / t['prefill_ms'] * 1e3:.1f} "
+          f"text_decode_ms={t['text_decode_ms']:.1f} ms_per_text_token={t['text_decode_ms'] / max(steps, 1):.3f} "
+          f"capacity_dispatch_launches={launches['moe_capacity']} capacity_fallbacks={fallbacks} "
+          f"total_s={total_s:.3f} max_memory_allocated_gib={peak / 2**30:.3f}")
+    results["flash_prefill"]["launches"] = launches["flash_prefill"]
+    return report(label, launches, checks)
+
+
+def damp_attention_outputs(params, factor: float = 0.1):
+    """Scale the attention output projections of the LLM and of MingTok's
+    encoder and semantic decoder by `factor`, in place. A deep stack of
+    randomly initialised attention blocks adds nearly the same vector (a mean
+    over all tokens) to every row, layer after layer, until the rows are close
+    to parallel and the router sends them all to the same experts; trained
+    weights keep rows distinct. Damping that shared term keeps the rows of a
+    random model distinct, so its routing spreads as a trained model's does."""
+    from mingunivision_tpu_torch.utils.quantize import QuantizedArray
+
+    leaves = [params["llm"]["layers"]["attention"]["dense"]["w"]]
+    leaves += [params["mingtok"][part]["blocks"]["attn"]["proj"]["w"] for part in ("encoder", "semantic_decoder")]
+    for w in leaves:
+        (w.s if isinstance(w, QuantizedArray) else w).mul_(factor)
+
+
+def run_routing(torch, cfg, device, tier="bfloat16") -> bool:
+    """How the understanding prompt routes, layer by layer, on the tier's
+    full-width random model as initialised and with the attention outputs
+    damped: the largest expert load among the valid rows (all, the 1,024
+    image rows, the text rows) against the capacity, the experts in use, and
+    whether the capacity dispatch fits or falls back."""
+    from mingunivision_tpu_torch.config import RuntimeConfig
+    from mingunivision_tpu_torch.models import bailing_moe as bm
+
+    params = full_model(torch, cfg, device, tier)
+    steer_text_head(params, cfg)
+    prompt, pixels = image_prompt(cfg, 1024, 28, seed=21), pixel_values(1024, seed=22)
+    is_image = torch.as_tensor(prompt[0][0] == cfg.llm.image_patch_token, device=device)
+    E = cfg.llm.num_experts
+    exact = bm.moe_experts_capacity_gmm_exact
+    rows = []
+
+    def record(experts, x_flat, topk_idx, topk_w, num_experts, capacity, *, token_valid=None, layer_idx=None):
+        n = is_image.numel()
+        loads = [int(torch.bincount(topk_idx[:n][sel].reshape(-1), minlength=E).max())
+                 for sel in (slice(None), is_image, ~is_image)]
+        used = int((torch.bincount(topk_idx[:n].reshape(-1), minlength=E) > 0).sum())
+        rows.append((layer_idx, capacity, *loads, used))
+        return exact(experts, x_flat, topk_idx, topk_w, num_experts, capacity, token_valid=token_valid,
+                     layer_idx=layer_idx)
+
+    ok = True
+    for label in ("as initialised", "attention output projections x0.1"):
+        if label != "as initialised":
+            damp_attention_outputs(params)
+        rows.clear()
+        bm.moe_experts_capacity_gmm_exact = record
+        try:
+            out, sess, _ = _generate(torch, params, cfg, RuntimeConfig(), device, prompt, pixels=pixels, max_new_tokens=2)
+        finally:
+            bm.moe_experts_capacity_gmm_exact = exact
+        fits = sum(1 for r in rows if r[2] <= r[1])
+        print(f"routing [{tier}, {label}]: {fits} of {len(rows)} layers fit capacity {rows[0][1]}; per layer "
+              "(max load all / image rows / text rows, experts in use): "
+              + " ".join(f"L{r[0]}:{r[2]}/{r[3]}/{r[4]},{r[5]}" for r in rows))
+        ok &= len(rows) == cfg.llm.num_hidden_layers and len(out.token_ids) == 2
+    return ok
+
+
+def run_edit(torch, cfg, params, device, results: dict, tier="int4") -> bool:
+    """Image + edit request -> image at full width on the tier's model: a 512-px
+    image (256 patch tokens; the prompt pads to 384, so plain prefill attention
+    and the expert-sorted MoE dispatch), then the 256-token image loop with 3
+    CFG rows (the text-uncond row keeps the image tokens, the uncond row drops
+    the whole turn) and the pixel decode."""
+    from mingunivision_tpu_torch.config import RuntimeConfig
+
+    L = cfg.llm.num_hidden_layers
+    n_tok = cfg.image_gen.num_image_tokens
+    prompt, pixels = image_prompt(cfg, 256, 30, seed=31), pixel_values(512, seed=32)
+    bias_to_image_start(torch, params, cfg, prompt[0], device, pixels=pixels)
+    label = f"edit_{tier}"
+    (out, sess, total_s), launches, peak = counted_round(
+        torch, results, label, lambda: _generate(torch, params, cfg, RuntimeConfig(), device, prompt, pixels=pixels))
+    t = sess.timings
+    T = prompt[0].shape[1]
+    decode_moe, prefill_moe = tier_kernels(tier)
+    floors = {decode_moe: L * (n_tok + 1), prefill_moe: L, "decode_attention": L * (n_tok + 1)}
+    if tier != "bfloat16":
+        floors["rf_sampler_q4s8"] = n_tok
+    checks = image_checks(out, sess, cfg, T, 512, rows=3) + [("T_pad == 384", t["prefill_tokens"] == 384)]
+    if tier != "bfloat16":
+        checks.append((f"sampler launches == {n_tok}", launches["rf_sampler_q4s8"] == n_tok))
+    checks += launch_checks(launches, floors)
+    print(f"{label}: prompt {T} ids (256 image-patch ids; bucket {t['prefill_tokens']}), {L} layers, {tier}, "
+          f"cfg_rows={t.get('cfg_rows')}, encode_ms={t['encode_ms']:.2f} prefill_ms={t['prefill_ms']:.2f} "
+          f"image_loop_ms={t['image_loop_ms']:.1f} ms_per_ar_token={t['image_loop_ms'] / n_tok:.3f} "
+          f"pixel_decode_ms={t['pixel_decode_ms']:.2f} total_s={total_s:.3f} "
+          f"max_memory_allocated_gib={peak / 2**30:.3f}")
+    return report(label, launches, checks)
+
+
+def run_recon(torch, cfg, device, results: dict) -> bool:
+    """MingTok reconstruction (`mingtok_enc_dec`: image -> latents -> features ->
+    image) at 512 px and full width, random bf16 weights from a seed, batch 1
+    and 8, on the pixel decoder's "high" tier (true fp32, no flash kernel) and
+    its reduced tiers "default" and "bf16" (24 non-causal flash-ViT launches per
+    batch): shapes, finite, range, the reduced tiers' PSNR against "high" (peak
+    to peak 2), and the time per image (the second of two runs)."""
+    import dataclasses
+    import math
+
+    from mingunivision_tpu_torch.models.mingtok import mingtok_enc_dec
+    from mingunivision_tpu_torch.utils.convert import _Init, init_mingtok_params
+
+    mt = cfg.mingtok
+    depth = mt.pixel_decoder.depth
+    params = init_mingtok_params(mt, _Init(device, torch.bfloat16, torch.Generator(device=device).manual_seed(3)))
+    ok = True
+    for batch in (1, 8):
+        images = torch.as_tensor(pixel_values(512, seed=40 + batch, batch=batch), device=device)
+        outs = {}
+        for tier in ("high", "default", "bf16"):
+            tcfg = dataclasses.replace(mt, pixel_decoder=dataclasses.replace(mt.pixel_decoder, matmul_precision=tier))
+
+            def run():
+                mingtok_enc_dec(params, tcfg, images)  # noqa: B023  (warm-up)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = mingtok_enc_dec(params, tcfg, images)  # noqa: B023
+                torch.cuda.synchronize()
+                return out, (time.perf_counter() - t0) * 1e3
+
+            (out, ms), launches, peak = counted_round(torch, results, f"recon_{tier}_b{batch}", run)
+            outs[tier] = out
+            want = 0 if tier == "high" else 2 * depth  # two runs
+            checks = [(f"shape ({batch}, 3, 512, 512) fp32", tuple(out.shape) == (batch, 3, 512, 512)
+                       and out.dtype == torch.float32),
+                      ("finite", bool(torch.isfinite(out).all())),
+                      ("in [-1, 1]", bool(out.min() >= -1.0 and out.max() <= 1.0)),
+                      (f"flash_vit launches {launches['flash_vit']} == {want} (2 runs x {depth} blocks)",
+                       launches["flash_vit"] == want)]
+            checks += [(f"{name} launches {n} == 0", n == 0) for name, n in launches.items() if name != "flash_vit"]
+            psnr = ""
+            if tier != "high":
+                mse = float(((out - outs["high"]) ** 2).mean())
+                db = 10 * math.log10(4.0 / max(mse, 1e-20))
+                rel = float((out - outs["high"]).norm() / outs["high"].norm())
+                psnr = f" psnr_vs_high_db={db:.2f} rel_l2_vs_high={rel:.3e}"
+                checks.append((f"PSNR vs high {db:.2f} dB >= 30", db >= 30.0))
+                results["flash_vit"]["launches"] = launches["flash_vit"] // 2
+            print(f"recon [{tier}, batch {batch}]: ms_per_batch={ms:.2f} ms_per_image={ms / batch:.2f}{psnr} "
+                  f"flash_vit_launches_per_batch={launches['flash_vit'] // 2} "
+                  f"max_memory_allocated_gib={peak / 2**30:.3f} "
+                  + "; ".join(f"{lab}={'ok' if p else 'FAILED'}" for lab, p in checks))
+            ok &= all(p for _, p in checks)
+    return ok
 
 
 # stage -> (module under engine/, the name the round calls the stage by there)
@@ -712,7 +1179,7 @@ STAGES = {"prefill": ("session", "prefill"), "llm_forward": ("generate", "bailin
           "pixel_decoder": ("generate", "mingtok_pixel_decoder")}
 
 
-def stage_device_ms(device_events) -> dict:
+def stage_device_ms(device_events, stages=None) -> dict:
     """stage -> [calls, device ms of the events inside the stage's ranges on the
     device timeline]. A range's device span runs from its first to its last
     kernel; the kernels built in csrc/ launch through ctypes, with no PyTorch
@@ -720,7 +1187,7 @@ def stage_device_ms(device_events) -> dict:
     import bisect
     import itertools
 
-    spans = {stage: [] for stage in STAGES}
+    spans = {stage: [] for stage in (stages or STAGES)}
     kernels = []
     for e in device_events:
         if e.name in spans:
@@ -750,7 +1217,9 @@ def run_profile(torch, cfg, device, tier="bfloat16", n_tok: int = 16) -> bool:
     from mingunivision_tpu_torch.config import RuntimeConfig
     from mingunivision_tpu_torch.engine import generate, session
 
-    params, prompt = full_model(torch, cfg, device, tier)
+    params = full_model(torch, cfg, device, tier)
+    prompt = t2i_prompt(cfg.llm.vocab_size, cfg.llm.image_start_token)
+    bias_to_image_start(torch, params, cfg, prompt[0], device)
     igen = dataclasses.replace(cfg.image_gen, num_image_tokens=n_tok)
     _generate(torch, params, cfg, RuntimeConfig(), device, prompt, igen)  # warm-up round
     modules = {"generate": generate, "session": session}
@@ -796,18 +1265,80 @@ def run_profile(torch, cfg, device, tier="bfloat16", n_tok: int = 16) -> bool:
     return len(out.images) == 1 and busy_ms > 0
 
 
-def kernel_entry(name: str, r: dict) -> dict:
+# the understanding round's stages: stage -> (module under engine/ or the session class, attribute)
+UNDERSTAND_STAGES = {"encode": ("MingUniVisionSession", "extract_image_features"), "prefill": ("session", "prefill"),
+                     "text_decode": ("session", "decode_text")}
+
+
+def run_profile_understand(torch, cfg, device, tier="bfloat16", new_tokens: int = 8) -> bool:
+    """Where the understanding round's time goes (at `tier`, attention outputs
+    damped as in the `understand` phase): one round with `new_tokens` text
+    tokens under torch.profiler, the encode, prefill and text-decode stages in
+    profiler ranges. Prints each stage's device (kernel) ms, the device busy
+    time against the wall clock, and the top kernels; a warm-up round first."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mingunivision_tpu_torch.config import RuntimeConfig
+    from mingunivision_tpu_torch.engine import generate, session
+
+    params = full_model(torch, cfg, device, tier)
+    steer_text_head(params, cfg)
+    damp_attention_outputs(params)
+    prompt, pixels = image_prompt(cfg, 1024, 28, seed=21), pixel_values(1024, seed=22)
+    kw = dict(pixels=pixels, max_new_tokens=new_tokens)
+    _generate(torch, params, cfg, RuntimeConfig(), device, prompt, **kw)  # warm-up round
+    owners = {"generate": generate, "session": session, "MingUniVisionSession": session.MingUniVisionSession}
+    saved = {stage: getattr(owners[mod], attr) for stage, (mod, attr) in UNDERSTAND_STAGES.items()}
+
+    def ranged(stage, fn):
+        def call(*args, **kwargs):
+            with record_function(stage):
+                return fn(*args, **kwargs)
+        return call
+
+    for stage, (mod, attr) in UNDERSTAND_STAGES.items():
+        setattr(owners[mod], attr, ranged(stage, saved[stage]))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out, sess, wall_s = _generate(torch, params, cfg, RuntimeConfig(), device, prompt, **kw)
+    finally:
+        for stage, (mod, attr) in UNDERSTAND_STAGES.items():
+            setattr(owners[mod], attr, saved[stage])
+    cuda = torch.autograd.DeviceType.CUDA
+    device_events = [e for e in prof.events() if e.device_type == cuda]
+    by_stage = stage_device_ms(device_events, UNDERSTAND_STAGES)
+    device_events = [e for e in device_events if e.name not in UNDERSTAND_STAGES]
+    busy_ms = sum(e.time_range.elapsed_us() for e in device_events) / 1e3
+    t = sess.timings
+    print(f"profile_understand ({tier}, {new_tokens} text tokens, profiled): wall_s={wall_s:.3f} "
+          f"device_busy_ms={busy_ms:.1f} busy_share={busy_ms / (wall_s * 1e3):.3f} device_events={len(device_events)} "
+          f"encode_ms={t['encode_ms']:.2f} prefill_ms={t['prefill_ms']:.2f} text_decode_ms={t['text_decode_ms']:.1f}")
+    print("profile_understand device ms by stage [calls, ms]: " + "; ".join(
+        f"{stage} [{n}, {ms:.3f}]" for stage, (n, ms) in by_stage.items()))
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda and e.key not in UNDERSTAND_STAGES]
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"profile_understand kernel: {e.self_device_time_total / 1e3:9.3f} ms {e.count:7d} calls "
+              f"{e.self_device_time_total / max(e.count, 1):9.3f} us/call  {e.key[:90]}")
+    return len(out.token_ids) == new_tokens and busy_ms > 0
+
+
+def kernel_entry(name: str, r: dict, capacity: dict) -> dict:
     """One kernel's entry of the JSON line, from what this run measured:
-    `launches` from its main path's slice phase (null when it did not run),
-    the worst `max_abs_err` over the kernels phase's cases, and `ms`,
-    `plain_ms`, `library_ms`, `bound_ms`, `bound_by` at the slice's own shape
-    (the first case); then every case."""
+    `launches` from the main path that runs it (its tier's T2I slice; the
+    understanding round for flash prefill; one reconstruction batch for flash
+    ViT; null when that path did not run) and `launches_by_path` from every
+    path driven, the worst `max_abs_err` over the kernels phase's cases, and
+    `ms`, `plain_ms`, `library_ms`, `bound_ms`, `bound_by` at that path's own
+    shape (the first case); then every case."""
     source, replaces = KERNELS[name]
     cases = r.get("cases", [])
     first = cases[0] if cases else {}
     return {"name": name, "route": "cuda", "source": f"mingunivision_tpu_torch/{source}", "replaces": replaces,
             "launches": r.get("launches"), "max_abs_err": max((c["max_abs_err"] for c in cases), default=None),
             **{key: first.get(key) for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "launches_by_path": r.get("launches_by_path", {}),
+            # of which through the capacity-dense dispatch (the prefill MoE kernels only)
+            **({"capacity_dispatch_launches_by_path": capacity} if name.startswith("moe_swiglu_gmm") else {}),
             "cases": cases}
 
 
@@ -820,8 +1351,9 @@ def jax_modules():
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="device,build,kernels,reference,slice,slice_int4")
-    ap.add_argument("--tier", default="bfloat16", choices=("bfloat16", "int4"), help="the profile phase's tier")
+    ap.add_argument("--phases", default="device,build,kernels,reference,slice,slice_int4,understand,edit,recon")
+    ap.add_argument("--tier", default="bfloat16", choices=("bfloat16", "int4"),
+                    help="the tier of the profile, profile_understand and routing phases")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -868,21 +1400,39 @@ def main(argv=None) -> int:
     if "reference" in phases:
         ok &= run_reference(torch, cuda)
         ok &= run_reference(torch, cuda, "int4")
+        ok &= run_reference_image(torch, cuda)
+        ok &= run_reference_image(torch, cuda, "int4")
     if "divergence" in phases:
         ok &= run_divergence(torch, cuda)
     if "rf_sensitivity" in phases:
         ok &= run_rf_sensitivity(torch)
-    if "slice" in phases:
-        ok &= run_slice(torch, MingUniVisionConfig(), cuda, results)
-    if "slice_int4" in phases:
-        ok &= run_slice(torch, MingUniVisionConfig(), cuda, results, "int4")
+    if "recon" in phases:
+        ok &= run_recon(torch, MingUniVisionConfig(), cuda, results)
+    for tier, slice_phase in (("bfloat16", "slice"), ("int4", "slice_int4")):
+        if not phases & {slice_phase, "understand", "edit"}:
+            continue
+        cfg = MingUniVisionConfig()
+        params = full_model(torch, cfg, cuda, tier)  # built once for the tier's phases
+        if slice_phase in phases:
+            ok &= run_slice(torch, cfg, params, cuda, results, tier)
+        if "edit" in phases:
+            ok &= run_edit(torch, cfg, params, cuda, results, tier)
+        if "understand" in phases:  # last: it steers the LM head towards text
+            ok &= run_understand(torch, cfg, params, cuda, results, tier)
+        del params
+        torch.cuda.empty_cache()
+    if "routing" in phases:
+        ok &= run_routing(torch, MingUniVisionConfig(), cuda, args.tier)
     if "profile" in phases:
         ok &= run_profile(torch, MingUniVisionConfig(), cuda, args.tier)
+    if "profile_understand" in phases:
+        ok &= run_profile_understand(torch, MingUniVisionConfig(), cuda, args.tier)
     if jax_modules():
         return fail(f"JAX or the JAX package was imported: {jax_modules()}")
     if not ok:
         return fail("a phase failed (see above)")
-    print(json.dumps({"kernels": [kernel_entry(name, results.get(name, {})) for name in KERNELS]}))
+    capacity = results.get("moe_capacity", {}).get("launches_by_path", {})
+    print(json.dumps({"kernels": [kernel_entry(name, results.get(name, {}), capacity) for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -10,7 +10,13 @@ from __future__ import annotations
 
 from typing import List, Optional
 
-from mingunivision_tpu_torch.config import GenerationConfig, ImageGenConfig, MingUniVisionConfig, RuntimeConfig
+from mingunivision_tpu_torch.config import (
+    GenerationConfig,
+    ImageGenConfig,
+    MingUniVisionConfig,
+    RuntimeConfig,
+    with_pixdec_precision,
+)
 from mingunivision_tpu_torch.processing.processor import BailingMMProcessor
 from mingunivision_tpu_torch.engine.session import MingUniVisionSession
 
@@ -32,6 +38,9 @@ class MingUniVisionInfer:
             raise NotImplementedError(f"checkpoint loading ({model_path!r}) is not ported yet; pass params=")
         self.config = config or MingUniVisionConfig()
         self.runtime = runtime or RuntimeConfig()
+        if self.runtime.pixdec_matmul_precision is not None:
+            # serving-tier pixel decode; the model default ("high") is true fp32
+            self.config = with_pixdec_precision(self.config, self.runtime.pixdec_matmul_precision)
         self.params = params
         if processor is None:
             if tokenizer is None:

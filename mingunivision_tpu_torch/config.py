@@ -241,6 +241,13 @@ class RuntimeConfig:
     moe_int_dots: bool = True
 
 
+def with_pixdec_precision(config: MingUniVisionConfig, precision: str) -> MingUniVisionConfig:
+    """`config` with the pixel-decoder matmul tier replaced (the serving tiers)."""
+    mt = config.mingtok
+    return dataclasses.replace(config, mingtok=dataclasses.replace(
+        mt, pixel_decoder=dataclasses.replace(mt.pixel_decoder, matmul_precision=precision)))
+
+
 # ---------------------------------------------------------------------------
 # Small test-scale presets (same code paths)
 # ---------------------------------------------------------------------------

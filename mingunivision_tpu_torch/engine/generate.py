@@ -30,9 +30,22 @@ def linear_proj_apply(params, x):
     return y
 
 
-def prefill(params, cfg, inputs_embeds, cache: LLMCache, attn_mask, image_mask=None):
+def scatter_image_embeds(inputs_embeds, input_ids, image_embeds, image_patch_token: int):
+    """Place the i-th image feature at the i-th image-patch position (a
+    masked scatter). image_embeds (N_feat, h), flattened in order. Returns
+    (embeds (B, T, h), is_patch bool (B, T))."""
+    B, T, h = inputs_embeds.shape
+    is_patch = input_ids.reshape(-1) == image_patch_token
+    order = (is_patch.long().cumsum(0) - 1).clamp(0, image_embeds.shape[0] - 1)
+    gathered = image_embeds.index_select(0, order).to(inputs_embeds.dtype)
+    out = torch.where(is_patch[:, None], gathered, inputs_embeds.reshape(-1, h))
+    return out.reshape(B, T, h), is_patch.reshape(B, T)
+
+
+def prefill(params, cfg, inputs_embeds, cache: LLMCache, attn_mask, image_mask=None, *, use_flash: bool = False):
     """Run the right-padded prompt through the stack. attn_mask bool (1, Smax)
     is True exactly at the valid prompt positions [cache.length, cache.length + T_valid).
+    use_flash: first-round prefill through the flash-attention kernel.
 
     Returns (logits (B, V) of the last valid position, cache whose length is
     rolled back to right after the last valid prompt token)."""
@@ -41,7 +54,7 @@ def prefill(params, cfg, inputs_embeds, cache: LLMCache, attn_mask, image_mask=N
     # positions: cumsum over the mask (masked history shifts positions)
     positions = (attn_mask.long().cumsum(dim=1) - 1)[:, start : start + T].clamp(min=0)
     hidden, cache = bailing_forward(params, cfg, inputs_embeds, cache, attn_mask, positions=positions,
-                                    image_mask=image_mask)
+                                    image_mask=image_mask, use_flash=use_flash)
     last_idx = attn_mask[:, start : start + T].long().sum(dim=1) - 1  # (B,)
     last_hidden = hidden.gather(1, last_idx[:, None, None].expand(B, 1, hidden.shape[-1]))
     logits = compute_logits(params, cfg, last_hidden)[:, 0]

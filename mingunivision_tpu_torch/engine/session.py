@@ -2,8 +2,10 @@
 
 Owns the KV cache and the three persisted attention-mask buffers across
 rounds, with the reference's PAST_MODE KEEP/DROP semantics, fixed-size device
-buffers and a 128-token prompt bucket for prefill. Image inputs (editing and
-understanding) need the MingTok encoder, which this port does not have yet.
+buffers and a 128-token prompt bucket for prefill. Image inputs (understanding
+and editing) go through the MingTok encoder and `linear_proj` and are
+scattered over the prompt's image-patch positions; a first-round prompt whose
+bucket passes `flash_usable` prefills through the flash-attention kernel.
 """
 
 from __future__ import annotations
@@ -16,9 +18,18 @@ import numpy as np
 import torch
 
 from mingunivision_tpu_torch.config import GenerationConfig, ImageGenConfig
-from mingunivision_tpu_torch.engine.generate import decode_text, generate_image_tokens, pixel_decode, prefill
+from mingunivision_tpu_torch.engine.generate import (
+    decode_text,
+    generate_image_tokens,
+    linear_proj_apply,
+    pixel_decode,
+    prefill,
+    scatter_image_embeds,
+)
 from mingunivision_tpu_torch.engine.sampler import sample_token
 from mingunivision_tpu_torch.models.bailing_moe import LLMCache, compute_logits, embed_tokens
+from mingunivision_tpu_torch.models.mingtok import mingtok_encode
+from mingunivision_tpu_torch.ops.kernels.flash import flash_usable
 from mingunivision_tpu_torch.utils.quantize import QuantizedArray
 
 PROMPT_BUCKET = 128  # prompts are right-padded to multiples of this for prefill
@@ -39,8 +50,10 @@ class MingUniVisionSession:
 
     The weight tier follows `params`: a tree from `utils/convert.py`, plain or
     quantized (`quantize_mm_params_inplace`). `timings` holds the last round's
-    prefill / image-loop / pixel-decode milliseconds (host clock around
-    synchronised work) and its CFG row count."""
+    milliseconds (host clock around synchronised work): `encode_ms` (image
+    inputs only), `prefill_ms` with `prefill_tokens` (the padded prompt) and
+    `use_flash`, `text_decode_ms` with `text_tokens` (the decoded text steps),
+    `image_loop_ms` / `pixel_decode_ms` and the CFG row count."""
 
     def __init__(self, params, cfg, runtime, seed: int = 0, device=None):
         if not runtime.moe_int_dots and isinstance(params["llm"]["layers"]["mlp"]["experts"]["gate_proj"],
@@ -67,6 +80,15 @@ class MingUniVisionSession:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def extract_image_features(self, pixel_values):
+        """pixel_values (B, 3, H, W) -> flattened (B * N, hidden) projected
+        features: MingTok at the compute dtype -> x_norm_patchtokens -> fp32 ->
+        linear_proj."""
+        images = torch.as_tensor(np.asarray(pixel_values), device=self.device)
+        feats = mingtok_encode(self.params["mingtok"], self.cfg.mingtok, images, compute_dtype=self._dtype)
+        proj = linear_proj_apply(self.params["linear_proj"], feats["x_norm_patchtokens"].float())
+        return proj.reshape(-1, proj.shape[-1])
+
     def generate(
         self,
         input_ids,  # (1, T) tokens of the NEW turn only
@@ -77,8 +99,6 @@ class MingUniVisionSession:
         generation: Optional[GenerationConfig] = None,
         image_gen: Optional[ImageGenConfig] = None,
     ) -> RoundOutput:
-        if pixel_values is not None:
-            raise NotImplementedError("image inputs need the MingTok encoder, which is not ported yet")
         gen = generation or GenerationConfig()
         igen = image_gen or self.cfg.image_gen
         llm_cfg = self.cfg.llm
@@ -103,13 +123,26 @@ class MingUniVisionSession:
         ids_pad = torch.zeros((1, T_pad), dtype=torch.long, device=self.device)
         ids_pad[:, :T] = torch.as_tensor(ids, device=self.device)
         embeds = embed_tokens(self.params["llm"], ids_pad).to(self._dtype)
+        self.timings = {}
+        image_mask = None
+        if pixel_values is not None:
+            self._sync()
+            t0 = time.perf_counter()
+            feats = self.extract_image_features(pixel_values)
+            embeds, image_mask = scatter_image_embeds(embeds, ids_pad, feats, llm_cfg.image_patch_token)
+            self._sync()
+            self.timings["encode_ms"] = (time.perf_counter() - t0) * 1e3
 
+        # a first-round prefill (empty cache) can take the flash kernel: the fresh keys are the whole context
+        use_flash = start == 0 and flash_usable(T_pad)
         self._sync()
         t0 = time.perf_counter()
-        logits, self.cache = prefill(self.params["llm"], llm_cfg, embeds, self.cache, self.mask)
+        logits, self.cache = prefill(self.params["llm"], llm_cfg, embeds, self.cache, self.mask, image_mask=image_mask,
+                                     use_flash=use_flash)
         cur = int(sample_token(logits, self.generator, do_sample=gen.do_sample, temperature=gen.temperature,
                                top_k=gen.top_k, top_p=gen.top_p)[0])
-        self.timings = {"prefill_ms": (time.perf_counter() - t0) * 1e3}
+        self.timings.update(prefill_ms=(time.perf_counter() - t0) * 1e3, prefill_tokens=T_pad, use_flash=use_flash,
+                            text_decode_ms=0.0, text_tokens=0)
         self.seq_len = self.cache.length
         prompt_end = self.seq_len
         cond_prompt_mask = self.mask.clone()  # snapshot for PAST_MODE bookkeeping
@@ -129,9 +162,13 @@ class MingUniVisionSession:
                 continue
             if budget <= 0:
                 break
+            self._sync()
+            t0 = time.perf_counter()
             res = decode_text(self.params["llm"], llm_cfg, cur, self.cache, self.mask, self.generator,
                               max_steps=budget, do_sample=gen.do_sample, temperature=gen.temperature,
                               top_k=gen.top_k, top_p=gen.top_p)
+            self.timings["text_decode_ms"] += (time.perf_counter() - t0) * 1e3  # each step ends in a token read
+            self.timings["text_tokens"] += len(res.tokens)
             self.cache, self.mask = res.cache, res.mask
             self.seq_len = self.cache.length
             if not res.tokens:

@@ -9,11 +9,14 @@ expert tables as views of the stacked tables.
 
 Dispatch: decode-shape MoE (B*T <= MOE_DECODE_MAX_TOKENS) goes to the
 decode-MoE kernel, larger token counts to the grouped-SwiGLU prefill kernel
-(each wrapper picks its bf16 or int4 kernel from the table type), and
-one-token attention to the decode-attention kernel; CPU tensors take the
-kernels' plain versions. Quantized dense weights (attention, shared experts,
-router, lm_head) are dequantized before their product, and an int8 embedding
-is gathered as int8 rows and scaled in fp32, as in the JAX package.
+(each wrapper picks its bf16 or int4 kernel from the table type), through the
+capacity-dense dispatch from MOE_CAPACITY_MIN_TOKENS rows up and the
+expert-sorted one below; one-token attention goes to the decode-attention
+kernel and a first-round prefill that passes `flash_usable` to the
+flash-attention kernel; CPU tensors take the kernels' plain versions.
+Quantized dense weights (attention, shared experts, router, lm_head) are
+dequantized before their product, and an int8 embedding is gathered as int8
+rows and scaled in fp32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,16 +28,22 @@ import torch.nn.functional as F
 
 from mingunivision_tpu_torch.ops.attention import mha
 from mingunivision_tpu_torch.ops.kernels.decode_attention import decode_attention
+from mingunivision_tpu_torch.ops.kernels.flash import flash_prefill_attention
+from mingunivision_tpu_torch.ops.kernels.moe_capacity import default_capacity, moe_experts_capacity_gmm_exact
 from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream
 from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm
 from mingunivision_tpu_torch.ops.linear import dense
 from mingunivision_tpu_torch.ops.norms import rms_norm
-from mingunivision_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from mingunivision_tpu_torch.ops.rope import apply_rope, mrope_cos_sin, rope_cos_sin
 from mingunivision_tpu_torch.utils.pytree import layer_view
 from mingunivision_tpu_torch.utils.quantize import QuantizedArray, dequant_weight
 
 # At or below this many rows the decode-shape MoE runs (as in the JAX package).
 MOE_DECODE_MAX_TOKENS = 48
+# From this many rows up the prefill MoE takes the capacity-dense dispatch (when
+# cfg.moe_prefill_capacity_factor > 0): below it the per-expert slots, at least
+# 128 each, would be mostly empty.
+MOE_CAPACITY_MIN_TOKENS = 512
 
 
 # ---------------------------------------------------------------------------
@@ -93,19 +102,25 @@ def _expert_mlp(x, gate_w, up_w, down_w):
 
 # phase -> routed-expert kernel wrapper (each picks its plain version for CPU
 # tensors itself); every entry takes (stacked experts, x_flat, topk_idx,
-# topk_w, num_experts, layer_idx)
+# topk_w, num_experts, layer_idx), the capacity one also (capacity, token_valid)
 MOE_IMPLS = {
     "decode": lambda ex, x, i, w, E, l: moe_experts_stream(ex, x, i, w, layer_idx=l),
     "prefill": lambda ex, x, i, w, E, l: moe_experts_swiglu_gmm(ex, x, i, w, E, layer_idx=l),
+    "prefill_capacity": lambda ex, x, i, w, E, l, cap, valid: moe_experts_capacity_gmm_exact(
+        ex, x, i, w, E, cap, token_valid=valid, layer_idx=l),
 }
 
 
-def moe_block_apply(params, cfg, x, image_mask=None, audio_mask=None, *, experts_stacked, layer_idx):
+def moe_block_apply(params, cfg, x, image_mask=None, audio_mask=None, *, experts_stacked, layer_idx,
+                    token_valid=None):
     """Sparse MoE block with multi-gate routing + shared experts.
 
     x (B, T, h); image_mask/audio_mask: optional bool (B, T) selecting tokens
     routed by the modality gates. `experts_stacked` are the depth-stacked
-    tables, indexed by `layer_idx` inside the kernels."""
+    tables, indexed by `layer_idx` inside the kernels. token_valid: optional
+    bool (B, T) of real (non-padding) tokens, read by the capacity-dense
+    dispatch only (see `moe_experts_capacity_gmm_exact`); the padding rows'
+    outputs are discarded downstream."""
     B, T, h = x.shape
     x_flat = x.reshape(-1, h)
     topk_idx, topk_w, _ = moe_route(params["gate"]["w"], x_flat, cfg.num_experts_per_tok, cfg.norm_topk_prob)
@@ -116,9 +131,15 @@ def moe_block_apply(params, cfg, x, image_mask=None, audio_mask=None, *, experts
             topk_idx = torch.where(m, g_idx, topk_idx)
             topk_w = torch.where(m, g_w, topk_w)
 
-    phase = "decode" if B * T <= MOE_DECODE_MAX_TOKENS else "prefill"
-    impl = MOE_IMPLS[phase]
-    y = impl(experts_stacked, x_flat, topk_idx, topk_w.to(x.dtype), cfg.num_experts, layer_idx).reshape(B, T, h)
+    args = (experts_stacked, x_flat, topk_idx, topk_w.to(x.dtype), cfg.num_experts, layer_idx)
+    if B * T <= MOE_DECODE_MAX_TOKENS:
+        y = MOE_IMPLS["decode"](*args)
+    elif cfg.moe_prefill_capacity_factor > 0 and B * T >= MOE_CAPACITY_MIN_TOKENS:
+        cap = default_capacity(B * T, cfg.num_experts_per_tok, cfg.num_experts, factor=cfg.moe_prefill_capacity_factor)
+        y = MOE_IMPLS["prefill_capacity"](*args, cap, None if token_valid is None else token_valid.reshape(-1))
+    else:
+        y = MOE_IMPLS["prefill"](*args)
+    y = y.reshape(B, T, h)
     se = params["shared_experts"]
     return y + _expert_mlp(x, se["gate_proj"]["w"], se["up_proj"]["w"], se["down_proj"]["w"])
 
@@ -128,12 +149,14 @@ def moe_block_apply(params, cfg, x, image_mask=None, audio_mask=None, *, experts
 # ---------------------------------------------------------------------------
 
 
-def attention_apply(params, cfg, x, cos, sin, k_cache, v_cache, length: int, attn_mask):
+def attention_apply(params, cfg, x, cos, sin, k_cache, v_cache, length: int, attn_mask, use_flash: bool = False):
     """Fused-QKV GQA attention over the static cache.
 
     x (B, T, h); cos/sin (B, T, head_dim); k_cache/v_cache (B, Hkv, Smax, D)
     views of one layer, written IN PLACE at [length, length + T); attn_mask
-    bool (B, Smax) of allowed positions. Returns (B, T, h)."""
+    bool (B, Smax) of allowed positions. use_flash: the first-round prefill
+    path, where the new keys are the whole context and the flash kernel runs
+    over (q, k, v) directly. Returns (B, T, h)."""
     B, T, _ = x.shape
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     qkv = dense(x, params["query_key_value"]).reshape(B, T, Hq + 2 * Hkv, D)
@@ -144,7 +167,9 @@ def attention_apply(params, cfg, x, cos, sin, k_cache, v_cache, length: int, att
 
     Smax = k_cache.shape[2]
     k_pos = torch.arange(Smax, device=x.device)
-    if T == 1:
+    if use_flash:
+        out = flash_prefill_attention(q, k, v, attn_mask[:, length : length + T], scale=D**-0.5)
+    elif T == 1:
         out = decode_attention(q, k_cache, v_cache, attn_mask & (k_pos <= length)[None, :], scale=D**-0.5)
     else:
         causal = k_pos[None, :] <= (length + torch.arange(T, device=x.device))[:, None]  # (T, Smax)
@@ -159,25 +184,33 @@ def attention_apply(params, cfg, x, cos, sin, k_cache, v_cache, length: int, att
 
 
 def decoder_layer_apply(layer_params, cfg, x, cos, sin, k_cache, v_cache, length, attn_mask, image_mask=None,
-                        audio_mask=None, *, experts_stacked, layer_idx):
+                        audio_mask=None, *, use_flash: bool = False, experts_stacked, layer_idx, token_valid=None):
     h = rms_norm(x, layer_params["input_layernorm"]["w"], eps=cfg.rms_norm_eps)
-    x = x + attention_apply(layer_params["attention"], cfg, h, cos, sin, k_cache, v_cache, length, attn_mask)
+    x = x + attention_apply(layer_params["attention"], cfg, h, cos, sin, k_cache, v_cache, length, attn_mask,
+                            use_flash=use_flash)
     h = rms_norm(x, layer_params["post_attention_layernorm"]["w"], eps=cfg.rms_norm_eps)
     return x + moe_block_apply(layer_params["mlp"], cfg, h, image_mask, audio_mask,
-                               experts_stacked=experts_stacked, layer_idx=layer_idx)
+                               experts_stacked=experts_stacked, layer_idx=layer_idx, token_valid=token_valid)
 
 
 def bailing_forward(params, cfg, inputs_embeds, cache: LLMCache, attn_mask, positions=None, image_mask=None,
-                    audio_mask=None):
+                    audio_mask=None, use_flash: bool = False):
     """Run T tokens through the decoder stack, writing their K/V into the
     cache IN PLACE. inputs_embeds (B, T, h); attn_mask bool (B, Smax) over the
-    whole cache; positions (B, T) (default cache.length + arange(T)).
-    Returns (hidden_states (B, T, h), cache advanced by T)."""
+    whole cache; positions (B, T), or (3, B, T) MRoPE planes (default
+    cache.length + arange(T)). Returns (hidden_states (B, T, h), cache
+    advanced by T)."""
     B, T, _ = inputs_embeds.shape
     if positions is None:
         positions = (cache.length + torch.arange(T, device=inputs_embeds.device))[None].expand(B, T)
-    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    if positions.ndim == 2:
+        cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    else:
+        cos, sin = mrope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.mrope_section)
     attn_mask = attn_mask.bool()
+    # the valid (non-padding) flags of the T new tokens: attn_mask is True exactly at the valid
+    # positions of [cache.length, cache.length + T) (the prefill contract); a decode step's token is valid
+    token_valid = attn_mask[:, cache.length : cache.length + T] if T > 1 else None
     # the expert tables stay stacked: the MoE kernels take a layer's view themselves
     layers = params["layers"]
     experts = layers["mlp"]["experts"]
@@ -185,7 +218,8 @@ def bailing_forward(params, cfg, inputs_embeds, cache: LLMCache, attn_mask, posi
     x = inputs_embeds
     for l in range(cfg.num_hidden_layers):
         x = decoder_layer_apply(layer_view(per_layer, l), cfg, x, cos, sin, cache.k[l], cache.v[l], cache.length,
-                                attn_mask, image_mask, audio_mask, experts_stacked=experts, layer_idx=l)
+                                attn_mask, image_mask, audio_mask, use_flash=use_flash, experts_stacked=experts,
+                                layer_idx=l, token_valid=token_valid)
     x = rms_norm(x, params["norm"]["w"], eps=cfg.rms_norm_eps)
     return x, LLMCache(cache.k, cache.v, cache.length + T)
 

@@ -36,6 +36,8 @@ _SIGNATURES = {
     "mu_swiglu_gmm_q4": [_P] * 11 + [_I] * 3 + [_P],
     "mu_rf_sampler_q4s8": [_P] * 19 + [_I] * 9 + [ctypes.c_float] * 3 + [_P],
     "mu_rf_sampler_grid": [],
+    "mu_flash_prefill_bf16": [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P],
+    "mu_flash_vit_bf16": [_P] * 4 + [_I] * 4 + [ctypes.c_float, _P],
 }
 
 _lib = None

@@ -13,6 +13,7 @@ dtype before the product, as the JAX package's XLA path does.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +21,13 @@ import torch.nn.functional as F
 from mingunivision_tpu_torch.utils.quantize import dequant_weight
 
 _ALLOW_TF32 = {"default": True, "high": False, "highest": False}
+# the fp32 tier in force: what the innermost `fp32_matmul_precision` block set
+_FP32_PRECISION = contextvars.ContextVar("fp32_precision", default="highest")
+
+
+def current_fp32_precision() -> str:
+    """The fp32 matmul tier in force: "highest" outside any `fp32_matmul_precision` block."""
+    return _FP32_PRECISION.get()
 
 
 @contextlib.contextmanager
@@ -29,9 +37,11 @@ def fp32_matmul_precision(name: str):
     old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = allow
     torch.backends.cudnn.allow_tf32 = allow
+    token = _FP32_PRECISION.set(name)
     try:
         yield
     finally:
+        _FP32_PRECISION.reset(token)
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 

@@ -170,11 +170,20 @@ def _blocks(depth, dim, mlp_ratio, ffn_layer, init: _Init):
     }
 
 
-def init_mingtok_decoder_params(cfg, init: _Init):
-    """The semantic and pixel decoders and sem_to_pix (the encoder is not ported yet)."""
-    sem, pix = cfg.semantic_decoder, cfg.pixel_decoder
+def init_mingtok_params(cfg, init: _Init):
+    """The encoder, the semantic and pixel decoders and sem_to_pix, with the
+    leaves of the JAX package's `init_mingtok_params`."""
+    enc, sem, pix = cfg.encoder, cfg.semantic_decoder, cfg.pixel_decoder
     ratio = sem.patch_size // pix.patch_size
     return {
+        "encoder": {
+            "patch_embed": init.linear(fan_in=enc.in_chans * enc.patch_size**2, fan_out=enc.embed_dim),
+            "cls_token": init.zeros(1, 1, enc.embed_dim),
+            "pos_embed": init.trunc(1, enc.num_patches + 1, enc.embed_dim),
+            "blocks": _blocks(enc.depth, enc.embed_dim, enc.mlp_ratio, enc.ffn_layer, init),
+            "out_norm": init.norm(dim=enc.embed_dim),
+            "out_proj": init.linear(fan_in=enc.embed_dim, fan_out=enc.out_dim),
+        },
         "semantic_decoder": {
             "in_proj": init.linear(fan_in=sem.in_dim, fan_out=sem.embed_dim),
             "blocks": _blocks(sem.depth, sem.embed_dim, sem.mlp_ratio, sem.ffn_layer, init),
@@ -190,7 +199,7 @@ def init_mingtok_decoder_params(cfg, init: _Init):
 
 
 def init_mm_params(cfg, *, device, dtype=torch.bfloat16, generator: torch.Generator):
-    """Random weights of the whole text-to-image model, built on `device`:
+    """Random weights of the whole model, built on `device`:
     {"llm", "vis_head", "rf_head", "linear_proj", "mingtok"}."""
     init = _Init(device, dtype, generator)
     return {
@@ -198,7 +207,7 @@ def init_mm_params(cfg, *, device, dtype=torch.bfloat16, generator: torch.Genera
         "vis_head": init_vis_head_params(cfg.llm.hidden_size, cfg.rf_head.z_channels, init),
         "rf_head": init_rf_head_params(cfg.rf_head, init),
         "linear_proj": init_linear_proj_params(cfg.mingtok.feature_dim, cfg.llm.hidden_size, cfg.mlp_depth, init),
-        "mingtok": init_mingtok_decoder_params(cfg.mingtok, init),
+        "mingtok": init_mingtok_params(cfg.mingtok, init),
     }
 
 

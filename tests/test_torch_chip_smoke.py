@@ -2,7 +2,8 @@
 the port as shipped (where the CPU's kernel entries are their plain versions,
 so the kernel path equals the plain bf16 path) and fails when one entry of
 the kernel path is made wrong by 10% or left out, at both tiers. On the card
-the same check holds the CUDA kernels."""
+the same check holds the CUDA kernels. The check on an image prompt is in
+tests/test_torch_chip_smoke_image.py."""
 
 import pytest
 import torch

@@ -1,6 +1,8 @@
 """PyTorch port: each hand-written CUDA kernel against its plain PyTorch version
 on the card, in bf16 (the int4 kernels on int4 tables of the same weights;
-the RF sampler to the bit, since its plain version sums in its order). The
+the RF sampler to the bit, since its plain version sums in its order; both
+flash-attention entry points; the prefill MoE kernels also through the
+capacity-dense dispatch). The
 kernels have no CPU mode, so every test here is marked `cuda` and skips
 without a card. Imports torch and the port only (the
 card's machine has no JAX):
@@ -14,6 +16,17 @@ import torch
 from mingunivision_tpu_torch.config import RFHeadConfig
 from mingunivision_tpu_torch.models.rf_head import _time_grid, precompute_modulations
 from mingunivision_tpu_torch.ops.kernels.decode_attention import decode_attention, decode_attention_plain
+from mingunivision_tpu_torch.ops.kernels.flash import (
+    flash_prefill_attention,
+    flash_prefill_attention_plain,
+    flash_vit_attention,
+    flash_vit_attention_plain,
+)
+from mingunivision_tpu_torch.ops.kernels.moe_capacity import (
+    moe_experts_capacity_gmm,
+    moe_experts_capacity_gmm_exact,
+    moe_experts_capacity_gmm_exact_plain,
+)
 from mingunivision_tpu_torch.ops.kernels.moe_stream import (
     moe_experts_stream,
     moe_experts_stream_plain,
@@ -173,3 +186,75 @@ def test_rf_sampler_kernel_matches_plain(dev, rows, renorm):
     torch.cuda.synchronize()
     assert rf_sample_fused.launches == before + 1
     torch.testing.assert_close(got, rf_sample_fused_plain(*args, **kw), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("T,pads,Hq,Hkv,D", [(1152, 92, 16, 4, 128), (512, 0, 16, 4, 128), (640, 37, 4, 4, 64),
+                                             (128, 100, 8, 2, 128)],
+                         ids=["understanding-1152-92pads", "512-nopads", "640-mha-d64", "128-mostly-pads"])
+def test_flash_prefill_kernel_matches_plain(dev, T, pads, Hq, Hkv, D):
+    g = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn(2, T, Hq, D, device=dev, generator=g).to(torch.bfloat16)
+    k = torch.randn(2, T, Hkv, D, device=dev, generator=g).to(torch.bfloat16)
+    v = torch.randn(2, T, Hkv, D, device=dev, generator=g).to(torch.bfloat16)
+    valid = torch.ones(2, T, dtype=torch.bool, device=dev)
+    valid[0, T - pads:] = False  # row 1 of the batch has no padding
+    before = flash_prefill_attention.launches
+    got = flash_prefill_attention(q, k, v, valid, scale=D**-0.5)
+    torch.cuda.synchronize()
+    assert flash_prefill_attention.launches == before + 1
+    want = flash_prefill_attention_plain(q, k, v, valid, scale=D**-0.5)
+    _close_bf16(got[valid], want[valid])
+    _close_bf16(got, want)  # the padding rows are defined by the same rule
+
+
+@pytest.mark.parametrize("B,H,N,D,dtype", [(1, 16, 1024, 64, torch.bfloat16), (2, 4, 512, 128, torch.bfloat16),
+                                           (1, 16, 1024, 64, torch.float32)],
+                         ids=["pixel-decoder", "d128", "fp32-in-default-tier"])
+def test_flash_vit_kernel_matches_plain(dev, B, H, N, D, dtype):
+    g = torch.Generator(device=dev).manual_seed(10)
+    q, k, v = (torch.randn(B, H, N, D, device=dev, generator=g).to(dtype) for _ in range(3))
+    before = flash_vit_attention.launches
+    got = flash_vit_attention(q, k, v, scale=D**-0.5)
+    torch.cuda.synchronize()
+    assert flash_vit_attention.launches == before + 1 and got.dtype == dtype
+    _close_bf16(got, flash_vit_attention_plain(q, k, v, scale=D**-0.5))
+
+
+def test_flash_wrappers_raise_on_unsupported_input(dev):
+    q = torch.randn(1, 96, 4, 128, device=dev).to(torch.bfloat16)  # T = 96 is not a multiple of the tile
+    with pytest.raises(ValueError):
+        flash_prefill_attention(q, q, q, torch.ones(1, 96, dtype=torch.bool, device=dev), scale=1.0)
+    q = torch.randn(1, 4, 128, 32, device=dev).to(torch.bfloat16)  # head_dim 32 is not built
+    with pytest.raises(ValueError):
+        flash_vit_attention(q, q, q, scale=1.0)
+
+
+@pytest.mark.parametrize("tier", ["bf16", "int4"])
+@pytest.mark.parametrize("case", ["fits", "fits-with-pads", "overflow"])
+def test_swiglu_gmm_kernels_through_the_capacity_schedule_match_plain(dev, tier, case):
+    """Kernels 2 and 5 launched through the capacity-dense dispatch: one group
+    per expert, tiles over each expert's occupied slots; on overflow the
+    expert-sorted dispatch runs and is counted as a fallback."""
+    ex = _experts(dev, seed=11)
+    if tier == "int4":
+        ex = _q4(ex)
+    n, k, capacity = 640, 2, 256  # mean load 160
+    idx, w = _routing(dev, n, k, [0, 3, 5] if case == "overflow" else None, seed=12)
+    x = torch.randn(n, H, device=dev).to(torch.bfloat16)
+    valid = None
+    if case == "fits-with-pads":  # 200 padding rows that all route to experts 0 and 1
+        valid = torch.arange(n, device=dev) < n - 200
+        x[~valid], idx[~valid], w[~valid] = x[-1].clone(), torch.tensor([0, 1], device=dev), w[-1].clone()
+    kernel = moe_experts_swiglu_gmm_q4 if tier == "int4" else moe_experts_swiglu_gmm
+    before = (kernel.launches, moe_experts_capacity_gmm.launches, moe_experts_capacity_gmm_exact.fallbacks)
+    got = moe_experts_capacity_gmm_exact(ex, x, idx, w, E, capacity, token_valid=valid, layer_idx=1)
+    torch.cuda.synchronize()
+    fell_back = int(case == "overflow")
+    assert (kernel.launches, moe_experts_capacity_gmm.launches, moe_experts_capacity_gmm_exact.fallbacks) == \
+        (before[0] + 1, before[1] + 1 - fell_back, before[2] + fell_back)
+    want = moe_experts_capacity_gmm_exact_plain(ex, x, idx, w, E, capacity, token_valid=valid, layer_idx=1)
+    rows = slice(None) if valid is None else valid
+    _close_bf16(got[rows], want[rows])
+    _close_bf16(got[rows], moe_experts_swiglu_gmm_plain(ex, x, idx, w, E, layer_idx=1)[rows])
+    if valid is not None:
+        assert not got[~valid].any()  # padding rows give zeros
