@@ -21,7 +21,10 @@ Phases, one printed line each; any failure exits non-zero:
               the image of the right shape, finite, in [-1, 1]. Then the same
               on an image prompt that pads to 512 tokens (flash prefill, the
               capacity dispatch, text decode): same tokens, the prefill's
-              last-position hidden state within the same bound
+              last-position hidden state within the same bound. Then the
+              small model's paged serving engine on 4 slots with mid-flight
+              admission: same tokens, each request's first-step logits within
+              the same bound
   5. slice    single-image text-to-image through MingUniVisionSession.generate
               at the full 16B-A3B width (random weights from a seed, bf16,
               max_seq_len 4096): output checks, launch counts of every kernel,
@@ -43,12 +46,24 @@ Phases, one printed line each; any failure exits non-zero:
               1 and 8, on the pixel decoder's "high", "default" and "bf16"
               tiers: flash-ViT launches, PSNR of the reduced tiers against
               "high", ms per image
-A tier's model is built once and serves its slice, understand and edit phases.
+ 10. serve    continuous-batching text serving on each tier's model: 24
+              requests (12 sharing a 256-id system prefix, 4 sampled) from 4
+              client threads in 3 waves through InferenceServer's
+              BatchTextWorker on the paged pool (16 slots, max_len 2048, page
+              64, prefix cache), then the same requests on the dense pool;
+              then the greedy ones on both pools with the same attention
+              arithmetic (the plain versions, every kernel call held against
+              them): the tokens must be equal, request by request; then a
+              starved paged pool (40 pages) that must stall and resume;
+              tokens/s, ms per engine step at 1, 4, 8 and 16 active slots,
+              time to first token, prefix hits, stalls, launches per step,
+              pool and peak memory
+A tier's model is built once and serves its slice, understand, edit and serve phases.
 Then a JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-`--phases` picks the phases (default: the nine above), e.g.
-`--phases device,build,kernels,understand`. Five more run only when named:
+`--phases` picks the phases (default: the ten above), e.g.
+`--phases device,build,kernels,understand` or `--phases device,build,kernels,serve`. Six more run only when named:
   divergence  the small model's plain bf16 path with each kernel swapped in
               alone, and all three, against plain bf16 and fp32: semantic-token
               error at loop step 0 and over the loop, image error
@@ -59,6 +74,10 @@ Then a JSON line with every kernel's numbers, and as the last line
   profile_understand  the understanding round with 8 text tokens under
               torch.profiler: device ms of the encode, prefill and text-decode
               stages, busy share, top kernels (`--tier`)
+  serve_check  where the two serving pools part (bf16): the serve traffic on
+              the paged pool, then the dense pool fed its tokens, every
+              attention and decode-MoE call held against its plain version;
+              the forced-token margins
   routing     the understanding prompt's expert loads per layer on the
               full-width random model (`--tier`), as initialised and with the
               attention outputs damped, against the capacity of the dispatch
@@ -76,6 +95,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import statistics
@@ -94,6 +114,9 @@ KERNELS = {
     "rf_sampler_q4s8": ("csrc/rf_sampler_q4.cu", "mingunivision_tpu/ops/kernels/rf_sampler.py:272"),
     "flash_prefill": ("csrc/flash_attention.cu", "mingunivision_tpu/ops/kernels/flash.py:31"),
     "flash_vit": ("csrc/flash_attention.cu", "mingunivision_tpu/ops/kernels/flash.py:63"),
+    # one kernel for both TPU entries: _paged_decode_kernel :74 (via pallas_paged_decode_attention :122) and
+    # the library multi-page kernel behind paged_decode_attention_auto :189
+    "paged_attention": ("csrc/paged_attention.cu", "mingunivision_tpu/ops/kernels/paged_attention.py:74"),
 }
 BF16_KERNELS = ("moe_stream", "moe_swiglu_gmm", "decode_attention")
 REL_TOL = 1e-2  # kernel vs plain: max |err| <= REL_TOL * max |plain| (bf16 keeps ~3 digits)
@@ -275,7 +298,7 @@ def check_kernels(torch, results: dict) -> bool:
     )
     from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream_plain, moe_experts_stream
     from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm, moe_experts_swiglu_gmm_plain
-    from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused, rf_sample_fused_plain
+    from mingunivision_tpu_torch.ops.kernels.rf_sampler import MAX_ROWS, rf_sample_fused, rf_sample_fused_plain
     from mingunivision_tpu_torch.utils.quantize import quantize_array
 
     dev = torch.device("cuda")
@@ -415,26 +438,113 @@ def check_kernels(torch, results: dict) -> bool:
     L, w, Hd, C, St = rf_cfg.depth, rf_cfg.width, rf["res_blocks"]["mlp"]["w3"]["w"].q.shape[1] * 2, \
         rf_cfg.target_channels, rf_cfg.num_sampling_steps
     ts, dts = _time_grid(rf_cfg, None, device=dev)
-    for rows, renorm in ((2, False), (3, True)):
-        z = torch.randn((rows, rf_cfg.z_channels), device=dev, generator=g).to(bf)
+    # 2 CFG rows (T2I), 3 with renorm (editing); then more rows than one launch holds, sampled in groups of
+    # whole images: 2 images x 3 rows and 4 images x 2 rows
+    for rows, renorm, n_img in ((2, False, 1), (3, True, 1), (3, True, 2), (2, False, 4)):
+        z = torch.randn((rows * n_img, rf_cfg.z_channels), device=dev, generator=g).to(bf)
         block_mods, final_mods = precompute_modulations(rf, rf_cfg, ts, z)
-        noise = torch.randn((1, C), device=dev, generator=g).repeat(rows, 1)
+        noise = torch.randn((n_img, C), device=dev, generator=g).repeat(rows, 1)
         args = (rf, rf_cfg, noise, block_mods, final_mods, dts, 3.0, 1.1)
         kw = dict(cfg_rows=rows, renorm_channel=renorm, compute_dtype=bf)
+        launches = rf_sample_fused.launches
         # the blocks' int4 tables, their scales and biases, and the LN affines: 453 MB, more than L2 and
         # every SM's shared memory hold, so each Euler step streams them again
+        B = rows * n_img
         block_weights = L * (w // 2 * 2 * Hd + Hd // 2 * w) + L * (2 * Hd + w) * 4 * 2 + 2 * L * w * 4
-        rest = (L * St * rows * 3 * w + St * rows * 2 * w) * 4 + 2 * C * w * 4 + 2 * rows * C * 4
+        rest = (L * St * B * 3 * w + St * B * 2 * w) * 4 + 2 * C * w * 4 + 2 * B * C * 4
         nbytes = St * block_weights + rest
-        ops = 2.0 * 3 * w * Hd * rows * L * St  # two integer dots per weight byte pair, per row, block and step
+        ops = 2.0 * 3 * w * Hd * B * L * St  # two integer dots per weight byte pair, per row, block and step
+        label = (f"{rows} CFG rows{' + channel renorm' if renorm else ''}" if n_img == 1 else
+                 f"{n_img} images x {rows} CFG rows = {B} rows")
         all_ok &= run_case(torch, results, "rf_sampler_q4s8",
-                           f"{rows} CFG rows{' + channel renorm' if renorm else ''}, w={w} H={Hd} {L} blocks "
-                           f"{St} steps; tables read once would be {bound(block_weights + rest, 0, 'int8')[0]:.4f} ms",
+                           f"{label}, w={w} H={Hd} {L} blocks {St} steps; tables read once would be "
+                           f"{bound(block_weights + rest, 0, 'int8')[0]:.4f} ms",
                            lambda: rf_sample_fused(*args, **kw),  # noqa: B023
                            lambda: rf_sample_fused_plain(*args, **kw), nbytes, ops, "int8", iters=3)  # noqa: B023
+        if n_img > 1:  # one launch per group of whole images that fits the kernel's rows
+            launched = rf_sample_fused.launches - launches
+            calls = 1 + 3 + 3  # the comparison, warm-up and timed calls of run_case
+            print(f"kernel rf_sampler_q4s8 [{label}]: {launched // calls} launches per call (groups of "
+                  f"{MAX_ROWS // rows} images)")
+            all_ok &= launched == calls * -(-n_img // (MAX_ROWS // rows))
     del rf
     torch.cuda.empty_cache()
+    all_ok &= paged_cases(torch, results, g, cfg)
     return all_ok
+
+
+def paged_inputs(torch, g, B: int, Hq: int, Hkv: int, D: int, page: int = 64, maxp: int = 32):
+    """Paged attention inputs as the serving engine lays them out, one layer's
+    pool: row lengths cycling through 0, 1, 63, 64, 65, 700 and 2047 (a row of
+    length 0 is an idle slot), page ids shuffled over the pool, rows 0 and 1
+    sharing their first two pages (a prefix-cache hit), and the scratch page,
+    every page's tail past its row's length and every unused page filled with
+    +-1e4. Returns (q, k_pages, v_pages, tables, lengths)."""
+    cycle = [0, 1, 63, 64, 65, 700, 2047]
+    lengths = [cycle[(b + 5) % len(cycle)] for b in range(B)]
+    if B > 1:
+        lengths[:2] = [700, 2047]
+    need = [-(-n // page) for n in lengths]
+    P = sum(need) + 4  # a few pages no row owns
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(B)).tolist()
+    tables = torch.full((B, maxp), P, dtype=torch.int32)
+    for b in range(B):
+        shared = tables[0, :2].tolist() if b == 1 else []
+        tables[b, : need[b]] = torch.tensor(shared + [perm.pop() for _ in range(need[b] - len(shared))],
+                                            dtype=torch.int32)
+    dev = torch.device("cuda")
+    kp = torch.full((Hkv, P + 1, page, D), 1e4, device=dev, dtype=torch.bfloat16)
+    vp = torch.full((Hkv, P + 1, page, D), -1e4, device=dev, dtype=torch.bfloat16)
+    for b in range(B):
+        for i in range(need[b]):
+            n, pid = min(page, lengths[b] - i * page), int(tables[b, i])
+            kp[:, pid, :n] = torch.randn((Hkv, n, D), device=dev, generator=g).to(torch.bfloat16)
+            vp[:, pid, :n] = torch.randn((Hkv, n, D), device=dev, generator=g).to(torch.bfloat16)
+    q = torch.randn((B, 1, Hq, D), device=dev, generator=g).to(torch.bfloat16)
+    return q, kp, vp, tables.to(dev), torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+def paged_cases(torch, results, g, cfg) -> bool:
+    """The paged decode-attention kernel against its plain version (gather +
+    masked attention) at the serving engine's shapes: 16 / 4 heads of 128,
+    page 64, 32 table entries (max_len 2048), batch 1, 8 and 16. Library line:
+    SDPA on the dense view gathered beforehand. Bound: the K/V bytes at the
+    rows' valid positions, q, out, tables and lengths."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mingunivision_tpu_torch.ops.kernels.paged_attention import paged_decode_attention, paged_gather_attention
+
+    Hq, Hkv, D = cfg.llm.num_attention_heads, cfg.llm.num_key_value_heads, cfg.llm.head_dim
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ok = True
+    for B in (1, 8, 16):
+        q, kp, vp, tables, lengths = paged_inputs(torch, g, B, Hq, Hkv, D)
+        page, maxp = kp.shape[2], tables.shape[1]
+        ids = tables.long()
+        kg, vg = (t[:, ids].transpose(0, 1).reshape(B, Hkv, maxp * page, D) for t in (kp, vp))
+        mask = (torch.arange(maxp * page, device=q.device)[None, :] < lengths[:, None])[:, None, None, :]
+        n_pos = int(lengths.sum())
+        nbytes = n_pos * Hkv * D * 2 * 2 + 2 * q.numel() * 2 + tables.numel() * 4 + B * 4
+        label = f"B={B} {Hq}/{Hkv}x{D} page {page} maxp {maxp}, lengths {lengths.tolist()}"
+        ok &= run_case(torch, results, "paged_attention", label,
+                       lambda: paged_decode_attention(q, kp, vp, tables, lengths),  # noqa: B023
+                       lambda: paged_gather_attention(q, kp, vp, tables, lengths), nbytes,  # noqa: B023
+                       4.0 * Hq * D * n_pos, "bf16",
+                       library=lambda: sdpa(q.transpose(1, 2), kg, vg, attn_mask=mask, enable_gqa=True))  # noqa: B023
+        got = paged_decode_attention(q, kp, vp, tables, lengths)
+        ok &= not bool(got[lengths == 0].any())  # an idle row gives zeros
+        # at these sizes the CUDA-event time above is mostly the wrapper's host work (SDPA shows the same
+        # floor): the device time of the two kernels, from the profiler over 20 launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                paged_decode_attention(q, kp, vp, tables, lengths)
+            torch.cuda.synchronize()
+        device_us = {("split" if "split" in e.key else "combine"): e.self_device_time_total / e.count
+                     for e in prof.key_averages() if "paged_attention" in e.key and e.count}
+        results["paged_attention"]["cases"][-1]["device_ms"] = sum(device_us.values()) / 1e3
+        print(f"kernel paged_attention [B={B}]: device us per launch, from the profiler: split "
+              f"{device_us.get('split', float('nan')):.2f} + combine {device_us.get('combine', float('nan')):.2f}")
+    return ok
 
 
 # ---------------------------------------------------------------------------
@@ -593,32 +703,38 @@ def image_checks(out, sess, cfg, T, size, rows=2):
 
 # the model-level entry points the main paths call the kernels by (the MoE
 # entries dispatch bf16 and int4 tables to their kernels themselves)
-ENTRIES = ("moe_stream", "moe_swiglu_gmm", "decode_attention", "rf_sampler", "flash_prefill", "moe_capacity", "flash_vit")
+ENTRIES = ("moe_stream", "moe_swiglu_gmm", "decode_attention", "rf_sampler", "flash_prefill", "moe_capacity", "flash_vit",
+           "paged_attention")
 
 
 @contextlib.contextmanager
 def plain_versions(names=ENTRIES):
     """Route the main path's calls of the named entry points to their plain
     versions for the block (the names the model modules call them by are patched)."""
+    from mingunivision_tpu_torch.engine import batch_engine, paged
     from mingunivision_tpu_torch.models import bailing_moe as bm
     from mingunivision_tpu_torch.models import rf_head, vit
     from mingunivision_tpu_torch.ops.kernels.decode_attention import decode_attention_plain
+    from mingunivision_tpu_torch.ops.kernels.paged_attention import paged_gather_attention
     from mingunivision_tpu_torch.ops.kernels.flash import flash_prefill_attention_plain, flash_vit_attention_plain
     from mingunivision_tpu_torch.ops.kernels.moe_capacity import moe_experts_capacity_gmm_exact_plain
     from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream_plain
     from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm_plain
     from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused_plain
 
-    swaps = {"moe_stream": (bm, "moe_experts_stream", moe_experts_stream_plain),
-             "moe_swiglu_gmm": (bm, "moe_experts_swiglu_gmm", moe_experts_swiglu_gmm_plain),
-             "decode_attention": (bm, "decode_attention", decode_attention_plain),
-             "rf_sampler": (rf_head, "rf_sample_fused", rf_sample_fused_plain),
-             "flash_prefill": (bm, "flash_prefill_attention", flash_prefill_attention_plain),
-             "moe_capacity": (bm, "moe_experts_capacity_gmm_exact", moe_experts_capacity_gmm_exact_plain),
-             "flash_vit": (vit, "flash_vit_attention", flash_vit_attention_plain)}
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps.values()]
+    swaps = {"moe_stream": [(bm, "moe_experts_stream", moe_experts_stream_plain)],
+             "moe_swiglu_gmm": [(bm, "moe_experts_swiglu_gmm", moe_experts_swiglu_gmm_plain)],
+             "decode_attention": [(bm, "decode_attention", decode_attention_plain),
+                                  (batch_engine, "decode_attention", decode_attention_plain)],
+             "rf_sampler": [(rf_head, "rf_sample_fused", rf_sample_fused_plain)],
+             "flash_prefill": [(bm, "flash_prefill_attention", flash_prefill_attention_plain)],
+             "moe_capacity": [(bm, "moe_experts_capacity_gmm_exact", moe_experts_capacity_gmm_exact_plain)],
+             "flash_vit": [(vit, "flash_vit_attention", flash_vit_attention_plain)],
+             "paged_attention": [(paged, "paged_decode_attention", paged_gather_attention)]}
+    saved = [(mod, attr, getattr(mod, attr)) for entries in swaps.values() for mod, attr, _ in entries]
     for name in names:
-        setattr(*swaps[name])
+        for swap in swaps[name]:
+            setattr(*swap)
     try:
         yield
     finally:
@@ -818,6 +934,73 @@ def run_reference_image(torch, device, tier="bfloat16") -> bool:
     return all(p for _, p in checks)
 
 
+@contextlib.contextmanager
+def step_logits_capture():
+    """For the block, record the logits (B, V) of every serving-engine decode
+    step (the admission prefills' logits are not recorded); yields the list."""
+    from mingunivision_tpu_torch.engine import batch_engine
+
+    seen = []
+    logits_fn = batch_engine.compute_logits
+
+    def capture(params, cfg, hidden):
+        out = logits_fn(params, cfg, hidden)
+        seen.append(out[:, -1].float().cpu().numpy())
+        return out
+
+    batch_engine.compute_logits = capture
+    try:
+        yield seen
+    finally:
+        batch_engine.compute_logits = logits_fn
+
+
+def run_reference_serve(torch, device) -> bool:
+    """The small model's paged serving engine (4 slots, page 64) with mid-flight
+    admission: request 0, two steps, request 1 (its prompt crosses a page
+    boundary), two steps, requests 2 and 3, then to completion, 8 greedy
+    tokens each (the LM head steered as in `understand`). The kernel path
+    (bf16: paged attention, decode MoE, prefill MoE) against the plain
+    versions in fp32 on the same weights: the same tokens, and each request's
+    first decode-step logits within twice the plain bf16 path's own error plus
+    1e-2 of the reference's maximum."""
+    import numpy as np
+
+    from mingunivision_tpu_torch.engine.paged import PagedBatchingEngine
+
+    cfg, params, _ = small_model(torch, device)
+    steer_text_head(params, cfg)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(2000, cfg.llm.vocab_size - 1000, n) for n in (40, 70, 130, 20)]
+    first_step = [(0, 0), (2, 1), (4, 2), (4, 3)]  # request -> (engine step, slot) of its first decode step
+
+    def serve(params, dtype):
+        eng = PagedBatchingEngine(params["llm"], cfg.llm, slots=4, max_len=512, page_size=64, dtype=dtype)
+        with step_logits_capture() as seen:
+            reqs = [eng.add_request(prompts[0], 8)]
+            for ids in (prompts[1], None):
+                eng.step()
+                eng.step()
+                reqs += [eng.add_request(ids, 8)] if ids is not None else [eng.add_request(p, 8) for p in prompts[2:]]
+            eng.run_to_completion()
+        return [r.tokens for r in reqs], np.stack([seen[step][slot] for step, slot in first_step])
+
+    tok_k, kern = serve(params, torch.bfloat16)
+    with plain_versions():
+        tok_r, ref = serve(as_f32(params), torch.float32)
+        tok_p, plain = serve(params, torch.bfloat16)
+    scale = float(np.abs(ref).max())
+    err_k, err_p = float(np.abs(kern - ref).max()), float(np.abs(plain - ref).max())
+    tol = 2 * err_p + 1e-2 * scale
+    checks = [("8 tokens per request", all(len(t) == 8 for t in tok_k)), ("tokens == fp32 reference", tok_k == tok_r),
+              (f"first-step logits err vs fp32 {err_k:.3e} <= {tol:.3e} (plain bf16 err {err_p:.3e}, "
+               f"max |ref| {scale:.3e})", bool(np.isfinite(kern).all()) and err_k <= tol)]
+    print("reference (bf16 small model on the card, paged serving engine, 4 slots, mid-flight admission: kernels "
+          "bf16 vs plain fp32): " + "; ".join(f"{label}={'ok' if p else 'FAILED'}" for label, p in checks)
+          + f"; plain bf16 tokens == fp32 {tok_p == tok_r}")
+    return all(p for _, p in checks)
+
+
 def run_divergence(torch, device) -> bool:
     """Where the small model's bf16 paths part: the plain bf16 path, each kernel
     alone swapped into it, all three kernels, and the plain fp32 reference.
@@ -895,13 +1078,14 @@ def launch_counters():
     from mingunivision_tpu_torch.ops.kernels.moe_capacity import moe_experts_capacity_gmm
     from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream, moe_experts_stream_q4s8
     from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm, moe_experts_swiglu_gmm_q4
+    from mingunivision_tpu_torch.ops.kernels.paged_attention import paged_decode_attention
     from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused
 
     return {"moe_stream": moe_experts_stream, "moe_swiglu_gmm": moe_experts_swiglu_gmm,
             "decode_attention": decode_attention, "moe_stream_q4s8": moe_experts_stream_q4s8,
             "moe_swiglu_gmm_q4": moe_experts_swiglu_gmm_q4, "rf_sampler_q4s8": rf_sample_fused,
             "flash_prefill": flash_prefill_attention, "flash_vit": flash_vit_attention,
-            "moe_capacity": moe_experts_capacity_gmm}
+            "moe_capacity": moe_experts_capacity_gmm, "paged_attention": paged_decode_attention}
 
 
 def counted_round(torch, results, path, run):
@@ -1019,6 +1203,393 @@ def run_understand(torch, cfg, params, device, results: dict, tier="bfloat16", n
           f"capacity_dispatch_launches={launches['moe_capacity']} capacity_fallbacks={fallbacks} "
           f"total_s={total_s:.3f} max_memory_allocated_gib={peak / 2**30:.3f}")
     results["flash_prefill"]["launches"] = launches["flash_prefill"]
+    return report(label, launches, checks)
+
+
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_PAGE, SERVE_NEW_TOKENS = 16, 2048, 64, 64
+SAMPLED = dict(do_sample=True, temperature=0.8, top_k=40, top_p=0.9)
+
+
+def serve_traffic(cfg, n: int = 24, seed: int = 0):
+    """The serving round's requests, built by hand from a numpy seed (no
+    tokenizer on the card): n prompts of 32-1,200 ids, the even ones opening
+    with one shared 256-id system prompt; every sixth request (4 of 24)
+    sampled, the rest greedy. Returns [(ids, sampling kwargs)]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = lambda k: rng.integers(2000, cfg.llm.vocab_size - 1000, k)  # noqa: E731
+    system = ids(256)
+    out = []
+    for i in range(n):
+        prompt = np.concatenate([system, ids(int(rng.integers(32, 945)))]) if i % 2 == 0 else ids(int(rng.integers(32, 1201)))
+        out.append((prompt, SAMPLED if i % 6 == 5 else {}))
+    return out
+
+
+class StepClock:
+    """Wraps an engine's `step`: per decode step that ran, the number of active
+    (running, not stalled) slots and the host milliseconds (a step ends in
+    the read of its tokens, so the clock covers its device work)."""
+
+    def __init__(self, engine):
+        self.engine, self.inner, self.steps = engine, engine.step, []
+        engine.step = self
+
+    def __call__(self):
+        eng = self.engine
+        active = sum(1 for s in eng.slot_req if not getattr(eng, "stalled", {}).get(s, False))
+        t0 = time.perf_counter()
+        out = self.inner()
+        if out:
+            self.steps.append((active, (time.perf_counter() - t0) * 1e3))
+        return out
+
+
+def serve_round(worker, traffic, waves: int = 3, clients: int = 4, wave_steps: int = 12, limit_s: float = 300.0):
+    """Submit `traffic` through a BatchTextWorker from `clients` threads in
+    `waves` waves, wave w once the engine has run w * wave_steps steps (so
+    later admissions land mid-flight); wait for every request, for at most
+    `limit_s` seconds in all (a request still open then counts as failed).
+    Returns (items in traffic order, wall seconds from the first submit to
+    the last completion)."""
+    import threading
+
+    clock = worker.engine.step
+    items = [None] * len(traffic)
+    per_wave = len(traffic) // waves
+    deadline = time.perf_counter() + limit_s
+
+    def client(k):
+        for w in range(waves):
+            while len(clock.steps) < w * wave_steps and worker.failure is None and time.perf_counter() < deadline:
+                time.sleep(0.002)
+            for j in range(w * per_wave + k, (w + 1) * per_wave if w < waves - 1 else len(traffic), clients):
+                items[j] = worker.submit(traffic[j][0], SERVE_NEW_TOKENS, traffic[j][1])
+        for j in range(k, len(traffic), clients):
+            while items[j] is None:
+                time.sleep(0.002)
+        for j in range(k, len(traffic), clients):
+            items[j]["event"].wait(max(0.0, deadline - time.perf_counter()))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return items, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def forced_tokens(torch, engine, traffic, want):
+    """Teacher forcing of a dense-pool engine for the block: each request of
+    `traffic` (told apart by its prompt) is fed the tokens `want[j]`, and at
+    every one of them the engine's own argmax is recorded against it. Yields
+    records (request j, token index k, argmax == want[j][k], margin of the
+    max logit over want[j][k]'s logit, the row's max |logit|)."""
+    import numpy as np
+
+    from mingunivision_tpu_torch.engine import batch_engine
+
+    index = {np.asarray(ids, np.int64).tobytes(): j for j, (ids, _) in enumerate(traffic)}
+    records, current = [], {}
+    add, first_fn, per_slot_fn = engine.add_request, batch_engine.sample_token, batch_engine.sample_token_per_slot
+
+    def note(logits, rows, js, ks):
+        forced = torch.tensor([want[j][k] for j, k in zip(js, ks)], device=logits.device)
+        lg = logits[rows].float()
+        top, arg = lg.max(-1)
+        margin = top - lg.gather(1, forced[:, None])[:, 0]
+        for rec in zip(js, ks, (arg == forced).tolist(), margin.tolist(), lg.abs().amax(-1).tolist()):
+            records.append(rec)
+        return forced
+
+    def add_request(ids, *args, **kwargs):
+        current["j"] = index[np.asarray(ids, np.int64).reshape(-1).tobytes()]
+        return add(ids, *args, **kwargs)
+
+    def first_token(logits, generator=None, **kwargs):  # the admission prefill's token
+        return note(logits, [0], [current["j"]], [0])
+
+    def step_tokens(logits, generator=None, **kwargs):
+        out = logits.argmax(-1)
+        slots = [s for s, req in engine.slot_req.items() if engine.active[s]]
+        if slots:
+            reqs = [engine.slot_req[s] for s in slots]
+            out[slots] = note(logits, slots, [index[np.asarray(r.input_ids, np.int64).tobytes()] for r in reqs],
+                              [len(r.tokens) for r in reqs])
+        return out
+
+    engine.add_request = add_request
+    batch_engine.sample_token, batch_engine.sample_token_per_slot = first_token, step_tokens
+    try:
+        yield records
+    finally:
+        batch_engine.sample_token, batch_engine.sample_token_per_slot = first_fn, per_slot_fn
+        del engine.add_request
+
+
+@contextlib.contextmanager
+def held_against_plain(torch, entries, return_plain: bool = False):
+    """For the block, every call of the named entries runs the kernel and its
+    plain version on the same inputs and returns the kernel's output (the
+    plain one with `return_plain`); yields name -> [max |kernel - plain| /
+    max |plain| per call] over the rows `rows(args)` selects."""
+    errs = {name: [] for name in entries}
+    saved = []
+    for name, (mod, attr, plain, rows) in entries.items():
+        kernel = getattr(mod, attr)
+        saved.append((mod, attr, kernel))
+
+        def both(*args, _kernel=kernel, _plain=plain, _rows=rows, _name=name, **kwargs):
+            out = _kernel(*args, **kwargs)
+            ref = _plain(*args, **kwargs)
+            sel = _rows(args)
+            diff = (out[sel].float() - ref[sel].float()).abs().max()
+            errs[_name].append(float(diff / ref[sel].float().abs().max().clamp_min(1e-30)) if sel.any() else 0.0)
+            return ref if return_plain else out
+        setattr(mod, attr, both)
+    try:
+        yield errs
+    finally:
+        for mod, attr, kernel in saved:
+            setattr(mod, attr, kernel)
+
+
+def run_serve_check(torch, device) -> bool:
+    """Where the two serving pools part, on the bf16 full-width model with the
+    serve phase's traffic: the paged pool with its paged-attention and
+    decode-MoE kernels held against their plain versions at every call, then
+    the dense pool fed the paged pool's tokens with its decode-attention and
+    decode-MoE kernels held the same way; the forced-token margins by request
+    kind (shared system prompt or not) and by token index."""
+    import types
+
+    import numpy as np
+
+    from mingunivision_tpu_torch.config import MingUniVisionConfig, RuntimeConfig
+    from mingunivision_tpu_torch.engine import batch_engine, paged
+    from mingunivision_tpu_torch.engine.session import MingUniVisionSession
+    from mingunivision_tpu_torch.models import bailing_moe as bm
+    from mingunivision_tpu_torch.ops.kernels.decode_attention import decode_attention_plain
+    from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream_plain
+    from mingunivision_tpu_torch.ops.kernels.paged_attention import paged_gather_attention
+    from mingunivision_tpu_torch.serving.server import InferenceServer
+
+    cfg = MingUniVisionConfig()
+    params = full_model(torch, cfg, device)
+    steer_text_head(params, cfg)
+    runtime = RuntimeConfig()
+    infer = types.SimpleNamespace(params=params, config=cfg, runtime=runtime, processor=None,
+                                  session=MingUniVisionSession(params, cfg, runtime, device=device))
+    traffic = serve_traffic(cfg)
+    every_row = lambda args: torch.ones(args[1].shape[0], dtype=torch.bool, device=args[1].device)  # noqa: E731
+    moe = (bm, "moe_experts_stream", moe_experts_stream_plain, every_row)
+
+    def pool(**kw):
+        srv = InferenceServer(infer, batch_slots=SERVE_SLOTS, batch_max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE, **kw)
+        StepClock(srv.batch_worker.engine)
+        return srv
+
+    srv = pool(prefix_cache=True)
+    entries = {"paged_attention": (paged, "paged_decode_attention", paged_gather_attention, lambda a: a[4] > 0),
+               "decode_moe": moe}
+    try:
+        with held_against_plain(torch, entries) as errs:
+            items, _ = serve_round(srv.batch_worker, traffic)
+    finally:
+        srv.batch_worker.stop()
+    tokens = [it["req"].tokens for it in items]
+    print("serve_check paged pool, kernel vs plain in context (max over calls of max err / max |plain|): "
+          + ", ".join(f"{k} {max(v):.3e} over {len(v)} calls" for k, v in errs.items()))
+    srv = pool(paged_kv=False)
+    entries = {"decode_attention": (batch_engine, "decode_attention", decode_attention_plain,
+                                    lambda a: a[3].any(-1)), "decode_moe": moe}
+    try:
+        with held_against_plain(torch, entries) as errs, \
+                forced_tokens(torch, srv.batch_worker.engine, traffic, tokens) as records:
+            serve_round(srv.batch_worker, traffic)
+    finally:
+        srv.batch_worker.stop()
+    print("serve_check dense pool fed the paged tokens, kernel vs plain in context: "
+          + ", ".join(f"{k} {max(v):.3e} over {len(v)} calls" for k, v in errs.items()))
+    for kind, js in (("shared prompt", [j for j in range(len(traffic)) if j % 2 == 0 and j % 6 != 5]),
+                     ("own prompt", [j for j in range(len(traffic)) if j % 2 == 1 and j % 6 != 5])):
+        rec = [r for r in records if r[0] in js]
+        off = [r for r in rec if not r[2]]
+        print(f"serve_check forced margins, {kind} ({len(js)} greedy requests): argmax != paged token at "
+              f"{len(off)} of {len(rec)} tokens; margin / max |logit| of those: "
+              + " ".join(f"j{j}k{k}:{m / sc:.2e}" for j, k, _, m, sc in off[:40]))
+    return True
+
+
+def run_serve(torch, cfg, params, device, results: dict, tier="bfloat16", steered=False) -> bool:
+    """Continuous-batching text serving at full width on the tier's model
+    (see the module docstring, phase 10). The LM head is steered as in
+    `understand` (done there already when that phase ran), so greedy argmax
+    gaps are far wider than bf16 rounding and the dense and paged pools, whose
+    attention kernels round differently, must agree token for token."""
+    import types
+
+    import numpy as np
+
+    from mingunivision_tpu_torch.config import RuntimeConfig
+    from mingunivision_tpu_torch.engine import batch_engine, paged
+    from mingunivision_tpu_torch.engine.session import MingUniVisionSession
+    from mingunivision_tpu_torch.ops.kernels.decode_attention import decode_attention_plain
+    from mingunivision_tpu_torch.ops.kernels.paged_attention import paged_gather_attention
+    from mingunivision_tpu_torch.serving.server import InferenceServer
+
+    if not steered:
+        steer_text_head(params, cfg)
+    L = cfg.llm.num_hidden_layers
+    runtime = RuntimeConfig()
+    infer = types.SimpleNamespace(params=params, config=cfg, runtime=runtime, processor=None,
+                                  session=MingUniVisionSession(params, cfg, runtime, device=device))
+    traffic = serve_traffic(cfg)
+    greedy = [j for j, (_, kw) in enumerate(traffic) if not kw]
+    step_fn, decode_steps = paged.paged_decode_step, [0]
+
+    def counted_step(*args, **kwargs):
+        decode_steps[0] += 1
+        return step_fn(*args, **kwargs)
+
+    def pool(**kw):
+        srv = InferenceServer(infer, batch_slots=SERVE_SLOTS, batch_max_len=SERVE_MAX_LEN, page_size=SERVE_PAGE, **kw)
+        return srv, StepClock(srv.batch_worker.engine)
+
+    checks, label = [], f"serve_{tier}"
+    # 1. the paged pool with the prefix cache, through the server's worker
+    srv, clock = pool(prefix_cache=True)
+    eng = srv.batch_worker.engine
+    paged.paged_decode_step = counted_step
+    try:
+        (items, wall_s), launches, peak = counted_round(torch, results, label, lambda: serve_round(srv.batch_worker,
+                                                                                                  traffic))
+    finally:
+        paged.paged_decode_step = step_fn
+        srv.batch_worker.stop()
+    pool_gib = (eng.state.k_pages.nbytes + eng.state.v_pages.nbytes) / 2**30
+    ok_items = all(it.get("error") is None and it["req"] is not None and it["req"].done for it in items)
+    tokens = [it["req"].tokens if ok_items else [] for it in items]
+    n_tok = sum(len(t) for t in tokens)
+    ttft = sorted((it["t_first"] - it["t_submit"]) * 1e3 for it in items if "t_first" in it)
+    decode_moe = tier_kernels(tier)[0]
+    steps = decode_steps[0]
+    checks += [("24 requests served", ok_items),
+               (f"{SERVE_NEW_TOKENS} tokens each", all(len(t) == SERVE_NEW_TOKENS for t in tokens)),
+               (f"paged_attention launches {launches['paged_attention']} == {L} x {steps} steps",
+                launches["paged_attention"] == L * steps > 0),
+               (f"{decode_moe} launches {launches[decode_moe]} == {L} x {steps} steps",
+                launches[decode_moe] == L * steps),
+               (f"prefix hit tokens {eng.prefix_hit_tokens} >= 256", eng.prefix_hit_tokens >= 256)]
+    checks += [(f"{name} launches {n} == 0", n == 0) for name, n in launches.items()
+               if name not in ("paged_attention", decode_moe, tier_kernels(tier)[1], "moe_capacity")]
+    by_active = {}
+    for active, ms in clock.steps:
+        by_active.setdefault(active, []).append(ms)
+    print(f"{label} paged pool: {len(traffic)} requests ({len(greedy)} greedy, {len(traffic) - len(greedy)} sampled), "
+          f"{n_tok} tokens in {wall_s:.3f} s = {n_tok / wall_s:.1f} tokens/s; {steps} engine steps; "
+          f"ttft_ms median {statistics.median(ttft):.1f} p90 {ttft[int(0.9 * (len(ttft) - 1))]:.1f}; prefix hit "
+          f"{eng.prefix_hit_tokens} / miss {eng.prefix_miss_tokens} tokens; stalls {eng.stalls}; launches per step "
+          f"paged_attention {launches['paged_attention'] / max(steps, 1):.1f} {decode_moe} "
+          f"{launches[decode_moe] / max(steps, 1):.1f}; pool_gib={pool_gib:.3f} "
+          f"max_memory_allocated_gib={peak / 2**30:.3f}")
+    print(f"{label} ms per engine step by active slots [active: median ms (steps)]: " + ", ".join(
+        f"{a}: {statistics.median(v):.2f} ({len(v)})" for a, v in sorted(by_active.items())))
+    results["paged_attention"]["launches"] = launches["paged_attention"]
+
+    # 2. ms per step at exactly 1, 4, 8 and 16 active slots: that many 256-id requests, 8 steps each; then
+    # 2 steps under the profiler: device busy ms per step and the paged kernel's part of it
+    from torch.profiler import ProfilerActivity, profile
+
+    step_ms, busy = {}, {}
+    eng = paged.PagedBatchingEngine(params["llm"], cfg.llm, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                                    page_size=SERVE_PAGE, dtype=torch.bfloat16, device=device)
+    prompts = np.random.default_rng(2).integers(2000, cfg.llm.vocab_size - 1000, (16, 256))
+    for n in (1, 4, 8, 16):
+        reqs = [eng.add_request(prompts[j], 12) for j in range(n)]
+        times = []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            eng.step()
+            times.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                eng.step()
+        kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        busy[n] = (sum(e.self_device_time_total for e in kernels) / 2e3,
+                     sum(e.self_device_time_total for e in kernels if "paged_attention" in e.key) / 2e3)
+        eng.run_to_completion()
+        step_ms[n] = statistics.median(times)
+        checks.append((f"{n} requests of 12 tokens", all(len(r.tokens) == 12 for r in reqs)))
+    print(f"{label} ms per engine step at 1 / 4 / 8 / 16 active slots (256-id prompts): "
+          + " / ".join(f"{step_ms[n]:.2f}" for n in (1, 4, 8, 16)) + "; device busy ms per step (profiled) "
+          + " / ".join(f"{busy[n][0]:.3f}" for n in (1, 4, 8, 16)) + ", of which paged attention "
+          + " / ".join(f"{busy[n][1]:.3f}" for n in (1, 4, 8, 16)))
+    del eng
+
+    # 3. the same requests on the dense pool (its tokens/s). Free-running, its greedy streams part from the
+    # paged pool's: the two attention kernels round differently in bf16, and this random model at full depth
+    # turns that into another argmax at 4-19% of the tokens (`--phases serve_check`). So the pools are held to
+    # the same tokens with the same attention arithmetic: both serve the greedy requests once more (the paged
+    # pool without the prefix cache, so every prompt is prefilled alike) with attention taken from the plain
+    # versions, each call also run through its kernel and held against them; the tokens must then be equal,
+    # request by request, and every kernel call within REL_TOL
+    srv, _ = pool(paged_kv=False)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        d_items, d_wall = serve_round(srv.batch_worker, traffic)
+    finally:
+        srv.batch_worker.stop()
+    d_ok = all(it.get("error") is None and it["req"] is not None and it["req"].done for it in d_items)
+    d_tok = sum(len(it["req"].tokens) for it in d_items) if d_ok else 0
+    parts = [next((k for k, (a, b) in enumerate(zip(d_items[j]["req"].tokens, tokens[j])) if a != b), len(tokens[j]))
+             if d_ok and ok_items else -1 for j in greedy]
+    print(f"{label} dense pool: {d_tok} tokens in {d_wall:.3f} s = {d_tok / d_wall:.1f} tokens/s (paged "
+          f"{n_tok / wall_s:.1f}); pool_gib={srv.batch_worker.engine.state.k.nbytes * 2 / 2**30:.3f} "
+          f"max_memory_allocated_gib={torch.cuda.max_memory_allocated() / 2**30:.3f}; free-running greedy "
+          f"streams equal to the paged pool's: {sum(p == SERVE_NEW_TOKENS for p in parts)} of {len(greedy)}, "
+          f"first differing token per request {parts}")
+    greedy_traffic = [traffic[j] for j in greedy]
+    same_arith = {}
+    for kind, kw, entry in (
+            ("paged", {}, (paged, "paged_decode_attention", paged_gather_attention, lambda a: a[4] > 0)),
+            ("dense", {"paged_kv": False},
+             (batch_engine, "decode_attention", decode_attention_plain, lambda a: a[3].any(-1)))):
+        srv, _ = pool(**kw)
+        try:
+            with held_against_plain(torch, {kind: entry}, return_plain=True) as errs:
+                items_k, _ = serve_round(srv.batch_worker, greedy_traffic)
+        finally:
+            srv.batch_worker.stop()
+        same_arith[kind] = ([it["req"].tokens if it["req"] is not None else None for it in items_k],
+                            max(errs[kind], default=float("inf")), len(errs[kind]))
+    (p_tok, p_err, p_calls), (d_tok2, d_err, d_calls) = same_arith["paged"], same_arith["dense"]
+    equal = [a is not None and a == b for a, b in zip(p_tok, d_tok2)]
+    checks += [(f"same attention arithmetic: dense greedy tokens == paged, {sum(equal)} of {len(equal)} requests",
+                all(equal)),
+               (f"paged_attention in the serving pool within {p_err:.3e} <= {REL_TOL} of its plain version at all "
+                f"{p_calls} calls", p_err <= REL_TOL),
+               (f"decode_attention in the serving pool within {d_err:.3e} <= {REL_TOL} of its plain version at all "
+                f"{d_calls} calls", d_err <= REL_TOL)]
+
+    # 4. a starved paged pool: 40 pages for 16 requests of 65-126 ids (2 pages each at admission, a third
+    # while decoding), so slots stall until others finish and resume
+    rng = np.random.default_rng(1)
+    starved = [(rng.integers(2000, cfg.llm.vocab_size - 1000, int(rng.integers(65, 127))), {}) for _ in range(16)]
+    srv, _ = pool(num_pages=40)
+    try:
+        s_items, s_wall = serve_round(srv.batch_worker, starved, waves=1)
+    finally:
+        srv.batch_worker.stop()
+    s_eng = srv.batch_worker.engine
+    s_ok = all(it.get("error") is None and it["req"] is not None and it["req"].done
+               and len(it["req"].tokens) == SERVE_NEW_TOKENS for it in s_items)
+    checks += [("starved pool: every request finished", s_ok), (f"stalls {s_eng.stalls} >= 1", s_eng.stalls >= 1)]
+    print(f"{label} starved paged pool (40 pages x {SERVE_PAGE}, 16 slots): {len(starved)} requests in "
+          f"{s_wall:.3f} s, stalls {s_eng.stalls}")
     return report(label, launches, checks)
 
 
@@ -1351,7 +1922,7 @@ def jax_modules():
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="device,build,kernels,reference,slice,slice_int4,understand,edit,recon")
+    ap.add_argument("--phases", default="device,build,kernels,reference,slice,slice_int4,understand,edit,recon,serve")
     ap.add_argument("--tier", default="bfloat16", choices=("bfloat16", "int4"),
                     help="the tier of the profile, profile_understand and routing phases")
     args = ap.parse_args(argv)
@@ -1402,6 +1973,7 @@ def main(argv=None) -> int:
         ok &= run_reference(torch, cuda, "int4")
         ok &= run_reference_image(torch, cuda)
         ok &= run_reference_image(torch, cuda, "int4")
+        ok &= run_reference_serve(torch, cuda)
     if "divergence" in phases:
         ok &= run_divergence(torch, cuda)
     if "rf_sensitivity" in phases:
@@ -1409,7 +1981,7 @@ def main(argv=None) -> int:
     if "recon" in phases:
         ok &= run_recon(torch, MingUniVisionConfig(), cuda, results)
     for tier, slice_phase in (("bfloat16", "slice"), ("int4", "slice_int4")):
-        if not phases & {slice_phase, "understand", "edit"}:
+        if not phases & {slice_phase, "understand", "edit", "serve"}:
             continue
         cfg = MingUniVisionConfig()
         params = full_model(torch, cfg, cuda, tier)  # built once for the tier's phases
@@ -1417,14 +1989,19 @@ def main(argv=None) -> int:
             ok &= run_slice(torch, cfg, params, cuda, results, tier)
         if "edit" in phases:
             ok &= run_edit(torch, cfg, params, cuda, results, tier)
-        if "understand" in phases:  # last: it steers the LM head towards text
+        if "understand" in phases:  # it steers the LM head towards text
             ok &= run_understand(torch, cfg, params, cuda, results, tier)
+        if "serve" in phases:
+            ok &= run_serve(torch, cfg, params, cuda, results, tier, steered="understand" in phases)
         del params
+        gc.collect()  # a tier's tree is held by reference cycles of the serving phase (engine <-> step clock)
         torch.cuda.empty_cache()
     if "routing" in phases:
         ok &= run_routing(torch, MingUniVisionConfig(), cuda, args.tier)
     if "profile" in phases:
         ok &= run_profile(torch, MingUniVisionConfig(), cuda, args.tier)
+    if "serve_check" in phases:
+        ok &= run_serve_check(torch, cuda)
     if "profile_understand" in phases:
         ok &= run_profile_understand(torch, MingUniVisionConfig(), cuda, args.tier)
     if jax_modules():

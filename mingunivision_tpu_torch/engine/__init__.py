@@ -1,1 +1,2 @@
-"""Prefill, decode and image-generation loops, and the multi-round session."""
+"""Prefill, decode and image-generation loops, the multi-round session, and the continuous-batching
+engines over a dense and a paged KV pool."""

@@ -71,6 +71,7 @@ class MingUniVisionSession:
     def reset_inner_state(self):
         S = self.runtime.max_seq_len
         self.cache: Optional[LLMCache] = None
+        self._last_token: Optional[int] = None
         self.mask = torch.zeros((1, S), dtype=torch.bool, device=self.device)
         self.uncond_mask = torch.zeros_like(self.mask)
         self.text_uncond_mask = torch.zeros_like(self.mask)
@@ -179,17 +180,65 @@ class MingUniVisionSession:
             budget -= len(res.tokens) - 1
             cur = res.tokens[-1]
 
+        self._last_token, self._prompt_end = cur, prompt_end  # what continue_decode resumes from
         # persisted-mask bookkeeping for the next round
-        if self.runtime.past_mode == "KEEP":
-            pos = torch.arange(self.runtime.max_seq_len, device=self.device)[None, :]
-            self.text_uncond_mask = torch.where(pos < prompt_end, self.text_uncond_mask, self.mask)
-        else:  # DROP (default)
+        if self.runtime.past_mode != "KEEP":  # DROP (default)
             self.uncond_mask = cond_prompt_mask
-            self.text_uncond_mask = self.mask.clone()
+        self._keep_text_uncond_mask(prompt_end)
         self.seq_len = self.cache.length
         self.last_hidden_states = (
             torch.cat(hidden_chunks).cpu().numpy() if hidden_chunks else np.zeros((0, llm_cfg.hidden_size), np.float32)
         )
+        return RoundOutput(out_tokens, images)
+
+    def _keep_text_uncond_mask(self, prompt_end: int):
+        """The text-uncond mask follows the cond mask past the prompt (KEEP) or everywhere (DROP)."""
+        if self.runtime.past_mode == "KEEP":
+            pos = torch.arange(self.runtime.max_seq_len, device=self.device)[None, :]
+            self.text_uncond_mask = torch.where(pos < prompt_end, self.text_uncond_mask, self.mask)
+        else:
+            self.text_uncond_mask = self.mask.clone()
+
+    def continue_decode(self, max_new_tokens: int, generation: Optional[GenerationConfig] = None) -> RoundOutput:
+        """Resume decoding where the last round stopped (streaming chunks): feed
+        the last token of the round, already reported, and decode on, as the
+        JAX session does: a chunk of n reports at most n - 1 new tokens. Valid
+        after a round that ended on its token budget, not on <eos>."""
+        gen = generation or GenerationConfig(max_new_tokens=max_new_tokens)
+        if self._last_token is None:
+            raise RuntimeError("no round to continue")
+        llm_cfg = self.cfg.llm
+        cur = self._last_token
+        out_tokens: List[int] = []
+        images: List[np.ndarray] = []
+        budget = max_new_tokens
+        reported = True  # the previous round reported its last token
+        while budget > 0:
+            if not reported:
+                out_tokens.append(cur)
+            reported = False
+            budget -= 1
+            if cur == llm_cfg.eos_token_id:
+                break
+            if cur == llm_cfg.image_start_token:
+                cur, image = self._run_image_phase(cur, self._prompt_end, self.cfg.image_gen)
+                images.append(image)
+                continue
+            if budget <= 0:
+                break
+            res = decode_text(self.params["llm"], llm_cfg, cur, self.cache, self.mask, self.generator,
+                              max_steps=budget, do_sample=gen.do_sample, temperature=gen.temperature,
+                              top_k=gen.top_k, top_p=gen.top_p)
+            self.cache, self.mask = res.cache, res.mask
+            self.seq_len = self.cache.length
+            if not res.tokens:
+                break
+            out_tokens.extend(res.tokens[:-1])
+            budget -= len(res.tokens) - 1
+            cur = res.tokens[-1]
+        self._last_token = cur
+        self.seq_len = self.cache.length
+        self._keep_text_uncond_mask(self._prompt_end)  # a streamed round is one round in chunks
         return RoundOutput(out_tokens, images)
 
     def _run_image_phase(self, image_start_token: int, prompt_end: int, igen: ImageGenConfig):

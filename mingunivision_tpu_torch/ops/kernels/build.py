@@ -38,6 +38,7 @@ _SIGNATURES = {
     "mu_rf_sampler_grid": [],
     "mu_flash_prefill_bf16": [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P],
     "mu_flash_vit_bf16": [_P] * 4 + [_I] * 4 + [ctypes.c_float, _P],
+    "mu_paged_attention_bf16": [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P],
 }
 
 _lib = None

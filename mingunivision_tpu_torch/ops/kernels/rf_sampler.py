@@ -39,7 +39,7 @@ from mingunivision_tpu_torch.ops.kernels import build
 from mingunivision_tpu_torch.ops.kernels.intdot import div_exact, mm4_s8, quant_rows_s8_pair, silu_exact
 from mingunivision_tpu_torch.utils.quantize import dequant_weight, is_int4_linear
 
-MAX_ROWS = 4  # CFG rows the kernel holds (3 for an edit, 2 for text-to-image)
+MAX_ROWS = 4  # rows one launch holds (3 CFG rows for an edit, 2 for text-to-image); more go in groups
 THREADS = 256  # the kernel's block: the plain version sums in its order
 
 
@@ -177,8 +177,34 @@ def rf_sample_fused_plain(params, cfg, noise, block_mods, final_mods, dts, text_
 
 def rf_sample_fused(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, *, cfg_rows: int,
                     renorm_channel: bool, compute_dtype=torch.bfloat16):
-    """One launch of the CUDA kernel for the whole Euler sample (see the module
-    docstring). Arguments as `rf_sample_fused_plain`; returns (B, C) fp32."""
+    """The whole Euler sample (see the module docstring): one launch of the
+    CUDA kernel per group of images whose CFG rows fit its MAX_ROWS (each
+    image's block-major rows {i, n + i, 2n + i} gathered, the results
+    scattered back: the rows of different images never mix, so the groups
+    give the ungrouped result). Arguments as `rf_sample_fused_plain`; returns
+    (B, C) fp32."""
+    B = noise.shape[0]
+    if cfg_rows not in (1, 2, 3) or B % cfg_rows:
+        raise ValueError(f"rf_sample_fused: {B} rows do not split into cfg_rows={cfg_rows}")
+    n = B // cfg_rows
+    per = max(1, MAX_ROWS // cfg_rows)  # images per launch
+    if n <= per:
+        return _rf_sample_group(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg,
+                                cfg_rows=cfg_rows, renorm_channel=renorm_channel, compute_dtype=compute_dtype)
+    out = torch.empty((B, noise.shape[1]), dtype=torch.float32, device=noise.device)
+    for i0 in range(0, n, per):
+        images = torch.arange(i0, min(i0 + per, n), device=noise.device)
+        rows = (torch.arange(cfg_rows, device=noise.device)[:, None] * n + images[None, :]).reshape(-1)
+        out[rows] = _rf_sample_group(params, cfg, noise[rows], block_mods[:, :, rows], final_mods[:, rows], dts,
+                                     text_cfg, image_cfg, cfg_rows=cfg_rows, renorm_channel=renorm_channel,
+                                     compute_dtype=compute_dtype)
+    return out
+
+
+def _rf_sample_group(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, *, cfg_rows: int,
+                     renorm_channel: bool, compute_dtype):
+    """One launch of the CUDA kernel over at most MAX_ROWS block-major rows
+    (the plain version for CPU tensors)."""
     if noise.device.type == "cpu":
         return rf_sample_fused_plain(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg,
                                      cfg_rows=cfg_rows, renorm_channel=renorm_channel, compute_dtype=compute_dtype)
@@ -190,8 +216,8 @@ def rf_sample_fused(params, cfg, noise, block_mods, final_mods, dts, text_cfg, i
     B, C = noise.shape
     S = dts.shape[0]
     dev = noise.device
-    if B > MAX_ROWS or cfg_rows not in (1, 2, 3) or B % cfg_rows or w % 64 or H % 64 or C > 128:
-        raise ValueError(f"rf_sample_fused: needs at most {MAX_ROWS} rows split into 1-3 CFG rows, width and "
+    if B > MAX_ROWS or w % 64 or H % 64 or C > 128:
+        raise ValueError(f"rf_sample_fused: needs at most {MAX_ROWS} rows per launch, width and "
                          f"hidden multiples of 64 and at most 128 channels (B={B}, w={w}, H={H}, C={C})")
     if tuple(o["q3"].shape) != (L, H // 2, w) or o["q12"].dtype != torch.uint8 or o["q3"].dtype != torch.uint8:
         raise ValueError("rf_sample_fused: w12/w3 must be packed uint8 (L, w/2, 2H) / (L, H/2, w) tables")
@@ -215,7 +241,7 @@ def rf_sample_fused(params, cfg, noise, block_mods, final_mods, dts, text_cfg, i
         float(text_cfg), float(image_cfg), float(cfg.ln_eps), build.stream_handle(noise),
     )
     build.check(rc, "mu_rf_sampler_q4s8")
-    rf_sample_fused.launches += 1
+    rf_sample_fused.launches += 1  # one per kernel launch
     return out
 
 

@@ -55,3 +55,12 @@ def preprocess_generation(img, image_size: int = 512, mean=0.5, std=0.5) -> np.n
     top = int(round((nh - image_size) / 2.0))
     pil = pil.crop((left, top, left + image_size, top + image_size))
     return normalize_chw(np.asarray(pil), mean, std)
+
+
+def tensor_to_image(x: np.ndarray) -> np.ndarray:
+    """Model output (3, H, W) in [-1, 1] -> uint8 (H, W, 3): x / 2 + 0.5, clipped."""
+    x = np.asarray(x, np.float32)
+    if x.ndim == 4:
+        x = x[0]
+    x = np.clip((x / 2.0 + 0.5) * 255.0, 0, 255).astype(np.uint8)
+    return np.transpose(x, (1, 2, 0))

@@ -2,7 +2,7 @@
 on the card, in bf16 (the int4 kernels on int4 tables of the same weights;
 the RF sampler to the bit, since its plain version sums in its order; both
 flash-attention entry points; the prefill MoE kernels also through the
-capacity-dense dispatch). The
+capacity-dense dispatch; paged decode attention through block tables). The
 kernels have no CPU mode, so every test here is marked `cuda` and skips
 without a card. Imports torch and the port only (the
 card's machine has no JAX):
@@ -37,7 +37,8 @@ from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import (
     moe_experts_swiglu_gmm_plain,
     moe_experts_swiglu_gmm_q4,
 )
-from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused, rf_sample_fused_plain
+from mingunivision_tpu_torch.ops.kernels.paged_attention import paged_decode_attention, paged_gather_attention
+from mingunivision_tpu_torch.ops.kernels.rf_sampler import MAX_ROWS, rf_sample_fused, rf_sample_fused_plain
 from mingunivision_tpu_torch.utils.convert import _Init, init_rf_head_params
 from mingunivision_tpu_torch.utils.quantize import quantize_array, quantize_tree_inplace
 
@@ -186,6 +187,87 @@ def test_rf_sampler_kernel_matches_plain(dev, rows, renorm):
     torch.cuda.synchronize()
     assert rf_sample_fused.launches == before + 1
     torch.testing.assert_close(got, rf_sample_fused_plain(*args, **kw), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("cfg_rows,n_img,renorm", [(3, 2, True), (2, 4, False)], ids=["2img-x3rows", "4img-x2rows"])
+def test_rf_sampler_kernel_over_more_rows_than_one_launch(dev, cfg_rows, n_img, renorm):
+    """More block-major rows than one launch holds: one launch per group of
+    whole images, the same bits as the plain version over all rows."""
+    cfg = RFHeadConfig(target_channels=8, z_channels=32, width=192, depth=2, mlp_mult=4, num_sampling_steps=4)
+    g = torch.Generator(device=dev).manual_seed(8)
+    rf = init_rf_head_params(cfg, _Init(dev, torch.bfloat16, g))
+    for leaf in (rf["res_blocks"]["adaLN"], rf["final_layer"]["adaLN"], rf["final_layer"]["linear"]):
+        leaf["w"].normal_(0.0, 0.05, generator=g)
+    quantize_tree_inplace(rf, bits=4, min_size=1024)
+    ts, dts = _time_grid(cfg, None, device=dev)
+    B = cfg_rows * n_img
+    z = torch.randn(B, cfg.z_channels, device=dev, generator=g).to(torch.bfloat16)
+    block_mods, final_mods = precompute_modulations(rf, cfg, ts, z)
+    noise = torch.randn(n_img, cfg.target_channels, device=dev, generator=g).repeat(cfg_rows, 1)
+    args = (rf, cfg, noise, block_mods, final_mods, dts, 3.0, 1.1)
+    kw = dict(cfg_rows=cfg_rows, renorm_channel=renorm, compute_dtype=torch.bfloat16)
+    before = rf_sample_fused.launches
+    got = rf_sample_fused(*args, **kw)
+    torch.cuda.synchronize()
+    per = MAX_ROWS // cfg_rows
+    assert rf_sample_fused.launches == before + -(-n_img // per)
+    torch.testing.assert_close(got, rf_sample_fused_plain(*args, **kw), rtol=0, atol=0)
+
+
+def _paged_inputs(dev, B, Hq=16, Hkv=4, D=128, page=64, maxp=32, seed=13):
+    """Lengths cycling through 0, 1, 63, 64, 65, 700, 2047; shuffled page ids,
+    rows 0 and 1 sharing their first two pages; the scratch page, the tails
+    of the last pages and the unused pages filled with +-1e4."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cycle = [0, 1, 63, 64, 65, 700, 2047]
+    lengths = torch.tensor([cycle[(b + 3) % len(cycle)] for b in range(B)], dtype=torch.int32)
+    if B > 1:
+        lengths[:2] = torch.tensor([700, 2047], dtype=torch.int32)
+    need = [-(-int(n) // page) for n in lengths]
+    P = sum(need) + 2
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(seed)).tolist()
+    tables = torch.full((B, maxp), P, dtype=torch.int32)
+    for b in range(B):
+        if b == 1:
+            ids = tables[0, :2].tolist() + [perm.pop() for _ in range(need[b] - 2)]
+        else:
+            ids = [perm.pop() for _ in range(need[b])]
+        tables[b, : need[b]] = torch.tensor(ids, dtype=torch.int32)
+    kp, vp = (torch.full((Hkv, P + 1, page, D), 1e4, device=dev).to(torch.bfloat16) for _ in range(2))
+    vp.neg_()
+    for b in range(B):
+        for i in range(need[b]):
+            valid = min(page, int(lengths[b]) - i * page)
+            pid = int(tables[b, i])
+            kp[:, pid, :valid] = torch.randn(Hkv, valid, D, device=dev, generator=g).to(torch.bfloat16)
+            vp[:, pid, :valid] = torch.randn(Hkv, valid, D, device=dev, generator=g).to(torch.bfloat16)
+    q = torch.randn(B, 1, Hq, D, device=dev, generator=g).to(torch.bfloat16)
+    return q, kp, vp, tables.to(dev), lengths.to(dev)
+
+
+@pytest.mark.parametrize("B", [1, 7, 16])
+def test_paged_attention_kernel_matches_plain(dev, B):
+    q, kp, vp, tables, lengths = _paged_inputs(dev, B)
+    before = paged_decode_attention.launches
+    got = paged_decode_attention(q, kp, vp, tables, lengths)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    want = paged_gather_attention(q, kp, vp, tables, lengths)
+    _close_bf16(got, want)
+    assert not got[lengths == 0].any()  # a row of length 0 gives zeros
+
+
+def test_paged_attention_raises_on_unsupported_input(dev):
+    q, kp, vp, tables, lengths = _paged_inputs(dev, 2, Hq=8, Hkv=2, D=64, page=32, maxp=64)
+    before = paged_decode_attention.launches
+    bad = [(q[..., :48], kp[..., :48], vp[..., :48], tables, lengths),  # head_dim 48 is not built
+           (q, kp, vp, tables.long(), lengths),  # int64 tables
+           (q.repeat(1, 1, 9, 1), kp, vp, tables, lengths),  # 72 query heads over 2 kv heads: G = 36 > 8
+           (q, kp.transpose(0, 1).contiguous().transpose(0, 1), vp, tables, lengths)]  # a non-contiguous pool
+    for args in bad:
+        with pytest.raises(ValueError):
+            paged_decode_attention(*args)
+    assert paged_decode_attention.launches == before  # nothing was launched, nothing fell back
 
 
 @pytest.mark.parametrize("T,pads,Hq,Hkv,D", [(1152, 92, 16, 4, 128), (512, 0, 16, 4, 128), (640, 37, 4, 4, 64),

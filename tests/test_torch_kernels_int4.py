@@ -22,7 +22,7 @@ from mingunivision_tpu.utils.quantize import quantize_array, quantize_tree
 from mingunivision_tpu_torch.ops.kernels import intdot
 from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream, moe_experts_stream_q4s8_plain
 from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm, moe_experts_swiglu_gmm_q4_plain
-from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused, rf_sample_fused_plain
+from mingunivision_tpu_torch.ops.kernels.rf_sampler import MAX_ROWS, rf_sample_fused, rf_sample_fused_plain
 from mingunivision_tpu_torch.utils.convert import params_from_jax
 
 # fp32 results of the same integer dots and the same fp32 epilogue, summed in
@@ -163,3 +163,30 @@ def test_rf_sample_fused_plain_matches_pallas(rf_setup, cfg_rows, n_img, renorm,
     _close(got.numpy(), want)
     np.testing.assert_array_equal(rf_sample_fused(*args, compute_dtype=getattr(torch, dtype), **kw).numpy(),
                                   got.numpy())
+
+
+@pytest.mark.parametrize("cfg_rows,n_img,renorm", [(3, 2, "channel"), (2, 4, None)], ids=["2img-x3rows", "4img-x2rows"])
+def test_rf_sample_fused_over_more_rows_than_one_launch(rf_setup, cfg_rows, n_img, renorm):
+    """6 and 8 block-major rows, more than the kernel's MAX_ROWS: the wrapper
+    samples them in groups of whole images (on the CPU through the plain
+    version), bit-equal to the plain version over all rows at once, and the
+    JAX kernel (which has no row limit) agrees. Other inputs can put one s8
+    element on a rounding boundary and move an image by ~1e-3 in either
+    package (PERF.md, `--phases rf_sensitivity`); these inputs have none."""
+    cfg, params = rf_setup
+    rng = np.random.default_rng(11)
+    B = cfg_rows * n_img
+    assert B > MAX_ROWS
+    z = jnp.asarray(rng.standard_normal((B, cfg.z_channels)), jnp.float32)
+    noise = np.tile(rng.standard_normal((n_img, cfg.target_channels)).astype(np.float32), (cfg_rows, 1))
+    ts, dts = _time_grid(cfg, None)
+    block_mods, final_mods = precompute_modulations(params, cfg, ts, z)
+    kw = dict(cfg_rows=cfg_rows, renorm_channel=renorm == "channel", compute_dtype=torch.float32)
+    want = jax_rf_sample_fused(params, cfg, jnp.asarray(noise), block_mods, final_mods, dts, jnp.float32(3.0),
+                               jnp.float32(1.1), interpret=True, compute_dtype=jnp.float32,
+                               cfg_rows=cfg_rows, renorm_channel=renorm == "channel")
+    t = lambda a: torch.from_numpy(np.array(a, np.float32))  # noqa: E731
+    args = (params_from_jax(params, "cpu"), cfg, t(noise), t(block_mods), t(final_mods), t(dts), 3.0, 1.1)
+    grouped = rf_sample_fused(*args, **kw)
+    np.testing.assert_array_equal(grouped.numpy(), rf_sample_fused_plain(*args, **kw).numpy())
+    _close(grouped.numpy(), want)
