@@ -13,8 +13,10 @@ Phases, one printed line each; any failure exits non-zero:
               PyTorch call that computes the same function, where there is
               one), and the least time the card could take (bound); the
               prefill MoE kernels also through the capacity-dense dispatch at
-              the understanding prompt's 1,152 tokens, beside the expert-sorted one
-  4. reference  a small model on the card, bf16 and then int4, through the
+              the understanding prompt's 1,152 tokens, beside the expert-sorted
+              one; every kernel of the bf16, int4 and int8 tiers (the int8
+              decode MoE in both dot modes)
+  4. reference  a small model on the card, bf16, int4 and then int8, through the
               kernels (bf16 compute) against the plain versions in fp32: same
               tokens; the step-0 hidden state and first RF latent within
               twice the plain bf16 path's own error (+1e-2 of their maximum);
@@ -32,13 +34,21 @@ Phases, one printed line each; any failure exits non-zero:
   6. slice_int4  the same round with the LLM and RF head quantized to the
               int4 tier on the card (the serving tier): the int4 kernels'
               launch counts, times, resident and peak memory
+     slice_int4_rf8  the same round on the mixed tier (RuntimeConfig
+              param_dtype "int4", rf_param_dtype "int8"): the int4 model with
+              its RF head swapped for an int8 one, quantized on the card from a
+              bf16 copy kept aside; the int4 LLM kernels and the int8 sampler
+     slice_int8  the same round on the int8 quality tier (LLM and RF head int8):
+              the int8 decode MoE with s8 dots, the int8 prefill MoE, the int8
+              sampler
   7. understand  image -> text on each tier's full-width model: a 1024-px image
               (1,024 patch tokens, the prompt pads to 1,152) through the
               MingTok encoder, flash prefill and the capacity MoE dispatch
               (the random model's attention outputs damped first, or every
               image row would route to the same experts and overflow it), then
               32 greedy text tokens; launch counts, capacity fallbacks, encode
-              / prefill / per-text-token times, peak memory
+              / prefill / per-text-token times, peak memory; at int8 once more
+              with moe_int_dots=False (the exact-dequant decode kernel)
   8. edit     image + edit request -> image on each tier's model: a 512-px image
               (256 patch tokens, the prompt pads to 384), the 256-token image
               loop with 3 CFG rows; launch counts, ms per AR token
@@ -58,19 +68,22 @@ Phases, one printed line each; any failure exits non-zero:
               tokens/s, ms per engine step at 1, 4, 8 and 16 active slots,
               time to first token, prefix hits, stalls, launches per step,
               pool and peak memory
-A tier's model is built once and serves its slice, understand, edit and serve phases.
+A tier's model is built once and serves its slice, edit, understand and serve
+phases (bf16 and int4 serve; the int8 tier runs no serving round).
 Then a JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-`--phases` picks the phases (default: the ten above), e.g.
+`--phases` picks the phases (default: the twelve above), e.g.
 `--phases device,build,kernels,understand` or `--phases device,build,kernels,serve`. Six more run only when named:
   divergence  the small model's plain bf16 path with each kernel swapped in
-              alone, and all three, against plain bf16 and fp32: semantic-token
-              error at loop step 0 and over the loop, image error
+              alone, and all of them, and with the image head's input moved
+              by one bf16 ulp, against plain bf16 and fp32 (`--tier`):
+              hidden-state, first-latent and semantic-token error at loop step
+              0 and over the loop, image error
   profile     the slice with a 16-token image loop under torch.profiler:
               device ms per stage, device busy share, device events per token,
-              top kernels; then the same round unprofiled (`--tier int4` for
-              the int4 slice)
+              top kernels; then the same round unprofiled (`--tier int4` or
+              `--tier int8` for the quantized slices)
   profile_understand  the understanding round with 8 text tokens under
               torch.profiler: device ms of the encode, prefill and text-decode
               stages, busy share, top kernels (`--tier`)
@@ -81,11 +94,11 @@ Then a JSON line with every kernel's numbers, and as the last line
   routing     the understanding prompt's expert loads per layer on the
               full-width random model (`--tier`), as initialised and with the
               attention outputs damped, against the capacity of the dispatch
-  rf_sensitivity  the int4 RF sampler at full width: the kernel against its
-              plain version beside the plain version against itself under a
-              1-ulp change of its input, over 1 and 12 blocks and 1 and 16
-              steps; first, how often a CUDA division by a Python number
-              misses the correctly rounded quotient
+  rf_sensitivity  the int4 and int8 RF samplers at full width: each kernel
+              against its plain version beside the plain version against
+              itself under a 1-ulp change of its input, over 1 and 12 blocks
+              and 1 and 16 steps; first, how often a CUDA division by a Python
+              number misses the correctly rounded quotient
 e.g. `python3 chip_smoke.py --phases device,build,divergence,profile`.
 The nvcc/ptxas log (registers, shared memory, spills) lands beside the built
 library, under mingunivision_tpu_torch/_build/.
@@ -117,6 +130,11 @@ KERNELS = {
     # one kernel for both TPU entries: _paged_decode_kernel :74 (via pallas_paged_decode_attention :122) and
     # the library multi-page kernel behind paged_decode_attention_auto :189
     "paged_attention": ("csrc/paged_attention.cu", "mingunivision_tpu/ops/kernels/paged_attention.py:74"),
+    # the int8 tier: one source for both decode dot modes (s8 dots by default, exact with moe_int_dots=False)
+    "moe_stream_q8s8": ("csrc/moe_stream_q8.cu", "mingunivision_tpu/ops/kernels/moe_stream.py:142"),
+    "moe_stream_q8": ("csrc/moe_stream_q8.cu", "mingunivision_tpu/ops/kernels/moe_stream.py:74"),
+    "moe_swiglu_gmm_q8": ("csrc/moe_swiglu_gmm_q8.cu", "mingunivision_tpu/ops/kernels/moe_swiglu_gmm.py:185"),
+    "rf_sampler_q8": ("csrc/rf_sampler_q8.cu", "mingunivision_tpu/ops/kernels/rf_sampler.py:395"),
 }
 BF16_KERNELS = ("moe_stream", "moe_swiglu_gmm", "decode_attention")
 REL_TOL = 1e-2  # kernel vs plain: max |err| <= REL_TOL * max |plain| (bf16 keeps ~3 digits)
@@ -168,15 +186,17 @@ def bound(nbytes: float, ops: float, kind: str):
 
 
 def run_case(torch, results, name, label, kern, plain, nbytes, ops, kind, library=None, iters=20, rows=None,
-             others=None) -> bool:
+             others=None, plain_iters=None) -> bool:
     """One kernel case: the kernel against its plain version on the same inputs
     (on the rows of the boolean mask `rows` when given), their median times
     (and the library call's), and the bound. `others`: label -> a callable timed
-    beside them and recorded in the case under `<label>_ms`."""
+    beside them and recorded in the case under `<label>_ms`. `plain_iters`: the
+    plain version's timed runs (and warm-ups), where it takes seconds."""
     got, want = kern(), plain()
     torch.cuda.synchronize()
     ok, err, rel = compare(torch, got, want) if rows is None else compare(torch, got[rows], want[rows])
-    ms, plain_ms = cuda_ms(torch, kern, iters), cuda_ms(torch, plain, iters)
+    ms = cuda_ms(torch, kern, iters)
+    plain_ms = cuda_ms(torch, plain, plain_iters or iters, warmup=min(3, plain_iters or iters))
     library_ms = cuda_ms(torch, library, iters) if library is not None else None
     other_ms = {f"{key}_ms": cuda_ms(torch, fn, iters) for key, fn in (others or {}).items()}
     bound_ms, bound_by = bound(nbytes, ops, kind)
@@ -207,26 +227,27 @@ def moe_cases(torch, g, E, k):
     return routing, decode, prefill
 
 
-def full_width_rf(torch, rf_cfg, generator, adaln_std: float):
+def full_width_rf(torch, rf_cfg, generator, adaln_std: float, bits: int = 4):
     """The RF head at `rf_cfg`'s width on the card: random bf16 weights, the
-    AdaLN and final layers drawn at `adaln_std`, quantized to int4 in place."""
+    AdaLN and final layers drawn at `adaln_std`, quantized to `bits` in place."""
     from mingunivision_tpu_torch.utils.convert import _Init, init_rf_head_params
     from mingunivision_tpu_torch.utils.quantize import quantize_tree_inplace
 
     rf = init_rf_head_params(rf_cfg, _Init(torch.device("cuda"), torch.bfloat16, generator))
     for leaf in (rf["res_blocks"]["adaLN"], rf["final_layer"]["adaLN"], rf["final_layer"]["linear"]):
         leaf["w"].normal_(0.0, adaln_std, generator=generator)
-    return quantize_tree_inplace(rf, bits=4)
+    return quantize_tree_inplace(rf, bits=bits)
 
 
 def run_rf_sensitivity(torch) -> bool:
-    """How far the int4 RF sampler's output moves under a 1-ulp change, against
-    how far the kernel lies from its plain version (after a count of how often
-    PyTorch's CUDA division misses the correctly rounded quotient, the 1-ulp
-    change the plain version once made): full width, 2 CFG rows, one
-    block or all 12, one Euler step or all 16, AdaLN weights at std 0.02 (the
-    slice's) and 0.002. The ulp change multiplies every modulated-LN output of
-    the plain version by 1 +- 2**-22 before its s8 quantization."""
+    """How far the int4 and int8 RF samplers' outputs move under a 1-ulp
+    change, against how far each kernel lies from its plain version (after a
+    count of how often PyTorch's CUDA division misses the correctly rounded
+    quotient, the 1-ulp change the plain version once made): full width, 2 CFG
+    rows, one block or all 12, one Euler step or all 16, AdaLN weights at std
+    0.02 (the slice's) and 0.002. The ulp change multiplies every modulated-LN
+    output of the plain version by 1 +- 2**-22 before its s8 quantization
+    (int4) or its rounding to bf16 (int8)."""
     from mingunivision_tpu_torch.config import MingUniVisionConfig
     from mingunivision_tpu_torch.models.rf_head import _time_grid, precompute_modulations
     from mingunivision_tpu_torch.ops.kernels import rf_sampler as rs
@@ -250,9 +271,9 @@ def run_rf_sensitivity(torch) -> bool:
               f"number {int((x / d != exact).sum())}, by a device tensor "
               f"{int((x / torch.full((), d, device=dev) != exact).sum())}")
     ok = True
-    for std in (0.02, 0.002):
+    for bits, std in ((4, 0.02), (4, 0.002), (8, 0.02), (8, 0.002)):
         g = torch.Generator(device=dev).manual_seed(0)
-        rf = full_width_rf(torch, rf_cfg, g, std)
+        rf = full_width_rf(torch, rf_cfg, g, std, bits)
         ts, dts = _time_grid(rf_cfg, None, device=dev)
         z = torch.randn((2, rf_cfg.z_channels), device=dev, generator=g).to(torch.bfloat16)
         block_mods, final_mods = precompute_modulations(rf, rf_cfg, ts, z)
@@ -270,7 +291,7 @@ def run_rf_sensitivity(torch) -> bool:
                 finally:
                     rs._modulated_ln = exact_ln
                 ok &= bool(torch.isfinite(kernel).all())
-                print(f"rf_sensitivity [AdaLN std {std}, {L} block(s), {S} step(s)]: max|plain|="
+                print(f"rf_sensitivity [int{bits}, AdaLN std {std}, {L} block(s), {S} step(s)]: max|plain|="
                       f"{plain.abs().max().item():.3f} kernel vs plain {rel(kernel, plain):.3e}; "
                       f"1-ulp-perturbed plain vs plain {rel(perturbed, plain):.3e}")
         del rf
@@ -298,7 +319,12 @@ def check_kernels(torch, results: dict) -> bool:
     )
     from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream_plain, moe_experts_stream
     from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm, moe_experts_swiglu_gmm_plain
-    from mingunivision_tpu_torch.ops.kernels.rf_sampler import MAX_ROWS, rf_sample_fused, rf_sample_fused_plain
+    from mingunivision_tpu_torch.ops.kernels.rf_sampler import (
+        MAX_ROWS,
+        rf_sample_fused,
+        rf_sample_fused_plain,
+        rf_sample_fused_q8,
+    )
     from mingunivision_tpu_torch.utils.quantize import quantize_array
 
     dev = torch.device("cuda")
@@ -362,8 +388,9 @@ def check_kernels(torch, results: dict) -> bool:
                                nbytes, ops, "bf16")
     all_ok &= capacity_cases(experts, "moe_swiglu_gmm", 3 * h * m * 2)
 
-    # int4 tables of the same weights: 3 h m / 2 bytes and 2 m + h fp32 scales per routed expert
+    # int4 and int8 tables of the same weights
     q4 = {n: quantize_array(t, 4) for n, t in experts.items()}
+    q8 = {n: quantize_array(t, 8) for n, t in experts.items()}
     del experts
     torch.cuda.empty_cache()
     per_expert = 3 * h * m // 2 + (2 * m + h) * 4
@@ -381,6 +408,35 @@ def check_kernels(torch, results: dict) -> bool:
                                nbytes, ops, kind)
     all_ok &= capacity_cases(q4, "moe_swiglu_gmm_q4", per_expert)
     del q4
+
+    # int8 tables: 3 h m bytes and 2 m + h fp32 scales per routed expert. The decode kernel in both dot modes
+    # (s8 dots: int8 operations; exact dequant: products at the bf16 rate), at the slice's 2 rows, the
+    # editing loop's 3 and a serving step's 16, and the exact one first at the understanding round's 1 row
+    # (its main path: `understand` with moe_int_dots=False)
+    per_expert = 3 * h * m + (2 * m + h) * 4
+    decode8 = decode[:1] + [("N=3 k=6 (editing decode)", 3, None)] + decode[1:]
+    for name, int_dots, kind, cases in (
+            ("moe_stream_q8s8", True, "int8", decode8),
+            ("moe_stream_q8", False, "bf16", [("N=1 k=6 (understanding text decode)", 1, None)] + decode8)):
+        for label, n, choices in cases:
+            x = torch.randn((n, h), device=dev, generator=g).to(bf)
+            idx, w = routing(n, choices)
+            nbytes, ops = moe_work(idx, n, per_expert, 2)
+            kw = dict(layer_idx=0, int_dots=int_dots)
+            all_ok &= run_case(torch, results, name, label,
+                               lambda: moe_experts_stream(q8, x, idx, w, **kw),  # noqa: B023
+                               lambda: moe_experts_stream_plain(q8, x, idx, w, **kw),  # noqa: B023
+                               nbytes, ops, kind)
+    for label, n, choices in prefill:
+        x = torch.randn((n, h), device=dev, generator=g).to(bf)
+        idx, w = routing(n, choices)
+        nbytes, ops = moe_work(idx, n, per_expert, 2)
+        all_ok &= run_case(torch, results, "moe_swiglu_gmm_q8", label,
+                           lambda: moe_experts_swiglu_gmm(q8, x, idx, w, E, layer_idx=0),  # noqa: B023
+                           lambda: moe_experts_swiglu_gmm_plain(q8, x, idx, w, E, layer_idx=0),  # noqa: B023
+                           nbytes, ops, "bf16")
+    all_ok &= capacity_cases(q8, "moe_swiglu_gmm_q8", per_expert)
+    del q8
 
     B, Hq, Hkv, S, D = 2, cfg.llm.num_attention_heads, cfg.llm.num_key_value_heads, 4096, cfg.llm.head_dim
     q = torch.randn((B, 1, Hq, D), device=dev, generator=g).to(bf)
@@ -429,45 +485,50 @@ def check_kernels(torch, results: dict) -> bool:
                            library=lambda: sdpa_fn(q, kk, vv))  # noqa: B023
     del q, kk, vv
 
-    # the RF head at full width, int4, its AdaLN weights at the slice's std 0.02. The random head is
-    # chaotic there (a 1-ulp change of its input moves the sample by several percent over 16 steps, see
-    # `--phases rf_sensitivity`), so the plain version sums in the kernel's order and the two agree
-    # to the bit.
+    # the RF head at full width, int4 then int8, its AdaLN weights at the slice's std 0.02. The random head is
+    # chaotic at the int4 sampler's s8 boundaries and at the int8 sampler's bf16 roundings (a 1-ulp change of
+    # its input moves the sample by several percent over 16 steps, see `--phases rf_sensitivity`), so both
+    # plain versions sum in their kernel's order and each pair agrees to the bit.
     rf_cfg = cfg.rf_head
-    rf = full_width_rf(torch, rf_cfg, g, adaln_std=0.02)
-    L, w, Hd, C, St = rf_cfg.depth, rf_cfg.width, rf["res_blocks"]["mlp"]["w3"]["w"].q.shape[1] * 2, \
-        rf_cfg.target_channels, rf_cfg.num_sampling_steps
+    L, w, C, St = rf_cfg.depth, rf_cfg.width, rf_cfg.target_channels, rf_cfg.num_sampling_steps
     ts, dts = _time_grid(rf_cfg, None, device=dev)
-    # 2 CFG rows (T2I), 3 with renorm (editing); then more rows than one launch holds, sampled in groups of
-    # whole images: 2 images x 3 rows and 4 images x 2 rows
-    for rows, renorm, n_img in ((2, False, 1), (3, True, 1), (3, True, 2), (2, False, 4)):
-        z = torch.randn((rows * n_img, rf_cfg.z_channels), device=dev, generator=g).to(bf)
-        block_mods, final_mods = precompute_modulations(rf, rf_cfg, ts, z)
-        noise = torch.randn((n_img, C), device=dev, generator=g).repeat(rows, 1)
-        args = (rf, rf_cfg, noise, block_mods, final_mods, dts, 3.0, 1.1)
-        kw = dict(cfg_rows=rows, renorm_channel=renorm, compute_dtype=bf)
-        launches = rf_sample_fused.launches
-        # the blocks' int4 tables, their scales and biases, and the LN affines: 453 MB, more than L2 and
-        # every SM's shared memory hold, so each Euler step streams them again
-        B = rows * n_img
-        block_weights = L * (w // 2 * 2 * Hd + Hd // 2 * w) + L * (2 * Hd + w) * 4 * 2 + 2 * L * w * 4
-        rest = (L * St * B * 3 * w + St * B * 2 * w) * 4 + 2 * C * w * 4 + 2 * B * C * 4
-        nbytes = St * block_weights + rest
-        ops = 2.0 * 3 * w * Hd * B * L * St  # two integer dots per weight byte pair, per row, block and step
-        label = (f"{rows} CFG rows{' + channel renorm' if renorm else ''}" if n_img == 1 else
-                 f"{n_img} images x {rows} CFG rows = {B} rows")
-        all_ok &= run_case(torch, results, "rf_sampler_q4s8",
-                           f"{label}, w={w} H={Hd} {L} blocks {St} steps; tables read once would be "
-                           f"{bound(block_weights + rest, 0, 'int8')[0]:.4f} ms",
-                           lambda: rf_sample_fused(*args, **kw),  # noqa: B023
-                           lambda: rf_sample_fused_plain(*args, **kw), nbytes, ops, "int8", iters=3)  # noqa: B023
-        if n_img > 1:  # one launch per group of whole images that fits the kernel's rows
-            launched = rf_sample_fused.launches - launches
-            calls = 1 + 3 + 3  # the comparison, warm-up and timed calls of run_case
-            print(f"kernel rf_sampler_q4s8 [{label}]: {launched // calls} launches per call (groups of "
-                  f"{MAX_ROWS // rows} images)")
-            all_ok &= launched == calls * -(-n_img // (MAX_ROWS // rows))
-    del rf
+    for bits, name, counter, kind in ((4, "rf_sampler_q4s8", rf_sample_fused, "int8"),
+                                      (8, "rf_sampler_q8", rf_sample_fused_q8, "bf16")):
+        rf = full_width_rf(torch, rf_cfg, g, adaln_std=0.02, bits=bits)
+        Hd = rf["res_blocks"]["mlp"]["w3"]["w"].q.shape[1] * (8 // bits)
+        # 2 CFG rows (T2I), 3 with renorm (editing); then more rows than one launch holds, sampled in groups of
+        # whole images: 2 images x 3 rows and 4 images x 2 rows
+        for rows, renorm, n_img in ((2, False, 1), (3, True, 1), (3, True, 2), (2, False, 4)):
+            z = torch.randn((rows * n_img, rf_cfg.z_channels), device=dev, generator=g).to(bf)
+            block_mods, final_mods = precompute_modulations(rf, rf_cfg, ts, z)
+            noise = torch.randn((n_img, C), device=dev, generator=g).repeat(rows, 1)
+            args = (rf, rf_cfg, noise, block_mods, final_mods, dts, 3.0, 1.1)
+            kw = dict(cfg_rows=rows, renorm_channel=renorm, compute_dtype=bf)
+            launches = counter.launches
+            # the blocks' tables (453 MB int4, 906 MB int8), their scales and biases, and the LN affines: more
+            # than L2 and every SM's shared memory hold, so each Euler step streams them again
+            B = rows * n_img
+            block_weights = L * 3 * w * Hd * bits // 8 + L * (2 * Hd + w) * 4 * 2 + 2 * L * w * 4
+            rest = (L * St * B * 3 * w + St * B * 2 * w) * 4 + 2 * C * w * 4 + 2 * B * C * 4
+            nbytes = St * block_weights + rest
+            # int4: two integer dots per weight byte pair; int8: one bf16-rate product per weight; per row,
+            # block and step
+            ops = 2.0 * 3 * w * Hd * B * L * St
+            label = (f"{rows} CFG rows{' + channel renorm' if renorm else ''}" if n_img == 1 else
+                     f"{n_img} images x {rows} CFG rows = {B} rows")
+            all_ok &= run_case(torch, results, name,
+                               f"{label}, w={w} H={Hd} {L} blocks {St} steps; tables read once would be "
+                               f"{bound(block_weights + rest, 0, kind)[0]:.4f} ms",
+                               lambda: rf_sample_fused(*args, **kw),  # noqa: B023
+                               lambda: rf_sample_fused_plain(*args, **kw), nbytes, ops, kind, iters=3,  # noqa: B023
+                               plain_iters=1)
+            if n_img > 1:  # one launch per group of whole images that fits the kernel's rows
+                launched = counter.launches - launches
+                calls = 1 + 3 + 3  # the comparison, warm-up and timed calls of run_case
+                print(f"kernel {name} [{label}]: {launched // calls} launches per call (groups of "
+                      f"{MAX_ROWS // rows} images)")
+                all_ok &= launched == calls * -(-n_img // (MAX_ROWS // rows))
+        del rf
     torch.cuda.empty_cache()
     all_ok &= paged_cases(torch, results, g, cfg)
     return all_ok
@@ -621,7 +682,8 @@ def steer_text_head(params, cfg):
 def bias_to_image_start(torch, params, cfg, ids, device, pixels=None):
     """Bias the lm_head column of <image> so that greedy decoding picks it after
     the prompt, as the engine tests do. The column is set to +-10 (in an int4
-    table: nibbles +-7 at scale 10/7): a probe prefill of the prompt (with the
+    table: nibbles +-7 at scale 10/7; in an int8 one +-127 at scale 10/127): a
+    probe prefill of the prompt (with the
     image `pixels` encoded and scattered over it, when given) picks the sign
     that makes its logit large and positive."""
     from mingunivision_tpu_torch.engine.generate import linear_proj_apply, prefill, scatter_image_embeds
@@ -633,7 +695,10 @@ def bias_to_image_start(torch, params, cfg, ids, device, pixels=None):
     w = params["llm"]["lm_head"]["w"]
 
     def set_column(sign):
-        if isinstance(w, QuantizedArray):
+        if isinstance(w, QuantizedArray) and w.bits == 8:
+            w.q[:, img] = 127 * sign
+            w.s[..., img] = 10.0 / 127.0
+        elif isinstance(w, QuantizedArray):
             w.q[:, img] = 0xFF if sign > 0 else 0x11  # both nibbles 15 (+7) or 1 (-7)
             w.s[..., img] = 10.0 / 7.0
         else:
@@ -744,9 +809,10 @@ def plain_versions(names=ENTRIES):
 
 def small_model(torch, device, tier="bfloat16"):
     """A 2-layer model with the full model's structure, bf16 on the card (the
-    LLM and RF head then quantized when `tier` is "int4"; the RF head is wide
-    enough, 192 x 512, for every table to pass the quantizer's size floor), RF
-    noise off (temperature 0), 16 image tokens; returns (cfg, params, prompt)."""
+    LLM and RF head then quantized when `tier` is "int4" or "int8"; the RF
+    head is wide enough, 192 x 512, for every table to pass the quantizer's
+    size floor), RF noise off (temperature 0), 16 image tokens; returns (cfg,
+    params, prompt)."""
     import dataclasses
 
     from mingunivision_tpu_torch.config import ImageGenConfig, MingUniVisionConfig
@@ -772,7 +838,7 @@ def small_model(torch, device, tier="bfloat16"):
     params = init_mm_params(cfg, device=device, dtype=torch.bfloat16, generator=gen)
     randomize_adaln(params, gen)
     if tier != "bfloat16":
-        quantize_mm_params_inplace(params)
+        quantize_mm_params_inplace(params, **TIERS[tier])
     prompt = t2i_prompt(cfg.llm.vocab_size, cfg.llm.image_start_token)
     bias_to_image_start(torch, params, cfg, prompt[0], device)
     return cfg, params, prompt
@@ -792,7 +858,8 @@ def loop_capture():
     loop step: the LLM hidden state that enters the image head (B, h), the RF
     latent sampled from it (B, C), and the semantic token the loop emits.
     Yields a dict whose "hidden", "latent" and "sem" hold the last round's
-    arrays, stacked over the steps."""
+    arrays, stacked over the steps, and "first_sample" the (args, kwargs) of
+    its first RF sample call."""
     import numpy as np
 
     from mingunivision_tpu_torch.engine import generate as gen_mod
@@ -802,7 +869,7 @@ def loop_capture():
     loop, vis_head, sample = session_mod.generate_image_tokens, gen_mod.vis_head_apply, gen_mod.rf_sample
 
     def capture_loop(*args, **kwargs):
-        seen.update(hidden=[], latent=[])
+        seen.update(hidden=[], latent=[], first_sample=None)
         res = loop(*args, **kwargs)
         seen.update(hidden=np.stack(seen["hidden"]), latent=np.stack(seen["latent"]),
                     sem=res.sem_tokens[0].float().cpu().numpy())
@@ -813,6 +880,8 @@ def loop_capture():
         return vis_head(p, x)
 
     def capture_latent(*args, **kwargs):
+        if seen["first_sample"] is None:
+            seen["first_sample"] = (args, kwargs)
         latent = sample(*args, **kwargs)
         seen["latent"].append(latent.float().cpu().numpy())
         return latent
@@ -828,23 +897,33 @@ def loop_capture():
 def run_reference(torch, device, tier="bfloat16") -> bool:
     """The small model through the kernels (bf16) and through their plain
     versions in fp32, the reference, on the same weights (`tier`: bf16, or the
-    int4 tree). The kernel path must give the reference's tokens, and where the
-    kernels first act, before the 16-token loop grows any bf16 ulp into an image
-    difference, it may differ from the reference by at most twice the plain
-    bf16 path's own error, plus 1e-2 of the reference's maximum: the hidden
-    state that enters the image head at loop step 0 (prefill and one decode
-    step: every LLM kernel) and the first RF latent (sampled from that hidden
-    state: the int4 sampler). The image is held to shape, finite and in
-    range; its errors are printed."""
+    int4 or int8 tree). The kernel path must give the reference's tokens, and
+    where the kernels first act, before the 16-token loop grows any bf16 ulp
+    into an image difference, it may differ from the reference by at most twice
+    the plain bf16 path's own error, plus 1e-2 of the reference's maximum: the
+    hidden state that enters the image head at loop step 0 (prefill and one
+    decode step: every LLM kernel) and, at bf16 and int4, the first RF latent
+    (sampled from that hidden state: the int4 sampler). The first latent is
+    also held, at every tier, against the plain sampler run on the kernel
+    path's own step-0 inputs (within REL_TOL: the quantized samplers agree with
+    their plain versions to the bit). At int8 the first latent against fp32 is
+    printed, not held: the small int8 model's RF head turns a one-bf16-ulp
+    change of the hidden state into a latent change of several 1e-2 (`--phases
+    divergence --tier int8`), far past twice the plain path's error. The image
+    is held to shape, finite and in range; its errors are printed."""
     import numpy as np
 
     from mingunivision_tpu_torch.config import RuntimeConfig
+    from mingunivision_tpu_torch.models import rf_head
 
     cfg, params, prompt = small_model(torch, device, tier)
     bf16 = RuntimeConfig(max_seq_len=512)
     with loop_capture() as seen:
         out_k, sess_k, _ = _generate(torch, params, cfg, bf16, device, prompt, cfg.image_gen)
         kern = (seen["hidden"][0], seen["latent"][0])
+        args, kwargs = seen["first_sample"]
+        with plain_versions(("rf_sampler",)):
+            same_inputs = rf_head.rf_sample(*args, **kwargs).float().cpu().numpy()
         with plain_versions():
             out_r = _generate(torch, as_f32(params), cfg, RuntimeConfig(max_seq_len=512, compute_dtype="float32"),
                               device, prompt, cfg.image_gen)[0]
@@ -853,16 +932,23 @@ def run_reference(torch, device, tier="bfloat16") -> bool:
             plain = (seen["hidden"][0], seen["latent"][0])
     checks = image_checks(out_k, sess_k, cfg, prompt[0].shape[1], cfg.mingtok.encoder.img_size)
     checks.append(("tokens == fp32 reference", out_k.token_ids == out_r.token_ids))
+    printed = []
     for i, what in enumerate(("step-0 hidden", "first latent")):
         scale = float(np.abs(ref[i]).max())
         err_k, err_p = (float(np.abs(run[i] - ref[i]).max()) for run in (kern, plain))
         tol = 2 * err_p + 1e-2 * scale
-        checks.append((f"{what} err vs fp32 {err_k:.3e} <= {tol:.3e} (plain bf16 err {err_p:.3e}, "
-                       f"max |ref| {scale:.3e})", bool(np.isfinite(kern[i]).all()) and err_k <= tol))
+        label = f"{what} err vs fp32 {err_k:.3e} <= {tol:.3e} (plain bf16 err {err_p:.3e}, max |ref| {scale:.3e})"
+        if what == "first latent" and tier == "int8":
+            printed.append(f"{label} (not held)")
+        else:
+            checks.append((label, bool(np.isfinite(kern[i]).all()) and err_k <= tol))
+    err_s, scale_s = float(np.abs(kern[1] - same_inputs).max()), float(np.abs(same_inputs).max())
+    checks.append((f"first latent err vs the plain sampler on its own inputs {err_s:.3e} <= "
+                   f"{REL_TOL * scale_s:.3e}", bool(np.isfinite(kern[1]).all()) and err_s <= REL_TOL * scale_s))
     img_err = [float(np.abs(o.images[0] - out_r.images[0]).max()) if len(o.images) == 1 else float("inf")
                for o in (out_k, out_p)]
     print(f"reference ({tier} small model on the card: kernels bf16 vs plain fp32): "
-          + "; ".join(f"{label}={'ok' if p else 'FAILED'}" for label, p in checks)
+          + "; ".join(f"{label}={'ok' if p else 'FAILED'}" for label, p in checks) + "".join(f"; {t}" for t in printed)
           + f"; image err vs fp32 (not held) kernels {img_err[0]:.3e}, plain bf16 {img_err[1]:.3e}")
     return all(p for _, p in checks)
 
@@ -1001,27 +1087,47 @@ def run_reference_serve(torch, device) -> bool:
     return all(p for _, p in checks)
 
 
-def run_divergence(torch, device) -> bool:
-    """Where the small model's bf16 paths part: the plain bf16 path, each kernel
-    alone swapped into it, all three kernels, and the plain fp32 reference.
-    Against the plain bf16 path and against fp32, the max abs error of: the
-    LLM's hidden state that enters the image head at loop step 0 (prefill and
-    one decode step: the only place the kernels act before the plain RF head
-    and semantic decoder) and at any of the 16 steps; the semantic token the
-    loop emits, at step 0 and at any step; the image. A kernel fault shows as a
-    step-0 hidden-state error well above what bf16 costs the plain path."""
+def run_divergence(torch, device, tier="bfloat16") -> bool:
+    """Where the small model's paths part (at `tier`): the plain bf16 path,
+    each kernel alone swapped into it, all kernels, the plain bf16 path with
+    the hidden state that enters the image head moved by one bf16 ulp (each
+    element times 1 +- 2**-8), and the plain fp32 reference. Against the plain
+    bf16 path and against fp32, the max abs error of: the LLM's hidden state
+    that enters the image head at loop step 0 (prefill and one decode step:
+    where the LLM kernels act) and at any of the 16 steps; the first RF latent
+    (sampled from the step-0 hidden state: where the sampler acts on a
+    quantized tier); the semantic token the loop emits, at step 0 and at any
+    step; the image. A kernel fault shows as an error well above what bf16, or
+    a 1-ulp change, costs the plain path."""
     import numpy as np
 
     from mingunivision_tpu_torch.config import RuntimeConfig
+    from mingunivision_tpu_torch.engine import generate as gen_mod
 
-    cfg, params, prompt = small_model(torch, device)
-    kernels = BF16_KERNELS  # the small bf16 model's entry points, named as their kernels
+    cfg, params, prompt = small_model(torch, device, tier)
+    # the small model's entry points, named as their kernels
+    kernels = BF16_KERNELS + (() if tier == "bfloat16" else ("rf_sampler",))
 
     def run(params, plain, compute_dtype="bfloat16"):
         with plain_versions(plain):
             out, _, _ = _generate(torch, params, cfg, RuntimeConfig(max_seq_len=512, compute_dtype=compute_dtype),
                                   device, prompt, cfg.image_gen)
-        return seen["hidden"], seen["sem"], out.images[0]
+        return seen["hidden"], seen["latent"][0], seen["sem"], out.images[0]
+
+    def ulp_hidden():
+        """The plain bf16 path with the image head's input moved by one bf16 ulp."""
+        head = gen_mod.vis_head_apply
+        g = torch.Generator(device=device).manual_seed(1)
+
+        def moved(p, x):
+            sign = torch.randint(0, 2, x.shape, device=x.device, generator=g) * 2 - 1
+            return head(p, (x.float() * (1 + sign * 2.0**-8)).to(x.dtype))
+
+        gen_mod.vis_head_apply = moved
+        try:
+            return run(params, kernels)
+        finally:
+            gen_mod.vis_head_apply = head
 
     with loop_capture() as seen:
         ref = run(as_f32(params), kernels, "float32")
@@ -1029,27 +1135,30 @@ def run_divergence(torch, device) -> bool:
         variants = {"plain bf16": base, "all kernels": run(params, ())}
         for name in kernels:
             variants[f"only {name}"] = run(params, tuple(n for n in kernels if n != name))
-    print(f"divergence: small model, {cfg.image_gen.num_image_tokens} image tokens; fp32 max |hidden| "
-          f"{np.abs(ref[0]).max():.3e}, max |sem| {np.abs(ref[1]).max():.3e}")
+        variants["plain bf16, 1-ulp hidden"] = ulp_hidden()
+    print(f"divergence ({tier}): small model, {cfg.image_gen.num_image_tokens} image tokens; fp32 max |hidden| "
+          f"{np.abs(ref[0]).max():.3e}, max |latent| {np.abs(ref[1]).max():.3e}, max |sem| {np.abs(ref[2]).max():.3e}")
     ok = True
-    for label, (hid, sem, img) in variants.items():
+    for label, (hid, lat, sem, img) in variants.items():
         errs = []
-        for o_hid, o_sem, o_img in (base, ref):
+        for o_hid, o_lat, o_sem, o_img in (base, ref):
             e_hid = np.abs(hid - o_hid).reshape(len(hid), -1).max(axis=-1)
             e_sem = np.abs(sem - o_sem).max(axis=-1)
-            errs.append(f"hidden step0 {e_hid[0]:.3e} any {e_hid.max():.3e}, sem step0 {e_sem[0]:.3e} "
-                        f"any {e_sem.max():.3e}, image {np.abs(img - o_img).max():.3e}")
+            errs.append(f"hidden step0 {e_hid[0]:.3e} any {e_hid.max():.3e}, latent step0 "
+                        f"{np.abs(lat - o_lat).max():.3e}, sem step0 {e_sem[0]:.3e} any {e_sem.max():.3e}, "
+                        f"image {np.abs(img - o_img).max():.3e}")
         ok &= bool(np.isfinite(hid).all() and np.isfinite(sem).all() and np.isfinite(img).all())
-        print(f"divergence [{label}]: vs plain bf16: {errs[0]} | vs fp32: {errs[1]}")
+        print(f"divergence [{tier}, {label}]: vs plain bf16: {errs[0]} | vs fp32: {errs[1]}")
     return ok
 
 
-def full_model(torch, cfg, device, tier="bfloat16"):
+def full_model(torch, cfg, device, tier="bfloat16", keep_rf_bf16=False):
     """Random bf16 weights of `cfg` on the device from seed 0; for `tier` "int4"
-    the LLM and RF head are then quantized in place on the device, leaf by
-    leaf. Returns params."""
+    or "int8" the LLM and RF head are then quantized in place on the device,
+    leaf by leaf. With `keep_rf_bf16`, a bf16 copy of the RF head is kept
+    under params["rf_head_bf16"] (for the mixed tier). Returns params."""
     from mingunivision_tpu_torch.utils.convert import init_mm_params, quantize_mm_params_inplace
-    from mingunivision_tpu_torch.utils.pytree import leaves
+    from mingunivision_tpu_torch.utils.pytree import leaves, tree_map
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
@@ -1059,9 +1168,11 @@ def full_model(torch, cfg, device, tier="bfloat16"):
     n_params = sum(t.numel() for t in leaves(params))
     print(f"init: {n_params / 1e9:.3f} B params bf16 on device in {time.perf_counter() - t0:.1f} s "
           f"(allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
+    if keep_rf_bf16:
+        params["rf_head_bf16"] = tree_map(lambda t: t.clone(), params["rf_head"])
     if tier != "bfloat16":
         t0 = time.perf_counter()
-        quantize_mm_params_inplace(params)
+        quantize_mm_params_inplace(params, **TIERS[tier])
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         print(f"quantize: LLM and RF head to {tier} on device in {time.perf_counter() - t0:.1f} s "
@@ -1070,22 +1181,41 @@ def full_model(torch, cfg, device, tier="bfloat16"):
     return params
 
 
+def run_slice_mixed(torch, cfg, params, device, results: dict) -> bool:
+    """The T2I round on the mixed tier, RuntimeConfig(param_dtype="int4",
+    rf_param_dtype="int8"): the int4 tier's model with its RF head replaced by
+    an int8 one, quantized on the card from the bf16 copy `full_model` kept
+    aside (params["rf_head_bf16"], which this consumes); the int4 RF head is
+    put back afterwards."""
+    from mingunivision_tpu_torch.utils.quantize import quantize_tree_inplace
+
+    rf_int4 = params["rf_head"]
+    params["rf_head"] = quantize_tree_inplace(params.pop("rf_head_bf16"), bits=TIERS["int4_rf8"]["rf_bits"])
+    try:
+        return run_slice(torch, cfg, params, device, results, "int4_rf8")
+    finally:
+        params["rf_head"] = rf_int4
+        torch.cuda.empty_cache()
+
+
 def launch_counters():
     """kernel name -> the wrapper that counts its launches ("moe_capacity": the
     launches of the prefill MoE kernels that went through the capacity dispatch)."""
+    from mingunivision_tpu_torch.ops.kernels import moe_stream as ms
+    from mingunivision_tpu_torch.ops.kernels import moe_swiglu_gmm as gmm
     from mingunivision_tpu_torch.ops.kernels.decode_attention import decode_attention
     from mingunivision_tpu_torch.ops.kernels.flash import flash_prefill_attention, flash_vit_attention
     from mingunivision_tpu_torch.ops.kernels.moe_capacity import moe_experts_capacity_gmm
-    from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream, moe_experts_stream_q4s8
-    from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm, moe_experts_swiglu_gmm_q4
     from mingunivision_tpu_torch.ops.kernels.paged_attention import paged_decode_attention
-    from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused
+    from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused, rf_sample_fused_q8
 
-    return {"moe_stream": moe_experts_stream, "moe_swiglu_gmm": moe_experts_swiglu_gmm,
-            "decode_attention": decode_attention, "moe_stream_q4s8": moe_experts_stream_q4s8,
-            "moe_swiglu_gmm_q4": moe_experts_swiglu_gmm_q4, "rf_sampler_q4s8": rf_sample_fused,
+    return {"moe_stream": ms.moe_experts_stream, "moe_swiglu_gmm": gmm.moe_experts_swiglu_gmm,
+            "decode_attention": decode_attention, "moe_stream_q4s8": ms.moe_experts_stream_q4s8,
+            "moe_swiglu_gmm_q4": gmm.moe_experts_swiglu_gmm_q4, "rf_sampler_q4s8": rf_sample_fused,
             "flash_prefill": flash_prefill_attention, "flash_vit": flash_vit_attention,
-            "moe_capacity": moe_experts_capacity_gmm, "paged_attention": paged_decode_attention}
+            "moe_capacity": moe_experts_capacity_gmm, "paged_attention": paged_decode_attention,
+            "moe_stream_q8s8": ms.moe_experts_stream_q8s8, "moe_stream_q8": ms.moe_experts_stream_q8,
+            "moe_swiglu_gmm_q8": gmm.moe_experts_swiglu_gmm_q8, "rf_sampler_q8": rf_sample_fused_q8}
 
 
 def counted_round(torch, results, path, run):
@@ -1117,9 +1247,17 @@ def launch_checks(launches, floors):
     return checks + [(f"{name} launches {n} == 0", n == 0) for name, n in launches.items() if name not in floors]
 
 
-def tier_kernels(tier):
-    """(decode MoE, prefill MoE) kernel names of a tier."""
-    return ("moe_stream", "moe_swiglu_gmm") if tier == "bfloat16" else ("moe_stream_q4s8", "moe_swiglu_gmm_q4")
+# the weight tiers the phases run: quantize_mm_params_inplace's arguments (the int4 tier, the int8
+# quality tier, and the int4 LLM with an int8 RF head: RuntimeConfig(param_dtype="int4", rf_param_dtype="int8"))
+TIERS = {"int4": dict(bits=4), "int8": dict(bits=8), "int4_rf8": dict(bits=4, rf_bits=8)}
+
+
+def tier_kernels(tier, int_dots=True):
+    """(decode MoE, prefill MoE, RF sampler or None) kernel names of a tier."""
+    return {"bfloat16": ("moe_stream", "moe_swiglu_gmm", None),
+            "int4": ("moe_stream_q4s8", "moe_swiglu_gmm_q4", "rf_sampler_q4s8"),
+            "int4_rf8": ("moe_stream_q4s8", "moe_swiglu_gmm_q4", "rf_sampler_q8"),
+            "int8": ("moe_stream_q8s8" if int_dots else "moe_stream_q8", "moe_swiglu_gmm_q8", "rf_sampler_q8")}[tier]
 
 
 def run_slice(torch, cfg, params, device, results: dict, tier="bfloat16") -> bool:
@@ -1139,22 +1277,26 @@ def run_slice(torch, cfg, params, device, results: dict, tier="bfloat16") -> boo
         torch, results, label, lambda: _generate(torch, params, cfg, RuntimeConfig(), device, prompt))
 
     T = prompt[0].shape[1]
-    decode_moe, prefill_moe = tier_kernels(tier)
+    decode_moe, prefill_moe, sampler = tier_kernels(tier)
     floors = {decode_moe: L * (n_tok + 1), prefill_moe: L, "decode_attention": L * (n_tok + 1)}
-    if tier != "bfloat16":
-        floors["rf_sampler_q4s8"] = n_tok
+    if sampler is not None:
+        floors[sampler] = n_tok
     checks = image_checks(out, sess, cfg, T, 512) + launch_checks(launches, floors)
+    if sampler is not None:  # one launch per image token: both CFG rows in one
+        checks.append((f"{sampler} launches == {n_tok}", launches[sampler] == n_tok))
     t = sess.timings
     print(f"{label} T2I: prompt {T} ids (bucket 128), {L} layers, {tier}, cfg_rows={t.get('cfg_rows')}, "
           f"prefill_ms={t['prefill_ms']:.2f} image_loop_ms={t['image_loop_ms']:.1f} "
           f"ms_per_ar_token={t['image_loop_ms'] / n_tok:.3f} pixel_decode_ms={t['pixel_decode_ms']:.2f} "
           f"total_s={total_s:.3f} resident_gib={resident / 2**30:.3f} max_memory_allocated_gib={peak / 2**30:.3f}")
-    for name in floors:
-        results[name]["launches"] = launches[name]
+    if tier != "int4_rf8":  # the mixed tier's kernels keep the launches of their own tier's slice
+        for name in floors:
+            results[name]["launches"] = launches[name]
     return report(label, launches, checks)
 
 
-def run_understand(torch, cfg, params, device, results: dict, tier="bfloat16", new_tokens: int = 32) -> bool:
+def run_understand(torch, cfg, params, device, results: dict, tier="bfloat16", new_tokens: int = 32,
+                   int_dots: bool = True, prepare: bool = True) -> bool:
     """Image -> text at full width on the tier's model: a 1024-px image (1,024
     patch tokens in a 1,060-id prompt that pads to 1,152) through the MingTok
     encoder, a first-round prefill through the flash kernel and the capacity
@@ -1165,25 +1307,30 @@ def run_understand(torch, cfg, params, device, results: dict, tier="bfloat16", n
     The attention outputs of the random model are damped first
     (`damp_attention_outputs`): as initialised, its 1,024 image rows come out
     of MingTok nearly parallel, route to the same six experts in every layer
-    and overflow the capacity (`--phases routing` shows both)."""
+    and overflow the capacity (`--phases routing` shows both); `prepare=False`
+    skips that and the LM head's steering, for a second round on the same
+    model. int_dots=False runs the round with RuntimeConfig(moe_int_dots=False):
+    the exact-dequant decode MoE of the int8 tier."""
     import numpy as np
 
     from mingunivision_tpu_torch.config import RuntimeConfig
     from mingunivision_tpu_torch.ops.kernels.moe_capacity import moe_experts_capacity_gmm_exact
 
     L = cfg.llm.num_hidden_layers
-    steer_text_head(params, cfg)
-    damp_attention_outputs(params)
+    if prepare:
+        steer_text_head(params, cfg)
+        damp_attention_outputs(params)
     prompt, pixels = image_prompt(cfg, 1024, 28, seed=21), pixel_values(1024, seed=22)
     fallbacks = moe_experts_capacity_gmm_exact.fallbacks
-    label = f"understand_{tier}"
+    label = f"understand_{tier}" + ("" if int_dots else "_exact")
+    runtime = RuntimeConfig(moe_int_dots=int_dots)
     (out, sess, total_s), launches, peak = counted_round(
-        torch, results, label, lambda: _generate(torch, params, cfg, RuntimeConfig(), device, prompt, pixels=pixels,
+        torch, results, label, lambda: _generate(torch, params, cfg, runtime, device, prompt, pixels=pixels,
                                                  max_new_tokens=new_tokens))
     fallbacks = moe_experts_capacity_gmm_exact.fallbacks - fallbacks
     t = sess.timings
     T, steps = prompt[0].shape[1], t["text_tokens"]
-    decode_moe, prefill_moe = tier_kernels(tier)
+    decode_moe, prefill_moe, _ = tier_kernels(tier, int_dots)
     floors = {"flash_prefill": L, prefill_moe: L, decode_moe: L * steps, "decode_attention": L * steps,
               "moe_capacity": max(1, L - fallbacks)}
     checks = [("T_pad == 1152", t["prefill_tokens"] == 1152), ("flash prefill", bool(t["use_flash"])),
@@ -1203,6 +1350,8 @@ def run_understand(torch, cfg, params, device, results: dict, tier="bfloat16", n
           f"capacity_dispatch_launches={launches['moe_capacity']} capacity_fallbacks={fallbacks} "
           f"total_s={total_s:.3f} max_memory_allocated_gib={peak / 2**30:.3f}")
     results["flash_prefill"]["launches"] = launches["flash_prefill"]
+    if not int_dots:  # the exact-dequant decode kernel's main path
+        results[decode_moe]["launches"] = launches[decode_moe]
     return report(label, launches, checks)
 
 
@@ -1670,13 +1819,13 @@ def run_edit(torch, cfg, params, device, results: dict, tier="int4") -> bool:
         torch, results, label, lambda: _generate(torch, params, cfg, RuntimeConfig(), device, prompt, pixels=pixels))
     t = sess.timings
     T = prompt[0].shape[1]
-    decode_moe, prefill_moe = tier_kernels(tier)
+    decode_moe, prefill_moe, sampler = tier_kernels(tier)
     floors = {decode_moe: L * (n_tok + 1), prefill_moe: L, "decode_attention": L * (n_tok + 1)}
-    if tier != "bfloat16":
-        floors["rf_sampler_q4s8"] = n_tok
+    if sampler is not None:
+        floors[sampler] = n_tok
     checks = image_checks(out, sess, cfg, T, 512, rows=3) + [("T_pad == 384", t["prefill_tokens"] == 384)]
-    if tier != "bfloat16":
-        checks.append((f"sampler launches == {n_tok}", launches["rf_sampler_q4s8"] == n_tok))
+    if sampler is not None:
+        checks.append((f"sampler launches == {n_tok}", launches[sampler] == n_tok))
     checks += launch_checks(launches, floors)
     print(f"{label}: prompt {T} ids (256 image-patch ids; bucket {t['prefill_tokens']}), {L} layers, {tier}, "
           f"cfg_rows={t.get('cfg_rows')}, encode_ms={t['encode_ms']:.2f} prefill_ms={t['prefill_ms']:.2f} "
@@ -1922,9 +2071,10 @@ def jax_modules():
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="device,build,kernels,reference,slice,slice_int4,understand,edit,recon,serve")
-    ap.add_argument("--tier", default="bfloat16", choices=("bfloat16", "int4"),
-                    help="the tier of the profile, profile_understand and routing phases")
+    ap.add_argument("--phases", default="device,build,kernels,reference,slice,slice_int4,slice_int4_rf8,slice_int8,"
+                                        "understand,edit,recon,serve")
+    ap.add_argument("--tier", default="bfloat16", choices=("bfloat16", "int4", "int8"),
+                    help="the tier of the profile, profile_understand, routing and divergence phases")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1969,29 +2119,37 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         ok &= check_kernels(torch, results)
     if "reference" in phases:
-        ok &= run_reference(torch, cuda)
-        ok &= run_reference(torch, cuda, "int4")
-        ok &= run_reference_image(torch, cuda)
-        ok &= run_reference_image(torch, cuda, "int4")
+        for tier in ("bfloat16", "int4", "int8"):
+            ok &= run_reference(torch, cuda, tier)
+            ok &= run_reference_image(torch, cuda, tier)
         ok &= run_reference_serve(torch, cuda)
     if "divergence" in phases:
-        ok &= run_divergence(torch, cuda)
+        ok &= run_divergence(torch, cuda, args.tier)
     if "rf_sensitivity" in phases:
         ok &= run_rf_sensitivity(torch)
     if "recon" in phases:
         ok &= run_recon(torch, MingUniVisionConfig(), cuda, results)
-    for tier, slice_phase in (("bfloat16", "slice"), ("int4", "slice_int4")):
-        if not phases & {slice_phase, "understand", "edit", "serve"}:
+    # per tier: (its T2I phase, the other phases it runs); the int4 tier's model also serves the mixed tier
+    tier_phases = {"bfloat16": ("slice", {"understand", "edit", "serve"}),
+                   "int4": ("slice_int4", {"slice_int4_rf8", "understand", "edit", "serve"}),
+                   "int8": ("slice_int8", {"understand", "edit"})}
+    for tier, (slice_phase, others) in tier_phases.items():
+        if not phases & (others | {slice_phase}):
             continue
         cfg = MingUniVisionConfig()
-        params = full_model(torch, cfg, cuda, tier)  # built once for the tier's phases
+        mixed = "slice_int4_rf8" in phases & others
+        params = full_model(torch, cfg, cuda, tier, keep_rf_bf16=mixed)  # built once for the tier's phases
         if slice_phase in phases:
             ok &= run_slice(torch, cfg, params, cuda, results, tier)
+        if mixed:
+            ok &= run_slice_mixed(torch, cfg, params, cuda, results)
         if "edit" in phases:
             ok &= run_edit(torch, cfg, params, cuda, results, tier)
         if "understand" in phases:  # it steers the LM head towards text
             ok &= run_understand(torch, cfg, params, cuda, results, tier)
-        if "serve" in phases:
+            if tier == "int8":  # and again in the exact-dequant dot mode
+                ok &= run_understand(torch, cfg, params, cuda, results, tier, int_dots=False, prepare=False)
+        if "serve" in phases & others:
             ok &= run_serve(torch, cfg, params, cuda, results, tier, steered="understand" in phases)
         del params
         gc.collect()  # a tier's tree is held by reference cycles of the serving phase (engine <-> step clock)

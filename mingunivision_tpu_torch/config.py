@@ -236,8 +236,8 @@ class RuntimeConfig:
     use_pallas_moe: bool = True
     past_mode: str = "DROP"  # DROP | KEEP: multi-round mask persistence
     pixdec_matmul_precision: Optional[str] = None
-    # integer s8 dots in the int4/int8 decode MoE; False asks for the
-    # exact-dequant kernels, which the port does not have yet
+    # integer s8 dots in the int4/int8 decode MoE; False takes the
+    # exact-dequant kernel (ported for int8 tables; int4 trees refuse it)
     moe_int_dots: bool = True
 
 

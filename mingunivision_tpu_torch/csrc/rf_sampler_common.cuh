@@ -1,0 +1,192 @@
+// Shared parts of the fused RF-sampler kernels (rf_sampler_q4.cu: int4 tables,
+// s8 dots; rf_sampler_q8.cu: int8 tables, exact dequant): the arguments, the
+// per-row LN statistics, input_proj of the latent, the step epilogue (final
+// layer, CFG combine with optional channel renorm, Euler update) and the
+// cooperative launch. Both kernels run every CTA through the input_proj and
+// the epilogue redundantly and identically, from the same inputs in the same
+// order, so no grid barrier guards the latent; every fp32 step is rounded as
+// written (__f*_rn: no fused multiply-add), as the plain versions compute it.
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include "common.cuh"
+
+namespace rf {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTask = 32;  // output columns of a gate/up or down task
+constexpr int kLat = 128;  // latent channels the kernels hold
+
+// q12 / q3 are the block tables: packed uint8 (int4) or int8.
+struct RFArgs {
+  const float *dts, *x0, *win, *binp, *lnw, *lnb;
+  const void* q12;
+  const float *s12, *b12;
+  const void* q3;
+  const float *s3, *b3, *mods, *fmods, *wfin_t, *bfin;
+  float *xcur, *hbuf, *out;
+  int B, cfg_rows, renorm, S, L, w, H, C, h_bf16;
+  float text_cfg, image_cfg, ln_eps;
+};
+
+__device__ __forceinline__ float to_compute(float v, int bf) { return bf ? __bfloat162float(__float2bfloat16(v)) : v; }
+
+// Per-row mean and 1/sqrt(var + eps) of x [R][w] in shared memory (two passes).
+template <int R>
+__device__ void row_stats(const float* x, int w, float eps, float* stats, float* fscr) {
+  float s[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) s[r] = 0.0f;
+  for (int i = threadIdx.x; i < w; i += kThreads)
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r] = __fadd_rn(s[r], x[r * w + i]);
+  block_allreduce<R>(s, fscr, SumOp<float>());
+  float mu[R], v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    mu[r] = __fdiv_rn(s[r], (float)w);
+    v[r] = 0.0f;
+  }
+  for (int i = threadIdx.x; i < w; i += kThreads)
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float d = __fsub_rn(x[r * w + i], mu[r]);
+      v[r] = __fadd_rn(v[r], __fmul_rn(d, d));
+    }
+  block_allreduce<R>(v, fscr, SumOp<float>());
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      stats[2 * r] = mu[r];
+      stats[2 * r + 1] = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(__fdiv_rn(v[r], (float)w), eps)));
+    }
+  }
+  __syncthreads();
+}
+
+// The latent lat [R][kLat] into x [R][w]: input_proj with compute-dtype
+// operands and fp32 sums, all columns.
+template <int R>
+__device__ void input_proj(const RFArgs& a, const float* lat, float* xs) {
+  const int w = a.w, C = a.C;
+  for (int i = threadIdx.x; i < R * w; i += kThreads) {
+    const int r = i / w, j = i % w;
+    float acc = 0.0f;
+    for (int c = 0; c < C; ++c)
+      acc = __fadd_rn(acc, __fmul_rn(to_compute(lat[r * kLat + c], a.h_bf16), a.win[(size_t)c * w + j]));
+    xs[i] = __fadd_rn(acc, a.binp[j]);
+  }
+  __syncthreads();
+}
+
+// After the last block of step s: the velocity of x (read back from a.xcur
+// into xs [R][w]) through the final LN + modulate + linear into vel, the CFG
+// combine, and the Euler update of the latent lat.
+template <int R>
+__device__ void step_epilogue(const RFArgs& a, int s, float* xs, float* lat, float* vel, float* stats, float* fscr) {
+  const int w = a.w, B = a.B, C = a.C;
+  for (int i = threadIdx.x; i < R * w; i += kThreads) xs[i] = __ldcg(a.xcur + i);
+  __syncthreads();
+  row_stats<R>(xs, w, a.ln_eps, stats, fscr);
+  const float* fm = a.fmods + (size_t)s * B * 2 * w;  // [B][2w]: shift, scale
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = warp; o < B * C; o += kWarps) {
+    const int r = o / C, c = o % C;
+    float acc = 0.0f;
+    for (int k = lane; k < w; k += 32) {
+      const float ln = __fmul_rn(__fsub_rn(xs[r * w + k], stats[2 * r]), stats[2 * r + 1]);
+      const float xm = to_compute(
+          __fadd_rn(__fmul_rn(ln, __fadd_rn(1.0f, fm[(size_t)r * 2 * w + w + k])), fm[(size_t)r * 2 * w + k]),
+          a.h_bf16);
+      acc = __fadd_rn(acc, __fmul_rn(xm, a.wfin_t[(size_t)c * w + k]));
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) vel[r * kLat + c] = __fadd_rn(acc, a.bfin[c]);
+  }
+  __syncthreads();
+  const int n = B / a.cfg_rows;
+  if (a.cfg_rows > 1 && threadIdx.x < n) {  // one thread per image: guided velocity into row i
+    const int i = threadIdx.x;
+    float nc = 0.0f, ng = 0.0f;
+    for (int c = 0; c < C; ++c) {
+      const float vc = vel[i * kLat + c], vu = vel[(n + i) * kLat + c];
+      float vg;
+      if (a.cfg_rows == 3) {
+        const float vtu = vel[(2 * n + i) * kLat + c];
+        vg = __fadd_rn(__fadd_rn(vu, __fmul_rn(a.image_cfg, __fsub_rn(vtu, vu))),
+                       __fmul_rn(a.text_cfg, __fsub_rn(vc, vtu)));
+      } else {
+        vg = __fadd_rn(vu, __fmul_rn(a.text_cfg, __fsub_rn(vc, vu)));
+      }
+      nc = __fadd_rn(nc, __fmul_rn(vc, vc));
+      ng = __fadd_rn(ng, __fmul_rn(vg, vg));
+      vel[(n + i) * kLat + c] = vg;  // parked in the uncond row until the scale is known
+    }
+    const float scl =
+        a.renorm ? fminf(fmaxf(__fadd_rn(__fdiv_rn(__fsqrt_rn(nc), __fsqrt_rn(ng)), 1e-8f), 0.0f), 1.0f) : 1.0f;
+    for (int c = 0; c < C; ++c) vel[i * kLat + c] = a.renorm ? __fmul_rn(vel[(n + i) * kLat + c], scl) : vel[(n + i) * kLat + c];
+  }
+  __syncthreads();
+  const float dt = a.dts[s];
+  for (int i = threadIdx.x; i < B * C; i += kThreads) {
+    const int r = i / C, c = i % C;
+    const float v = a.cfg_rows > 1 ? vel[(r % n) * kLat + c] : vel[r * kLat + c];
+    lat[r * kLat + c] = __fadd_rn(lat[r * kLat + c], __fmul_rn(dt, v));
+  }
+  __syncthreads();
+}
+
+// One cooperative launch of `kernel` (one CTA per SM) with `smem` bytes of
+// dynamic shared memory; refused launches are reported.
+template <typename Kernel>
+cudaError_t launch_cooperative(Kernel kernel, size_t smem, const RFArgs& args, cudaStream_t stream) {
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  err = allow_dynamic_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  RFArgs a = args;
+  void* params[] = {&a};
+  return cudaLaunchCooperativeKernel((const void*)kernel, dim3(sms), dim3(kThreads), params, smem, stream);
+}
+
+// The arguments of the C entry points, in their order.
+inline RFArgs make_args(const void* dts, const void* x0, const void* win, const void* binp, const void* lnw,
+                        const void* lnb, const void* q12, const void* s12, const void* b12, const void* q3,
+                        const void* s3, const void* b3, const void* mods, const void* fmods, const void* wfin_t,
+                        const void* bfin, void* xcur, void* hbuf, void* out, int B, int cfg_rows, int renorm, int S,
+                        int L, int w, int H, int C, int h_bf16, float text_cfg, float image_cfg, float ln_eps) {
+  RFArgs a;
+  a.dts = static_cast<const float*>(dts);
+  a.x0 = static_cast<const float*>(x0);
+  a.win = static_cast<const float*>(win);
+  a.binp = static_cast<const float*>(binp);
+  a.lnw = static_cast<const float*>(lnw);
+  a.lnb = static_cast<const float*>(lnb);
+  a.q12 = q12;
+  a.s12 = static_cast<const float*>(s12);
+  a.b12 = static_cast<const float*>(b12);
+  a.q3 = q3;
+  a.s3 = static_cast<const float*>(s3);
+  a.b3 = static_cast<const float*>(b3);
+  a.mods = static_cast<const float*>(mods);
+  a.fmods = static_cast<const float*>(fmods);
+  a.wfin_t = static_cast<const float*>(wfin_t);
+  a.bfin = static_cast<const float*>(bfin);
+  a.xcur = static_cast<float*>(xcur);
+  a.hbuf = static_cast<float*>(hbuf);
+  a.out = static_cast<float*>(out);
+  a.B = B, a.cfg_rows = cfg_rows, a.renorm = renorm, a.S = S, a.L = L, a.w = w, a.H = H, a.C = C, a.h_bf16 = h_bf16;
+  a.text_cfg = text_cfg, a.image_cfg = image_cfg, a.ln_eps = ln_eps;
+  return a;
+}
+
+}  // namespace rf

@@ -37,31 +37,13 @@
 // rounded as written (__f*_rn: no fused multiply-add), 1/sqrt is IEEE, exp is
 // taken in double (silu_exact), and the plain version (ops/kernels/
 // rf_sampler.py) sums in this kernel's order: the two then agree to the bit.
-#include <cooperative_groups.h>
-
-#include "common.cuh"
+#include "rf_sampler_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTask = 32;  // output columns of a P2/P4 task: 8 lanes x 4 bytes
-constexpr int kLat = 128;  // latent channels the kernel holds
-
-struct RFArgs {
-  const float *dts, *x0, *win, *binp, *lnw, *lnb;
-  const uint8_t* q12;
-  const float *s12, *b12;
-  const uint8_t* q3;
-  const float *s3, *b3, *mods, *fmods, *wfin_t, *bfin;
-  float *xcur, *hbuf, *out;
-  int B, cfg_rows, renorm, S, L, w, H, C, h_bf16;
-  float text_cfg, image_cfg, ln_eps;
-};
-
-__device__ __forceinline__ float to_compute(float v, int bf) { return bf ? __bfloat162float(__float2bfloat16(v)) : v; }
+using namespace rf;
 
 // Shared memory: x [R][w], latent and velocity [R][kLat], the s8 operands of
 // xs [R][w/2] x2 and of h [R][H/2] x2, quant stats, reduction scratch, and the
@@ -86,39 +68,6 @@ struct Layout {
     bytes = o;
   }
 };
-
-// Per-row mean and 1/sqrt(var + eps) of x [R][w] in shared memory (two passes).
-template <int R>
-__device__ void row_stats(const float* x, int w, float eps, float* stats, float* fscr) {
-  float s[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) s[r] = 0.0f;
-  for (int i = threadIdx.x; i < w; i += kThreads)
-#pragma unroll
-    for (int r = 0; r < R; ++r) s[r] = __fadd_rn(s[r], x[r * w + i]);
-  block_allreduce<R>(s, fscr, SumOp<float>());
-  float mu[R], v[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    mu[r] = __fdiv_rn(s[r], (float)w);
-    v[r] = 0.0f;
-  }
-  for (int i = threadIdx.x; i < w; i += kThreads)
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float d = __fsub_rn(x[r * w + i], mu[r]);
-      v[r] = __fadd_rn(v[r], __fmul_rn(d, d));
-    }
-  block_allreduce<R>(v, fscr, SumOp<float>());
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      stats[2 * r] = mu[r];
-      stats[2 * r + 1] = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(__fdiv_rn(v[r], (float)w), eps)));
-    }
-  }
-  __syncthreads();
-}
 
 // One 32-column task: the R-row integer dots of NT packed tables (K/2 rows,
 // leading dim ld, columns col0..col0+31 each) summed over the whole block into
@@ -216,15 +165,7 @@ __global__ void __launch_bounds__(kThreads) rf_sampler_q4s8_kernel(RFArgs a) {
   __syncthreads();
 
   for (int s = 0; s < S; ++s) {
-    // input_proj of the latent (compute-dtype operands, fp32 sums), all columns
-    for (int i = threadIdx.x; i < R * w; i += kThreads) {
-      const int r = i / w, j = i % w;
-      float acc = 0.0f;
-      for (int c = 0; c < C; ++c)
-        acc = __fadd_rn(acc, __fmul_rn(to_compute(lat[r * kLat + c], a.h_bf16), a.win[(size_t)c * w + j]));
-      xs[i] = __fadd_rn(acc, a.binp[j]);
-    }
-    __syncthreads();
+    input_proj<R>(a, lat, xs);
 
     for (int l = 0; l < L; ++l) {
       const float* md = a.mods + ((size_t)l * S + s) * B * 3 * w;  // [B][3w]: shift, scale, gate
@@ -245,7 +186,7 @@ __global__ void __launch_bounds__(kThreads) rf_sampler_q4s8_kernel(RFArgs a) {
           B, w, a1, a2, st, fscr, reinterpret_cast<int*>(fscr));
 
       // P2: gate / up columns, h = silu(g) * u in the compute dtype
-      const uint8_t* q12 = a.q12 + (size_t)l * wq * 2 * H;
+      const uint8_t* q12 = static_cast<const uint8_t*>(a.q12) + (size_t)l * wq * 2 * H;
       const float* s12 = a.s12 + (size_t)l * 2 * H;
       const float* b12 = a.b12 + (size_t)l * 2 * H;
       for (int task = blockIdx.x; task < H / kTask; task += gridDim.x) {
@@ -268,7 +209,7 @@ __global__ void __launch_bounds__(kThreads) rf_sampler_q4s8_kernel(RFArgs a) {
                          reinterpret_cast<int*>(fscr));
 
       // P4: down columns and the residual through the gate modulation
-      const uint8_t* q3 = a.q3 + (size_t)l * Hh * w;
+      const uint8_t* q3 = static_cast<const uint8_t*>(a.q3) + (size_t)l * Hh * w;
       const float* s3 = a.s3 + (size_t)l * w;
       const float* b3 = a.b3 + (size_t)l * w;
       for (int task = blockIdx.x; task < w / kTask; task += gridDim.x) {
@@ -286,80 +227,11 @@ __global__ void __launch_bounds__(kThreads) rf_sampler_q4s8_kernel(RFArgs a) {
       grid.sync();
     }
 
-    // final layer, CFG combine, Euler update (every CTA, identically)
-    for (int i = threadIdx.x; i < R * w; i += kThreads) xs[i] = __ldcg(a.xcur + i);
-    __syncthreads();
-    row_stats<R>(xs, w, a.ln_eps, stats, fscr);
-    const float* fm = a.fmods + (size_t)s * B * 2 * w;  // [B][2w]: shift, scale
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int o = warp; o < B * C; o += kWarps) {
-      const int r = o / C, c = o % C;
-      float acc = 0.0f;
-      for (int k = lane; k < w; k += 32) {
-        const float ln = __fmul_rn(__fsub_rn(xs[r * w + k], stats[2 * r]), stats[2 * r + 1]);
-        const float xm = to_compute(
-            __fadd_rn(__fmul_rn(ln, __fadd_rn(1.0f, fm[(size_t)r * 2 * w + w + k])), fm[(size_t)r * 2 * w + k]),
-            a.h_bf16);
-        acc = __fadd_rn(acc, __fmul_rn(xm, a.wfin_t[(size_t)c * w + k]));
-      }
-      acc = warp_sum(acc);
-      if (lane == 0) vel[r * kLat + c] = __fadd_rn(acc, a.bfin[c]);
-    }
-    __syncthreads();
-    const int n = B / a.cfg_rows;
-    if (a.cfg_rows > 1 && threadIdx.x < n) {  // one thread per image: guided velocity into row i
-      const int i = threadIdx.x;
-      float nc = 0.0f, ng = 0.0f;
-      for (int c = 0; c < C; ++c) {
-        const float vc = vel[i * kLat + c], vu = vel[(n + i) * kLat + c];
-        float vg;
-        if (a.cfg_rows == 3) {
-          const float vtu = vel[(2 * n + i) * kLat + c];
-          vg = __fadd_rn(__fadd_rn(vu, __fmul_rn(a.image_cfg, __fsub_rn(vtu, vu))),
-                         __fmul_rn(a.text_cfg, __fsub_rn(vc, vtu)));
-        } else {
-          vg = __fadd_rn(vu, __fmul_rn(a.text_cfg, __fsub_rn(vc, vu)));
-        }
-        nc = __fadd_rn(nc, __fmul_rn(vc, vc));
-        ng = __fadd_rn(ng, __fmul_rn(vg, vg));
-        vel[(n + i) * kLat + c] = vg;  // parked in the uncond row until the scale is known
-      }
-      const float scl =
-          a.renorm ? fminf(fmaxf(__fadd_rn(__fdiv_rn(__fsqrt_rn(nc), __fsqrt_rn(ng)), 1e-8f), 0.0f), 1.0f) : 1.0f;
-      for (int c = 0; c < C; ++c) vel[i * kLat + c] = a.renorm ? __fmul_rn(vel[(n + i) * kLat + c], scl) : vel[(n + i) * kLat + c];
-    }
-    __syncthreads();
-    const float dt = a.dts[s];
-    for (int i = threadIdx.x; i < B * C; i += kThreads) {
-      const int r = i / C, c = i % C;
-      const float v = a.cfg_rows > 1 ? vel[(r % n) * kLat + c] : vel[r * kLat + c];
-      lat[r * kLat + c] = __fadd_rn(lat[r * kLat + c], __fmul_rn(dt, v));
-    }
-    __syncthreads();
+    step_epilogue<R>(a, s, xs, lat, vel, stats, fscr);
   }
   if (blockIdx.x == 0) {
     for (int i = threadIdx.x; i < B * C; i += kThreads) a.out[i] = lat[(i / C) * kLat + i % C];
   }
-}
-
-template <int R>
-cudaError_t launch_rf(const RFArgs& args, cudaStream_t stream) {
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  const size_t smem = Layout<R>(args.w, args.H).bytes;
-  err = allow_dynamic_smem(rf_sampler_q4s8_kernel<R>, smem);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rf_sampler_q4s8_kernel<R>, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  RFArgs a = args;
-  void* params[] = {&a};
-  return cudaLaunchCooperativeKernel((const void*)rf_sampler_q4s8_kernel<R>, dim3(sms), dim3(kThreads), params, smem,
-                                     stream);
 }
 
 }  // namespace
@@ -378,35 +250,16 @@ extern "C" int mu_rf_sampler_q4s8(const void* dts, const void* x0, const void* w
                                   const void* wfin_t, const void* bfin, void* xcur, void* hbuf, void* out, int B,
                                   int cfg_rows, int renorm, int S, int L, int w, int H, int C, int h_bf16,
                                   float text_cfg, float image_cfg, float ln_eps, void* stream) {
-  RFArgs a;
-  a.dts = static_cast<const float*>(dts);
-  a.x0 = static_cast<const float*>(x0);
-  a.win = static_cast<const float*>(win);
-  a.binp = static_cast<const float*>(binp);
-  a.lnw = static_cast<const float*>(lnw);
-  a.lnb = static_cast<const float*>(lnb);
-  a.q12 = static_cast<const uint8_t*>(q12);
-  a.s12 = static_cast<const float*>(s12);
-  a.b12 = static_cast<const float*>(b12);
-  a.q3 = static_cast<const uint8_t*>(q3);
-  a.s3 = static_cast<const float*>(s3);
-  a.b3 = static_cast<const float*>(b3);
-  a.mods = static_cast<const float*>(mods);
-  a.fmods = static_cast<const float*>(fmods);
-  a.wfin_t = static_cast<const float*>(wfin_t);
-  a.bfin = static_cast<const float*>(bfin);
-  a.xcur = static_cast<float*>(xcur);
-  a.hbuf = static_cast<float*>(hbuf);
-  a.out = static_cast<float*>(out);
-  a.B = B, a.cfg_rows = cfg_rows, a.renorm = renorm, a.S = S, a.L = L, a.w = w, a.H = H, a.C = C, a.h_bf16 = h_bf16;
-  a.text_cfg = text_cfg, a.image_cfg = image_cfg, a.ln_eps = ln_eps;
+  const RFArgs a = rf::make_args(dts, x0, win, binp, lnw, lnb, q12, s12, b12, q3, s3, b3, mods, fmods, wfin_t, bfin,
+                                 xcur, hbuf, out, B, cfg_rows, renorm, S, L, w, H, C, h_bf16, text_cfg, image_cfg,
+                                 ln_eps);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (B) {
-    case 1: err = launch_rf<1>(a, st); break;
-    case 2: err = launch_rf<2>(a, st); break;
-    case 3: err = launch_rf<3>(a, st); break;
-    case 4: err = launch_rf<4>(a, st); break;
+    case 1: err = launch_cooperative(rf_sampler_q4s8_kernel<1>, Layout<1>(w, H).bytes, a, st); break;
+    case 2: err = launch_cooperative(rf_sampler_q4s8_kernel<2>, Layout<2>(w, H).bytes, a, st); break;
+    case 3: err = launch_cooperative(rf_sampler_q4s8_kernel<3>, Layout<3>(w, H).bytes, a, st); break;
+    case 4: err = launch_cooperative(rf_sampler_q4s8_kernel<4>, Layout<4>(w, H).bytes, a, st); break;
     default: err = cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;

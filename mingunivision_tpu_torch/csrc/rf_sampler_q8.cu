@@ -1,0 +1,252 @@
+// Fused whole-sampler of the rectified-flow head over int8 tables, exact
+// dequant: all Euler steps of one sample in ONE launch.
+//
+// Replaces the TPU kernel mingunivision_tpu/ops/kernels/rf_sampler.py
+// (rf_sample_fused -> _sampler_q8 with s8_dots = INT8_INT_DOTS = False, the
+// int8 quality tier; with _modulated_ln and _step_epilogue). Per Euler step s
+// and AdaLN block l (rows r < B, width w, SwiGLU hidden H):
+//   xs   = LN(x) * ln_w + ln_b, modulated by (shift, scale) of mods[l, s],
+//          rounded to the compute dtype
+//   g, u = xs @ Q12[:, :H] * s + b, xs @ Q12[:, H:] * s + b  (int8 -> fp32, fp32 sums)
+//   h    = silu(g) * u, rounded to the compute dtype
+//   x   += gate * ((h @ Q3) * s3 + b3)
+// then the int4 kernel's step epilogue (rf_sampler_common.cuh): the final
+// layer, the CFG combine (1, 2 or 3 rows, optional channel renorm), the Euler
+// update and input_proj of the next step. On the H100 the sample is bound by
+// the int8 tables it streams: 906 MB per Euler step at the 16B-A3B width
+// (w 3072, H 8192, 12 blocks: w12 (3072, 16384) + w3 (8192, 3072) a block),
+// 14.5 GB per sample, 4.33 ms at 3.35 TB/s.
+//
+// Design: rf_sampler_q4.cu's persistent cooperative grid (one CTA per SM,
+// grid-wide barriers between dependent phases) with convert dots in place of
+// the s8 pair dots:
+//   P1 (every CTA, redundantly)  load x (B x w fp32) into shared memory, LN,
+//        modulate, round to the compute dtype into the activation buffer;
+//   P2 (32-column tasks over CTAs)  gate/up dots over w rows: a lane loads one
+//        32-bit word (4 columns) of each of four consecutive rows, converts
+//        the bytes to fp32 and multiplies them with the activations in fp32;
+//        32 contraction splits per CTA, each adding its rounded products in
+//        turn, summed by shuffles and over the warps in order; h to device
+//        memory;                                                  -- barrier
+//   P3 (every CTA)  h (B x H, from L2) into the activation buffer, which xs
+//        no longer needs;
+//   P4 (32-column tasks)  down dots over H rows the same way, the residual
+//        update of the CTA's own columns of x;                    -- barrier
+// Data written by other CTAs is read with __ldcg (L2). The sampler is chaotic
+// at its bf16 roundings, so every fp32 step is rounded as written (__f*_rn: no
+// fused multiply-add) and the plain version (ops/kernels/rf_sampler.py,
+// `_split_dot`) sums in this kernel's order: the two then agree to the bit.
+#include "rf_sampler_common.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+using namespace rf;
+
+// Shared memory: x [R][w], latent and velocity [R][kLat], the activation
+// buffer [R][max(w, H)] (xs in P1-P2, h in P3-P4), LN stats, reduction
+// scratch, and the per-warp partial sums of a task [kWarps][R][kTask][2].
+template <int R>
+struct Layout {
+  size_t x, lat, vel, act, stats, fscr, red, bytes;
+  __host__ __device__ Layout(int w, int H) {
+    size_t o = 0;
+    x = o; o += align16((size_t)R * w * 4);
+    lat = o; o += align16((size_t)R * kLat * 4);
+    vel = o; o += align16((size_t)R * kLat * 4);
+    act = o; o += align16((size_t)R * (w > H ? w : H) * 4);
+    stats = o; o += align16(2 * R * 4);
+    fscr = o; o += align16(32 * 2 * R * 4);
+    red = o; o += (size_t)kWarps * R * kTask * 2 * 4;
+    bytes = o;
+  }
+};
+
+// One 32-column task: the R-row fp32 dots of NT int8 tables (K rows, leading
+// dim ld, columns p[q]..p[q]+31) with the activations act [R][K], summed over
+// the whole block into red [R][kTask][NT] (shared memory). Lane = 8 column
+// threads x 4 splits, 8 warps: 32 contraction splits over the 4-row groups.
+template <int R, int NT>
+__device__ void task_dots(const int8_t* const (&p)[NT], int K, size_t ld, const float* act, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ct = lane & 7, split = warp * 4 + (lane >> 3);
+  float acc[R][4][NT];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int q = 0; q < NT; ++q) acc[r][c][q] = 0.0f;
+#pragma unroll 2
+  for (int g = split; g < K / 4; g += 32) {
+    const int i = 4 * g;
+    uint32_t wd[NT][4];
+#pragma unroll
+    for (int q = 0; q < NT; ++q)
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr)
+        wd[q][rr] = __ldg(reinterpret_cast<const uint32_t*>(p[q] + (size_t)(i + rr) * ld + 4 * ct));
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) {
+      float wf[NT][4];
+#pragma unroll
+      for (int q = 0; q < NT; ++q)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) wf[q][c] = (float)(int8_t)(wd[q][rr] >> (8 * c));
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float xv = act[r * K + i + rr];
+#pragma unroll
+        for (int q = 0; q < NT; ++q)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[r][c][q] = __fadd_rn(acc[r][c][q], __fmul_rn(xv, wf[q][c]));
+      }
+    }
+  }
+  // the 4 splits of a warp, then the 8 warps in order
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int q = 0; q < NT; ++q) {
+        acc[r][c][q] += __shfl_xor_sync(0xffffffffu, acc[r][c][q], 8);
+        acc[r][c][q] += __shfl_xor_sync(0xffffffffu, acc[r][c][q], 16);
+      }
+  if (lane < 8) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int q = 0; q < NT; ++q) red[((warp * R + r) * kTask + 4 * ct + c) * NT + q] = acc[r][c][q];
+  }
+  __syncthreads();
+  // warp 0's slots take the sum (each (r, c, q) is read and written by one thread only)
+  for (int idx = threadIdx.x; idx < R * kTask * NT; idx += kThreads) {
+    float s = 0.0f;
+    for (int wp = 0; wp < kWarps; ++wp) s += red[wp * R * kTask * NT + idx];
+    red[idx] = s;
+  }
+  __syncthreads();
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads) rf_sampler_q8_kernel(RFArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  const int w = a.w, H = a.H, C = a.C, B = a.B, L = a.L, S = a.S;
+  const Layout<R> lay(w, H);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem + lay.x);
+  float* lat = reinterpret_cast<float*>(smem + lay.lat);
+  float* vel = reinterpret_cast<float*>(smem + lay.vel);
+  float* act = reinterpret_cast<float*>(smem + lay.act);
+  float* stats = reinterpret_cast<float*>(smem + lay.stats);
+  float* fscr = reinterpret_cast<float*>(smem + lay.fscr);
+  float* red = reinterpret_cast<float*>(smem + lay.red);
+
+  for (int i = threadIdx.x; i < R * kLat; i += kThreads) {
+    const int r = i / kLat, c = i % kLat;
+    lat[i] = c < C ? a.x0[r * C + c] : 0.0f;
+  }
+  __syncthreads();
+
+  for (int s = 0; s < S; ++s) {
+    input_proj<R>(a, lat, xs);
+
+    for (int l = 0; l < L; ++l) {
+      const float* md = a.mods + ((size_t)l * S + s) * B * 3 * w;  // [B][3w]: shift, scale, gate
+      if (l > 0) {
+        for (int i = threadIdx.x; i < R * w; i += kThreads) xs[i] = __ldcg(a.xcur + i);
+        __syncthreads();
+      }
+      // P1: modulated LN in the compute dtype
+      row_stats<R>(xs, w, a.ln_eps, stats, fscr);
+      const float* lw = a.lnw + (size_t)l * w;
+      const float* lb = a.lnb + (size_t)l * w;
+      for (int idx = threadIdx.x; idx < R * w; idx += kThreads) {
+        const int r = idx / w, i = idx % w;
+        const float d = __fmul_rn(__fsub_rn(xs[idx], stats[2 * r]), stats[2 * r + 1]);
+        const float ln = __fadd_rn(__fmul_rn(d, lw[i]), lb[i]);
+        act[idx] = to_compute(
+            __fadd_rn(__fmul_rn(ln, __fadd_rn(1.0f, md[(size_t)r * 3 * w + w + i])), md[(size_t)r * 3 * w + i]),
+            a.h_bf16);
+      }
+      __syncthreads();
+
+      // P2: gate / up columns, h = silu(g) * u in the compute dtype
+      const int8_t* q12 = static_cast<const int8_t*>(a.q12) + (size_t)l * w * 2 * H;
+      const float* s12 = a.s12 + (size_t)l * 2 * H;
+      const float* b12 = a.b12 + (size_t)l * 2 * H;
+      for (int task = blockIdx.x; task < H / kTask; task += gridDim.x) {
+        const int j0 = task * kTask;
+        const int8_t* const p[2] = {q12 + j0, q12 + H + j0};
+        task_dots<R, 2>(p, w, 2 * (size_t)H, act, red);
+        for (int idx = threadIdx.x; idx < B * kTask; idx += kThreads) {
+          const int r = idx / kTask, c = idx % kTask, j = j0 + c;
+          const float* d = red + (r * kTask + c) * 2;
+          const float g = __fadd_rn(__fmul_rn(d[0], s12[j]), b12[j]);
+          const float u = __fadd_rn(__fmul_rn(d[1], s12[H + j]), b12[H + j]);
+          __stcg(a.hbuf + (size_t)r * H + j, to_compute(__fmul_rn(silu_exact(g), u), a.h_bf16));
+        }
+        __syncthreads();
+      }
+      grid.sync();
+
+      // P3: h into the activation buffer
+      for (int i = threadIdx.x; i < R * H; i += kThreads) act[i] = __ldcg(a.hbuf + i);
+      __syncthreads();
+
+      // P4: down columns and the residual through the gate modulation
+      const int8_t* q3 = static_cast<const int8_t*>(a.q3) + (size_t)l * H * w;
+      const float* s3 = a.s3 + (size_t)l * w;
+      const float* b3 = a.b3 + (size_t)l * w;
+      for (int task = blockIdx.x; task < w / kTask; task += gridDim.x) {
+        const int c0 = task * kTask;
+        const int8_t* const p[1] = {q3 + c0};
+        task_dots<R, 1>(p, H, (size_t)w, act, red);
+        for (int idx = threadIdx.x; idx < B * kTask; idx += kThreads) {
+          const int r = idx / kTask, c = idx % kTask, j = c0 + c;
+          const float po = __fadd_rn(__fmul_rn(red[r * kTask + c], s3[j]), b3[j]);
+          __stcg(a.xcur + (size_t)r * w + j, __fadd_rn(xs[r * w + j], __fmul_rn(md[(size_t)r * 3 * w + 2 * w + j], po)));
+        }
+        __syncthreads();
+      }
+      grid.sync();
+    }
+
+    step_epilogue<R>(a, s, xs, lat, vel, stats, fscr);
+  }
+  if (blockIdx.x == 0) {
+    for (int i = threadIdx.x; i < B * C; i += kThreads) a.out[i] = lat[(i / C) * kLat + i % C];
+  }
+}
+
+}  // namespace
+
+// One Euler sample (S steps x L blocks) of B <= 4 CFG rows, the arguments of
+// mu_rf_sampler_q4s8 with int8 block tables: q12 (L, w, 2H) and q3 (L, H, w)
+// int8 with fp32 scales s12 (L, 2H) / s3 (L, w). w and H multiples of 64,
+// C <= 128 (the wrapper checks). One cooperative launch: one CTA per SM.
+extern "C" int mu_rf_sampler_q8(const void* dts, const void* x0, const void* win, const void* binp, const void* lnw,
+                                const void* lnb, const void* q12, const void* s12, const void* b12, const void* q3,
+                                const void* s3, const void* b3, const void* mods, const void* fmods,
+                                const void* wfin_t, const void* bfin, void* xcur, void* hbuf, void* out, int B,
+                                int cfg_rows, int renorm, int S, int L, int w, int H, int C, int h_bf16,
+                                float text_cfg, float image_cfg, float ln_eps, void* stream) {
+  const RFArgs a = rf::make_args(dts, x0, win, binp, lnw, lnb, q12, s12, b12, q3, s3, b3, mods, fmods, wfin_t, bfin,
+                                 xcur, hbuf, out, B, cfg_rows, renorm, S, L, w, H, C, h_bf16, text_cfg, image_cfg,
+                                 ln_eps);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (B) {
+    case 1: err = launch_cooperative(rf_sampler_q8_kernel<1>, Layout<1>(w, H).bytes, a, st); break;
+    case 2: err = launch_cooperative(rf_sampler_q8_kernel<2>, Layout<2>(w, H).bytes, a, st); break;
+    case 3: err = launch_cooperative(rf_sampler_q8_kernel<3>, Layout<3>(w, H).bytes, a, st); break;
+    case 4: err = launch_cooperative(rf_sampler_q8_kernel<4>, Layout<4>(w, H).bytes, a, st); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}

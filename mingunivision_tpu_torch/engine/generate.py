@@ -42,10 +42,13 @@ def scatter_image_embeds(inputs_embeds, input_ids, image_embeds, image_patch_tok
     return out.reshape(B, T, h), is_patch.reshape(B, T)
 
 
-def prefill(params, cfg, inputs_embeds, cache: LLMCache, attn_mask, image_mask=None, *, use_flash: bool = False):
+def prefill(params, cfg, inputs_embeds, cache: LLMCache, attn_mask, image_mask=None, *, use_flash: bool = False,
+            int_dots: bool = True):
     """Run the right-padded prompt through the stack. attn_mask bool (1, Smax)
     is True exactly at the valid prompt positions [cache.length, cache.length + T_valid).
     use_flash: first-round prefill through the flash-attention kernel.
+    int_dots: the decode MoE's dot mode over quantized tables (a prompt short
+    enough for the decode-shape MoE).
 
     Returns (logits (B, V) of the last valid position, cache whose length is
     rolled back to right after the last valid prompt token)."""
@@ -54,7 +57,7 @@ def prefill(params, cfg, inputs_embeds, cache: LLMCache, attn_mask, image_mask=N
     # positions: cumsum over the mask (masked history shifts positions)
     positions = (attn_mask.long().cumsum(dim=1) - 1)[:, start : start + T].clamp(min=0)
     hidden, cache = bailing_forward(params, cfg, inputs_embeds, cache, attn_mask, positions=positions,
-                                    image_mask=image_mask, use_flash=use_flash)
+                                    image_mask=image_mask, use_flash=use_flash, int_dots=int_dots)
     last_idx = attn_mask[:, start : start + T].long().sum(dim=1) - 1  # (B,)
     last_hidden = hidden.gather(1, last_idx[:, None, None].expand(B, 1, hidden.shape[-1]))
     logits = compute_logits(params, cfg, last_hidden)[:, 0]
@@ -70,9 +73,10 @@ class DecodeResult:
 
 
 def decode_text(params, cfg, first_token: int, cache: LLMCache, mask, generator=None, *, max_steps: int,
-                do_sample: bool = False, temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0):
+                do_sample: bool = False, temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
+                int_dots: bool = True):
     """Feed `first_token` and keep sampling until EOS / image-start / max_steps.
-    `mask` (1, Smax) is updated IN PLACE."""
+    `mask` (1, Smax) is updated IN PLACE; int_dots: the decode MoE's dot mode."""
     tokens: List[int] = []
     hiddens = []
     cur = int(first_token)
@@ -81,7 +85,7 @@ def decode_text(params, cfg, first_token: int, cache: LLMCache, mask, generator=
         mask[:, cache.length] = True
         pos = mask.long().sum(dim=1, keepdim=True) - 1
         embeds = embed_tokens(params, torch.tensor([[cur]], device=dev)).to(cache.k.dtype)
-        hidden, cache = bailing_forward(params, cfg, embeds, cache, mask, positions=pos)
+        hidden, cache = bailing_forward(params, cfg, embeds, cache, mask, positions=pos, int_dots=int_dots)
         logits = compute_logits(params, cfg, hidden)[:, -1]
         cur = int(sample_token(logits, generator, do_sample=do_sample, temperature=temperature, top_k=top_k,
                                top_p=top_p)[0])
@@ -114,7 +118,8 @@ def _cfg_at(gen_cfg, i: int):
 
 
 def generate_image_tokens(params, llm_cfg, mingtok_cfg, rf_cfg, gen_cfg, image_start_embed, cache: LLMCache,
-                          row_masks, generator: Optional[torch.Generator] = None) -> ImageGenResult:
+                          row_masks, generator: Optional[torch.Generator] = None, *,
+                          int_dots: bool = True) -> ImageGenResult:
     """The AR image loop. Per token: LLM step over the CFG rows -> vis_head ->
     rectified-flow Euler sample -> MingTok semantic-decoder step -> linear_proj
     -> next LLM input; every row's mask grows by one. A trailing LLM step gives
@@ -122,7 +127,8 @@ def generate_image_tokens(params, llm_cfg, mingtok_cfg, rf_cfg, gen_cfg, image_s
 
     The CFG rows are [cond, uncond (, text_uncond)], one per row of
     `row_masks` (cfg_rows, Smax); `cache` is already expanded to them and is
-    written IN PLACE. The RF noise of each token is drawn from `generator`."""
+    written IN PLACE. The RF noise of each token is drawn from `generator`;
+    int_dots: the decode MoE's dot mode over quantized tables."""
     R = row_masks.shape[0]
     n_tokens = gen_cfg.num_image_tokens
     dev = image_start_embed.device
@@ -135,7 +141,7 @@ def generate_image_tokens(params, llm_cfg, mingtok_cfg, rf_cfg, gen_cfg, image_s
     def llm_step(embeds, cache):
         masks[:, cache.length] = True  # the position the current embeds occupy, in every row
         pos = masks.long().sum(dim=1, keepdim=True) - 1
-        return bailing_forward(params["llm"], llm_cfg, embeds, cache, masks, positions=pos)
+        return bailing_forward(params["llm"], llm_cfg, embeds, cache, masks, positions=pos, int_dots=int_dots)
 
     for i in range(n_tokens):
         hidden, cache = llm_step(embeds, cache)

@@ -9,7 +9,10 @@ expert tables as views of the stacked tables.
 
 Dispatch: decode-shape MoE (B*T <= MOE_DECODE_MAX_TOKENS) goes to the
 decode-MoE kernel, larger token counts to the grouped-SwiGLU prefill kernel
-(each wrapper picks its bf16 or int4 kernel from the table type), through the
+(each wrapper picks its bf16, int4 or int8 kernel from the table type; for
+quantized decode tables the dot mode, `int_dots`, comes from the caller down
+through `bailing_forward`: s8 integer dots by default, exact dequant for
+int8 tables with `int_dots=False`), through the
 capacity-dense dispatch from MOE_CAPACITY_MIN_TOKENS rows up and the
 expert-sorted one below; one-token attention goes to the decode-attention
 kernel and a first-round prefill that passes `flash_usable` to the
@@ -102,9 +105,10 @@ def _expert_mlp(x, gate_w, up_w, down_w):
 
 # phase -> routed-expert kernel wrapper (each picks its plain version for CPU
 # tensors itself); every entry takes (stacked experts, x_flat, topk_idx,
-# topk_w, num_experts, layer_idx), the capacity one also (capacity, token_valid)
+# topk_w, num_experts, layer_idx), the decode one also the dot mode
+# (int_dots), the capacity one also (capacity, token_valid)
 MOE_IMPLS = {
-    "decode": lambda ex, x, i, w, E, l: moe_experts_stream(ex, x, i, w, layer_idx=l),
+    "decode": lambda ex, x, i, w, E, l, int_dots: moe_experts_stream(ex, x, i, w, layer_idx=l, int_dots=int_dots),
     "prefill": lambda ex, x, i, w, E, l: moe_experts_swiglu_gmm(ex, x, i, w, E, layer_idx=l),
     "prefill_capacity": lambda ex, x, i, w, E, l, cap, valid: moe_experts_capacity_gmm_exact(
         ex, x, i, w, E, cap, token_valid=valid, layer_idx=l),
@@ -112,7 +116,7 @@ MOE_IMPLS = {
 
 
 def moe_block_apply(params, cfg, x, image_mask=None, audio_mask=None, *, experts_stacked, layer_idx,
-                    token_valid=None):
+                    token_valid=None, int_dots: bool = True):
     """Sparse MoE block with multi-gate routing + shared experts.
 
     x (B, T, h); image_mask/audio_mask: optional bool (B, T) selecting tokens
@@ -120,7 +124,8 @@ def moe_block_apply(params, cfg, x, image_mask=None, audio_mask=None, *, experts
     tables, indexed by `layer_idx` inside the kernels. token_valid: optional
     bool (B, T) of real (non-padding) tokens, read by the capacity-dense
     dispatch only (see `moe_experts_capacity_gmm_exact`); the padding rows'
-    outputs are discarded downstream."""
+    outputs are discarded downstream. int_dots: the decode MoE's dot mode over
+    quantized tables (s8 integer dots, or exact dequant when False)."""
     B, T, h = x.shape
     x_flat = x.reshape(-1, h)
     topk_idx, topk_w, _ = moe_route(params["gate"]["w"], x_flat, cfg.num_experts_per_tok, cfg.norm_topk_prob)
@@ -133,7 +138,7 @@ def moe_block_apply(params, cfg, x, image_mask=None, audio_mask=None, *, experts
 
     args = (experts_stacked, x_flat, topk_idx, topk_w.to(x.dtype), cfg.num_experts, layer_idx)
     if B * T <= MOE_DECODE_MAX_TOKENS:
-        y = MOE_IMPLS["decode"](*args)
+        y = MOE_IMPLS["decode"](*args, int_dots)
     elif cfg.moe_prefill_capacity_factor > 0 and B * T >= MOE_CAPACITY_MIN_TOKENS:
         cap = default_capacity(B * T, cfg.num_experts_per_tok, cfg.num_experts, factor=cfg.moe_prefill_capacity_factor)
         y = MOE_IMPLS["prefill_capacity"](*args, cap, None if token_valid is None else token_valid.reshape(-1))
@@ -184,22 +189,25 @@ def attention_apply(params, cfg, x, cos, sin, k_cache, v_cache, length: int, att
 
 
 def decoder_layer_apply(layer_params, cfg, x, cos, sin, k_cache, v_cache, length, attn_mask, image_mask=None,
-                        audio_mask=None, *, use_flash: bool = False, experts_stacked, layer_idx, token_valid=None):
+                        audio_mask=None, *, use_flash: bool = False, experts_stacked, layer_idx, token_valid=None,
+                        int_dots: bool = True):
     h = rms_norm(x, layer_params["input_layernorm"]["w"], eps=cfg.rms_norm_eps)
     x = x + attention_apply(layer_params["attention"], cfg, h, cos, sin, k_cache, v_cache, length, attn_mask,
                             use_flash=use_flash)
     h = rms_norm(x, layer_params["post_attention_layernorm"]["w"], eps=cfg.rms_norm_eps)
     return x + moe_block_apply(layer_params["mlp"], cfg, h, image_mask, audio_mask,
-                               experts_stacked=experts_stacked, layer_idx=layer_idx, token_valid=token_valid)
+                               experts_stacked=experts_stacked, layer_idx=layer_idx, token_valid=token_valid,
+                               int_dots=int_dots)
 
 
 def bailing_forward(params, cfg, inputs_embeds, cache: LLMCache, attn_mask, positions=None, image_mask=None,
-                    audio_mask=None, use_flash: bool = False):
+                    audio_mask=None, use_flash: bool = False, int_dots: bool = True):
     """Run T tokens through the decoder stack, writing their K/V into the
     cache IN PLACE. inputs_embeds (B, T, h); attn_mask bool (B, Smax) over the
     whole cache; positions (B, T), or (3, B, T) MRoPE planes (default
-    cache.length + arange(T)). Returns (hidden_states (B, T, h), cache
-    advanced by T)."""
+    cache.length + arange(T)). int_dots: the decode MoE's dot mode over
+    quantized tables (`moe_block_apply`). Returns (hidden_states (B, T, h),
+    cache advanced by T)."""
     B, T, _ = inputs_embeds.shape
     if positions is None:
         positions = (cache.length + torch.arange(T, device=inputs_embeds.device))[None].expand(B, T)
@@ -219,7 +227,7 @@ def bailing_forward(params, cfg, inputs_embeds, cache: LLMCache, attn_mask, posi
     for l in range(cfg.num_hidden_layers):
         x = decoder_layer_apply(layer_view(per_layer, l), cfg, x, cos, sin, cache.k[l], cache.v[l], cache.length,
                                 attn_mask, image_mask, audio_mask, use_flash=use_flash, experts_stacked=experts,
-                                layer_idx=l, token_valid=token_valid)
+                                layer_idx=l, token_valid=token_valid, int_dots=int_dots)
     x = rms_norm(x, params["norm"]["w"], eps=cfg.rms_norm_eps)
     return x, LLMCache(cache.k, cache.v, cache.length + T)
 

@@ -1,7 +1,7 @@
 """Rectified-flow head: AdaLN SwiGLU-MLP velocity field + Euler ODE sampler
 (counterpart of mingunivision_tpu/models/rf_head.py).
 
-Linear int4 res_blocks tables take the fused whole-sampler
+Linear int4 and int8 res_blocks tables take the fused whole-sampler
 (`ops/kernels/rf_sampler.py`: the CUDA kernel on the card, its plain version
 on the CPU), as the JAX package's TPU path does; other tiers run the Euler
 steps as a Python loop, dequantizing any quantized weight in `dense`.

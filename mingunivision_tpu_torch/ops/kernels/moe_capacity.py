@@ -5,7 +5,8 @@ ops/kernels/moe_swiglu_gmm.py over one group per expert.
 Replaces mingunivision_tpu/ops/kernels/moe_capacity.py (`expert_rank`,
 `capacity_src_map`, `moe_experts_capacity_gmm`, `moe_experts_capacity_gmm_exact`,
 `default_capacity`): glue over the TPU grouped-SwiGLU kernels with uniform
-groups. Assignment a (token a // k, expert e) gets slot e * C + rank, where
+groups (`swiglu_gmm` for bf16 tables, `swiglu_gmm_quant` for int4 and int8
+ones). Assignment a (token a // k, expert e) gets slot e * C + rank, where
 rank counts the earlier assignments to e in original order; the kernels read
 x through the slot -> token map and a schedule whose tiles start at each
 expert's first slot and end at its load, so no tile straddles two experts,
@@ -114,7 +115,7 @@ def moe_experts_capacity_gmm(experts, x_flat, topk_idx, topk_w, num_experts: int
     every expert's load is at most `capacity`: an assignment ranked past it,
     or one whose expert id is `num_experts` (a padding row routed out of
     bounds), contributes zero. x_flat (N, h); topk_idx/topk_w (N, k) -> (N, h).
-    bf16 and linear int4 tables (the kernels of the expert-sorted dispatch)."""
+    bf16, linear int4 and int8 tables (the kernels of the expert-sorted dispatch)."""
     return _capacity_gmm(experts, x_flat, topk_idx, topk_w, num_experts, capacity, layer_idx, plain=False)
 
 

@@ -1,33 +1,48 @@
-"""Fused whole-sampler of the rectified-flow head over linear int4 tables: the
-CUDA kernel `csrc/rf_sampler_q4.cu` and its plain version.
+"""Fused whole-sampler of the rectified-flow head over linear int4 or int8
+tables: the CUDA kernels `csrc/rf_sampler_q4.cu` and `csrc/rf_sampler_q8.cu`
+and their plain versions.
 
 Replaces the TPU kernel mingunivision_tpu/ops/kernels/rf_sampler.py
-(`rf_sample_fused` -> `_sampler_q4_s8`, with `_modulated_ln` and
+(`rf_sample_fused` -> `_sampler_q4_s8` for int4 tables, `_sampler_q8` with
+s8_dots = False for int8 ones, both with `_modulated_ln` and
 `_step_epilogue`): every Euler step of one sample, each over the 12 AdaLN
 SwiGLU blocks, then the final layer, the CFG combine (optional channel
 renorm) and the Euler update, in ONE launch, with the latent kept on chip.
 What bounds it on the H100 is the bytes of the MLP tables: 453 MB of packed
-int4 per Euler step at the 16B-A3B width (w12 (1536, 16384), w3 (4096, 3072)
-per block), 7.25 GB over 16 steps. The kernel is a persistent cooperative
-grid: the blocks' phases depend on each other, so grid-wide barriers stand in
-for the TPU's sequential grid (see the source).
+int4 (906 MB of int8) per Euler step at the 16B-A3B width (w12 (3072, 16384),
+w3 (8192, 3072) per block), 7.25 GB (14.5 GB) over 16 steps. The kernels are
+persistent cooperative grids: the blocks' phases depend on each other, so
+grid-wide barriers stand in for the TPU's sequential grid (see the sources).
 
-Arithmetic, as the TPU kernel: the modulated LN output and the SwiGLU hidden
-state are quantized per row to the s8 operand pair (`intdot.py`), the weights
-enter two integer dots each, the hidden state is rounded to the compute dtype
-before its quantization, the running activation and the latent stay fp32,
-and input_proj / final linear take compute-dtype operands with fp32 sums.
+Arithmetic, as the TPU kernels. int4: the modulated LN output and the SwiGLU
+hidden state are quantized per row to the s8 operand pair (`intdot.py`), the
+weights enter two integer dots each, the hidden state is rounded to the
+compute dtype before its quantization. int8 (exact dequant): the modulated
+LN output and the hidden state are rounded to the compute dtype, the int8
+weights enter fp32 products as their exact values, the scales and biases are
+applied to the fp32 sums. Both: the running activation and the latent stay
+fp32, and input_proj / final linear take compute-dtype operands with fp32 sums.
 
-The sampler is chaotic at the s8 rounding boundaries: one quantized element
-that rounds the other way moves the sample measurably after 16 steps. So the
-plain version sums in the kernel's order (its LN and final-layer reductions
-over 256 threads, its sequential input_proj, one exact integer sum per down
-dot, correctly rounded divisions and 1/sqrt: `intdot.div_exact`, exp in
-double: `intdot.silu_exact`), and the two agree to the bit on the card and on
-the CPU; against the TPU kernel they differ by float reassociation only.
+The int4 sampler is chaotic at the s8 rounding boundaries: one quantized
+element that rounds the other way moves the sample measurably after 16 steps.
+So its plain version sums in the kernel's order (its LN and final-layer
+reductions over 256 threads, its sequential input_proj, one exact integer sum
+per down dot, correctly rounded divisions and 1/sqrt: `intdot.div_exact`, exp
+in double: `intdot.silu_exact`), and the two agree to the bit on the card and
+on the CPU; against the TPU kernel they differ by float reassociation only.
+The int8 sampler is chaotic in the same way at its bf16 roundings (of the
+modulated LN output and of the hidden state): products summed in another
+order flip some of them, and on the card a plain version with PyTorch's
+matrix products lay 1.4e-2 of the sample's maximum from the kernel after 16
+steps of the random 16B-A3B head (PERF.md; `chip_smoke.py --phases
+rf_sensitivity` sets that beside a 1-ulp change). So its plain version also
+sums in the kernel's order: each matrix
+product as the kernel's 32 contraction splits add their rounded products in
+turn, the four splits of a warp pairwise, the eight warps in order
+(`_split_dot`), and the two agree to the bit on the card.
 
 The wrapper runs the plain version for CPU tensors only; for CUDA tensors it
-launches the kernel or raises.
+launches the kernel of the table type or raises.
 """
 
 from __future__ import annotations
@@ -37,17 +52,25 @@ import torch.nn.functional as F
 
 from mingunivision_tpu_torch.ops.kernels import build
 from mingunivision_tpu_torch.ops.kernels.intdot import div_exact, mm4_s8, quant_rows_s8_pair, silu_exact
-from mingunivision_tpu_torch.utils.quantize import dequant_weight, is_int4_linear
+from mingunivision_tpu_torch.utils.quantize import dequant_weight, is_int4_linear, is_int8_linear
 
 MAX_ROWS = 4  # rows one launch holds (3 CFG rows for an edit, 2 for text-to-image); more go in groups
 THREADS = 256  # the kernel's block: the plain version sums in its order
 
 
-def rf_sampler_supported(params, B: int, cfg_rows: int) -> bool:
-    """Linear int4 res_blocks tables and a block-major CFG layout of B rows."""
+def table_bits(params):
+    """4 or 8 for linear int4 or int8 res_blocks tables (w12 and w3 alike), else None."""
     mlp = params["res_blocks"]["mlp"]
-    return is_int4_linear(mlp["w12"]["w"]) and is_int4_linear(mlp["w3"]["w"]) and cfg_rows in (1, 2, 3) \
-        and B % cfg_rows == 0
+    w12, w3 = mlp["w12"]["w"], mlp["w3"]["w"]
+    for bits, is_linear in ((4, is_int4_linear), (8, is_int8_linear)):
+        if is_linear(w12) and is_linear(w3):
+            return bits
+    return None
+
+
+def rf_sampler_supported(params, B: int, cfg_rows: int) -> bool:
+    """Linear int4 or int8 res_blocks tables and a block-major CFG layout of B rows."""
+    return table_bits(params) is not None and cfg_rows in (1, 2, 3) and B % cfg_rows == 0
 
 
 def _warp_tree(v):
@@ -129,7 +152,7 @@ def _operands(params, compute_dtype):
     projections hold compute-dtype values), packed tables and their scales."""
     blocks = params["res_blocks"]
     w12, w3 = blocks["mlp"]["w12"]["w"], blocks["mlp"]["w3"]["w"]
-    L, wq, h2 = w12.q.shape
+    L, h2 = w12.q.shape[0], w12.q.shape[2]
     ip, fl = params["input_proj"], params["final_layer"]["linear"]
 
     def bias(p, n):
@@ -137,7 +160,7 @@ def _operands(params, compute_dtype):
         return torch.zeros(n, device=w12.q.device) if b is None else b.float()
 
     return dict(
-        win=dequant_weight(ip["w"], compute_dtype).float(), binp=bias(ip, 2 * wq),
+        win=dequant_weight(ip["w"], compute_dtype).float(), binp=bias(ip, ip["w"].shape[-1]),
         wfin=dequant_weight(fl["w"], compute_dtype).float(), bfin=bias(fl, fl["w"].shape[-1]),
         lnw=blocks["in_ln"]["w"].float(), lnb=blocks["in_ln"]["b"].float(),
         q12=w12.q, s12=w12.s.float().reshape(L, h2), b12=blocks["mlp"]["w12"]["b"].float().reshape(L, h2),
@@ -145,14 +168,65 @@ def _operands(params, compute_dtype):
     )
 
 
+def _mlp_q4(o, l, xs, H, compute_dtype):
+    """One block's SwiGLU over int4 tables, as `_sampler_q4_s8` (see the module docstring)."""
+    wq = o["q12"].shape[1]
+    a1, a2, sa1, sa2, corr = quant_rows_s8_pair(xs[:, :wq], xs[:, wq:])
+    q = o["q12"][l]
+    g = mm4_s8(q[:, :H], a1, a2, sa1, sa2, corr) * o["s12"][l, :H] + o["b12"][l, :H]
+    u = mm4_s8(q[:, H:], a1, a2, sa1, sa2, corr) * o["s12"][l, H:] + o["b12"][l, H:]
+    hf = (silu_exact(g) * u).to(compute_dtype).float()
+    b1, b2, sb1, sb2, corrh = quant_rows_s8_pair(hf[:, : H // 2], hf[:, H // 2 :])
+    return mm4_s8(o["q3"][l], b1, b2, sb1, sb2, corrh) * o["s3"][l] + o["b3"][l]
+
+
+SPLITS = 32  # contraction splits of an int8 sampler task: 8 warps x 4 lane groups (csrc/rf_sampler_q8.cu)
+
+
+def _split_dot(x, w):
+    """x (R, K) @ w (K, N) in fp32 as the int8 sampler's tasks sum it:
+    contraction row k = 128 j + 4 s + r goes to split s (warp s // 4), each
+    split adds its rounded products in the order (j, r), the four splits of a
+    warp are combined as (s0 + s1) + (s2 + s3) and the eight warps in order."""
+    R, K = x.shape
+    pad = (-K) % (4 * SPLITS)
+    x, w = F.pad(x, (0, pad)), F.pad(w, (0, 0, 0, pad))
+    J, N = x.shape[1] // (4 * SPLITS), w.shape[1]
+    p = x.view(R, J, SPLITS, 4, 1) * w.view(1, J, SPLITS, 4, N)
+    acc = torch.zeros((R, SPLITS, N), dtype=torch.float32, device=x.device)
+    for j in range(J):
+        for r in range(4):
+            acc = acc + p[:, j, :, r]
+    v = acc.view(R, SPLITS // 4, 4, N)
+    warps = (v[:, :, 0] + v[:, :, 1]) + (v[:, :, 2] + v[:, :, 3])
+    out = torch.zeros((R, N), dtype=torch.float32, device=x.device)
+    for k in range(SPLITS // 4):
+        out = out + warps[:, k]
+    return out
+
+
+def _mlp_q8(o, l, xs, H, compute_dtype):
+    """One block's SwiGLU over int8 tables, as `_sampler_q8` with s8_dots=False."""
+    xs = xs.to(compute_dtype).float()
+    gu = _split_dot(xs, o["q12"][l].float())
+    g = gu[:, :H] * o["s12"][l, :H] + o["b12"][l, :H]
+    u = gu[:, H:] * o["s12"][l, H:] + o["b12"][l, H:]
+    hf = (silu_exact(g) * u).to(compute_dtype).float()
+    return _split_dot(hf, o["q3"][l].float()) * o["s3"][l] + o["b3"][l]
+
+
 def rf_sample_fused_plain(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, *, cfg_rows: int,
                           renorm_channel: bool, compute_dtype=torch.bfloat16):
-    """Plain PyTorch of `_sampler_q4_s8`: noise (B, C) fp32 (CFG rows tiled),
-    block_mods (L, S, B, 3w), final_mods (S, B, 2w), dts (S,) -> (B, C) fp32."""
+    """Plain PyTorch of `_sampler_q4_s8` (int4 tables) or `_sampler_q8` (int8
+    tables): noise (B, C) fp32 (CFG rows tiled), block_mods (L, S, B, 3w),
+    final_mods (S, B, 2w), dts (S,) -> (B, C) fp32."""
+    bits = table_bits(params)
+    if bits is None:
+        raise ValueError("rf_sample_fused_plain: needs linear int4 or int8 res_blocks tables")
+    mlp = _mlp_q4 if bits == 4 else _mlp_q8
     o = _operands(params, compute_dtype)
-    L, wq, h2 = o["q12"].shape
-    w, H = 2 * wq, h2 // 2
-    Hh = H // 2
+    L, h2 = o["q12"].shape[0], o["q12"].shape[2]
+    w, H = o["win"].shape[1], h2 // 2
     mods, fmods = block_mods.float(), final_mods.float()
     eps = float(cfg.ln_eps)
     xlat = noise.float()
@@ -161,24 +235,26 @@ def rf_sample_fused_plain(params, cfg, noise, block_mods, final_mods, dts, text_
         for l in range(L):
             md = mods[l, s]
             xs = _modulated_ln(xcur, o["lnw"][l], o["lnb"][l], md, w, eps)
-            a1, a2, sa1, sa2, corr = quant_rows_s8_pair(xs[:, :wq], xs[:, wq:])
-            q = o["q12"][l]
-            g = mm4_s8(q[:, :H], a1, a2, sa1, sa2, corr) * o["s12"][l, :H] + o["b12"][l, :H]
-            u = mm4_s8(q[:, H:], a1, a2, sa1, sa2, corr) * o["s12"][l, H:] + o["b12"][l, H:]
-            hf = (silu_exact(g) * u).to(compute_dtype).float()
-            b1, b2, sb1, sb2, corrh = quant_rows_s8_pair(hf[:, :Hh], hf[:, Hh:])
-            po = mm4_s8(o["q3"][l], b1, b2, sb1, sb2, corrh) * o["s3"][l] + o["b3"][l]
-            xcur = xcur + md[:, 2 * w :] * po
+            xcur = xcur + md[:, 2 * w :] * mlp(o, l, xs, H, compute_dtype)
         xs = _modulated_ln(xcur, None, None, fmods[s], w, eps).to(compute_dtype).float()
         v = _final_linear(xs, o["wfin"]) + o["bfin"]
         xlat = xlat + dts[s] * cfg_combine(v, cfg_rows, text_cfg, image_cfg, renorm_channel)
     return xlat
 
 
+def rf_sample_fused_q8_plain(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, *, cfg_rows: int,
+                             renorm_channel: bool, compute_dtype=torch.bfloat16):
+    """The plain version over int8 tables only (`_sampler_q8`, s8_dots=False)."""
+    if table_bits(params) != 8:
+        raise ValueError("rf_sample_fused_q8_plain: needs int8 res_blocks tables")
+    return rf_sample_fused_plain(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg,
+                                 cfg_rows=cfg_rows, renorm_channel=renorm_channel, compute_dtype=compute_dtype)
+
+
 def rf_sample_fused(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, *, cfg_rows: int,
                     renorm_channel: bool, compute_dtype=torch.bfloat16):
     """The whole Euler sample (see the module docstring): one launch of the
-    CUDA kernel per group of images whose CFG rows fit its MAX_ROWS (each
+    table type's CUDA kernel per group of images whose CFG rows fit its MAX_ROWS (each
     image's block-major rows {i, n + i, 2n + i} gathered, the results
     scattered back: the rows of different images never mix, so the groups
     give the ungrouped result). Arguments as `rf_sample_fused_plain`; returns
@@ -203,24 +279,29 @@ def rf_sample_fused(params, cfg, noise, block_mods, final_mods, dts, text_cfg, i
 
 def _rf_sample_group(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, *, cfg_rows: int,
                      renorm_channel: bool, compute_dtype):
-    """One launch of the CUDA kernel over at most MAX_ROWS block-major rows
-    (the plain version for CPU tensors)."""
+    """One launch of the table type's CUDA kernel over at most MAX_ROWS
+    block-major rows (the plain version for CPU tensors)."""
     if noise.device.type == "cpu":
         return rf_sample_fused_plain(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg,
                                      cfg_rows=cfg_rows, renorm_channel=renorm_channel, compute_dtype=compute_dtype)
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"rf_sample_fused: compute dtype {compute_dtype} is not built")
+    bits = table_bits(params)
+    if bits is None:
+        raise ValueError("rf_sample_fused: needs linear int4 or int8 res_blocks tables")
     o = {k: v.contiguous() for k, v in _operands(params, compute_dtype).items()}
-    L, wq, h2 = o["q12"].shape
-    w, H = 2 * wq, h2 // 2
+    L, h2 = o["q12"].shape[0], o["q12"].shape[2]
+    w, H = o["win"].shape[1], h2 // 2
     B, C = noise.shape
     S = dts.shape[0]
     dev = noise.device
     if B > MAX_ROWS or w % 64 or H % 64 or C > 128:
         raise ValueError(f"rf_sample_fused: needs at most {MAX_ROWS} rows per launch, width and "
                          f"hidden multiples of 64 and at most 128 channels (B={B}, w={w}, H={H}, C={C})")
-    if tuple(o["q3"].shape) != (L, H // 2, w) or o["q12"].dtype != torch.uint8 or o["q3"].dtype != torch.uint8:
-        raise ValueError("rf_sample_fused: w12/w3 must be packed uint8 (L, w/2, 2H) / (L, H/2, w) tables")
+    dtype, shapes = (torch.uint8, ((L, w // 2, h2), (L, H // 2, w))) if bits == 4 else \
+        (torch.int8, ((L, w, h2), (L, H, w)))
+    if (tuple(o["q12"].shape), tuple(o["q3"].shape)) != shapes or o["q12"].dtype != dtype or o["q3"].dtype != dtype:
+        raise ValueError(f"rf_sample_fused: w12/w3 must be {dtype} {shapes[0]} / {shapes[1]} tables")
     tensors = dict(dts=dts.float(), x0=noise.float(), mods=block_mods.float(), fmods=final_mods.float())
     tensors = {k: v.contiguous() for k, v in tensors.items()}
     if tuple(tensors["mods"].shape) != (L, S, B, 3 * w) or tuple(tensors["fmods"].shape) != (S, B, 2 * w):
@@ -232,7 +313,8 @@ def _rf_sample_group(params, cfg, noise, block_mods, final_mods, dts, text_cfg, 
     xcur = torch.empty((B, w), dtype=torch.float32, device=dev)
     hbuf = torch.empty((B, H), dtype=torch.float32, device=dev)
     out = torch.empty((B, C), dtype=torch.float32, device=dev)
-    rc = build.load().mu_rf_sampler_q4s8(
+    name = "mu_rf_sampler_q4s8" if bits == 4 else "mu_rf_sampler_q8"
+    rc = getattr(build.load(), name)(
         tensors["dts"].data_ptr(), tensors["x0"].data_ptr(), o["win"].data_ptr(), o["binp"].data_ptr(),
         o["lnw"].data_ptr(), o["lnb"].data_ptr(), o["q12"].data_ptr(), o["s12"].data_ptr(), o["b12"].data_ptr(),
         o["q3"].data_ptr(), o["s3"].data_ptr(), o["b3"].data_ptr(), tensors["mods"].data_ptr(),
@@ -240,9 +322,20 @@ def _rf_sample_group(params, cfg, noise, block_mods, final_mods, dts, text_cfg, 
         out.data_ptr(), B, cfg_rows, int(renorm_channel), S, L, w, H, C, int(compute_dtype == torch.bfloat16),
         float(text_cfg), float(image_cfg), float(cfg.ln_eps), build.stream_handle(noise),
     )
-    build.check(rc, "mu_rf_sampler_q4s8")
-    rf_sample_fused.launches += 1  # one per kernel launch
+    build.check(rc, name)
+    (rf_sample_fused if bits == 4 else rf_sample_fused_q8).launches += 1  # one per kernel launch
     return out
 
 
+def rf_sample_fused_q8(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, *, cfg_rows: int,
+                       renorm_channel: bool, compute_dtype=torch.bfloat16):
+    """`rf_sample_fused` for int8 tables only (the name that carries the int8
+    kernel's launch count; `rf_sample_fused` carries the int4 kernel's)."""
+    if table_bits(params) != 8:
+        raise ValueError("rf_sample_fused_q8: needs int8 res_blocks tables")
+    return rf_sample_fused(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, cfg_rows=cfg_rows,
+                           renorm_channel=renorm_channel, compute_dtype=compute_dtype)
+
+
 rf_sample_fused.launches = 0
+rf_sample_fused_q8.launches = 0

@@ -197,7 +197,7 @@ class InferenceServer:
         self.batch_worker = None
         if batch_slots > 0:
             kw = dict(slots=batch_slots, max_len=batch_max_len, dtype=infer.session._dtype,
-                      device=infer.session.device)
+                      device=infer.session.device, int_dots=infer.runtime.moe_int_dots)
             if paged_kv is None or paged_kv:
                 from mingunivision_tpu_torch.engine.paged import PagedBatchingEngine
 

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from mingunivision_tpu_torch.ops.activations import swiglu_hidden_dim
-from mingunivision_tpu_torch.utils.quantize import QuantizedArray, quantize_tree_inplace
+from mingunivision_tpu_torch.utils.quantize import _QUANT_MIN_SIZE, QuantizedArray, quantize_tree_inplace
 
 STD = 0.02
 
@@ -211,13 +211,40 @@ def init_mm_params(cfg, *, device, dtype=torch.bfloat16, generator: torch.Genera
     }
 
 
-def quantize_mm_params_inplace(params: dict) -> dict:
-    """The int4 tier of the JAX package's checkpoint load, applied in place on
-    the params' device: the LLM and the RF head quantized to linear int4 (the
-    embedding and odd-contraction tables to int8, routers, norms and biases
-    left floating), MingTok, vis_head and linear_proj left as they are. Each
-    floating leaf is freed as its quantized copy replaces it, so a bf16 tree on
-    the card is quantized without a second copy."""
-    for key in ("llm", "rf_head"):
-        quantize_tree_inplace(params[key], bits=4)
+# weight tier name -> bits, as the JAX package's checkpoint load reads RuntimeConfig.param_dtype
+_TIER_BITS = {"int8": 8, "int4": 4, "int4-nf4": 4}
+
+
+def tier_bits(runtime):
+    """The bits and scheme of the LLM and of the RF head for `runtime`'s weight
+    tier, as the JAX package's checkpoint load resolves them: param_dtype names
+    the LLM's tier ("int8", "int4" or "int4-nf4"; any other name keeps it
+    floating and returns None), rf_param_dtype overrides the RF head's (None
+    follows the LLM; a name outside the table keeps the LLM's bits), and a
+    name ending in "nf4" takes the NF4 scheme. Returns the keyword arguments of
+    `quantize_mm_params_inplace` (bits, scheme, rf_bits, rf_scheme), or None."""
+    bits = _TIER_BITS.get(runtime.param_dtype)
+    if bits is None:
+        return None
+    rf_tier = runtime.rf_param_dtype or runtime.param_dtype
+    scheme = lambda tier: "nf4" if str(tier).endswith("nf4") else "linear"  # noqa: E731
+    return dict(bits=bits, scheme=scheme(runtime.param_dtype), rf_bits=_TIER_BITS.get(rf_tier, bits),
+                rf_scheme=scheme(rf_tier))
+
+
+def quantize_mm_params_inplace(params: dict, bits: int = 4, scheme: str = "linear", rf_bits=None,
+                               rf_scheme=None, min_size: int = _QUANT_MIN_SIZE) -> dict:
+    """A weight tier of the JAX package's checkpoint load, applied in place on
+    the params' device: the LLM quantized to `bits` (`scheme`) and the RF head
+    to `rf_bits` (`rf_scheme`; None follows the LLM) — at 4 bits the embedding
+    and odd-contraction tables go to int8 — with routers, norms and biases left
+    floating, and MingTok, vis_head and linear_proj left as they are (as are
+    tables of fewer than `min_size` elements, as in `quantize_tree`). The
+    default is the int4 tier; `**tier_bits(runtime)` gives a RuntimeConfig's
+    tier (the int8 quality tier, or the int4 LLM with an int8 RF head).
+    Each floating leaf is freed as its quantized copy replaces it, so a bf16
+    tree on the card is quantized without a second copy."""
+    quantize_tree_inplace(params["llm"], bits=bits, min_size=min_size, scheme=scheme)
+    quantize_tree_inplace(params["rf_head"], bits=bits if rf_bits is None else rf_bits, min_size=min_size,
+                          scheme=scheme if rf_scheme is None else rf_scheme)
     return params

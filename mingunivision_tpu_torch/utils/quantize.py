@@ -73,6 +73,14 @@ def is_int4_linear(w) -> bool:
     return isinstance(w, QuantizedArray) and w.bits == 4 and w.scheme == "linear" and w.groups == 1
 
 
+def is_int8_linear(w) -> bool:
+    """True for an int8 table (int8 `q` (..., in, out), fp32 `s` (..., 1, out)):
+    what the int8 kernels take."""
+    return (isinstance(w, QuantizedArray) and w.bits == 8 and w.scheme == "linear" and w.groups == 1
+            and w.q.dtype == torch.int8 and w.s.dtype == torch.float32 and w.s.shape[-2] == 1
+            and w.s.shape[-1] == w.q.shape[-1])
+
+
 def quantize_array(w: torch.Tensor, bits: int = 8, groups: int = 1, scheme: str = "linear") -> QuantizedArray:
     """Per-channel quantization; int4 packs two nibbles per byte split-halves
     along the contraction axis (see the module docstring). Runs on w's device,

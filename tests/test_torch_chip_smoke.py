@@ -1,7 +1,8 @@
 """PyTorch port, `chip_smoke.py`'s reference check run on the CPU: it passes on
 the port as shipped (where the CPU's kernel entries are their plain versions,
 so the kernel path equals the plain bf16 path) and fails when one entry of
-the kernel path is made wrong by 10% or left out, at both tiers. On the card
+the kernel path is made wrong by 10% or left out, at every tier (bf16, int4,
+int8). On the card
 the same check holds the CUDA kernels. The check on an image prompt is in
 tests/test_torch_chip_smoke_image.py."""
 
@@ -19,10 +20,11 @@ WRONG = {
     "decode-attention-x1.1": ("bfloat16", bailing_moe, "decode_attention", lambda y: y * 1.1),
     "int4-decode-moe-x1.1": ("int4", bailing_moe, "moe_experts_stream", lambda y: y * 1.1),
     "int4-sampler-x1.1": ("int4", rf_head, "rf_sample_fused", lambda y: y * 1.1),
+    "int8-sampler-x1.1": ("int8", rf_head, "rf_sample_fused", lambda y: y * 1.1),
 }
 
 
-@pytest.mark.parametrize("tier", ["bfloat16", "int4"])
+@pytest.mark.parametrize("tier", ["bfloat16", "int4", "int8"])
 def test_reference_check_passes_the_port(tier):
     assert chip_smoke.run_reference(torch, CPU, tier)
 

@@ -1,7 +1,8 @@
 """PyTorch port, `chip_smoke.py`'s reference check on an image prompt (the
 MingTok encoder, flash prefill, the capacity MoE dispatch, text decode) run on
-the CPU: it passes on the port as shipped, at both tiers, and fails a flash
-output made 10% wrong and a capacity dispatch that drops a valid row. On the
+the CPU: it passes on the port as shipped, at every tier (bf16, int4,
+int8), and fails a flash output or an int8 prefill MoE output made 10% wrong
+and a capacity dispatch that drops a valid row. On the
 card the same check holds the CUDA kernels."""
 
 import pytest
@@ -25,10 +26,11 @@ WRONG_IMAGE = {
     "flash-prefill-x1.1": ("bfloat16", "flash_prefill_attention", lambda y: y * 1.1),
     "capacity-dispatch-drops-a-valid-row": ("bfloat16", "moe_experts_capacity_gmm_exact", _drop_last_valid_row),
     "int4-flash-prefill-x1.1": ("int4", "flash_prefill_attention", lambda y: y * 1.1),
+    "int8-capacity-dispatch-x1.1": ("int8", "moe_experts_capacity_gmm_exact", lambda y: y * 1.1),
 }
 
 
-@pytest.mark.parametrize("tier", ["bfloat16", "int4"])
+@pytest.mark.parametrize("tier", ["bfloat16", "int4", "int8"])
 def test_image_reference_check_passes_the_port(tier):
     assert chip_smoke.run_reference_image(torch, CPU, tier)
 

@@ -1,6 +1,7 @@
 """PyTorch port: each hand-written CUDA kernel against its plain PyTorch version
-on the card, in bf16 (the int4 kernels on int4 tables of the same weights;
-the RF sampler to the bit, since its plain version sums in its order; both
+on the card, in bf16 (the int4 and int8 kernels on int4 and int8 tables of
+the same weights, the int8 ones also at the 16B-A3B width; the int4 and
+int8 RF samplers to the bit, since their plain versions sum in their order; both
 flash-attention entry points; the prefill MoE kernels also through the
 capacity-dense dispatch; paged decode attention through block tables). The
 kernels have no CPU mode, so every test here is marked `cuda` and skips
@@ -31,14 +32,22 @@ from mingunivision_tpu_torch.ops.kernels.moe_stream import (
     moe_experts_stream,
     moe_experts_stream_plain,
     moe_experts_stream_q4s8,
+    moe_experts_stream_q8,
+    moe_experts_stream_q8s8,
 )
 from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import (
     moe_experts_swiglu_gmm,
     moe_experts_swiglu_gmm_plain,
     moe_experts_swiglu_gmm_q4,
+    moe_experts_swiglu_gmm_q8,
 )
 from mingunivision_tpu_torch.ops.kernels.paged_attention import paged_decode_attention, paged_gather_attention
-from mingunivision_tpu_torch.ops.kernels.rf_sampler import MAX_ROWS, rf_sample_fused, rf_sample_fused_plain
+from mingunivision_tpu_torch.ops.kernels.rf_sampler import (
+    MAX_ROWS,
+    rf_sample_fused,
+    rf_sample_fused_plain,
+    rf_sample_fused_q8,
+)
 from mingunivision_tpu_torch.utils.convert import _Init, init_rf_head_params
 from mingunivision_tpu_torch.utils.quantize import quantize_array, quantize_tree_inplace
 
@@ -311,15 +320,15 @@ def test_flash_wrappers_raise_on_unsupported_input(dev):
         flash_vit_attention(q, q, q, scale=1.0)
 
 
-@pytest.mark.parametrize("tier", ["bf16", "int4"])
+@pytest.mark.parametrize("tier", ["bf16", "int4", "int8"])
 @pytest.mark.parametrize("case", ["fits", "fits-with-pads", "overflow"])
 def test_swiglu_gmm_kernels_through_the_capacity_schedule_match_plain(dev, tier, case):
-    """Kernels 2 and 5 launched through the capacity-dense dispatch: one group
-    per expert, tiles over each expert's occupied slots; on overflow the
+    """Kernels 2, 5 and 7c launched through the capacity-dense dispatch: one
+    group per expert, tiles over each expert's occupied slots; on overflow the
     expert-sorted dispatch runs and is counted as a fallback."""
     ex = _experts(dev, seed=11)
-    if tier == "int4":
-        ex = _q4(ex)
+    if tier != "bf16":
+        ex = {k: quantize_array(v, int(tier[3:])) for k, v in ex.items()}
     n, k, capacity = 640, 2, 256  # mean load 160
     idx, w = _routing(dev, n, k, [0, 3, 5] if case == "overflow" else None, seed=12)
     x = torch.randn(n, H, device=dev).to(torch.bfloat16)
@@ -327,7 +336,7 @@ def test_swiglu_gmm_kernels_through_the_capacity_schedule_match_plain(dev, tier,
     if case == "fits-with-pads":  # 200 padding rows that all route to experts 0 and 1
         valid = torch.arange(n, device=dev) < n - 200
         x[~valid], idx[~valid], w[~valid] = x[-1].clone(), torch.tensor([0, 1], device=dev), w[-1].clone()
-    kernel = moe_experts_swiglu_gmm_q4 if tier == "int4" else moe_experts_swiglu_gmm
+    kernel = {"int4": moe_experts_swiglu_gmm_q4, "int8": moe_experts_swiglu_gmm_q8}.get(tier, moe_experts_swiglu_gmm)
     before = (kernel.launches, moe_experts_capacity_gmm.launches, moe_experts_capacity_gmm_exact.fallbacks)
     got = moe_experts_capacity_gmm_exact(ex, x, idx, w, E, capacity, token_valid=valid, layer_idx=1)
     torch.cuda.synchronize()
@@ -340,3 +349,108 @@ def test_swiglu_gmm_kernels_through_the_capacity_schedule_match_plain(dev, tier,
     _close_bf16(got[rows], moe_experts_swiglu_gmm_plain(ex, x, idx, w, E, layer_idx=1)[rows])
     if valid is not None:
         assert not got[~valid].any()  # padding rows give zeros
+
+
+# ---------------------------------------------------------------------------
+# int8 tables: 7a / 7b decode MoE (s8 dots / exact), 7c prefill MoE, 7d RF sampler
+# ---------------------------------------------------------------------------
+
+
+def _q8(tables):
+    return {k: quantize_array(v, 8) for k, v in tables.items()}
+
+
+@pytest.mark.parametrize("int_dots", [True, False], ids=["s8", "exact"])
+@pytest.mark.parametrize("n", [1, 2, 3, 16], ids=["1row", "2rows", "3rows-2chunks", "16rows-A>E"])
+def test_moe_stream_q8_kernels_match_plain(dev, n, int_dots):
+    ex = _q8(_experts(dev, seed=14))
+    idx, w = _routing(dev, n, 6, seed=15)
+    x = torch.randn(n, H, device=dev).to(torch.bfloat16)
+    kernel = moe_experts_stream_q8s8 if int_dots else moe_experts_stream_q8
+    before = kernel.launches
+    got = moe_experts_stream(ex, x, idx, w, layer_idx=1, int_dots=int_dots)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _close_bf16(got, moe_experts_stream_plain(ex, x, idx, w, layer_idx=1, int_dots=int_dots))
+
+
+@pytest.mark.parametrize("choices", [None, [0, 3, 5]], ids=["spread", "skewed-empty-experts"])
+def test_swiglu_gmm_q8_kernel_matches_plain(dev, choices):
+    ex = _q8(_experts(dev, seed=16))
+    idx, w = _routing(dev, 96, 2, choices, seed=17)
+    x = torch.randn(96, H, device=dev).to(torch.bfloat16)
+    before = moe_experts_swiglu_gmm_q8.launches
+    got = moe_experts_swiglu_gmm(ex, x, idx, w, E, layer_idx=0)
+    torch.cuda.synchronize()
+    assert moe_experts_swiglu_gmm_q8.launches == before + 1
+    _close_bf16(got, moe_experts_swiglu_gmm_plain(ex, x, idx, w, E, layer_idx=0))
+
+
+def test_int8_moe_kernels_at_full_width(dev):
+    """The 16B-A3B expert tables (64 experts, h 2048, m 1408, top-6): 7a / 7b at
+    2 and 16 rows, 7c at a 128-token prompt."""
+    g = torch.Generator(device=dev).manual_seed(18)
+    Ef, h, m = 64, 2048, 1408
+    shapes = {"gate_proj": (1, Ef, h, m), "up_proj": (1, Ef, h, m), "down_proj": (1, Ef, m, h)}
+    ex = {k: quantize_array(torch.empty(s, device=dev, dtype=torch.bfloat16).normal_(0, 0.02, generator=g), 8)
+          for k, s in shapes.items()}
+    for n in (2, 16, 128):
+        scores = torch.rand((n, Ef), device=dev, generator=g)
+        wt, idx = torch.topk(torch.softmax(scores, -1), 6)
+        wt = (wt / wt.sum(-1, keepdim=True)).to(torch.bfloat16)
+        x = torch.randn((n, h), device=dev, generator=g).to(torch.bfloat16)
+        if n == 128:
+            got = moe_experts_swiglu_gmm(ex, x, idx, wt, Ef, layer_idx=0)
+            torch.cuda.synchronize()
+            _close_bf16(got, moe_experts_swiglu_gmm_plain(ex, x, idx, wt, Ef, layer_idx=0))
+            continue
+        for int_dots in (True, False):
+            got = moe_experts_stream(ex, x, idx, wt, layer_idx=0, int_dots=int_dots)
+            torch.cuda.synchronize()
+            _close_bf16(got, moe_experts_stream_plain(ex, x, idx, wt, layer_idx=0, int_dots=int_dots))
+
+
+def test_int8_wrappers_raise_on_unsupported_input(dev):
+    ex = _q8(_experts(dev))
+    idx, w = _routing(dev, 2, 6)
+    x = torch.randn(2, H, device=dev)  # fp32: the kernels take bf16
+    for int_dots in (True, False):
+        with pytest.raises(ValueError):
+            moe_experts_stream(ex, x, idx, w, layer_idx=0, int_dots=int_dots)
+    with pytest.raises(ValueError):
+        moe_experts_swiglu_gmm(ex, x, idx, w, E, layer_idx=0)
+    with pytest.raises(NotImplementedError):  # exact-dequant int4 is not ported
+        moe_experts_stream(_q4(_experts(dev)), x.bfloat16(), idx, w, layer_idx=0, int_dots=False)
+
+
+def _rf_q8(dev, seed=19):
+    cfg = RFHeadConfig(target_channels=8, z_channels=32, width=192, depth=2, mlp_mult=4, num_sampling_steps=4)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rf = init_rf_head_params(cfg, _Init(dev, torch.bfloat16, g))
+    for leaf in (rf["res_blocks"]["adaLN"], rf["final_layer"]["adaLN"], rf["final_layer"]["linear"]):
+        leaf["w"].normal_(0.0, 0.05, generator=g)
+    quantize_tree_inplace(rf, bits=8, min_size=1024)
+    return cfg, rf, g
+
+
+@pytest.mark.parametrize("cfg_rows,n_img,renorm", [(1, 1, False), (2, 1, False), (3, 1, True), (3, 2, True),
+                                                   (2, 4, False)],
+                         ids=["unguided", "cfg2", "cfg3-renorm", "2img-x3rows", "4img-x2rows"])
+def test_rf_sampler_q8_kernel_matches_plain(dev, cfg_rows, n_img, renorm):
+    """The int8 sampler (exact dequant) against its plain version, which sums
+    in the kernel's order: to the bit; more rows than one launch holds go in
+    groups of whole images."""
+    cfg, rf, g = _rf_q8(dev)
+    ts, dts = _time_grid(cfg, None, device=dev)
+    B = cfg_rows * n_img
+    z = torch.randn(B, cfg.z_channels, device=dev, generator=g).to(torch.bfloat16)
+    block_mods, final_mods = precompute_modulations(rf, cfg, ts, z)
+    noise = torch.randn(n_img, cfg.target_channels, device=dev, generator=g).repeat(cfg_rows, 1)
+    args = (rf, cfg, noise, block_mods, final_mods, dts, 3.0, 1.1)
+    kw = dict(cfg_rows=cfg_rows, renorm_channel=renorm, compute_dtype=torch.bfloat16)
+    before = (rf_sample_fused.launches, rf_sample_fused_q8.launches)
+    got = rf_sample_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert (rf_sample_fused.launches, rf_sample_fused_q8.launches) == \
+        (before[0], before[1] + -(-n_img // (MAX_ROWS // cfg_rows)))
+    torch.testing.assert_close(got, rf_sample_fused_plain(*args, **kw), rtol=0, atol=0)

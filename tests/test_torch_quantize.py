@@ -126,3 +126,42 @@ def _compare_trees(got, want):
     else:
         assert not isinstance(got, tq.QuantizedArray)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _mm_tree(seed=3):
+    """An "llm" and an "rf_head" subtree with the leaves the tier policy tells apart."""
+    tree = _tree(seed)
+    rng = np.random.default_rng(seed + 1)
+    f = lambda *s: (0.05 * rng.standard_normal(s)).astype(np.float32)  # noqa: E731
+    rf = {"res_blocks": {"mlp": {"w12": {"w": f(2, 256, 512), "b": f(2, 512)}, "w3": {"w": f(2, 256, 256)}},
+                         "in_ln": {"w": f(2, 256)}},
+          "final_layer": {"linear": {"w": f(256, 300)}}}
+    return {"llm": tree, "rf_head": rf}
+
+
+@pytest.mark.parametrize(
+    "param_dtype,rf_param_dtype,want",
+    [("int8", None, ((8, "linear"), (8, "linear"))), ("int4", "int8", ((4, "linear"), (8, "linear"))),
+     (None, None, ((4, "linear"), (4, "linear"))), ("int4-nf4", None, ((4, "nf4"), (4, "nf4"))),
+     ("int4-nf4", "int8", ((4, "nf4"), (8, "linear")))],
+    ids=["int8", "int4-llm-int8-rf", "default-int4", "int4-nf4", "nf4-llm-int8-rf"],
+)
+def test_quantize_mm_params_tier_gives_jax_bytes(param_dtype, rf_param_dtype, want):
+    """`quantize_mm_params_inplace` at a RuntimeConfig's tier (`tier_bits`, as
+    the JAX package's checkpoint load resolves param_dtype / rf_param_dtype),
+    or with no tier arguments (int4), against the JAX `quantize_tree` bytes of
+    each part."""
+    from mingunivision_tpu_torch.config import RuntimeConfig
+    from mingunivision_tpu_torch.utils.convert import quantize_mm_params_inplace, tier_bits
+
+    tree = _mm_tree()
+    if param_dtype is None:
+        got = quantize_mm_params_inplace(_to_torch(tree))
+    else:
+        runtime = RuntimeConfig(param_dtype=param_dtype, rf_param_dtype=rf_param_dtype)
+        kw = tier_bits(runtime)
+        assert ((kw["bits"], kw["scheme"]), (kw["rf_bits"], kw["rf_scheme"])) == want
+        got = quantize_mm_params_inplace(_to_torch(tree), **kw)
+    for key, (bits, scheme) in zip(("llm", "rf_head"), want):
+        _compare_trees(got[key], jq.quantize_tree(_to_jnp(tree[key]), bits=bits, scheme=scheme))
+    assert tier_bits(RuntimeConfig()) is None  # bf16 keeps the tree floating

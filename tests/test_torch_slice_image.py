@@ -173,7 +173,7 @@ def test_understanding_round_int4_tier_matches_jax(setup, monkeypatch):
     qparams["llm"] = quantize_tree(to_jax(params["llm"]), bits=4, min_size=1024)
     spy = _Spy(monkeypatch)
 
-    def exact_decode(ex, x, i, w, E, l):
+    def exact_decode(ex, x, i, w, E, l, *_):  # the dot mode, the last argument, is not read
         return moe_experts_stream_bf16_plain({k: dequant_weight(v[l], x.dtype) for k, v in ex.items()}, x, i, w)
 
     monkeypatch.setitem(bailing_moe.MOE_IMPLS, "decode", exact_decode)

@@ -66,8 +66,9 @@ def _port_round(cfg, qparams, runtime, prompt):
 
 
 def _exact(plain):
-    """An exact-dequant MoE entry: the layer's int4 tables dequantized, then the plain float version."""
-    def run(ex, x, i, w, E, l):
+    """An exact-dequant MoE entry: the layer's int4 tables dequantized, then the plain float version
+    (the decode entry's dot mode, its last argument, is not read)."""
+    def run(ex, x, i, w, E, l, *_):
         tables = {k: dequant_weight(v[l], x.dtype) for k, v in ex.items()}
         return plain(tables, x, i, w, E) if plain is moe_experts_swiglu_gmm_bf16_plain else plain(tables, x, i, w)
     return run
