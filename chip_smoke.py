@@ -14,11 +14,18 @@ Phases, one printed line each; any failure exits non-zero:
               one), and the least time the card could take (bound); the
               prefill MoE kernels also through the capacity-dense dispatch at
               the understanding prompt's 1,152 tokens, beside the expert-sorted
-              one; every kernel of the bf16, int4 and int8 tiers (the int8
-              decode MoE in both dot modes)
-  4. reference  a small model on the card, bf16, int4 and then int8, through the
+              one; every kernel of the bf16, int4 and int8 tiers in every
+              dot mode (the int4 and int8 decode MoE with s8 dots and exact
+              dequant, the int4 and int8 prefill MoE exact and with s8 dots,
+              the int8 sampler exact and with s8 dots)
+  4. reference  a small model on the card, bf16, int4 (as shipped and with
+              moe_int_dots=False), int8 (as shipped and with
+              moe_prefill_int_dots and rf_int_dots on) and NF4, through the
               kernels (bf16 compute) against the plain versions in fp32: same
-              tokens; the step-0 hidden state and first RF latent within
+              tokens; every LLM kernel entry (decode MoE, prefill MoE through
+              either dispatch, decode attention) held at every call against
+              its plain version on the same inputs, within REL_TOL; the
+              step-0 hidden state and first RF latent within
               twice the plain bf16 path's own error (+1e-2 of their maximum);
               the image of the right shape, finite, in [-1, 1]. Then the same
               on an image prompt that pads to 512 tokens (flash prefill, the
@@ -38,17 +45,26 @@ Phases, one printed line each; any failure exits non-zero:
               param_dtype "int4", rf_param_dtype "int8"): the int4 model with
               its RF head swapped for an int8 one, quantized on the card from a
               bf16 copy kept aside; the int4 LLM kernels and the int8 sampler
+     slice_int4_exact  the int4 model's round with moe_int_dots=False: the
+              exact-dequant int4 decode MoE
      slice_int8  the same round on the int8 quality tier (LLM and RF head int8):
               the int8 decode MoE with s8 dots, the int8 prefill MoE, the int8
               sampler
+     slice_int8_s8  the int8 model's round with rf_int_dots=True: the int8
+              sampler with s8 dots
+     slice_nf4  the same round on the NF4 tier (RuntimeConfig param_dtype
+              "int4-nf4", quantized on the card): plain-dequant MoE entries and
+              the RF head's Euler loop, no quantized kernel
   7. understand  image -> text on each tier's full-width model: a 1024-px image
               (1,024 patch tokens, the prompt pads to 1,152) through the
               MingTok encoder, flash prefill and the capacity MoE dispatch
               (the random model's attention outputs damped first, or every
               image row would route to the same experts and overflow it), then
               32 greedy text tokens; launch counts, capacity fallbacks, encode
-              / prefill / per-text-token times, peak memory; at int8 once more
-              with moe_int_dots=False (the exact-dequant decode kernel)
+              / prefill / per-text-token times, peak memory; at int4 and int8
+              once more with moe_prefill_int_dots=True (the s8 prefill
+              kernels), and at int8 with moe_int_dots=False (the exact-dequant
+              decode kernel)
   8. edit     image + edit request -> image on each tier's model: a 512-px image
               (256 patch tokens, the prompt pads to 384), the 256-token image
               loop with 3 CFG rows; launch counts, ms per AR token
@@ -69,11 +85,12 @@ Phases, one printed line each; any failure exits non-zero:
               time to first token, prefix hits, stalls, launches per step,
               pool and peak memory
 A tier's model is built once and serves its slice, edit, understand and serve
-phases (bf16 and int4 serve; the int8 tier runs no serving round).
+phases (bf16 and int4 serve; the int8 tier runs no serving round; the NF4
+tier only its T2I round).
 Then a JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-`--phases` picks the phases (default: the twelve above), e.g.
+`--phases` picks the phases (default: the fifteen above), e.g.
 `--phases device,build,kernels,understand` or `--phases device,build,kernels,serve`. Six more run only when named:
   divergence  the small model's plain bf16 path with each kernel swapped in
               alone, and all of them, and with the image head's input moved
@@ -135,6 +152,12 @@ KERNELS = {
     "moe_stream_q8": ("csrc/moe_stream_q8.cu", "mingunivision_tpu/ops/kernels/moe_stream.py:74"),
     "moe_swiglu_gmm_q8": ("csrc/moe_swiglu_gmm_q8.cu", "mingunivision_tpu/ops/kernels/moe_swiglu_gmm.py:185"),
     "rf_sampler_q8": ("csrc/rf_sampler_q8.cu", "mingunivision_tpu/ops/kernels/rf_sampler.py:395"),
+    # the other dot modes of the same sources: int4 decode with exact dequant (moe_int_dots=False), the s8
+    # prefill MoE (moe_prefill_int_dots=True) and the int8 sampler's s8_dots branch (rf_int_dots=True)
+    "moe_stream_q4": ("csrc/moe_stream_q4.cu", "mingunivision_tpu/ops/kernels/moe_stream.py:104"),
+    "moe_swiglu_gmm_q8s8": ("csrc/moe_swiglu_gmm_q8.cu", "mingunivision_tpu/ops/kernels/moe_swiglu_gmm.py:236"),
+    "moe_swiglu_gmm_q4s8": ("csrc/moe_swiglu_gmm_q4.cu", "mingunivision_tpu/ops/kernels/moe_swiglu_gmm.py:432"),
+    "rf_sampler_q8s8": ("csrc/rf_sampler_q8.cu", "mingunivision_tpu/ops/kernels/rf_sampler.py:395"),
 }
 BF16_KERNELS = ("moe_stream", "moe_swiglu_gmm", "decode_attention")
 REL_TOL = 1e-2  # kernel vs plain: max |err| <= REL_TOL * max |plain| (bf16 keeps ~3 digits)
@@ -324,6 +347,7 @@ def check_kernels(torch, results: dict) -> bool:
         rf_sample_fused,
         rf_sample_fused_plain,
         rf_sample_fused_q8,
+        rf_sample_fused_q8s8,
     )
     from mingunivision_tpu_torch.utils.quantize import quantize_array
 
@@ -346,12 +370,13 @@ def check_kernels(torch, results: dict) -> bool:
     cap = default_capacity(n_und, k, E, cfg.llm.moe_prefill_capacity_factor)
     und_valid = torch.arange(n_und, device=dev) < n_und - n_pad
 
-    def capacity_cases(tables, name, per_expert_bytes):
+    def capacity_cases(tables, name, per_expert_bytes, s8=False):
         """Kernel `name` launched through the capacity-dense dispatch at the
         understanding prompt's shape, beside the expert-sorted dispatch on the
         same routing: a natural routing (it fits the slots; padding rows kept
         out by token_valid) and one skewed to 8 experts (it overflows, and the
-        sorted dispatch runs: a counted fallback). Valid rows are compared."""
+        sorted dispatch runs: a counted fallback). Valid rows are compared.
+        s8: the quantized kernels' s8-dot mode (operations at the int8 rate)."""
         ok = True
         for label, choices, fits in ((f"capacity dispatch C={cap}: 1152 tok (92 pads) x k=6", None, True),
                                      ("capacity dispatch, skewed to 8 experts: overflow -> sorted fallback",
@@ -361,12 +386,13 @@ def check_kernels(torch, results: dict) -> bool:
             x[~und_valid], idx[~und_valid], w[~und_valid] = x[-1].clone(), idx[-1].clone(), w[-1].clone()
             launches, fallbacks = moe_experts_capacity_gmm.launches, moe_experts_capacity_gmm_exact.fallbacks
             args = (tables, x, idx, w, E, cap)
-            kw = dict(token_valid=und_valid, layer_idx=0)
+            kw = dict(token_valid=und_valid, layer_idx=0, s8=s8)
             nbytes, ops = moe_work(idx[und_valid], n_und, per_expert_bytes, 2)
             ok &= run_case(torch, results, name, label, lambda: moe_experts_capacity_gmm_exact(*args, **kw),  # noqa: B023
-                           lambda: moe_experts_capacity_gmm_exact_plain(*args, **kw), nbytes, ops, "bf16",  # noqa: B023
-                           iters=5, rows=und_valid,
-                           others={"sorted_dispatch": lambda: moe_experts_swiglu_gmm(*args[:5], layer_idx=0)})  # noqa: B023
+                           lambda: moe_experts_capacity_gmm_exact_plain(*args, **kw), nbytes, ops,  # noqa: B023
+                           "int8" if s8 else "bf16", iters=5, rows=und_valid, plain_iters=2 if s8 else None,
+                           others={"sorted_dispatch": lambda: moe_experts_swiglu_gmm(*args[:5], layer_idx=0,  # noqa: B023
+                                                                                     s8=s8)})
             went = (moe_experts_capacity_gmm.launches > launches, moe_experts_capacity_gmm_exact.fallbacks > fallbacks)
             print(f"kernel {name} [{label}]: through the slots={went[0]} fell back={went[1]}")
             ok &= went == (fits, not fits)
@@ -388,6 +414,35 @@ def check_kernels(torch, results: dict) -> bool:
                                nbytes, ops, "bf16")
     all_ok &= capacity_cases(experts, "moe_swiglu_gmm", 3 * h * m * 2)
 
+    def dot_mode_cases(tables, decode_name, prefill_name, per_expert_bytes):
+        """The other dot mode of the quantized kernels: the exact-dequant decode
+        MoE (`decode_name`, int4 tables) at 2 rows (its main path: the T2I round
+        with moe_int_dots=False), 1, 3 and 16; the s8-dot prefill MoE
+        (`prefill_name`) first at its main path's shape, the understanding
+        prompt's 1,152 tokens through the capacity dispatch (and its overflow),
+        then at a 128-token prompt and one skewed to 8 experts."""
+        ok = True
+        if decode_name is not None:
+            for label, n, choices in [decode[0], ("N=1 k=6 (understanding text decode)", 1, None),
+                                      ("N=3 k=6 (editing decode)", 3, None), decode[1]]:
+                x = torch.randn((n, h), device=dev, generator=g).to(bf)
+                idx, w = routing(n, choices)
+                nbytes, ops = moe_work(idx, n, per_expert_bytes, 2)
+                ok &= run_case(torch, results, decode_name, label,
+                               lambda: moe_experts_stream(tables, x, idx, w, layer_idx=0, int_dots=False),  # noqa: B023
+                               lambda: moe_experts_stream_plain(tables, x, idx, w, layer_idx=0,  # noqa: B023
+                                                                int_dots=False), nbytes, ops, "bf16")
+        ok &= capacity_cases(tables, prefill_name, per_expert_bytes, s8=True)
+        for label, n, choices in prefill:
+            x = torch.randn((n, h), device=dev, generator=g).to(bf)
+            idx, w = routing(n, choices)
+            nbytes, ops = moe_work(idx, n, per_expert_bytes, 2)
+            ok &= run_case(torch, results, prefill_name, label,
+                           lambda: moe_experts_swiglu_gmm(tables, x, idx, w, E, layer_idx=0, s8=True),  # noqa: B023
+                           lambda: moe_experts_swiglu_gmm_plain(tables, x, idx, w, E, layer_idx=0,  # noqa: B023
+                                                                s8=True), nbytes, ops, "int8", plain_iters=3)
+        return ok
+
     # int4 and int8 tables of the same weights
     q4 = {n: quantize_array(t, 4) for n, t in experts.items()}
     q8 = {n: quantize_array(t, 8) for n, t in experts.items()}
@@ -407,6 +462,7 @@ def check_kernels(torch, results: dict) -> bool:
                                lambda: plain_fn(q4, x, idx, w, *extra, layer_idx=0),  # noqa: B023
                                nbytes, ops, kind)
     all_ok &= capacity_cases(q4, "moe_swiglu_gmm_q4", per_expert)
+    all_ok &= dot_mode_cases(q4, "moe_stream_q4", "moe_swiglu_gmm_q4s8", per_expert)
     del q4
 
     # int8 tables: 3 h m bytes and 2 m + h fp32 scales per routed expert. The decode kernel in both dot modes
@@ -436,6 +492,7 @@ def check_kernels(torch, results: dict) -> bool:
                            lambda: moe_experts_swiglu_gmm_plain(q8, x, idx, w, E, layer_idx=0),  # noqa: B023
                            nbytes, ops, "bf16")
     all_ok &= capacity_cases(q8, "moe_swiglu_gmm_q8", per_expert)
+    all_ok &= dot_mode_cases(q8, None, "moe_swiglu_gmm_q8s8", per_expert)
     del q8
 
     B, Hq, Hkv, S, D = 2, cfg.llm.num_attention_heads, cfg.llm.num_key_value_heads, 4096, cfg.llm.head_dim
@@ -492,8 +549,9 @@ def check_kernels(torch, results: dict) -> bool:
     rf_cfg = cfg.rf_head
     L, w, C, St = rf_cfg.depth, rf_cfg.width, rf_cfg.target_channels, rf_cfg.num_sampling_steps
     ts, dts = _time_grid(rf_cfg, None, device=dev)
-    for bits, name, counter, kind in ((4, "rf_sampler_q4s8", rf_sample_fused, "int8"),
-                                      (8, "rf_sampler_q8", rf_sample_fused_q8, "bf16")):
+    for bits, name, counter, kind, s8 in ((4, "rf_sampler_q4s8", rf_sample_fused, "int8", False),
+                                          (8, "rf_sampler_q8", rf_sample_fused_q8, "bf16", False),
+                                          (8, "rf_sampler_q8s8", rf_sample_fused_q8s8, "int8", True)):
         rf = full_width_rf(torch, rf_cfg, g, adaln_std=0.02, bits=bits)
         Hd = rf["res_blocks"]["mlp"]["w3"]["w"].q.shape[1] * (8 // bits)
         # 2 CFG rows (T2I), 3 with renorm (editing); then more rows than one launch holds, sampled in groups of
@@ -503,7 +561,7 @@ def check_kernels(torch, results: dict) -> bool:
             block_mods, final_mods = precompute_modulations(rf, rf_cfg, ts, z)
             noise = torch.randn((n_img, C), device=dev, generator=g).repeat(rows, 1)
             args = (rf, rf_cfg, noise, block_mods, final_mods, dts, 3.0, 1.1)
-            kw = dict(cfg_rows=rows, renorm_channel=renorm, compute_dtype=bf)
+            kw = dict(cfg_rows=rows, renorm_channel=renorm, compute_dtype=bf, s8_dots=s8)
             launches = counter.launches
             # the blocks' tables (453 MB int4, 906 MB int8), their scales and biases, and the LN affines: more
             # than L2 and every SM's shared memory hold, so each Euler step streams them again
@@ -511,8 +569,8 @@ def check_kernels(torch, results: dict) -> bool:
             block_weights = L * 3 * w * Hd * bits // 8 + L * (2 * Hd + w) * 4 * 2 + 2 * L * w * 4
             rest = (L * St * B * 3 * w + St * B * 2 * w) * 4 + 2 * C * w * 4 + 2 * B * C * 4
             nbytes = St * block_weights + rest
-            # int4: two integer dots per weight byte pair; int8: one bf16-rate product per weight; per row,
-            # block and step
+            # int4: two integer dots per weight byte pair; int8: one bf16-rate product (s8 dots: one int8
+            # operation) per weight; per row, block and step
             ops = 2.0 * 3 * w * Hd * B * L * St
             label = (f"{rows} CFG rows{' + channel renorm' if renorm else ''}" if n_img == 1 else
                      f"{n_img} images x {rows} CFG rows = {B} rows")
@@ -809,8 +867,8 @@ def plain_versions(names=ENTRIES):
 
 def small_model(torch, device, tier="bfloat16"):
     """A 2-layer model with the full model's structure, bf16 on the card (the
-    LLM and RF head then quantized when `tier` is "int4" or "int8"; the RF
-    head is wide enough, 192 x 512, for every table to pass the quantizer's
+    LLM and RF head then quantized when `tier` is "int4", "int8" or "nf4"; the
+    RF head is wide enough, 192 x 512, for every table to pass the quantizer's
     size floor), RF noise off (temperature 0), 16 image tokens; returns (cfg,
     params, prompt)."""
     import dataclasses
@@ -894,7 +952,41 @@ def loop_capture():
         session_mod.generate_image_tokens, gen_mod.vis_head_apply, gen_mod.rf_sample = loop, vis_head, sample
 
 
-def run_reference(torch, device, tier="bfloat16") -> bool:
+def llm_entries(torch):
+    """The LLM kernel entries, as `held_against_plain` takes them: the decode
+    MoE, the prefill MoE through the expert-sorted and the capacity dispatch,
+    decode attention, each with its plain version and every row selected."""
+    from mingunivision_tpu_torch.models import bailing_moe as bm
+    from mingunivision_tpu_torch.ops.kernels.decode_attention import decode_attention_plain
+    from mingunivision_tpu_torch.ops.kernels.moe_capacity import moe_experts_capacity_gmm_exact_plain
+    from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream_plain
+    from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm_plain
+
+    def every_row(i):
+        return lambda args: torch.ones(args[i].shape[0], dtype=torch.bool, device=args[i].device)
+
+    return {"decode_moe": (bm, "moe_experts_stream", moe_experts_stream_plain, every_row(1)),
+            "prefill_moe": (bm, "moe_experts_swiglu_gmm", moe_experts_swiglu_gmm_plain, every_row(1)),
+            "prefill_moe_capacity": (bm, "moe_experts_capacity_gmm_exact", moe_experts_capacity_gmm_exact_plain,
+                                     every_row(1)),
+            "decode_attention": (bm, "decode_attention", decode_attention_plain, every_row(0))}
+
+
+def held_checks(errs) -> list:
+    """Each LLM kernel entry within REL_TOL of its plain version at every call
+    (`held_against_plain`'s record); the decode MoE, decode attention and one
+    of the prefill MoE dispatches must have been called."""
+    checks = [(f"{name} in context within {max(v):.3e} <= {REL_TOL} of its plain version at all {len(v)} calls",
+               max(v) <= REL_TOL) for name, v in errs.items() if v]
+    called = errs["decode_moe"] and errs["decode_attention"] and (errs["prefill_moe"] or errs["prefill_moe_capacity"])
+    return checks + [("every LLM kernel entry called", bool(called))]
+
+
+def tier_label(tier, runtime_kw) -> str:
+    return tier + "".join(f" {k}={v}" for k, v in runtime_kw.items())
+
+
+def run_reference(torch, device, tier="bfloat16", **runtime_kw) -> bool:
     """The small model through the kernels (bf16) and through their plain
     versions in fp32, the reference, on the same weights (`tier`: bf16, or the
     int4 or int8 tree). The kernel path must give the reference's tokens, and
@@ -903,13 +995,17 @@ def run_reference(torch, device, tier="bfloat16") -> bool:
     the plain bf16 path's own error, plus 1e-2 of the reference's maximum: the
     hidden state that enters the image head at loop step 0 (prefill and one
     decode step: every LLM kernel) and, at bf16 and int4, the first RF latent
-    (sampled from that hidden state: the int4 sampler). The first latent is
+    (sampled from that hidden state: the int4 sampler). Every call of
+    an LLM kernel entry on the kernel path is also held against its plain
+    version on the same inputs (`llm_entries`, within REL_TOL). `runtime_kw`:
+    RuntimeConfig fields of every run (the dot modes). The first latent is
     also held, at every tier, against the plain sampler run on the kernel
     path's own step-0 inputs (within REL_TOL: the quantized samplers agree with
-    their plain versions to the bit). At int8 the first latent against fp32 is
-    printed, not held: the small int8 model's RF head turns a one-bf16-ulp
-    change of the hidden state into a latent change of several 1e-2 (`--phases
-    divergence --tier int8`), far past twice the plain path's error. The image
+    their plain versions to the bit). At int8 and NF4 the first latent against
+    fp32 is printed, not held: the small model's int8 and NF4 RF heads turn a
+    one-bf16-ulp change of the hidden state into a latent change of several
+    1e-2 (`--phases divergence --tier int8` / `--tier nf4`), past twice the
+    plain path's error. The image
     is held to shape, finite and in range; its errors are printed."""
     import numpy as np
 
@@ -917,28 +1013,31 @@ def run_reference(torch, device, tier="bfloat16") -> bool:
     from mingunivision_tpu_torch.models import rf_head
 
     cfg, params, prompt = small_model(torch, device, tier)
-    bf16 = RuntimeConfig(max_seq_len=512)
+    bf16 = RuntimeConfig(max_seq_len=512, **runtime_kw)
     with loop_capture() as seen:
-        out_k, sess_k, _ = _generate(torch, params, cfg, bf16, device, prompt, cfg.image_gen)
+        with held_against_plain(torch, llm_entries(torch)) as errs:
+            out_k, sess_k, _ = _generate(torch, params, cfg, bf16, device, prompt, cfg.image_gen)
         kern = (seen["hidden"][0], seen["latent"][0])
         args, kwargs = seen["first_sample"]
         with plain_versions(("rf_sampler",)):
             same_inputs = rf_head.rf_sample(*args, **kwargs).float().cpu().numpy()
         with plain_versions():
-            out_r = _generate(torch, as_f32(params), cfg, RuntimeConfig(max_seq_len=512, compute_dtype="float32"),
-                              device, prompt, cfg.image_gen)[0]
+            out_r = _generate(torch, as_f32(params), cfg,
+                              RuntimeConfig(max_seq_len=512, compute_dtype="float32", **runtime_kw), device, prompt,
+                              cfg.image_gen)[0]
             ref = (seen["hidden"][0], seen["latent"][0])
             out_p = _generate(torch, params, cfg, bf16, device, prompt, cfg.image_gen)[0]
             plain = (seen["hidden"][0], seen["latent"][0])
     checks = image_checks(out_k, sess_k, cfg, prompt[0].shape[1], cfg.mingtok.encoder.img_size)
     checks.append(("tokens == fp32 reference", out_k.token_ids == out_r.token_ids))
+    checks += held_checks(errs)
     printed = []
     for i, what in enumerate(("step-0 hidden", "first latent")):
         scale = float(np.abs(ref[i]).max())
         err_k, err_p = (float(np.abs(run[i] - ref[i]).max()) for run in (kern, plain))
         tol = 2 * err_p + 1e-2 * scale
         label = f"{what} err vs fp32 {err_k:.3e} <= {tol:.3e} (plain bf16 err {err_p:.3e}, max |ref| {scale:.3e})"
-        if what == "first latent" and tier == "int8":
+        if what == "first latent" and tier in ("int8", "nf4"):
             printed.append(f"{label} (not held)")
         else:
             checks.append((label, bool(np.isfinite(kern[i]).all()) and err_k <= tol))
@@ -947,7 +1046,7 @@ def run_reference(torch, device, tier="bfloat16") -> bool:
                    f"{REL_TOL * scale_s:.3e}", bool(np.isfinite(kern[1]).all()) and err_s <= REL_TOL * scale_s))
     img_err = [float(np.abs(o.images[0] - out_r.images[0]).max()) if len(o.images) == 1 else float("inf")
                for o in (out_k, out_p)]
-    print(f"reference ({tier} small model on the card: kernels bf16 vs plain fp32): "
+    print(f"reference ({tier_label(tier, runtime_kw)} small model on the card: kernels bf16 vs plain fp32): "
           + "; ".join(f"{label}={'ok' if p else 'FAILED'}" for label, p in checks) + "".join(f"; {t}" for t in printed)
           + f"; image err vs fp32 (not held) kernels {img_err[0]:.3e}, plain bf16 {img_err[1]:.3e}")
     return all(p for _, p in checks)
@@ -979,14 +1078,16 @@ def prefill_capture():
         session_mod.prefill, gen_mod.compute_logits = prefill, logits_fn
 
 
-def run_reference_image(torch, device, tier="bfloat16") -> bool:
+def run_reference_image(torch, device, tier="bfloat16", **runtime_kw) -> bool:
     """The small model on an image prompt that pads to 512 tokens: a 128-px image
     (64 patch tokens, the encoder's positional embedding interpolated) and 380
     text ids, then 4 greedy text tokens. The kernel path (bf16: the encoder,
     flash prefill, the capacity MoE dispatch, then the decode kernels) against
-    the plain versions in fp32 on the same weights: the same tokens, and the
-    prefill's last-position hidden state within twice the plain bf16 path's own
-    error plus 1e-2 of the reference's maximum."""
+    the plain versions in fp32 on the same weights: the same tokens, every LLM
+    kernel entry's call within REL_TOL of its plain version on the same inputs,
+    and the prefill's last-position hidden state within twice the plain bf16
+    path's own error plus 1e-2 of the reference's maximum. `runtime_kw`:
+    RuntimeConfig fields of every run (the dot modes)."""
     import numpy as np
 
     from mingunivision_tpu_torch.config import RuntimeConfig
@@ -994,14 +1095,16 @@ def run_reference_image(torch, device, tier="bfloat16") -> bool:
     cfg, params, _ = small_model(torch, device, tier)
     steer_text_head(params, cfg)
     prompt, pixels = image_prompt(cfg, 64, 380, seed=11), pixel_values(128, seed=12)
-    bf16 = RuntimeConfig(max_seq_len=1024)
+    bf16 = RuntimeConfig(max_seq_len=1024, **runtime_kw)
     kw = dict(pixels=pixels, max_new_tokens=4)
     with prefill_capture() as seen:
-        out_k, sess_k, _ = _generate(torch, params, cfg, bf16, device, prompt, **kw)
+        with held_against_plain(torch, llm_entries(torch)) as errs:
+            out_k, sess_k, _ = _generate(torch, params, cfg, bf16, device, prompt, **kw)
         kern = seen["hidden"]
         with plain_versions():
-            out_r = _generate(torch, as_f32(params), cfg, RuntimeConfig(max_seq_len=1024, compute_dtype="float32"),
-                              device, prompt, **kw)[0]
+            out_r = _generate(torch, as_f32(params), cfg,
+                              RuntimeConfig(max_seq_len=1024, compute_dtype="float32", **runtime_kw), device, prompt,
+                              **kw)[0]
             ref = seen["hidden"]
             out_p = _generate(torch, params, cfg, bf16, device, prompt, **kw)[0]
             plain = seen["hidden"]
@@ -1014,7 +1117,9 @@ def run_reference_image(torch, device, tier="bfloat16") -> bool:
               ("tokens == fp32 reference", out_k.token_ids == out_r.token_ids),
               (f"prefill last-position hidden err vs fp32 {err_k:.3e} <= {tol:.3e} (plain bf16 err {err_p:.3e}, "
                f"max |ref| {scale:.3e})", bool(np.isfinite(kern).all()) and err_k <= tol)]
-    print(f"reference ({tier} small model on the card, image prompt: kernels bf16 vs plain fp32): "
+    checks += held_checks(errs)
+    print(f"reference ({tier_label(tier, runtime_kw)} small model on the card, image prompt: kernels bf16 vs plain "
+          "fp32): "
           + "; ".join(f"{label}={'ok' if p else 'FAILED'}" for label, p in checks)
           + f"; tokens {out_k.token_ids}, plain bf16 {out_p.token_ids}")
     return all(p for _, p in checks)
@@ -1106,7 +1211,7 @@ def run_divergence(torch, device, tier="bfloat16") -> bool:
 
     cfg, params, prompt = small_model(torch, device, tier)
     # the small model's entry points, named as their kernels
-    kernels = BF16_KERNELS + (() if tier == "bfloat16" else ("rf_sampler",))
+    kernels = BF16_KERNELS + (() if tier in ("bfloat16", "nf4") else ("rf_sampler",))
 
     def run(params, plain, compute_dtype="bfloat16"):
         with plain_versions(plain):
@@ -1153,8 +1258,8 @@ def run_divergence(torch, device, tier="bfloat16") -> bool:
 
 
 def full_model(torch, cfg, device, tier="bfloat16", keep_rf_bf16=False):
-    """Random bf16 weights of `cfg` on the device from seed 0; for `tier` "int4"
-    or "int8" the LLM and RF head are then quantized in place on the device,
+    """Random bf16 weights of `cfg` on the device from seed 0; for `tier` "int4",
+    "int8" or "nf4" the LLM and RF head are then quantized in place on the device,
     leaf by leaf. With `keep_rf_bf16`, a bf16 copy of the RF head is kept
     under params["rf_head_bf16"] (for the mixed tier). Returns params."""
     from mingunivision_tpu_torch.utils.convert import init_mm_params, quantize_mm_params_inplace
@@ -1207,7 +1312,7 @@ def launch_counters():
     from mingunivision_tpu_torch.ops.kernels.flash import flash_prefill_attention, flash_vit_attention
     from mingunivision_tpu_torch.ops.kernels.moe_capacity import moe_experts_capacity_gmm
     from mingunivision_tpu_torch.ops.kernels.paged_attention import paged_decode_attention
-    from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused, rf_sample_fused_q8
+    from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused, rf_sample_fused_q8, rf_sample_fused_q8s8
 
     return {"moe_stream": ms.moe_experts_stream, "moe_swiglu_gmm": gmm.moe_experts_swiglu_gmm,
             "decode_attention": decode_attention, "moe_stream_q4s8": ms.moe_experts_stream_q4s8,
@@ -1215,7 +1320,9 @@ def launch_counters():
             "flash_prefill": flash_prefill_attention, "flash_vit": flash_vit_attention,
             "moe_capacity": moe_experts_capacity_gmm, "paged_attention": paged_decode_attention,
             "moe_stream_q8s8": ms.moe_experts_stream_q8s8, "moe_stream_q8": ms.moe_experts_stream_q8,
-            "moe_swiglu_gmm_q8": gmm.moe_experts_swiglu_gmm_q8, "rf_sampler_q8": rf_sample_fused_q8}
+            "moe_swiglu_gmm_q8": gmm.moe_experts_swiglu_gmm_q8, "rf_sampler_q8": rf_sample_fused_q8,
+            "moe_stream_q4": ms.moe_experts_stream_q4, "moe_swiglu_gmm_q8s8": gmm.moe_experts_swiglu_gmm_q8s8,
+            "moe_swiglu_gmm_q4s8": gmm.moe_experts_swiglu_gmm_q4s8, "rf_sampler_q8s8": rf_sample_fused_q8s8}
 
 
 def counted_round(torch, results, path, run):
@@ -1248,37 +1355,53 @@ def launch_checks(launches, floors):
 
 
 # the weight tiers the phases run: quantize_mm_params_inplace's arguments (the int4 tier, the int8
-# quality tier, and the int4 LLM with an int8 RF head: RuntimeConfig(param_dtype="int4", rf_param_dtype="int8"))
-TIERS = {"int4": dict(bits=4), "int8": dict(bits=8), "int4_rf8": dict(bits=4, rf_bits=8)}
+# quality tier, the int4 LLM with an int8 RF head: RuntimeConfig(param_dtype="int4", rf_param_dtype="int8"),
+# and the NF4 tier: RuntimeConfig(param_dtype="int4-nf4"))
+TIERS = {"int4": dict(bits=4), "int8": dict(bits=8), "int4_rf8": dict(bits=4, rf_bits=8),
+         "nf4": dict(bits=4, scheme="nf4")}
+# the reference phase's small models: (tier, RuntimeConfig fields), every dot mode of every quantized tier
+REFERENCE_TIERS = (("bfloat16", {}), ("int4", {}), ("int4", dict(moe_int_dots=False)), ("int8", {}),
+                   ("int8", dict(moe_prefill_int_dots=True, rf_int_dots=True)), ("nf4", {}))
 
 
-def tier_kernels(tier, int_dots=True):
-    """(decode MoE, prefill MoE, RF sampler or None) kernel names of a tier."""
+def tier_kernels(tier, runtime=None):
+    """(decode MoE, prefill MoE, RF sampler) kernel names of a tier in the dot
+    modes of `runtime` (a RuntimeConfig; None: the defaults); None where the
+    tier runs no kernel there (NF4: plain dequant; bf16: the RF head's loop)."""
+    int_dots = runtime is None or runtime.moe_int_dots
+    s8_prefill = runtime is not None and runtime.moe_prefill_int_dots
+    rf8 = "rf_sampler_q8s8" if runtime is not None and runtime.rf_int_dots else "rf_sampler_q8"
+    q4 = ("moe_stream_q4s8" if int_dots else "moe_stream_q4", "moe_swiglu_gmm_q4s8" if s8_prefill else "moe_swiglu_gmm_q4")
     return {"bfloat16": ("moe_stream", "moe_swiglu_gmm", None),
-            "int4": ("moe_stream_q4s8", "moe_swiglu_gmm_q4", "rf_sampler_q4s8"),
-            "int4_rf8": ("moe_stream_q4s8", "moe_swiglu_gmm_q4", "rf_sampler_q8"),
-            "int8": ("moe_stream_q8s8" if int_dots else "moe_stream_q8", "moe_swiglu_gmm_q8", "rf_sampler_q8")}[tier]
+            "int4": q4 + ("rf_sampler_q4s8",),
+            "int4_rf8": q4 + (rf8,),
+            "int8": ("moe_stream_q8s8" if int_dots else "moe_stream_q8",
+                     "moe_swiglu_gmm_q8s8" if s8_prefill else "moe_swiglu_gmm_q8", rf8),
+            "nf4": (None, None, None)}[tier]
 
 
-def run_slice(torch, cfg, params, device, results: dict, tier="bfloat16") -> bool:
-    """One full-width T2I round at `tier`, with every kernel's launch count read
+def run_slice(torch, cfg, params, device, results: dict, tier="bfloat16", runtime=None, label=None) -> bool:
+    """One full-width T2I round at `tier` (in the dot modes of `runtime`, a
+    RuntimeConfig; None: the defaults), with every kernel's launch count read
     around it; the kernels of the tier's path must reach their floors (per LLM
     step and layer for the decode kernels, per layer for the prefill one, per
     image token for the RF sampler) and the others must not launch."""
     from mingunivision_tpu_torch.config import RuntimeConfig
 
+    runtime = runtime or RuntimeConfig()
     L = cfg.llm.num_hidden_layers
     n_tok = cfg.image_gen.num_image_tokens
     prompt = t2i_prompt(cfg.llm.vocab_size, cfg.llm.image_start_token)
     bias_to_image_start(torch, params, cfg, prompt[0], device)
     resident = torch.cuda.memory_allocated()
-    label = "slice" if tier == "bfloat16" else f"slice_{tier}"
+    label = label or ("slice" if tier == "bfloat16" else f"slice_{tier}")
     (out, sess, total_s), launches, peak = counted_round(
-        torch, results, label, lambda: _generate(torch, params, cfg, RuntimeConfig(), device, prompt))
+        torch, results, label, lambda: _generate(torch, params, cfg, runtime, device, prompt))
 
     T = prompt[0].shape[1]
-    decode_moe, prefill_moe, sampler = tier_kernels(tier)
+    decode_moe, prefill_moe, sampler = tier_kernels(tier, runtime)
     floors = {decode_moe: L * (n_tok + 1), prefill_moe: L, "decode_attention": L * (n_tok + 1)}
+    floors.pop(None, None)
     if sampler is not None:
         floors[sampler] = n_tok
     checks = image_checks(out, sess, cfg, T, 512) + launch_checks(launches, floors)
@@ -1289,14 +1412,14 @@ def run_slice(torch, cfg, params, device, results: dict, tier="bfloat16") -> boo
           f"prefill_ms={t['prefill_ms']:.2f} image_loop_ms={t['image_loop_ms']:.1f} "
           f"ms_per_ar_token={t['image_loop_ms'] / n_tok:.3f} pixel_decode_ms={t['pixel_decode_ms']:.2f} "
           f"total_s={total_s:.3f} resident_gib={resident / 2**30:.3f} max_memory_allocated_gib={peak / 2**30:.3f}")
-    if tier != "int4_rf8":  # the mixed tier's kernels keep the launches of their own tier's slice
+    if tier not in ("int4_rf8", "nf4"):  # the mixed tier's kernels keep the launches of their own tier's slice
         for name in floors:
             results[name]["launches"] = launches[name]
     return report(label, launches, checks)
 
 
 def run_understand(torch, cfg, params, device, results: dict, tier="bfloat16", new_tokens: int = 32,
-                   int_dots: bool = True, prepare: bool = True) -> bool:
+                   int_dots: bool = True, prefill_int_dots: bool = False, prepare: bool = True) -> bool:
     """Image -> text at full width on the tier's model: a 1024-px image (1,024
     patch tokens in a 1,060-id prompt that pads to 1,152) through the MingTok
     encoder, a first-round prefill through the flash kernel and the capacity
@@ -1310,7 +1433,8 @@ def run_understand(torch, cfg, params, device, results: dict, tier="bfloat16", n
     and overflow the capacity (`--phases routing` shows both); `prepare=False`
     skips that and the LM head's steering, for a second round on the same
     model. int_dots=False runs the round with RuntimeConfig(moe_int_dots=False):
-    the exact-dequant decode MoE of the int8 tier."""
+    the exact-dequant decode MoE; prefill_int_dots=True with
+    RuntimeConfig(moe_prefill_int_dots=True): the s8 prefill MoE."""
     import numpy as np
 
     from mingunivision_tpu_torch.config import RuntimeConfig
@@ -1322,15 +1446,15 @@ def run_understand(torch, cfg, params, device, results: dict, tier="bfloat16", n
         damp_attention_outputs(params)
     prompt, pixels = image_prompt(cfg, 1024, 28, seed=21), pixel_values(1024, seed=22)
     fallbacks = moe_experts_capacity_gmm_exact.fallbacks
-    label = f"understand_{tier}" + ("" if int_dots else "_exact")
-    runtime = RuntimeConfig(moe_int_dots=int_dots)
+    label = f"understand_{tier}" + ("" if int_dots else "_exact") + ("_s8" if prefill_int_dots else "")
+    runtime = RuntimeConfig(moe_int_dots=int_dots, moe_prefill_int_dots=prefill_int_dots)
     (out, sess, total_s), launches, peak = counted_round(
         torch, results, label, lambda: _generate(torch, params, cfg, runtime, device, prompt, pixels=pixels,
                                                  max_new_tokens=new_tokens))
     fallbacks = moe_experts_capacity_gmm_exact.fallbacks - fallbacks
     t = sess.timings
     T, steps = prompt[0].shape[1], t["text_tokens"]
-    decode_moe, prefill_moe, _ = tier_kernels(tier, int_dots)
+    decode_moe, prefill_moe, _ = tier_kernels(tier, runtime)
     floors = {"flash_prefill": L, prefill_moe: L, decode_moe: L * steps, "decode_attention": L * steps,
               "moe_capacity": max(1, L - fallbacks)}
     checks = [("T_pad == 1152", t["prefill_tokens"] == 1152), ("flash prefill", bool(t["use_flash"])),
@@ -1352,6 +1476,8 @@ def run_understand(torch, cfg, params, device, results: dict, tier="bfloat16", n
     results["flash_prefill"]["launches"] = launches["flash_prefill"]
     if not int_dots:  # the exact-dequant decode kernel's main path
         results[decode_moe]["launches"] = launches[decode_moe]
+    if prefill_int_dots:  # the s8 prefill kernel's main path
+        results[prefill_moe]["launches"] = launches[prefill_moe]
     return report(label, launches, checks)
 
 
@@ -2071,9 +2197,9 @@ def jax_modules():
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="device,build,kernels,reference,slice,slice_int4,slice_int4_rf8,slice_int8,"
-                                        "understand,edit,recon,serve")
-    ap.add_argument("--tier", default="bfloat16", choices=("bfloat16", "int4", "int8"),
+    ap.add_argument("--phases", default="device,build,kernels,reference,slice,slice_int4,slice_int4_exact,"
+                                        "slice_int4_rf8,slice_int8,slice_int8_s8,slice_nf4,understand,edit,recon,serve")
+    ap.add_argument("--tier", default="bfloat16", choices=("bfloat16", "int4", "int8", "nf4"),
                     help="the tier of the profile, profile_understand, routing and divergence phases")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2111,49 +2237,67 @@ def main(argv=None) -> int:
           f"(nvcc {build.build_info['seconds']:.2f} s, cached={build.build_info['cached']}; "
           f"RF sampler grid {build.load().mu_rf_sampler_grid()} CTAs)")
 
-    from mingunivision_tpu_torch.config import MingUniVisionConfig
+    from mingunivision_tpu_torch.config import MingUniVisionConfig, RuntimeConfig
 
     cuda = torch.device("cuda")
     results: dict = {}
     ok = True
+    t_script = time.perf_counter()
+
+    def stamp(phase):
+        print(f"clock: {phase} done at {time.perf_counter() - t_script:.1f} s")
+
     if "kernels" in phases:
         ok &= check_kernels(torch, results)
+        stamp("kernels")
     if "reference" in phases:
-        for tier in ("bfloat16", "int4", "int8"):
-            ok &= run_reference(torch, cuda, tier)
-            ok &= run_reference_image(torch, cuda, tier)
+        for tier, runtime_kw in REFERENCE_TIERS:
+            ok &= run_reference(torch, cuda, tier, **runtime_kw)
+            ok &= run_reference_image(torch, cuda, tier, **runtime_kw)
         ok &= run_reference_serve(torch, cuda)
+        stamp("reference")
     if "divergence" in phases:
         ok &= run_divergence(torch, cuda, args.tier)
     if "rf_sensitivity" in phases:
         ok &= run_rf_sensitivity(torch)
     if "recon" in phases:
         ok &= run_recon(torch, MingUniVisionConfig(), cuda, results)
+        stamp("recon")
     # per tier: (its T2I phase, the other phases it runs); the int4 tier's model also serves the mixed tier
     tier_phases = {"bfloat16": ("slice", {"understand", "edit", "serve"}),
-                   "int4": ("slice_int4", {"slice_int4_rf8", "understand", "edit", "serve"}),
-                   "int8": ("slice_int8", {"understand", "edit"})}
+                   "int4": ("slice_int4", {"slice_int4_exact", "slice_int4_rf8", "understand", "edit", "serve"}),
+                   "int8": ("slice_int8", {"slice_int8_s8", "understand", "edit"}),
+                   "nf4": ("slice_nf4", set())}
     for tier, (slice_phase, others) in tier_phases.items():
-        if not phases & (others | {slice_phase}):
+        run = phases & (others | {slice_phase})
+        if not run:
             continue
         cfg = MingUniVisionConfig()
-        mixed = "slice_int4_rf8" in phases & others
+        mixed = "slice_int4_rf8" in run
         params = full_model(torch, cfg, cuda, tier, keep_rf_bf16=mixed)  # built once for the tier's phases
-        if slice_phase in phases:
+        if slice_phase in run:
             ok &= run_slice(torch, cfg, params, cuda, results, tier)
+        if "slice_int4_exact" in run:  # the exact-dequant int4 decode kernel
+            ok &= run_slice(torch, cfg, params, cuda, results, tier, RuntimeConfig(moe_int_dots=False),
+                            "slice_int4_exact")
+        if "slice_int8_s8" in run:  # the int8 sampler with s8 dots
+            ok &= run_slice(torch, cfg, params, cuda, results, tier, RuntimeConfig(rf_int_dots=True), "slice_int8_s8")
         if mixed:
             ok &= run_slice_mixed(torch, cfg, params, cuda, results)
-        if "edit" in phases:
+        if "edit" in run:
             ok &= run_edit(torch, cfg, params, cuda, results, tier)
-        if "understand" in phases:  # it steers the LM head towards text
+        if "understand" in run:  # it steers the LM head towards text
             ok &= run_understand(torch, cfg, params, cuda, results, tier)
-            if tier == "int8":  # and again in the exact-dequant dot mode
+            if tier != "bfloat16":  # and again with the s8 prefill kernel
+                ok &= run_understand(torch, cfg, params, cuda, results, tier, prefill_int_dots=True, prepare=False)
+            if tier == "int8":  # and in the exact-dequant decode mode
                 ok &= run_understand(torch, cfg, params, cuda, results, tier, int_dots=False, prepare=False)
-        if "serve" in phases & others:
+        if "serve" in run:
             ok &= run_serve(torch, cfg, params, cuda, results, tier, steered="understand" in phases)
         del params
         gc.collect()  # a tier's tree is held by reference cycles of the serving phase (engine <-> step clock)
         torch.cuda.empty_cache()
+        stamp(f"the {tier} tier's rounds")
     if "routing" in phases:
         ok &= run_routing(torch, MingUniVisionConfig(), cuda, args.tier)
     if "profile" in phases:

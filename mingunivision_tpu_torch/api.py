@@ -17,6 +17,7 @@ from mingunivision_tpu_torch.config import (
     RuntimeConfig,
     with_pixdec_precision,
 )
+from mingunivision_tpu_torch.processing.image_ops import save_image_with_suffix
 from mingunivision_tpu_torch.processing.processor import BailingMMProcessor
 from mingunivision_tpu_torch.engine.session import MingUniVisionSession
 
@@ -53,6 +54,7 @@ class MingUniVisionInfer:
         self,
         messages: List[dict],
         max_new_tokens: int = 512,
+        output_image_prefix: str = "output",
         for_edit: bool = False,
         image_gen_temperature: float = 1.0,
         image_gen_text_cfg: float = 3.0,
@@ -61,9 +63,16 @@ class MingUniVisionInfer:
         temperature: float = 1.0,
         top_k: int = 0,
         top_p: float = 1.0,
+        n_images: int = 1,
     ) -> str:
-        """Template -> processor -> session.generate -> decoded reply. Generated
-        images (3, H, W) in [-1, 1] are kept in `last_images`."""
+        """Template -> processor -> session.generate -> decoded reply, with the
+        JAX API's arguments in its order. Each generated image (3, H, W) in
+        [-1, 1] is kept in `last_images` and written as a PNG at
+        `output_image_prefix` (`prefix.png`, or `prefix_1.png`, ... when the
+        name is taken). `n_images` other than 1 raises NotImplementedError
+        (ROADMAP.md Queue 1.2), as the server does."""
+        if n_images != 1:
+            raise NotImplementedError("n_images > 1 is not ported to the PyTorch package yet (ROADMAP.md Queue 1.2)")
         text = self.processor.apply_chat_template(messages, add_generation_prompt=True)
         images = self.processor.process_vision_info(messages)
         batch = self.processor(text=text, images=images, for_edit=for_edit)
@@ -79,6 +88,8 @@ class MingUniVisionInfer:
                                     text_uncond_attention_mask=batch.text_uncond_attention_mask,
                                     pixel_values=batch.pixel_values, generation=gen, image_gen=igen)
         self.last_images = out.images
+        for img in out.images:
+            save_image_with_suffix(img, output_image_prefix)
         ids = out.token_ids
         if ids and ids[-1] == self.config.llm.eos_token_id:
             ids = ids[:-1]

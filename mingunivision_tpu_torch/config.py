@@ -237,8 +237,15 @@ class RuntimeConfig:
     past_mode: str = "DROP"  # DROP | KEEP: multi-round mask persistence
     pixdec_matmul_precision: Optional[str] = None
     # integer s8 dots in the int4/int8 decode MoE; False takes the
-    # exact-dequant kernel (ported for int8 tables; int4 trees refuse it)
+    # exact-dequant kernels (the JAX package's INT_DOT_STREAM / _INT8)
     moe_int_dots: bool = True
+    # per-row s8 activation dots in the int4/int8 prefill MoE, through the
+    # sorted and the capacity dispatch (the JAX package's module flags
+    # INT_DOT_PREFILL_INT8 / INT_DOT_PREFILL_INT4, off there too)
+    moe_prefill_int_dots: bool = False
+    # s8 dots in the fused int8 RF sampler (the JAX package's rf_mlp.INT8_INT_DOTS,
+    # off there too); read for int8 RF tables only: the int4 sampler is always s8
+    rf_int_dots: bool = False
 
 
 def with_pixdec_precision(config: MingUniVisionConfig, precision: str) -> MingUniVisionConfig:

@@ -61,6 +61,41 @@ static __global__ void __launch_bounds__(256) moe_slot_combine_kernel(
   out[(size_t)n * h + c] = __float2bfloat16(s);
 }
 
+// The s8 prefill MoE kernels' re-quantization of a = silu(g) * u: each
+// scheduled row of hbuf (fp32, m columns) quantized to s8 per `chunk`-column
+// chunk (intdot.quant_rows_s8 on the chunk): aq (rows, m) s8, sa (rows,
+// m / chunk) fp32 scales and, when rs is given, rs (rows, m / chunk) int32 sums
+// of the quantized values. grid (m / chunk, n_tiles) over the (expert, first
+// row, end row) schedule, 256 threads, one warp per row.
+static __global__ void __launch_bounds__(256) quant_chunks_s8_kernel(const float* __restrict__ hbuf,
+                                                                     const int* __restrict__ sched,
+                                                                     int8_t* __restrict__ aq, float* __restrict__ sa,
+                                                                     int* __restrict__ rs, int m, int chunk) {
+  const int r0 = sched[3 * blockIdx.y + 1];
+  const int r1 = sched[3 * blockIdx.y + 2];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c0 = blockIdx.x * chunk, n_chunks = m / chunk;
+  for (int r = r0 + warp; r < r1; r += 8) {
+    const float* row = hbuf + (size_t)r * m + c0;
+    float mx = 0.0f;
+    for (int i = lane; i < chunk; i += 32) mx = fmaxf(mx, fabsf(row[i]));
+    mx = warp_max(mx);
+    const float sc = __fadd_rn(__fdiv_rn(mx, 127.0f), 1e-12f);
+    int sum = 0;
+    for (int i = lane; i < chunk; i += 32) {
+      const int q = (int)rintf(__fdiv_rn(row[i], sc));
+      aq[(size_t)r * m + c0 + i] = (int8_t)q;
+      sum += q;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (lane == 0) {
+      sa[(size_t)r * n_chunks + blockIdx.x] = sc;
+      if (rs != nullptr) rs[(size_t)r * n_chunks + blockIdx.x] = sum;
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // int4 weights x s8 activations (the arithmetic of ops/kernels/intdot.py)
 // ---------------------------------------------------------------------------

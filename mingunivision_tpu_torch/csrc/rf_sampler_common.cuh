@@ -1,5 +1,5 @@
 // Shared parts of the fused RF-sampler kernels (rf_sampler_q4.cu: int4 tables,
-// s8 dots; rf_sampler_q8.cu: int8 tables, exact dequant): the arguments, the
+// s8 dots; rf_sampler_q8.cu: int8 tables, exact dequant or s8 dots): the arguments, the
 // per-row LN statistics, input_proj of the latent, the step epilogue (final
 // layer, CFG combine with optional channel renorm, Euler update) and the
 // cooperative launch. Both kernels run every CTA through the input_proj and
@@ -28,6 +28,7 @@ struct RFArgs {
   const float *s3, *b3, *mods, *fmods, *wfin_t, *bfin;
   float *xcur, *hbuf, *out;
   int B, cfg_rows, renorm, S, L, w, H, C, h_bf16;
+  int ch;  // the int8 s8 kernel's down chunk: h re-quantized per row over each ch columns
   float text_cfg, image_cfg, ln_eps;
 };
 
@@ -185,6 +186,7 @@ inline RFArgs make_args(const void* dts, const void* x0, const void* win, const 
   a.hbuf = static_cast<float*>(hbuf);
   a.out = static_cast<float*>(out);
   a.B = B, a.cfg_rows = cfg_rows, a.renorm = renorm, a.S = S, a.L = L, a.w = w, a.H = H, a.C = C, a.h_bf16 = h_bf16;
+  a.ch = H;
   a.text_cfg = text_cfg, a.image_cfg = image_cfg, a.ln_eps = ln_eps;
   return a;
 }

@@ -25,7 +25,6 @@ from mingunivision_tpu_torch.engine.generate import prefill
 from mingunivision_tpu_torch.engine.sampler import sample_token, sample_token_per_slot
 from mingunivision_tpu_torch.models.bailing_moe import LLMCache, compute_logits, embed_tokens, moe_block_apply
 from mingunivision_tpu_torch.ops.kernels.decode_attention import decode_attention
-from mingunivision_tpu_torch.ops.kernels.moe_stream import require_dot_mode
 from mingunivision_tpu_torch.ops.linear import dense
 from mingunivision_tpu_torch.ops.norms import rms_norm
 from mingunivision_tpu_torch.ops.rope import apply_rope, rope_cos_sin
@@ -76,12 +75,14 @@ class BatchState:
                    zeros(torch.long), zeros(torch.long), zeros(torch.bool), SamplingState.create(slots, device))
 
 
-def pooled_layers(params, cfg, x, positions, attend, int_dots: bool = True):
+def pooled_layers(params, cfg, x, positions, attend, int_dots: bool = True, prefill_int_dots: bool = False):
     """The decoder stack for ONE new token per pool row, each row at its own
     position: x (B, 1, h) embeds; positions (B, 1) RoPE positions;
     attend(layer, q, k_new, v_new) writes the rows' new K/V into the layer's
-    pool and returns the attention output (B, 1, Hq, D); int_dots: the decode
-    MoE's dot mode over quantized tables. Returns the final rms-normed hidden
+    pool and returns the attention output (B, 1, Hq, D); int_dots /
+    prefill_int_dots: the decode and prefill MoE's dot modes over quantized
+    tables (a pool of more than 48 rows takes the prefill MoE). Returns the
+    final rms-normed hidden
     state (B, 1, h), as `bailing_forward` does."""
     B = x.shape[0]
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -99,18 +100,20 @@ def pooled_layers(params, cfg, x, positions, attend, int_dots: bool = True):
         a = attend(l, q, kn, vn)
         h = h + dense(a.reshape(B, 1, Hq * D), p["attention"]["dense"])
         hn = rms_norm(h, p["post_attention_layernorm"]["w"], eps=cfg.rms_norm_eps)
-        h = h + moe_block_apply(p["mlp"], cfg, hn, experts_stacked=experts, layer_idx=l, int_dots=int_dots)
+        h = h + moe_block_apply(p["mlp"], cfg, hn, experts_stacked=experts, layer_idx=l, int_dots=int_dots,
+                                prefill_int_dots=prefill_int_dots)
     return rms_norm(h, params["norm"]["w"], eps=cfg.rms_norm_eps)
 
 
-def pooled_forward(params, cfg, x, k, v, mask, write_pos, active, positions=None, int_dots: bool = True):
+def pooled_forward(params, cfg, x, k, v, mask, write_pos, active, positions=None, int_dots: bool = True,
+                   prefill_int_dots: bool = False):
     """One single-token LLM forward over dense pool rows with PER-ROW KV
     positions. x (B, 1, h); k/v (L, B, Hkv, S, D) written IN PLACE; mask
     (B, S) bool, already including the position being fed; write_pos (B,)
     the per-row KV write index; active (B,) bool: inactive rows compute but
     keep their old K/V. positions (B, 1) RoPE positions (default write_pos).
     Attention goes through the decode-attention kernel with the row mask;
-    int_dots: the decode MoE's dot mode. Returns (normed hidden (B, 1, h), k, v)."""
+    int_dots / prefill_int_dots: the MoE's dot modes. Returns (normed hidden (B, 1, h), k, v)."""
     B = x.shape[0]
     D = cfg.head_dim
     rows = torch.arange(B, device=x.device)
@@ -122,7 +125,8 @@ def pooled_forward(params, cfg, x, k, v, mask, write_pos, active, positions=None
             cache[rows, :, write_pos] = torch.where(keep, new[:, 0].to(cache.dtype), cache[rows, :, write_pos])
         return decode_attention(q, kc, vc, mask, scale=D**-0.5)
 
-    h = pooled_layers(params, cfg, x, write_pos[:, None] if positions is None else positions, attend, int_dots)
+    h = pooled_layers(params, cfg, x, write_pos[:, None] if positions is None else positions, attend, int_dots,
+                      prefill_int_dots)
     return h, k, v
 
 
@@ -143,17 +147,17 @@ def _sample_and_advance(params, cfg, state, hidden, generator):
 
 
 def batched_decode_step(params, cfg, state: BatchState, generator: Optional[torch.Generator] = None,
-                        int_dots: bool = True):
+                        int_dots: bool = True, prefill_int_dots: bool = False):
     """One decode step for every slot of the dense pool, IN PLACE: inactive
     slots compute but keep their K/V, mask and length. Each slot samples with
-    its own parameters; int_dots: the decode MoE's dot mode. Returns the
+    its own parameters; int_dots / prefill_int_dots: the MoE's dot modes. Returns the
     sampled tokens (B,), -1 for inactive."""
     B = state.cur.shape[0]
     rows = torch.arange(B, device=state.cur.device)
     state.mask[rows, state.lengths] |= state.active  # the fed token's position
     x = embed_tokens(params, state.cur[:, None]).to(state.k.dtype)
     h, _, _ = pooled_forward(params, cfg, x, state.k, state.v, state.mask, state.lengths, state.active,
-                             int_dots=int_dots)
+                             int_dots=int_dots, prefill_int_dots=prefill_int_dots)
     return _sample_and_advance(params, cfg, state, h, generator)
 
 
@@ -181,22 +185,25 @@ class ContinuousBatchingEngine:
     ones are the defaults of requests that name none. RNG: one
     `torch.Generator` on the engine's device draws each admission's first
     token and each step's per-slot draw. The weight tier follows `params`
-    (bf16, int4 or int8); `int_dots` is the decode MoE's dot mode over
-    quantized tables (False, exact dequant, for int8 tables only)."""
+    (bf16, int4, NF4 or int8); over quantized tables `int_dots` is the decode
+    MoE's dot mode (exact dequant when False) and `prefill_int_dots` the
+    prefill MoE's (s8 dots when True), as RuntimeConfig's moe_int_dots and
+    moe_prefill_int_dots."""
 
     def __init__(self, params, cfg, *, slots: int = 4, max_len: int = 1024, dtype=torch.bfloat16, seed: int = 0,
                  do_sample: bool = False, temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
-                 device=None, int_dots: bool = True):
+                 device=None, int_dots: bool = True, prefill_int_dots: bool = False):
         self._setup(params, cfg, slots, max_len, dtype, seed, device,
-                    dict(do_sample=do_sample, temperature=temperature, top_k=top_k, top_p=top_p), int_dots)
+                    dict(do_sample=do_sample, temperature=temperature, top_k=top_k, top_p=top_p), int_dots,
+                    prefill_int_dots)
         self.state = BatchState.create(cfg, slots, max_len, dtype, self.device)
         self.active = np.zeros(slots, bool)  # host mirrors of state.active / state.lengths
         self.lengths = np.zeros(slots, np.int64)
 
-    def _setup(self, params, cfg, slots, max_len, dtype, seed, device, sampling, int_dots):
+    def _setup(self, params, cfg, slots, max_len, dtype, seed, device, sampling, int_dots, prefill_int_dots):
         """What both pools' schedulers hold besides the pool itself."""
-        require_dot_mode(params["layers"]["mlp"]["experts"], int_dots)
         self.int_dots = int_dots
+        self.prefill_int_dots = prefill_int_dots
         self.params = params
         self.cfg = cfg
         self.slots = slots
@@ -256,7 +263,7 @@ class ContinuousBatchingEngine:
         mask1[:, :T] = True
         logits, _ = prefill(self.params, self.cfg, self._embed_padded(ids, 0, Tb),
                             LLMCache(st.k[:, slot : slot + 1], st.v[:, slot : slot + 1], 0), mask1,
-                            int_dots=self.int_dots)
+                            int_dots=self.int_dots, prefill_int_dots=self.prefill_int_dots)
         first = int(sample_token(logits, self.generator, **req_sampling)[0])
         st.mask[slot] = mask1[0]
         st.lengths[slot] = T
@@ -304,7 +311,8 @@ class ContinuousBatchingEngine:
         """Advance all active slots one token. Returns {request_id: token}."""
         if not self.slot_req:
             return {}
-        toks = batched_decode_step(self.params, self.cfg, self.state, self.generator, self.int_dots)
+        toks = batched_decode_step(self.params, self.cfg, self.state, self.generator, self.int_dots,
+                                   self.prefill_int_dots)
         return self._collect(toks.cpu().numpy())
 
     def run_to_completion(self, max_steps: int = 10_000) -> int:

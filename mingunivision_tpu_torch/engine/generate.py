@@ -43,12 +43,12 @@ def scatter_image_embeds(inputs_embeds, input_ids, image_embeds, image_patch_tok
 
 
 def prefill(params, cfg, inputs_embeds, cache: LLMCache, attn_mask, image_mask=None, *, use_flash: bool = False,
-            int_dots: bool = True):
+            int_dots: bool = True, prefill_int_dots: bool = False):
     """Run the right-padded prompt through the stack. attn_mask bool (1, Smax)
     is True exactly at the valid prompt positions [cache.length, cache.length + T_valid).
     use_flash: first-round prefill through the flash-attention kernel.
     int_dots: the decode MoE's dot mode over quantized tables (a prompt short
-    enough for the decode-shape MoE).
+    enough for the decode-shape MoE); prefill_int_dots: the prefill MoE's.
 
     Returns (logits (B, V) of the last valid position, cache whose length is
     rolled back to right after the last valid prompt token)."""
@@ -57,7 +57,8 @@ def prefill(params, cfg, inputs_embeds, cache: LLMCache, attn_mask, image_mask=N
     # positions: cumsum over the mask (masked history shifts positions)
     positions = (attn_mask.long().cumsum(dim=1) - 1)[:, start : start + T].clamp(min=0)
     hidden, cache = bailing_forward(params, cfg, inputs_embeds, cache, attn_mask, positions=positions,
-                                    image_mask=image_mask, use_flash=use_flash, int_dots=int_dots)
+                                    image_mask=image_mask, use_flash=use_flash, int_dots=int_dots,
+                                    prefill_int_dots=prefill_int_dots)
     last_idx = attn_mask[:, start : start + T].long().sum(dim=1) - 1  # (B,)
     last_hidden = hidden.gather(1, last_idx[:, None, None].expand(B, 1, hidden.shape[-1]))
     logits = compute_logits(params, cfg, last_hidden)[:, 0]
@@ -119,7 +120,7 @@ def _cfg_at(gen_cfg, i: int):
 
 def generate_image_tokens(params, llm_cfg, mingtok_cfg, rf_cfg, gen_cfg, image_start_embed, cache: LLMCache,
                           row_masks, generator: Optional[torch.Generator] = None, *,
-                          int_dots: bool = True) -> ImageGenResult:
+                          int_dots: bool = True, rf_int_dots: bool = False) -> ImageGenResult:
     """The AR image loop. Per token: LLM step over the CFG rows -> vis_head ->
     rectified-flow Euler sample -> MingTok semantic-decoder step -> linear_proj
     -> next LLM input; every row's mask grows by one. A trailing LLM step gives
@@ -128,7 +129,8 @@ def generate_image_tokens(params, llm_cfg, mingtok_cfg, rf_cfg, gen_cfg, image_s
     The CFG rows are [cond, uncond (, text_uncond)], one per row of
     `row_masks` (cfg_rows, Smax); `cache` is already expanded to them and is
     written IN PLACE. The RF noise of each token is drawn from `generator`;
-    int_dots: the decode MoE's dot mode over quantized tables."""
+    int_dots: the decode MoE's dot mode over quantized tables; rf_int_dots:
+    the fused RF sampler's over int8 tables."""
     R = row_masks.shape[0]
     n_tokens = gen_cfg.num_image_tokens
     dev = image_start_embed.device
@@ -150,7 +152,7 @@ def generate_image_tokens(params, llm_cfg, mingtok_cfg, rf_cfg, gen_cfg, image_s
         noise = torch.randn((1, rf_cfg.target_channels), generator=generator, device=dev)
         latent = rf_sample(params["rf_head"], rf_cfg, z, noise=noise, temperature=gen_cfg.temperature,
                            text_cfg=tcfg, image_cfg=icfg, cfg_renorm_type=gen_cfg.cfg_renorm_type,
-                           time_shifting_factor=gen_cfg.time_shifting_factor, cfg_rows=R)
+                           time_shifting_factor=gen_cfg.time_shifting_factor, cfg_rows=R, int_dots=rf_int_dots)
         sem_out, sem_cache = mingtok_feature_decoder(params["mingtok"], mingtok_cfg, latent[:1, None, :], sem_cache,
                                                      compute_dtype=sem_dtype)
         sem = sem_out["x_norm_patchtokens"]  # (1, 1, feat)

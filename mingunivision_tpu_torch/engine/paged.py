@@ -67,13 +67,13 @@ class PagedKVState:
 
 
 def paged_decode_step(params, cfg, state: PagedKVState, tables, generator: Optional[torch.Generator] = None,
-                      int_dots: bool = True):
+                      int_dots: bool = True, prefill_int_dots: bool = False):
     """One decode step for every slot over the paged pool, IN PLACE.
 
     tables (B, maxp) int32 on the device: the host-kept block tables (scratch
     id for unassigned entries). Per-slot sampling and <eos> / <image>
     detection as `batched_decode_step`; inactive rows compute but write only
-    the scratch page; int_dots: the decode MoE's dot mode. Returns the
+    the scratch page; int_dots / prefill_int_dots: the MoE's dot modes. Returns the
     sampled tokens (B,), -1 for inactive."""
     B = state.cur.shape[0]
     D = cfg.head_dim
@@ -93,7 +93,7 @@ def paged_decode_step(params, cfg, state: PagedKVState, tables, generator: Optio
         return paged_decode_attention(q, kc, vc, tables, attn_len, scale=D**-0.5)
 
     x = embed_tokens(params, state.cur[:, None]).to(state.k_pages.dtype)
-    h = pooled_layers(params, cfg, x, write_pos[:, None], attend, int_dots)
+    h = pooled_layers(params, cfg, x, write_pos[:, None], attend, int_dots, prefill_int_dots)
     return _sample_and_advance(params, cfg, state, h, generator)
 
 
@@ -220,11 +220,12 @@ class PagedBatchingEngine(ContinuousBatchingEngine):
     def __init__(self, params, cfg, *, slots: int = 4, max_len: int = 1024, page_size: int = 64,
                  num_pages: Optional[int] = None, dtype=torch.bfloat16, seed: int = 0, do_sample: bool = False,
                  temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0, prefix_cache: bool = False,
-                 device=None, int_dots: bool = True):
+                 device=None, int_dots: bool = True, prefill_int_dots: bool = False):
         if max_len % page_size:
             raise ValueError(f"max_len {max_len} must be a multiple of page_size {page_size}")
         self._setup(params, cfg, slots, max_len, dtype, seed, device,
-                    dict(do_sample=do_sample, temperature=temperature, top_k=top_k, top_p=top_p), int_dots)
+                    dict(do_sample=do_sample, temperature=temperature, top_k=top_k, top_p=top_p), int_dots,
+                    prefill_int_dots)
         self.page = page_size
         self.maxp = max_len // page_size
         # default budget: half the dense pool's reservation
@@ -321,7 +322,7 @@ class PagedBatchingEngine(ContinuousBatchingEngine):
         mask1 = torch.zeros((1, self.max_len), dtype=torch.bool, device=self.device)
         mask1[:, :T] = True
         logits, cache1 = prefill(self.params, self.cfg, self._embed_padded(ids, Tc, Tb), cache1, mask1,
-                                 int_dots=self.int_dots)
+                                 int_dots=self.int_dots, prefill_int_dots=self.prefill_int_dots)
         first = int(sample_token(logits, self.generator, **req_sampling)[0])
         self.prefix_hit_tokens += Tc
         self.prefix_miss_tokens += Ts
@@ -399,7 +400,8 @@ class PagedBatchingEngine(ContinuousBatchingEngine):
         if self._tables_dirty or self._tables_dev is None:
             self._tables_dev = torch.as_tensor(self.tables, device=self.device)
             self._tables_dirty = False
-        toks = paged_decode_step(self.params, self.cfg, self.state, self._tables_dev, self.generator, self.int_dots)
+        toks = paged_decode_step(self.params, self.cfg, self.state, self._tables_dev, self.generator, self.int_dots,
+                                 self.prefill_int_dots)
         return self._collect(toks.cpu().numpy())
 
     def run_to_completion(self, max_steps: int = 10_000) -> int:

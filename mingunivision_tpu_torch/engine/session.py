@@ -30,7 +30,6 @@ from mingunivision_tpu_torch.engine.sampler import sample_token
 from mingunivision_tpu_torch.models.bailing_moe import LLMCache, compute_logits, embed_tokens
 from mingunivision_tpu_torch.models.mingtok import mingtok_encode
 from mingunivision_tpu_torch.ops.kernels.flash import flash_usable
-from mingunivision_tpu_torch.ops.kernels.moe_stream import require_dot_mode
 
 PROMPT_BUCKET = 128  # prompts are right-padded to multiples of this for prefill
 
@@ -49,19 +48,24 @@ class MingUniVisionSession:
     """One conversation on one device: the KV cache and persisted masks across rounds.
 
     The weight tier follows `params`: a tree from `utils/convert.py`, plain or
-    quantized (`quantize_mm_params_inplace`); `runtime.moe_int_dots` picks the
-    decode MoE's dot mode over quantized tables (False, exact dequant, is
-    ported for int8 tables, not for int4 ones, which raise here). `timings` holds the last round's
+    quantized (`quantize_mm_params_inplace`: int4, NF4, int8, or the mixed
+    tier); over quantized tables `runtime.moe_int_dots` picks the decode MoE's
+    dot mode (exact dequant when False), `runtime.moe_prefill_int_dots` the
+    prefill MoE's (s8 dots when True) and `runtime.rf_int_dots` the int8 RF
+    sampler's (s8 dots when True). `timings` holds the last round's
     milliseconds (host clock around synchronised work): `encode_ms` (image
     inputs only), `prefill_ms` with `prefill_tokens` (the padded prompt) and
     `use_flash`, `text_decode_ms` with `text_tokens` (the decoded text steps),
     `image_loop_ms` / `pixel_decode_ms` and the CFG row count."""
 
     def __init__(self, params, cfg, runtime, seed: int = 0, device=None):
-        require_dot_mode(params["llm"]["layers"]["mlp"]["experts"], runtime.moe_int_dots)
         self.params = params
         self.cfg = cfg
         self.runtime = runtime
+        # a runtime without these fields (the JAX package's RuntimeConfig, whose
+        # switches are module flags) keeps their defaults
+        self.prefill_int_dots = getattr(runtime, "moe_prefill_int_dots", False)
+        self.rf_int_dots = getattr(runtime, "rf_int_dots", False)
         self.device = torch.device(device) if device is not None else params["llm"]["norm"]["w"].device
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._dtype = torch.bfloat16 if runtime.compute_dtype == "bfloat16" else torch.float32
@@ -139,7 +143,8 @@ class MingUniVisionSession:
         self._sync()
         t0 = time.perf_counter()
         logits, self.cache = prefill(self.params["llm"], llm_cfg, embeds, self.cache, self.mask, image_mask=image_mask,
-                                     use_flash=use_flash, int_dots=self.runtime.moe_int_dots)
+                                     use_flash=use_flash, int_dots=self.runtime.moe_int_dots,
+                                     prefill_int_dots=self.prefill_int_dots)
         cur = int(sample_token(logits, self.generator, do_sample=gen.do_sample, temperature=gen.temperature,
                                top_k=gen.top_k, top_p=gen.top_p)[0])
         self.timings.update(prefill_ms=(time.perf_counter() - t0) * 1e3, prefill_tokens=T_pad, use_flash=use_flash,
@@ -260,7 +265,7 @@ class MingUniVisionSession:
         t0 = time.perf_counter()
         result = generate_image_tokens(self.params, llm_cfg, self.cfg.mingtok, self.cfg.rf_head, igen,
                                        start_embed.to(self._dtype), cache_r, torch.cat(rows), self.generator,
-                                       int_dots=self.runtime.moe_int_dots)
+                                       int_dots=self.runtime.moe_int_dots, rf_int_dots=self.rf_int_dots)
         self._sync()
         t1 = time.perf_counter()
         self.cache = result.cache.first_row()

@@ -9,14 +9,18 @@ expert tables as views of the stacked tables.
 
 Dispatch: decode-shape MoE (B*T <= MOE_DECODE_MAX_TOKENS) goes to the
 decode-MoE kernel, larger token counts to the grouped-SwiGLU prefill kernel
-(each wrapper picks its bf16, int4 or int8 kernel from the table type; for
-quantized decode tables the dot mode, `int_dots`, comes from the caller down
-through `bailing_forward`: s8 integer dots by default, exact dequant for
-int8 tables with `int_dots=False`), through the
+(each wrapper picks its bf16, int4 or int8 kernel from the table kind; the
+dot modes over quantized tables come from the caller down through
+`bailing_forward`: `int_dots` for the decode MoE, s8 integer dots by default
+and exact dequant with False; `prefill_int_dots` for the prefill MoE, exact
+dequant by default and s8 dots with True), through the
 capacity-dense dispatch from MOE_CAPACITY_MIN_TOKENS rows up and the
-expert-sorted one below; one-token attention goes to the decode-attention
-kernel and a first-round prefill that passes `flash_usable` to the
-flash-attention kernel; CPU tensors take the kernels' plain versions.
+expert-sorted one below; NF4 tables take plain-dequant MoE entries on every
+device, never the capacity dispatch (the JAX package has no kernel for them
+and runs them through XLA's gather and dense dispatch); one-token attention
+goes to the decode-attention kernel and a first-round prefill that passes
+`flash_usable` to the flash-attention kernel; CPU tensors take the kernels'
+plain versions.
 Quantized dense weights (attention, shared experts, router, lm_head) are
 dequantized before their product, and an int8 embedding is gathered as int8
 rows and scaled in fp32, as in the JAX package.
@@ -39,7 +43,7 @@ from mingunivision_tpu_torch.ops.linear import dense
 from mingunivision_tpu_torch.ops.norms import rms_norm
 from mingunivision_tpu_torch.ops.rope import apply_rope, mrope_cos_sin, rope_cos_sin
 from mingunivision_tpu_torch.utils.pytree import layer_view
-from mingunivision_tpu_torch.utils.quantize import QuantizedArray, dequant_weight
+from mingunivision_tpu_torch.utils.quantize import QuantizedArray, dequant_weight, is_nf4
 
 # At or below this many rows the decode-shape MoE runs (as in the JAX package).
 MOE_DECODE_MAX_TOKENS = 48
@@ -105,18 +109,19 @@ def _expert_mlp(x, gate_w, up_w, down_w):
 
 # phase -> routed-expert kernel wrapper (each picks its plain version for CPU
 # tensors itself); every entry takes (stacked experts, x_flat, topk_idx,
-# topk_w, num_experts, layer_idx), the decode one also the dot mode
-# (int_dots), the capacity one also (capacity, token_valid)
+# topk_w, num_experts, layer_idx), then the decode one the decode dot mode
+# (int_dots), the prefill ones the prefill dot mode (prefill_int_dots), the
+# capacity one after it (capacity, token_valid)
 MOE_IMPLS = {
     "decode": lambda ex, x, i, w, E, l, int_dots: moe_experts_stream(ex, x, i, w, layer_idx=l, int_dots=int_dots),
-    "prefill": lambda ex, x, i, w, E, l: moe_experts_swiglu_gmm(ex, x, i, w, E, layer_idx=l),
-    "prefill_capacity": lambda ex, x, i, w, E, l, cap, valid: moe_experts_capacity_gmm_exact(
-        ex, x, i, w, E, cap, token_valid=valid, layer_idx=l),
+    "prefill": lambda ex, x, i, w, E, l, s8: moe_experts_swiglu_gmm(ex, x, i, w, E, layer_idx=l, s8=s8),
+    "prefill_capacity": lambda ex, x, i, w, E, l, s8, cap, valid: moe_experts_capacity_gmm_exact(
+        ex, x, i, w, E, cap, token_valid=valid, layer_idx=l, s8=s8),
 }
 
 
 def moe_block_apply(params, cfg, x, image_mask=None, audio_mask=None, *, experts_stacked, layer_idx,
-                    token_valid=None, int_dots: bool = True):
+                    token_valid=None, int_dots: bool = True, prefill_int_dots: bool = False):
     """Sparse MoE block with multi-gate routing + shared experts.
 
     x (B, T, h); image_mask/audio_mask: optional bool (B, T) selecting tokens
@@ -125,7 +130,9 @@ def moe_block_apply(params, cfg, x, image_mask=None, audio_mask=None, *, experts
     bool (B, T) of real (non-padding) tokens, read by the capacity-dense
     dispatch only (see `moe_experts_capacity_gmm_exact`); the padding rows'
     outputs are discarded downstream. int_dots: the decode MoE's dot mode over
-    quantized tables (s8 integer dots, or exact dequant when False)."""
+    quantized tables (s8 integer dots, or exact dequant when False);
+    prefill_int_dots: the prefill MoE's (exact dequant, or s8 dots when True).
+    NF4 tables never take the capacity dispatch (their prefill is plain rows)."""
     B, T, h = x.shape
     x_flat = x.reshape(-1, h)
     topk_idx, topk_w, _ = moe_route(params["gate"]["w"], x_flat, cfg.num_experts_per_tok, cfg.norm_topk_prob)
@@ -139,11 +146,13 @@ def moe_block_apply(params, cfg, x, image_mask=None, audio_mask=None, *, experts
     args = (experts_stacked, x_flat, topk_idx, topk_w.to(x.dtype), cfg.num_experts, layer_idx)
     if B * T <= MOE_DECODE_MAX_TOKENS:
         y = MOE_IMPLS["decode"](*args, int_dots)
-    elif cfg.moe_prefill_capacity_factor > 0 and B * T >= MOE_CAPACITY_MIN_TOKENS:
+    elif (cfg.moe_prefill_capacity_factor > 0 and B * T >= MOE_CAPACITY_MIN_TOKENS
+          and not is_nf4(experts_stacked["gate_proj"])):
         cap = default_capacity(B * T, cfg.num_experts_per_tok, cfg.num_experts, factor=cfg.moe_prefill_capacity_factor)
-        y = MOE_IMPLS["prefill_capacity"](*args, cap, None if token_valid is None else token_valid.reshape(-1))
+        y = MOE_IMPLS["prefill_capacity"](*args, prefill_int_dots, cap,
+                                          None if token_valid is None else token_valid.reshape(-1))
     else:
-        y = MOE_IMPLS["prefill"](*args)
+        y = MOE_IMPLS["prefill"](*args, prefill_int_dots)
     y = y.reshape(B, T, h)
     se = params["shared_experts"]
     return y + _expert_mlp(x, se["gate_proj"]["w"], se["up_proj"]["w"], se["down_proj"]["w"])
@@ -190,23 +199,23 @@ def attention_apply(params, cfg, x, cos, sin, k_cache, v_cache, length: int, att
 
 def decoder_layer_apply(layer_params, cfg, x, cos, sin, k_cache, v_cache, length, attn_mask, image_mask=None,
                         audio_mask=None, *, use_flash: bool = False, experts_stacked, layer_idx, token_valid=None,
-                        int_dots: bool = True):
+                        int_dots: bool = True, prefill_int_dots: bool = False):
     h = rms_norm(x, layer_params["input_layernorm"]["w"], eps=cfg.rms_norm_eps)
     x = x + attention_apply(layer_params["attention"], cfg, h, cos, sin, k_cache, v_cache, length, attn_mask,
                             use_flash=use_flash)
     h = rms_norm(x, layer_params["post_attention_layernorm"]["w"], eps=cfg.rms_norm_eps)
     return x + moe_block_apply(layer_params["mlp"], cfg, h, image_mask, audio_mask,
                                experts_stacked=experts_stacked, layer_idx=layer_idx, token_valid=token_valid,
-                               int_dots=int_dots)
+                               int_dots=int_dots, prefill_int_dots=prefill_int_dots)
 
 
 def bailing_forward(params, cfg, inputs_embeds, cache: LLMCache, attn_mask, positions=None, image_mask=None,
-                    audio_mask=None, use_flash: bool = False, int_dots: bool = True):
+                    audio_mask=None, use_flash: bool = False, int_dots: bool = True, prefill_int_dots: bool = False):
     """Run T tokens through the decoder stack, writing their K/V into the
     cache IN PLACE. inputs_embeds (B, T, h); attn_mask bool (B, Smax) over the
     whole cache; positions (B, T), or (3, B, T) MRoPE planes (default
-    cache.length + arange(T)). int_dots: the decode MoE's dot mode over
-    quantized tables (`moe_block_apply`). Returns (hidden_states (B, T, h),
+    cache.length + arange(T)). int_dots / prefill_int_dots: the decode and
+    prefill MoE's dot modes over quantized tables (`moe_block_apply`). Returns (hidden_states (B, T, h),
     cache advanced by T)."""
     B, T, _ = inputs_embeds.shape
     if positions is None:
@@ -227,7 +236,8 @@ def bailing_forward(params, cfg, inputs_embeds, cache: LLMCache, attn_mask, posi
     for l in range(cfg.num_hidden_layers):
         x = decoder_layer_apply(layer_view(per_layer, l), cfg, x, cos, sin, cache.k[l], cache.v[l], cache.length,
                                 attn_mask, image_mask, audio_mask, use_flash=use_flash, experts_stacked=experts,
-                                layer_idx=l, token_valid=token_valid, int_dots=int_dots)
+                                layer_idx=l, token_valid=token_valid, int_dots=int_dots,
+                                prefill_int_dots=prefill_int_dots)
     x = rms_norm(x, params["norm"]["w"], eps=cfg.rms_norm_eps)
     return x, LLMCache(cache.k, cache.v, cache.length + T)
 

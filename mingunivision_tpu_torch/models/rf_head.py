@@ -3,8 +3,10 @@
 
 Linear int4 and int8 res_blocks tables take the fused whole-sampler
 (`ops/kernels/rf_sampler.py`: the CUDA kernel on the card, its plain version
-on the CPU), as the JAX package's TPU path does; other tiers run the Euler
-steps as a Python loop, dequantizing any quantized weight in `dense`.
+on the CPU), as the JAX package's TPU path does (int8 tables in the dot mode
+`int_dots`); other tiers (bf16, NF4) run the Euler steps as a Python loop,
+dequantizing any quantized weight in `dense`: the JAX package has no kernel
+for NF4 tables either, so that loop is their route, not a fallback.
 Randomness is explicit: the caller passes `noise` (one row per image, or one
 per CFG row).
 """
@@ -21,6 +23,7 @@ from mingunivision_tpu_torch.ops.activations import swiglu
 from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused, rf_sampler_supported
 from mingunivision_tpu_torch.ops.linear import dense
 from mingunivision_tpu_torch.ops.norms import layer_norm
+from mingunivision_tpu_torch.utils.quantize import QuantizedArray, dequant_weight
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -68,6 +71,18 @@ def rf_net_apply_premod(params, cfg, x, block_mods_i, final_mods_i):
     return dense(h, params["final_layer"]["linear"])
 
 
+def _dequantized_blocks(params, dtype):
+    """`params` with quantized res-block MLP tables dequantized to `dtype` once,
+    as one table per block, for the Euler loop's steps to share: the values
+    `dense` would dequantize at every step, read once per sample."""
+    mlp = params["res_blocks"]["mlp"]
+    if not any(isinstance(leaf["w"], QuantizedArray) for leaf in mlp.values()):
+        return params
+    tables = {name: {"w": [dequant_weight(leaf["w"][d], dtype) for d in range(leaf["w"].shape[0])], "b": leaf["b"]}
+              for name, leaf in mlp.items()}
+    return {**params, "res_blocks": {**params["res_blocks"], "mlp": tables}}
+
+
 def _time_grid(cfg, time_shifting_factor: Optional[float], device=None):
     """(ts (S,), dts (S,)) fp32 of the Euler schedule, optionally time-shifted."""
     steps = cfg.num_sampling_steps
@@ -98,6 +113,7 @@ def rf_sample(
     cfg_renorm_type: Optional[str] = None,
     time_shifting_factor: Optional[float] = None,
     cfg_rows: int = 1,
+    int_dots: bool = False,
 ) -> torch.Tensor:
     """Euler-ODE sampling of a continuous latent conditioned on z (B, z_channels).
 
@@ -105,8 +121,9 @@ def rf_sample(
     `noise` (n_images or B, C) is tiled across the CFG rows and scaled by
     `temperature`. cfg_rows in (1, 2, 3): 2 combines v_u + text_cfg*(v_c - v_u),
     3 combines v_u + image_cfg*(v_tu - v_u) + text_cfg*(v_c - v_tu); "channel"
-    renorm caps |v| at |v_c| per row. Returns (B, C) in z's dtype; every row
-    holds its image's guided sample.
+    renorm caps |v| at |v_c| per row. int_dots: s8 dots in the fused sampler
+    over int8 tables (RuntimeConfig.rf_int_dots). Returns (B, C) in z's dtype;
+    every row holds its image's guided sample.
     """
     B = z.shape[0]
     dtype = z.dtype
@@ -124,9 +141,10 @@ def rf_sample(
     if cfg_renorm_type in (None, "channel") and rf_sampler_supported(params, B, cfg_rows):
         out = rf_sample_fused(params, cfg, x, block_mods, final_mods, dts, text_cfg, image_cfg, cfg_rows=cfg_rows,
                               renorm_channel=cfg_renorm_type == "channel",
-                              compute_dtype=dtype if dtype != torch.float32 else torch.bfloat16)
+                              compute_dtype=dtype if dtype != torch.float32 else torch.bfloat16, s8_dots=int_dots)
         return out.to(dtype)
     n = B // cfg_rows
+    params = _dequantized_blocks(params, dtype)
     for i in range(cfg.num_sampling_steps):
         combined = x[:n].repeat(cfg_rows, 1) if cfg_rows > 1 else x
         v_all = rf_net_apply_premod(params, cfg, combined.to(dtype), block_mods[:, i], final_mods[i]).float()

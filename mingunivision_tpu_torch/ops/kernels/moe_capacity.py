@@ -6,7 +6,8 @@ Replaces mingunivision_tpu/ops/kernels/moe_capacity.py (`expert_rank`,
 `capacity_src_map`, `moe_experts_capacity_gmm`, `moe_experts_capacity_gmm_exact`,
 `default_capacity`): glue over the TPU grouped-SwiGLU kernels with uniform
 groups (`swiglu_gmm` for bf16 tables, `swiglu_gmm_quant` for int4 and int8
-ones). Assignment a (token a // k, expert e) gets slot e * C + rank, where
+ones, in either dot mode: `s8`, as the JAX package's `s8=` at `:160, 226,
+257, 290-293`). Assignment a (token a // k, expert e) gets slot e * C + rank, where
 rank counts the earlier assignments to e in original order; the kernels read
 x through the slot -> token map and a schedule whose tiles start at each
 expert's first slot and end at its load, so no tile straddles two experts,
@@ -87,7 +88,7 @@ def capacity_schedule(flat_e, rank, sizes, num_experts: int, capacity: int, tile
     return dst, row_expert, sched.to(torch.int32).contiguous(), ok
 
 
-def _capacity_gmm(experts, x_flat, topk_idx, topk_w, num_experts, capacity, layer_idx, plain: bool):
+def _capacity_gmm(experts, x_flat, topk_idx, topk_w, num_experts, capacity, layer_idx, plain: bool, s8: bool):
     N, k = topk_idx.shape
     E, C = num_experts, capacity
     flat_e = topk_idx.reshape(-1)
@@ -100,9 +101,9 @@ def _capacity_gmm(experts, x_flat, topk_idx, topk_w, num_experts, capacity, laye
     row_token[dst] = token.to(torch.int32)  # the dropped ones all land on the spare last entry
     row_token = row_token[: E * C]
     if plain:
-        ys = swiglu_rows_plain(experts, x_flat[row_token.long()], row_expert, E, layer_idx=layer_idx)
+        ys = swiglu_rows_plain(experts, x_flat[row_token.long()], row_expert, E, layer_idx=layer_idx, s8=s8)
     else:
-        ys = swiglu_gmm_rows(experts, x_flat, row_token, row_expert, sched, E, layer_idx=layer_idx)
+        ys = swiglu_gmm_rows(experts, x_flat, row_token, row_expert, sched, E, layer_idx=layer_idx, s8=s8)
     if on_kernel:
         moe_experts_capacity_gmm.launches += 1
     per = ys.index_select(0, dst.clamp(max=E * C - 1))
@@ -110,20 +111,23 @@ def _capacity_gmm(experts, x_flat, topk_idx, topk_w, num_experts, capacity, laye
     return combine_assignments(per, topk_w, x_flat.dtype)
 
 
-def moe_experts_capacity_gmm(experts, x_flat, topk_idx, topk_w, num_experts: int, capacity: int, *, layer_idx=None):
+def moe_experts_capacity_gmm(experts, x_flat, topk_idx, topk_w, num_experts: int, capacity: int, *, layer_idx=None,
+                             s8: bool = False):
     """Capacity-dense top-k MoE through the grouped-SwiGLU kernels. Exact iff
     every expert's load is at most `capacity`: an assignment ranked past it,
     or one whose expert id is `num_experts` (a padding row routed out of
     bounds), contributes zero. x_flat (N, h); topk_idx/topk_w (N, k) -> (N, h).
-    bf16, linear int4 and int8 tables (the kernels of the expert-sorted dispatch)."""
-    return _capacity_gmm(experts, x_flat, topk_idx, topk_w, num_experts, capacity, layer_idx, plain=False)
+    bf16, linear int4 and int8 tables (the kernels of the expert-sorted
+    dispatch, the quantized ones in the dot mode `s8`)."""
+    return _capacity_gmm(experts, x_flat, topk_idx, topk_w, num_experts, capacity, layer_idx, plain=False, s8=s8)
 
 
 # launches of the table type's kernel through the capacity schedule (each also counts on that kernel's wrapper)
 moe_experts_capacity_gmm.launches = 0
 
 
-def _capacity_gmm_exact(experts, x_flat, topk_idx, topk_w, num_experts, capacity, token_valid, layer_idx, plain: bool):
+def _capacity_gmm_exact(experts, x_flat, topk_idx, topk_w, num_experts, capacity, token_valid, layer_idx, plain: bool,
+                        s8: bool):
     if token_valid is not None:
         v = token_valid.reshape(-1)[:, None]
         ti_cap = torch.where(v, topk_idx, num_experts)
@@ -134,15 +138,15 @@ def _capacity_gmm_exact(experts, x_flat, topk_idx, topk_w, num_experts, capacity
     loads = torch.zeros(num_experts + 1, dtype=torch.int64, device=flat.device).index_add_(0, flat,
                                                                                             torch.ones_like(flat))
     if int(loads[:num_experts].max()) <= capacity:
-        return _capacity_gmm(experts, x_flat, ti_cap, tw_cap, num_experts, capacity, layer_idx, plain)
+        return _capacity_gmm(experts, x_flat, ti_cap, tw_cap, num_experts, capacity, layer_idx, plain, s8)
     if plain:
-        return moe_experts_swiglu_gmm_plain(experts, x_flat, topk_idx, topk_w, num_experts, layer_idx=layer_idx)
+        return moe_experts_swiglu_gmm_plain(experts, x_flat, topk_idx, topk_w, num_experts, layer_idx=layer_idx, s8=s8)
     moe_experts_capacity_gmm_exact.fallbacks += 1
-    return moe_experts_swiglu_gmm(experts, x_flat, topk_idx, topk_w, num_experts, layer_idx=layer_idx)
+    return moe_experts_swiglu_gmm(experts, x_flat, topk_idx, topk_w, num_experts, layer_idx=layer_idx, s8=s8)
 
 
 def moe_experts_capacity_gmm_exact(experts, x_flat, topk_idx, topk_w, num_experts: int, capacity: int, *,
-                                   token_valid=None, layer_idx=None):
+                                   token_valid=None, layer_idx=None, s8: bool = False):
     """`moe_experts_capacity_gmm` behind its exactness check: when any expert's
     load exceeds `capacity`, the expert-sorted dispatch runs instead (on the
     ORIGINAL routing, exact for any assignment set), and `fallbacks` counts it.
@@ -153,17 +157,17 @@ def moe_experts_capacity_gmm_exact(experts, x_flat, topk_idx, topk_w, num_expert
     top-k experts in every layer; with the mask their assignments are routed
     out of bounds (expert id E, weight 0): they do not count against the
     check, take no slot from a valid row, and give zeros, which callers
-    discard anyway."""
+    discard anyway. s8: the dot mode of the quantized kernels."""
     return _capacity_gmm_exact(experts, x_flat, topk_idx, topk_w, num_experts, capacity, token_valid, layer_idx,
-                               plain=False)
+                               plain=False, s8=s8)
 
 
 def moe_experts_capacity_gmm_exact_plain(experts, x_flat, topk_idx, topk_w, num_experts: int, capacity: int, *,
-                                         token_valid=None, layer_idx=None):
+                                         token_valid=None, layer_idx=None, s8: bool = False):
     """Plain version of `moe_experts_capacity_gmm_exact`: the same check and
     placement over the kernels' plain versions, on any device."""
     return _capacity_gmm_exact(experts, x_flat, topk_idx, topk_w, num_experts, capacity, token_valid, layer_idx,
-                               plain=True)
+                               plain=True, s8=s8)
 
 
 moe_experts_capacity_gmm_exact.fallbacks = 0

@@ -1,25 +1,29 @@
 """Decode-shape MoE: the CUDA kernels `csrc/moe_stream.cu` (bf16 tables),
-`csrc/moe_stream_q4.cu` (int4 tables, s8 integer dots) and
-`csrc/moe_stream_q8.cu` (int8 tables, s8 integer dots or exact dequant), and
-their plain versions.
+`csrc/moe_stream_q4.cu` (int4 tables) and `csrc/moe_stream_q8.cu` (int8
+tables), each quantized one in both dot modes (s8 integer dots or exact
+dequant), their plain versions, and the plain-dequant entry of NF4 tables.
 
 Replaces the TPU kernels of mingunivision_tpu/ops/kernels/moe_stream.py
-(`moe_experts_stream` -> `_kernel` for bf16 tables, `_kernel_q4_s8` for
-linear int4 tables, `_kernel_q8_s8` and `_kernel_q8` for int8 tables). What
-bounds them on the H100 is the bytes of expert weights: a 2-row CFG decode
-step reads up to 12 routed experts per layer, 17.3 MB each in bf16, 8.65 MB
-in int8 and 4.33 MB in int4. Each kernel reads each routed expert
-once (the unique-expert list and the per-expert gate rows are built here, on
-the device, with no host sync), streams the tables with coalesced loads, and
-sums the experts' contributions in a separate deterministic pass. See the
-sources for the launch layouts.
+(`moe_experts_stream` -> `_kernel` for bf16 tables, `_kernel_q4_s8` and
+`_kernel_q4` for linear int4 tables, `_kernel_q8_s8` and `_kernel_q8` for
+int8 tables). What bounds them on the H100 is the bytes of expert weights: a
+2-row CFG decode step reads up to 12 routed experts per layer, 17.3 MB each
+in bf16, 8.65 MB in int8 and 4.33 MB in int4. Each kernel reads each routed
+expert once (the unique-expert list and the per-expert gate rows are built
+here, on the device, with no host sync), streams the tables with coalesced
+loads, and sums the experts' contributions in a separate deterministic pass.
+See the sources for the launch layouts.
 
-`moe_experts_stream` dispatches on the table type and, for quantized tables,
-on the dot mode its caller passes (`int_dots`: s8 integer dots, the default,
-as the JAX package's INT_DOT_STREAM_INT8; False: exact dequant, which is
-ported for int8 tables only). Each wrapper runs its plain version for CPU
-tensors only; for CUDA tensors it launches its kernel or raises. Other
-quantized tables (NF4, shard-grouped int4) are not ported.
+`moe_experts_stream` dispatches on the table kind (`table_kind`) and, for
+linear int4 and int8 tables, on the dot mode its caller passes (`int_dots`:
+s8 integer dots, the default, as the JAX package's INT_DOT_STREAM /
+INT_DOT_STREAM_INT8; False: exact dequant). Each wrapper runs its plain
+version for CPU tensors only; for CUDA tensors it launches its kernel or
+raises. NF4 tables (the "int4-nf4" tier) have no kernel in the JAX package
+either, which runs them by XLA dequant (`moe_experts_gather` on the CPU,
+`moe_experts_dense` on the TPU): they take `moe_experts_nf4`, plain dequant of
+the routed experts on every device, chosen by the table kind. Shard-grouped
+int4 tables are not ported and raise.
 """
 
 from __future__ import annotations
@@ -29,7 +33,14 @@ import torch.nn.functional as F
 
 from mingunivision_tpu_torch.ops.kernels import build
 from mingunivision_tpu_torch.ops.kernels.intdot import mm4_s8, mm8_s8, quant_rows_s8, quant_rows_s8_pair, silu_exact
-from mingunivision_tpu_torch.utils.quantize import QuantizedArray, is_int4_linear, is_int8_linear
+from mingunivision_tpu_torch.utils.quantize import (
+    QuantizedArray,
+    dequant_weight,
+    is_int4_linear,
+    is_int8_linear,
+    is_nf4,
+    take_weight,
+)
 
 
 def layer_tables(experts, layer_idx):
@@ -41,36 +52,33 @@ def layer_tables(experts, layer_idx):
 
 def table_kind(op: str, experts) -> str:
     """"int4" for linear single-group int4 tables, "int8" for int8 tables,
-    "plain" for tensors; raises on any other quantized table."""
+    "nf4" for NF4 tables, "plain" for tensors; raises on any other quantized
+    table (shard-grouped linear int4)."""
     w = experts["gate_proj"]
     tables = [experts[n] for n in ("gate_proj", "up_proj", "down_proj")]
-    if all(is_int4_linear(t) for t in tables):
-        return "int4"
-    if all(is_int8_linear(t) for t in tables):
-        return "int8"
+    for kind, test in (("int4", is_int4_linear), ("int8", is_int8_linear), ("nf4", is_nf4)):
+        if all(test(t) for t in tables):
+            return kind
     if isinstance(w, QuantizedArray):
-        raise NotImplementedError(f"{op}: only linear int4 and int8 tables with groups=1 are ported, got {w!r}")
+        raise NotImplementedError(f"{op}: only linear int4 and int8 tables with groups=1 and NF4 tables are "
+                                  f"ported, got {w!r}")
     return "plain"
 
 
-def _quant_impl(op: str, kind: str, int_dots: bool, int4, int8, int8_exact):
-    """The function of a quantized table kind and dot mode (None for "plain")."""
-    if kind == "int4":
-        if not int_dots:
-            raise NotImplementedError(f"{op}: exact-dequant int4 tables (int_dots=False) are not ported")
-        return int4
-    if kind == "int8":
-        return int8 if int_dots else int8_exact
-    return None
-
-
-def require_dot_mode(experts, int_dots: bool) -> None:
-    """Raise NotImplementedError unless the decode MoE can run `experts` in the
-    dot mode `int_dots` (exact dequant is ported for int8 tables only; the
-    s8 dots run on every table type the kernels take)."""
-    if not int_dots:
-        op = "moe_experts_stream"
-        _quant_impl(op, table_kind(op, experts), int_dots, None, None, None)
+def _decode_impl(op: str, experts, int_dots: bool, plain: bool):
+    """The decode-MoE function of the table kind and dot mode: the wrapper, or
+    with `plain` its plain version."""
+    kind = table_kind(op, experts)
+    if kind == "nf4":
+        return moe_experts_nf4
+    impls = {
+        ("plain", True): (moe_experts_stream_bf16_plain, moe_experts_stream),
+        ("int4", True): (moe_experts_stream_q4s8_plain, moe_experts_stream_q4s8),
+        ("int4", False): (moe_experts_stream_q4_plain, moe_experts_stream_q4),
+        ("int8", True): (moe_experts_stream_q8s8_plain, moe_experts_stream_q8s8),
+        ("int8", False): (moe_experts_stream_q8_plain, moe_experts_stream_q8),
+    }
+    return impls[(kind, int_dots or kind == "plain")][0 if plain else 1]
 
 
 def expert_gates(topk_idx, topk_w, num_experts: int):
@@ -82,10 +90,8 @@ def expert_gates(topk_idx, topk_w, num_experts: int):
 
 
 def moe_experts_stream_plain(experts, x_flat, topk_idx, topk_w, *, layer_idx=None, int_dots: bool = True):
-    """Plain version of `moe_experts_stream`, dispatching on the table type and dot mode."""
-    op = "moe_experts_stream_plain"
-    fn = _quant_impl(op, table_kind(op, experts), int_dots, moe_experts_stream_q4s8_plain,
-                     moe_experts_stream_q8s8_plain, moe_experts_stream_q8_plain) or moe_experts_stream_bf16_plain
+    """Plain version of `moe_experts_stream`, dispatching on the table kind and dot mode."""
+    fn = _decode_impl("moe_experts_stream_plain", experts, int_dots, plain=True)
     return fn(experts, x_flat, topk_idx, topk_w, layer_idx=layer_idx)
 
 
@@ -120,13 +126,12 @@ def moe_experts_stream(experts, x_flat, topk_idx, topk_w, *, layer_idx=None, int
     """Decode-path MoE. x_flat (N, h); topk_idx/topk_w (N, k) -> (N, h).
 
     `experts` hold (E, h, m)/(E, m, h) tables, or depth-stacked (L, E, ...)
-    tables with `layer_idx`; linear int4 tables go to `moe_experts_stream_q4s8`,
-    int8 tables to `moe_experts_stream_q8s8` (int_dots) or
-    `moe_experts_stream_q8` (exact dequant)."""
-    op = "moe_experts_stream"
-    fn = _quant_impl(op, table_kind(op, experts), int_dots, moe_experts_stream_q4s8, moe_experts_stream_q8s8,
-                     moe_experts_stream_q8)
-    if fn is not None:
+    tables with `layer_idx`; linear int4 tables go to `moe_experts_stream_q4s8`
+    (int_dots) or `moe_experts_stream_q4` (exact dequant), int8 tables to
+    `moe_experts_stream_q8s8` or `moe_experts_stream_q8`, NF4 tables to
+    `moe_experts_nf4`; bf16 tables launch `csrc/moe_stream.cu` here."""
+    fn = _decode_impl("moe_experts_stream", experts, int_dots, plain=False)
+    if fn is not moe_experts_stream:
         return fn(experts, x_flat, topk_idx, topk_w, layer_idx=layer_idx)
     if x_flat.device.type == "cpu":
         return moe_experts_stream_bf16_plain(experts, x_flat, topk_idx, topk_w, layer_idx=layer_idx)
@@ -188,6 +193,53 @@ def moe_experts_stream_q4s8_plain(experts, x_flat, topk_idx, topk_w, *, layer_id
     return acc.to(x_flat.dtype)
 
 
+def nibbles(q: torch.Tensor) -> torch.Tensor:
+    """Packed split-halves int4 (n/2, cols) -> the unscaled weights (n, cols) fp32, exact."""
+    return torch.cat([(q & 0xF).float() - 8.0, (q >> 4).float() - 8.0], dim=-2)
+
+
+def moe_experts_stream_q4_plain(experts, x_flat, topk_idx, topk_w, *, layer_idx=None):
+    """Plain PyTorch of the int4 decode kernel with exact dequant (`_kernel_q4`):
+    per routed expert (ascending id) g, u = x @ nibbles (values -8..7, fp32
+    sums) times the column scales, h = silu(g) * u rounded to x's dtype, the
+    down dot times its column scale, and the gate-weighted fp32 sum.
+    x_flat (N, h) -> (N, h)."""
+    w1, w3, w2 = layer_tables(experts, layer_idx)
+    x = x_flat.float()
+    gates_e, present = expert_gates(topk_idx, topk_w, w1.q.shape[0])
+    acc = torch.zeros_like(x)
+    for e in present.nonzero().flatten().tolist():
+        g = (x @ nibbles(w1.q[e])) * w1.s[e]
+        u = (x @ nibbles(w3.q[e])) * w3.s[e]
+        hh = (silu_exact(g) * u).to(x_flat.dtype).float()
+        acc += gates_e[e][:, None] * ((hh @ nibbles(w2.q[e])) * w2.s[e])
+    return acc.to(x_flat.dtype)
+
+
+def moe_experts_nf4(experts, x_flat, topk_idx, topk_w, *, layer_idx=None):
+    """Decode-path MoE over NF4 tables, plain dequant on every device (the
+    function of the JAX package's `moe_experts_gather`, which runs NF4 decode
+    there; no TPU kernel exists for the codebook): the unique routed experts'
+    tables dequantized to x's dtype, g/u as fp32 sums, a = silu(g) * u rounded
+    to x's dtype, the down product in fp32, and each token's k assignments
+    weighted and summed in fp32. The route is chosen by the table kind.
+    x_flat (N, h) -> (N, h)."""
+    w1, w3, w2 = layer_tables(experts, layer_idx)
+    N, k = topk_idx.shape
+    unique, inv = torch.unique(topk_idx.reshape(-1), return_inverse=True)
+    dtype = x_flat.dtype
+
+    def tables(w):  # (U, in, out) fp32 holding x-dtype values
+        return dequant_weight(take_weight(w, unique), dtype).float()
+
+    x = x_flat.float()
+    a = (F.silu(torch.matmul(x, tables(w1))) * torch.matmul(x, tables(w3))).to(dtype).float()  # (U, N, m)
+    y = torch.matmul(a, tables(w2))  # (U, N, h): every unique expert on every row
+    token = torch.arange(N, device=x.device).repeat_interleave(k)
+    per = y[inv, token].reshape(N, k, -1) * topk_w.float()[..., None]
+    return per.sum(dim=1).to(dtype)
+
+
 def check_q4_tables(op: str, x_flat, w1, w3, w2):
     """What the int4 MoE kernels need: contiguous uint8 (E, h/2, m)/(E, m/2, h)
     packed tables with contiguous fp32 (E, 1, m)/(E, 1, h) scales and bf16
@@ -206,15 +258,12 @@ def check_q4_tables(op: str, x_flat, w1, w3, w2):
     return E, h, m
 
 
-def moe_experts_stream_q4s8(experts, x_flat, topk_idx, topk_w, *, layer_idx=None):
-    """Decode-path MoE over linear int4 tables with s8 integer dots (the CUDA
-    kernel `csrc/moe_stream_q4.cu`). x_flat (N, h) bf16 -> (N, h)."""
-    if x_flat.device.type == "cpu":
-        return moe_experts_stream_q4s8_plain(experts, x_flat, topk_idx, topk_w, layer_idx=layer_idx)
+def _launch_q4(op: str, experts, x_flat, topk_idx, topk_w, layer_idx, s8_dots: bool):
+    """One launch of `csrc/moe_stream_q4.cu` in the given dot mode."""
     w1, w3, w2 = layer_tables(experts, layer_idx)
-    E, h, m = check_q4_tables("moe_experts_stream_q4s8", x_flat, w1, w3, w2)
+    E, h, m = check_q4_tables(op, x_flat, w1, w3, w2)
     if h % 8 or m % 8:
-        raise ValueError(f"moe_experts_stream_q4s8: needs h and m multiples of 8 (h={h}, m={m})")
+        raise ValueError(f"{op}: needs h and m multiples of 8 (h={h}, m={m})")
     x = x_flat.contiguous()
     N = x.shape[0]
     slot_expert, gates, n_unique = expert_slots(topk_idx, topk_w, E)
@@ -222,16 +271,36 @@ def moe_experts_stream_q4s8(experts, x_flat, topk_idx, topk_w, *, layer_idx=None
     hbuf = torch.empty((n_slots, N, m), dtype=torch.float32, device=x.device)
     ybuf = torch.empty((n_slots, N, h), dtype=torch.float32, device=x.device)
     out = torch.empty((N, h), dtype=torch.bfloat16, device=x.device)
-    rc = build.load().mu_moe_stream_q4s8(
+    rc = build.load().mu_moe_stream_q4(
         x.data_ptr(), w1.q.data_ptr(), w1.s.data_ptr(), w3.q.data_ptr(), w3.s.data_ptr(), w2.q.data_ptr(),
         w2.s.data_ptr(), slot_expert.data_ptr(), n_unique.data_ptr(), gates.data_ptr(), hbuf.data_ptr(),
-        ybuf.data_ptr(), out.data_ptr(), N, n_slots, h, m, build.stream_handle(x),
+        ybuf.data_ptr(), out.data_ptr(), N, n_slots, h, m, int(s8_dots), build.stream_handle(x),
     )
-    build.check(rc, "mu_moe_stream_q4s8")
+    build.check(rc, "mu_moe_stream_q4")
+    return out
+
+
+def moe_experts_stream_q4s8(experts, x_flat, topk_idx, topk_w, *, layer_idx=None):
+    """Decode-path MoE over linear int4 tables with s8 integer dots (the CUDA
+    kernel `csrc/moe_stream_q4.cu`, S8). x_flat (N, h) bf16 -> (N, h)."""
+    if x_flat.device.type == "cpu":
+        return moe_experts_stream_q4s8_plain(experts, x_flat, topk_idx, topk_w, layer_idx=layer_idx)
+    out = _launch_q4("moe_experts_stream_q4s8", experts, x_flat, topk_idx, topk_w, layer_idx, s8_dots=True)
     moe_experts_stream_q4s8.launches += 1
     return out
 
 
+def moe_experts_stream_q4(experts, x_flat, topk_idx, topk_w, *, layer_idx=None):
+    """Decode-path MoE over linear int4 tables with exact dequant (the CUDA
+    kernel `csrc/moe_stream_q4.cu`, not S8). x_flat (N, h) bf16 -> (N, h)."""
+    if x_flat.device.type == "cpu":
+        return moe_experts_stream_q4_plain(experts, x_flat, topk_idx, topk_w, layer_idx=layer_idx)
+    out = _launch_q4("moe_experts_stream_q4", experts, x_flat, topk_idx, topk_w, layer_idx, s8_dots=False)
+    moe_experts_stream_q4.launches += 1
+    return out
+
+
+moe_experts_stream_q4.launches = 0
 moe_experts_stream_q4s8.launches = 0
 
 

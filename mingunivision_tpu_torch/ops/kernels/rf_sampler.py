@@ -1,10 +1,11 @@
 """Fused whole-sampler of the rectified-flow head over linear int4 or int8
 tables: the CUDA kernels `csrc/rf_sampler_q4.cu` and `csrc/rf_sampler_q8.cu`
-and their plain versions.
+(the latter in both dot modes) and their plain versions.
 
 Replaces the TPU kernel mingunivision_tpu/ops/kernels/rf_sampler.py
-(`rf_sample_fused` -> `_sampler_q4_s8` for int4 tables, `_sampler_q8` with
-s8_dots = False for int8 ones, both with `_modulated_ln` and
+(`rf_sample_fused` -> `_sampler_q4_s8` for int4 tables, `_sampler_q8` for
+int8 ones with s8_dots = False, the JAX package's default, or True, its
+INT8_INT_DOTS, here the `s8_dots` argument; both with `_modulated_ln` and
 `_step_epilogue`): every Euler step of one sample, each over the 12 AdaLN
 SwiGLU blocks, then the final layer, the CFG combine (optional channel
 renorm) and the Euler update, in ONE launch, with the latent kept on chip.
@@ -20,7 +21,10 @@ weights enter two integer dots each, the hidden state is rounded to the
 compute dtype before its quantization. int8 (exact dequant): the modulated
 LN output and the hidden state are rounded to the compute dtype, the int8
 weights enter fp32 products as their exact values, the scales and biases are
-applied to the fp32 sums. Both: the running activation and the latent stay
+applied to the fp32 sums. int8 with s8 dots: the modulated LN output, rounded
+to the compute dtype, quantized per row to s8, the gate/up dots integer, the
+hidden state kept in fp32 and quantized per row over each CHUNK-column
+chunk for the down dots, whose descaled chunk sums add in order. All: the running activation and the latent stay
 fp32, and input_proj / final linear take compute-dtype operands with fp32 sums.
 
 The int4 sampler is chaotic at the s8 rounding boundaries: one quantized
@@ -30,7 +34,9 @@ reductions over 256 threads, its sequential input_proj, one exact integer sum
 per down dot, correctly rounded divisions and 1/sqrt: `intdot.div_exact`, exp
 in double: `intdot.silu_exact`), and the two agree to the bit on the card and
 on the CPU; against the TPU kernel they differ by float reassociation only.
-The int8 sampler is chaotic in the same way at its bf16 roundings (of the
+The s8 int8 sampler's integer sums are exact, so its plain version needs no
+special order beyond its fp32 epilogue's. The exact int8 sampler is chaotic
+in the same way at its bf16 roundings (of the
 modulated LN output and of the hidden state): products summed in another
 order flip some of them, and on the card a plain version with PyTorch's
 matrix products lay 1.4e-2 of the sample's maximum from the kernel after 16
@@ -51,11 +57,28 @@ import torch
 import torch.nn.functional as F
 
 from mingunivision_tpu_torch.ops.kernels import build
-from mingunivision_tpu_torch.ops.kernels.intdot import div_exact, mm4_s8, quant_rows_s8_pair, silu_exact
+from mingunivision_tpu_torch.ops.kernels.intdot import (
+    div_exact,
+    mm4_s8,
+    mm8_s8,
+    quant_rows_s8,
+    quant_rows_s8_pair,
+    silu_exact,
+)
 from mingunivision_tpu_torch.utils.quantize import dequant_weight, is_int4_linear, is_int8_linear
 
 MAX_ROWS = 4  # rows one launch holds (3 CFG rows for an edit, 2 for text-to-image); more go in groups
 THREADS = 256  # the kernel's block: the plain version sums in its order
+CHUNK = 4096  # the int8 s8 sampler's down chunk (the JAX package's rf_sample_fused(chunk=4096))
+
+
+def down_chunk(H: int) -> int:
+    """The columns of h re-quantized together by the int8 s8 sampler: CHUNK, or
+    H's largest halving of it that divides H (as the JAX package's CH)."""
+    ch = min(CHUNK, H)
+    while H % ch:
+        ch //= 2
+    return ch
 
 
 def table_bits(params):
@@ -205,6 +228,21 @@ def _split_dot(x, w):
     return out
 
 
+def _mlp_q8s8(o, l, xs, H, compute_dtype):
+    """One block's SwiGLU over int8 tables, as `_sampler_q8` with s8_dots=True."""
+    xq, sx = quant_rows_s8(xs.to(compute_dtype).float())
+    q = o["q12"][l]
+    g = mm8_s8(q[:, :H], xq, sx) * o["s12"][l, :H] + o["b12"][l, :H]
+    u = mm8_s8(q[:, H:], xq, sx) * o["s12"][l, H:] + o["b12"][l, H:]
+    hf = silu_exact(g) * u
+    ch = down_chunk(H)
+    acc = torch.zeros((xs.shape[0], o["q3"].shape[-1]), dtype=torch.float32, device=xs.device)
+    for c0 in range(0, H, ch):
+        hq, sh = quant_rows_s8(hf[:, c0 : c0 + ch])
+        acc = acc + mm8_s8(o["q3"][l][c0 : c0 + ch], hq, sh)
+    return acc * o["s3"][l] + o["b3"][l]
+
+
 def _mlp_q8(o, l, xs, H, compute_dtype):
     """One block's SwiGLU over int8 tables, as `_sampler_q8` with s8_dots=False."""
     xs = xs.to(compute_dtype).float()
@@ -216,14 +254,14 @@ def _mlp_q8(o, l, xs, H, compute_dtype):
 
 
 def rf_sample_fused_plain(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, *, cfg_rows: int,
-                          renorm_channel: bool, compute_dtype=torch.bfloat16):
+                          renorm_channel: bool, compute_dtype=torch.bfloat16, s8_dots: bool = False):
     """Plain PyTorch of `_sampler_q4_s8` (int4 tables) or `_sampler_q8` (int8
-    tables): noise (B, C) fp32 (CFG rows tiled), block_mods (L, S, B, 3w),
-    final_mods (S, B, 2w), dts (S,) -> (B, C) fp32."""
+    tables, in the dot mode `s8_dots`): noise (B, C) fp32 (CFG rows tiled),
+    block_mods (L, S, B, 3w), final_mods (S, B, 2w), dts (S,) -> (B, C) fp32."""
     bits = table_bits(params)
     if bits is None:
         raise ValueError("rf_sample_fused_plain: needs linear int4 or int8 res_blocks tables")
-    mlp = _mlp_q4 if bits == 4 else _mlp_q8
+    mlp = _mlp_q4 if bits == 4 else (_mlp_q8s8 if s8_dots else _mlp_q8)
     o = _operands(params, compute_dtype)
     L, h2 = o["q12"].shape[0], o["q12"].shape[2]
     w, H = o["win"].shape[1], h2 // 2
@@ -243,18 +281,21 @@ def rf_sample_fused_plain(params, cfg, noise, block_mods, final_mods, dts, text_
 
 
 def rf_sample_fused_q8_plain(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, *, cfg_rows: int,
-                             renorm_channel: bool, compute_dtype=torch.bfloat16):
-    """The plain version over int8 tables only (`_sampler_q8`, s8_dots=False)."""
+                             renorm_channel: bool, compute_dtype=torch.bfloat16, s8_dots: bool = False):
+    """The plain version over int8 tables only (`_sampler_q8`)."""
     if table_bits(params) != 8:
         raise ValueError("rf_sample_fused_q8_plain: needs int8 res_blocks tables")
     return rf_sample_fused_plain(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg,
-                                 cfg_rows=cfg_rows, renorm_channel=renorm_channel, compute_dtype=compute_dtype)
+                                 cfg_rows=cfg_rows, renorm_channel=renorm_channel, compute_dtype=compute_dtype,
+                                 s8_dots=s8_dots)
 
 
 def rf_sample_fused(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, *, cfg_rows: int,
-                    renorm_channel: bool, compute_dtype=torch.bfloat16):
+                    renorm_channel: bool, compute_dtype=torch.bfloat16, s8_dots: bool = False):
     """The whole Euler sample (see the module docstring): one launch of the
-    table type's CUDA kernel per group of images whose CFG rows fit its MAX_ROWS (each
+    table type's CUDA kernel (int8 tables: in the dot mode `s8_dots`, which
+    int4 tables do not read: their sampler always takes s8 dots) per group of
+    images whose CFG rows fit its MAX_ROWS (each
     image's block-major rows {i, n + i, 2n + i} gathered, the results
     scattered back: the rows of different images never mix, so the groups
     give the ungrouped result). Arguments as `rf_sample_fused_plain`; returns
@@ -266,24 +307,26 @@ def rf_sample_fused(params, cfg, noise, block_mods, final_mods, dts, text_cfg, i
     per = max(1, MAX_ROWS // cfg_rows)  # images per launch
     if n <= per:
         return _rf_sample_group(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg,
-                                cfg_rows=cfg_rows, renorm_channel=renorm_channel, compute_dtype=compute_dtype)
+                                cfg_rows=cfg_rows, renorm_channel=renorm_channel, compute_dtype=compute_dtype,
+                                s8_dots=s8_dots)
     out = torch.empty((B, noise.shape[1]), dtype=torch.float32, device=noise.device)
     for i0 in range(0, n, per):
         images = torch.arange(i0, min(i0 + per, n), device=noise.device)
         rows = (torch.arange(cfg_rows, device=noise.device)[:, None] * n + images[None, :]).reshape(-1)
         out[rows] = _rf_sample_group(params, cfg, noise[rows], block_mods[:, :, rows], final_mods[:, rows], dts,
                                      text_cfg, image_cfg, cfg_rows=cfg_rows, renorm_channel=renorm_channel,
-                                     compute_dtype=compute_dtype)
+                                     compute_dtype=compute_dtype, s8_dots=s8_dots)
     return out
 
 
 def _rf_sample_group(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, *, cfg_rows: int,
-                     renorm_channel: bool, compute_dtype):
+                     renorm_channel: bool, compute_dtype, s8_dots: bool):
     """One launch of the table type's CUDA kernel over at most MAX_ROWS
     block-major rows (the plain version for CPU tensors)."""
     if noise.device.type == "cpu":
         return rf_sample_fused_plain(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg,
-                                     cfg_rows=cfg_rows, renorm_channel=renorm_channel, compute_dtype=compute_dtype)
+                                     cfg_rows=cfg_rows, renorm_channel=renorm_channel, compute_dtype=compute_dtype,
+                                     s8_dots=s8_dots)
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"rf_sample_fused: compute dtype {compute_dtype} is not built")
     bits = table_bits(params)
@@ -314,28 +357,43 @@ def _rf_sample_group(params, cfg, noise, block_mods, final_mods, dts, text_cfg, 
     hbuf = torch.empty((B, H), dtype=torch.float32, device=dev)
     out = torch.empty((B, C), dtype=torch.float32, device=dev)
     name = "mu_rf_sampler_q4s8" if bits == 4 else "mu_rf_sampler_q8"
+    s8 = bits == 8 and s8_dots
+    mode = (int(s8), down_chunk(H)) if bits == 8 else ()  # the int8 kernel's dot mode and down chunk
     rc = getattr(build.load(), name)(
         tensors["dts"].data_ptr(), tensors["x0"].data_ptr(), o["win"].data_ptr(), o["binp"].data_ptr(),
         o["lnw"].data_ptr(), o["lnb"].data_ptr(), o["q12"].data_ptr(), o["s12"].data_ptr(), o["b12"].data_ptr(),
         o["q3"].data_ptr(), o["s3"].data_ptr(), o["b3"].data_ptr(), tensors["mods"].data_ptr(),
         tensors["fmods"].data_ptr(), wfin_t.data_ptr(), o["bfin"].data_ptr(), xcur.data_ptr(), hbuf.data_ptr(),
-        out.data_ptr(), B, cfg_rows, int(renorm_channel), S, L, w, H, C, int(compute_dtype == torch.bfloat16),
+        out.data_ptr(), B, cfg_rows, int(renorm_channel), S, L, w, H, C, int(compute_dtype == torch.bfloat16), *mode,
         float(text_cfg), float(image_cfg), float(cfg.ln_eps), build.stream_handle(noise),
     )
     build.check(rc, name)
-    (rf_sample_fused if bits == 4 else rf_sample_fused_q8).launches += 1  # one per kernel launch
+    counter = rf_sample_fused if bits == 4 else (rf_sample_fused_q8s8 if s8 else rf_sample_fused_q8)
+    counter.launches += 1  # one per kernel launch
     return out
 
 
 def rf_sample_fused_q8(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, *, cfg_rows: int,
                        renorm_channel: bool, compute_dtype=torch.bfloat16):
-    """`rf_sample_fused` for int8 tables only (the name that carries the int8
-    kernel's launch count; `rf_sample_fused` carries the int4 kernel's)."""
+    """`rf_sample_fused` for int8 tables only, exact dequant (the name that
+    carries that kernel's launch count; `rf_sample_fused` carries the int4
+    kernel's)."""
     if table_bits(params) != 8:
         raise ValueError("rf_sample_fused_q8: needs int8 res_blocks tables")
     return rf_sample_fused(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, cfg_rows=cfg_rows,
                            renorm_channel=renorm_channel, compute_dtype=compute_dtype)
 
 
+def rf_sample_fused_q8s8(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, *, cfg_rows: int,
+                         renorm_channel: bool, compute_dtype=torch.bfloat16):
+    """`rf_sample_fused` for int8 tables only, s8 dots (the name that carries
+    that kernel's launch count)."""
+    if table_bits(params) != 8:
+        raise ValueError("rf_sample_fused_q8s8: needs int8 res_blocks tables")
+    return rf_sample_fused(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, cfg_rows=cfg_rows,
+                           renorm_channel=renorm_channel, compute_dtype=compute_dtype, s8_dots=True)
+
+
 rf_sample_fused.launches = 0
 rf_sample_fused_q8.launches = 0
+rf_sample_fused_q8s8.launches = 0

@@ -14,12 +14,13 @@ Session work runs on one executor thread (one device stream), sessions per
 on its own worker thread. JSON responses carry a `ret_code` (`RetCode`).
 
 Not ported yet, and refused rather than ignored: `/tts` and a talker
-pipeline (ROADMAP.md Queue 1.6), `/generate_image_batch` and
-`image_pool_slots > 0` and `n_images > 1` (Queue 1.4), LoRA adapters and a
-request's `lora` (Queue 1.5). The endpoints answer BAD_REQUEST, the
+pipeline (ROADMAP.md Queue 1.7), `/generate_image_batch` and
+`image_pool_slots > 0` and `n_images > 1` (Queue 1.2), LoRA adapters and a
+request's `lora` (Queue 1.4). The endpoints answer BAD_REQUEST, the
 constructor raises NotImplementedError.
-Generated images come back base64 in the response; `output_image_prefix`
-(where the JAX server also writes them to disk) is not read.
+Generated images come back base64 in the response and, as in the JAX server,
+are written as PNGs at the request's `output_image_prefix` (default
+`serve_out` in the temporary directory; `MingUniVisionInfer.generate`).
 
 aiohttp is imported inside `build_app` and `run` only.
 """
@@ -30,7 +31,9 @@ import asyncio
 import base64
 import io
 import json
+import os
 import queue
+import tempfile
 import threading
 import time
 from collections import OrderedDict, deque
@@ -173,11 +176,11 @@ class InferenceServer:
         stalls slots) or on the dense pool (`paged_kv=False`). prefix_cache
         shares full prompt pages between requests with the same prefix."""
         if talker_pipeline is not None:
-            raise not_ported("the talker pipeline (/tts)", "Queue 1.6")
+            raise not_ported("the talker pipeline (/tts)", "Queue 1.7")
         if image_pool_slots > 0:
-            raise not_ported("the image pool (image_pool_slots > 0)", "Queue 1.4")
+            raise not_ported("the image pool (image_pool_slots > 0)", "Queue 1.2")
         if lora_adapters:
-            raise not_ported("LoRA adapters", "Queue 1.5")
+            raise not_ported("LoRA adapters", "Queue 1.4")
         self.infer = infer  # a MingUniVisionInfer (holds the default session)
         self.host = host
         self.port = port
@@ -197,7 +200,8 @@ class InferenceServer:
         self.batch_worker = None
         if batch_slots > 0:
             kw = dict(slots=batch_slots, max_len=batch_max_len, dtype=infer.session._dtype,
-                      device=infer.session.device, int_dots=infer.runtime.moe_int_dots)
+                      device=infer.session.device, int_dots=infer.runtime.moe_int_dots,
+                      prefill_int_dots=infer.session.prefill_int_dots)
             if paged_kv is None or paged_kv:
                 from mingunivision_tpu_torch.engine.paged import PagedBatchingEngine
 
@@ -268,6 +272,7 @@ class InferenceServer:
             messages,
             max_new_tokens=int(payload.get("max_new_tokens", 512)),
             for_edit=bool(payload.get("for_edit", False)),
+            output_image_prefix=payload.get("output_image_prefix", os.path.join(tempfile.gettempdir(), "serve_out")),
             image_gen_text_cfg=float(payload.get("image_gen_text_cfg", 3.0)),
             image_gen_image_cfg=float(payload.get("image_gen_image_cfg", 1.1)),
             image_gen_temperature=float(payload.get("image_gen_temperature", 1.0)),
@@ -286,9 +291,9 @@ class InferenceServer:
     def _unported_field(payload: dict) -> Optional[str]:
         """Why a request asks for what the port does not run yet, or None."""
         if int(payload.get("n_images", 1)) != 1:
-            return "n_images > 1 is not ported to the PyTorch package yet (ROADMAP.md Queue 1.4)"
+            return "n_images > 1 is not ported to the PyTorch package yet (ROADMAP.md Queue 1.2)"
         if payload.get("lora") is not None:
-            return "a named LoRA adapter is not ported to the PyTorch package yet (ROADMAP.md Queue 1.5)"
+            return "a named LoRA adapter is not ported to the PyTorch package yet (ROADMAP.md Queue 1.4)"
         return None
 
     # -- aiohttp app ----------------------------------------------------------
@@ -432,8 +437,8 @@ class InferenceServer:
         app.router.add_post("/generate_stream", generate_stream)
         app.router.add_post("/generate_batch", generate_batch)
         app.router.add_post("/generate_image_batch", refused(
-            "/generate_image_batch is not ported to the PyTorch package yet (ROADMAP.md Queue 1.4)"))
-        app.router.add_post("/tts", refused("/tts is not ported to the PyTorch package yet (ROADMAP.md Queue 1.6)"))
+            "/generate_image_batch is not ported to the PyTorch package yet (ROADMAP.md Queue 1.2)"))
+        app.router.add_post("/tts", refused("/tts is not ported to the PyTorch package yet (ROADMAP.md Queue 1.7)"))
         return app
 
     def run(self):  # pragma: no cover - blocking entry

@@ -10,7 +10,8 @@ in the other:
     high plane rows [n/2, n); `groups` > 1 packs each of `groups` contiguous
     contraction blocks on its own;
   - int4 "nf4": the nibble indexes the NormalFloat4 codebook, s = per-channel
-    absmax. The port reads NF4 tables through `dequant_weight` only.
+    absmax. The port reads NF4 tables through `dequant_weight` only (the
+    JAX package has no kernel for them either).
 
 The contraction axis is the second-to-last in every layout the models use:
 (in, out), (E, in, out) and depth-stacked (L, E, in, out).
@@ -81,6 +82,11 @@ def is_int8_linear(w) -> bool:
             and w.s.shape[-1] == w.q.shape[-1])
 
 
+def is_nf4(w) -> bool:
+    """True for an NF4 table (the "int4-nf4" tier): read by plain dequant on every device."""
+    return isinstance(w, QuantizedArray) and w.bits == 4 and w.scheme == "nf4"
+
+
 def quantize_array(w: torch.Tensor, bits: int = 8, groups: int = 1, scheme: str = "linear") -> QuantizedArray:
     """Per-channel quantization; int4 packs two nibbles per byte split-halves
     along the contraction axis (see the module docstring). Runs on w's device,
@@ -120,8 +126,8 @@ def dequant_weight(w, dtype: torch.dtype) -> torch.Tensor:
         return (w.q.float() * w.s).to(dtype)
     ax = w.q.ndim - 2
     nf4 = w.scheme == "nf4"
-    lo = (w.q & 0xF).long() if nf4 else (w.q & 0xF).to(torch.int8) - 8
-    hi = (w.q >> 4).long() if nf4 else (w.q >> 4).to(torch.int8) - 8
+    lo = (w.q & 0xF).int() if nf4 else (w.q & 0xF).to(torch.int8) - 8  # NF4: codebook indexes
+    hi = (w.q >> 4).int() if nf4 else (w.q >> 4).to(torch.int8) - 8
     if w.groups == 1:
         q = torch.cat([lo, hi], dim=ax)
     else:  # per-group split-halves: the G lo/hi block pairs in turn

@@ -1,9 +1,11 @@
 """PyTorch port, `chip_smoke.py`'s reference check run on the CPU: it passes on
 the port as shipped (where the CPU's kernel entries are their plain versions,
-so the kernel path equals the plain bf16 path) and fails when one entry of
+so the kernel path equals the plain bf16 path), at every tier (the other dot
+modes and NF4 in tests/test_torch_chip_smoke_modes.py), and fails when one entry of
 the kernel path is made wrong by 10% or left out, at every tier (bf16, int4,
-int8). On the card
-the same check holds the CUDA kernels. The check on an image prompt is in
+int8): the LLM kernel entries are held against their plain versions at every
+call, so a 10%-wrong int8 decode MoE fails too. On the card the same check
+holds the CUDA kernels. The check on an image prompt is in
 tests/test_torch_chip_smoke_image.py."""
 
 import pytest
@@ -21,6 +23,7 @@ WRONG = {
     "int4-decode-moe-x1.1": ("int4", bailing_moe, "moe_experts_stream", lambda y: y * 1.1),
     "int4-sampler-x1.1": ("int4", rf_head, "rf_sample_fused", lambda y: y * 1.1),
     "int8-sampler-x1.1": ("int8", rf_head, "rf_sample_fused", lambda y: y * 1.1),
+    "int8-decode-moe-x1.1": ("int8", bailing_moe, "moe_experts_stream", lambda y: y * 1.1),
 }
 
 

@@ -1,7 +1,8 @@
 """PyTorch port, independence from the JAX package: the port and chip_smoke.py
 import neither `jax` nor `mingunivision_tpu` (not even its framework-free
 modules), and the port's own config dataclasses equal the JAX package's
-field by field."""
+field by field; the port's RuntimeConfig adds the fields that take the place
+of the JAX package's module-level kernel switches, with the flags' defaults."""
 
 import ast
 import dataclasses
@@ -18,6 +19,15 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "mingunivision_tpu")
 CONFIGS = ["ViTEncoderConfig", "SemanticDecoderConfig", "PixelDecoderConfig", "MingTokConfig", "BailingMoeConfig",
            "RFHeadConfig", "ImageGenConfig", "GenerationConfig", "MingUniVisionConfig", "RuntimeConfig"]
+
+
+def _port_only_fields():
+    """RuntimeConfig field -> the JAX package's module flags it stands for (the port passes them explicitly)."""
+    from mingunivision_tpu.ops.kernels import moe_swiglu_gmm, rf_mlp
+
+    return {"RuntimeConfig": {"moe_prefill_int_dots": (moe_swiglu_gmm.INT_DOT_PREFILL_INT8,
+                                                       moe_swiglu_gmm.INT_DOT_PREFILL_INT4),
+                              "rf_int_dots": (rf_mlp.INT8_INT_DOTS,)}}
 
 
 def _forbidden(name: str) -> bool:
@@ -60,8 +70,12 @@ def test_no_source_file_imports_the_jax_package():
 @pytest.mark.parametrize("name", CONFIGS)
 def test_config_dataclass_fields_equal_jax(name):
     port, ref = getattr(port_config, name), getattr(jax_config, name)
-    assert [(f.name, f.compare) for f in dataclasses.fields(port)] == [(f.name, f.compare) for f in dataclasses.fields(ref)]
+    extra = _port_only_fields().get(name, {})
+    assert [(f.name, f.compare) for f in dataclasses.fields(port) if f.name not in extra] == \
+        [(f.name, f.compare) for f in dataclasses.fields(ref)]
     port_default, ref_default = port(), ref()
+    for field, flags in extra.items():  # the flags' defaults, each flag read wherever the field applies
+        assert all(getattr(port_default, field) == flag for flag in flags), field
     for f in dataclasses.fields(ref):
         got, want = getattr(port_default, f.name), getattr(ref_default, f.name)
         if dataclasses.is_dataclass(want):

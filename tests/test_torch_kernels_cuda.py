@@ -1,7 +1,8 @@
 """PyTorch port: each hand-written CUDA kernel against its plain PyTorch version
 on the card, in bf16 (the int4 and int8 kernels on int4 and int8 tables of
-the same weights, the int8 ones also at the 16B-A3B width; the int4 and
-int8 RF samplers to the bit, since their plain versions sum in their order; both
+the same weights, in both dot modes, the int8 ones and the new modes also at
+the 16B-A3B width; the int4 and int8 RF samplers to the bit, since their
+plain versions sum in their order; the s8 prefill MoE kernels to the bit; both
 flash-attention entry points; the prefill MoE kernels also through the
 capacity-dense dispatch; paged decode attention through block tables). The
 kernels have no CPU mode, so every test here is marked `cuda` and skips
@@ -31,6 +32,7 @@ from mingunivision_tpu_torch.ops.kernels.moe_capacity import (
 from mingunivision_tpu_torch.ops.kernels.moe_stream import (
     moe_experts_stream,
     moe_experts_stream_plain,
+    moe_experts_stream_q4,
     moe_experts_stream_q4s8,
     moe_experts_stream_q8,
     moe_experts_stream_q8s8,
@@ -39,7 +41,9 @@ from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import (
     moe_experts_swiglu_gmm,
     moe_experts_swiglu_gmm_plain,
     moe_experts_swiglu_gmm_q4,
+    moe_experts_swiglu_gmm_q4s8,
     moe_experts_swiglu_gmm_q8,
+    moe_experts_swiglu_gmm_q8s8,
 )
 from mingunivision_tpu_torch.ops.kernels.paged_attention import paged_decode_attention, paged_gather_attention
 from mingunivision_tpu_torch.ops.kernels.rf_sampler import (
@@ -47,6 +51,7 @@ from mingunivision_tpu_torch.ops.kernels.rf_sampler import (
     rf_sample_fused,
     rf_sample_fused_plain,
     rf_sample_fused_q8,
+    rf_sample_fused_q8s8,
 )
 from mingunivision_tpu_torch.utils.convert import _Init, init_rf_head_params
 from mingunivision_tpu_torch.utils.quantize import quantize_array, quantize_tree_inplace
@@ -419,8 +424,9 @@ def test_int8_wrappers_raise_on_unsupported_input(dev):
             moe_experts_stream(ex, x, idx, w, layer_idx=0, int_dots=int_dots)
     with pytest.raises(ValueError):
         moe_experts_swiglu_gmm(ex, x, idx, w, E, layer_idx=0)
-    with pytest.raises(NotImplementedError):  # exact-dequant int4 is not ported
-        moe_experts_stream(_q4(_experts(dev)), x.bfloat16(), idx, w, layer_idx=0, int_dots=False)
+    grouped = {k: quantize_array(v, 4, groups=2) for k, v in _experts(dev).items()}
+    with pytest.raises(NotImplementedError):  # shard-grouped int4 tables are not ported
+        moe_experts_stream(grouped, x.bfloat16(), idx, w, layer_idx=0, int_dots=False)
 
 
 def _rf_q8(dev, seed=19):
@@ -454,3 +460,107 @@ def test_rf_sampler_q8_kernel_matches_plain(dev, cfg_rows, n_img, renorm):
     assert (rf_sample_fused.launches, rf_sample_fused_q8.launches) == \
         (before[0], before[1] + -(-n_img // (MAX_ROWS // cfg_rows)))
     torch.testing.assert_close(got, rf_sample_fused_plain(*args, **kw), rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the dot modes added beside them: 7e int4 decode MoE, exact dequant; 7f / 7g
+# int8 / int4 prefill MoE, s8 dots (sorted and capacity dispatch); 7h the int8
+# RF sampler, s8 dots
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 16], ids=["1row", "2rows", "3rows-2chunks", "16rows-A>E"])
+def test_moe_stream_q4_exact_kernel_matches_plain(dev, n):
+    ex = _q4(_experts(dev, seed=21))
+    idx, w = _routing(dev, n, 6, seed=22)
+    x = torch.randn(n, H, device=dev).to(torch.bfloat16)
+    before = (moe_experts_stream_q4.launches, moe_experts_stream_q4s8.launches)
+    got = moe_experts_stream(ex, x, idx, w, layer_idx=1, int_dots=False)
+    torch.cuda.synchronize()
+    assert (moe_experts_stream_q4.launches, moe_experts_stream_q4s8.launches) == (before[0] + 1, before[1])
+    _close_bf16(got, moe_experts_stream_plain(ex, x, idx, w, layer_idx=1, int_dots=False))
+
+
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+@pytest.mark.parametrize("choices", [None, [0, 3, 5]], ids=["spread", "skewed-empty-experts"])
+def test_swiglu_gmm_s8_kernels_match_plain_to_the_bit(dev, bits, choices):
+    """The s8 prefill kernels: integer sums exact, the fp32 epilogue rounded as
+    the plain version writes it, so the two agree to the bit."""
+    ex = {k: quantize_array(v, bits) for k, v in _experts(dev, seed=23).items()}
+    idx, w = _routing(dev, 96, 2, choices, seed=24)
+    x = torch.randn(96, H, device=dev).to(torch.bfloat16)
+    kernel = moe_experts_swiglu_gmm_q8s8 if bits == 8 else moe_experts_swiglu_gmm_q4s8
+    exact = moe_experts_swiglu_gmm_q8 if bits == 8 else moe_experts_swiglu_gmm_q4
+    before = (kernel.launches, exact.launches)
+    got = moe_experts_swiglu_gmm(ex, x, idx, w, E, layer_idx=0, s8=True)
+    torch.cuda.synchronize()
+    assert (kernel.launches, exact.launches) == (before[0] + 1, before[1])
+    torch.testing.assert_close(got, moe_experts_swiglu_gmm_plain(ex, x, idx, w, E, layer_idx=0, s8=True), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+@pytest.mark.parametrize("case", ["fits-with-pads", "overflow"])
+def test_swiglu_gmm_s8_kernels_through_the_capacity_schedule_match_plain(dev, bits, case):
+    ex = {k: quantize_array(v, bits) for k, v in _experts(dev, seed=25).items()}
+    n, k, capacity = 640, 2, 256
+    idx, w = _routing(dev, n, k, [0, 3, 5] if case == "overflow" else None, seed=26)
+    x = torch.randn(n, H, device=dev).to(torch.bfloat16)
+    valid = torch.arange(n, device=dev) < n - 200
+    x[~valid], idx[~valid], w[~valid] = x[-1].clone(), torch.tensor([0, 1], device=dev), w[-1].clone()
+    kernel = moe_experts_swiglu_gmm_q8s8 if bits == 8 else moe_experts_swiglu_gmm_q4s8
+    before = (kernel.launches, moe_experts_capacity_gmm.launches, moe_experts_capacity_gmm_exact.fallbacks)
+    got = moe_experts_capacity_gmm_exact(ex, x, idx, w, E, capacity, token_valid=valid, layer_idx=1, s8=True)
+    torch.cuda.synchronize()
+    fell_back = int(case == "overflow")
+    assert (kernel.launches, moe_experts_capacity_gmm.launches, moe_experts_capacity_gmm_exact.fallbacks) == \
+        (before[0] + 1, before[1] + 1 - fell_back, before[2] + fell_back)
+    want = moe_experts_capacity_gmm_exact_plain(ex, x, idx, w, E, capacity, token_valid=valid, layer_idx=1, s8=True)
+    torch.testing.assert_close(got[valid], want[valid], rtol=0, atol=0)
+
+
+def test_new_modes_at_full_width(dev):
+    """The 16B-A3B expert tables (64 experts, h 2048, m 1408, top-6): 7e at 2
+    and 16 rows, 7f / 7g at a 128-token prompt."""
+    g = torch.Generator(device=dev).manual_seed(27)
+    Ef, h, m = 64, 2048, 1408
+    shapes = {"gate_proj": (1, Ef, h, m), "up_proj": (1, Ef, h, m), "down_proj": (1, Ef, m, h)}
+    bf = {k: torch.empty(s, device=dev, dtype=torch.bfloat16).normal_(0, 0.02, generator=g) for k, s in shapes.items()}
+    for bits in (4, 8):
+        ex = {k: quantize_array(v, bits) for k, v in bf.items()}
+        for n in (2, 16, 128):
+            scores = torch.rand((n, Ef), device=dev, generator=g)
+            wt, idx = torch.topk(torch.softmax(scores, -1), 6)
+            wt = (wt / wt.sum(-1, keepdim=True)).to(torch.bfloat16)
+            x = torch.randn((n, h), device=dev, generator=g).to(torch.bfloat16)
+            if n == 128:
+                got = moe_experts_swiglu_gmm(ex, x, idx, wt, Ef, layer_idx=0, s8=True)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, moe_experts_swiglu_gmm_plain(ex, x, idx, wt, Ef, layer_idx=0, s8=True),
+                                           rtol=0, atol=0)
+            elif bits == 4:
+                got = moe_experts_stream(ex, x, idx, wt, layer_idx=0, int_dots=False)
+                torch.cuda.synchronize()
+                _close_bf16(got, moe_experts_stream_plain(ex, x, idx, wt, layer_idx=0, int_dots=False))
+
+
+@pytest.mark.parametrize("cfg_rows,n_img,renorm", [(1, 1, False), (2, 1, False), (3, 1, True), (3, 2, True),
+                                                   (2, 4, False)],
+                         ids=["unguided", "cfg2", "cfg3-renorm", "2img-x3rows", "4img-x2rows"])
+def test_rf_sampler_q8_s8_kernel_matches_plain(dev, cfg_rows, n_img, renorm):
+    """The int8 sampler with s8 dots against its plain version: to the bit."""
+    cfg, rf, g = _rf_q8(dev, seed=28)
+    ts, dts = _time_grid(cfg, None, device=dev)
+    B = cfg_rows * n_img
+    z = torch.randn(B, cfg.z_channels, device=dev, generator=g).to(torch.bfloat16)
+    block_mods, final_mods = precompute_modulations(rf, cfg, ts, z)
+    noise = torch.randn(n_img, cfg.target_channels, device=dev, generator=g).repeat(cfg_rows, 1)
+    args = (rf, cfg, noise, block_mods, final_mods, dts, 3.0, 1.1)
+    kw = dict(cfg_rows=cfg_rows, renorm_channel=renorm, compute_dtype=torch.bfloat16)
+    before = (rf_sample_fused_q8.launches, rf_sample_fused_q8s8.launches)
+    got = rf_sample_fused(*args, s8_dots=True, **kw)
+    torch.cuda.synchronize()
+    assert (rf_sample_fused_q8.launches, rf_sample_fused_q8s8.launches) == \
+        (before[0], before[1] + -(-n_img // (MAX_ROWS // cfg_rows)))
+    torch.testing.assert_close(got, rf_sample_fused_plain(*args, s8_dots=True, **kw), rtol=0, atol=0)
+    assert not torch.equal(got, rf_sample_fused_plain(*args, **kw))  # the exact mode is another function

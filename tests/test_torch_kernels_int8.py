@@ -36,7 +36,6 @@ from mingunivision_tpu_torch.ops.kernels.moe_stream import (
     moe_experts_stream_plain,
     moe_experts_stream_q8_plain,
     moe_experts_stream_q8s8_plain,
-    require_dot_mode,
     table_kind,
 )
 from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import (
@@ -90,18 +89,21 @@ def test_int8_tables_are_recognised():
     # the port's own quantizer gives the same kind of table; int4 is not int8
     assert is_int8_linear(port_quantize_array(torch.randn(4, 64, 32), 8))
     assert not is_int8_linear(port_quantize_array(torch.randn(4, 64, 32), 4))
-    require_dot_mode(ex, True)
-    require_dot_mode(ex, False)  # exact dequant is ported for int8 tables
-    q4 = {k: port_quantize_array(torch.randn(E, 64, 32), 4) for k in ex}
-    require_dot_mode(q4, True)
+    # linear int4 and NF4 tables have kinds of their own and run in both decode dot modes (exact-dequant int4
+    # and the NF4 entries are ported); shard-grouped int4 tables stay unported and raise
+    shapes = {"gate_proj": (E, 64, 32), "up_proj": (E, 64, 32), "down_proj": (E, 32, 64)}
+    x, idx, w = torch.randn(2, 64), torch.tensor([[0, 1], [2, 1]]), torch.full((2, 2), 0.5)
+    for scheme, kind in (("linear", "int4"), ("nf4", "nf4")):
+        tables = {k: port_quantize_array(torch.randn(sh), 4, scheme=scheme) for k, sh in shapes.items()}
+        assert table_kind("t", tables) == kind
+        for int_dots in (True, False):
+            y = moe_experts_stream_plain(tables, x, idx, w, int_dots=int_dots)
+            assert y.shape == (2, 64) and bool(torch.isfinite(y).all())
+    grouped = {k: port_quantize_array(torch.randn(sh), 4, groups=2) for k, sh in shapes.items()}
     with pytest.raises(NotImplementedError):
-        require_dot_mode(q4, False)
+        table_kind("t", grouped)
     with pytest.raises(NotImplementedError):
-        moe_experts_stream_plain(q4, torch.zeros(2, 64), torch.zeros(2, 2, dtype=torch.long), torch.ones(2, 2),
-                                 int_dots=False)
-    nf4 = {k: port_quantize_array(torch.randn(E, 64, 32), 4, scheme="nf4") for k in ex}
-    with pytest.raises(NotImplementedError):
-        table_kind("t", nf4)
+        moe_experts_stream_plain(grouped, x, idx, w, int_dots=False)
 
 
 # ---------------------------------------------------------------------------

@@ -125,7 +125,7 @@ def test_infer_generate_with_test_tokenizer_matches_jax(tmp_path):
     want = want_api.generate(messages, output_image_prefix=str(tmp_path / "jax"), **kw)
     api = MingUniVisionInfer(params=params_from_jax(params, "cpu", torch.float32), config=cfg, runtime=runtime,
                              tokenizer=tok, device="cpu")
-    got = api.generate(messages, **kw)
+    got = api.generate(messages, output_image_prefix=str(tmp_path / "port"), **kw)
     assert got == want == "<image>"
     assert api.session.timings["cfg_rows"] == 2  # text-only prompt: uncond == text-uncond
     np.testing.assert_allclose(api.last_images[0], want_api.last_images[0], atol=IMAGE_ATOL)

@@ -254,10 +254,10 @@ def test_editing_through_the_api_matches_jax(tmp_path):
     # make greedy decoding pick <image>: its lm_head column at +10 or -10, whichever the port's round picks it with
     col = params["llm"]["lm_head"]["w"][:, cfg.llm.image_start_token]
     col[:] = 10.0
-    if port_api().generate(messages, **kw) != "<image>":
+    if port_api().generate(messages, output_image_prefix=str(tmp_path / "probe"), **kw) != "<image>":
         col[:] = -10.0
     api = port_api()
-    got = api.generate(messages, **kw)
+    got = api.generate(messages, output_image_prefix=str(tmp_path / "port"), **kw)
     want_api = JaxInfer(params=to_jax(params), config=cfg, runtime=runtime, processor=JaxProcessor(tok, **sizes))
     want = want_api.generate(messages, output_image_prefix=str(tmp_path / "jax"), **kw)
     assert got == want == "<image>"

@@ -39,6 +39,7 @@ from mingunivision_tpu_torch.ops.kernels import moe_stream, rf_sampler
 from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream_bf16_plain
 from mingunivision_tpu_torch.utils.convert import params_from_jax, quantize_mm_params_inplace, tier_bits
 from mingunivision_tpu_torch.utils.quantize import dequant_weight
+from mingunivision_tpu_torch.utils.quantize import quantize_array as port_quantize_array
 
 from test_torch_common import IMG_START, random_params, tiny_mm, to_jax
 from test_torch_quantize import _compare_trees
@@ -149,8 +150,15 @@ def test_int8_exact_dot_mode_matches_jax_and_int4_refuses_it(t2i, monkeypatch):
     assert got.token_ids == want.token_ids == [IMG_START]
     assert exact.n == cfg.llm.num_hidden_layers * (cfg.image_gen.num_image_tokens + 1)
     np.testing.assert_allclose(got.images[0], want.images[0], atol=IMAGE_ATOL)
+    # an int4 tree now runs the exact dot mode too (held against the JAX session in
+    # tests/test_torch_slice_tiers.py); shard-grouped int4 tables, still unported, refuse it
+    q4 = _port_tree(_quantized(params, 4, 4), 4, 4)
+    assert _port_round(cfg, q4, prompt, runtime)[0].token_ids == [IMG_START]
+    experts = q4["llm"]["layers"]["mlp"]["experts"]
+    for name, t in experts.items():
+        experts[name] = port_quantize_array(dequant_weight(t, torch.float32), 4, groups=2)
     with pytest.raises(NotImplementedError):
-        MingUniVisionSession(_port_tree(_quantized(params, 4, 4), 4, 4), cfg, runtime, device="cpu")
+        _port_round(cfg, q4, prompt, runtime)
 
 
 def test_int8_editing_round_with_three_rows_and_renorm_within_the_tier_error(t2i, monkeypatch):
