@@ -17,10 +17,16 @@ Phases, one printed line each; any failure exits non-zero:
               one; every kernel of the bf16, int4 and int8 tiers in every
               dot mode (the int4 and int8 decode MoE with s8 dots and exact
               dequant, the int4 and int8 prefill MoE exact and with s8 dots,
-              the int8 sampler exact and with s8 dots)
+              the int8 sampler exact and with s8 dots); the per-step RF stack
+              in its four bodies (one Euler step at full width, 2 and 3 rows),
+              the int4 sampler's pipelined schedule beside its block one, and
+              the full-expert-block prefill MoE (int4: 128 tokens, skewed,
+              1,152; int8: 128 tokens); the RF kernels to the bit
   4. reference  a small model on the card, bf16, int4 (as shipped and with
               moe_int_dots=False), int8 (as shipped and with
-              moe_prefill_int_dots and rf_int_dots on) and NF4, through the
+              moe_prefill_int_dots and rf_int_dots on) and NF4 (and, on the
+              card only, the per-step RF route, rf_fused_sampler=False, at
+              int4 and int8 in the four bodies of its stack), through the
               kernels (bf16 compute) against the plain versions in fp32: same
               tokens; every LLM kernel entry (decode MoE, prefill MoE through
               either dispatch, decode attention) held at every call against
@@ -52,6 +58,10 @@ Phases, one printed line each; any failure exits non-zero:
               sampler
      slice_int8_s8  the int8 model's round with rf_int_dots=True: the int8
               sampler with s8 dots
+     slice_int4_perstep, slice_int8_perstep  the int4 and int8 models' rounds
+              with rf_fused_sampler=False: the Euler steps through the per-step
+              stack kernel (s8 dots at int4, exact at int8, the JAX package's
+              defaults), one launch per step, none of the fused sampler
      slice_nf4  the same round on the NF4 tier (RuntimeConfig param_dtype
               "int4-nf4", quantized on the card): plain-dequant MoE entries and
               the RF head's Euler loop, no quantized kernel
@@ -90,7 +100,7 @@ tier only its T2I round).
 Then a JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-`--phases` picks the phases (default: the fifteen above), e.g.
+`--phases` picks the phases (default: the seventeen above), e.g.
 `--phases device,build,kernels,understand` or `--phases device,build,kernels,serve`. Six more run only when named:
   divergence  the small model's plain bf16 path with each kernel swapped in
               alone, and all of them, and with the image head's input moved
@@ -158,6 +168,18 @@ KERNELS = {
     "moe_swiglu_gmm_q8s8": ("csrc/moe_swiglu_gmm_q8.cu", "mingunivision_tpu/ops/kernels/moe_swiglu_gmm.py:236"),
     "moe_swiglu_gmm_q4s8": ("csrc/moe_swiglu_gmm_q4.cu", "mingunivision_tpu/ops/kernels/moe_swiglu_gmm.py:432"),
     "rf_sampler_q8s8": ("csrc/rf_sampler_q8.cu", "mingunivision_tpu/ops/kernels/rf_sampler.py:395"),
+    # the per-step RF stack (RuntimeConfig(rf_fused_sampler=False)), one source for its four bodies: int4 with s8
+    # dots (rf_int4_int_dots, on by default) and exact dequant, int8 exact (rf_int_dots off) and with s8 dots
+    "rf_mlp_q4s8": ("csrc/rf_mlp.cu", "mingunivision_tpu/ops/kernels/rf_mlp.py:326"),
+    "rf_mlp_q4": ("csrc/rf_mlp.cu", "mingunivision_tpu/ops/kernels/rf_mlp.py:243"),
+    "rf_mlp_q8": ("csrc/rf_mlp.cu", "mingunivision_tpu/ops/kernels/rf_mlp.py:39"),
+    "rf_mlp_q8s8": ("csrc/rf_mlp.cu", "mingunivision_tpu/ops/kernels/rf_mlp.py:168"),
+    # explicit arguments no entry point passes, as in the JAX package: the int4 sampler's pipelined schedule
+    # (rf_sample_fused(schedule="pipelined")) and the full-expert-block prefill (full_block=True) over int4 and
+    # int8 tables, the two branches of one TPU kernel body
+    "rf_sampler_q4s8_pipelined": ("csrc/rf_sampler_q4.cu", "mingunivision_tpu/ops/kernels/rf_sampler.py:126"),
+    "moe_swiglu_gmm_q4_full": ("csrc/moe_swiglu_gmm_q4.cu", "mingunivision_tpu/ops/kernels/moe_swiglu_gmm.py:115"),
+    "moe_swiglu_gmm_q8_full": ("csrc/moe_swiglu_gmm_q4.cu", "mingunivision_tpu/ops/kernels/moe_swiglu_gmm.py:115"),
 }
 BF16_KERNELS = ("moe_stream", "moe_swiglu_gmm", "decode_attention")
 REL_TOL = 1e-2  # kernel vs plain: max |err| <= REL_TOL * max |plain| (bf16 keeps ~3 digits)
@@ -209,15 +231,18 @@ def bound(nbytes: float, ops: float, kind: str):
 
 
 def run_case(torch, results, name, label, kern, plain, nbytes, ops, kind, library=None, iters=20, rows=None,
-             others=None, plain_iters=None) -> bool:
+             others=None, plain_iters=None, bitwise=False) -> bool:
     """One kernel case: the kernel against its plain version on the same inputs
     (on the rows of the boolean mask `rows` when given), their median times
     (and the library call's), and the bound. `others`: label -> a callable timed
     beside them and recorded in the case under `<label>_ms`. `plain_iters`: the
-    plain version's timed runs (and warm-ups), where it takes seconds."""
+    plain version's timed runs (and warm-ups), where it takes seconds.
+    `bitwise`: held to the bit (the kernels whose plain versions sum in their
+    order), else within REL_TOL."""
     got, want = kern(), plain()
     torch.cuda.synchronize()
     ok, err, rel = compare(torch, got, want) if rows is None else compare(torch, got[rows], want[rows])
+    ok = ok and (err == 0 or not bitwise)
     ms = cuda_ms(torch, kern, iters)
     plain_ms = cuda_ms(torch, plain, plain_iters or iters, warmup=min(3, plain_iters or iters))
     library_ms = cuda_ms(torch, library, iters) if library is not None else None
@@ -225,7 +250,8 @@ def run_case(torch, results, name, label, kern, plain, nbytes, ops, kind, librar
     bound_ms, bound_by = bound(nbytes, ops, kind)
     lib = f" library_ms={library_ms:.4f}" if library_ms is not None else ""
     lib += "".join(f" {key}={val:.4f}" for key, val in other_ms.items())
-    print(f"kernel {name} [{label}]: max_abs_err={err:.3e} rel_to_max={rel:.3e} tol_rel={REL_TOL} ms={ms:.4f} "
+    print(f"kernel {name} [{label}]: max_abs_err={err:.3e} rel_to_max={rel:.3e} tol_rel={0 if bitwise else REL_TOL} "
+          f"ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f}{lib} bound_ms={bound_ms:.4f} ({bound_by}: {nbytes / 1e6:.2f} MB, "
           f"{ops / 1e9:.3f} G{'FLOP' if kind == 'bf16' else 'OP ' + kind}) {'ok' if ok else 'MISMATCH'}")
     results.setdefault(name, {}).setdefault("cases", []).append(
@@ -342,6 +368,7 @@ def check_kernels(torch, results: dict) -> bool:
     )
     from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream_plain, moe_experts_stream
     from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm, moe_experts_swiglu_gmm_plain
+    from mingunivision_tpu_torch.ops.kernels.rf_mlp import rf_mlp_stack, rf_mlp_stack_plain
     from mingunivision_tpu_torch.ops.kernels.rf_sampler import (
         MAX_ROWS,
         rf_sample_fused,
@@ -443,6 +470,21 @@ def check_kernels(torch, results: dict) -> bool:
                                                                 s8=True), nbytes, ops, "int8", plain_iters=3)
         return ok
 
+    def full_block_cases(tables, name, per_expert_bytes, cases):
+        """The full-expert-block prefill mode (full_block=True) against the exact
+        plain rows, its plain version: g, u over all of m in fp32, a rounded
+        once, the down product over all of m (fp32 sums in another order)."""
+        ok = True
+        for label, n, choices in cases:
+            x = torch.randn((n, h), device=dev, generator=g).to(bf)
+            idx, w = routing(n, choices)
+            nbytes, ops = moe_work(idx, n, per_expert_bytes, 2)
+            ok &= run_case(torch, results, name, label,
+                           lambda: moe_experts_swiglu_gmm(tables, x, idx, w, E, layer_idx=0, full_block=True),  # noqa: B023
+                           lambda: moe_experts_swiglu_gmm_plain(tables, x, idx, w, E, layer_idx=0),  # noqa: B023
+                           nbytes, ops, "bf16", iters=5, plain_iters=2)
+        return ok
+
     # int4 and int8 tables of the same weights
     q4 = {n: quantize_array(t, 4) for n, t in experts.items()}
     q8 = {n: quantize_array(t, 8) for n, t in experts.items()}
@@ -463,6 +505,9 @@ def check_kernels(torch, results: dict) -> bool:
                                nbytes, ops, kind)
     all_ok &= capacity_cases(q4, "moe_swiglu_gmm_q4", per_expert)
     all_ok &= dot_mode_cases(q4, "moe_stream_q4", "moe_swiglu_gmm_q4s8", per_expert)
+    all_ok &= full_block_cases(q4, "moe_swiglu_gmm_q4_full", per_expert,
+                               prefill + [(f"{n_und} tok x k=6 (the understanding prompt's length), sorted dispatch",
+                                           n_und, None)])
     del q4
 
     # int8 tables: 3 h m bytes and 2 m + h fp32 scales per routed expert. The decode kernel in both dot modes
@@ -493,6 +538,7 @@ def check_kernels(torch, results: dict) -> bool:
                            nbytes, ops, "bf16")
     all_ok &= capacity_cases(q8, "moe_swiglu_gmm_q8", per_expert)
     all_ok &= dot_mode_cases(q8, None, "moe_swiglu_gmm_q8s8", per_expert)
+    all_ok &= full_block_cases(q8, "moe_swiglu_gmm_q8_full", per_expert, prefill[:1])
     del q8
 
     B, Hq, Hkv, S, D = 2, cfg.llm.num_attention_heads, cfg.llm.num_key_value_heads, 4096, cfg.llm.head_dim
@@ -549,6 +595,52 @@ def check_kernels(torch, results: dict) -> bool:
     rf_cfg = cfg.rf_head
     L, w, C, St = rf_cfg.depth, rf_cfg.width, rf_cfg.target_channels, rf_cfg.num_sampling_steps
     ts, dts = _time_grid(rf_cfg, None, device=dev)
+
+    def tables_bytes(bits, Hd):
+        """The blocks' tables, their scales and biases, and the LN affines."""
+        return L * 3 * w * Hd * bits // 8 + L * (2 * Hd + w) * 4 * 2 + 2 * L * w * 4
+
+    def stack_cases(rf, bits, Hd, modes):
+        """One Euler step of the per-step stack (all 12 blocks, the tables read
+        once) at full width, 2 and 3 rows, bf16, in each (kernel name, s8 dots)
+        of `modes`: the kernel against its plain version, which sums in its
+        order, to the bit."""
+        ok = True
+        for rows in (2, 3):
+            z = torch.randn((rows, rf_cfg.z_channels), device=dev, generator=g).to(bf)
+            mods = precompute_modulations(rf, rf_cfg, ts, z)[0][:, 0]  # step 0's (L, rows, 3w)
+            x = torch.randn((rows, w), device=dev, generator=g).to(bf)
+            nbytes = tables_bytes(bits, Hd) + mods.numel() * 2 + 2 * x.numel() * 2
+            for name, s8 in modes:
+                kw = dict(ln_eps=rf_cfg.ln_eps, int_dots=s8)
+                ok &= run_case(torch, results, name, f"{rows} CFG rows, one Euler step, w={w} H={Hd} {L} blocks",
+                               lambda: rf_mlp_stack(rf["res_blocks"], x, mods, **kw),  # noqa: B023
+                               lambda: rf_mlp_stack_plain(rf["res_blocks"], x, mods, **kw),  # noqa: B023
+                               nbytes, 2.0 * 3 * w * Hd * rows * L, "int8" if s8 else "bf16", plain_iters=1,
+                               bitwise=True)
+        return ok
+
+    def pipelined_cases(rf, Hd):
+        """The int4 sampler's pipelined schedule (w3 in 1,024-row pieces) at 2
+        rows and 3 with renorm, beside the block schedule in the same call: to
+        the bit against its plain version."""
+        ok = True
+        for rows, renorm in ((2, False), (3, True)):
+            z = torch.randn((rows, rf_cfg.z_channels), device=dev, generator=g).to(bf)
+            block_mods, final_mods = precompute_modulations(rf, rf_cfg, ts, z)
+            noise = torch.randn((1, C), device=dev, generator=g).repeat(rows, 1)
+            args = (rf, rf_cfg, noise, block_mods, final_mods, dts, 3.0, 1.1)
+            kw = dict(cfg_rows=rows, renorm_channel=renorm, compute_dtype=bf)
+            rest = (L * St * rows * 3 * w + St * rows * 2 * w) * 4 + 2 * C * w * 4 + 2 * rows * C * 4
+            ok &= run_case(torch, results, "rf_sampler_q4s8_pipelined",
+                           f"{rows} CFG rows{' + channel renorm' if renorm else ''}, w={w} H={Hd} {L} blocks {St} "
+                           "steps, down_chunk 1024",
+                           lambda: rf_sample_fused(*args, schedule="pipelined", **kw),  # noqa: B023
+                           lambda: rf_sample_fused_plain(*args, schedule="pipelined", **kw),  # noqa: B023
+                           St * tables_bytes(4, Hd) + rest, 2.0 * 3 * w * Hd * rows * L * St, "int8", iters=3,
+                           plain_iters=1, others={"block_schedule": lambda: rf_sample_fused(*args, **kw)},  # noqa: B023
+                           bitwise=True)
+        return ok
     for bits, name, counter, kind, s8 in ((4, "rf_sampler_q4s8", rf_sample_fused, "int8", False),
                                           (8, "rf_sampler_q8", rf_sample_fused_q8, "bf16", False),
                                           (8, "rf_sampler_q8s8", rf_sample_fused_q8s8, "int8", True)):
@@ -566,7 +658,7 @@ def check_kernels(torch, results: dict) -> bool:
             # the blocks' tables (453 MB int4, 906 MB int8), their scales and biases, and the LN affines: more
             # than L2 and every SM's shared memory hold, so each Euler step streams them again
             B = rows * n_img
-            block_weights = L * 3 * w * Hd * bits // 8 + L * (2 * Hd + w) * 4 * 2 + 2 * L * w * 4
+            block_weights = tables_bytes(bits, Hd)
             rest = (L * St * B * 3 * w + St * B * 2 * w) * 4 + 2 * C * w * 4 + 2 * B * C * 4
             nbytes = St * block_weights + rest
             # int4: two integer dots per weight byte pair; int8: one bf16-rate product (s8 dots: one int8
@@ -579,13 +671,18 @@ def check_kernels(torch, results: dict) -> bool:
                                f"{bound(block_weights + rest, 0, kind)[0]:.4f} ms",
                                lambda: rf_sample_fused(*args, **kw),  # noqa: B023
                                lambda: rf_sample_fused_plain(*args, **kw), nbytes, ops, kind, iters=3,  # noqa: B023
-                               plain_iters=1)
+                               plain_iters=1, bitwise=True)
             if n_img > 1:  # one launch per group of whole images that fits the kernel's rows
                 launched = counter.launches - launches
                 calls = 1 + 3 + 3  # the comparison, warm-up and timed calls of run_case
                 print(f"kernel {name} [{label}]: {launched // calls} launches per call (groups of "
                       f"{MAX_ROWS // rows} images)")
                 all_ok &= launched == calls * -(-n_img // (MAX_ROWS // rows))
+        if name == "rf_sampler_q4s8":
+            all_ok &= pipelined_cases(rf, Hd)
+            all_ok &= stack_cases(rf, bits, Hd, (("rf_mlp_q4s8", True), ("rf_mlp_q4", False)))
+        elif name == "rf_sampler_q8":
+            all_ok &= stack_cases(rf, bits, Hd, (("rf_mlp_q8", False), ("rf_mlp_q8s8", True)))
         del rf
     torch.cuda.empty_cache()
     all_ok &= paged_cases(torch, results, g, cfg)
@@ -826,8 +923,8 @@ def image_checks(out, sess, cfg, T, size, rows=2):
 
 # the model-level entry points the main paths call the kernels by (the MoE
 # entries dispatch bf16 and int4 tables to their kernels themselves)
-ENTRIES = ("moe_stream", "moe_swiglu_gmm", "decode_attention", "rf_sampler", "flash_prefill", "moe_capacity", "flash_vit",
-           "paged_attention")
+ENTRIES = ("moe_stream", "moe_swiglu_gmm", "decode_attention", "rf_sampler", "rf_mlp", "flash_prefill", "moe_capacity",
+           "flash_vit", "paged_attention")
 
 
 @contextlib.contextmanager
@@ -843,6 +940,7 @@ def plain_versions(names=ENTRIES):
     from mingunivision_tpu_torch.ops.kernels.moe_capacity import moe_experts_capacity_gmm_exact_plain
     from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream_plain
     from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm_plain
+    from mingunivision_tpu_torch.ops.kernels.rf_mlp import rf_mlp_stack_plain
     from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused_plain
 
     swaps = {"moe_stream": [(bm, "moe_experts_stream", moe_experts_stream_plain)],
@@ -850,6 +948,7 @@ def plain_versions(names=ENTRIES):
              "decode_attention": [(bm, "decode_attention", decode_attention_plain),
                                   (batch_engine, "decode_attention", decode_attention_plain)],
              "rf_sampler": [(rf_head, "rf_sample_fused", rf_sample_fused_plain)],
+             "rf_mlp": [(rf_head, "rf_mlp_stack", rf_mlp_stack_plain)],
              "flash_prefill": [(bm, "flash_prefill_attention", flash_prefill_attention_plain)],
              "moe_capacity": [(bm, "moe_experts_capacity_gmm_exact", moe_experts_capacity_gmm_exact_plain)],
              "flash_vit": [(vit, "flash_vit_attention", flash_vit_attention_plain)],
@@ -865,11 +964,12 @@ def plain_versions(names=ENTRIES):
             setattr(mod, attr, fn)
 
 
-def small_model(torch, device, tier="bfloat16"):
+def small_model(torch, device, tier="bfloat16", per_step=False):
     """A 2-layer model with the full model's structure, bf16 on the card (the
     LLM and RF head then quantized when `tier` is "int4", "int8" or "nf4"; the
     RF head is wide enough, 192 x 512, for every table to pass the quantizer's
-    size floor), RF noise off (temperature 0), 16 image tokens; returns (cfg,
+    size floor; with `per_step`, 256 x 512, the narrowest head the per-step
+    stack takes), RF noise off (temperature 0), 16 image tokens; returns (cfg,
     params, prompt)."""
     import dataclasses
 
@@ -882,6 +982,8 @@ def small_model(torch, device, tier="bfloat16"):
                               num_experts_per_tok=2)
     rf = dataclasses.replace(base.rf_head, target_channels=8, z_channels=64, width=64 if tier == "bfloat16" else 192,
                              depth=2)
+    if per_step:  # 128-aligned int4 halves: width 256, SwiGLU hidden 512
+        rf = dataclasses.replace(rf, width=256, mlp_mult=3)
     mt = base.mingtok
     mingtok = dataclasses.replace(
         mt, scaling_factor=2.0, mean=0.5,
@@ -986,7 +1088,7 @@ def tier_label(tier, runtime_kw) -> str:
     return tier + "".join(f" {k}={v}" for k, v in runtime_kw.items())
 
 
-def run_reference(torch, device, tier="bfloat16", **runtime_kw) -> bool:
+def run_reference(torch, device, tier="bfloat16", results=None, **runtime_kw) -> bool:
     """The small model through the kernels (bf16) and through their plain
     versions in fp32, the reference, on the same weights (`tier`: bf16, or the
     int4 or int8 tree). The kernel path must give the reference's tokens, and
@@ -995,7 +1097,9 @@ def run_reference(torch, device, tier="bfloat16", **runtime_kw) -> bool:
     the plain bf16 path's own error, plus 1e-2 of the reference's maximum: the
     hidden state that enters the image head at loop step 0 (prefill and one
     decode step: every LLM kernel) and, at bf16 and int4, the first RF latent
-    (sampled from that hidden state: the int4 sampler). Every call of
+    (sampled from that hidden state: the int4 sampler, or with
+    rf_fused_sampler=False the per-step stack, whose launches are counted on
+    the card: one per Euler step). Every call of
     an LLM kernel entry on the kernel path is also held against its plain
     version on the same inputs (`llm_entries`, within REL_TOL). `runtime_kw`:
     RuntimeConfig fields of every run (the dot modes). The first latent is
@@ -1006,20 +1110,27 @@ def run_reference(torch, device, tier="bfloat16", **runtime_kw) -> bool:
     one-bf16-ulp change of the hidden state into a latent change of several
     1e-2 (`--phases divergence --tier int8` / `--tier nf4`), past twice the
     plain path's error. The image
-    is held to shape, finite and in range; its errors are printed."""
+    is held to shape, finite and in range; its errors are printed. With
+    `results`, the per-step stack's launches are kept there: the launches of
+    its main path where no full-width round runs its body."""
     import numpy as np
 
     from mingunivision_tpu_torch.config import RuntimeConfig
     from mingunivision_tpu_torch.models import rf_head
 
-    cfg, params, prompt = small_model(torch, device, tier)
+    per_step = runtime_kw.get("rf_fused_sampler") is False
+    cfg, params, prompt = small_model(torch, device, tier, per_step=per_step)
     bf16 = RuntimeConfig(max_seq_len=512, **runtime_kw)
+    stack = tier_kernels(tier, bf16)[2] if per_step else None
+    counter = launch_counters().get(stack)
+    launches = counter.launches if counter is not None else 0
     with loop_capture() as seen:
         with held_against_plain(torch, llm_entries(torch)) as errs:
             out_k, sess_k, _ = _generate(torch, params, cfg, bf16, device, prompt, cfg.image_gen)
+        stack_launches = counter.launches - launches if counter is not None else 0
         kern = (seen["hidden"][0], seen["latent"][0])
         args, kwargs = seen["first_sample"]
-        with plain_versions(("rf_sampler",)):
+        with plain_versions(("rf_sampler", "rf_mlp")):
             same_inputs = rf_head.rf_sample(*args, **kwargs).float().cpu().numpy()
         with plain_versions():
             out_r = _generate(torch, as_f32(params), cfg,
@@ -1031,6 +1142,13 @@ def run_reference(torch, device, tier="bfloat16", **runtime_kw) -> bool:
     checks = image_checks(out_k, sess_k, cfg, prompt[0].shape[1], cfg.mingtok.encoder.img_size)
     checks.append(("tokens == fp32 reference", out_k.token_ids == out_r.token_ids))
     checks += held_checks(errs)
+    if per_step and device.type == "cuda":  # the per-step route went through its stack kernel, every Euler step
+        n = cfg.image_gen.num_image_tokens * cfg.rf_head.num_sampling_steps
+        checks.append((f"{stack} launches {stack_launches} == {n}", stack_launches == n))
+        if results is not None:
+            entry = results.setdefault(stack, {})
+            entry.setdefault("launches_by_path", {})[f"reference {tier_label(tier, runtime_kw)}"] = stack_launches
+            entry["launches"] = stack_launches
     printed = []
     for i, what in enumerate(("step-0 hidden", "first latent")):
         scale = float(np.abs(ref[i]).max())
@@ -1311,18 +1429,24 @@ def launch_counters():
     from mingunivision_tpu_torch.ops.kernels.decode_attention import decode_attention
     from mingunivision_tpu_torch.ops.kernels.flash import flash_prefill_attention, flash_vit_attention
     from mingunivision_tpu_torch.ops.kernels.moe_capacity import moe_experts_capacity_gmm
+    from mingunivision_tpu_torch.ops.kernels import rf_mlp
+    from mingunivision_tpu_torch.ops.kernels import rf_sampler as rs
     from mingunivision_tpu_torch.ops.kernels.paged_attention import paged_decode_attention
-    from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused, rf_sample_fused_q8, rf_sample_fused_q8s8
 
     return {"moe_stream": ms.moe_experts_stream, "moe_swiglu_gmm": gmm.moe_experts_swiglu_gmm,
             "decode_attention": decode_attention, "moe_stream_q4s8": ms.moe_experts_stream_q4s8,
-            "moe_swiglu_gmm_q4": gmm.moe_experts_swiglu_gmm_q4, "rf_sampler_q4s8": rf_sample_fused,
+            "moe_swiglu_gmm_q4": gmm.moe_experts_swiglu_gmm_q4, "rf_sampler_q4s8": rs.rf_sample_fused,
             "flash_prefill": flash_prefill_attention, "flash_vit": flash_vit_attention,
             "moe_capacity": moe_experts_capacity_gmm, "paged_attention": paged_decode_attention,
             "moe_stream_q8s8": ms.moe_experts_stream_q8s8, "moe_stream_q8": ms.moe_experts_stream_q8,
-            "moe_swiglu_gmm_q8": gmm.moe_experts_swiglu_gmm_q8, "rf_sampler_q8": rf_sample_fused_q8,
+            "moe_swiglu_gmm_q8": gmm.moe_experts_swiglu_gmm_q8, "rf_sampler_q8": rs.rf_sample_fused_q8,
             "moe_stream_q4": ms.moe_experts_stream_q4, "moe_swiglu_gmm_q8s8": gmm.moe_experts_swiglu_gmm_q8s8,
-            "moe_swiglu_gmm_q4s8": gmm.moe_experts_swiglu_gmm_q4s8, "rf_sampler_q8s8": rf_sample_fused_q8s8}
+            "moe_swiglu_gmm_q4s8": gmm.moe_experts_swiglu_gmm_q4s8, "rf_sampler_q8s8": rs.rf_sample_fused_q8s8,
+            "rf_mlp_q4s8": rf_mlp.rf_mlp_stack_q4s8, "rf_mlp_q4": rf_mlp.rf_mlp_stack_q4,
+            "rf_mlp_q8": rf_mlp.rf_mlp_stack_q8, "rf_mlp_q8s8": rf_mlp.rf_mlp_stack_q8s8,
+            "rf_sampler_q4s8_pipelined": rs.rf_sample_fused_q4_pipelined,
+            "moe_swiglu_gmm_q4_full": gmm.moe_experts_swiglu_gmm_q4_full,
+            "moe_swiglu_gmm_q8_full": gmm.moe_experts_swiglu_gmm_q8_full}
 
 
 def counted_round(torch, results, path, run):
@@ -1362,18 +1486,29 @@ TIERS = {"int4": dict(bits=4), "int8": dict(bits=8), "int4_rf8": dict(bits=4, rf
 # the reference phase's small models: (tier, RuntimeConfig fields), every dot mode of every quantized tier
 REFERENCE_TIERS = (("bfloat16", {}), ("int4", {}), ("int4", dict(moe_int_dots=False)), ("int8", {}),
                    ("int8", dict(moe_prefill_int_dots=True, rf_int_dots=True)), ("nf4", {}))
+# and, on the card only, the per-step RF route in the four bodies of its stack kernel
+PER_STEP_REFERENCE_TIERS = (("int4", dict(rf_fused_sampler=False)),
+                            ("int4", dict(rf_fused_sampler=False, rf_int4_int_dots=False)),
+                            ("int8", dict(rf_fused_sampler=False)),
+                            ("int8", dict(rf_fused_sampler=False, rf_int_dots=True)))
 
 
 def tier_kernels(tier, runtime=None):
-    """(decode MoE, prefill MoE, RF sampler) kernel names of a tier in the dot
+    """(decode MoE, prefill MoE, RF head) kernel names of a tier in the dot
     modes of `runtime` (a RuntimeConfig; None: the defaults); None where the
-    tier runs no kernel there (NF4: plain dequant; bf16: the RF head's loop)."""
+    tier runs no kernel there (NF4: plain dequant; bf16: the RF head's loop).
+    The RF head's kernel is the fused sampler, or with rf_fused_sampler=False
+    the per-step stack."""
     int_dots = runtime is None or runtime.moe_int_dots
     s8_prefill = runtime is not None and runtime.moe_prefill_int_dots
-    rf8 = "rf_sampler_q8s8" if runtime is not None and runtime.rf_int_dots else "rf_sampler_q8"
+    rf_s8 = runtime is not None and runtime.rf_int_dots
+    if runtime is not None and not runtime.rf_fused_sampler:
+        rf4, rf8 = ("rf_mlp_q4s8" if runtime.rf_int4_int_dots else "rf_mlp_q4"), ("rf_mlp_q8s8" if rf_s8 else "rf_mlp_q8")
+    else:
+        rf4, rf8 = "rf_sampler_q4s8", ("rf_sampler_q8s8" if rf_s8 else "rf_sampler_q8")
     q4 = ("moe_stream_q4s8" if int_dots else "moe_stream_q4", "moe_swiglu_gmm_q4s8" if s8_prefill else "moe_swiglu_gmm_q4")
     return {"bfloat16": ("moe_stream", "moe_swiglu_gmm", None),
-            "int4": q4 + ("rf_sampler_q4s8",),
+            "int4": q4 + (rf4,),
             "int4_rf8": q4 + (rf8,),
             "int8": ("moe_stream_q8s8" if int_dots else "moe_stream_q8",
                      "moe_swiglu_gmm_q8s8" if s8_prefill else "moe_swiglu_gmm_q8", rf8),
@@ -1385,7 +1520,8 @@ def run_slice(torch, cfg, params, device, results: dict, tier="bfloat16", runtim
     RuntimeConfig; None: the defaults), with every kernel's launch count read
     around it; the kernels of the tier's path must reach their floors (per LLM
     step and layer for the decode kernels, per layer for the prefill one, per
-    image token for the RF sampler) and the others must not launch."""
+    image token for the fused RF sampler, per Euler step for the per-step
+    stack) and the others must not launch."""
     from mingunivision_tpu_torch.config import RuntimeConfig
 
     runtime = runtime or RuntimeConfig()
@@ -1402,11 +1538,11 @@ def run_slice(torch, cfg, params, device, results: dict, tier="bfloat16", runtim
     decode_moe, prefill_moe, sampler = tier_kernels(tier, runtime)
     floors = {decode_moe: L * (n_tok + 1), prefill_moe: L, "decode_attention": L * (n_tok + 1)}
     floors.pop(None, None)
-    if sampler is not None:
-        floors[sampler] = n_tok
+    if sampler is not None:  # the fused sampler once per image token, the per-step stack once per Euler step
+        floors[sampler] = n_tok * (1 if runtime.rf_fused_sampler else cfg.rf_head.num_sampling_steps)
     checks = image_checks(out, sess, cfg, T, 512) + launch_checks(launches, floors)
-    if sampler is not None:  # one launch per image token: both CFG rows in one
-        checks.append((f"{sampler} launches == {n_tok}", launches[sampler] == n_tok))
+    if sampler is not None:  # both CFG rows in one launch
+        checks.append((f"{sampler} launches == {floors[sampler]}", launches[sampler] == floors[sampler]))
     t = sess.timings
     print(f"{label} T2I: prompt {T} ids (bucket 128), {L} layers, {tier}, cfg_rows={t.get('cfg_rows')}, "
           f"prefill_ms={t['prefill_ms']:.2f} image_loop_ms={t['image_loop_ms']:.1f} "
@@ -2172,7 +2308,10 @@ def kernel_entry(name: str, r: dict, capacity: dict) -> dict:
     """One kernel's entry of the JSON line, from what this run measured:
     `launches` from the main path that runs it (its tier's T2I slice; the
     understanding round for flash prefill; one reconstruction batch for flash
-    ViT; null when that path did not run) and `launches_by_path` from every
+    ViT; the per-step reference round for the two stack bodies no full-width
+    round runs; null when that path did not run, and for the pipelined sampler
+    and the full-block prefill, which no entry point reaches) and
+    `launches_by_path` from every
     path driven, the worst `max_abs_err` over the kernels phase's cases, and
     `ms`, `plain_ms`, `library_ms`, `bound_ms`, `bound_by` at that path's own
     shape (the first case); then every case."""
@@ -2198,7 +2337,8 @@ def jax_modules():
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="device,build,kernels,reference,slice,slice_int4,slice_int4_exact,"
-                                        "slice_int4_rf8,slice_int8,slice_int8_s8,slice_nf4,understand,edit,recon,serve")
+                                        "slice_int4_perstep,slice_int4_rf8,slice_int8,slice_int8_s8,slice_int8_perstep,"
+                                        "slice_nf4,understand,edit,recon,serve")
     ap.add_argument("--tier", default="bfloat16", choices=("bfloat16", "int4", "int8", "nf4"),
                     help="the tier of the profile, profile_understand, routing and divergence phases")
     args = ap.parse_args(argv)
@@ -2254,6 +2394,8 @@ def main(argv=None) -> int:
         for tier, runtime_kw in REFERENCE_TIERS:
             ok &= run_reference(torch, cuda, tier, **runtime_kw)
             ok &= run_reference_image(torch, cuda, tier, **runtime_kw)
+        for tier, runtime_kw in PER_STEP_REFERENCE_TIERS:
+            ok &= run_reference(torch, cuda, tier, results, **runtime_kw)
         ok &= run_reference_serve(torch, cuda)
         stamp("reference")
     if "divergence" in phases:
@@ -2265,8 +2407,9 @@ def main(argv=None) -> int:
         stamp("recon")
     # per tier: (its T2I phase, the other phases it runs); the int4 tier's model also serves the mixed tier
     tier_phases = {"bfloat16": ("slice", {"understand", "edit", "serve"}),
-                   "int4": ("slice_int4", {"slice_int4_exact", "slice_int4_rf8", "understand", "edit", "serve"}),
-                   "int8": ("slice_int8", {"slice_int8_s8", "understand", "edit"}),
+                   "int4": ("slice_int4", {"slice_int4_exact", "slice_int4_perstep", "slice_int4_rf8", "understand", "edit",
+                                           "serve"}),
+                   "int8": ("slice_int8", {"slice_int8_s8", "slice_int8_perstep", "understand", "edit"}),
                    "nf4": ("slice_nf4", set())}
     for tier, (slice_phase, others) in tier_phases.items():
         run = phases & (others | {slice_phase})
@@ -2282,6 +2425,9 @@ def main(argv=None) -> int:
                             "slice_int4_exact")
         if "slice_int8_s8" in run:  # the int8 sampler with s8 dots
             ok &= run_slice(torch, cfg, params, cuda, results, tier, RuntimeConfig(rf_int_dots=True), "slice_int8_s8")
+        if f"slice_{tier}_perstep" in run:  # the per-step RF route: the stack kernel in the tier's default body
+            ok &= run_slice(torch, cfg, params, cuda, results, tier, RuntimeConfig(rf_fused_sampler=False),
+                            f"slice_{tier}_perstep")
         if mixed:
             ok &= run_slice_mixed(torch, cfg, params, cuda, results)
         if "edit" in run:

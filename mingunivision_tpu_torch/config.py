@@ -243,9 +243,17 @@ class RuntimeConfig:
     # sorted and the capacity dispatch (the JAX package's module flags
     # INT_DOT_PREFILL_INT8 / INT_DOT_PREFILL_INT4, off there too)
     moe_prefill_int_dots: bool = False
-    # s8 dots in the fused int8 RF sampler (the JAX package's rf_mlp.INT8_INT_DOTS,
-    # off there too); read for int8 RF tables only: the int4 sampler is always s8
+    # s8 dots over int8 RF tables, in the fused sampler and the per-step stack
+    # (the JAX package's rf_mlp.INT8_INT_DOTS, off there too); the fused int4
+    # sampler is always s8
     rf_int_dots: bool = False
+    # the whole Euler sample in one fused kernel over quantized linear RF tables;
+    # False runs the Euler steps, each through the per-step stack kernel (the
+    # JAX package's rf_head.FUSED_SAMPLER)
+    rf_fused_sampler: bool = True
+    # s8 dots in the per-step int4 stack; False takes its exact-dequant body
+    # (the JAX package's rf_mlp.INT4_UNPACK_MODE == "s8")
+    rf_int4_int_dots: bool = True
 
 
 def with_pixdec_precision(config: MingUniVisionConfig, precision: str) -> MingUniVisionConfig:

@@ -18,7 +18,9 @@
 // (swiglu_gmm_quant -> _swiglu_gmm_q4_chunked -> _kernel_q4_chunked, exact,
 // and _kernel_q4_chunked_s8, which the JAX package switches on with
 // INT_DOT_PREFILL_INT4 or s8=True; the port with
-// RuntimeConfig.moe_prefill_int_dots). At the slice's prompt (128 tokens x
+// RuntimeConfig.moe_prefill_int_dots), and, in a third mode, the full-expert
+// block kernel swiglu_gmm_quant(int4_chunked=False) -> _kernel_q in both of
+// its branches (int4 and int8 tables; the port's full_block=True). At the slice's prompt (128 tokens x
 // top-6 = 768 rows over 64 experts) the op reads a layer's packed tables once,
 // 64 x 4.33 MB = 277 MB (83 us at 3.35 TB/s), and does 13 G operations.
 //
@@ -365,7 +367,149 @@ __global__ void __launch_bounds__(kThreads) gmm_q4s8_down_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// Full-expert-block mode (swiglu_gmm_quant(int4_chunked=False) -> _kernel_q)
+// ---------------------------------------------------------------------------
+
+// A BK x BN tile of an int8 table (rows k0.., columns n0.., `ld` columns) as fp32.
+__device__ __forceinline__ void load_s8_tile(const int8_t* __restrict__ q, size_t ld, int k0, int n0,
+                                             float (*t)[BN]) {
+  for (int idx = threadIdx.x; idx < BK * BN / 4; idx += kThreads) {
+    const int kk = idx / (BN / 4), c = 4 * (idx % (BN / 4));
+    const uint32_t w = __ldg(reinterpret_cast<const uint32_t*>(q + (size_t)(k0 + kk) * ld + n0 + c));
+#pragma unroll
+    for (int b = 0; b < 4; ++b) t[kk][c + b] = (float)(int8_t)(w >> (8 * b));
+  }
+}
+
+// One CTA per schedule tile (TM rows of one expert): g and u over all m
+// columns in fp32 (BN at a time; int4: both nibble planes of every packed
+// contraction row, int8: the bytes as they are), a = silu(g * s1) * (u * s3)
+// rounded to bf16 ONCE into shared memory (TM x m: the TPU kernel's full
+// block, 88 KB at m = 1408), then the down product over all of m (int4: both
+// planes), s2 at the store. The TPU's (128 x m) block would not fit a CTA's
+// shared memory; the schedule's 32-row tiles do.
+template <int BITS>
+__global__ void __launch_bounds__(kThreads) gmm_full_kernel(
+    const bf16* __restrict__ x, const int* __restrict__ row_token, const void* __restrict__ q1,
+    const float* __restrict__ s1, const void* __restrict__ q3, const float* __restrict__ s3,
+    const void* __restrict__ q2, const float* __restrict__ s2, const int* __restrict__ sched,
+    bf16* __restrict__ ys, int h, int m) {
+  const int tile = blockIdx.x;
+  const int e = sched[3 * tile];
+  const int r0 = sched[3 * tile + 1];
+  const int r1 = sched[3 * tile + 2];
+  if (r0 >= r1) return;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int hk = BITS == 4 ? h / 2 : h, mk = BITS == 4 ? m / 2 : m;  // (packed) contraction rows
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* a_s = reinterpret_cast<bf16*>(smem);  // [TM][m]
+  __shared__ float xlo[BK][TM + 1], xhi[BK][TM + 1];
+  __shared__ __align__(16) float w1lo[BK][BN], w1hi[BK][BN], w3lo[BK][BN], w3hi[BK][BN];
+  __shared__ int tok[TM];
+  if (tid < TM) tok[tid] = (r0 + tid < r1) ? row_token[r0 + tid] : -1;
+  __syncthreads();
+
+  for (int n0 = 0; n0 < m; n0 += BN) {
+    float g[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    float u[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    for (int k0 = 0; k0 < hk; k0 += BK) {
+      for (int idx = tid; idx < TM * BK; idx += kThreads) {
+        const int r = idx / BK, kk = idx % BK, t = tok[r];
+        xlo[kk][r] = t >= 0 ? __bfloat162float(x[(size_t)t * h + k0 + kk]) : 0.0f;
+        if (BITS == 4) xhi[kk][r] = t >= 0 ? __bfloat162float(x[(size_t)t * h + hk + k0 + kk]) : 0.0f;
+      }
+      if constexpr (BITS == 4) {
+        load_nibble_tile(static_cast<const uint8_t*>(q1) + (size_t)e * hk * m, m, k0, n0, w1lo, w1hi);
+        load_nibble_tile(static_cast<const uint8_t*>(q3) + (size_t)e * hk * m, m, k0, n0, w3lo, w3hi);
+      } else {
+        load_s8_tile(static_cast<const int8_t*>(q1) + (size_t)e * hk * m, m, k0, n0, w1lo);
+        load_s8_tile(static_cast<const int8_t*>(q3) + (size_t)e * hk * m, m, k0, n0, w3lo);
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int kk = 0; kk < BK; ++kk) {
+        const float l0 = xlo[kk][2 * ty], l1 = xlo[kk][2 * ty + 1];
+        fma_2x4(l0, l1, &w1lo[kk][4 * tx], g);
+        fma_2x4(l0, l1, &w3lo[kk][4 * tx], u);
+        if constexpr (BITS == 4) {
+          const float h0 = xhi[kk][2 * ty], h1 = xhi[kk][2 * ty + 1];
+          fma_2x4(h0, h1, &w1hi[kk][4 * tx], g);
+          fma_2x4(h0, h1, &w3hi[kk][4 * tx], u);
+        }
+      }
+      __syncthreads();
+    }
+    const float* S1 = s1 + (size_t)e * m + n0 + 4 * tx;
+    const float* S3 = s3 + (size_t)e * m + n0 + 4 * tx;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      bf16* dst = a_s + (size_t)(2 * ty + i) * m + n0 + 4 * tx;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dst[c] = __float2bfloat16(silu_f32(g[i][c] * S1[c]) * (u[i][c] * S3[c]));
+    }
+  }
+  __syncthreads();
+
+  for (int n0 = 0; n0 < h; n0 += BN) {
+    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    for (int k0 = 0; k0 < mk; k0 += BK) {
+      for (int idx = tid; idx < TM * BK; idx += kThreads) {
+        const int r = idx / BK, kk = idx % BK;
+        xlo[kk][r] = __bfloat162float(a_s[(size_t)r * m + k0 + kk]);
+        if (BITS == 4) xhi[kk][r] = __bfloat162float(a_s[(size_t)r * m + mk + k0 + kk]);
+      }
+      if constexpr (BITS == 4) load_nibble_tile(static_cast<const uint8_t*>(q2) + (size_t)e * mk * h, h, k0, n0, w1lo, w1hi);
+      else load_s8_tile(static_cast<const int8_t*>(q2) + (size_t)e * mk * h, h, k0, n0, w1lo);
+      __syncthreads();
+#pragma unroll 4
+      for (int kk = 0; kk < BK; ++kk) {
+        fma_2x4(xlo[kk][2 * ty], xlo[kk][2 * ty + 1], &w1lo[kk][4 * tx], acc);
+        if constexpr (BITS == 4) fma_2x4(xhi[kk][2 * ty], xhi[kk][2 * ty + 1], &w1hi[kk][4 * tx], acc);
+      }
+      __syncthreads();
+    }
+    const float* S2 = s2 + (size_t)e * h + n0 + 4 * tx;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 2 * ty + i;
+      if (r < r1) {
+        bf16* dst = ys + (size_t)r * h + n0 + 4 * tx;
+        *reinterpret_cast<bf162*>(dst) = __floats2bfloat162_rn(acc[i][0] * S2[0], acc[i][1] * S2[1]);
+        *reinterpret_cast<bf162*>(dst + 2) = __floats2bfloat162_rn(acc[i][2] * S2[2], acc[i][3] * S2[3]);
+      }
+    }
+  }
+}
+
 }  // namespace
+
+// The full-expert-block mode over int4 (bits 4: the tables of mu_swiglu_gmm_q4)
+// or int8 tables (bits 8: q1/q3 (E, h, m), q2 (E, m, h) int8): x, row_token,
+// scales, sched and ys as mu_swiglu_gmm_q4; one launch, one CTA per tile, with
+// TM * m * 2 bytes of dynamic shared memory (a launch that cannot have them
+// is reported). h and m multiples of 64 (the wrapper checks).
+extern "C" int mu_swiglu_gmm_full(const void* x, const void* row_token, const void* q1, const void* s1,
+                                  const void* q3, const void* s3, const void* q2, const void* s2, const void* sched,
+                                  void* ys, int n_tiles, int h, int m, int bits, void* stream) {
+  const size_t smem = (size_t)TM * m * sizeof(bf16);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  auto launch = [&](auto kernel) {
+    // the kernel's 41 KB of static shared memory count against the default 48 KB: always opt in
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<n_tiles, kThreads, smem, cs>>>(static_cast<const bf16*>(x), static_cast<const int*>(row_token), q1,
+                                            static_cast<const float*>(s1), q3, static_cast<const float*>(s3), q2,
+                                            static_cast<const float*>(s2), static_cast<const int*>(sched),
+                                            static_cast<bf16*>(ys), h, m);
+    return cudaGetLastError();
+  };
+  if (n_tiles == 0) return (int)cudaSuccess;
+  if (bits == 4) return (int)launch(gmm_full_kernel<4>);
+  if (bits == 8) return (int)launch(gmm_full_kernel<8>);
+  return (int)cudaErrorInvalidValue;
+}
 
 // x (n_tokens, h) bf16 token rows; row_token (A,) int32 token of each
 // scheduled row; q1/q3 (E, h/2, m) and q2 (E, m/2, h) uint8 split-halves

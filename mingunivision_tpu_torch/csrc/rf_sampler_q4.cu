@@ -1,8 +1,9 @@
 // Fused whole-sampler of the rectified-flow head over linear int4 tables: all
 // Euler steps of one sample in ONE launch.
 //
-// Replaces the TPU kernel mingunivision_tpu/ops/kernels/rf_sampler.py
-// (rf_sample_fused -> _sampler_q4_s8, with _modulated_ln and _step_epilogue).
+// Replaces the TPU kernels mingunivision_tpu/ops/kernels/rf_sampler.py
+// (rf_sample_fused -> _sampler_q4_s8, with _modulated_ln and _step_epilogue;
+// and rf_sample_fused(schedule="pipelined") -> _sampler_q4_s8_pipelined).
 // Per Euler step s and AdaLN block l (rows r < B, width w, SwiGLU hidden H):
 //   xs   = LN(x) * ln_w + ln_b, modulated by (shift, scale) of mods[l, s]
 //   g, u = xs @ W12[:, :H] * s + b, xs @ W12[:, H:] * s + b  (s8 pair dots)
@@ -26,6 +27,12 @@
 //   P3 (every CTA)  re-quantize h per row (row maxima read from L2);
 //   P4 (32-column tasks)  down dots over H/2 packed rows, the residual update
 //        of the CTA's own columns of x;                            -- barrier
+//        (the pipelined schedule, rf_sampler.py:_sampler_q4_s8_pipelined, w3
+//        streamed in kc-row pieces: split-K tasks of kc packed rows x 32
+//        columns, each writing its descaled fp32 partial d1 * sb1 + d2 *
+//        sb2 / 16 to device memory;                                -- barrier
+//        then every column's partials added in chunk order, the correction,
+//        scale, bias and residual update;                          -- barrier)
 //   after the last block (every CTA, redundantly, identically)  the final
 //        layer, CFG combine and Euler update of the latent kept in shared
 //        memory, and input_proj of the next step.
@@ -68,75 +75,6 @@ struct Layout {
     bytes = o;
   }
 };
-
-// One 32-column task: the R-row integer dots of NT packed tables (K/2 rows,
-// leading dim ld, columns col0..col0+31 each) summed over the whole block into
-// `out` [R][kTask][2 NT] (shared memory). Lane = 8 column threads x 4 splits,
-// 8 warps: 32 contraction splits over the 4-row groups.
-template <int R, int NT>
-__device__ void task_dots(const uint8_t* const (&p)[NT], int kh, size_t ld, const int8_t* a1, const int8_t* a2,
-                          int* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ct = lane & 7, split = warp * 4 + (lane >> 3);
-  int acc[R][4][2 * NT];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int k = 0; k < 2 * NT; ++k) acc[r][c][k] = 0;
-#pragma unroll 2
-  for (int g = split; g < kh / 4; g += 32) {
-    const int i = 4 * g;
-    uint32_t t[NT][4];
-#pragma unroll
-    for (int q = 0; q < NT; ++q) {
-      uint32_t wd[4];
-#pragma unroll
-      for (int rr = 0; rr < 4; ++rr) wd[rr] = __ldg(reinterpret_cast<const uint32_t*>(p[q] + (size_t)(i + rr) * ld + 4 * ct));
-      transpose4x4(wd, t[q]);
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int x1 = *reinterpret_cast<const int*>(a1 + r * kh + i);
-      const int x2 = *reinterpret_cast<const int*>(a2 + r * kh + i);
-#pragma unroll
-      for (int q = 0; q < NT; ++q)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          acc[r][c][2 * q] = __dp4a(x1, nib_lo(t[q][c]), acc[r][c][2 * q]);
-          acc[r][c][2 * q + 1] = __dp4a(x2, nib_x80(t[q][c]), acc[r][c][2 * q + 1]);
-        }
-    }
-  }
-  // the 4 splits of a warp, then the 8 warps
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int k = 0; k < 2 * NT; ++k) {
-        acc[r][c][k] += __shfl_xor_sync(0xffffffffu, acc[r][c][k], 8);
-        acc[r][c][k] += __shfl_xor_sync(0xffffffffu, acc[r][c][k], 16);
-      }
-  if (lane < 8) {
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int k = 0; k < 2 * NT; ++k) red[((warp * R + r) * kTask + 4 * ct + c) * 4 + k] = acc[r][c][k];
-  }
-  __syncthreads();
-  // warp 0's slots accumulate the other warps' (out-of-place is not needed: each (r, c, k) has one owner)
-  for (int idx = threadIdx.x; idx < R * kTask * 2 * NT; idx += kThreads) {
-    const int k = idx % (2 * NT), rc = idx / (2 * NT);
-    int s = 0;
-    for (int wp = 0; wp < kWarps; ++wp) s += red[(wp * R * kTask + rc) * 4 + k];
-    red[rc * 4 + k] = s;  // rows (r, c) of warp 0: read above by this thread only
-  }
-  __syncthreads();
-}
 
 template <int R>
 __global__ void __launch_bounds__(kThreads) rf_sampler_q4s8_kernel(RFArgs a) {
@@ -192,7 +130,7 @@ __global__ void __launch_bounds__(kThreads) rf_sampler_q4s8_kernel(RFArgs a) {
       for (int task = blockIdx.x; task < H / kTask; task += gridDim.x) {
         const int j0 = task * kTask;
         const uint8_t* const p[2] = {q12 + j0, q12 + H + j0};
-        task_dots<R, 2>(p, wq, 2 * (size_t)H, a1, a2, red);
+        task_dots_q4s8<R, 2>(p, wq, 2 * (size_t)H, a1, a2, wq, red);
         for (int idx = threadIdx.x; idx < B * kTask; idx += kThreads) {
           const int r = idx / kTask, c = idx % kTask, j = j0 + c;
           const int* d = red + (r * kTask + c) * 4;
@@ -212,17 +150,42 @@ __global__ void __launch_bounds__(kThreads) rf_sampler_q4s8_kernel(RFArgs a) {
       const uint8_t* q3 = static_cast<const uint8_t*>(a.q3) + (size_t)l * Hh * w;
       const float* s3 = a.s3 + (size_t)l * w;
       const float* b3 = a.b3 + (size_t)l * w;
-      for (int task = blockIdx.x; task < w / kTask; task += gridDim.x) {
-        const int c0 = task * kTask;
-        const uint8_t* const p[1] = {q3 + c0};
-        task_dots<R, 1>(p, Hh, (size_t)w, b1, b2, red);
-        for (int idx = threadIdx.x; idx < B * kTask; idx += kThreads) {
-          const int r = idx / kTask, c = idx % kTask, j = c0 + c;
-          const int* d = red + (r * kTask + c) * 4;
-          const float po = __fadd_rn(__fmul_rn(mm4_epilogue(d[0], d[1], sth + 4 * r), s3[j]), b3[j]);
-          __stcg(a.xcur + (size_t)r * w + j, __fadd_rn(xs[r * w + j], __fmul_rn(md[(size_t)r * 3 * w + 2 * w + j], po)));
+      if (a.kc == 0) {  // the block schedule: one task per column tile over all H/2 packed rows
+        for (int task = blockIdx.x; task < w / kTask; task += gridDim.x) {
+          const int c0 = task * kTask;
+          const uint8_t* const p[1] = {q3 + c0};
+          task_dots_q4s8<R, 1>(p, Hh, (size_t)w, b1, b2, Hh, red);
+          for (int idx = threadIdx.x; idx < B * kTask; idx += kThreads) {
+            const int r = idx / kTask, c = idx % kTask, j = c0 + c;
+            const int* d = red + (r * kTask + c) * 4;
+            const float po = __fadd_rn(__fmul_rn(mm4_epilogue(d[0], d[1], sth + 4 * r), s3[j]), b3[j]);
+            __stcg(a.xcur + (size_t)r * w + j,
+                   __fadd_rn(xs[r * w + j], __fmul_rn(md[(size_t)r * 3 * w + 2 * w + j], po)));
+          }
+          __syncthreads();
         }
-        __syncthreads();
+      } else {  // the pipelined schedule: split-K tasks of kc packed rows, their descaled partials added in order
+        const int nt = w / kTask, dc = Hh / a.kc;
+        for (int task = blockIdx.x; task < dc * nt; task += gridDim.x) {
+          const int k0 = (task / nt) * a.kc, c0 = (task % nt) * kTask;
+          const uint8_t* const p[1] = {q3 + (size_t)k0 * w + c0};
+          task_dots_q4s8<R, 1>(p, a.kc, (size_t)w, b1 + k0, b2 + k0, Hh, red);
+          for (int idx = threadIdx.x; idx < B * kTask; idx += kThreads) {
+            const int r = idx / kTask, c = idx % kTask;
+            const int* d = red + (r * kTask + c) * 4;
+            __stcg(a.part + ((size_t)(task / nt) * B + r) * w + c0 + c,
+                   __fadd_rn(__fmul_rn((float)d[0], sth[4 * r]), __fmul_rn((float)d[1], __fmul_rn(sth[4 * r + 1], 0.0625f))));
+          }
+          __syncthreads();
+        }
+        grid.sync();
+        for (int idx = blockIdx.x * kThreads + threadIdx.x; idx < B * w; idx += gridDim.x * kThreads) {
+          const int r = idx / w, j = idx % w;
+          float acc = 0.0f;
+          for (int k = 0; k < dc; ++k) acc = __fadd_rn(acc, __ldcg(a.part + ((size_t)k * B + r) * w + j));
+          const float po = __fadd_rn(__fmul_rn(__fsub_rn(acc, sth[4 * r + 2]), s3[j]), b3[j]);
+          __stcg(a.xcur + idx, __fadd_rn(xs[idx], __fmul_rn(md[(size_t)r * 3 * w + 2 * w + j], po)));
+        }
       }
       grid.sync();
     }
@@ -242,17 +205,21 @@ __global__ void __launch_bounds__(kThreads) rf_sampler_q4s8_kernel(RFArgs a) {
 // lnw/lnb (L, w); q12 (L, w/2, 2H) / q3 (L, H/2, w) uint8 split-halves packed
 // int4 with fp32 scales s12 (L, 2H) / s3 (L, w) and biases b12 / b3; mods
 // (L, S, B, 3w) and fmods (S, B, 2w) fp32 modulations; scratch xcur (B, w) and
-// hbuf (B, H) fp32; out (B, C) fp32 latent. w and H multiples of 64, C <= 128
-// (the wrapper checks). One cooperative launch: one CTA per SM.
+// hbuf (B, H) fp32; out (B, C) fp32 latent. kc: 0 for the block schedule, or
+// the pipelined schedule's packed w3 rows per down task (a multiple of 4
+// dividing H/2), with scratch part (H/2 / kc, B, w) fp32. w and H multiples
+// of 64, C <= 128 (the wrapper checks). One cooperative launch: one CTA per SM.
 extern "C" int mu_rf_sampler_q4s8(const void* dts, const void* x0, const void* win, const void* binp, const void* lnw,
                                   const void* lnb, const void* q12, const void* s12, const void* b12, const void* q3,
                                   const void* s3, const void* b3, const void* mods, const void* fmods,
-                                  const void* wfin_t, const void* bfin, void* xcur, void* hbuf, void* out, int B,
-                                  int cfg_rows, int renorm, int S, int L, int w, int H, int C, int h_bf16,
-                                  float text_cfg, float image_cfg, float ln_eps, void* stream) {
-  const RFArgs a = rf::make_args(dts, x0, win, binp, lnw, lnb, q12, s12, b12, q3, s3, b3, mods, fmods, wfin_t, bfin,
-                                 xcur, hbuf, out, B, cfg_rows, renorm, S, L, w, H, C, h_bf16, text_cfg, image_cfg,
-                                 ln_eps);
+                                  const void* wfin_t, const void* bfin, void* xcur, void* hbuf, void* out, void* part,
+                                  int B, int cfg_rows, int renorm, int S, int L, int w, int H, int C, int h_bf16,
+                                  int kc, float text_cfg, float image_cfg, float ln_eps, void* stream) {
+  RFArgs a = rf::make_args(dts, x0, win, binp, lnw, lnb, q12, s12, b12, q3, s3, b3, mods, fmods, wfin_t, bfin, xcur,
+                           hbuf, out, B, cfg_rows, renorm, S, L, w, H, C, h_bf16, text_cfg, image_cfg, ln_eps);
+  if (kc < 0 || (kc && (kc % 4 || (H / 2) % kc || part == nullptr))) return (int)cudaErrorInvalidValue;
+  a.part = static_cast<float*>(part);
+  a.kc = kc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (B) {

@@ -25,7 +25,8 @@
 // 14.5 GB per sample, 4.33 ms at 3.35 TB/s.
 //
 // Design: rf_sampler_q4.cu's persistent cooperative grid (one CTA per SM,
-// grid-wide barriers between dependent phases):
+// grid-wide barriers between dependent phases; the task dots and the per-row
+// quantization are rf_sampler_common.cuh's):
 //   P1 (every CTA, redundantly)  load x (B x w fp32) into shared memory, LN,
 //        modulate, round to the compute dtype into the activation buffer (S8:
 //        then quantized per row into the s8 buffer);
@@ -78,157 +79,6 @@ struct Layout {
     bytes = o;
   }
 };
-
-// Per-row s8 quantization (intdot.quant_rows_s8) of n values of each of R
-// rows, val(r, i), into q[r * ldq + i]; the scales go to sc[r] (every thread).
-template <int R, typename Val>
-__device__ void quant_rows(Val val, int n, int8_t* q, int ldq, float (&sc)[R], float* fscr) {
-  float mx[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) mx[r] = 0.0f;
-  for (int i = threadIdx.x; i < n; i += kThreads)
-#pragma unroll
-    for (int r = 0; r < R; ++r) mx[r] = fmaxf(mx[r], fabsf(val(r, i)));
-  block_allreduce<R>(mx, fscr, MaxOp<float>());
-#pragma unroll
-  for (int r = 0; r < R; ++r) sc[r] = __fadd_rn(__fdiv_rn(mx[r], 127.0f), 1e-12f);
-  for (int i = threadIdx.x; i < n; i += kThreads)
-#pragma unroll
-    for (int r = 0; r < R; ++r) q[r * ldq + i] = (int8_t)(int)rintf(__fdiv_rn(val(r, i), sc[r]));
-  __syncthreads();
-}
-
-// One 32-column task in S8: the R-row integer dots of NT int8 tables (K rows,
-// leading dim ld, columns p[q]..p[q]+31) with the s8 activations act (row r at
-// act + r * lda), summed over the whole block into red [R][kTask][NT] (int32,
-// shared memory). Lane = 8 column threads x 4 splits, 8 warps: 32 contraction
-// splits over the 4-row groups; integer sums, so the order does not matter.
-template <int R, int NT>
-__device__ void task_dots_s8(const int8_t* const (&p)[NT], int K, size_t ld, const int8_t* act, int lda, int* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ct = lane & 7, split = warp * 4 + (lane >> 3);
-  int acc[R][4][NT];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int q = 0; q < NT; ++q) acc[r][c][q] = 0;
-#pragma unroll 2
-  for (int g = split; g < K / 4; g += 32) {
-    const int i = 4 * g;
-    uint32_t t[NT][4];
-#pragma unroll
-    for (int q = 0; q < NT; ++q) {
-      uint32_t wd[4];
-#pragma unroll
-      for (int rr = 0; rr < 4; ++rr)
-        wd[rr] = __ldg(reinterpret_cast<const uint32_t*>(p[q] + (size_t)(i + rr) * ld + 4 * ct));
-      transpose4x4(wd, t[q]);
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int x4 = *reinterpret_cast<const int*>(act + (size_t)r * lda + i);
-#pragma unroll
-      for (int q = 0; q < NT; ++q)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c][q] = __dp4a(x4, (int)t[q][c], acc[r][c][q]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int q = 0; q < NT; ++q) {
-        acc[r][c][q] += __shfl_xor_sync(0xffffffffu, acc[r][c][q], 8);
-        acc[r][c][q] += __shfl_xor_sync(0xffffffffu, acc[r][c][q], 16);
-      }
-  if (lane < 8) {
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int q = 0; q < NT; ++q) red[((warp * R + r) * kTask + 4 * ct + c) * NT + q] = acc[r][c][q];
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < R * kTask * NT; idx += kThreads) {
-    int s = 0;
-    for (int wp = 0; wp < kWarps; ++wp) s += red[wp * R * kTask * NT + idx];
-    red[idx] = s;
-  }
-  __syncthreads();
-}
-
-// One 32-column task: the R-row fp32 dots of NT int8 tables (K rows, leading
-// dim ld, columns p[q]..p[q]+31) with the activations act [R][K], summed over
-// the whole block into red [R][kTask][NT] (shared memory). Lane = 8 column
-// threads x 4 splits, 8 warps: 32 contraction splits over the 4-row groups.
-template <int R, int NT>
-__device__ void task_dots(const int8_t* const (&p)[NT], int K, size_t ld, const float* act, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ct = lane & 7, split = warp * 4 + (lane >> 3);
-  float acc[R][4][NT];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int q = 0; q < NT; ++q) acc[r][c][q] = 0.0f;
-#pragma unroll 2
-  for (int g = split; g < K / 4; g += 32) {
-    const int i = 4 * g;
-    uint32_t wd[NT][4];
-#pragma unroll
-    for (int q = 0; q < NT; ++q)
-#pragma unroll
-      for (int rr = 0; rr < 4; ++rr)
-        wd[q][rr] = __ldg(reinterpret_cast<const uint32_t*>(p[q] + (size_t)(i + rr) * ld + 4 * ct));
-#pragma unroll
-    for (int rr = 0; rr < 4; ++rr) {
-      float wf[NT][4];
-#pragma unroll
-      for (int q = 0; q < NT; ++q)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) wf[q][c] = (float)(int8_t)(wd[q][rr] >> (8 * c));
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float xv = act[r * K + i + rr];
-#pragma unroll
-        for (int q = 0; q < NT; ++q)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c][q] = __fadd_rn(acc[r][c][q], __fmul_rn(xv, wf[q][c]));
-      }
-    }
-  }
-  // the 4 splits of a warp, then the 8 warps in order
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int q = 0; q < NT; ++q) {
-        acc[r][c][q] += __shfl_xor_sync(0xffffffffu, acc[r][c][q], 8);
-        acc[r][c][q] += __shfl_xor_sync(0xffffffffu, acc[r][c][q], 16);
-      }
-  if (lane < 8) {
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int q = 0; q < NT; ++q) red[((warp * R + r) * kTask + 4 * ct + c) * NT + q] = acc[r][c][q];
-  }
-  __syncthreads();
-  // warp 0's slots take the sum (each (r, c, q) is read and written by one thread only)
-  for (int idx = threadIdx.x; idx < R * kTask * NT; idx += kThreads) {
-    float s = 0.0f;
-    for (int wp = 0; wp < kWarps; ++wp) s += red[wp * R * kTask * NT + idx];
-    red[idx] = s;
-  }
-  __syncthreads();
-}
 
 template <bool S8, int R>
 __global__ void __launch_bounds__(kThreads) rf_sampler_q8_kernel(RFArgs a) {
@@ -293,7 +143,7 @@ __global__ void __launch_bounds__(kThreads) rf_sampler_q8_kernel(RFArgs a) {
         const int j0 = task * kTask;
         const int8_t* const p[2] = {q12 + j0, q12 + H + j0};
         if constexpr (S8) task_dots_s8<R, 2>(p, w, 2 * (size_t)H, qa, w, ired);
-        else task_dots<R, 2>(p, w, 2 * (size_t)H, act, red);
+        else task_dots_f32<R, 2>(p, w, 2 * (size_t)H, act, w, red);
         for (int idx = threadIdx.x; idx < B * kTask; idx += kThreads) {
           const int r = idx / kTask, c = idx % kTask, j = j0 + c;
           float d0, d1;
@@ -347,7 +197,7 @@ __global__ void __launch_bounds__(kThreads) rf_sampler_q8_kernel(RFArgs a) {
           }
         } else {
           const int8_t* const p[1] = {q3 + c0};
-          task_dots<R, 1>(p, H, (size_t)w, act, red);
+          task_dots_f32<R, 1>(p, H, (size_t)w, act, H, red);
           if (threadIdx.x < B * kTask) po = red[threadIdx.x];
         }
         if (threadIdx.x < B * kTask) {

@@ -120,7 +120,8 @@ def _cfg_at(gen_cfg, i: int):
 
 def generate_image_tokens(params, llm_cfg, mingtok_cfg, rf_cfg, gen_cfg, image_start_embed, cache: LLMCache,
                           row_masks, generator: Optional[torch.Generator] = None, *,
-                          int_dots: bool = True, rf_int_dots: bool = False) -> ImageGenResult:
+                          int_dots: bool = True, rf_int_dots: bool = False, rf_fused: bool = True,
+                          rf_int4_int_dots: bool = True) -> ImageGenResult:
     """The AR image loop. Per token: LLM step over the CFG rows -> vis_head ->
     rectified-flow Euler sample -> MingTok semantic-decoder step -> linear_proj
     -> next LLM input; every row's mask grows by one. A trailing LLM step gives
@@ -129,8 +130,10 @@ def generate_image_tokens(params, llm_cfg, mingtok_cfg, rf_cfg, gen_cfg, image_s
     The CFG rows are [cond, uncond (, text_uncond)], one per row of
     `row_masks` (cfg_rows, Smax); `cache` is already expanded to them and is
     written IN PLACE. The RF noise of each token is drawn from `generator`;
-    int_dots: the decode MoE's dot mode over quantized tables; rf_int_dots:
-    the fused RF sampler's over int8 tables."""
+    int_dots: the decode MoE's dot mode over quantized tables; rf_int_dots,
+    rf_fused and rf_int4_int_dots: `rf_sample`'s int_dots, fused and
+    int4_int_dots (RuntimeConfig.rf_int_dots, rf_fused_sampler and
+    rf_int4_int_dots)."""
     R = row_masks.shape[0]
     n_tokens = gen_cfg.num_image_tokens
     dev = image_start_embed.device
@@ -152,7 +155,8 @@ def generate_image_tokens(params, llm_cfg, mingtok_cfg, rf_cfg, gen_cfg, image_s
         noise = torch.randn((1, rf_cfg.target_channels), generator=generator, device=dev)
         latent = rf_sample(params["rf_head"], rf_cfg, z, noise=noise, temperature=gen_cfg.temperature,
                            text_cfg=tcfg, image_cfg=icfg, cfg_renorm_type=gen_cfg.cfg_renorm_type,
-                           time_shifting_factor=gen_cfg.time_shifting_factor, cfg_rows=R, int_dots=rf_int_dots)
+                           time_shifting_factor=gen_cfg.time_shifting_factor, cfg_rows=R, int_dots=rf_int_dots,
+                           fused=rf_fused, int4_int_dots=rf_int4_int_dots)
         sem_out, sem_cache = mingtok_feature_decoder(params["mingtok"], mingtok_cfg, latent[:1, None, :], sem_cache,
                                                      compute_dtype=sem_dtype)
         sem = sem_out["x_norm_patchtokens"]  # (1, 1, feat)

@@ -52,7 +52,9 @@ class MingUniVisionSession:
     tier); over quantized tables `runtime.moe_int_dots` picks the decode MoE's
     dot mode (exact dequant when False), `runtime.moe_prefill_int_dots` the
     prefill MoE's (s8 dots when True) and `runtime.rf_int_dots` the int8 RF
-    sampler's (s8 dots when True). `timings` holds the last round's
+    head's (s8 dots when True); `runtime.rf_fused_sampler` False runs the RF
+    head's Euler steps through the per-step stack kernel, whose int4 dot mode
+    is `runtime.rf_int4_int_dots`. `timings` holds the last round's
     milliseconds (host clock around synchronised work): `encode_ms` (image
     inputs only), `prefill_ms` with `prefill_tokens` (the padded prompt) and
     `use_flash`, `text_decode_ms` with `text_tokens` (the decoded text steps),
@@ -66,6 +68,8 @@ class MingUniVisionSession:
         # switches are module flags) keeps their defaults
         self.prefill_int_dots = getattr(runtime, "moe_prefill_int_dots", False)
         self.rf_int_dots = getattr(runtime, "rf_int_dots", False)
+        self.rf_fused = getattr(runtime, "rf_fused_sampler", True)
+        self.rf_int4_int_dots = getattr(runtime, "rf_int4_int_dots", True)
         self.device = torch.device(device) if device is not None else params["llm"]["norm"]["w"].device
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._dtype = torch.bfloat16 if runtime.compute_dtype == "bfloat16" else torch.float32
@@ -265,7 +269,8 @@ class MingUniVisionSession:
         t0 = time.perf_counter()
         result = generate_image_tokens(self.params, llm_cfg, self.cfg.mingtok, self.cfg.rf_head, igen,
                                        start_embed.to(self._dtype), cache_r, torch.cat(rows), self.generator,
-                                       int_dots=self.runtime.moe_int_dots, rf_int_dots=self.rf_int_dots)
+                                       int_dots=self.runtime.moe_int_dots, rf_int_dots=self.rf_int_dots,
+                                       rf_fused=self.rf_fused, rf_int4_int_dots=self.rf_int4_int_dots)
         self._sync()
         t1 = time.perf_counter()
         self.cache = result.cache.first_row()

@@ -4,9 +4,15 @@
 Linear int4 and int8 res_blocks tables take the fused whole-sampler
 (`ops/kernels/rf_sampler.py`: the CUDA kernel on the card, its plain version
 on the CPU), as the JAX package's TPU path does (int8 tables in the dot mode
-`int_dots`); other tiers (bf16, NF4) run the Euler steps as a Python loop,
-dequantizing any quantized weight in `dense`: the JAX package has no kernel
-for NF4 tables either, so that loop is their route, not a fallback.
+`int_dots`). With `fused=False` (RuntimeConfig.rf_fused_sampler, the JAX
+package's FUSED_SAMPLER) they run the Euler steps as a Python loop whose
+velocity field takes the per-step stack kernel (`ops/kernels/rf_mlp.py`, one
+launch per step over all blocks; int8 tables in the dot mode `int_dots`, int4
+ones in `int4_int_dots`), chosen by the tables' kind where the JAX package
+chooses by the device. Other tiers (bf16, NF4) run the Euler loop with every
+block through `dense`, a quantized head's tables dequantized once per sample:
+the JAX package has no kernel for NF4 tables either, so that loop is their
+route, not a fallback.
 Randomness is explicit: the caller passes `noise` (one row per image, or one
 per CFG row).
 """
@@ -20,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from mingunivision_tpu_torch.ops.activations import swiglu
+from mingunivision_tpu_torch.ops.kernels.rf_mlp import rf_mlp_stack, rf_mlp_supported, stack_bits
 from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused, rf_sampler_supported
 from mingunivision_tpu_torch.ops.linear import dense
 from mingunivision_tpu_torch.ops.norms import layer_norm
@@ -55,17 +62,24 @@ def precompute_modulations(params, cfg, ts: torch.Tensor, z: torch.Tensor):
     return block_mods, final_mods
 
 
-def rf_net_apply_premod(params, cfg, x, block_mods_i, final_mods_i):
+def rf_net_apply_premod(params, cfg, x, block_mods_i, final_mods_i, *, int_dots: bool = False,
+                        int4_int_dots: bool = True):
     """Velocity field with precomputed modulations. x (B, C);
-    block_mods_i (depth, B, 3w); final_mods_i (B, 2w)."""
+    block_mods_i (depth, B, 3w); final_mods_i (B, 2w). Linear int4 / int8
+    res_blocks tables take the per-step stack kernel (`rf_mlp_stack`) in the
+    dot mode `int4_int_dots` / `int_dots`, others the loop over the blocks."""
     h = dense(x, params["input_proj"])
     rb = params["res_blocks"]
-    for d in range(cfg.depth):
-        shift, scale, gate = block_mods_i[d].to(h.dtype).chunk(3, dim=-1)
-        hh = _modulate(layer_norm(h, rb["in_ln"]["w"][d], rb["in_ln"]["b"][d], eps=cfg.ln_eps), shift, scale)
-        w12 = {"w": rb["mlp"]["w12"]["w"][d], "b": rb["mlp"]["w12"]["b"][d]}
-        w3 = {"w": rb["mlp"]["w3"]["w"][d], "b": rb["mlp"]["w3"]["b"][d]}
-        h = h + gate * dense(swiglu(dense(hh, w12)), w3)
+    if rf_mlp_supported(rb):
+        h = rf_mlp_stack(rb, h, block_mods_i, ln_eps=cfg.ln_eps,
+                         int_dots=int4_int_dots if stack_bits(rb) == 4 else int_dots)
+    else:
+        for d in range(cfg.depth):
+            shift, scale, gate = block_mods_i[d].to(h.dtype).chunk(3, dim=-1)
+            hh = _modulate(layer_norm(h, rb["in_ln"]["w"][d], rb["in_ln"]["b"][d], eps=cfg.ln_eps), shift, scale)
+            w12 = {"w": rb["mlp"]["w12"]["w"][d], "b": rb["mlp"]["w12"]["b"][d]}
+            w3 = {"w": rb["mlp"]["w3"]["w"][d], "b": rb["mlp"]["w3"]["b"][d]}
+            h = h + gate * dense(swiglu(dense(hh, w12)), w3)
     shift, scale = final_mods_i.to(h.dtype).chunk(2, dim=-1)
     h = _modulate(layer_norm(h, eps=cfg.ln_eps), shift, scale)
     return dense(h, params["final_layer"]["linear"])
@@ -114,6 +128,8 @@ def rf_sample(
     time_shifting_factor: Optional[float] = None,
     cfg_rows: int = 1,
     int_dots: bool = False,
+    fused: bool = True,
+    int4_int_dots: bool = True,
 ) -> torch.Tensor:
     """Euler-ODE sampling of a continuous latent conditioned on z (B, z_channels).
 
@@ -121,8 +137,11 @@ def rf_sample(
     `noise` (n_images or B, C) is tiled across the CFG rows and scaled by
     `temperature`. cfg_rows in (1, 2, 3): 2 combines v_u + text_cfg*(v_c - v_u),
     3 combines v_u + image_cfg*(v_tu - v_u) + text_cfg*(v_c - v_tu); "channel"
-    renorm caps |v| at |v_c| per row. int_dots: s8 dots in the fused sampler
-    over int8 tables (RuntimeConfig.rf_int_dots). Returns (B, C) in z's dtype;
+    renorm caps |v| at |v_c| per row. int_dots: s8 dots over int8 tables
+    (RuntimeConfig.rf_int_dots); fused: the fused whole-sample kernel over
+    quantized linear tables, else the Euler steps through the per-step stack
+    (RuntimeConfig.rf_fused_sampler); int4_int_dots: s8 dots in the per-step
+    int4 stack (RuntimeConfig.rf_int4_int_dots). Returns (B, C) in z's dtype;
     every row holds its image's guided sample.
     """
     B = z.shape[0]
@@ -138,16 +157,18 @@ def rf_sample(
 
     ts, dts = _time_grid(cfg, time_shifting_factor, device=z.device)
     block_mods, final_mods = precompute_modulations(params, cfg, ts, z)
-    if cfg_renorm_type in (None, "channel") and rf_sampler_supported(params, B, cfg_rows):
+    if fused and cfg_renorm_type in (None, "channel") and rf_sampler_supported(params, B, cfg_rows):
         out = rf_sample_fused(params, cfg, x, block_mods, final_mods, dts, text_cfg, image_cfg, cfg_rows=cfg_rows,
                               renorm_channel=cfg_renorm_type == "channel",
                               compute_dtype=dtype if dtype != torch.float32 else torch.bfloat16, s8_dots=int_dots)
         return out.to(dtype)
     n = B // cfg_rows
-    params = _dequantized_blocks(params, dtype)
+    if not rf_mlp_supported(params["res_blocks"]):
+        params = _dequantized_blocks(params, dtype)
     for i in range(cfg.num_sampling_steps):
         combined = x[:n].repeat(cfg_rows, 1) if cfg_rows > 1 else x
-        v_all = rf_net_apply_premod(params, cfg, combined.to(dtype), block_mods[:, i], final_mods[i]).float()
+        v_all = rf_net_apply_premod(params, cfg, combined.to(dtype), block_mods[:, i], final_mods[i],
+                                    int_dots=int_dots, int4_int_dots=int4_int_dots).float()
         if cfg_rows == 3:
             v_c, v_u, v_tu = v_all.chunk(3, dim=0)
             v = v_u + image_cfg * (v_tu - v_u) + text_cfg * (v_c - v_tu)

@@ -34,7 +34,7 @@ _SIGNATURES = {
     "mu_decode_attention_bf16": [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P],
     "mu_moe_stream_q4": [_P] * 13 + [_I] * 5 + [_P],
     "mu_swiglu_gmm_q4": [_P] * 17 + [_I] * 5 + [_P],
-    "mu_rf_sampler_q4s8": [_P] * 19 + [_I] * 9 + [ctypes.c_float] * 3 + [_P],
+    "mu_rf_sampler_q4s8": [_P] * 20 + [_I] * 10 + [ctypes.c_float] * 3 + [_P],
     "mu_rf_sampler_grid": [],
     "mu_flash_prefill_bf16": [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P],
     "mu_flash_vit_bf16": [_P] * 4 + [_I] * 4 + [ctypes.c_float, _P],
@@ -42,6 +42,8 @@ _SIGNATURES = {
     "mu_moe_stream_q8": [_P] * 13 + [_I] * 5 + [_P],
     "mu_swiglu_gmm_q8": [_P] * 15 + [_I] * 6 + [_P],
     "mu_rf_sampler_q8": [_P] * 19 + [_I] * 11 + [ctypes.c_float] * 3 + [_P],
+    "mu_rf_mlp_stack": [_P] * 12 + [_I] * 9 + [ctypes.c_float, _P],
+    "mu_swiglu_gmm_full": [_P] * 10 + [_I] * 4 + [_P],
 }
 
 _lib = None

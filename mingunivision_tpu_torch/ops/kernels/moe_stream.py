@@ -44,9 +44,14 @@ from mingunivision_tpu_torch.utils.quantize import (
 
 
 def layer_tables(experts, layer_idx):
+    """The (E, ...) tables of one layer: depth-stacked (L, E, ...) tables need
+    `layer_idx` (a zero-copy view), unstacked ones take none. A stacked table
+    without a layer index raises: its depth would be read as its experts."""
     w1, w3, w2 = experts["gate_proj"], experts["up_proj"], experts["down_proj"]
-    if layer_idx is not None:  # depth-stacked (L, E, ...) tables: zero-copy layer view
+    if layer_idx is not None:
         w1, w3, w2 = w1[layer_idx], w3[layer_idx], w2[layer_idx]
+    elif len(w1.shape) == 4:
+        raise ValueError(f"depth-stacked expert tables {tuple(w1.shape)} need a layer index")
     return w1, w3, w2
 
 

@@ -29,6 +29,11 @@ module's dispatch sorts the assignments by expert (`group_schedule`);
 ops/kernels/moe_capacity.py places them sort-free into per-expert slots and
 launches the same kernels through `swiglu_gmm_rows`.
 
+A third mode, `full_block`, replaces the full-expert-block kernel
+`swiglu_gmm_quant(int4_chunked=False)` -> `_kernel_q` over int4 or int8 tables
+(`csrc/moe_swiglu_gmm_q4.cu`'s `mu_swiglu_gmm_full`; launch counts on
+`moe_experts_swiglu_gmm_q4_full` / `_q8_full`).
+
 `moe_experts_swiglu_gmm` dispatches on the table kind. `swiglu_gmm_rows` runs
 the plain version (`swiglu_rows_plain`) for CPU tensors only; for CUDA tensors
 it launches its kernel or raises. The launch counts stay on
@@ -240,10 +245,11 @@ def tile_rows() -> int:
 
 
 def swiglu_gmm_rows(experts, x_flat, row_token, row_expert, sched, num_experts: int, *, layer_idx=None,
-                    s8: bool = False):
+                    s8: bool = False, full_block: bool = False):
     """Launch the grouped-SwiGLU kernel of the table kind (and, for quantized
-    tables, of the dot mode `s8`) over a prepared schedule; returns ys (R, h)
-    in x's dtype, row r holding expert(x[row_token[r]]).
+    tables, of the dot mode `s8`, or with `full_block` the full-expert-block
+    mode) over a prepared schedule; returns ys (R, h) in x's dtype, row r
+    holding expert(x[row_token[r]]).
 
     row_token (R,) int32: the token each row reads; sched (n_tiles, 3) int32
     (expert, first row, end row), empty tiles first == end; rows that no tile
@@ -252,9 +258,13 @@ def swiglu_gmm_rows(experts, x_flat, row_token, row_expert, sched, num_experts: 
     `swiglu_rows_plain` and has no use for `sched`: the path of CPU tensors
     and of NF4 tables."""
     kind = table_kind("swiglu_gmm_rows", experts)
+    if full_block:
+        _check_full_block("swiglu_gmm_rows", kind, s8)
     if x_flat.device.type == "cpu" or kind == "nf4":
         return swiglu_rows_plain(experts, x_flat[row_token.long()], row_expert, num_experts, layer_idx=layer_idx,
                                  s8=s8)
+    if full_block:
+        return _full_block_rows(experts, x_flat, row_token, sched, num_experts, kind, layer_idx)
     w1, w3, w2 = layer_tables(experts, layer_idx)
     s8 = s8 and kind != "plain"
     name, check, wrapper = {
@@ -298,26 +308,62 @@ def swiglu_gmm_rows(experts, x_flat, row_token, row_expert, sched, num_experts: 
     return ys
 
 
-def moe_experts_swiglu_gmm(experts, x_flat, topk_idx, topk_w, num_experts: int, *, layer_idx=None, s8: bool = False):
+def _check_full_block(op: str, kind: str, s8: bool) -> None:
+    if kind not in ("int4", "int8") or s8:
+        raise ValueError(f"{op}: the full-block mode takes int4 or int8 tables and exact dequant "
+                         f"(got {kind} tables, s8={s8})")
+
+
+def _full_block_rows(experts, x_flat, row_token, sched, num_experts, kind, layer_idx):
+    """One launch of the full-expert-block kernel (`csrc/moe_swiglu_gmm_q4.cu`,
+    `mu_swiglu_gmm_full`) over int4 or int8 tables; returns ys (R, h) bf16."""
+    w1, w3, w2 = layer_tables(experts, layer_idx)
+    check, wrapper = (check_q4_tables, moe_experts_swiglu_gmm_q4_full) if kind == "int4" else \
+        (check_q8_tables, moe_experts_swiglu_gmm_q8_full)
+    E, h, m = check(wrapper.__name__, x_flat, w1, w3, w2)
+    if E != num_experts or h % 64 or m % 64:
+        raise ValueError(f"{wrapper.__name__}: needs {num_experts} experts, h and m multiples of 64 "
+                         f"(E={E}, h={h}, m={m})")
+    x = x_flat.contiguous()
+    ys = torch.empty((row_token.numel(), h), dtype=torch.bfloat16, device=x.device)
+    rc = build.load().mu_swiglu_gmm_full(
+        x.data_ptr(), row_token.data_ptr(), *(p for w in (w1, w3, w2) for p in (w.q.data_ptr(), w.s.data_ptr())),
+        sched.data_ptr(), ys.data_ptr(), sched.shape[0], h, m, 4 if kind == "int4" else 8, build.stream_handle(x))
+    build.check(rc, "mu_swiglu_gmm_full")
+    wrapper.launches += 1
+    return ys
+
+
+def moe_experts_swiglu_gmm(experts, x_flat, topk_idx, topk_w, num_experts: int, *, layer_idx=None, s8: bool = False,
+                           full_block: bool = False):
     """Prefill-path MoE through the expert-sorted dispatch. x_flat (N, h);
     topk_idx/topk_w (N, k) -> (N, h). bf16 tables go to `csrc/moe_swiglu_gmm.cu`,
     linear int4 tables to `csrc/moe_swiglu_gmm_q4.cu`, int8 tables to
     `csrc/moe_swiglu_gmm_q8.cu` (with `s8`: their s8-dot mode), NF4 tables to
-    the plain rows on every device."""
+    the plain rows on every device. `full_block`: int4 and int8 tables through
+    the full-expert-block mode instead (the JAX package's
+    swiglu_gmm_quant(int4_chunked=False) -> `_kernel_q`, an explicit argument
+    that no entry point passes, as there), whose plain version is the exact
+    rows of `swiglu_rows_plain`: g and u over all of m in fp32, a = silu(g) * u
+    rounded once, the down product over all of m, s2 at the end."""
+    if full_block:
+        _check_full_block("moe_experts_swiglu_gmm", table_kind("moe_experts_swiglu_gmm", experts), s8)
     if x_flat.device.type == "cpu" or table_kind("moe_experts_swiglu_gmm", experts) == "nf4":
         return moe_experts_swiglu_gmm_plain(experts, x_flat, topk_idx, topk_w, num_experts, layer_idx=layer_idx,
                                             s8=s8)
     order, row_token, sched = group_schedule(topk_idx, num_experts, tile_rows())
-    ys = swiglu_gmm_rows(experts, x_flat, row_token, None, sched, num_experts, layer_idx=layer_idx, s8=s8)
+    ys = swiglu_gmm_rows(experts, x_flat, row_token, None, sched, num_experts, layer_idx=layer_idx, s8=s8,
+                         full_block=full_block)
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.numel(), device=order.device)
     return combine_assignments(ys.index_select(0, inv), topk_w, x_flat.dtype)
 
 
-def _of_kind(kind: str, op: str, experts, x_flat, topk_idx, topk_w, num_experts, layer_idx, s8):
+def _of_kind(kind: str, op: str, experts, x_flat, topk_idx, topk_w, num_experts, layer_idx, s8, full_block=False):
     if table_kind(op, experts) != kind:
         raise ValueError(f"{op}: needs {kind} tables")
-    return moe_experts_swiglu_gmm(experts, x_flat, topk_idx, topk_w, num_experts, layer_idx=layer_idx, s8=s8)
+    return moe_experts_swiglu_gmm(experts, x_flat, topk_idx, topk_w, num_experts, layer_idx=layer_idx, s8=s8,
+                                  full_block=full_block)
 
 
 def moe_experts_swiglu_gmm_q4(experts, x_flat, topk_idx, topk_w, num_experts: int, *, layer_idx=None):
@@ -348,7 +394,23 @@ def moe_experts_swiglu_gmm_q8s8(experts, x_flat, topk_idx, topk_w, num_experts: 
                     True)
 
 
+def moe_experts_swiglu_gmm_q4_full(experts, x_flat, topk_idx, topk_w, num_experts: int, *, layer_idx=None):
+    """`moe_experts_swiglu_gmm` for linear int4 tables in the full-expert-block
+    mode (the name that carries that kernel's launch count)."""
+    return _of_kind("int4", "moe_experts_swiglu_gmm_q4_full", experts, x_flat, topk_idx, topk_w, num_experts,
+                    layer_idx, False, full_block=True)
+
+
+def moe_experts_swiglu_gmm_q8_full(experts, x_flat, topk_idx, topk_w, num_experts: int, *, layer_idx=None):
+    """`moe_experts_swiglu_gmm` for int8 tables in the full-expert-block mode
+    (the name that carries that kernel's launch count)."""
+    return _of_kind("int8", "moe_experts_swiglu_gmm_q8_full", experts, x_flat, topk_idx, topk_w, num_experts,
+                    layer_idx, False, full_block=True)
+
+
 moe_experts_swiglu_gmm.launches = 0
+moe_experts_swiglu_gmm_q4_full.launches = 0
+moe_experts_swiglu_gmm_q8_full.launches = 0
 moe_experts_swiglu_gmm_q4.launches = 0
 moe_experts_swiglu_gmm_q4s8.launches = 0
 moe_experts_swiglu_gmm_q8.launches = 0

@@ -6,7 +6,10 @@ Replaces the TPU kernel mingunivision_tpu/ops/kernels/rf_sampler.py
 (`rf_sample_fused` -> `_sampler_q4_s8` for int4 tables, `_sampler_q8` for
 int8 ones with s8_dots = False, the JAX package's default, or True, its
 INT8_INT_DOTS, here the `s8_dots` argument; both with `_modulated_ln` and
-`_step_epilogue`): every Euler step of one sample, each over the 12 AdaLN
+`_step_epilogue`; and, with schedule="pipelined", `_sampler_q4_s8_pipelined`:
+the int4 sample with w3 streamed in `down_chunk`-row pieces whose descaled
+sums add in order, an explicit argument that `rf_sample` never passes, as in
+the JAX package): every Euler step of one sample, each over the 12 AdaLN
 SwiGLU blocks, then the final layer, the CFG combine (optional channel
 renorm) and the Euler update, in ONE launch, with the latent kept on chip.
 What bounds it on the H100 is the bytes of the MLP tables: 453 MB of packed
@@ -59,26 +62,35 @@ import torch.nn.functional as F
 from mingunivision_tpu_torch.ops.kernels import build
 from mingunivision_tpu_torch.ops.kernels.intdot import (
     div_exact,
+    int_dot,
     mm4_s8,
     mm8_s8,
     quant_rows_s8,
     quant_rows_s8_pair,
     silu_exact,
+    split_bytes,
 )
 from mingunivision_tpu_torch.utils.quantize import dequant_weight, is_int4_linear, is_int8_linear
 
 MAX_ROWS = 4  # rows one launch holds (3 CFG rows for an edit, 2 for text-to-image); more go in groups
 THREADS = 256  # the kernel's block: the plain version sums in its order
 CHUNK = 4096  # the int8 s8 sampler's down chunk (the JAX package's rf_sample_fused(chunk=4096))
+DOWN_CHUNK = 1024  # the int4 sampler's pipelined schedule: packed w3 rows per piece (rf_sample_fused(down_chunk=))
+SCHEDULES = ("block", "pipelined")
+
+
+def fitting_chunk(n: int, c: int) -> int:
+    """c (at most n), or its largest halving that divides n: how the JAX
+    package's RF kernels cut a dimension of n into chunks of about c."""
+    c = min(c, n)
+    while n % c:
+        c //= 2
+    return c
 
 
 def down_chunk(H: int) -> int:
-    """The columns of h re-quantized together by the int8 s8 sampler: CHUNK, or
-    H's largest halving of it that divides H (as the JAX package's CH)."""
-    ch = min(CHUNK, H)
-    while H % ch:
-        ch //= 2
-    return ch
+    """The columns of h re-quantized together by the int8 s8 sampler (the JAX package's CH)."""
+    return fitting_chunk(H, CHUNK)
 
 
 def table_bits(params):
@@ -170,29 +182,39 @@ def cfg_combine(v, cfg_rows: int, text_cfg: float, image_cfg: float, renorm_chan
     return vg.repeat(cfg_rows, 1)
 
 
+def block_operands(blocks):
+    """The res_blocks' operands as the kernels read them (the samplers and the
+    per-step stack): packed or int8 tables, fp32 scales, biases and LN
+    affines, (L, ...) each."""
+    w12, w3 = blocks["mlp"]["w12"]["w"], blocks["mlp"]["w3"]["w"]
+    L, h2 = w12.q.shape[0], w12.q.shape[2]
+    return dict(lnw=blocks["in_ln"]["w"].float(), lnb=blocks["in_ln"]["b"].float(),
+                q12=w12.q, s12=w12.s.float().reshape(L, h2), b12=blocks["mlp"]["w12"]["b"].float().reshape(L, h2),
+                q3=w3.q, s3=w3.s.float().reshape(L, -1), b3=blocks["mlp"]["w3"]["b"].float().reshape(L, -1))
+
+
 def _operands(params, compute_dtype):
     """The sampler's operands as the kernel reads them: fp32 tensors (the
     projections hold compute-dtype values), packed tables and their scales."""
-    blocks = params["res_blocks"]
-    w12, w3 = blocks["mlp"]["w12"]["w"], blocks["mlp"]["w3"]["w"]
-    L, h2 = w12.q.shape[0], w12.q.shape[2]
     ip, fl = params["input_proj"], params["final_layer"]["linear"]
+    dev = params["res_blocks"]["mlp"]["w12"]["w"].q.device
 
     def bias(p, n):
         b = p.get("b")
-        return torch.zeros(n, device=w12.q.device) if b is None else b.float()
+        return torch.zeros(n, device=dev) if b is None else b.float()
 
     return dict(
         win=dequant_weight(ip["w"], compute_dtype).float(), binp=bias(ip, ip["w"].shape[-1]),
         wfin=dequant_weight(fl["w"], compute_dtype).float(), bfin=bias(fl, fl["w"].shape[-1]),
-        lnw=blocks["in_ln"]["w"].float(), lnb=blocks["in_ln"]["b"].float(),
-        q12=w12.q, s12=w12.s.float().reshape(L, h2), b12=blocks["mlp"]["w12"]["b"].float().reshape(L, h2),
-        q3=w3.q, s3=w3.s.float().reshape(L, -1), b3=blocks["mlp"]["w3"]["b"].float().reshape(L, -1),
+        **block_operands(params["res_blocks"]),
     )
 
 
-def _mlp_q4(o, l, xs, H, compute_dtype):
-    """One block's SwiGLU over int4 tables, as `_sampler_q4_s8` (see the module docstring)."""
+def _mlp_q4(o, l, xs, H, compute_dtype, kc=None):
+    """One block's SwiGLU over int4 tables, as `_sampler_q4_s8` (see the module
+    docstring); with `kc`, as `_sampler_q4_s8_pipelined`: the down dots over
+    kc-row pieces of packed w3, each piece's descaled sums d1 * sb1 + d2 *
+    sb2 / 16 added in order before the correction."""
     wq = o["q12"].shape[1]
     a1, a2, sa1, sa2, corr = quant_rows_s8_pair(xs[:, :wq], xs[:, wq:])
     q = o["q12"][l]
@@ -200,7 +222,14 @@ def _mlp_q4(o, l, xs, H, compute_dtype):
     u = mm4_s8(q[:, H:], a1, a2, sa1, sa2, corr) * o["s12"][l, H:] + o["b12"][l, H:]
     hf = (silu_exact(g) * u).to(compute_dtype).float()
     b1, b2, sb1, sb2, corrh = quant_rows_s8_pair(hf[:, : H // 2], hf[:, H // 2 :])
-    return mm4_s8(o["q3"][l], b1, b2, sb1, sb2, corrh) * o["s3"][l] + o["b3"][l]
+    if kc is None:
+        return mm4_s8(o["q3"][l], b1, b2, sb1, sb2, corrh) * o["s3"][l] + o["b3"][l]
+    m, bx = split_bytes(o["q3"][l])
+    acc = torch.zeros((xs.shape[0], o["q3"].shape[-1]), dtype=torch.float32, device=xs.device)
+    for k0 in range(0, H // 2, kc):
+        acc = acc + (int_dot(b1[:, k0 : k0 + kc], m[k0 : k0 + kc]) * sb1
+                     + int_dot(b2[:, k0 : k0 + kc], bx[k0 : k0 + kc]) * (sb2 * (1.0 / 16.0)))
+    return (acc - corrh) * o["s3"][l] + o["b3"][l]
 
 
 SPLITS = 32  # contraction splits of an int8 sampler task: 8 warps x 4 lane groups (csrc/rf_sampler_q8.cu)
@@ -254,17 +283,28 @@ def _mlp_q8(o, l, xs, H, compute_dtype):
 
 
 def rf_sample_fused_plain(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, *, cfg_rows: int,
-                          renorm_channel: bool, compute_dtype=torch.bfloat16, s8_dots: bool = False):
-    """Plain PyTorch of `_sampler_q4_s8` (int4 tables) or `_sampler_q8` (int8
-    tables, in the dot mode `s8_dots`): noise (B, C) fp32 (CFG rows tiled),
-    block_mods (L, S, B, 3w), final_mods (S, B, 2w), dts (S,) -> (B, C) fp32."""
+                          renorm_channel: bool, compute_dtype=torch.bfloat16, s8_dots: bool = False,
+                          schedule: str = "block", down_chunk: int = DOWN_CHUNK):
+    """Plain PyTorch of `_sampler_q4_s8` (int4 tables; with schedule
+    "pipelined", `_sampler_q4_s8_pipelined` with `down_chunk` packed w3 rows
+    per piece) or `_sampler_q8` (int8 tables, in the dot mode `s8_dots`;
+    `schedule` is read for int4 tables only): noise (B, C) fp32 (CFG rows
+    tiled), block_mods (L, S, B, 3w), final_mods (S, B, 2w), dts (S,) -> (B, C) fp32."""
     bits = table_bits(params)
     if bits is None:
         raise ValueError("rf_sample_fused_plain: needs linear int4 or int8 res_blocks tables")
-    mlp = _mlp_q4 if bits == 4 else (_mlp_q8s8 if s8_dots else _mlp_q8)
+    if schedule not in SCHEDULES:
+        raise ValueError(f"rf_sample_fused_plain: schedule {schedule!r} is not one of {SCHEDULES}")
     o = _operands(params, compute_dtype)
     L, h2 = o["q12"].shape[0], o["q12"].shape[2]
     w, H = o["win"].shape[1], h2 // 2
+    if bits == 8:
+        mlp = _mlp_q8s8 if s8_dots else _mlp_q8
+    elif schedule == "pipelined":  # the JAX package's KC: packed w3 rows per piece
+        kc = fitting_chunk(H // 2, down_chunk)
+        mlp = lambda *a: _mlp_q4(*a, kc=kc)  # noqa: E731
+    else:
+        mlp = _mlp_q4
     mods, fmods = block_mods.float(), final_mods.float()
     eps = float(cfg.ln_eps)
     xlat = noise.float()
@@ -291,11 +331,13 @@ def rf_sample_fused_q8_plain(params, cfg, noise, block_mods, final_mods, dts, te
 
 
 def rf_sample_fused(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, *, cfg_rows: int,
-                    renorm_channel: bool, compute_dtype=torch.bfloat16, s8_dots: bool = False):
+                    renorm_channel: bool, compute_dtype=torch.bfloat16, s8_dots: bool = False,
+                    schedule: str = "block", down_chunk: int = DOWN_CHUNK):
     """The whole Euler sample (see the module docstring): one launch of the
     table type's CUDA kernel (int8 tables: in the dot mode `s8_dots`, which
-    int4 tables do not read: their sampler always takes s8 dots) per group of
-    images whose CFG rows fit its MAX_ROWS (each
+    int4 tables do not read: their sampler always takes s8 dots; int4 tables:
+    in the `schedule`, "pipelined" with `down_chunk`, which int8 tables do not
+    read) per group of images whose CFG rows fit its MAX_ROWS (each
     image's block-major rows {i, n + i, 2n + i} gathered, the results
     scattered back: the rows of different images never mix, so the groups
     give the ungrouped result). Arguments as `rf_sample_fused_plain`; returns
@@ -303,30 +345,31 @@ def rf_sample_fused(params, cfg, noise, block_mods, final_mods, dts, text_cfg, i
     B = noise.shape[0]
     if cfg_rows not in (1, 2, 3) or B % cfg_rows:
         raise ValueError(f"rf_sample_fused: {B} rows do not split into cfg_rows={cfg_rows}")
+    if schedule not in SCHEDULES:
+        raise ValueError(f"rf_sample_fused: schedule {schedule!r} is not one of {SCHEDULES}")
+    kw = dict(cfg_rows=cfg_rows, renorm_channel=renorm_channel, compute_dtype=compute_dtype, s8_dots=s8_dots,
+              schedule=schedule, down_chunk=down_chunk)
     n = B // cfg_rows
     per = max(1, MAX_ROWS // cfg_rows)  # images per launch
     if n <= per:
-        return _rf_sample_group(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg,
-                                cfg_rows=cfg_rows, renorm_channel=renorm_channel, compute_dtype=compute_dtype,
-                                s8_dots=s8_dots)
+        return _rf_sample_group(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, **kw)
     out = torch.empty((B, noise.shape[1]), dtype=torch.float32, device=noise.device)
     for i0 in range(0, n, per):
         images = torch.arange(i0, min(i0 + per, n), device=noise.device)
         rows = (torch.arange(cfg_rows, device=noise.device)[:, None] * n + images[None, :]).reshape(-1)
         out[rows] = _rf_sample_group(params, cfg, noise[rows], block_mods[:, :, rows], final_mods[:, rows], dts,
-                                     text_cfg, image_cfg, cfg_rows=cfg_rows, renorm_channel=renorm_channel,
-                                     compute_dtype=compute_dtype, s8_dots=s8_dots)
+                                     text_cfg, image_cfg, **kw)
     return out
 
 
 def _rf_sample_group(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, *, cfg_rows: int,
-                     renorm_channel: bool, compute_dtype, s8_dots: bool):
+                     renorm_channel: bool, compute_dtype, s8_dots: bool, schedule: str, down_chunk: int):
     """One launch of the table type's CUDA kernel over at most MAX_ROWS
     block-major rows (the plain version for CPU tensors)."""
     if noise.device.type == "cpu":
         return rf_sample_fused_plain(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg,
                                      cfg_rows=cfg_rows, renorm_channel=renorm_channel, compute_dtype=compute_dtype,
-                                     s8_dots=s8_dots)
+                                     s8_dots=s8_dots, schedule=schedule, down_chunk=down_chunk)
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"rf_sample_fused: compute dtype {compute_dtype} is not built")
     bits = table_bits(params)
@@ -356,19 +399,25 @@ def _rf_sample_group(params, cfg, noise, block_mods, final_mods, dts, text_cfg, 
     xcur = torch.empty((B, w), dtype=torch.float32, device=dev)
     hbuf = torch.empty((B, H), dtype=torch.float32, device=dev)
     out = torch.empty((B, C), dtype=torch.float32, device=dev)
-    name = "mu_rf_sampler_q4s8" if bits == 4 else "mu_rf_sampler_q8"
     s8 = bits == 8 and s8_dots
-    mode = (int(s8), down_chunk(H)) if bits == 8 else ()  # the int8 kernel's dot mode and down chunk
+    pipelined = bits == 4 and schedule == "pipelined"
+    if bits == 8:  # the int8 kernel's dot mode and down chunk
+        name, part, mode = "mu_rf_sampler_q8", (), (int(s8), fitting_chunk(H, CHUNK))
+    else:  # the int4 kernel's down-phase partials and rows per piece (0: the block schedule)
+        kc = fitting_chunk(H // 2, down_chunk) if pipelined else 0
+        scratch = torch.empty(((H // 2) // kc, B, w), dtype=torch.float32, device=dev) if kc else None
+        name, part, mode = "mu_rf_sampler_q4s8", (scratch.data_ptr() if kc else None,), (kc,)
     rc = getattr(build.load(), name)(
         tensors["dts"].data_ptr(), tensors["x0"].data_ptr(), o["win"].data_ptr(), o["binp"].data_ptr(),
         o["lnw"].data_ptr(), o["lnb"].data_ptr(), o["q12"].data_ptr(), o["s12"].data_ptr(), o["b12"].data_ptr(),
         o["q3"].data_ptr(), o["s3"].data_ptr(), o["b3"].data_ptr(), tensors["mods"].data_ptr(),
         tensors["fmods"].data_ptr(), wfin_t.data_ptr(), o["bfin"].data_ptr(), xcur.data_ptr(), hbuf.data_ptr(),
-        out.data_ptr(), B, cfg_rows, int(renorm_channel), S, L, w, H, C, int(compute_dtype == torch.bfloat16), *mode,
-        float(text_cfg), float(image_cfg), float(cfg.ln_eps), build.stream_handle(noise),
+        out.data_ptr(), *part, B, cfg_rows, int(renorm_channel), S, L, w, H, C, int(compute_dtype == torch.bfloat16),
+        *mode, float(text_cfg), float(image_cfg), float(cfg.ln_eps), build.stream_handle(noise),
     )
     build.check(rc, name)
-    counter = rf_sample_fused if bits == 4 else (rf_sample_fused_q8s8 if s8 else rf_sample_fused_q8)
+    counter = (rf_sample_fused_q8s8 if s8 else rf_sample_fused_q8) if bits == 8 else \
+        (rf_sample_fused_q4_pipelined if pipelined else rf_sample_fused)
     counter.launches += 1  # one per kernel launch
     return out
 
@@ -394,6 +443,19 @@ def rf_sample_fused_q8s8(params, cfg, noise, block_mods, final_mods, dts, text_c
                            renorm_channel=renorm_channel, compute_dtype=compute_dtype, s8_dots=True)
 
 
+def rf_sample_fused_q4_pipelined(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, *,
+                                 cfg_rows: int, renorm_channel: bool, compute_dtype=torch.bfloat16,
+                                 down_chunk: int = DOWN_CHUNK):
+    """`rf_sample_fused` for int4 tables only, in the pipelined schedule (the
+    name that carries that kernel's launch count)."""
+    if table_bits(params) != 4:
+        raise ValueError("rf_sample_fused_q4_pipelined: needs int4 res_blocks tables")
+    return rf_sample_fused(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, cfg_rows=cfg_rows,
+                           renorm_channel=renorm_channel, compute_dtype=compute_dtype, schedule="pipelined",
+                           down_chunk=down_chunk)
+
+
 rf_sample_fused.launches = 0
+rf_sample_fused_q4_pipelined.launches = 0
 rf_sample_fused_q8.launches = 0
 rf_sample_fused_q8s8.launches = 0

@@ -13,6 +13,7 @@ import torch
 
 import chip_smoke
 from mingunivision_tpu_torch.models import bailing_moe, rf_head
+import test_torch_common  # noqa: F401  (one torch thread per test worker)
 
 CPU = torch.device("cpu")
 # (tier, module, entry the kernel path calls, how its output is made wrong)

@@ -10,6 +10,7 @@ import torch
 
 import chip_smoke
 from mingunivision_tpu_torch.models import bailing_moe
+import test_torch_common  # noqa: F401  (one torch thread per test worker)
 
 CPU = torch.device("cpu")
 

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import chip_smoke
+import test_torch_common  # noqa: F401  (one torch thread per test worker)
 
 CPU = torch.device("cpu")
 # (tier, RuntimeConfig fields), as chip_smoke.REFERENCE_TIERS names them

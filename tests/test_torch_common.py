@@ -2,6 +2,7 @@
 configs and one random parameter tree that both packages run on."""
 
 import numpy as np
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +21,13 @@ from mingunivision_tpu.engine.generate import init_linear_proj_params
 from mingunivision_tpu.models.bailing_moe import init_bailing_moe_params
 from mingunivision_tpu.models.mingtok import init_mingtok_params
 from mingunivision_tpu.models.rf_head import init_rf_head_params, init_vis_head_params
+
+# Test workers share the host's cores: PyTorch's default of one intra-op thread
+# per core oversubscribes them, and its OpenMP threads then wait on each other
+# at every small op (with six workers on eight cores, chip_smoke's reference
+# checks took hundreds of seconds each instead of a few). Every test module
+# that runs the port imports this one.
+torch.set_num_threads(1)
 
 EOS, IMG_START, IMG_PATCH = 501, 500, 499
 ATOL = 2e-4  # fp32 parity tolerance, as the JAX kernel tests use

@@ -23,11 +23,14 @@ CONFIGS = ["ViTEncoderConfig", "SemanticDecoderConfig", "PixelDecoderConfig", "M
 
 def _port_only_fields():
     """RuntimeConfig field -> the JAX package's module flags it stands for (the port passes them explicitly)."""
+    from mingunivision_tpu.models import rf_head
     from mingunivision_tpu.ops.kernels import moe_swiglu_gmm, rf_mlp
 
     return {"RuntimeConfig": {"moe_prefill_int_dots": (moe_swiglu_gmm.INT_DOT_PREFILL_INT8,
                                                        moe_swiglu_gmm.INT_DOT_PREFILL_INT4),
-                              "rf_int_dots": (rf_mlp.INT8_INT_DOTS,)}}
+                              "rf_int_dots": (rf_mlp.INT8_INT_DOTS,),
+                              "rf_fused_sampler": (rf_head.FUSED_SAMPLER,),
+                              "rf_int4_int_dots": (rf_mlp.INT4_UNPACK_MODE == "s8",)}}
 
 
 def _forbidden(name: str) -> bool:

@@ -1,8 +1,10 @@
 """PyTorch port: each hand-written CUDA kernel against its plain PyTorch version
 on the card, in bf16 (the int4 and int8 kernels on int4 and int8 tables of
 the same weights, in both dot modes, the int8 ones and the new modes also at
-the 16B-A3B width; the int4 and int8 RF samplers to the bit, since their
-plain versions sum in their order; the s8 prefill MoE kernels to the bit; both
+the 16B-A3B width; the int4 and int8 RF samplers (the int4 one in both
+schedules) and the per-step RF stack in its four bodies to the bit, since
+their plain versions sum in their order; the s8 prefill MoE kernels to the
+bit, the full-expert-block prefill mode within bf16's precision; both
 flash-attention entry points; the prefill MoE kernels also through the
 capacity-dense dispatch; paged decode attention through block tables). The
 kernels have no CPU mode, so every test here is marked `cuda` and skips
@@ -41,15 +43,19 @@ from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import (
     moe_experts_swiglu_gmm,
     moe_experts_swiglu_gmm_plain,
     moe_experts_swiglu_gmm_q4,
+    moe_experts_swiglu_gmm_q4_full,
     moe_experts_swiglu_gmm_q4s8,
     moe_experts_swiglu_gmm_q8,
+    moe_experts_swiglu_gmm_q8_full,
     moe_experts_swiglu_gmm_q8s8,
 )
+from mingunivision_tpu_torch.ops.kernels import rf_mlp
 from mingunivision_tpu_torch.ops.kernels.paged_attention import paged_decode_attention, paged_gather_attention
 from mingunivision_tpu_torch.ops.kernels.rf_sampler import (
     MAX_ROWS,
     rf_sample_fused,
     rf_sample_fused_plain,
+    rf_sample_fused_q4_pipelined,
     rf_sample_fused_q8,
     rf_sample_fused_q8s8,
 )
@@ -564,3 +570,99 @@ def test_rf_sampler_q8_s8_kernel_matches_plain(dev, cfg_rows, n_img, renorm):
         (before[0], before[1] + -(-n_img // (MAX_ROWS // cfg_rows)))
     torch.testing.assert_close(got, rf_sample_fused_plain(*args, s8_dots=True, **kw), rtol=0, atol=0)
     assert not torch.equal(got, rf_sample_fused_plain(*args, **kw))  # the exact mode is another function
+
+
+# ---------------------------------------------------------------------------
+# the per-step RF stack (four bodies), the int4 sampler's pipelined schedule,
+# the full-expert-block prefill MoE
+# ---------------------------------------------------------------------------
+
+STACK_COUNTERS = {(4, True): rf_mlp.rf_mlp_stack_q4s8, (4, False): rf_mlp.rf_mlp_stack_q4,
+                  (8, True): rf_mlp.rf_mlp_stack_q8s8, (8, False): rf_mlp.rf_mlp_stack_q8}
+
+
+def _rf_head(dev, bits, seed):
+    # width 256, mlp_mult 3 -> SwiGLU hidden 512: the stack's 128-aligned int4 halves
+    cfg = RFHeadConfig(target_channels=8, z_channels=32, width=256, depth=2, mlp_mult=3, num_sampling_steps=4)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rf = init_rf_head_params(cfg, _Init(dev, torch.bfloat16, g))
+    for leaf in (rf["res_blocks"]["adaLN"], rf["final_layer"]["adaLN"], rf["final_layer"]["linear"]):
+        leaf["w"].normal_(0.0, 0.05, generator=g)
+    quantize_tree_inplace(rf, bits=bits, min_size=1024)
+    return cfg, rf, g
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("rows", [2, 3, 6], ids=["2rows", "3rows", "6rows-2launches"])
+@pytest.mark.parametrize("body", [(4, True), (4, False), (8, True), (8, False)], ids=["q4s8", "q4", "q8s8", "q8"])
+def test_rf_mlp_stack_kernel_matches_plain(dev, body, rows, dtype):
+    """One Euler step of the stack against its plain version, which sums in
+    the kernel's order: to the bit; more rows than one launch holds go in
+    groups (rows never mix)."""
+    bits, s8 = body
+    cfg, rf, g = _rf_head(dev, bits, seed=31)
+    blocks = rf["res_blocks"]
+    assert rf_mlp.rf_mlp_supported(blocks)
+    x = torch.randn(rows, cfg.width, device=dev, generator=g).to(dtype)
+    mods = 0.5 * torch.randn(cfg.depth, rows, 3 * cfg.width, device=dev, generator=g)
+    before = {key: c.launches for key, c in STACK_COUNTERS.items()}
+    got = rf_mlp.rf_mlp_stack(blocks, x, mods, ln_eps=cfg.ln_eps, int_dots=s8)
+    torch.cuda.synchronize()
+    launched = {key: c.launches - before[key] for key, c in STACK_COUNTERS.items()}
+    assert launched == {key: (-(-rows // MAX_ROWS) if key == body else 0) for key in STACK_COUNTERS}
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, rf_mlp.rf_mlp_stack_plain(blocks, x, mods, ln_eps=cfg.ln_eps, int_dots=s8),
+                               rtol=0, atol=0)
+
+
+def test_rf_mlp_stack_raises_on_unsupported_input(dev):
+    cfg, rf, g = _rf_head(dev, 4, seed=32)
+    x = torch.randn(2, cfg.width, device=dev).to(torch.bfloat16)
+    mods = torch.zeros(cfg.depth, 2, 3 * cfg.width, device=dev)
+    with pytest.raises(ValueError):  # fp16 compute is not built
+        rf_mlp.rf_mlp_stack(rf["res_blocks"], x.half(), mods, int_dots=True)
+    with pytest.raises(ValueError):  # modulations of another row count
+        rf_mlp.rf_mlp_stack(rf["res_blocks"], x, mods[:, :1], int_dots=True)
+    with pytest.raises(ValueError):  # int8 entry, int4 tables
+        rf_mlp.rf_mlp_stack_q8(rf["res_blocks"], x, mods)
+
+
+@pytest.mark.parametrize("cfg_rows,n_img,renorm", [(2, 1, False), (3, 1, True), (3, 2, True)],
+                         ids=["cfg2", "cfg3-renorm", "2img-x3rows"])
+def test_rf_sampler_q4_pipelined_kernel_matches_plain(dev, cfg_rows, n_img, renorm):
+    """The int4 sampler's pipelined schedule (w3 in 128-row pieces, their
+    descaled sums added in order) against its plain version: to the bit."""
+    cfg, rf, g = _rf_head(dev, 4, seed=33)
+    ts, dts = _time_grid(cfg, None, device=dev)
+    B = cfg_rows * n_img
+    z = torch.randn(B, cfg.z_channels, device=dev, generator=g).to(torch.bfloat16)
+    block_mods, final_mods = precompute_modulations(rf, cfg, ts, z)
+    noise = torch.randn(n_img, cfg.target_channels, device=dev, generator=g).repeat(cfg_rows, 1)
+    args = (rf, cfg, noise, block_mods, final_mods, dts, 3.0, 1.1)
+    kw = dict(cfg_rows=cfg_rows, renorm_channel=renorm, compute_dtype=torch.bfloat16)
+    before = (rf_sample_fused.launches, rf_sample_fused_q4_pipelined.launches)
+    got = rf_sample_fused(*args, schedule="pipelined", down_chunk=128, **kw)
+    torch.cuda.synchronize()
+    assert (rf_sample_fused.launches, rf_sample_fused_q4_pipelined.launches) == \
+        (before[0], before[1] + -(-n_img // (MAX_ROWS // cfg_rows)))
+    torch.testing.assert_close(got, rf_sample_fused_plain(*args, schedule="pipelined", down_chunk=128, **kw),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bits", [4, 8], ids=["int4", "int8"])
+@pytest.mark.parametrize("choices", [None, [0, 3, 5]], ids=["spread", "skewed-empty-experts"])
+def test_swiglu_gmm_full_block_kernel_matches_plain(dev, bits, choices):
+    ex = {k: quantize_array(v, bits) for k, v in _experts(dev, seed=34).items()}
+    idx, w = _routing(dev, 96, 2, choices, seed=35)
+    x = torch.randn(96, H, device=dev).to(torch.bfloat16)
+    full = moe_experts_swiglu_gmm_q4_full if bits == 4 else moe_experts_swiglu_gmm_q8_full
+    chunked = moe_experts_swiglu_gmm_q4 if bits == 4 else moe_experts_swiglu_gmm_q8
+    before = (full.launches, chunked.launches)
+    got = moe_experts_swiglu_gmm(ex, x, idx, w, E, layer_idx=1, full_block=True)
+    torch.cuda.synchronize()
+    assert (full.launches, chunked.launches) == (before[0] + 1, before[1])
+    _close_bf16(got, moe_experts_swiglu_gmm_plain(ex, x, idx, w, E, layer_idx=1))
+    with pytest.raises(ValueError):  # no s8 mode, and a stacked table needs its layer
+        moe_experts_swiglu_gmm(ex, x, idx, w, E, layer_idx=1, full_block=True, s8=True)
+    with pytest.raises(ValueError):
+        moe_experts_swiglu_gmm(ex, x, idx, w, E, full_block=True)

@@ -24,6 +24,7 @@ from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream, m
 from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm, moe_experts_swiglu_gmm_q4_plain
 from mingunivision_tpu_torch.ops.kernels.rf_sampler import MAX_ROWS, rf_sample_fused, rf_sample_fused_plain
 from mingunivision_tpu_torch.utils.convert import params_from_jax
+import test_torch_common  # noqa: F401  (one torch thread per test worker)
 
 # fp32 results of the same integer dots and the same fp32 epilogue, summed in
 # another order: about 1e-4 relative to the largest output

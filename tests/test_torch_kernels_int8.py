@@ -54,6 +54,7 @@ from mingunivision_tpu_torch.ops.kernels.rf_sampler import (
 from mingunivision_tpu_torch.utils.convert import params_from_jax
 from mingunivision_tpu_torch.utils.quantize import is_int8_linear
 from mingunivision_tpu_torch.utils.quantize import quantize_array as port_quantize_array
+import test_torch_common  # noqa: F401  (one torch thread per test worker)
 
 S8_REL = 1e-4
 EXACT_REL = 4e-3

@@ -64,6 +64,7 @@ from mingunivision_tpu_torch.ops.kernels.rf_sampler import (
     rf_sample_fused_q8_plain,
 )
 from mingunivision_tpu_torch.utils.convert import params_from_jax
+import test_torch_common  # noqa: F401  (one torch thread per test worker)
 
 EXACT_REL = 4e-3
 S8_REL = 1e-4

@@ -20,6 +20,7 @@ from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import (
     moe_experts_swiglu_gmm,
     moe_experts_swiglu_gmm_plain,
 )
+import test_torch_common  # noqa: F401  (one torch thread per test worker)
 
 TOL = dict(rtol=2e-4, atol=2e-4)  # fp32, as tests/test_pallas_kernels.py
 E, H, M = 8, 256, 384  # 128-aligned, as the Pallas kernels need

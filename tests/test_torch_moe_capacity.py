@@ -17,6 +17,7 @@ from mingunivision_tpu.utils.quantize import quantize_array as jax_quantize_arra
 from mingunivision_tpu_torch.ops.kernels import moe_capacity as tcap
 from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm, moe_experts_swiglu_gmm_plain
 from mingunivision_tpu_torch.utils.convert import params_from_jax
+import test_torch_common  # noqa: F401  (one torch thread per test worker)
 
 E, D, M, N, K = 8, 128, 256, 32, 3
 

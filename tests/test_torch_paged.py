@@ -21,6 +21,7 @@ from mingunivision_tpu_torch.engine.batch_engine import ContinuousBatchingEngine
 from mingunivision_tpu_torch.engine.paged import PagedBatchingEngine
 from mingunivision_tpu_torch.ops.kernels.paged_attention import paged_decode_attention, paged_gather_attention
 from mingunivision_tpu_torch.utils.convert import params_from_jax
+import test_torch_common  # noqa: F401  (one torch thread per test worker)
 
 ATTN_TOL = 2e-5  # fp32 attention, two frameworks' reduction orders (as tests/test_paged.py)
 

@@ -13,6 +13,7 @@ from mingunivision_tpu.utils import quantize as jq
 from mingunivision_tpu_torch.utils import quantize as tq
 from mingunivision_tpu_torch.utils.convert import params_from_jax
 from mingunivision_tpu_torch.utils.pytree import layer_view, leaves
+import test_torch_common  # noqa: F401  (one torch thread per test worker)
 
 CASES = [(8, 1, "linear"), (4, 1, "linear"), (4, 2, "linear"), (4, 1, "nf4")]
 IDS = ["int8", "int4", "int4-groups2", "nf4"]

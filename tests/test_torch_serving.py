@@ -23,6 +23,7 @@ from mingunivision_tpu_torch.config import RuntimeConfig  # noqa: E402
 from mingunivision_tpu_torch.processing.processor import BailingMMProcessor  # noqa: E402
 from mingunivision_tpu_torch.serving.server import InferenceServer  # noqa: E402
 from mingunivision_tpu_torch.utils.convert import params_from_jax  # noqa: E402
+import test_torch_common  # noqa: F401  (one torch thread per test worker)
 
 PROMPTS = ("one prompt", "a different longer prompt here", "third")
 
