@@ -21,7 +21,11 @@ Phases, one printed line each; any failure exits non-zero:
               in its four bodies (one Euler step at full width, 2 and 3 rows),
               the int4 sampler's pipelined schedule beside its block one, and
               the full-expert-block prefill MoE (int4: 128 tokens, skewed,
-              1,152; int8: 128 tokens); the RF kernels to the bit
+              1,152; int8: 128 tokens); the RF kernels to the bit; the
+              grouped matmuls of MoE training (gmm, gmm_trhs, tgmm) at the
+              train step's 12,288 rows, uniform and skewed with empty experts
+              and a padded last group, and the differentiable fused prefill
+              MoE at full width, its forward and every grad
   4. reference  a small model on the card, bf16, int4 (as shipped and with
               moe_int_dots=False), int8 (as shipped and with
               moe_prefill_int_dots and rf_int_dots on) and NF4 (and, on the
@@ -39,7 +43,17 @@ Phases, one printed line each; any failure exits non-zero:
               last-position hidden state within the same bound. Then the
               small model's paged serving engine on 4 slots with mid-flight
               admission: same tokens, each request's first-step logits within
-              the same bound
+              the same bound. Then the small model's lm_loss backward (one
+              layer): the loss and every grad within the same bound, every
+              training kernel call held against its plain version
+ 4b. train    training at the 16B-A3B width cut to 4 decoder layers: the LM
+              train step (B 2 x T 1024 of a synthetic token stream, AdamW at
+              1e-3, router aux losses; a warm-up step and 3 timed steps on the
+              same batch: the loss must fall), then the image-generation step
+              (32 text ids + 256 image positions, the full RF head, 2 steps):
+              losses, ms per step, tokens/s, resident and peak memory, one
+              profiled LM step's device time by kernel, launches (per layer
+              and step: the fused prefill MoE 1, gmm 3, gmm_trhs 3, tgmm 3)
   5. slice    single-image text-to-image through MingUniVisionSession.generate
               at the full 16B-A3B width (random weights from a seed, bf16,
               max_seq_len 4096): output checks, launch counts of every kernel,
@@ -100,7 +114,7 @@ tier only its T2I round).
 Then a JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-`--phases` picks the phases (default: the seventeen above), e.g.
+`--phases` picks the phases (default: the eighteen above), e.g.
 `--phases device,build,kernels,understand` or `--phases device,build,kernels,serve`. Six more run only when named:
   divergence  the small model's plain bf16 path with each kernel swapped in
               alone, and all of them, and with the image head's input moved
@@ -180,6 +194,11 @@ KERNELS = {
     "rf_sampler_q4s8_pipelined": ("csrc/rf_sampler_q4.cu", "mingunivision_tpu/ops/kernels/rf_sampler.py:126"),
     "moe_swiglu_gmm_q4_full": ("csrc/moe_swiglu_gmm_q4.cu", "mingunivision_tpu/ops/kernels/moe_swiglu_gmm.py:115"),
     "moe_swiglu_gmm_q8_full": ("csrc/moe_swiglu_gmm_q4.cu", "mingunivision_tpu/ops/kernels/moe_swiglu_gmm.py:115"),
+    # the eighth slice: the library megablox kernels behind moe_experts_gmm (their call sites at :85-88; the
+    # transposed gmm and tgmm are megablox's custom VJP of those calls, ops.py _gmm_bwd)
+    "gmm": ("csrc/gmm.cu", "mingunivision_tpu/ops/kernels/moe_gmm.py:85"),
+    "gmm_trhs": ("csrc/gmm.cu", "mingunivision_tpu/ops/kernels/moe_gmm.py:85"),
+    "tgmm": ("csrc/gmm.cu", "mingunivision_tpu/ops/kernels/moe_gmm.py:85"),
 }
 BF16_KERNELS = ("moe_stream", "moe_swiglu_gmm", "decode_attention")
 REL_TOL = 1e-2  # kernel vs plain: max |err| <= REL_TOL * max |plain| (bf16 keeps ~3 digits)
@@ -942,6 +961,8 @@ def plain_versions(names=ENTRIES):
     from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm_plain
     from mingunivision_tpu_torch.ops.kernels.rf_mlp import rf_mlp_stack_plain
     from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused_plain
+    from mingunivision_tpu_torch.ops.kernels import moe_gmm
+    from mingunivision_tpu_torch.ops.kernels import moe_swiglu_gmm as msg
 
     swaps = {"moe_stream": [(bm, "moe_experts_stream", moe_experts_stream_plain)],
              "moe_swiglu_gmm": [(bm, "moe_experts_swiglu_gmm", moe_experts_swiglu_gmm_plain)],
@@ -952,7 +973,10 @@ def plain_versions(names=ENTRIES):
              "flash_prefill": [(bm, "flash_prefill_attention", flash_prefill_attention_plain)],
              "moe_capacity": [(bm, "moe_experts_capacity_gmm_exact", moe_experts_capacity_gmm_exact_plain)],
              "flash_vit": [(vit, "flash_vit_attention", flash_vit_attention_plain)],
-             "paged_attention": [(paged, "paged_decode_attention", paged_gather_attention)]}
+             "paged_attention": [(paged, "paged_decode_attention", paged_gather_attention)],
+             # training's differentiable prefill MoE: its forward and its backward's grouped matmuls
+             "train_moe": [(msg, "swiglu_gmm_ad_forward", msg.moe_experts_swiglu_gmm_plain),
+                           (moe_gmm, "gmm", moe_gmm.gmm_plain), (moe_gmm, "tgmm", moe_gmm.tgmm_plain)]}
     saved = [(mod, attr, getattr(mod, attr)) for entries in swaps.values() for mod, attr, _ in entries]
     for name in names:
         for swap in swaps[name]:
@@ -1424,6 +1448,7 @@ def run_slice_mixed(torch, cfg, params, device, results: dict) -> bool:
 def launch_counters():
     """kernel name -> the wrapper that counts its launches ("moe_capacity": the
     launches of the prefill MoE kernels that went through the capacity dispatch)."""
+    from mingunivision_tpu_torch.ops.kernels import moe_gmm
     from mingunivision_tpu_torch.ops.kernels import moe_stream as ms
     from mingunivision_tpu_torch.ops.kernels import moe_swiglu_gmm as gmm
     from mingunivision_tpu_torch.ops.kernels.decode_attention import decode_attention
@@ -1446,7 +1471,8 @@ def launch_counters():
             "rf_mlp_q8": rf_mlp.rf_mlp_stack_q8, "rf_mlp_q8s8": rf_mlp.rf_mlp_stack_q8s8,
             "rf_sampler_q4s8_pipelined": rs.rf_sample_fused_q4_pipelined,
             "moe_swiglu_gmm_q4_full": gmm.moe_experts_swiglu_gmm_q4_full,
-            "moe_swiglu_gmm_q8_full": gmm.moe_experts_swiglu_gmm_q8_full}
+            "moe_swiglu_gmm_q8_full": gmm.moe_experts_swiglu_gmm_q8_full,
+            "gmm": moe_gmm.gmm, "gmm_trhs": moe_gmm.gmm_trhs, "tgmm": moe_gmm.tgmm}
 
 
 def counted_round(torch, results, path, run):
@@ -1749,18 +1775,36 @@ def held_against_plain(torch, entries, return_plain: bool = False):
     max |plain| per call] over the rows `rows(args)` selects."""
     errs = {name: [] for name in entries}
     saved = []
+
+    class Both:
+        """The entry's stand-in: runs both, records the error. A wrapper that
+        counts its launches on the name it is patched under counts them on the
+        kernel's own function through `launches`."""
+
+        def __init__(self, name, kernel, plain, rows):
+            self.name, self.kernel, self.plain, self.rows = name, kernel, plain, rows
+            self.__name__ = getattr(kernel, "__name__", name)
+
+        @property
+        def launches(self):
+            return self.kernel.launches
+
+        @launches.setter
+        def launches(self, n):
+            self.kernel.launches = n
+
+        def __call__(self, *args, **kwargs):
+            out = self.kernel(*args, **kwargs)
+            ref = self.plain(*args, **kwargs)
+            sel = self.rows(args)
+            diff = (out[sel].float() - ref[sel].float()).abs().max()
+            errs[self.name].append(float(diff / ref[sel].float().abs().max().clamp_min(1e-30)) if sel.any() else 0.0)
+            return ref if return_plain else out
+
     for name, (mod, attr, plain, rows) in entries.items():
         kernel = getattr(mod, attr)
         saved.append((mod, attr, kernel))
-
-        def both(*args, _kernel=kernel, _plain=plain, _rows=rows, _name=name, **kwargs):
-            out = _kernel(*args, **kwargs)
-            ref = _plain(*args, **kwargs)
-            sel = _rows(args)
-            diff = (out[sel].float() - ref[sel].float()).abs().max()
-            errs[_name].append(float(diff / ref[sel].float().abs().max().clamp_min(1e-30)) if sel.any() else 0.0)
-            return ref if return_plain else out
-        setattr(mod, attr, both)
+        setattr(mod, attr, Both(name, kernel, plain, rows))
     try:
         yield errs
     finally:
@@ -2304,6 +2348,432 @@ def run_profile_understand(torch, cfg, device, tier="bfloat16", new_tokens: int 
     return len(out.token_ids) == new_tokens and busy_ms > 0
 
 
+# ---------------------------------------------------------------------------
+# training: the grouped-matmul kernels, the small model's train step, the full-width train steps
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 4  # the full-width train phase's depth: a full-depth AdamW state does not fit one card
+
+
+def tree_paths(tree, prefix=""):
+    """The "/"-joined key path of every leaf of a param tree, in `leaves` order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_paths(v, f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_paths(v, f"{prefix}/{i}")
+    else:
+        yield prefix
+
+
+def small_llm(torch, device):
+    """The small model's LLM for the train reference, bf16 on `device` from
+    seed 2: the full model's structure at hidden 256, 4/2 heads x 64, 8
+    experts top-2 of width 128, vocabulary 4,096, one decoder layer (so no
+    kernel's rounding can change a later layer's routing). Returns (cfg, params)."""
+    import dataclasses
+
+    from mingunivision_tpu_torch.config import BailingMoeConfig
+    from mingunivision_tpu_torch.utils.convert import _Init, init_bailing_moe_params
+
+    cfg = dataclasses.replace(BailingMoeConfig(), vocab_size=4096, hidden_size=256, num_hidden_layers=1,
+                              num_attention_heads=4, num_key_value_heads=2, head_dim=64, moe_intermediate_size=128,
+                              num_experts=8, num_experts_per_tok=2)
+    gen = torch.Generator(device=device).manual_seed(2)
+    return cfg, init_bailing_moe_params(cfg, _Init(device, torch.bfloat16, gen))
+
+
+def train_batch(torch, cfg, device):
+    """(ids, mask, image_mask) of the train reference from a numpy seed: B 2 x
+    T 48 ids (B * T above the decode MoE's 48 rows), the last row's tail
+    padded, an image span that the image gate routes."""
+    import numpy as np
+
+    B, T = 2, 48
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int64)).to(device)
+    mask = torch.ones((B, T), dtype=torch.int32, device=device)
+    mask[-1, T - T // 8 :] = 0
+    image = torch.zeros((B, T), dtype=torch.bool, device=device)
+    image[:, 4 : 4 + T // 4] = True
+    return ids, mask, image
+
+
+def train_entries(torch):
+    """The training kernel entries, as `held_against_plain` takes them: the
+    differentiable prefill MoE's forward (row 2) and the grouped matmuls of
+    its backward (gmm in both orientations, tgmm), every row selected."""
+    from mingunivision_tpu_torch.ops.kernels import moe_gmm
+    from mingunivision_tpu_torch.ops.kernels import moe_swiglu_gmm as msg
+
+    def rows(i):
+        return lambda args: torch.ones(args[i].shape[0], dtype=torch.bool, device=args[i].device)
+
+    return {"train_fwd_moe": (msg, "swiglu_gmm_ad_forward", msg.moe_experts_swiglu_gmm_plain, rows(1)),
+            "gmm": (moe_gmm, "gmm", moe_gmm.gmm_plain, rows(0)),
+            "tgmm": (moe_gmm, "tgmm", moe_gmm.tgmm_plain, rows(2))}
+
+
+def grouped_library(torch, kind, lhs, rhs, sizes, transpose=False):
+    """The yardstick of a grouped matmul: one `torch._grouped_mm` call on bf16
+    operands, offsets at the groups' ends. kind: "gmm" (rows x each group's
+    matrix, `transpose`: the matrix transposed) or "tgmm" (per group, rows^T x
+    grad). Timed only: nothing on the port's path calls it."""
+    offs = sizes.cumsum(0).to(torch.int32)
+    a = lhs.to(torch.bfloat16)
+    if kind == "gmm":
+        b = rhs.transpose(1, 2) if transpose else rhs
+        return lambda: torch._grouped_mm(a, b, offs=offs)
+    b = rhs.to(torch.bfloat16)
+    return lambda: torch._grouped_mm(a.t(), b, offs=offs)
+
+
+def check_train_kernels(torch, results: dict) -> bool:
+    """The grouped matmuls of MoE training at the train phase's shape (2 x 1024
+    tokens x top-6 = 12,288 rows, 64 experts, h 2048, m 1408), each against
+    its plain version within REL_TOL: gmm (fp32 out) on the gate / up and the
+    down tables, gmm_trhs (fp32 rows, bf16 out) of the down and gate tables'
+    dx, tgmm (bf16 rows, fp32 grad, bf16 out) of the gate and down tables; on
+    uniform routing and on routing skewed to 8 experts (56 empty, 2,000
+    tokens: 12,000 rows padded into the last group to 12,032). Then the
+    differentiable fused MoE on one layer's tables at full width (2 x 1024
+    tokens): forward and every grad against the same Function through the
+    plain versions at bf16 (within REL_TOL) and printed against fp32."""
+    from mingunivision_tpu_torch.config import BailingMoeConfig
+    from mingunivision_tpu_torch.ops.kernels import moe_gmm
+    from mingunivision_tpu_torch.ops.kernels.moe_gmm import PAD_ROWS
+
+    dev = torch.device("cuda")
+    llm = BailingMoeConfig()
+    g = torch.Generator(device=dev).manual_seed(8)
+    bf = torch.bfloat16
+    E, h, m, k = llm.num_experts, llm.hidden_size, llm.moe_intermediate_size, llm.num_experts_per_tok
+    w_gate = torch.empty((E, h, m), device=dev, dtype=bf).normal_(0, 0.02, generator=g)
+    w_down = torch.empty((E, m, h), device=dev, dtype=bf).normal_(0, 0.02, generator=g)
+    routing = moe_cases(torch, g, E, k)[0]
+    ok = True
+    for label, n_tok, choices in (("2x1024 tok x k=6, uniform", 2048, None),
+                                  ("2000 tok x k=6 skewed to 8 experts, padded into the last", 2000,
+                                   [0, 5, 9, 17, 33, 34, 50, 63])):
+        idx = routing(n_tok, choices)[0]
+        A = idx.numel()
+        A_pad = -(-A // PAD_ROWS) * PAD_ROWS
+        sizes = torch.zeros(E, dtype=torch.int64, device=dev).index_add_(0, idx.reshape(-1),
+                                                                          torch.ones_like(idx.reshape(-1)))
+        sizes[-1] += A_pad - A
+        sizes = sizes.to(torch.int32)
+        used = int((sizes > 0).sum())
+        pad = torch.arange(A_pad, device=dev)[:, None] < A
+        xs = (torch.randn((A_pad, h), device=dev, generator=g) * pad).to(bf)
+        a = (torch.randn((A_pad, m), device=dev, generator=g) * pad).to(bf)
+        dy = torch.randn((A_pad, h), device=dev, generator=g) * pad
+        dg = torch.randn((A_pad, m), device=dev, generator=g) * pad
+        tag = f"{label}: {A_pad} rows, {used} groups"
+        # (name, label, kernel, plain, library args, bytes, operations)
+        cases = [
+            ("gmm", f"gate/up forward {h}->{m}, {tag}", lambda: moe_gmm.gmm(xs, w_gate, sizes),  # noqa: B023
+             lambda: moe_gmm.gmm_plain(xs, w_gate, sizes), ("gmm", xs, w_gate, sizes),  # noqa: B023
+             A_pad * h * 2 + used * h * m * 2 + A_pad * m * 4),
+            ("gmm", f"down forward {m}->{h}, {tag}", lambda: moe_gmm.gmm(a, w_down, sizes),  # noqa: B023
+             lambda: moe_gmm.gmm_plain(a, w_down, sizes), ("gmm", a, w_down, sizes),  # noqa: B023
+             A_pad * m * 2 + used * h * m * 2 + A_pad * h * 4),
+            ("gmm_trhs", f"down dx: fp32 dy x w2^T {h}->{m}, {tag}",
+             lambda: moe_gmm.gmm(dy, w_down, sizes, out_dtype=bf, transpose_rhs=True),  # noqa: B023
+             lambda: moe_gmm.gmm_plain(dy, w_down, sizes, out_dtype=bf, transpose_rhs=True),  # noqa: B023
+             ("gmm", dy, w_down, sizes, True), A_pad * h * 4 + used * h * m * 2 + A_pad * m * 2),
+            ("gmm_trhs", f"gate dx: fp32 dg x w1^T {m}->{h}, {tag}",
+             lambda: moe_gmm.gmm(dg, w_gate, sizes, out_dtype=bf, transpose_rhs=True),  # noqa: B023
+             lambda: moe_gmm.gmm_plain(dg, w_gate, sizes, out_dtype=bf, transpose_rhs=True),  # noqa: B023
+             ("gmm", dg, w_gate, sizes, True), A_pad * m * 4 + used * h * m * 2 + A_pad * h * 2),
+            ("tgmm", f"gate table grad: xs^T dg -> ({E}, {h}, {m}), {tag}",
+             lambda: moe_gmm.tgmm(xs, dg, sizes),  # noqa: B023
+             lambda: moe_gmm.tgmm_plain(xs, dg, sizes), ("tgmm", xs, dg, sizes),  # noqa: B023
+             A_pad * h * 2 + A_pad * m * 4 + E * h * m * 2),
+            ("tgmm", f"down table grad: a^T dy -> ({E}, {m}, {h}), {tag}",
+             lambda: moe_gmm.tgmm(a, dy, sizes),  # noqa: B023
+             lambda: moe_gmm.tgmm_plain(a, dy, sizes), ("tgmm", a, dy, sizes),  # noqa: B023
+             A_pad * m * 2 + A_pad * h * 4 + E * h * m * 2),
+        ]
+        for name, case_label, kern, plain, lib_args, nbytes in cases:
+            ok &= run_case(torch, results, name, f"{case_label}; library: torch._grouped_mm, bf16 operands", kern, plain,
+                           nbytes, 2.0 * A * h * m, "bf16", library=grouped_library(torch, *lib_args), plain_iters=5)
+        del xs, a, dy, dg
+    ok &= check_ad_full_width(torch, w_gate, w_down, g, results)
+    del w_gate, w_down
+    torch.cuda.empty_cache()
+    return ok
+
+
+def check_ad_full_width(torch, w_gate, w_down, g, results) -> bool:
+    """`moe_experts_swiglu_gmm_ad` at full width on one layer's tables (the gate
+    table stands for the up table too), 2 x 1024 tokens: the value and every
+    grad of the kernel route against the plain route at bf16 (within REL_TOL)
+    and against the plain route at fp32 (printed: bf16's own error)."""
+    from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm_ad
+
+    E, h = w_gate.shape[0], w_gate.shape[1]
+    idx, w = moe_cases(torch, g, E, 6)[0](2048)
+    x = torch.randn((2048, h), device=w_gate.device, generator=g).to(torch.bfloat16)
+    cot = torch.randn((2048, h), device=w_gate.device, generator=g)
+    names = ("y", "gate_proj", "up_proj", "down_proj", "x", "topk_w")
+
+    def run(dtype):
+        ex = {"gate_proj": w_gate, "up_proj": w_gate, "down_proj": w_down}
+        ex = {n: t.to(dtype).detach().clone().requires_grad_(True) for n, t in ex.items()}
+        xx, ww = (t.to(dtype).detach().clone().requires_grad_(True) for t in (x, w))
+        y = moe_experts_swiglu_gmm_ad(ex, xx, idx, ww, E)
+        y.backward(cot.to(y.dtype))
+        torch.cuda.synchronize()
+        return [y.detach(), ex["gate_proj"].grad, ex["up_proj"].grad, ex["down_proj"].grad, xx.grad, ww.grad]
+
+    t0 = time.perf_counter()
+    kern = run(torch.bfloat16)
+    ms = (time.perf_counter() - t0) * 1e3
+    with plain_versions(("train_moe",)):
+        plain, ref = run(torch.bfloat16), run(torch.float32)
+    checks, errs = [], {}
+    for name, a, b, r in zip(names, kern, plain, ref):
+        ok, err, rel = compare(torch, a, b)
+        rel32 = float((a.float() - r).abs().max() / r.abs().max().clamp_min(1e-30))
+        errs[name] = {"vs_plain_bf16": rel, "vs_plain_fp32": rel32}
+        checks.append((f"{name} {rel:.3e} of max vs plain bf16 (fp32: {rel32:.3e})", ok))
+    results.setdefault("moe_swiglu_gmm_ad", {})["full_width"] = errs
+    print(f"kernel moe_swiglu_gmm_ad [2x1024 tok x k=6, one layer's tables, forward + backward {ms:.1f} ms "
+          f"(first call)]: " + "; ".join(f"{label}={'ok' if p else 'MISMATCH'}" for label, p in checks))
+    return all(p for _, p in checks)
+
+
+def run_reference_train(torch, device) -> bool:
+    """The small model's `lm_loss` train step (its backward) through the
+    kernels (bf16) and through their plain versions in fp32, the reference, on
+    the same weights and batch (B 2 x T 48, the router aux losses on). The loss
+    and every leaf's grad of the kernel route may differ from the reference by
+    at most twice the plain bf16 route's own error plus 1e-2 of the
+    reference's maximum; every call of a training kernel entry (`train_entries`:
+    the fused forward, gmm, tgmm) is held against its plain version on the same
+    inputs within REL_TOL; every entry must have been called."""
+    from mingunivision_tpu_torch.engine.train import lm_loss
+    from mingunivision_tpu_torch.utils.pytree import leaves, tree_map
+
+    cfg, params = small_llm(torch, device)
+    ids, mask, image = train_batch(torch, cfg, device)
+
+    def loss_and_grads(tree):
+        tree = tree_map(lambda t: t.detach().clone().requires_grad_(True), tree)
+        loss = lm_loss(tree, cfg, ids, mask, image, balance_alpha=0.01, z_alpha=1e-4)
+        loss.backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves(tree)]
+        return [loss.detach().float().cpu()] + [gr.float().cpu() for gr in grads]
+
+    with held_against_plain(torch, train_entries(torch)) as errs:
+        kern = loss_and_grads(params)
+    with plain_versions(("train_moe",)):
+        ref = loss_and_grads(as_f32(params))
+        plain = loss_and_grads(params)
+    checks = [(f"{name} within {max(v):.3e} <= {REL_TOL} of its plain version at all {len(v)} calls",
+               bool(v) and max(v) <= REL_TOL) for name, v in errs.items()]
+    worst, worst_ratio = "", 0.0
+    for path, a, p, r in zip(["loss"] + list(tree_paths(params)), kern, plain, ref):
+        err_k, err_p = float((a - r).abs().max()), float((p - r).abs().max())
+        tol = 2 * err_p + 1e-2 * float(r.abs().max())
+        ratio = err_k / max(tol, 1e-30)
+        if ratio >= worst_ratio:
+            worst, worst_ratio = f"{path} err {err_k:.3e} <= {tol:.3e} (plain bf16 {err_p:.3e})", ratio
+        if not (bool(torch.isfinite(a).all()) and err_k <= tol):
+            checks.append((f"{path} err vs fp32 {err_k:.3e} <= {tol:.3e} (plain bf16 err {err_p:.3e})", False))
+    checks.append((f"loss and {len(kern) - 1} grads within twice the plain bf16 error + 1e-2 of max (closest: "
+                   f"{worst})", worst_ratio <= 1.0))
+    print(f"reference train (small model's lm_loss backward on the {device.type}: kernels bf16 vs plain fp32; loss "
+          f"{float(kern[0]):.5f} / {float(ref[0]):.5f}): "
+          + "; ".join(f"{label}={'ok' if p else 'FAILED'}" for label, p in checks))
+    return all(p for _, p in checks)
+
+
+def full_train_model(torch, device):
+    """The train phase's LLM: `MingUniVisionConfig()`'s at full width cut to
+    TRAIN_LAYERS decoder layers, random bf16 weights from seed 0 on the
+    device. Returns (the MingUniVisionConfig with that LLM, the LLM's params)."""
+    import dataclasses
+
+    from mingunivision_tpu_torch.config import MingUniVisionConfig
+    from mingunivision_tpu_torch.utils.convert import _Init, init_bailing_moe_params
+
+    base = MingUniVisionConfig()
+    cfg = dataclasses.replace(base, llm=dataclasses.replace(base.llm, num_hidden_layers=TRAIN_LAYERS))
+    init = _Init(device, torch.bfloat16, torch.Generator(device=device).manual_seed(0))
+    return cfg, init_bailing_moe_params(cfg.llm, init)
+
+
+def train_launch_checks(launches, layers: int, steps: int):
+    """Per layer and step: the fused forward once, gmm (the recompute), gmm_trhs
+    and tgmm three times each; no other kernel."""
+    want = {"moe_swiglu_gmm": layers * steps, "gmm": 3 * layers * steps, "gmm_trhs": 3 * layers * steps,
+            "tgmm": 3 * layers * steps}
+    return ([(f"{name} launches {launches[name]} == {n} ({n // steps} per step)", launches[name] == n)
+             for name, n in want.items()]
+            + [(f"{name} launches {n} == 0", n == 0) for name, n in launches.items() if name not in want and n])
+
+
+def profile_train_step(torch, state, step, record: dict):
+    """One more LM step under torch.profiler, the loss (`lm_loss`) in a profiler
+    range: device ms of the forward, of the optimizer update (the span of
+    PyTorch's own `Optimizer.step` range on the device), of the backward (the
+    rest of the step's kernel time), the device busy share of the step's wall
+    time, and the top kernels. Returns the state."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mingunivision_tpu_torch.engine import train as train_mod
+
+    loss_fn = train_mod.lm_loss
+
+    def ranged(*args, **kwargs):
+        with record_function("train_forward"):
+            return loss_fn(*args, **kwargs)
+
+    train_mod.lm_loss = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, loss = step(state)
+            float(loss)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        train_mod.lm_loss = loss_fn
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def annotation(e):  # a profiler range, not a kernel (events have `name`, their averages `key`)
+        name = getattr(e, "name", None) or e.key
+        return getattr(e, "is_user_annotation", False) or name == "train_forward" or name.startswith("Optimizer.")
+
+    device_events = [e for e in prof.events() if e.device_type == cuda]
+    kernels = [e for e in device_events if not annotation(e)]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    fwd_ms = stage_device_ms(device_events, ("train_forward",))["train_forward"][1]
+    opt_ms = sum(e.time_range.elapsed_us() for e in device_events if e.name.startswith("Optimizer.step")) / 1e3
+    record["profile"] = {"wall_ms": wall_ms, "busy_ms": busy_ms, "forward_ms": fwd_ms, "optimizer_ms": opt_ms,
+                         "backward_ms": busy_ms - fwd_ms - opt_ms}
+    print(f"train lm profile (one step, profiled): wall_ms={wall_ms:.1f} device_busy_ms={busy_ms:.1f} "
+          f"busy_share={busy_ms / wall_ms:.3f}; device ms: forward {fwd_ms:.1f}, backward {busy_ms - fwd_ms - opt_ms:.1f}, "
+          f"optimizer {opt_ms:.1f} (its span); device events {len(kernels)}")
+    top = [e for e in prof.key_averages() if e.device_type == cuda and not annotation(e)]
+    for e in sorted(top, key=lambda e: -e.self_device_time_total)[:14]:
+        print(f"train lm profile kernel: {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} calls "
+              f"{e.self_device_time_total / max(e.count, 1):10.3f} us/call  {e.key[:90]}")
+    return state
+
+
+def run_train(torch, device, results: dict) -> bool:
+    """Training on one card at the 16B-A3B width cut to TRAIN_LAYERS layers.
+    LM step: B 2 x T 1024 of the synthetic token stream, make_optimizer(1e-3),
+    aux balance 0.01 and z 1e-4; one warm-up step, then 3 timed steps on the
+    same batch: every loss finite and the last below the first, ms per step
+    (synchronised, median), tokens/s, resident and peak memory, launches per
+    step. Image-generation step: B 2 x (32 text ids + 256 image positions),
+    the full RF head, vis_head and linear_proj, random MingTok features and
+    latents, make_optimizer(1e-5) (at 1e-4 the first AdamW step of the random
+    3072-wide head raised its loss 16-fold), 2 steps: loss, ms per step, peak
+    memory, launches."""
+    import numpy as np
+
+    from mingunivision_tpu_torch.engine.train import (
+        TokenStream,
+        TrainState,
+        make_image_gen_train_step,
+        make_optimizer,
+        make_train_step,
+    )
+    from mingunivision_tpu_torch.utils.pytree import leaves
+
+    t0 = time.perf_counter()
+    cfg, llm_params = full_train_model(torch, device)
+    llm = cfg.llm
+    n_params = sum(t.numel() for t in leaves(llm_params))
+    state = TrainState.create(llm_params, make_optimizer(1e-3))
+    step = make_train_step(llm, balance_alpha=0.01, z_alpha=1e-4)
+    B, T = 2, 1024
+    ids = torch.from_numpy(TokenStream(None, llm.vocab_size, seed=0).batch(B, T).astype(np.int64)).to(device)
+    mask = torch.ones((B, T), dtype=torch.int32, device=device)
+    torch.cuda.synchronize()
+    print(f"train: {n_params / 1e9:.3f} B params bf16 ({TRAIN_LAYERS} layers at full width) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    losses, step_ms = [], []
+
+    def lm_steps():
+        nonlocal state
+        for _ in range(4):
+            t1 = time.perf_counter()
+            state, loss = step(state, ids, mask)
+            losses.append(float(loss))  # reads the loss: the step is synchronised
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+
+    _, launches, peak = counted_round(torch, results, "train_lm", lm_steps)
+    resident = torch.cuda.memory_allocated()
+    ms = statistics.median(step_ms[1:])
+    for name in ("gmm", "gmm_trhs", "tgmm"):
+        results.setdefault(name, {})["launches"] = launches[name]
+    checks = [(f"losses {', '.join(f'{v:.4f}' for v in losses)} finite", all(np.isfinite(losses))),
+              (f"last {losses[-1]:.4f} < first {losses[0]:.4f}", losses[-1] < losses[0])]
+    checks += train_launch_checks(launches, TRAIN_LAYERS, 4)
+    print(f"train lm: B={B} T={T} ms/step {ms:.1f} (steps {', '.join(f'{v:.1f}' for v in step_ms)}; warm-up first) "
+          f"tokens/s {B * T / ms * 1e3:.1f}; resident {resident / 2**30:.3f} GiB, peak {peak / 2**30:.3f} GiB")
+    ok = report("train lm", launches, checks)
+    results["train"] = {"lm": {"losses": losses, "step_ms": step_ms, "ms_per_step": ms, "tokens_per_s": B * T / ms * 1e3,
+                               "resident_gib": resident / 2**30, "peak_gib": peak / 2**30, "params_b": n_params / 1e9}}
+    state = profile_train_step(torch, state, lambda st: step(st, ids, mask), results["train"]["lm"])
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the image-generation step on the same LLM weights (after the LM steps) with the full RF head
+    from mingunivision_tpu_torch.utils.convert import (
+        _Init,
+        init_linear_proj_params,
+        init_rf_head_params,
+        init_vis_head_params,
+    )
+
+    init = _Init(device, torch.bfloat16, torch.Generator(device=device).manual_seed(1))
+    params = {"llm": llm_params, "rf_head": init_rf_head_params(cfg.rf_head, init),
+              "vis_head": init_vis_head_params(llm.hidden_size, cfg.rf_head.z_channels, init),
+              "linear_proj": init_linear_proj_params(cfg.mingtok.feature_dim, llm.hidden_size, cfg.mlp_depth, init)}
+    randomize_adaln(params, init.gen)
+    state = TrainState.create(params, make_optimizer(1e-5))
+    step = make_image_gen_train_step(llm, cfg.rf_head)
+    g = torch.Generator(device=device).manual_seed(3)
+    Tt, N = 32, cfg.image_gen.num_image_tokens
+    text_ids = torch.randint(0, llm.vocab_size, (B, Tt), device=device, generator=g)
+    text_mask = torch.ones((B, Tt), dtype=torch.int32, device=device)
+    sem = torch.randn((B, N, cfg.mingtok.feature_dim), device=device, generator=g).to(torch.bfloat16)
+    latents = torch.randn((B, N, cfg.rf_head.target_channels), device=device, generator=g).to(torch.bfloat16)
+    img_losses, img_ms = [], []
+
+    def image_steps():
+        nonlocal state
+        for _ in range(2):
+            t1 = time.perf_counter()
+            state, loss = step(state, text_ids, text_mask, sem, latents, g)
+            img_losses.append(float(loss))
+            torch.cuda.synchronize()
+            img_ms.append((time.perf_counter() - t1) * 1e3)
+
+    _, launches, peak = counted_round(torch, results, "train_image_gen", image_steps)
+    checks = [(f"losses {', '.join(f'{v:.4f}' for v in img_losses)} finite", all(np.isfinite(img_losses)))]
+    checks += train_launch_checks(launches, TRAIN_LAYERS, 2)
+    n_all = sum(t.numel() for t in leaves(params))
+    print(f"train image_gen: B={B} x ({Tt} text + {N} image) positions, {n_all / 1e9:.3f} B params; ms/step "
+          f"{', '.join(f'{v:.1f}' for v in img_ms)} (the first warms up); peak {peak / 2**30:.3f} GiB")
+    ok &= report("train image_gen", launches, checks)
+    results["train"]["image_gen"] = {"losses": img_losses, "step_ms": img_ms, "peak_gib": peak / 2**30,
+                                     "params_b": n_all / 1e9}
+    del state, step, params, llm_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
 def kernel_entry(name: str, r: dict, capacity: dict) -> dict:
     """One kernel's entry of the JSON line, from what this run measured:
     `launches` from the main path that runs it (its tier's T2I slice; the
@@ -2336,7 +2806,7 @@ def jax_modules():
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="device,build,kernels,reference,slice,slice_int4,slice_int4_exact,"
+    ap.add_argument("--phases", default="device,build,kernels,reference,train,slice,slice_int4,slice_int4_exact,"
                                         "slice_int4_perstep,slice_int4_rf8,slice_int8,slice_int8_s8,slice_int8_perstep,"
                                         "slice_nf4,understand,edit,recon,serve")
     ap.add_argument("--tier", default="bfloat16", choices=("bfloat16", "int4", "int8", "nf4"),
@@ -2389,6 +2859,7 @@ def main(argv=None) -> int:
 
     if "kernels" in phases:
         ok &= check_kernels(torch, results)
+        ok &= check_train_kernels(torch, results)
         stamp("kernels")
     if "reference" in phases:
         for tier, runtime_kw in REFERENCE_TIERS:
@@ -2397,7 +2868,11 @@ def main(argv=None) -> int:
         for tier, runtime_kw in PER_STEP_REFERENCE_TIERS:
             ok &= run_reference(torch, cuda, tier, results, **runtime_kw)
         ok &= run_reference_serve(torch, cuda)
+        ok &= run_reference_train(torch, cuda)
         stamp("reference")
+    if "train" in phases:
+        ok &= run_train(torch, cuda, results)
+        stamp("train")
     if "divergence" in phases:
         ok &= run_divergence(torch, cuda, args.tier)
     if "rf_sensitivity" in phases:

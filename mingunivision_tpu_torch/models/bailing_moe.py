@@ -32,13 +32,14 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from mingunivision_tpu_torch.ops.attention import mha
 from mingunivision_tpu_torch.ops.kernels.decode_attention import decode_attention
 from mingunivision_tpu_torch.ops.kernels.flash import flash_prefill_attention
 from mingunivision_tpu_torch.ops.kernels.moe_capacity import default_capacity, moe_experts_capacity_gmm_exact
-from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream
-from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm
+from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream, table_kind
+from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm, moe_experts_swiglu_gmm_ad
 from mingunivision_tpu_torch.ops.linear import dense
 from mingunivision_tpu_torch.ops.norms import rms_norm
 from mingunivision_tpu_torch.ops.rope import apply_rope, mrope_cos_sin, rope_cos_sin
@@ -111,17 +112,20 @@ def _expert_mlp(x, gate_w, up_w, down_w):
 # tensors itself); every entry takes (stacked experts, x_flat, topk_idx,
 # topk_w, num_experts, layer_idx), then the decode one the decode dot mode
 # (int_dots), the prefill ones the prefill dot mode (prefill_int_dots), the
-# capacity one after it (capacity, token_valid)
+# capacity one after it (capacity, token_valid); "prefill_ad" is training's
+# differentiable prefill MoE over floating tables
 MOE_IMPLS = {
     "decode": lambda ex, x, i, w, E, l, int_dots: moe_experts_stream(ex, x, i, w, layer_idx=l, int_dots=int_dots),
     "prefill": lambda ex, x, i, w, E, l, s8: moe_experts_swiglu_gmm(ex, x, i, w, E, layer_idx=l, s8=s8),
+    "prefill_ad": lambda ex, x, i, w, E, l: moe_experts_swiglu_gmm_ad(ex, x, i, w, E, layer_idx=l),
     "prefill_capacity": lambda ex, x, i, w, E, l, s8, cap, valid: moe_experts_capacity_gmm_exact(
         ex, x, i, w, E, cap, token_valid=valid, layer_idx=l, s8=s8),
 }
 
 
 def moe_block_apply(params, cfg, x, image_mask=None, audio_mask=None, *, experts_stacked, layer_idx,
-                    token_valid=None, int_dots: bool = True, prefill_int_dots: bool = False):
+                    token_valid=None, int_dots: bool = True, prefill_int_dots: bool = False,
+                    return_router_stats: bool = False):
     """Sparse MoE block with multi-gate routing + shared experts.
 
     x (B, T, h); image_mask/audio_mask: optional bool (B, T) selecting tokens
@@ -132,20 +136,33 @@ def moe_block_apply(params, cfg, x, image_mask=None, audio_mask=None, *, experts
     outputs are discarded downstream. int_dots: the decode MoE's dot mode over
     quantized tables (s8 integer dots, or exact dequant when False);
     prefill_int_dots: the prefill MoE's (exact dequant, or s8 dots when True).
-    NF4 tables never take the capacity dispatch (their prefill is plain rows)."""
+    NF4 tables never take the capacity dispatch (their prefill is plain rows).
+    With cfg.moe_differentiable, floating tables take the differentiable
+    prefill MoE ("prefill_ad") at every token count above
+    MOE_DECODE_MAX_TOKENS, never the capacity dispatch; at or below it the
+    decode MoE kernel has no gradient and a CUDA input raises.
+    return_router_stats: also return (router logits (N, E) fp32 after the
+    multi-gate selection, topk_idx (N, k)) for the training aux losses."""
     B, T, h = x.shape
     x_flat = x.reshape(-1, h)
-    topk_idx, topk_w, _ = moe_route(params["gate"]["w"], x_flat, cfg.num_experts_per_tok, cfg.norm_topk_prob)
+    topk_idx, topk_w, logits = moe_route(params["gate"]["w"], x_flat, cfg.num_experts_per_tok, cfg.norm_topk_prob)
     for gate, sel in (("image_gate", image_mask), ("audio_gate", audio_mask)):
         if cfg.multi_gate and sel is not None:
-            g_idx, g_w, _ = moe_route(params[gate]["w"], x_flat, cfg.num_experts_per_tok, cfg.norm_topk_prob)
+            g_idx, g_w, g_logits = moe_route(params[gate]["w"], x_flat, cfg.num_experts_per_tok, cfg.norm_topk_prob)
             m = sel.reshape(-1, 1)
             topk_idx = torch.where(m, g_idx, topk_idx)
             topk_w = torch.where(m, g_w, topk_w)
+            logits = torch.where(m, g_logits, logits)
 
     args = (experts_stacked, x_flat, topk_idx, topk_w.to(x.dtype), cfg.num_experts, layer_idx)
+    differentiable = cfg.moe_differentiable and table_kind("moe_block_apply", experts_stacked) == "plain"
     if B * T <= MOE_DECODE_MAX_TOKENS:
+        if differentiable and x.device.type != "cpu":
+            raise ValueError(f"moe_block_apply: {B * T} tokens take the decode MoE kernel, which has no gradient; "
+                             f"a differentiable forward needs more than {MOE_DECODE_MAX_TOKENS}")
         y = MOE_IMPLS["decode"](*args, int_dots)
+    elif differentiable:
+        y = MOE_IMPLS["prefill_ad"](*args)
     elif (cfg.moe_prefill_capacity_factor > 0 and B * T >= MOE_CAPACITY_MIN_TOKENS
           and not is_nf4(experts_stacked["gate_proj"])):
         cap = default_capacity(B * T, cfg.num_experts_per_tok, cfg.num_experts, factor=cfg.moe_prefill_capacity_factor)
@@ -155,7 +172,8 @@ def moe_block_apply(params, cfg, x, image_mask=None, audio_mask=None, *, experts
         y = MOE_IMPLS["prefill"](*args, prefill_int_dots)
     y = y.reshape(B, T, h)
     se = params["shared_experts"]
-    return y + _expert_mlp(x, se["gate_proj"]["w"], se["up_proj"]["w"], se["down_proj"]["w"])
+    y = y + _expert_mlp(x, se["gate_proj"]["w"], se["up_proj"]["w"], se["down_proj"]["w"])
+    return (y, (logits, topk_idx)) if return_router_stats else y
 
 
 # ---------------------------------------------------------------------------
@@ -163,19 +181,29 @@ def moe_block_apply(params, cfg, x, image_mask=None, audio_mask=None, *, experts
 # ---------------------------------------------------------------------------
 
 
-def attention_apply(params, cfg, x, cos, sin, k_cache, v_cache, length: int, attn_mask, use_flash: bool = False):
+def attention_apply(params, cfg, x, cos, sin, k_cache, v_cache, length: int, attn_mask, use_flash: bool = False,
+                    kv_dtype=None):
     """Fused-QKV GQA attention over the static cache.
 
     x (B, T, h); cos/sin (B, T, head_dim); k_cache/v_cache (B, Hkv, Smax, D)
     views of one layer, written IN PLACE at [length, length + T); attn_mask
     bool (B, Smax) of allowed positions. use_flash: the first-round prefill
     path, where the new keys are the whole context and the flash kernel runs
-    over (q, k, v) directly. Returns (B, T, h)."""
+    over (q, k, v) directly. k_cache None: a training forward, where the T new
+    tokens are the whole context (length 0, Smax = T): nothing is written (an
+    in-place write into a stacked cache would bump the version of views saved
+    for the backward), and attention runs over k and v rounded to `kv_dtype`,
+    as a cache of that dtype would hold them. Returns (B, T, h)."""
     B, T, _ = x.shape
     Hq, Hkv, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     qkv = dense(x, params["query_key_value"]).reshape(B, T, Hq + 2 * Hkv, D)
     q, k, v = qkv.split([Hq, Hkv, Hkv], dim=2)
     q, k = apply_rope(q, k, cos, sin)
+    if k_cache is None:
+        pos = torch.arange(T, device=x.device)
+        allowed = (pos[None, :] <= pos[:, None])[None] & attn_mask[:, None, :]  # (B, T, T)
+        out = mha(q, k.to(kv_dtype), v.to(kv_dtype), mask=allowed[:, None], scale=D**-0.5)
+        return dense(out.reshape(B, T, Hq * D), params["dense"])
     k_cache[:, :, length : length + T] = k.transpose(1, 2).to(k_cache.dtype)
     v_cache[:, :, length : length + T] = v.transpose(1, 2).to(v_cache.dtype)
 
@@ -199,27 +227,40 @@ def attention_apply(params, cfg, x, cos, sin, k_cache, v_cache, length: int, att
 
 def decoder_layer_apply(layer_params, cfg, x, cos, sin, k_cache, v_cache, length, attn_mask, image_mask=None,
                         audio_mask=None, *, use_flash: bool = False, experts_stacked, layer_idx, token_valid=None,
-                        int_dots: bool = True, prefill_int_dots: bool = False):
+                        int_dots: bool = True, prefill_int_dots: bool = False, return_router_stats: bool = False,
+                        kv_dtype=None):
     h = rms_norm(x, layer_params["input_layernorm"]["w"], eps=cfg.rms_norm_eps)
     x = x + attention_apply(layer_params["attention"], cfg, h, cos, sin, k_cache, v_cache, length, attn_mask,
-                            use_flash=use_flash)
+                            use_flash=use_flash, kv_dtype=kv_dtype)
     h = rms_norm(x, layer_params["post_attention_layernorm"]["w"], eps=cfg.rms_norm_eps)
-    return x + moe_block_apply(layer_params["mlp"], cfg, h, image_mask, audio_mask,
-                               experts_stacked=experts_stacked, layer_idx=layer_idx, token_valid=token_valid,
-                               int_dots=int_dots, prefill_int_dots=prefill_int_dots)
+    out = moe_block_apply(layer_params["mlp"], cfg, h, image_mask, audio_mask, experts_stacked=experts_stacked,
+                          layer_idx=layer_idx, token_valid=token_valid, int_dots=int_dots,
+                          prefill_int_dots=prefill_int_dots, return_router_stats=return_router_stats)
+    if return_router_stats:
+        return x + out[0], out[1]
+    return x + out
 
 
-def bailing_forward(params, cfg, inputs_embeds, cache: LLMCache, attn_mask, positions=None, image_mask=None,
-                    audio_mask=None, use_flash: bool = False, int_dots: bool = True, prefill_int_dots: bool = False):
+def bailing_forward(params, cfg, inputs_embeds, cache: LLMCache | None, attn_mask, positions=None, image_mask=None,
+                    audio_mask=None, use_flash: bool = False, int_dots: bool = True, prefill_int_dots: bool = False,
+                    return_router_stats: bool = False, kv_dtype=torch.bfloat16):
     """Run T tokens through the decoder stack, writing their K/V into the
     cache IN PLACE. inputs_embeds (B, T, h); attn_mask bool (B, Smax) over the
     whole cache; positions (B, T), or (3, B, T) MRoPE planes (default
     cache.length + arange(T)). int_dots / prefill_int_dots: the decode and
-    prefill MoE's dot modes over quantized tables (`moe_block_apply`). Returns (hidden_states (B, T, h),
-    cache advanced by T)."""
+    prefill MoE's dot modes over quantized tables (`moe_block_apply`). Returns
+    (hidden_states (B, T, h), cache advanced by T).
+
+    cache None: the training forward, the JAX package's at an empty cache of
+    Smax = T and dtype `kv_dtype` (attn_mask (B, T)); nothing is written and
+    the cache returned is None. return_router_stats: also return (logits
+    (L, N, E) fp32, topk_idx (L, N, k)), stacked over the layers, for the
+    training aux losses. cfg.remat_layers: each layer's activations are
+    recomputed in the backward (torch.utils.checkpoint) when grad is enabled."""
     B, T, _ = inputs_embeds.shape
+    length = 0 if cache is None else cache.length
     if positions is None:
-        positions = (cache.length + torch.arange(T, device=inputs_embeds.device))[None].expand(B, T)
+        positions = (length + torch.arange(T, device=inputs_embeds.device))[None].expand(B, T)
     if positions.ndim == 2:
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     else:
@@ -227,19 +268,34 @@ def bailing_forward(params, cfg, inputs_embeds, cache: LLMCache, attn_mask, posi
     attn_mask = attn_mask.bool()
     # the valid (non-padding) flags of the T new tokens: attn_mask is True exactly at the valid
     # positions of [cache.length, cache.length + T) (the prefill contract); a decode step's token is valid
-    token_valid = attn_mask[:, cache.length : cache.length + T] if T > 1 else None
+    token_valid = attn_mask[:, length : length + T] if T > 1 else None
     # the expert tables stay stacked: the MoE kernels take a layer's view themselves
     layers = params["layers"]
     experts = layers["mlp"]["experts"]
     per_layer = {**layers, "mlp": {k: v for k, v in layers["mlp"].items() if k != "experts"}}
-    x = inputs_embeds
+    remat = cfg.remat_layers and torch.is_grad_enabled()
+    x, stats = inputs_embeds, []
     for l in range(cfg.num_hidden_layers):
-        x = decoder_layer_apply(layer_view(per_layer, l), cfg, x, cos, sin, cache.k[l], cache.v[l], cache.length,
-                                attn_mask, image_mask, audio_mask, use_flash=use_flash, experts_stacked=experts,
-                                layer_idx=l, token_valid=token_valid, int_dots=int_dots,
-                                prefill_int_dots=prefill_int_dots)
+        kc, vc = (None, None) if cache is None else (cache.k[l], cache.v[l])
+
+        def layer(x, l=l, kc=kc, vc=vc):
+            return decoder_layer_apply(layer_view(per_layer, l), cfg, x, cos, sin, kc, vc, length, attn_mask,
+                                       image_mask, audio_mask, use_flash=use_flash, experts_stacked=experts,
+                                       layer_idx=l, token_valid=token_valid, int_dots=int_dots,
+                                       prefill_int_dots=prefill_int_dots, return_router_stats=return_router_stats,
+                                       kv_dtype=kv_dtype)
+
+        out = torch.utils.checkpoint.checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
+        if return_router_stats:
+            x, layer_stats = out
+            stats.append(layer_stats)
+        else:
+            x = out
     x = rms_norm(x, params["norm"]["w"], eps=cfg.rms_norm_eps)
-    return x, LLMCache(cache.k, cache.v, cache.length + T)
+    new_cache = None if cache is None else LLMCache(cache.k, cache.v, cache.length + T)
+    if return_router_stats:
+        return x, new_cache, (torch.stack([s[0] for s in stats]), torch.stack([s[1] for s in stats]))
+    return x, new_cache
 
 
 def compute_logits(params, cfg, hidden_states):
@@ -258,3 +314,38 @@ def embed_tokens(params, input_ids):
     if isinstance(w, QuantizedArray):
         return w.q[input_ids].float() * w.s[0]
     return w[input_ids]
+
+
+# ---------------------------------------------------------------------------
+# Router auxiliary losses (training)
+# ---------------------------------------------------------------------------
+
+
+def router_balance_loss(router_probs, topk_idx, num_experts: int):
+    """Switch-style load-balancing loss: E * sum_e(fraction of tokens routed to
+    e * mean router probability of e). router_probs (N, E) fp32; topk_idx (N, k)."""
+    N = router_probs.shape[0]
+    counts = torch.zeros((N, num_experts), dtype=torch.float32, device=router_probs.device)
+    counts.scatter_(1, topk_idx.long(), 1.0)
+    return num_experts * (counts.mean(dim=0) * router_probs.mean(dim=0)).sum()
+
+
+def router_z_loss(router_logits):
+    """Mean squared log-sum-exp of the router logits (keeps them small)."""
+    return torch.logsumexp(router_logits.float(), dim=-1).square().mean()
+
+
+def router_group_balance_loss(router_probs, topk_idx, num_experts: int, num_groups: int):
+    """Balance of routed-token mass across `num_groups` contiguous expert
+    groups, per sample: the means run over the sequence axis of each leading
+    batch entry, then the per-sample losses average. router_probs (..., S, E);
+    topk_idx (..., S, k); a flat (N, E) input is one sample."""
+    if num_experts % num_groups:
+        raise ValueError(f"{num_experts} experts do not split into {num_groups} groups")
+    per_group = num_experts // num_groups
+    expert_mask = F.one_hot(topk_idx.long(), num_experts).float().amax(dim=-2)  # routed or not, per (token, expert)
+    mask_g = expert_mask.reshape(*expert_mask.shape[:-1], num_groups, per_group).sum(-1)
+    tokens_per_group = mask_g.mean(dim=-2) / num_groups
+    probs = router_probs.float()
+    prob_per_group = probs.reshape(*probs.shape[:-1], num_groups, per_group).sum(-1).mean(dim=-2)
+    return (tokens_per_group * prob_per_group * num_groups).sum(-1).mean()

@@ -14,7 +14,8 @@ block through `dense`, a quantized head's tables dequantized once per sample:
 the JAX package has no kernel for NF4 tables either, so that loop is their
 route, not a fallback.
 Randomness is explicit: the caller passes `noise` (one row per image, or one
-per CFG row).
+per CFG row). Training's velocity field is `rf_net_apply`, plain PyTorch over
+floating tables.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from mingunivision_tpu_torch.ops.kernels.rf_mlp import rf_mlp_stack, rf_mlp_supp
 from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused, rf_sampler_supported
 from mingunivision_tpu_torch.ops.linear import dense
 from mingunivision_tpu_torch.ops.norms import layer_norm
+from mingunivision_tpu_torch.utils.pytree import layer_view
 from mingunivision_tpu_torch.utils.quantize import QuantizedArray, dequant_weight
 
 
@@ -43,6 +45,30 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -
 
 def _modulate(x, shift, scale):
     return x * (1 + scale) + shift
+
+
+def _cond_embedding(params, cfg, t: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """y = time_embed(t * 1000) + cond_embed(z); t (B,), z (B, z) -> (B, w) in z's dtype."""
+    temb = timestep_embedding(t * 1000.0, cfg.freq_embed_size).to(z.dtype)
+    temb = dense(F.silu(dense(temb, params["time_embed"]["fc1"]).float()).to(z.dtype), params["time_embed"]["fc2"])
+    return temb + dense(z, params["cond_embed"])
+
+
+def rf_net_apply(params, cfg, x: torch.Tensor, t: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Velocity field of training, plain differentiable PyTorch over floating
+    tables (the JAX package's `rf_net_apply`: the modulations computed per
+    block, the blocks as a loop). x (B, C_target), t (B,), z (B, z_channels)."""
+    y = _cond_embedding(params, cfg, t, z)
+    h = dense(x, params["input_proj"])
+    sy = F.silu(y.float()).to(h.dtype)
+    for d in range(cfg.depth):
+        blk = layer_view(params["res_blocks"], d)
+        shift, scale, gate = dense(sy, blk["adaLN"]).chunk(3, dim=-1)
+        hh = _modulate(layer_norm(h, blk["in_ln"]["w"], blk["in_ln"]["b"], eps=cfg.ln_eps), shift, scale)
+        h = h + gate * dense(swiglu(dense(hh, blk["mlp"]["w12"])), blk["mlp"]["w3"])
+    shift, scale = dense(sy, params["final_layer"]["adaLN"]).chunk(2, dim=-1)
+    h = _modulate(layer_norm(h, eps=cfg.ln_eps), shift, scale)
+    return dense(h, params["final_layer"]["linear"])
 
 
 def precompute_modulations(params, cfg, ts: torch.Tensor, z: torch.Tensor):

@@ -34,6 +34,10 @@ A third mode, `full_block`, replaces the full-expert-block kernel
 (`csrc/moe_swiglu_gmm_q4.cu`'s `mu_swiglu_gmm_full`; launch counts on
 `moe_experts_swiglu_gmm_q4_full` / `_q8_full`).
 
+`moe_experts_swiglu_gmm_ad` is the differentiable entry of training (the
+JAX package's custom_vjp of the same name): this module's bf16 kernel
+forward, the backward through `moe_gmm.moe_experts_gmm`'s grouped matmuls.
+
 `moe_experts_swiglu_gmm` dispatches on the table kind. `swiglu_gmm_rows` runs
 the plain version (`swiglu_rows_plain`) for CPU tensors only; for CUDA tensors
 it launches its kernel or raises. The launch counts stay on
@@ -95,26 +99,37 @@ def group_schedule(topk_idx: torch.Tensor, num_experts: int, tile_rows: int):
     (first row == end row == 0), so no host sync is needed.
     """
     N, k = topk_idx.shape
-    A = N * k
-    E = num_experts
-    dev = topk_idx.device
     flat = topk_idx.reshape(-1).long()
     order = torch.argsort(flat, stable=True)
     row_token = (order // k).to(torch.int32)
-    sizes = torch.zeros(E, dtype=torch.int64, device=dev).index_add_(0, flat, torch.ones_like(flat))
-    ends = sizes.cumsum(0)
-    starts = ends - sizes
+    sizes = torch.zeros(num_experts, dtype=torch.int64, device=flat.device).index_add_(0, flat, torch.ones_like(flat))
+    return order, row_token, tile_schedule(sizes, N * k, tile_rows)
+
+
+def tile_schedule(sizes: torch.Tensor, rows: int, tile_rows: int) -> torch.Tensor:
+    """The (group, row-tile) schedule of `rows` group-sorted rows whose E groups
+    have `sizes` (E,) rows each (rows past `rows` are dropped), on the device:
+    (n_tiles, 3) int32 rows of (group, first row, end row), tiles of at most
+    `tile_rows` rows starting at each group's first row. n_tiles =
+    ceil(rows / tile_rows) + E is a static bound; unused entries are empty
+    (first row == end row == 0), so no host sync is needed."""
+    E = sizes.shape[0]
+    sizes = sizes.long()
+    cum = sizes.cumsum(0)
+    ends = cum.clamp(max=rows)  # rows past `rows` belong to no tile
+    starts = (cum - sizes).clamp(max=rows)
+    sizes = ends - starts
     tiles = (sizes + tile_rows - 1) // tile_rows
     tile_end = tiles.cumsum(0)
     tile_start = tile_end - tiles
-    t = torch.arange(-(-A // tile_rows) + E, device=dev)
+    t = torch.arange(-(-rows // tile_rows) + E, device=sizes.device)
     e = torch.searchsorted(tile_end, t, right=True).clamp_(max=E - 1)
     r0 = starts[e] + (t - tile_start[e]) * tile_rows
     r1 = torch.minimum(r0 + tile_rows, ends[e])
     valid = t < tile_end[-1]
     zero = torch.zeros_like(r0)
     sched = torch.stack([e, torch.where(valid, r0, zero), torch.where(valid, r1, zero)], dim=1)
-    return order, row_token, sched.to(torch.int32).contiguous()
+    return sched.to(torch.int32).contiguous()
 
 
 def _rows_q8s8(w1, w3, w2, e, xe, dtype):
@@ -357,6 +372,55 @@ def moe_experts_swiglu_gmm(experts, x_flat, topk_idx, topk_w, num_experts: int, 
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.numel(), device=order.device)
     return combine_assignments(ys.index_select(0, inv), topk_w, x_flat.dtype)
+
+
+def swiglu_gmm_ad_forward(experts, x_flat, topk_idx, topk_w, num_experts: int):
+    """The forward of the differentiable entry: `moe_experts_swiglu_gmm` over one
+    layer's tables, under a name of its own, so that a caller can route or watch
+    this call alone (its plain version is `moe_experts_swiglu_gmm_plain`)."""
+    return moe_experts_swiglu_gmm(experts, x_flat, topk_idx, topk_w, num_experts)
+
+
+class _SwigluGmmAD(torch.autograd.Function):
+    """The fused prefill MoE with a gradient (the JAX package's custom_vjp
+    `moe_experts_swiglu_gmm_ad`): the forward is `swiglu_gmm_ad_forward` (the
+    fused kernel on bf16 tables, row 2), the backward recomputes the layer
+    through `moe_gmm.moe_experts_gmm` and differentiates that (its grouped
+    matmuls' VJP: `gmm` with the rhs transposed and `tgmm`). Both are looked up
+    in their modules at each call."""
+
+    @staticmethod
+    def forward(ctx, w1, w3, w2, x_flat, topk_idx, topk_w, num_experts):
+        ctx.save_for_backward(w1, w3, w2, x_flat, topk_idx, topk_w)
+        ctx.num_experts = num_experts
+        experts = {"gate_proj": w1, "up_proj": w3, "down_proj": w2}
+        return swiglu_gmm_ad_forward(experts, x_flat, topk_idx, topk_w, num_experts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from mingunivision_tpu_torch.ops.kernels import moe_gmm
+
+        w1, w3, w2, x_flat, topk_idx, topk_w = ctx.saved_tensors
+        need = [ctx.needs_input_grad[i] for i in (0, 1, 2, 3, 5)]
+        ins = [t.detach().requires_grad_(n) for t, n in zip((w1, w3, w2, x_flat, topk_w), need)]
+        with torch.enable_grad():
+            y = moe_gmm.moe_experts_gmm({"gate_proj": ins[0], "up_proj": ins[1], "down_proj": ins[2]}, ins[3],
+                                        topk_idx, ins[4], ctx.num_experts)
+            wanted = [t for t, n in zip(ins, need) if n]
+            got = iter(torch.autograd.grad(y, wanted, grad) if wanted else ())
+        gw1, gw3, gw2, gx, gw = (next(got) if n else None for n in need)
+        return gw1, gw3, gw2, gx, None, gw, None
+
+
+def moe_experts_swiglu_gmm_ad(experts, x_flat, topk_idx, topk_w, num_experts: int, *, layer_idx=None):
+    """The differentiable prefill MoE of training over floating tables
+    (`_SwigluGmmAD`): the layer's tables (views of depth-stacked ones with
+    `layer_idx`), x_flat (N, h), topk_idx (N, k), topk_w (N, k) -> (N, h).
+    Gradients reach the tables, x and topk_w; none reaches topk_idx."""
+    if table_kind("moe_experts_swiglu_gmm_ad", experts) != "plain":
+        raise ValueError("moe_experts_swiglu_gmm_ad: needs floating tables (quantized ones are not trained)")
+    w1, w3, w2 = layer_tables(experts, layer_idx)
+    return _SwigluGmmAD.apply(w1, w3, w2, x_flat, topk_idx, topk_w, num_experts)
 
 
 def _of_kind(kind: str, op: str, experts, x_flat, topk_idx, topk_w, num_experts, layer_idx, s8, full_block=False):

@@ -1,7 +1,8 @@
 """Parameter bridge, on-device random initialisation and the weight tiers.
 
-`params_from_jax` is the one place where layout is decided, and it decides to
-keep the JAX package's: `(in, out)` linear weights, depth-stacked (L, ...)
+`params_from_jax` is the one place where layout is decided (and
+`adamw_state_from_jax` carries an optax AdamW state across with it), and it
+decides to keep the JAX package's: `(in, out)` linear weights, depth-stacked (L, ...)
 layer leaves, expert tables (L, E, h, m) / (L, E, m, h), and quantized leaves
 in the JAX package's byte formats (`utils/quantize.py`). A tree converted here
 runs through the port and through the JAX package on the same numbers.
@@ -45,6 +46,50 @@ def params_from_jax(tree, device="cuda", dtype=None):
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
+
+
+def _same_path_leaves(tree, other):
+    """(leaf of `tree`, the leaf at the same key path of `other`) in `tree`'s order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _same_path_leaves(v, other[k])
+    elif isinstance(tree, (list, tuple)):
+        for v, o in zip(tree, other):
+            yield from _same_path_leaves(v, o)
+    else:
+        yield tree, other
+
+
+def _adam_state(opt_state):
+    """The optax ScaleByAdamState (count, mu, nu) inside an optax chain's state."""
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (list, tuple)):
+        for s in opt_state:
+            found = _adam_state(s)
+            if found is not None:
+                return found
+    return None
+
+
+def adamw_state_from_jax(opt_state, adamw):
+    """Carry an optax AdamW state (`optax.adamw`, alone or after
+    `clip_by_global_norm` as `make_scheduled_optimizer` chains it) into the
+    port's AdamW state `adamw` (engine/train.AdamWState, over the same param
+    tree on the device the params lie on): each leaf's first and second
+    moments, in the leaf's dtype, at its key path, and the update count, which
+    the learning-rate schedule reads. The next step of the JAX TrainState and
+    of the port's then compute the same update. Returns `adamw`."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no optax ScaleByAdamState (count, mu, nu) in the optimizer state")
+    count = int(np.asarray(adam.count))
+    mu, nu = params_from_jax(adam.mu, "cpu"), params_from_jax(adam.nu, "cpu")
+    for (p, m), (_, v) in zip(_same_path_leaves(adamw.params, mu), _same_path_leaves(adamw.params, nu)):
+        adamw.opt.state[p] = {"step": torch.tensor(float(count)), "exp_avg": m.to(p.device, p.dtype),
+                              "exp_avg_sq": v.to(p.device, p.dtype)}
+    adamw.count = count
+    return adamw
 
 
 class _Init:

@@ -81,3 +81,82 @@ def random_params(cfg: MingUniVisionConfig, seed: int = 0) -> dict:
 
 def to_jax(tree):
     return jax.tree_util.tree_map(jnp.asarray, tree)
+
+
+def fp32_kv(monkeypatch):
+    """For the test, the training forwards of both packages keep k and v in fp32
+    where `lm_loss` rounds them to bf16 (the JAX package's bf16 cache): the two
+    then differentiate the same function in fp32 throughout. The bf16 rounding
+    makes fp32 grads move by up to 5e-4 of their max under a 3e-6 relative
+    change of the embeddings, far past what fp32 parity can hold."""
+    import mingunivision_tpu.engine.train as jax_train
+    import mingunivision_tpu_torch.engine.train as port_train
+
+    cache_cls, forward = jax_train.LLMCache, port_train.bailing_forward
+
+    class Fp32Cache:
+        @staticmethod
+        def create(cfg, batch, max_len, dtype=None):
+            return cache_cls.create(cfg, batch, max_len, dtype=jnp.float32)
+
+    monkeypatch.setattr(jax_train, "LLMCache", Fp32Cache)
+    monkeypatch.setattr(port_train, "bailing_forward", lambda *a, **k: forward(*a, **{**k, "kv_dtype": torch.float32}))
+
+
+def jax_lm_loss_grads(params, cfg, ids, mask, image, dtype=jnp.float32, **kw):
+    """The JAX package's lm_loss and its grads (as a port tree on the CPU) on
+    numpy params cast to `dtype`."""
+    from mingunivision_tpu.engine import train as jax_train
+    from mingunivision_tpu_torch.utils.convert import params_from_jax
+
+    p = jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype), params)
+    loss, grads = jax.value_and_grad(jax_train.lm_loss)(p, cfg, jnp.asarray(ids), jnp.asarray(mask),
+                                                      jnp.asarray(image), **kw)
+    return float(loss), params_from_jax(jax.tree_util.tree_map(lambda g: np.asarray(g, np.float32), grads), "cpu")
+
+
+def port_lm_loss_grads(params, cfg, ids, mask, image, dtype=torch.float32, **kw):
+    """The port's lm_loss on the CPU and its param tree, each leaf's .grad set."""
+    from mingunivision_tpu_torch.engine import train as port_train
+    from mingunivision_tpu_torch.utils.convert import params_from_jax
+    from mingunivision_tpu_torch.utils.pytree import leaves
+
+    p = params_from_jax(params, "cpu", dtype)
+    for leaf in leaves(p):
+        leaf.requires_grad_(True)
+    loss = port_train.lm_loss(p, cfg, torch.from_numpy(ids), torch.from_numpy(mask), torch.from_numpy(image), **kw)
+    loss.backward()
+    return float(loss), p
+
+
+def grad_errors(port_params, want):
+    """path -> (max |port grad - want|, max |want|) over the leaves of a port tree."""
+    from chip_smoke import tree_paths
+    from mingunivision_tpu_torch.utils.convert import _same_path_leaves
+
+    out = {}
+    for path, (p, g) in zip(tree_paths(port_params), _same_path_leaves(port_params, want)):
+        got = torch.zeros_like(g) if p.grad is None else p.grad.float()
+        out[path] = (float((got - g).abs().max()), float(g.abs().max()))
+    return out
+
+
+AUX = dict(balance_alpha=0.01, z_alpha=1e-3)  # the router aux-loss weights of the lm_loss parity tests
+
+
+def train_batch(B: int = 2, T: int = 32, seed: int = 3):
+    """(cfg, params, ids, mask, image) of the lm_loss parity tests:
+    `tiny_llm_config()`, its JAX init at fp32 as numpy arrays, B x T token ids
+    (B * T above the decode MoE's 48 rows), a mask that pads the last row's
+    tail, and an image span routed by the image gate."""
+    from mingunivision_tpu.config import tiny_llm_config
+
+    cfg = tiny_llm_config()
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
+    mask = np.ones((B, T), np.int32)
+    mask[-1, T - 6 :] = 0
+    image = np.zeros((B, T), bool)
+    image[:, 4:12] = True
+    params = jax.tree_util.tree_map(np.asarray, init_bailing_moe_params(jax.random.PRNGKey(seed), cfg, jnp.float32))
+    return cfg, params, ids, mask, image

@@ -666,3 +666,168 @@ def test_swiglu_gmm_full_block_kernel_matches_plain(dev, bits, choices):
         moe_experts_swiglu_gmm(ex, x, idx, w, E, layer_idx=1, full_block=True, s8=True)
     with pytest.raises(ValueError):
         moe_experts_swiglu_gmm(ex, x, idx, w, E, full_block=True)
+
+
+# --- the grouped matmuls of MoE training (csrc/gmm.cu) ---------------------------------------------------
+
+GMM_SIZES = {
+    "uniform": [125] * 8,
+    "skewed-empty-groups": [600, 0, 0, 250, 0, 130, 0, 0],
+    "padded-last-group": [120, 130, 90, 110, 140, 100, 130, 104],  # 1,024 rows, the last 24 zero padding
+}
+
+
+def _gmm_operands(dev, case, K, N, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sizes = torch.tensor(GMM_SIZES[case], dtype=torch.int32, device=dev)
+    R = int(sizes.sum())
+    lhs = torch.randn((R, K), device=dev, generator=g)
+    if case == "padded-last-group":
+        lhs[-24:] = 0.0
+    rhs = torch.empty((len(GMM_SIZES[case]), K, N), device=dev).normal_(0, 0.05, generator=g).to(torch.bfloat16)
+    grad = torch.randn((R, N), device=dev, generator=g)
+    return sizes, lhs, rhs, grad
+
+
+def _close(got, want, rel):
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= rel * want.float().abs().max().item() + 1e-6, err
+
+
+# (K, N): multiples of 8 but not of the tiles (16-byte staging, ragged edges), and widths the
+# kernels stage element by element
+GMM_WIDTHS = {"16-byte-rows": (200, 312), "odd-widths": (100, 150)}
+
+
+@pytest.mark.parametrize("width", list(GMM_WIDTHS))
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["out-fp32", "out-bf16"])
+@pytest.mark.parametrize("lhs_dtype", [torch.bfloat16, torch.float32], ids=["lhs-bf16", "lhs-fp32"])
+@pytest.mark.parametrize("transpose", [False, True], ids=["rhs", "rhs-transposed"])
+@pytest.mark.parametrize("case", list(GMM_SIZES))
+def test_gmm_kernel_matches_plain(dev, case, transpose, lhs_dtype, out_dtype, width):
+    """Both rhs orientations, bf16 or fp32 rows (fp32 split into two bf16
+    parts), fp32 or bf16 outputs, at widths that are no multiples of the
+    kernel's tiles. fp32 outputs within 1e-4 of max, bf16 ones within 1e-2."""
+    from mingunivision_tpu_torch.ops.kernels import moe_gmm
+
+    sizes, lhs, rhs, grad = _gmm_operands(dev, case, *GMM_WIDTHS[width], seed=41)
+    if transpose:  # grad (R, N) against rhs (E, K, N) transposed -> (R, K)
+        lhs = grad
+    lhs = lhs.to(lhs_dtype).contiguous()
+    counter = moe_gmm.gmm_trhs if transpose else moe_gmm.gmm
+    before = counter.launches
+    got = moe_gmm.gmm(lhs, rhs, sizes, out_dtype=out_dtype, transpose_rhs=transpose)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1 and got.dtype == out_dtype
+    _close(got, moe_gmm.gmm_plain(lhs, rhs, sizes, out_dtype=out_dtype, transpose_rhs=transpose),
+           1e-4 if out_dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("width", list(GMM_WIDTHS))
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["out-bf16", "out-fp32"])
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16], ids=["grad-fp32", "grad-bf16"])
+@pytest.mark.parametrize("case", list(GMM_SIZES))
+def test_tgmm_kernel_matches_plain(dev, case, grad_dtype, out_dtype, width):
+    """Per-group lhs^T grad; an empty group's table is exactly zero."""
+    from mingunivision_tpu_torch.ops.kernels import moe_gmm
+
+    sizes, lhs, _, grad = _gmm_operands(dev, case, *GMM_WIDTHS[width], seed=42)
+    lhs, grad = lhs.to(torch.bfloat16), grad.to(grad_dtype)
+    before = moe_gmm.tgmm.launches
+    got = moe_gmm.tgmm(lhs, grad, sizes, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert moe_gmm.tgmm.launches == before + 1
+    _close(got, moe_gmm.tgmm_plain(lhs, grad, sizes, out_dtype=out_dtype),
+           1e-4 if out_dtype == torch.float32 else 1e-2)
+    for e in (sizes == 0).nonzero().flatten().tolist():
+        assert not got[e].any()
+
+
+def test_gmm_wrappers_raise_on_unsupported_input(dev):
+    from mingunivision_tpu_torch.ops.kernels import moe_gmm
+
+    sizes, lhs, rhs, grad = _gmm_operands(dev, "uniform", 64, 96, seed=43)
+    with pytest.raises(ValueError):  # fp32 tables have no kernel
+        moe_gmm.gmm(lhs.to(torch.bfloat16), rhs.float(), sizes)
+    with pytest.raises(ValueError):  # rows of width K = 64 against the transposed (E, 64, 96) table, which takes 96
+        moe_gmm.gmm(lhs.to(torch.bfloat16), rhs, sizes, transpose_rhs=True)
+    with pytest.raises(ValueError):  # tgmm's rows are bf16
+        moe_gmm.tgmm(lhs, grad, sizes)
+
+
+def _plain_training_moe(monkeypatch):
+    """The differentiable prefill MoE through the plain versions: its forward
+    and the grouped matmuls of its backward."""
+    from mingunivision_tpu_torch.ops.kernels import moe_gmm
+    from mingunivision_tpu_torch.ops.kernels import moe_swiglu_gmm as msg
+
+    monkeypatch.setattr(moe_gmm, "gmm", moe_gmm.gmm_plain)
+    monkeypatch.setattr(moe_gmm, "tgmm", moe_gmm.tgmm_plain)
+    monkeypatch.setattr(msg, "swiglu_gmm_ad_forward", msg.moe_experts_swiglu_gmm_plain)
+
+
+def _ad_value_and_grads(experts, x, idx, w, layer_idx=1):
+    from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm_ad
+
+    ex = {k: v.detach().clone().requires_grad_(True) for k, v in experts.items()}
+    xx, ww = x.detach().clone().requires_grad_(True), w.detach().clone().requires_grad_(True)
+    y = moe_experts_swiglu_gmm_ad(ex, xx, idx, ww, E, layer_idx=layer_idx)
+    cot = torch.cos(torch.arange(y.numel(), device=y.device, dtype=torch.float32)).reshape(y.shape)
+    y.backward(cot.to(y.dtype))
+    return [y, ex["gate_proj"].grad[layer_idx], ex["up_proj"].grad[layer_idx], ex["down_proj"].grad[layer_idx],
+            xx.grad, ww.grad]
+
+
+@pytest.mark.parametrize("choices", [None, [0, 3, 5]], ids=["spread", "skewed-empty-experts"])
+def test_swiglu_gmm_ad_matches_its_plain_versions(dev, choices, monkeypatch):
+    """The differentiable fused prefill MoE on the card (row 2 forward; gmm,
+    gmm_trhs, tgmm backward, three launches each) against the same Function
+    through the plain versions at bf16 (within 1e-2 of each max), and
+    printed against them at fp32."""
+    from mingunivision_tpu_torch.ops.kernels import moe_gmm
+    from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm as fused
+
+    experts = _experts(dev, seed=44)
+    idx, w = _routing(dev, 96, 2, choices, seed=45)
+    x = torch.randn(96, H, device=dev).to(torch.bfloat16)
+    before = [f.launches for f in (fused, moe_gmm.gmm, moe_gmm.gmm_trhs, moe_gmm.tgmm)]
+    got = _ad_value_and_grads(experts, x, idx, w)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip((fused, moe_gmm.gmm, moe_gmm.gmm_trhs, moe_gmm.tgmm), before)] == [1, 3, 3, 3]
+    with monkeypatch.context() as mp:
+        _plain_training_moe(mp)
+        plain = _ad_value_and_grads(experts, x, idx, w)
+        ref = _ad_value_and_grads({k: v.float() for k, v in experts.items()}, x.float(), idx, w.float())
+    for name, a, b, r in zip(("y", "gate", "up", "down", "x", "topk_w"), got, plain, ref):
+        assert a.dtype == b.dtype
+        _close(a, b, 1e-2)
+        err = ((a.float() - r).abs().max() / r.abs().max()).item()
+        print(f"{name}: kernel vs plain fp32 {err:.3e} of max")
+
+
+def test_lm_loss_backward_on_the_card_reaches_every_leaf(dev):
+    """One lm_loss backward of the small model (bf16, 1 layer) on the card: every
+    leaf gets a nonzero grad (audio_gate aside: no loss reaches it), through the
+    training kernels, each launched as counted per layer."""
+    import chip_smoke
+    from mingunivision_tpu_torch.engine.train import lm_loss
+    from mingunivision_tpu_torch.ops.kernels import moe_gmm
+    from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm as fused
+    from mingunivision_tpu_torch.utils.pytree import leaves
+
+    cfg, params = chip_smoke.small_llm(torch, dev)
+    ids, mask, image = chip_smoke.train_batch(torch, cfg, dev)
+    before = [f.launches for f in (fused, moe_gmm.gmm, moe_gmm.gmm_trhs, moe_gmm.tgmm)]
+    for p in leaves(params):
+        p.requires_grad_(True)
+    lm_loss(params, cfg, ids, mask, image, balance_alpha=0.01, z_alpha=1e-4).backward()
+    torch.cuda.synchronize()
+    L = cfg.num_hidden_layers
+    assert [f.launches - b for f, b in zip((fused, moe_gmm.gmm, moe_gmm.gmm_trhs, moe_gmm.tgmm), before)] == \
+        [L, 3 * L, 3 * L, 3 * L]
+    for path, p in zip(chip_smoke.tree_paths(params), leaves(params)):
+        if "/audio_gate/" in path:
+            assert p.grad is None or not p.grad.any(), path
+        else:
+            assert p.grad is not None and p.grad.abs().max() > 0, path
