@@ -25,7 +25,10 @@ Phases, one printed line each; any failure exits non-zero:
               grouped matmuls of MoE training (gmm, gmm_trhs, tgmm) at the
               train step's 12,288 rows, uniform and skewed with empty experts
               and a padded last group, and the differentiable fused prefill
-              MoE at full width, its forward and every grad
+              MoE at full width, its forward and every grad; the ViT flash
+              forward with residuals (output and log-sum-exp) and its two
+              backward kernels (dK / dV, dQ) at the pixel decoder's 16 heads x
+              1,024 tokens x 64, batch 2 and 8, beside SDPA's backward
   4. reference  a small model on the card, bf16, int4 (as shipped and with
               moe_int_dots=False), int8 (as shipped and with
               moe_prefill_int_dots and rf_int_dots on) and NF4 (and, on the
@@ -45,7 +48,10 @@ Phases, one printed line each; any failure exits non-zero:
               admission: same tokens, each request's first-step logits within
               the same bound. Then the small model's lm_loss backward (one
               layer): the loss and every grad within the same bound, every
-              training kernel call held against its plain version
+              training kernel call held against its plain version; then a
+              small MingTok's mingtok_train_loss backward (the pixel decoder
+              on 1,024 tokens) at "bf16", and with remat at "default", the
+              same way, every flash forward and backward call held
  4b. train    training at the 16B-A3B width cut to 4 decoder layers: the LM
               train step (B 2 x T 1024 of a synthetic token stream, AdamW at
               1e-3, router aux losses; a warm-up step and 3 timed steps on the
@@ -54,6 +60,14 @@ Phases, one printed line each; any failure exits non-zero:
               losses, ms per step, tokens/s, resident and peak memory, one
               profiled LM step's device time by kernel, launches (per layer
               and step: the fused prefill MoE 1, gmm 3, gmm_trhs 3, tgmm 3)
+ 4c. train_mingtok  MingTok joint training as examples/train_mingtok.py runs
+              it: the full MingTokConfig() (0.7 B params, bf16), B 2 x 512 px
+              of the synthetic image stream, teacher features, AdamW 1e-4;
+              the pixel decoder's "bf16" tier (4 steps: the loss must fall),
+              "bf16" with remat, "default" and "high" (2 steps each): losses,
+              ms per step, images/s, memory, launches per step (the flash
+              forward 24, 48 with remat, dK / dV 24, dQ 24; none at "high"),
+              one profiled "bf16" step
   5. slice    single-image text-to-image through MingUniVisionSession.generate
               at the full 16B-A3B width (random weights from a seed, bf16,
               max_seq_len 4096): output checks, launch counts of every kernel,
@@ -114,7 +128,7 @@ tier only its T2I round).
 Then a JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-`--phases` picks the phases (default: the eighteen above), e.g.
+`--phases` picks the phases (default: the nineteen above), e.g.
 `--phases device,build,kernels,understand` or `--phases device,build,kernels,serve`. Six more run only when named:
   divergence  the small model's plain bf16 path with each kernel swapped in
               alone, and all of them, and with the image head's input moved
@@ -199,6 +213,11 @@ KERNELS = {
     "gmm": ("csrc/gmm.cu", "mingunivision_tpu/ops/kernels/moe_gmm.py:85"),
     "gmm_trhs": ("csrc/gmm.cu", "mingunivision_tpu/ops/kernels/moe_gmm.py:85"),
     "tgmm": ("csrc/gmm.cu", "mingunivision_tpu/ops/kernels/moe_gmm.py:85"),
+    # the ninth slice: the backward kernels of the library flash attention (its custom VJP,
+    # flash_attention.py _flash_attention_bwd_dkv :941 and _flash_attention_bwd_dq :1287) behind the ViT
+    # entry's call, reached by MingTok training
+    "flash_vit_bwd_dkv": ("csrc/flash_attention.cu", "mingunivision_tpu/ops/kernels/flash.py:90"),
+    "flash_vit_bwd_dq": ("csrc/flash_attention.cu", "mingunivision_tpu/ops/kernels/flash.py:90"),
 }
 BF16_KERNELS = ("moe_stream", "moe_swiglu_gmm", "decode_attention")
 REL_TOL = 1e-2  # kernel vs plain: max |err| <= REL_TOL * max |plain| (bf16 keeps ~3 digits)
@@ -229,6 +248,12 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def compare(torch, got, want):
+    """(ok, max abs error, error relative to max |want|) of a kernel's output
+    against its plain version; for a tuple of outputs, each part is held on
+    its own and the worst part is reported."""
+    if isinstance(got, (tuple, list)):
+        parts = [compare(torch, a, b) for a, b in zip(got, want, strict=True)]
+        return all(p[0] for p in parts), max(p[1] for p in parts), max(p[2] for p in parts)
     err = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
     finite = bool(torch.isfinite(got.float()).all())
@@ -961,7 +986,7 @@ def plain_versions(names=ENTRIES):
     from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm_plain
     from mingunivision_tpu_torch.ops.kernels.rf_mlp import rf_mlp_stack_plain
     from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused_plain
-    from mingunivision_tpu_torch.ops.kernels import moe_gmm
+    from mingunivision_tpu_torch.ops.kernels import flash, moe_gmm
     from mingunivision_tpu_torch.ops.kernels import moe_swiglu_gmm as msg
 
     swaps = {"moe_stream": [(bm, "moe_experts_stream", moe_experts_stream_plain)],
@@ -976,7 +1001,11 @@ def plain_versions(names=ENTRIES):
              "paged_attention": [(paged, "paged_decode_attention", paged_gather_attention)],
              # training's differentiable prefill MoE: its forward and its backward's grouped matmuls
              "train_moe": [(msg, "swiglu_gmm_ad_forward", msg.moe_experts_swiglu_gmm_plain),
-                           (moe_gmm, "gmm", moe_gmm.gmm_plain), (moe_gmm, "tgmm", moe_gmm.tgmm_plain)]}
+                           (moe_gmm, "gmm", moe_gmm.gmm_plain), (moe_gmm, "tgmm", moe_gmm.tgmm_plain)],
+             # MingTok training's ViT flash attention: the forward with residuals and the two backward kernels
+             "flash_vit_train": [(flash, "flash_vit_attention_lse", flash.flash_vit_attention_lse_plain),
+                                 (flash, "flash_vit_bwd_dkv", flash.flash_vit_bwd_dkv_plain),
+                                 (flash, "flash_vit_bwd_dq", flash.flash_vit_bwd_dq_plain)]}
     saved = [(mod, attr, getattr(mod, attr)) for entries in swaps.values() for mod, attr, _ in entries]
     for name in names:
         for swap in swaps[name]:
@@ -1452,7 +1481,12 @@ def launch_counters():
     from mingunivision_tpu_torch.ops.kernels import moe_stream as ms
     from mingunivision_tpu_torch.ops.kernels import moe_swiglu_gmm as gmm
     from mingunivision_tpu_torch.ops.kernels.decode_attention import decode_attention
-    from mingunivision_tpu_torch.ops.kernels.flash import flash_prefill_attention, flash_vit_attention
+    from mingunivision_tpu_torch.ops.kernels.flash import (
+        flash_prefill_attention,
+        flash_vit_attention,
+        flash_vit_bwd_dkv,
+        flash_vit_bwd_dq,
+    )
     from mingunivision_tpu_torch.ops.kernels.moe_capacity import moe_experts_capacity_gmm
     from mingunivision_tpu_torch.ops.kernels import rf_mlp
     from mingunivision_tpu_torch.ops.kernels import rf_sampler as rs
@@ -1472,7 +1506,8 @@ def launch_counters():
             "rf_sampler_q4s8_pipelined": rs.rf_sample_fused_q4_pipelined,
             "moe_swiglu_gmm_q4_full": gmm.moe_experts_swiglu_gmm_q4_full,
             "moe_swiglu_gmm_q8_full": gmm.moe_experts_swiglu_gmm_q8_full,
-            "gmm": moe_gmm.gmm, "gmm_trhs": moe_gmm.gmm_trhs, "tgmm": moe_gmm.tgmm}
+            "gmm": moe_gmm.gmm, "gmm_trhs": moe_gmm.gmm_trhs, "tgmm": moe_gmm.tgmm,
+            "flash_vit_bwd_dkv": flash_vit_bwd_dkv, "flash_vit_bwd_dq": flash_vit_bwd_dq}
 
 
 def counted_round(torch, results, path, run):
@@ -1797,8 +1832,10 @@ def held_against_plain(torch, entries, return_plain: bool = False):
             out = self.kernel(*args, **kwargs)
             ref = self.plain(*args, **kwargs)
             sel = self.rows(args)
-            diff = (out[sel].float() - ref[sel].float()).abs().max()
-            errs[self.name].append(float(diff / ref[sel].float().abs().max().clamp_min(1e-30)) if sel.any() else 0.0)
+            parts = zip(out, ref) if isinstance(out, tuple) else [(out, ref)]  # a tuple: each part on its own
+            errs[self.name].append(max(float((o[sel].float() - r[sel].float()).abs().max()
+                                             / r[sel].float().abs().max().clamp_min(1e-30)) if sel.any() else 0.0
+                                       for o, r in parts))
             return ref if return_plain else out
 
     for name, (mod, attr, plain, rows) in entries.items():
@@ -2544,6 +2581,152 @@ def check_ad_full_width(torch, w_gate, w_down, g, results) -> bool:
     return all(p for _, p in checks)
 
 
+def check_flash_vit_train_kernels(torch, results: dict) -> bool:
+    """The ViT flash attention of MingTok training at the pixel decoder's shape
+    (16 heads x 1024 tokens x 64, batch 2 and 8): the forward with residuals
+    (output and log-sum-exp) against its plain version, and the two backward
+    kernels (dK / dV, dQ) against theirs on the kernel forward's residuals,
+    within REL_TOL. The library time of the backward kernels is one
+    `torch.autograd.grad` through `scaled_dot_product_attention` on the same q,
+    k, v and dO (its whole backward: the work of the pair); timed only."""
+    from mingunivision_tpu_torch.ops.kernels import flash
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    H, N, D = 16, 1024, 64
+    scale = D**-0.5
+    ok = True
+    for B in (2, 8):
+        q, k, v, do = (torch.randn((B, H, N, D), device=dev, generator=g).to(torch.bfloat16) for _ in range(4))
+        numel, rows, pair_ops = q.numel(), B * H * N, 2.0 * N * N * D * H * B  # one N x N x D product
+        label = f"{B}x{H}x{N}x{D} head-major"
+        ok &= run_case(torch, results, "flash_vit", f"{label}, with residuals (out, lse)",
+                       lambda: flash.flash_vit_attention_lse(q, k, v, scale=scale),  # noqa: B023
+                       lambda: flash.flash_vit_attention_lse_plain(q, k, v, scale=scale),  # noqa: B023
+                       4 * numel * 2 + rows * 4, 2 * pair_ops, "bf16", library=lambda: sdpa(q, k, v))  # noqa: B023
+        out, lse = flash.flash_vit_attention_lse(q, k, v, scale=scale)
+        delta = flash.flash_vit_delta(out, do)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        lib_out = sdpa(*leaves)
+        library = lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True)  # noqa: B023, E731
+        args = (q, k, v, lse, do, delta)
+        ok &= run_case(torch, results, "flash_vit_bwd_dkv", f"{label}; library: SDPA's whole backward",
+                       lambda: flash.flash_vit_bwd_dkv(*args, scale=scale),  # noqa: B023
+                       lambda: flash.flash_vit_bwd_dkv_plain(*args, scale=scale),  # noqa: B023
+                       6 * numel * 2 + 2 * rows * 4, 4 * pair_ops, "bf16", library=library, plain_iters=5)
+        ok &= run_case(torch, results, "flash_vit_bwd_dq", f"{label}; library: SDPA's whole backward",
+                       lambda: flash.flash_vit_bwd_dq(*args, scale=scale),  # noqa: B023
+                       lambda: flash.flash_vit_bwd_dq_plain(*args, scale=scale),  # noqa: B023
+                       5 * numel * 2 + 2 * rows * 4, 3 * pair_ops, "bf16", library=library, plain_iters=5)
+        dkv, dq = results["flash_vit_bwd_dkv"]["cases"][-1], results["flash_vit_bwd_dq"]["cases"][-1]
+        pair_bound = bound(7 * numel * 2 + 2 * rows * 4, 5 * pair_ops, "bf16")[0]
+        print(f"kernel flash_vit_bwd pair [{label}]: ms={dkv['ms'] + dq['ms']:.4f} "
+              f"library_ms={dkv['library_ms']:.4f} bound_ms={pair_bound:.4f} (operations: 10 N^2 D per head and "
+              f"image, {pair_bound / B:.4f} per image)")
+        del q, k, v, do, out, lse, delta, leaves, lib_out, library, args
+    torch.cuda.empty_cache()
+    return ok
+
+
+def small_mingtok(torch, device, tier: str, dtype):
+    """The MingTok of the train references on `device`, params in `dtype` from
+    seed 5: 256-px images at patch 16, width 128 and 2 heads of 64 in each
+    ViT, depth 2, latents of 8 channels; the pixel decoder at patch 8 on 1,024
+    tokens (so its reduced tiers reach the flash kernel), at `tier`. Returns
+    (cfg, params)."""
+    import dataclasses
+
+    from mingunivision_tpu_torch.config import (
+        MingTokConfig,
+        PixelDecoderConfig,
+        SemanticDecoderConfig,
+        ViTEncoderConfig,
+    )
+    from mingunivision_tpu_torch.utils.convert import _Init, init_mingtok_params
+
+    cfg = MingTokConfig(
+        encoder=ViTEncoderConfig(img_size=256, patch_size=16, embed_dim=128, depth=2, num_heads=2, out_dim=8),
+        semantic_decoder=SemanticDecoderConfig(in_dim=8, embed_dim=128, depth=2, num_heads=2, patch_size=16),
+        pixel_decoder=PixelDecoderConfig(embed_dim=128, depth=2, num_heads=2, patch_size=8, matmul_precision=tier),
+        scaling_factor=2.0, mean=0.5)
+    params = init_mingtok_params(cfg, _Init(device, dtype, torch.Generator(device=device).manual_seed(5)))
+    return cfg, params
+
+
+def mingtok_train_entries(torch):
+    """MingTok training's kernel entries, as `held_against_plain` takes them:
+    the ViT flash forward with residuals and the two backward kernels."""
+    from mingunivision_tpu_torch.ops.kernels import flash
+
+    every = lambda args: torch.ones(args[0].shape[0], dtype=torch.bool, device=args[0].device)  # noqa: E731
+    return {"flash_vit_fwd_lse": (flash, "flash_vit_attention_lse", flash.flash_vit_attention_lse_plain, every),
+            "flash_vit_bwd_dkv": (flash, "flash_vit_bwd_dkv", flash.flash_vit_bwd_dkv_plain, every),
+            "flash_vit_bwd_dq": (flash, "flash_vit_bwd_dq", flash.flash_vit_bwd_dq_plain, every)}
+
+
+def run_reference_mingtok(torch, device, tier: str = "bf16", remat: bool = False) -> bool:
+    """The small MingTok's `mingtok_train_loss` backward (B 1, a teacher, the
+    pixel decoder at `tier` on 1,024 tokens, `remat`) through the kernels, bf16
+    params and compute, against the plain entries in fp32 (fp32 params and
+    compute, the pixel decoder at "high": plain attention), the reference, on
+    the same weights and images. The loss and every leaf's grad of the kernel
+    route may differ from the reference by at most twice the plain bf16
+    route's own error plus 1e-2 of the reference's maximum (the plain bf16
+    route: the same call with the flash entries swapped for their plain
+    versions); every call of an entry (`mingtok_train_entries`) is held against
+    its plain version on the same inputs within REL_TOL, and every entry must
+    have been called once per pixel-decoder layer (the forward twice with
+    remat)."""
+    import dataclasses
+
+    import numpy as np
+
+    from mingunivision_tpu_torch.engine.train import mingtok_train_loss, pixel_tier_context
+    from mingunivision_tpu_torch.utils.pytree import leaves, tree_map
+
+    cfg, params = small_mingtok(torch, device, tier, torch.bfloat16)
+    rng = np.random.default_rng(6)
+    S = cfg.encoder.img_size
+    images = torch.from_numpy(np.tanh(rng.standard_normal((1, 3, S, S))).astype(np.float32)).to(device)
+    teacher = torch.from_numpy(rng.standard_normal((1, (S // 16) ** 2, cfg.feature_dim)).astype(np.float32))
+    teacher = teacher.to(device)
+    ref_cfg = dataclasses.replace(cfg, pixel_decoder=dataclasses.replace(cfg.pixel_decoder, matmul_precision="high"))
+
+    def loss_and_grads(tree, c, dtype):
+        tree = tree_map(lambda t: t.detach().clone().requires_grad_(True), tree)
+        loss, _ = mingtok_train_loss(tree, c, images, teacher, compute_dtype=dtype, remat=remat)
+        with pixel_tier_context(c):
+            loss.backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves(tree)]
+        return [loss.detach().float().cpu()] + [gr.float().cpu() for gr in grads]
+
+    with held_against_plain(torch, mingtok_train_entries(torch)) as errs:
+        kern = loss_and_grads(params, cfg, torch.bfloat16)
+    with plain_versions(("flash_vit_train",)):
+        plain = loss_and_grads(params, cfg, torch.bfloat16)
+    ref = loss_and_grads(as_f32(params), ref_cfg, torch.float32)
+    depth = cfg.pixel_decoder.depth
+    want = {"flash_vit_fwd_lse": (2 if remat else 1) * depth, "flash_vit_bwd_dkv": depth, "flash_vit_bwd_dq": depth}
+    checks = [(f"{name} {len(v)} calls == {want[name]}, within {max(v, default=0):.3e} <= {REL_TOL} of its plain "
+               f"version", len(v) == want[name] and max(v) <= REL_TOL) for name, v in errs.items()]
+    worst, worst_ratio = "", 0.0
+    for path, a, p, r in zip(["loss"] + list(tree_paths(params)), kern, plain, ref):
+        err_k, err_p = float((a - r).abs().max()), float((p - r).abs().max())
+        tol = 2 * err_p + 1e-2 * float(r.abs().max())
+        ratio = err_k / max(tol, 1e-30)
+        if ratio >= worst_ratio:
+            worst, worst_ratio = f"{path} err {err_k:.3e} <= {tol:.3e} (plain bf16 {err_p:.3e})", ratio
+        if not (bool(torch.isfinite(a).all()) and err_k <= tol):
+            checks.append((f"{path} err vs fp32 {err_k:.3e} <= {tol:.3e} (plain bf16 err {err_p:.3e})", False))
+    checks.append((f"loss and {len(kern) - 1} grads within twice the plain bf16 error + 1e-2 of max (closest: "
+                   f"{worst})", worst_ratio <= 1.0))
+    print(f"reference train_mingtok [{tier}{', remat' if remat else ''}] (small MingTok's mingtok_train_loss "
+          f"backward on the {device.type}: kernels bf16 vs plain fp32; loss {float(kern[0]):.5f} / "
+          f"{float(ref[0]):.5f}): " + "; ".join(f"{label}={'ok' if p else 'FAILED'}" for label, p in checks))
+    return all(p for _, p in checks)
+
+
 def run_reference_train(torch, device) -> bool:
     """The small model's `lm_loss` train step (its backward) through the
     kernels (bf16) and through their plain versions in fp32, the reference, on
@@ -2774,6 +2957,161 @@ def run_train(torch, device, results: dict) -> bool:
     return ok
 
 
+def mingtok_round_checks(launches, tier: str, steps: int, remat: bool):
+    """Per step: the flash forward with residuals once per pixel-decoder layer
+    (twice with remat: the recompute), dK / dV and dQ once each; none at
+    "high"; no other kernel."""
+    per = 24 if tier != "high" else 0
+    want = {"flash_vit": (2 if remat else 1) * per * steps, "flash_vit_bwd_dkv": per * steps,
+            "flash_vit_bwd_dq": per * steps}
+    return ([(f"{name} launches {launches[name]} == {n} ({n // steps} per step)", launches[name] == n)
+             for name, n in want.items()]
+            + [(f"{name} launches {n} == 0", n == 0) for name, n in launches.items() if name not in want and n])
+
+
+def profile_mingtok_step(torch, state, step, record: dict):
+    """One more MingTok step under torch.profiler, `mingtok_train_loss` in a
+    profiler range: device ms of the forward, the backward and the AdamW update
+    (PyTorch's `Optimizer.step` span), the flash kernels' device ms (forward
+    with residuals, dK / dV, dQ), the busy share of the step's wall time, and
+    the top kernels. Returns the state."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mingunivision_tpu_torch.engine import train as train_mod
+
+    loss_fn = train_mod.mingtok_train_loss
+
+    def ranged(*args, **kwargs):
+        with record_function("train_forward"):
+            return loss_fn(*args, **kwargs)
+
+    train_mod.mingtok_train_loss = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, (loss, _) = step(state)
+            float(loss)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        train_mod.mingtok_train_loss = loss_fn
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def annotation(e):
+        name = getattr(e, "name", None) or e.key
+        return getattr(e, "is_user_annotation", False) or name == "train_forward" or name.startswith("Optimizer.")
+
+    device_events = [e for e in prof.events() if e.device_type == cuda]
+    kernels = [e for e in device_events if not annotation(e)]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    fwd_ms = stage_device_ms(device_events, ("train_forward",))["train_forward"][1]
+    opt_ms = sum(e.time_range.elapsed_us() for e in device_events if e.name.startswith("Optimizer.step")) / 1e3
+    flash_ms = {part: sum(e.time_range.elapsed_us() for e in kernels if pattern in e.name) / 1e3
+                for part, pattern in (("forward", "flash_kernel"), ("dkv", "flash_vit_bwd_dkv"),
+                                      ("dq", "flash_vit_bwd_dq"))}
+    record["profile"] = {"wall_ms": wall_ms, "busy_ms": busy_ms, "forward_ms": fwd_ms, "optimizer_ms": opt_ms,
+                         "backward_ms": busy_ms - fwd_ms - opt_ms, "flash_ms": flash_ms,
+                         "flash_share": sum(flash_ms.values()) / max(busy_ms, 1e-9)}
+    print(f"train_mingtok profile (one bf16 step, profiled): wall_ms={wall_ms:.1f} device_busy_ms={busy_ms:.1f} "
+          f"busy_share={busy_ms / wall_ms:.3f}; device ms: forward {fwd_ms:.1f}, backward "
+          f"{busy_ms - fwd_ms - opt_ms:.1f}, AdamW {opt_ms:.1f} (its span); flash kernels "
+          f"{sum(flash_ms.values()):.2f} ({', '.join(f'{k} {v:.2f}' for k, v in flash_ms.items())}; share "
+          f"{record['profile']['flash_share']:.3f}); device events {len(kernels)}")
+    top = [e for e in prof.key_averages() if e.device_type == cuda and not annotation(e)]
+    for e in sorted(top, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"train_mingtok profile kernel: {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} calls "
+              f"{e.self_device_time_total / max(e.count, 1):10.3f} us/call  {e.key[:90]}")
+    return state
+
+
+def run_train_mingtok(torch, device, results: dict) -> bool:
+    """MingTok joint training on one card as `examples/train_mingtok.py` runs it:
+    the full `MingTokConfig()` (encoder 12 x 768, semantic decoder 24 x 1024,
+    pixel decoder 24 x 1024 on 1,024 tokens of 16 heads x 64), random bf16
+    weights from seed 7, B 2 x 512 px from the synthetic image stream (seed 0,
+    normalised on the card), random teacher features (2, 256, 1024) at feature
+    weight 1.0, AdamW(1e-4, weight decay 1e-4), the same batch every step.
+    Rounds, each on the state the last one left: "bf16" (a warm-up step and 3
+    timed: the loss must fall), "bf16" with remat (2), "default" (2), "high"
+    (2; the JAX package's default tier, no kernel). Per round: ms per step
+    (synchronised, median of the steps after the first), images/s, resident and peak
+    memory, every loss (finite), the launches per step. Then one profiled bf16
+    step."""
+    import dataclasses
+
+    import numpy as np
+
+    from mingunivision_tpu_torch.config import MingTokConfig
+    from mingunivision_tpu_torch.engine.train import (
+        ImageStream,
+        TrainState,
+        make_mingtok_optimizer,
+        make_mingtok_train_step,
+        normalize_images_chw,
+    )
+    from mingunivision_tpu_torch.utils.convert import _Init, init_mingtok_params
+    from mingunivision_tpu_torch.utils.pytree import leaves
+
+    t0 = time.perf_counter()
+    base = MingTokConfig()
+    params = init_mingtok_params(base, _Init(device, torch.bfloat16, torch.Generator(device=device).manual_seed(7)))
+    n_params = sum(t.numel() for t in leaves(params))
+    state = TrainState.create(params, make_mingtok_optimizer(1e-4))
+    B, S = 2, base.encoder.img_size
+    images = normalize_images_chw(ImageStream(S, seed=0).batch(B)[0], device)
+    g = torch.Generator(device=device).manual_seed(8)
+    teacher = torch.randn((B, (S // base.encoder.patch_size) ** 2, base.feature_dim), device=device,
+                          generator=g).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"train_mingtok: {n_params / 1e9:.3f} B params bf16 (MingTokConfig(), full width and depth) in "
+          f"{time.perf_counter() - t0:.1f} s; images {tuple(images.shape)} fp32, teacher {tuple(teacher.shape)}")
+    ok, record = True, {}
+    # (label, tier, remat, steps): each round's first step warms its tier up (the first "high" step took 3.6x
+    # the second in the first run), so ms/step is the median of the others
+    for label, tier, remat, steps in (("bf16", "bf16", False, 4), ("bf16_remat", "bf16", True, 2),
+                                      ("default", "default", False, 2), ("high", "high", False, 2)):
+        cfg = dataclasses.replace(base, pixel_decoder=dataclasses.replace(base.pixel_decoder, matmul_precision=tier))
+        step = make_mingtok_train_step(cfg, remat=remat)
+        losses, step_ms = [], []
+
+        def steps_run():
+            nonlocal state
+            for _ in range(steps):  # noqa: B023
+                t1 = time.perf_counter()
+                state, (loss, metrics) = step(state, images, teacher)  # noqa: B023
+                losses.append(float(loss))  # noqa: B023  (reads the loss: the step is synchronised)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t1) * 1e3)  # noqa: B023
+
+        _, launches, peak = counted_round(torch, results, f"train_mingtok_{label}", steps_run)
+        resident = torch.cuda.memory_allocated()
+        ms = statistics.median(step_ms[1:])
+        checks = [(f"losses {', '.join(f'{v:.4f}' for v in losses)} finite", all(np.isfinite(losses)))]
+        if label == "bf16":
+            checks.append((f"last {losses[-1]:.4f} < first {losses[0]:.4f}", losses[-1] < losses[0]))
+            for name in ("flash_vit_bwd_dkv", "flash_vit_bwd_dq"):
+                results.setdefault(name, {})["launches"] = launches[name]
+        checks += mingtok_round_checks(launches, tier, steps, remat)
+        print(f"train_mingtok [{label}]: B={B} x {S} px ms/step {ms:.1f} (steps {', '.join(f'{v:.1f}' for v in step_ms)}"
+              f"; warm-up first) images/s {B / ms * 1e3:.2f}; resident {resident / 2**30:.3f} GiB, "
+              f"peak {peak / 2**30:.3f} GiB; launches per step: "
+              + ", ".join(f"{n}={launches[n] // steps}" for n in ("flash_vit", "flash_vit_bwd_dkv", "flash_vit_bwd_dq")))
+        ok &= report(f"train_mingtok {label}", {n: v for n, v in launches.items() if v}, checks)
+        record[label] = {"losses": losses, "step_ms": step_ms, "ms_per_step": ms, "images_per_s": B / ms * 1e3,
+                         "resident_gib": resident / 2**30, "peak_gib": peak / 2**30}
+    if "launches" not in results.get("flash_vit", {}):  # recon did not run: the train step's forwards, per step
+        results.setdefault("flash_vit", {})["launches"] = results["flash_vit"]["launches_by_path"][
+            "train_mingtok_bf16"] // 4
+    cfg = dataclasses.replace(base, pixel_decoder=dataclasses.replace(base.pixel_decoder, matmul_precision="bf16"))
+    step = make_mingtok_train_step(cfg)
+    state = profile_mingtok_step(torch, state, lambda st: step(st, images, teacher), record["bf16"])
+    results["train_mingtok"] = {"params_b": n_params / 1e9, **record}
+    del state, step, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
 def kernel_entry(name: str, r: dict, capacity: dict) -> dict:
     """One kernel's entry of the JSON line, from what this run measured:
     `launches` from the main path that runs it (its tier's T2I slice; the
@@ -2806,7 +3144,8 @@ def jax_modules():
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="device,build,kernels,reference,train,slice,slice_int4,slice_int4_exact,"
+    ap.add_argument("--phases", default="device,build,kernels,reference,train,train_mingtok,slice,slice_int4,"
+                                        "slice_int4_exact,"
                                         "slice_int4_perstep,slice_int4_rf8,slice_int8,slice_int8_s8,slice_int8_perstep,"
                                         "slice_nf4,understand,edit,recon,serve")
     ap.add_argument("--tier", default="bfloat16", choices=("bfloat16", "int4", "int8", "nf4"),
@@ -2860,6 +3199,7 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         ok &= check_kernels(torch, results)
         ok &= check_train_kernels(torch, results)
+        ok &= check_flash_vit_train_kernels(torch, results)
         stamp("kernels")
     if "reference" in phases:
         for tier, runtime_kw in REFERENCE_TIERS:
@@ -2869,10 +3209,15 @@ def main(argv=None) -> int:
             ok &= run_reference(torch, cuda, tier, results, **runtime_kw)
         ok &= run_reference_serve(torch, cuda)
         ok &= run_reference_train(torch, cuda)
+        ok &= run_reference_mingtok(torch, cuda, "bf16")
+        ok &= run_reference_mingtok(torch, cuda, "default", remat=True)
         stamp("reference")
     if "train" in phases:
         ok &= run_train(torch, cuda, results)
         stamp("train")
+    if "train_mingtok" in phases:
+        ok &= run_train_mingtok(torch, cuda, results)
+        stamp("train_mingtok")
     if "divergence" in phases:
         ok &= run_divergence(torch, cuda, args.tier)
     if "rf_sensitivity" in phases:

@@ -1,14 +1,21 @@
 // Flash attention: softmax(Q K^T * scale) V over full sequences, tile by tile,
-// with the scores never written to device memory. Two entry points from one
-// templated body:
+// with the scores never written to device memory. Two forward entry points
+// from one templated body:
 //   mu_flash_prefill_bf16  first-round LLM prefill, token-major (B, T, H, D),
 //                          GQA by indexing the kv head, causal, and a row sees
 //                          a key only when both are valid or both are padding;
-//   mu_flash_vit_bf16      non-causal ViT attention, head-major (B, H, N, D).
+//   mu_flash_vit_bf16      non-causal ViT attention, head-major (B, H, N, D),
+//                          also writing each row's log-sum-exp (fp32, B x H x N)
+//                          when asked: the residual of the backward;
+// and the two backward kernels of the ViT entry, mu_flash_vit_bwd_dkv_bf16 and
+// mu_flash_vit_bwd_dq_bf16 (see their note below).
 //
 // Replaces the TPU path mingunivision_tpu/ops/kernels/flash.py
 // (flash_prefill_attention and flash_vit_attention, which call the Pallas
-// flash-attention kernel that ships with JAX, with segment ids for padding).
+// flash-attention kernel that ships with JAX, with segment ids for padding;
+// and, under training's autodiff, that library's custom VJP: the forward with
+// residuals and its backward kernels _flash_attention_bwd_dkv and
+// _flash_attention_bwd_dq).
 // On the H100 the function is bound by operations at both shapes (4 * D
 // operations per allowed query-key pair against q, k, v and the output moved
 // once); what a kernel must do about that is keep the two products on the
@@ -77,12 +84,15 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, size_t str
 }
 
 // q / out: element (b, h, row, d) at b * q_bs + h * q_hs + row * q_rs + d;
-// k / v likewise with k_bs, k_hs, k_rs; valid (B, n_rows) bytes (PREFILL only).
-template <int D, bool PREFILL>
+// k / v likewise with k_bs, k_hs, k_rs; valid (B, n_rows) bytes (PREFILL only);
+// lse (B, heads, n_rows) fp32, written when LSE: m * scale + log(l) of each
+// row, the natural-log normaliser of its softmax (the library's residuals m
+// and l in one number).
+template <int D, bool PREFILL, bool LSE>
 __global__ void __launch_bounds__(kThreads) flash_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const uint8_t* __restrict__ valid, bf16* __restrict__ out, int n_rows, int group, size_t q_bs, size_t q_hs,
-    size_t q_rs, size_t k_bs, size_t k_hs, size_t k_rs, float scale_log2e) {
+    const uint8_t* __restrict__ valid, bf16* __restrict__ out, float* __restrict__ lse, int n_rows, int group,
+    size_t q_bs, size_t q_hs, size_t q_rs, size_t k_bs, size_t k_hs, size_t k_rs, float scale_log2e) {
   constexpr int LD = D + 8;  // padded shared row, in elements
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
@@ -226,6 +236,11 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.0f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.0f / fmaxf(l1, 1e-30f);
+  if (LSE && t == 0) {
+    float* lrow = lse + ((size_t)b * gridDim.y + hq) * n_rows;
+    lrow[row0] = (m0 * scale_log2e + log2f(l0)) * 0.6931471805599453f;
+    lrow[row1] = (m1 * scale_log2e + log2f(l1)) * 0.6931471805599453f;
+  }
 
   // Stage the warp's 16 output rows in its own rows of Qs (read for the last
   // time before the loop's first barrier), then write 16 bytes a thread.
@@ -246,18 +261,18 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
   }
 }
 
-template <int D, bool PREFILL>
-int launch_flash(const void* q, const void* k, const void* v, const void* valid, void* out, int B, int heads,
-                 int n_rows, int group, size_t q_bs, size_t q_hs, size_t q_rs, size_t k_bs, size_t k_hs, size_t k_rs,
-                 float scale, void* stream) {
+template <int D, bool PREFILL, bool LSE>
+int launch_flash(const void* q, const void* k, const void* v, const void* valid, void* out, void* lse, int B,
+                 int heads, int n_rows, int group, size_t q_bs, size_t q_hs, size_t q_rs, size_t k_bs, size_t k_hs,
+                 size_t k_rs, float scale, void* stream) {
   const size_t smem = (size_t)(BM + 2 * BN) * (D + 8) * sizeof(bf16) + BN;
-  cudaError_t err = allow_dynamic_smem(flash_kernel<D, PREFILL>, smem);
+  cudaError_t err = allow_dynamic_smem(flash_kernel<D, PREFILL, LSE>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(n_rows / BM, heads, B);
-  flash_kernel<D, PREFILL><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  flash_kernel<D, PREFILL, LSE><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const uint8_t*>(valid), static_cast<bf16*>(out), n_rows, group, q_bs, q_hs, q_rs, k_bs, k_hs, k_rs,
-      scale * 1.4426950408889634f);
+      static_cast<const uint8_t*>(valid), static_cast<bf16*>(out), static_cast<float*>(lse), n_rows, group, q_bs,
+      q_hs, q_rs, k_bs, k_hs, k_rs, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -270,22 +285,330 @@ extern "C" int mu_flash_prefill_bf16(const void* q, const void* k, const void* v
                                      int T, int Hq, int Hkv, int D, float scale, void* stream) {
   const size_t qrs = (size_t)Hq * D, krs = (size_t)Hkv * D;
   if (D == 128)
-    return launch_flash<128, true>(q, k, v, valid, out, B, Hq, T, Hq / Hkv, T * qrs, D, qrs, T * krs, D, krs, scale,
-                                   stream);
+    return launch_flash<128, true, false>(q, k, v, valid, out, nullptr, B, Hq, T, Hq / Hkv, T * qrs, D, qrs, T * krs,
+                                          D, krs, scale, stream);
   if (D == 64)
-    return launch_flash<64, true>(q, k, v, valid, out, B, Hq, T, Hq / Hkv, T * qrs, D, qrs, T * krs, D, krs, scale,
-                                  stream);
+    return launch_flash<64, true, false>(q, k, v, valid, out, nullptr, B, Hq, T, Hq / Hkv, T * qrs, D, qrs, T * krs,
+                                         D, krs, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// q / k / v / out (B, H, N, D) bf16 contiguous, head-major; non-causal.
+// q / k / v / out (B, H, N, D) bf16 contiguous, head-major; non-causal; lse
+// (B, H, N) fp32 or null (then not written: inference).
 // N must be a multiple of 64 and D 64 or 128 (the wrapper checks).
-extern "C" int mu_flash_vit_bf16(const void* q, const void* k, const void* v, void* out, int B, int H, int N, int D,
-                                 float scale, void* stream) {
+extern "C" int mu_flash_vit_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int B, int H,
+                                 int N, int D, float scale, void* stream) {
   const size_t hs = (size_t)N * D, bs = (size_t)H * hs;
+  if (lse != nullptr) {
+    if (D == 64)
+      return launch_flash<64, false, true>(q, k, v, nullptr, out, lse, B, H, N, 1, bs, hs, D, bs, hs, D, scale, stream);
+    if (D == 128)
+      return launch_flash<128, false, true>(q, k, v, nullptr, out, lse, B, H, N, 1, bs, hs, D, bs, hs, D, scale,
+                                            stream);
+    return (int)cudaErrorInvalidValue;
+  }
   if (D == 64)
-    return launch_flash<64, false>(q, k, v, nullptr, out, B, H, N, 1, bs, hs, D, bs, hs, D, scale, stream);
+    return launch_flash<64, false, false>(q, k, v, nullptr, out, nullptr, B, H, N, 1, bs, hs, D, bs, hs, D, scale,
+                                          stream);
   if (D == 128)
-    return launch_flash<128, false>(q, k, v, nullptr, out, B, H, N, 1, bs, hs, D, bs, hs, D, scale, stream);
+    return launch_flash<128, false, false>(q, k, v, nullptr, out, nullptr, B, H, N, 1, bs, hs, D, bs, hs, D, scale,
+                                           stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// Backward of the ViT entry (non-causal, head-major, bf16), for training.
+//
+// Replaces the library Pallas kernels behind the custom VJP of JAX's flash
+// attention (jax/experimental/pallas/ops/tpu/flash_attention.py):
+// _flash_attention_bwd_dkv (:941, its kernel body :796-940) and
+// _flash_attention_bwd_dq (:1287, its body :1146-1286). The split is the
+// library's: one kernel accumulates dK and dV over the query tiles of a key
+// tile, the other dQ over the key tiles of a query tile, so no two blocks
+// write the same output and no atomics are needed; the result does not
+// depend on the order blocks run in. Both recompute the scores from q, k and
+// the forward's log-sum-exp: P = exp(S * scale - lse). delta = rowsum(O * dO)
+// (fp32) comes from the caller, as the library computes it in XLA.
+//
+//   dkv: dV += P^T dO, dP = dO V^T, dS = P * (dP - delta) * scale, dK += dS^T Q
+//   dq:  dQ += dS K (dS recomputed the same way)
+//
+// Roundings, as the library's kernels round: S, dP and every product
+// accumulate in fp32 from bf16 operands; P is rounded to bf16 for the P^T dO
+// product only (`p.T.astype(do.dtype)`, :889) and dS to bf16 for the dS^T Q
+// and dS K products (`ds.T.astype(do.dtype)`, :915; `ds.astype(k.dtype)`,
+// :1257); dS itself is formed in fp32 from the fp32 P; the outputs are fp32
+// sums rounded once to bf16.
+//
+// Bound: operations. A head and image of N tokens needs 10 N^2 D of them for
+// the four products and the score recompute (the pair: dkv 8 N^2 D, dq 6 N^2 D,
+// since each recomputes S and dP) against 8 N D bf16 elements read and 3 N D
+// written.
+//
+// Design. Blocks of 4 warps over 64-row tiles, as the forward: dkv one block
+// per (batch, head, 64-key tile), each warp owning 16 keys, looping over the
+// 64-query tiles; dq one block per (batch, head, 64-query tile), each warp
+// owning 16 queries, looping over the 64-key tiles. All products are
+// mma.sync.m16n8k16 bf16 with fp32 accumulators in registers. Every operand
+// is staged in shared memory in its memory order (rows of D, padded by 16
+// bytes) and a transposed operand is read through ldmatrix .trans, never
+// staged transposed: Q and dO are the B operand of S^T and dP^T as [query][d]
+// rows and of dK and dV through .trans; K is read through .trans for dQ. The
+// score-shaped results (S^T, P^T, dS^T in dkv; S, P, dS in dq) stay in
+// registers, and their accumulator fragments are repacked as the A fragments
+// of the next product, as the forward does with P. The loads are plain
+// 16-byte copies between barriers: cp.async / TMA pipelining and wgmma are
+// later work.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+template <int D>
+constexpr size_t bwd_smem_bytes() {
+  return (size_t)4 * 64 * (D + 8) * sizeof(bf16) + 2 * 64 * sizeof(float);
+}
+
+// A fragment (16 x 16, rows r0.., k chunk kk) of a row-major [row][LD] tile.
+template <int LD>
+__device__ __forceinline__ void load_a(uint32_t (&r)[4], const bf16* tile, int r0, int kk, int lane) {
+  ldmatrix_x4(r, tile + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + kk * 16 + (lane >> 4) * 8);
+}
+
+// B fragments of two 8-column n tiles (2 * nj, 2 * nj + 1) for k chunk kk, from
+// a tile stored [n][k] (rows are the product's columns): b[0], b[1] for the
+// first, b[2], b[3] for the second.
+template <int LD>
+__device__ __forceinline__ void load_b_nk(uint32_t (&r)[4], const bf16* tile, int nj, int kk, int lane) {
+  ldmatrix_x4(r, tile + (nj * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 + ((lane >> 3) & 1) * 8);
+}
+
+// The same from a tile stored [k][n] (rows are the product's depth), through .trans.
+template <int LD>
+__device__ __forceinline__ void load_b_kn(uint32_t (&r)[4], const bf16* tile, int nj, int kk, int lane) {
+  ldmatrix_x4_trans(r, tile + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + nj * 16 + (lane >> 4) * 8);
+}
+
+// acc[8][4] = X_w Y^T for the warp's 16 rows of X (a [row][d] tile) against
+// the 64 rows of Y (a [row][d] tile): a 16 x 64 score-shaped block.
+template <int D, int LD>
+__device__ __forceinline__ void scores16x64(float (&acc)[8][4], const bf16* X, int r0, const bf16* Y, int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    load_a<LD>(a, X, r0, kk, lane);
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      uint32_t b[4];
+      load_b_nk<LD>(b, Y, nj, kk, lane);
+      mma_bf16(acc[2 * nj], a, b[0], b[1]);
+      mma_bf16(acc[2 * nj + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// out[D/8][4] += A Z for A a 16 x 64 score-shaped block in registers (rounded
+// to bf16 here) and Z a [64][d] tile (k = its rows).
+template <int D, int LD>
+__device__ __forceinline__ void accumulate16xD(float (&out)[D / 8][4], const float (&A)[8][4], const bf16* Z,
+                                               int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t a[4];
+    a[0] = pack_bf16(A[2 * kk][0], A[2 * kk][1]);
+    a[1] = pack_bf16(A[2 * kk][2], A[2 * kk][3]);
+    a[2] = pack_bf16(A[2 * kk + 1][0], A[2 * kk + 1][1]);
+    a[3] = pack_bf16(A[2 * kk + 1][2], A[2 * kk + 1][3]);
+#pragma unroll
+    for (int dj = 0; dj < D / 16; ++dj) {
+      uint32_t b[4];
+      load_b_kn<LD>(b, Z, dj, kk, lane);
+      mma_bf16(out[2 * dj], a, b[0], b[1]);
+      mma_bf16(out[2 * dj + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Write a warp's 16 x D fp32 accumulator rows as bf16 at dst (row stride D).
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 8][4], int g, int t) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    *reinterpret_cast<bf162*>(dst + (size_t)g * D + j * 8 + 2 * t) = __floats2bfloat162_rn(acc[j][0], acc[j][1]);
+    *reinterpret_cast<bf162*>(dst + (size_t)(g + 8) * D + j * 8 + 2 * t) =
+        __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+  }
+}
+
+// grid (N / 64 key tiles, H, B). q, k, v, dO (B, H, N, D) bf16; lse, delta
+// (B, H, N) fp32; dK, dV (B, H, N, D) bf16.
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_vit_bwd_dkv_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ lse, const bf16* __restrict__ dout, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int N, float scale) {
+  constexpr int LD = D + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + 64 * LD;
+  bf16* Qs = Vs + 64 * LD;
+  bf16* dOs = Qs + 64 * LD;
+  float* lse_s = reinterpret_cast<float*>(dOs + 64 * LD);  // lse * log2(e) of the tile's queries
+  float* del_s = lse_s + 64;
+
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const size_t head = ((size_t)b * gridDim.y + h) * N;  // (b, h) row offset
+  const float scale_log2e = scale * 1.4426950408889634f;
+
+  load_tile<D, LD>(Ks, k + (head + (size_t)kt * 64) * D, D, 64);
+  load_tile<D, LD>(Vs, v + (head + (size_t)kt * 64) * D, D, 64);
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    dk_acc[j][0] = dk_acc[j][1] = dk_acc[j][2] = dk_acc[j][3] = 0.0f;
+    dv_acc[j][0] = dv_acc[j][1] = dv_acc[j][2] = dv_acc[j][3] = 0.0f;
+  }
+
+  for (int qt = 0; qt < N / 64; ++qt) {
+    __syncthreads();  // the previous query tile is no longer read
+    const size_t row = head + (size_t)qt * 64;
+    load_tile<D, LD>(Qs, q + row * D, D, 64);
+    load_tile<D, LD>(dOs, dout + row * D, D, 64);
+    if (tid < 64) lse_s[tid] = lse[row + tid] * 1.4426950408889634f;
+    else del_s[tid - 64] = delta[row + tid - 64];
+    __syncthreads();
+
+    // P^T = exp(S^T * scale - lse) for the warp's 16 keys x 64 queries
+    float p[8][4];
+    scores16x64<D, LD>(p, Ks, warp * 16, Qs, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) p[j][c] = exp2f(p[j][c] * scale_log2e - lse_s[j * 8 + 2 * t + (c & 1)]);
+    }
+    // dV += P^T dO (P rounded to bf16)
+    accumulate16xD<D, LD>(dv_acc, p, dOs, lane);
+    // dP^T = V dO^T; dS^T = P^T * (dP^T - delta) * scale, in fp32
+    float ds[8][4];
+    scores16x64<D, LD>(ds, Vs, warp * 16, dOs, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) ds[j][c] = p[j][c] * (ds[j][c] - del_s[j * 8 + 2 * t + (c & 1)]) * scale;
+    }
+    // dK += dS^T Q (dS rounded to bf16)
+    accumulate16xD<D, LD>(dk_acc, ds, Qs, lane);
+  }
+
+  const size_t out_row = head + (size_t)kt * 64 + warp * 16;
+  store_rows<D>(dk + out_row * D, dk_acc, g, t);
+  store_rows<D>(dv + out_row * D, dv_acc, g, t);
+}
+
+// grid (N / 64 query tiles, H, B). dQ (B, H, N, D) bf16.
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_vit_bwd_dq_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ lse, const bf16* __restrict__ dout, const float* __restrict__ delta,
+    bf16* __restrict__ dq, int N, float scale) {
+  constexpr int LD = D + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + 64 * LD;
+  bf16* Ks = dOs + 64 * LD;
+  bf16* Vs = Ks + 64 * LD;
+
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const size_t head = ((size_t)b * gridDim.y + h) * N;
+  const size_t qrow = head + (size_t)qt * 64;
+  const float scale_log2e = scale * 1.4426950408889634f;
+
+  load_tile<D, LD>(Qs, q + qrow * D, D, 64);
+  load_tile<D, LD>(dOs, dout + qrow * D, D, 64);
+  // this thread's two query rows: g and g + 8 of the warp's 16
+  const size_t r0 = qrow + warp * 16 + g, r1 = r0 + 8;
+  const float l0 = lse[r0] * 1.4426950408889634f, l1 = lse[r1] * 1.4426950408889634f;
+  const float d0 = delta[r0], d1 = delta[r1];
+
+  float dq_acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) dq_acc[j][0] = dq_acc[j][1] = dq_acc[j][2] = dq_acc[j][3] = 0.0f;
+
+  for (int kt = 0; kt < N / 64; ++kt) {
+    __syncthreads();  // the previous key tile is no longer read (and Q, dO are staged)
+    load_tile<D, LD>(Ks, k + (head + (size_t)kt * 64) * D, D, 64);
+    load_tile<D, LD>(Vs, v + (head + (size_t)kt * 64) * D, D, 64);
+    __syncthreads();
+
+    // P = exp(S * scale - lse) for the warp's 16 queries x 64 keys
+    float p[8][4];
+    scores16x64<D, LD>(p, Qs, warp * 16, Ks, lane);
+    // dP = dO V^T; dS = P * (dP - delta) * scale, in fp32
+    float ds[8][4];
+    scores16x64<D, LD>(ds, dOs, warp * 16, Vs, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float p0 = exp2f(p[j][0] * scale_log2e - l0), p1 = exp2f(p[j][1] * scale_log2e - l0);
+      const float p2 = exp2f(p[j][2] * scale_log2e - l1), p3 = exp2f(p[j][3] * scale_log2e - l1);
+      ds[j][0] = p0 * (ds[j][0] - d0) * scale;
+      ds[j][1] = p1 * (ds[j][1] - d0) * scale;
+      ds[j][2] = p2 * (ds[j][2] - d1) * scale;
+      ds[j][3] = p3 * (ds[j][3] - d1) * scale;
+    }
+    // dQ += dS K (dS rounded to bf16)
+    accumulate16xD<D, LD>(dq_acc, ds, Ks, lane);
+  }
+  store_rows<D>(dq + (qrow + warp * 16) * D, dq_acc, g, t);
+}
+
+template <int D>
+int launch_bwd_dkv(const void* q, const void* k, const void* v, const void* lse, const void* dout, const void* delta,
+                   void* dk, void* dv, int B, int H, int N, float scale, void* stream) {
+  const size_t smem = bwd_smem_bytes<D>();
+  cudaError_t err = allow_dynamic_smem(flash_vit_bwd_dkv_kernel<D>, smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_vit_bwd_dkv_kernel<D><<<dim3(N / 64, H, B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(lse), static_cast<const bf16*>(dout), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), N, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bwd_dq(const void* q, const void* k, const void* v, const void* lse, const void* dout, const void* delta,
+                  void* dq, int B, int H, int N, float scale, void* stream) {
+  const size_t smem = bwd_smem_bytes<D>();
+  cudaError_t err = allow_dynamic_smem(flash_vit_bwd_dq_kernel<D>, smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_vit_bwd_dq_kernel<D><<<dim3(N / 64, H, B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(lse), static_cast<const bf16*>(dout), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), N, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q / k / v / dO / dK / dV (B, H, N, D) bf16 contiguous, head-major; lse (the
+// forward's residual) and delta = rowsum(O * dO) (B, H, N) fp32. N a multiple
+// of 64, D 64 or 128 (the wrapper checks).
+extern "C" int mu_flash_vit_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* lse, const void* dout,
+                                         const void* delta, void* dk, void* dv, int B, int H, int N, int D,
+                                         float scale, void* stream) {
+  if (D == 64) return launch_bwd_dkv<64>(q, k, v, lse, dout, delta, dk, dv, B, H, N, scale, stream);
+  if (D == 128) return launch_bwd_dkv<128>(q, k, v, lse, dout, delta, dk, dv, B, H, N, scale, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The same inputs; writes dQ (B, H, N, D) bf16.
+extern "C" int mu_flash_vit_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* lse, const void* dout,
+                                        const void* delta, void* dq, int B, int H, int N, int D, float scale,
+                                        void* stream) {
+  if (D == 64) return launch_bwd_dq<64>(q, k, v, lse, dout, delta, dq, B, H, N, scale, stream);
+  if (D == 128) return launch_bwd_dq<128>(q, k, v, lse, dout, delta, dq, B, H, N, scale, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,9 @@
 """Training steps (counterpart of mingunivision_tpu/engine/train.py): the LM's
 next-token loss with the router aux losses, the rectified-flow velocity loss
-and the composed image-generation loss, AdamW and its warmup-cosine schedule,
-and train steps that update the state in place.
+and the composed image-generation loss, MingTok's joint pixel-reconstruction
+and feature-distillation loss, AdamW and its warmup-cosine schedule, train
+steps that update the state in place, and the synthetic token and image
+streams of the example training scripts.
 
 The forward is the model's own with cfg.moe_differentiable set: the prefill
 MoE goes through the differentiable fused entry (`moe_experts_swiglu_gmm_ad`:
@@ -18,10 +20,18 @@ and noise, or a torch.Generator to draw them.
 
 RF loss convention (the JAX package's): x_t = t * noise + (1 - t) * data, and
 the velocity target is v* = data - noise.
+
+MingTok training (`mingtok_train_loss`, `make_mingtok_train_step`) runs the
+three ViTs under autograd; on the pixel decoder's reduced tiers its attention
+is the flash kernel with its backward kernels (ops/kernels/flash.py
+`FlashViTAttention`), and the step's backward runs inside the pixel decoder's
+fp32 tier, so the "default" tier's backward products use TF32 as its forward
+does (the JAX package fixes each product's precision when it traces).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Optional, Union
@@ -38,7 +48,10 @@ from mingunivision_tpu_torch.models.bailing_moe import (
     router_group_balance_loss,
     router_z_loss,
 )
+from mingunivision_tpu_torch.models.mingtok import mingtok_encode, pixel_decoder_apply, pixel_reconstruction_loss
 from mingunivision_tpu_torch.models.rf_head import rf_net_apply, vis_head_apply
+from mingunivision_tpu_torch.ops.linear import dense, fp32_matmul_precision
+from mingunivision_tpu_torch.ops.patching import expand_sem_to_pix_tokens
 from mingunivision_tpu_torch.utils.pytree import leaves
 
 
@@ -122,6 +135,33 @@ def image_gen_loss(params, llm_cfg, rf_cfg, text_ids, text_mask, sem_features, l
     z = vis_head_apply(params["vis_head"], hidden[:, Tt - 1 : Tt - 1 + N])
     return rf_loss(params["rf_head"], rf_cfg, latents.reshape(B * N, -1), z.reshape(B * N, -1), generator,
                    t=t, noise=noise)
+
+
+def mingtok_train_loss(params, cfg, images, teacher_features=None, *, pixel_weight: float = 1.0,
+                       feature_weight: float = 1.0, compute_dtype=torch.bfloat16, remat: bool = False):
+    """MingTok joint pretraining loss: pixel reconstruction plus semantic
+    feature distillation. images (B, 3, H, W) normalised; teacher_features
+    (B, N, feature_dim) targets for the semantic decoder's patch tokens, or
+    None (pixel loss only). The pixel decoder runs from the semantic tokens
+    through sem_to_pix (fp32) and the 2x2 token expand, kept at the patch
+    level for `pixel_reconstruction_loss`. Returns (loss, metrics) with
+    metrics["pixel_loss"] and, with a teacher, metrics["feature_distill_loss"]."""
+    feats = mingtok_encode(params, cfg, images, compute_dtype=compute_dtype, remat=remat)
+    sem = feats["x_norm_patchtokens"].float()
+    ratio = cfg.semantic_decoder.patch_size // cfg.pixel_decoder.patch_size
+    pix_in = expand_sem_to_pix_tokens(dense(sem, params["sem_to_pix"]), ratio)
+    pred_patches = pixel_decoder_apply(params["pixel_decoder"], cfg.pixel_decoder, pix_in, remat=remat)
+    loss = torch.zeros((), dtype=torch.float32, device=images.device)
+    metrics = {}
+    if pixel_weight:
+        pl = pixel_reconstruction_loss(pred_patches, images.float(), cfg)
+        loss = loss + pixel_weight * pl
+        metrics["pixel_loss"] = pl
+    if teacher_features is not None and feature_weight:
+        fl = (sem - teacher_features.float()).square().mean()
+        loss = loss + feature_weight * fl
+        metrics["feature_distill_loss"] = fl
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -284,6 +324,86 @@ def make_image_gen_train_step(llm_cfg, rf_cfg):
         return state, _apply(state, loss_and_backward)
 
     return train_step
+
+
+def make_mingtok_optimizer(lr: float = 1e-4) -> AdamW:
+    """`optax.adamw(lr)` as `examples/train_mingtok.py` uses it: weight decay 1e-4 (optax's default)."""
+    return AdamW(lr, weight_decay=1e-4)
+
+
+def pixel_tier_context(cfg):
+    """The pixel decoder's fp32 tier as a context (none for "bf16")."""
+    tier = cfg.pixel_decoder.matmul_precision
+    return contextlib.nullcontext() if tier == "bf16" else fp32_matmul_precision(tier)
+
+
+def make_mingtok_train_step(cfg, *, remat: bool = False, pixel_weight: float = 1.0, feature_weight: float = 1.0,
+                            compute_dtype=torch.bfloat16):
+    """MingTok train step (`examples/train_mingtok.py`'s `step`): `state, (loss,
+    metrics) = step(state, images, teacher=None)` takes the value and grad of
+    `mingtok_train_loss` and one AdamW update of the state's params and moments
+    in place, with the state's optimizer (`make_mingtok_optimizer`). Without a
+    teacher the feature weight is 1.0 and unused, as in the example. The
+    backward runs inside the pixel decoder's fp32 tier (`pixel_tier_context`)."""
+
+    def train_step(state: TrainState, images, teacher=None):
+        out = {}
+
+        def loss_and_backward():
+            loss, metrics = mingtok_train_loss(state.params, cfg, images, teacher, pixel_weight=pixel_weight,
+                                               feature_weight=feature_weight if teacher is not None else 1.0,
+                                               compute_dtype=compute_dtype, remat=remat)
+            with pixel_tier_context(cfg):
+                loss.backward()
+            out["metrics"] = {k: v.detach() for k, v in metrics.items()}
+            return loss.detach()
+
+        loss = _apply(state, loss_and_backward)
+        return state, (loss, out["metrics"])
+
+    return train_step
+
+
+def synthetic_batch(rng: np.random.Generator, B: int, S: int) -> np.ndarray:
+    """uint8 (B, S, S, 3) images with learnable low-frequency structure (the
+    MingTok example's synthetic stream): per image two spatial frequencies in
+    [0.5, 3) and a phase per channel from `rng`."""
+    yy, xx = np.mgrid[0:S, 0:S].astype(np.float32) / S
+    out = np.empty((B, S, S, 3), np.uint8)
+    for i in range(B):
+        fx, fy = rng.uniform(0.5, 3.0, 2)
+        phase = rng.uniform(0, 2 * np.pi, 3)
+        for c in range(3):
+            img = 0.5 + 0.5 * np.sin(2 * np.pi * (fx * xx + fy * yy) + phase[c])
+            out[i, :, :, c] = (img * 255).astype(np.uint8)
+    return out
+
+
+class ImageStream:
+    """The MingTok example's synthetic image stream: batches of uint8 (B, S, S,
+    3) images from `synthetic_batch`, drawn from the numpy generator `seed`.
+    (The example's file sources, an .npy or a directory of images, are not
+    ported.)"""
+
+    def __init__(self, S: int, seed: int = 0):
+        self.rng = np.random.default_rng(seed)
+        self.S = S
+
+    def batch(self, B: int):
+        """-> (uint8 (B, S, S, 3) images, (B,) source indices, all 0: the
+        example aligns teacher-feature rows with their images by them)."""
+        return synthetic_batch(self.rng, B, self.S), np.zeros((B,), np.int64)
+
+
+def normalize_images_chw(batch_hwc, device, mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5)) -> torch.Tensor:
+    """uint8 (B, H, W, 3) numpy -> fp32 (B, 3, H, W) on `device`, (x / 255 -
+    mean) / std per channel: the uint8 bytes cross to the device and are
+    normalised there (the port's stand-in for the JAX package's native
+    prefetch queue, `utils/native_io.PrefetchQueue`)."""
+    x = torch.from_numpy(np.ascontiguousarray(batch_hwc)).to(device)
+    m = torch.tensor(mean, dtype=torch.float32, device=device)
+    s = torch.tensor(std, dtype=torch.float32, device=device)
+    return ((x.float() / 255.0 - m) / s).permute(0, 3, 1, 2).contiguous()
 
 
 class TokenStream:

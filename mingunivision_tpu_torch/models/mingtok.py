@@ -9,9 +9,15 @@ The encoder and the semantic decoder compute in bf16; the pixel decoder runs
 at its `matmul_precision` tier: "high"/"highest" true fp32, "default" fp32
 activations with TF32 products and the flash kernel, "bf16" the whole block
 stack in bf16 (norm internals fp32) with the flash kernel.
+
+`remat=True` (encoder, semantic decoder, pixel decoder, `mingtok_encode`)
+recomputes each ViT block in the backward, as the JAX package's `remat`;
+`pixel_reconstruction_loss` is the pixel decoder's training loss.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -19,10 +25,10 @@ from mingunivision_tpu_torch.models.vit import ViTCache, patch_embed_apply, run_
 from mingunivision_tpu_torch.ops.activations import gelu_exact
 from mingunivision_tpu_torch.ops.linear import dense, fp32_matmul_precision
 from mingunivision_tpu_torch.ops.norms import layer_norm
-from mingunivision_tpu_torch.ops.patching import expand_sem_to_pix_tokens, interpolate_pos_embed, unpatchify
+from mingunivision_tpu_torch.ops.patching import expand_sem_to_pix_tokens, interpolate_pos_embed, patchify, unpatchify
 
 
-def encoder_apply(params, cfg, images, *, compute_dtype=torch.bfloat16):
+def encoder_apply(params, cfg, images, *, compute_dtype=torch.bfloat16, remat: bool = False):
     """images (B, 3, H, W) -> latents (B, h*w + 1, out_dim), CLS last."""
     B, _, H, _ = images.shape
     x = patch_embed_apply(params["patch_embed"], images.to(compute_dtype), cfg.patch_size)
@@ -32,7 +38,7 @@ def encoder_apply(params, cfg, images, *, compute_dtype=torch.bfloat16):
                                offset=cfg.interpolate_offset)
     x = x + pe.to(compute_dtype)
     x = run_blocks(params["blocks"], x, depth=cfg.depth, num_heads=cfg.num_heads, ffn_layer=cfg.ffn_layer,
-                   ln_eps=cfg.ln_eps)
+                   ln_eps=cfg.ln_eps, remat=remat)
     # out layer: channel-mean shortcut + norm -> GELU -> proj
     shortcut = x.reshape(*x.shape[:-1], cfg.out_dim, cfg.embed_dim // cfg.out_dim).mean(-1)
     y = layer_norm(x, params["out_norm"]["w"], params["out_norm"]["b"], eps=cfg.ln_eps)
@@ -44,13 +50,14 @@ def _sem_in_proj(params, cfg, x):
     return dense(x, params["in_proj"]) + x.repeat_interleave(cfg.embed_dim // cfg.in_dim, dim=-1)
 
 
-def semantic_decoder_apply(params, cfg, latents, *, compute_dtype=torch.bfloat16, split_cls: bool = True):
+def semantic_decoder_apply(params, cfg, latents, *, compute_dtype=torch.bfloat16, split_cls: bool = True,
+                           remat: bool = False):
     """Full-sequence (non-cached) causal semantic decode of latents (B, N, in_dim):
     {"x_norm_patchtokens": (B, N-1, D), "x_norm_clstoken": (B, D)} when
     `split_cls` and N > 1, else the whole normed sequence."""
     x = _sem_in_proj(params, cfg, latents.to(compute_dtype))
     x = run_blocks(params["blocks"], x, depth=cfg.depth, num_heads=cfg.num_heads, ffn_layer=cfg.ffn_layer,
-                   is_causal=True, ln_eps=cfg.ln_eps)
+                   is_causal=True, ln_eps=cfg.ln_eps, remat=remat)
     x_norm = layer_norm(x, params["norm"]["w"], params["norm"]["b"], eps=cfg.ln_eps)
     if split_cls and cfg.with_cls_token and x_norm.shape[1] > 1:
         return {"x_norm_patchtokens": x_norm[:, :-1], "x_norm_clstoken": x_norm[:, -1]}
@@ -78,19 +85,19 @@ def mingtok_feature_decoder(params, cfg, latents, cache: ViTCache, *, compute_dt
                                  compute_dtype=compute_dtype)
 
 
-def mingtok_encode(params, cfg, images, *, compute_dtype=torch.bfloat16):
+def mingtok_encode(params, cfg, images, *, compute_dtype=torch.bfloat16, remat: bool = False):
     """Images -> {"x_norm_patchtokens": (B, N, 1024) semantic features,
     "latent": (B, N+1, 32) standardised as (latent - mean) / scaling_factor}."""
-    latent = encoder_apply(params["encoder"], cfg.encoder, images, compute_dtype=compute_dtype)
+    latent = encoder_apply(params["encoder"], cfg.encoder, images, compute_dtype=compute_dtype, remat=remat)
     feats = semantic_decoder_apply(params["semantic_decoder"], cfg.semantic_decoder, latent,
-                                   compute_dtype=compute_dtype)
+                                   compute_dtype=compute_dtype, remat=remat)
     return {"x_norm_patchtokens": feats["x_norm_patchtokens"], "latent": (latent - cfg.mean) / cfg.scaling_factor}
 
 
-def pixel_decoder_apply(params, cfg, tokens):
+def pixel_decoder_apply(params, cfg, tokens, *, remat: bool = False):
     """tokens (B, L, D) -> patch pixels (B, L, p*p*3) fp32, at the tier
     `cfg.matmul_precision` (see the module note)."""
-    kw = dict(depth=cfg.depth, num_heads=cfg.num_heads, ffn_layer=cfg.ffn_layer, ln_eps=cfg.ln_eps)
+    kw = dict(depth=cfg.depth, num_heads=cfg.num_heads, ffn_layer=cfg.ffn_layer, ln_eps=cfg.ln_eps, remat=remat)
     if cfg.matmul_precision == "bf16":
         x = run_blocks(params["blocks"], tokens.to(torch.bfloat16), **kw)
         x = layer_norm(x, params["norm"]["w"], params["norm"]["b"], eps=cfg.ln_eps)
@@ -119,3 +126,40 @@ def mingtok_enc_dec(params, cfg, images, *, compute_dtype=torch.bfloat16):
     """Full reconstruction: encode -> pixel decode."""
     feats = mingtok_encode(params, cfg, images, compute_dtype=compute_dtype)
     return mingtok_pixel_decoder(params, cfg, feats["x_norm_patchtokens"])
+
+
+def pixel_reconstruction_loss(pred_patches, target_images, cfg, mask=None):
+    """The pixel decoder's training loss (the JAX package's, after the
+    reference's vision_transformer.py:529-562). pred_patches (B, L, p*p*3) raw
+    head output; target_images (B, 3, H, W); mask: optional bool (B, hw_mask)
+    of MASKED patches, the loss taken over the others, upsampled to the pixel
+    decoder's grid. cfg.pixel_decoder.loss_type: "L2" (with norm_pix_loss the
+    targets standardised per patch), "L1" (the prediction min-max scaled to
+    [-1, 1] over the batch), "L1-tanh", "L1-plain". fp32."""
+    p = cfg.pixel_decoder.patch_size
+    target = patchify(target_images.float(), p)
+    pred = pred_patches.float()
+    lt = cfg.pixel_decoder.loss_type
+    if lt == "L2":
+        if cfg.pixel_decoder.norm_pix_loss:
+            mean = target.mean(dim=-1, keepdim=True)
+            var = target.var(dim=-1, keepdim=True, unbiased=False)
+            target = (target - mean) / torch.sqrt(var + 1e-6)
+        loss = (pred - target).square()
+    elif lt == "L1":
+        pred = 2.0 * (pred - pred.min()) / (pred.max() - pred.min() + 1e-12) - 1.0
+        loss = (pred - target).abs()
+    elif lt == "L1-tanh":
+        loss = (torch.tanh(pred) - target).abs()
+    elif lt == "L1-plain":
+        loss = (pred - target).abs()
+    else:
+        raise NotImplementedError(lt)
+    loss = loss.mean(dim=-1)  # (B, L) per patch
+    if mask is None:
+        return loss.mean()
+    B, hw_mask = mask.shape
+    rep = math.isqrt(loss.shape[1] // hw_mask)
+    side = math.isqrt(hw_mask)
+    keep = (~mask.bool()).reshape(B, side, 1, side, 1).expand(B, side, rep, side, rep).reshape(B, -1).to(loss.dtype)
+    return (loss * keep).sum() / keep.sum().clamp_min(1.0)

@@ -2,9 +2,14 @@
 static KV cache (counterpart of mingunivision_tpu/models/vit.py).
 
 Block params are depth-stacked (depth, ...) as in the JAX package; the stack is
-a Python loop over zero-copy layer views. A non-causal full-sequence block
-whose length and type pass `flash_vit_usable` runs the flash-attention kernel
-head-major (ops/kernels/flash.py).
+a Python loop over zero-copy layer views (for the full-sequence stack one
+`unbind` per leaf: under autograd its backward is one stack, where an index
+per layer would make autograd fill and add a zero gradient the size of the
+whole stack per layer). A non-causal
+full-sequence block whose length and type pass `flash_vit_usable` runs the
+flash-attention kernel head-major (ops/kernels/flash.py). `run_blocks(remat=True)`
+recomputes each block in the backward (torch.utils.checkpoint), the
+counterpart of the JAX package's `jax.checkpoint` over the scanned block.
 """
 
 from __future__ import annotations
@@ -12,13 +17,14 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
 from mingunivision_tpu_torch.ops.activations import gelu_exact, swiglu
 from mingunivision_tpu_torch.ops.attention import cached_decode_attention, mha
 from mingunivision_tpu_torch.ops.kernels.flash import flash_vit_attention, flash_vit_usable
-from mingunivision_tpu_torch.ops.linear import dense
+from mingunivision_tpu_torch.ops.linear import current_fp32_precision, dense, fp32_matmul_precision
 from mingunivision_tpu_torch.ops.norms import layer_norm
-from mingunivision_tpu_torch.utils.pytree import layer_view
+from mingunivision_tpu_torch.utils.pytree import layer_view, layer_views
 
 
 @dataclasses.dataclass
@@ -65,23 +71,64 @@ def _qkv(params, x, num_heads: int):
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
+def _mm_f32(a, b):
+    """a @ b of two bf16 matrices as the fp32 sums of their exact products
+    (JAX's `preferred_element_type=float32`): one bf16 GEMM with an fp32
+    result on the card, an fp32 product of the upcast operands on the CPU."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _LinearRoundOnce(torch.autograd.Function):
+    """x (M, K) @ w (K, N) + b in fp32, rounded ONCE to x's dtype (bf16). Its
+    backward is the JAX transpose of that: the cotangent arrives in bf16 (the
+    output's type), dx = g w^T and dw = x^T g with fp32 sums rounded once to
+    their operands' type, db = the fp32 column sums of g."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        ctx.b_dtype = None if b is None else b.dtype
+        y = _mm_f32(x, w)
+        if b is not None:
+            y = y + b.float()
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = _mm_f32(g, w.t()).to(x.dtype) if ctx.needs_input_grad[0] else None
+        dw = _mm_f32(x.t(), g).to(w.dtype) if ctx.needs_input_grad[1] else None
+        db = g.float().sum(0).to(ctx.b_dtype) if ctx.b_dtype is not None and ctx.needs_input_grad[2] else None
+        return dx, dw, db
+
+
+def _linear_round_once(x, w, b):
+    """(..., K) @ (K, N) + b with fp32 sums and one rounding to x's dtype (a
+    plain fp32 product when x is fp32)."""
+    if x.dtype == torch.float32:
+        y = x @ w.float()
+        return y if b is None else y + b.float()
+    shape = x.shape[:-1]
+    y = _LinearRoundOnce.apply(x.reshape(-1, x.shape[-1]), w.to(x.dtype), b)
+    return y.reshape(*shape, w.shape[1])
+
+
 def _attn_flash_headmajor(params, h, num_heads: int):
-    """qkv -> flash kernel -> out-proj with no token/head transpose pass: the
-    projections go straight to and from the kernel's (B, H, N, D) layout,
-    the biases added in fp32."""
+    """qkv -> flash kernel -> out-proj, the kernel's (B, H, N, D) layout taken
+    and given back by one permute each. Each projection sums in fp32, adds its
+    bias in fp32 and rounds once to h's type, as the JAX package's einsums
+    with `preferred_element_type=float32` do."""
     B, N, C = h.shape
     H = num_heads
     D = C // H
     ap = params["attn"]
-    wq = ap["qkv"]["w"].to(h.dtype).reshape(C, 3, H, D)
-    qkv = torch.einsum("bnc,cshd->sbhnd", h, wq)
-    if "b" in ap["qkv"]:
-        qkv = (qkv.float() + ap["qkv"]["b"].float().reshape(3, 1, H, 1, D)).to(h.dtype)
+    qkv = _linear_round_once(h, ap["qkv"]["w"], ap["qkv"].get("b"))  # (B, N, 3C)
+    qkv = qkv.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4)  # (3, B, H, N, D)
     out = flash_vit_attention(qkv[0], qkv[1], qkv[2], scale=D**-0.5)  # (B, H, N, D)
-    y = torch.einsum("bhnd,hdc->bnc", out, ap["proj"]["w"].to(h.dtype).reshape(H, D, C))
-    if "b" in ap["proj"]:
-        y = (y.float() + ap["proj"]["b"].float()).to(h.dtype)
-    return y
+    return _linear_round_once(out.transpose(1, 2).reshape(B, N, C), ap["proj"]["w"], ap["proj"].get("b"))
 
 
 def block_apply(params, x, *, num_heads: int, ffn_layer: str, is_causal: bool = False, ln_eps: float = 1e-6):
@@ -100,10 +147,23 @@ def block_apply(params, x, *, num_heads: int, ffn_layer: str, is_causal: bool = 
 
 
 def run_blocks(stacked_params, x, *, depth: int, num_heads: int, ffn_layer: str, is_causal: bool = False,
-               ln_eps: float = 1e-6):
-    for d in range(depth):
-        x = block_apply(layer_view(stacked_params, d), x, num_heads=num_heads, ffn_layer=ffn_layer,
-                        is_causal=is_causal, ln_eps=ln_eps)
+               ln_eps: float = 1e-6, remat: bool = False):
+    """The stacked blocks in turn. remat=True (under grad) recomputes each
+    block in the backward. The fp32 tier in force at the forward is captured
+    and entered again around each block, so a recompute in the backward (run
+    outside the caller's `fp32_matmul_precision` block) takes the same path
+    and the same TF32 mode as the forward."""
+    tier = current_fp32_precision()
+    kw = dict(num_heads=num_heads, ffn_layer=ffn_layer, is_causal=is_causal, ln_eps=ln_eps)
+    for p in layer_views(stacked_params, depth):
+        if remat and torch.is_grad_enabled():
+            def block(x, p=p):
+                with fp32_matmul_precision(tier):
+                    return block_apply(p, x, **kw)
+
+            x = torch.utils.checkpoint.checkpoint(block, x, use_reentrant=False)
+        else:
+            x = block_apply(p, x, **kw)
     return x
 
 

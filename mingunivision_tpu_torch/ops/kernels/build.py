@@ -37,7 +37,9 @@ _SIGNATURES = {
     "mu_rf_sampler_q4s8": [_P] * 20 + [_I] * 10 + [ctypes.c_float] * 3 + [_P],
     "mu_rf_sampler_grid": [],
     "mu_flash_prefill_bf16": [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P],
-    "mu_flash_vit_bf16": [_P] * 4 + [_I] * 4 + [ctypes.c_float, _P],
+    "mu_flash_vit_bf16": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],
+    "mu_flash_vit_bwd_dkv_bf16": [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P],
+    "mu_flash_vit_bwd_dq_bf16": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
     "mu_paged_attention_bf16": [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P],
     "mu_moe_stream_q8": [_P] * 13 + [_I] * 5 + [_P],
     "mu_swiglu_gmm_q8": [_P] * 15 + [_I] * 6 + [_P],

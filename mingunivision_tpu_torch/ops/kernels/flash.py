@@ -1,10 +1,14 @@
 """Flash attention for first-round prefill and for the ViT decoders: the CUDA
 kernel `csrc/flash_attention.cu`, its two wrappers, their plain versions and
-the static gates.
+the static gates; and for training, the ViT entry's forward with residuals,
+its two backward kernels (dK / dV and dQ, with their plain versions) and the
+autograd Function over them.
 
 Replaces mingunivision_tpu/ops/kernels/flash.py (`flash_prefill_attention`
 and `flash_vit_attention`, both over the Pallas flash-attention kernel that
-ships with JAX). The function is softmax(Q K^T * scale) V over a full
+ships with JAX, and under autodiff that kernel's custom VJP: the forward with
+residuals and the backward kernels `_flash_attention_bwd_dkv` and
+`_flash_attention_bwd_dq`). The function is softmax(Q K^T * scale) V over a full
 sequence whose fresh keys are the whole context, with the (rows, keys) scores
 kept out of device memory. On the H100 it is bound by its operations (4 * D
 per allowed query-key pair; q, k, v and the output each move once), so the
@@ -105,31 +109,165 @@ def flash_vit_attention_plain(q, k, v, *, scale: float):
     return out.transpose(1, 2).to(dt)
 
 
+def _scores(q, k, scale: float):
+    """fp32 S * scale of head-major q (B, H, N, D) and k (B, H, S, D)."""
+    return torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+
+
+def flash_vit_attention_lse_plain(q, k, v, *, scale: float):
+    """Plain version of the forward with residuals: (out, lse), out as
+    `flash_vit_attention_plain` (bf16 q, k, v) and lse (B, H, N) fp32 the
+    log-sum-exp of each row's scaled scores."""
+    return flash_vit_attention_plain(q, k, v, scale=scale), torch.logsumexp(_scores(q, k, scale), dim=-1)
+
+
+def _probs(q, k, lse, scale: float):
+    return torch.exp(_scores(q, k, scale) - lse[..., None])
+
+
+def flash_vit_bwd_dkv_plain(q, k, v, lse, do, delta, *, scale: float):
+    """Plain version of the dK / dV kernel: fp32 math from the library's
+    formula (`mha_reference_bwd`), P = exp(S * scale - lse), dV = P^T dO,
+    dS = P * (dO V^T - delta) * scale, dK = dS^T Q; (dK, dV) in k's dtype."""
+    p = _probs(q, k, lse, scale)
+    dv = torch.matmul(p.transpose(-1, -2), do.float())
+    ds = p * (torch.matmul(do.float(), v.float().transpose(-1, -2)) - delta[..., None]) * scale
+    return torch.matmul(ds.transpose(-1, -2), q.float()).to(k.dtype), dv.to(v.dtype)
+
+
+def flash_vit_bwd_dq_plain(q, k, v, lse, do, delta, *, scale: float):
+    """Plain version of the dQ kernel: dQ = dS K in fp32, in q's dtype."""
+    p = _probs(q, k, lse, scale)
+    ds = p * (torch.matmul(do.float(), v.float().transpose(-1, -2)) - delta[..., None]) * scale
+    return torch.matmul(ds, k.float()).to(q.dtype)
+
+
+def flash_vit_delta(o, do):
+    """delta = rowsum(O * dO) in fp32, (B, H, N): the backward's per-row term,
+    computed outside the kernels as the library computes it in XLA."""
+    return (o.float() * do.float()).sum(-1)
+
+
+def flash_vit_attention_bwd_plain(q, k, v, o, lse, do, *, scale: float):
+    """The whole backward in plain PyTorch: (dQ, dK, dV) from the forward's
+    inputs, output and log-sum-exp and the output's cotangent."""
+    delta = flash_vit_delta(o, do)
+    dk, dv = flash_vit_bwd_dkv_plain(q, k, v, lse, do, delta, scale=scale)
+    return flash_vit_bwd_dq_plain(q, k, v, lse, do, delta, scale=scale), dk, dv
+
+
+def _check_vit(name, *tensors):
+    """The kernels' contract: bf16 head-major (B, H, N, D) of one shape, D in
+    _KERNEL_HEAD_DIMS, N a multiple of the tile."""
+    shape = tensors[0].shape
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise ValueError(f"{name}: needs bf16 q/k/v, got {[t.dtype for t in tensors]}")
+    if any(t.shape != shape for t in tensors):
+        raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in tensors]}")
+    D, N = shape[3], shape[2]
+    if D not in _KERNEL_HEAD_DIMS or N % _TILE:
+        raise ValueError(f"{name}: needs head_dim in {_KERNEL_HEAD_DIMS} and N a multiple of {_TILE} (D={D}, N={N})")
+    return shape
+
+
+def _vit_forward(q, k, v, scale: float, with_lse: bool):
+    """Launch the ViT forward on bf16 CUDA tensors: out, and lse when asked."""
+    B, H, N, D = _check_vit("flash_vit_attention", q, k, v)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device) if with_lse else None
+    rc = build.load().mu_flash_vit_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                        lse.data_ptr() if with_lse else None, B, H, N, D, float(scale),
+                                        build.stream_handle(q))
+    build.check(rc, "mu_flash_vit_bf16")
+    flash_vit_attention.launches += 1
+    return out, lse
+
+
+def flash_vit_attention_lse(q, k, v, *, scale: float):
+    """The forward with residuals, bf16 head-major q, k, v: (out bf16, lse fp32
+    (B, H, N)). Its launches count on `flash_vit_attention` (one kernel, two modes)."""
+    if q.device.type == "cpu":
+        return flash_vit_attention_lse_plain(q, k, v, scale=scale)
+    return _vit_forward(q, k, v, scale, True)
+
+
+def flash_vit_bwd_dkv(q, k, v, lse, do, delta, *, scale: float):
+    """dK, dV (bf16) of the ViT attention from the forward's inputs, its
+    log-sum-exp, the output's cotangent dO (bf16) and delta (fp32)."""
+    if q.device.type == "cpu":
+        return flash_vit_bwd_dkv_plain(q, k, v, lse, do, delta, scale=scale)
+    B, H, N, D = _check_vit("flash_vit_bwd_dkv", q, k, v, do)
+    q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
+    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rc = build.load().mu_flash_vit_bwd_dkv_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
+                                                do.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H,
+                                                N, D, float(scale), build.stream_handle(q))
+    build.check(rc, "mu_flash_vit_bwd_dkv_bf16")
+    flash_vit_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_vit_bwd_dq(q, k, v, lse, do, delta, *, scale: float):
+    """dQ (bf16) of the ViT attention; the inputs as `flash_vit_bwd_dkv`."""
+    if q.device.type == "cpu":
+        return flash_vit_bwd_dq_plain(q, k, v, lse, do, delta, scale=scale)
+    B, H, N, D = _check_vit("flash_vit_bwd_dq", q, k, v, do)
+    q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
+    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    dq = torch.empty_like(q)
+    rc = build.load().mu_flash_vit_bwd_dq_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
+                                               do.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, N, D,
+                                               float(scale), build.stream_handle(q))
+    build.check(rc, "mu_flash_vit_bwd_dq_bf16")
+    flash_vit_bwd_dq.launches += 1
+    return dq
+
+
+class FlashViTAttention(torch.autograd.Function):
+    """The ViT flash attention with the library's custom VJP
+    (flash_attention.py `_flash_attention_fwd` / `_flash_attention_bwd`): the
+    forward saves q, k, v, the output and its log-sum-exp; the backward forms
+    delta, then runs the dK / dV kernel and the dQ kernel. bf16 in and out.
+    The three entries are looked up in this module at each call."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = flash_vit_attention_lse(q, k, v, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        delta = flash_vit_delta(out, do)
+        dk, dv = flash_vit_bwd_dkv(q, k, v, lse, do, delta, scale=ctx.scale)
+        dq = flash_vit_bwd_dq(q, k, v, lse, do, delta, scale=ctx.scale)
+        return dq, dk, dv, None
+
+
 def flash_vit_attention(q, k, v, *, scale: float):
     """Non-causal full-sequence ViT attention, HEAD-MAJOR (B, H, N, D) in and
     out. fp32 inputs (the "default" tier, see `flash_vit_usable`) are cast to
     bf16 for the kernel, whose products are bf16 either way, and the output is
-    cast back."""
-    if q.device.type == "cpu":
-        return flash_vit_attention_plain(q, k, v, scale=scale)
+    cast back. When a gradient is wanted, through `FlashViTAttention` (the
+    forward with residuals, then the backward kernels); its grads come back
+    in bf16 and through the casts in fp32, as JAX's casts give them."""
     dt = q.dtype
     if dt == torch.float32:
         q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
-    B, H, N, D = q.shape
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashViTAttention.apply(q, k, v, scale).to(dt)
+    if q.device.type == "cpu":
+        return flash_vit_attention_plain(q, k, v, scale=scale).to(dt)
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise ValueError(f"flash_vit_attention: needs bf16 or fp32 q/k/v, got {dt}/{k.dtype}/{v.dtype}")
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"flash_vit_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if D not in _KERNEL_HEAD_DIMS or N % _TILE:
-        raise ValueError(f"flash_vit_attention: needs head_dim in {_KERNEL_HEAD_DIMS} and N a multiple of {_TILE} "
-                         f"(D={D}, N={N})")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
-    rc = build.load().mu_flash_vit_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, N, D,
-                                        float(scale), build.stream_handle(q))
-    build.check(rc, "mu_flash_vit_bf16")
-    flash_vit_attention.launches += 1
-    return out.to(dt)
+    return _vit_forward(q, k, v, scale, False)[0].to(dt)
 
 
 flash_vit_attention.launches = 0
+flash_vit_bwd_dkv.launches = 0
+flash_vit_bwd_dq.launches = 0

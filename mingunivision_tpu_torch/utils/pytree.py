@@ -34,3 +34,17 @@ def layer_view(tree, i: int):
     """Layer i of a depth-stacked tree: zero-copy views of every leaf (q[i] and
     s[i] of a quantized one)."""
     return tree_map(lambda t: t[i], tree)
+
+
+def layer_views(tree, depth: int):
+    """[layer 0, ..., layer depth-1] of a depth-stacked float tree, each leaf
+    split by one `unbind` (under autograd its backward is one stack, where
+    indexing a leaf once per layer gives one full-size zero gradient per
+    layer)."""
+    if isinstance(tree, dict):
+        per_key = {k: layer_views(v, depth) for k, v in tree.items()}
+        return [{k: per_key[k][i] for k in tree} for i in range(depth)]
+    if isinstance(tree, (list, tuple)):
+        parts = [layer_views(v, depth) for v in tree]
+        return [type(tree)(p[i] for p in parts) for i in range(depth)]
+    return list(tree.unbind(0))

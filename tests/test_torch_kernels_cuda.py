@@ -831,3 +831,108 @@ def test_lm_loss_backward_on_the_card_reaches_every_leaf(dev):
             assert p.grad is None or not p.grad.any(), path
         else:
             assert p.grad is not None and p.grad.abs().max() > 0, path
+
+
+# ---------------------------------------------------------------------------
+# MingTok training: the ViT flash forward with residuals and its backward kernels
+# ---------------------------------------------------------------------------
+
+
+def _vit_inputs(dev, B, H, N, D, seed=21):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(B, H, N, D, device=dev, generator=g).to(torch.bfloat16) for _ in range(4))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("B,H,N,D", [(1, 16, 1024, 64), (2, 4, 512, 128)], ids=["pixel-decoder", "d128"])
+def test_flash_vit_forward_with_residuals_matches_plain(dev, B, H, N, D):
+    from mingunivision_tpu_torch.ops.kernels import flash
+
+    q, k, v, _ = _vit_inputs(dev, B, H, N, D)
+    before = flash.flash_vit_attention.launches
+    out, lse = flash.flash_vit_attention_lse(q, k, v, scale=D**-0.5)
+    torch.cuda.synchronize()
+    assert flash.flash_vit_attention.launches == before + 1 and lse.dtype == torch.float32 and lse.shape == (B, H, N)
+    want, want_lse = flash.flash_vit_attention_lse_plain(q, k, v, scale=D**-0.5)
+    _close_bf16(out, want)
+    # the log-sum-exp is an fp32 sum of the same exponentials in another order
+    assert (lse - want_lse).abs().max().item() <= 1e-4 * want_lse.abs().max().item() + 1e-5
+    assert out.equal(flash.flash_vit_attention(q, k, v, scale=D**-0.5))  # the mode only adds the lse
+
+
+@pytest.mark.parametrize("B,H,N,D", [(2, 16, 1024, 64), (1, 4, 512, 128), (1, 2, 128, 64)],
+                         ids=["pixel-decoder-b2", "d128", "one-tile-pair"])
+def test_flash_vit_backward_kernels_match_plain(dev, B, H, N, D):
+    from mingunivision_tpu_torch.ops.kernels import flash
+
+    q, k, v, do = _vit_inputs(dev, B, H, N, D)
+    scale = D**-0.5
+    out, lse = flash.flash_vit_attention_lse_plain(q, k, v, scale=scale)
+    delta = flash.flash_vit_delta(out, do)
+    before = (flash.flash_vit_bwd_dkv.launches, flash.flash_vit_bwd_dq.launches)
+    dk, dv = flash.flash_vit_bwd_dkv(q, k, v, lse, do, delta, scale=scale)
+    dq = flash.flash_vit_bwd_dq(q, k, v, lse, do, delta, scale=scale)
+    torch.cuda.synchronize()
+    assert (flash.flash_vit_bwd_dkv.launches, flash.flash_vit_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
+    want_dk, want_dv = flash.flash_vit_bwd_dkv_plain(q, k, v, lse, do, delta, scale=scale)
+    want_dq = flash.flash_vit_bwd_dq_plain(q, k, v, lse, do, delta, scale=scale)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32-in-default-tier"])
+def test_flash_vit_attention_autograd_on_the_card(dev, dtype):
+    """Under grad the entry goes through the autograd Function: one residual
+    forward, one dK / dV and one dQ launch; its grads against autograd of the
+    plain forward in fp32."""
+    from mingunivision_tpu_torch.ops.kernels import flash
+
+    q, k, v, do = _vit_inputs(dev, 1, 16, 1024, 64, seed=22)
+    leaves = [t.to(dtype).requires_grad_(True) for t in (q, k, v)]
+    counters = (flash.flash_vit_attention, flash.flash_vit_bwd_dkv, flash.flash_vit_bwd_dq)
+    before = [f.launches for f in counters]
+    out = flash.flash_vit_attention(*leaves, scale=0.125)
+    out.backward(do.to(dtype))
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
+    assert out.dtype == dtype and all(t.grad.dtype == dtype for t in leaves)
+    ref = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    s = torch.matmul(ref[0], ref[1].transpose(-1, -2)) * 0.125
+    torch.matmul(torch.softmax(s, -1), ref[2]).backward(do.float())
+    for got, r in zip(leaves, ref):
+        err = (got.grad.float() - r.grad).abs().max().item()
+        assert err <= 2e-2 * r.grad.abs().max().item(), err
+
+
+def test_flash_vit_backward_wrappers_raise_on_unsupported_input(dev):
+    from mingunivision_tpu_torch.ops.kernels import flash
+
+    q = torch.randn(1, 2, 96, 64, device=dev).to(torch.bfloat16)  # N = 96 is not a multiple of the tile
+    lse = torch.zeros(1, 2, 96, device=dev)
+    with pytest.raises(ValueError):
+        flash.flash_vit_bwd_dkv(q, q, q, lse, q, lse, scale=1.0)
+    with pytest.raises(ValueError):
+        flash.flash_vit_bwd_dq(q.float(), q, q, lse, q, lse, scale=1.0)
+
+
+def test_vit_projections_round_once_on_the_card(dev):
+    """The head-major flash block's projections on the card (bf16 GEMM with an
+    fp32 result, the bias in fp32, one rounding) against the same on the CPU
+    (fp32 products of the bf16 operands): equal within one bf16 step, and the
+    backward's grads the same."""
+    from mingunivision_tpu_torch.models import vit
+
+    g = torch.Generator().manual_seed(23)
+    x = torch.randn(512, 256, generator=g).to(torch.bfloat16)
+    w = (0.05 * torch.randn(256, 768, generator=g)).to(torch.bfloat16)
+    b = (0.1 * torch.randn(768, generator=g)).to(torch.bfloat16)
+    gy = torch.randn(512, 768, generator=g).to(torch.bfloat16)
+    outs = []
+    for device in ("cpu", dev):
+        xs, ws, bs = (t.detach().to(device).requires_grad_(True) for t in (x, w, b))
+        y = vit._linear_round_once(xs, ws, bs)
+        y.backward(gy.to(device))
+        outs.append([t.detach().float().cpu() for t in (y, xs.grad, ws.grad, bs.grad)])
+    for cpu, card in zip(*outs):
+        assert (cpu - card).abs().max().item() <= 2 ** -7 * cpu.abs().max().item()
