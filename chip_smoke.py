@@ -28,7 +28,10 @@ Phases, one printed line each; any failure exits non-zero:
               MoE at full width, its forward and every grad; the ViT flash
               forward with residuals (output and log-sum-exp) and its two
               backward kernels (dK / dV, dQ) at the pixel decoder's 16 heads x
-              1,024 tokens x 64, batch 2 and 8, beside SDPA's backward
+              1,024 tokens x 64, batch 2 and 8, beside SDPA's backward; the
+              gathered-expert matmul at the pool's decode shapes (12-72
+              assignments, skewed) beside torch._grouped_mm, and the decode
+              MoE built on it held against the decode-MoE kernel
   4. reference  a small model on the card, bf16, int4 (as shipped and with
               moe_int_dots=False), int8 (as shipped and with
               moe_prefill_int_dots and rf_int_dots on) and NF4 (and, on the
@@ -51,7 +54,13 @@ Phases, one printed line each; any failure exits non-zero:
               training kernel call held against its plain version; then a
               small MingTok's mingtok_train_loss backward (the pixel decoder
               on 1,024 tokens) at "bf16", and with remat at "default", the
-              same way, every flash forward and backward call held
+              same way, every flash forward and backward call held; then
+              the small model's image pool (3 slots, a request admitted
+              mid-loop, per-slot text_cfg 1 / 3 / 9) at bf16 and int4, every
+              LLM kernel entry and the fused sampler held at every call, the
+              sampler launched once per active slot and micro-step, the
+              gathered-expert matmul held in context on one captured pool
+              step's decode-MoE inputs
  4b. train    training at the 16B-A3B width cut to 4 decoder layers: the LM
               train step (B 2 x T 1024 of a synthetic token stream, AdamW at
               1e-3, router aux losses; a warm-up step and 3 timed steps on the
@@ -92,7 +101,16 @@ Phases, one printed line each; any failure exits non-zero:
               defaults), one launch per step, none of the fused sampler
      slice_nf4  the same round on the NF4 tier (RuntimeConfig param_dtype
               "int4-nf4", quantized on the card): plain-dequant MoE entries and
-              the RF head's Euler loop, no quantized kernel
+              the RF head's Euler loop, no quantized kernel; its loop cut to
+              64 image tokens (a 256-px image) to keep the run in its limit
+     images_int4  T2I with n_images=2 through the session on the int4 model:
+              4 rows in one loop, one sampler launch per token
+     image_batch_int4  the barrier batcher: 3 prompts of 37 / 90 / 200 ids,
+              9 rows, one sampler launch per image and token
+     image_pool_int4  ImagePoolWorker over ImagePoolEngine(slots=4,
+              chunk=32): 2 requests, 2 more after 64 micro-steps, text_cfg
+              3 / 3 / 1 / 5, seeds 0-3; ms per micro-step at 2 and 4 active
+              slots, images per minute, launches per micro-step, pool KV bytes
   7. understand  image -> text on each tier's full-width model: a 1024-px image
               (1,024 patch tokens, the prompt pads to 1,152) through the
               MingTok encoder, flash prefill and the capacity MoE dispatch
@@ -128,7 +146,7 @@ tier only its T2I round).
 Then a JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
-`--phases` picks the phases (default: the nineteen above), e.g.
+`--phases` picks the phases (default: the twenty-two above), e.g.
 `--phases device,build,kernels,understand` or `--phases device,build,kernels,serve`. Six more run only when named:
   divergence  the small model's plain bf16 path with each kernel swapped in
               alone, and all of them, and with the image head's input moved
@@ -163,8 +181,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -218,8 +238,12 @@ KERNELS = {
     # entry's call, reached by MingTok training
     "flash_vit_bwd_dkv": ("csrc/flash_attention.cu", "mingunivision_tpu/ops/kernels/flash.py:90"),
     "flash_vit_bwd_dq": ("csrc/flash_attention.cu", "mingunivision_tpu/ops/kernels/flash.py:90"),
+    # the tenth slice: the gathered-expert matmul (gathered_expert_matmul :42, pallas_call :75), which no entry
+    # point of either package reaches: held on the pool's decode shapes and in context on captured pool inputs
+    "gathered_expert_matmul": ("csrc/expert_matmul.cu", "mingunivision_tpu/ops/kernels/expert_matmul.py:33"),
 }
 BF16_KERNELS = ("moe_stream", "moe_swiglu_gmm", "decode_attention")
+NF4_IMAGE_TOKENS = 64  # the slice_nf4 round's image loop (256-304 ms per token), cut to keep the run in its limit
 REL_TOL = 1e-2  # kernel vs plain: max |err| <= REL_TOL * max |plain| (bf16 keeps ~3 digits)
 # H100 SXM data sheet: HBM3 bytes/s and dense peak operations/s by operand type
 HBM_BYTES_S = 3.35e12
@@ -484,6 +508,7 @@ def check_kernels(torch, results: dict) -> bool:
                                lambda: plain_fn(experts, x, idx, w, *extra, layer_idx=0),  # noqa: B023
                                nbytes, ops, "bf16")
     all_ok &= capacity_cases(experts, "moe_swiglu_gmm", 3 * h * m * 2)
+    all_ok &= expert_matmul_cases(torch, results, experts, routing, g)
 
     def dot_mode_cases(tables, decode_name, prefill_name, per_expert_bytes):
         """The other dot mode of the quantized kernels: the exact-dequant decode
@@ -813,17 +838,18 @@ def paged_cases(torch, results, g, cfg) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def t2i_prompt(vocab: int, image_start: int):
-    """A ~40-id text-to-image prompt with the chat role-prefix runs, and its
-    CFG masks from the processor's rule (no tokenizer on the card)."""
+def t2i_prompt(vocab: int, image_start: int, n_text: int = 31, seed: int = 7):
+    """A text-to-image prompt of `n_text` random text ids (37 ids in all by
+    default) with the chat role-prefix runs, and its CFG masks from the
+    processor's rule (no tokenizer on the card)."""
     import numpy as np
 
     from mingunivision_tpu_torch.processing.processor import build_cfg_masks
 
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(seed)
     user_prefix = [1001, 1002, 1003]  # stands for "<role>HUMAN</role>"
     asst_prefix = [1001, 1004, 1003]  # stands for "<role>ASSISTANT</role>"
-    text = rng.integers(2000, vocab - 1000, 31).tolist()
+    text = rng.integers(2000, vocab - 1000, n_text).tolist()
     ids = user_prefix + text + asst_prefix
     uncond, text_uncond = build_cfg_masks(ids, user_prefix, asst_prefix, {image_start})
     as_row = lambda a: np.asarray([a], np.int64)  # noqa: E731
@@ -1477,7 +1503,7 @@ def run_slice_mixed(torch, cfg, params, device, results: dict) -> bool:
 def launch_counters():
     """kernel name -> the wrapper that counts its launches ("moe_capacity": the
     launches of the prefill MoE kernels that went through the capacity dispatch)."""
-    from mingunivision_tpu_torch.ops.kernels import moe_gmm
+    from mingunivision_tpu_torch.ops.kernels import expert_matmul, moe_gmm
     from mingunivision_tpu_torch.ops.kernels import moe_stream as ms
     from mingunivision_tpu_torch.ops.kernels import moe_swiglu_gmm as gmm
     from mingunivision_tpu_torch.ops.kernels.decode_attention import decode_attention
@@ -1507,7 +1533,8 @@ def launch_counters():
             "moe_swiglu_gmm_q4_full": gmm.moe_experts_swiglu_gmm_q4_full,
             "moe_swiglu_gmm_q8_full": gmm.moe_experts_swiglu_gmm_q8_full,
             "gmm": moe_gmm.gmm, "gmm_trhs": moe_gmm.gmm_trhs, "tgmm": moe_gmm.tgmm,
-            "flash_vit_bwd_dkv": flash_vit_bwd_dkv, "flash_vit_bwd_dq": flash_vit_bwd_dq}
+            "flash_vit_bwd_dkv": flash_vit_bwd_dkv, "flash_vit_bwd_dq": flash_vit_bwd_dq,
+            "gathered_expert_matmul": expert_matmul.gathered_expert_matmul}
 
 
 def counted_round(torch, results, path, run):
@@ -1601,7 +1628,8 @@ def run_slice(torch, cfg, params, device, results: dict, tier="bfloat16", runtim
     floors.pop(None, None)
     if sampler is not None:  # the fused sampler once per image token, the per-step stack once per Euler step
         floors[sampler] = n_tok * (1 if runtime.rf_fused_sampler else cfg.rf_head.num_sampling_steps)
-    checks = image_checks(out, sess, cfg, T, 512) + launch_checks(launches, floors)
+    size = math.isqrt(n_tok) * 32  # 32 px per semantic token: 512 px at 256 tokens
+    checks = image_checks(out, sess, cfg, T, size) + launch_checks(launches, floors)
     if sampler is not None:  # both CFG rows in one launch
         checks.append((f"{sampler} launches == {floors[sampler]}", launches[sampler] == floors[sampler]))
     t = sess.timings
@@ -3112,6 +3140,372 @@ def run_train_mingtok(torch, device, results: dict) -> bool:
     return ok
 
 
+# ---------------------------------------------------------------------------
+# the tenth slice: several images per request, the gathered-expert matmul
+# ---------------------------------------------------------------------------
+
+
+def expert_matmul_cases(torch, results, experts, routing, g) -> bool:
+    """Row 12 at the pool's decode shapes on the 16B-A3B expert tables (layer
+    0 of `experts`): the gathered-expert matmul over the gate table (N = 1408)
+    at 12, 18, 36 and 72 assignments (2, 3, 6 and 12 CFG rows x top-6), over
+    the down table (N = 2048) at 12, and skewed, 72 assignments on two
+    experts; against its plain version within REL_TOL, `torch._grouped_mm`
+    over the rows sorted by expert as the library time (the sort not timed).
+    Bound: the bytes of each distinct slab once, x and the output. Then the
+    whole `moe_experts_gather_kernel` (three launches) at 12 and 36 tokens x
+    top-6 against its plain version, and held within REL_TOL of row 1's
+    decode-MoE kernel on the same inputs (both bf16 operands with fp32 sums;
+    the stream kernel sums the k experts in another order)."""
+    from mingunivision_tpu_torch.ops.kernels.expert_matmul import (
+        gathered_expert_matmul,
+        gathered_expert_matmul_plain,
+        moe_experts_gather_kernel,
+        moe_experts_gather_plain,
+    )
+    from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream
+
+    name = "gathered_expert_matmul"
+    bf = torch.bfloat16
+    w1, w2 = experts["gate_proj"][0], experts["down_proj"][0]
+    E, h, m = w1.shape
+    k = 6
+    ok = True
+    cases = [(f"A={rows * k} ({rows} rows x top-{k}), gate table", rows, w1, None) for rows in (2, 3, 6, 12)]
+    cases += [(f"A={2 * k} (2 rows x top-{k}), down table", 2, w2, None),
+              (f"A={12 * k} skewed: every assignment on experts 3 and 40, gate table", 12, w1, [3, 40])]
+    for label, rows, w, skew in cases:
+        if skew is None:
+            ids = routing(rows)[0].reshape(-1).to(torch.int32)
+        else:  # top-k routing picks k distinct experts: the skewed ids are set directly
+            ids = torch.tensor(skew, device="cuda", dtype=torch.int32).repeat(rows * k // len(skew))
+        A, (_, K, N) = ids.numel(), w.shape
+        x = torch.randn((A, K), device="cuda", generator=g).to(bf)
+        distinct = int(torch.unique(ids).numel())
+        nbytes = distinct * K * N * 2 + A * K * 2 + A * N * 2
+        order = torch.argsort(ids)
+        xs, offs = x[order], torch.bincount(ids, minlength=E).cumsum(0).to(torch.int32)
+        reads = A * K * N * 2 / 1e6
+        ok &= run_case(torch, results, name, f"{label}; {distinct} distinct experts, {reads:.1f} MB read per "
+                       "assignment", lambda: gathered_expert_matmul(x, w, ids),  # noqa: B023
+                       lambda: gathered_expert_matmul_plain(x, w, ids), nbytes, 2.0 * A * K * N, "bf16",  # noqa: B023
+                       library=lambda: torch._grouped_mm(xs, w, offs=offs))  # noqa: B023
+    for tokens in (12, 36):
+        x = torch.randn((tokens, h), device="cuda", generator=g).to(bf)
+        idx, tw = routing(tokens)
+        distinct = int(torch.unique(idx).numel())
+        nbytes = distinct * 3 * h * m * 2 + 2 * tokens * h * 2
+        label = f"moe_experts_gather_kernel: {tokens} tokens x top-{k} ({distinct} distinct experts), 3 launches"
+        ok &= run_case(torch, results, name, label,
+                       lambda: moe_experts_gather_kernel(experts, x, idx, tw, layer_idx=0),  # noqa: B023
+                       lambda: moe_experts_gather_plain(experts, x, idx, tw, layer_idx=0),  # noqa: B023
+                       nbytes, 6.0 * tokens * k * h * m, "bf16",
+                       others={"moe_stream": lambda: moe_experts_stream(experts, x, idx, tw,  # noqa: B023
+                                                                        layer_idx=0)})
+        same, err, rel = compare(torch, moe_experts_gather_kernel(experts, x, idx, tw, layer_idx=0),
+                                 moe_experts_stream(experts, x, idx, tw, layer_idx=0))
+        print(f"kernel {name} [{label}]: against row 1's decode-MoE kernel on the same inputs max_abs_err={err:.3e} "
+              f"rel_to_max={rel:.3e} tol_rel={REL_TOL} {'ok' if same else 'MISMATCH'}")
+        results[name]["cases"][-1]["vs_moe_stream_max_abs_err"] = err
+        ok &= same
+    return ok
+
+
+def pool_requests(cfg, lengths, seed: int = 0):
+    """Processor-output dicts of T2I prompts of the given lengths (ids in all),
+    built by hand as `t2i_prompt` builds them."""
+    out = []
+    for i, T in enumerate(lengths):
+        ids, am, um, tm = t2i_prompt(cfg.llm.vocab_size, cfg.llm.image_start_token, n_text=T - 6, seed=seed + i)
+        out.append({"input_ids": ids, "attention_mask": am, "uncond_attention_mask": um,
+                    "text_uncond_attention_mask": tm})
+    return out
+
+
+def pool_entries(torch):
+    """`llm_entries` with decode attention by the name the pool's LLM step
+    (`batch_engine.pooled_forward`) calls it, and the fused RF sampler entry
+    (`rf_head.rf_sample_fused`), every row, as `held_against_plain` takes them."""
+    from mingunivision_tpu_torch.engine import batch_engine
+    from mingunivision_tpu_torch.models import rf_head
+    from mingunivision_tpu_torch.ops.kernels.decode_attention import decode_attention_plain
+    from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused_plain
+
+    def every_row(i):
+        return lambda args: torch.ones(args[i].shape[0], dtype=torch.bool, device=args[i].device)
+
+    return {**llm_entries(torch),
+            "decode_attention": (batch_engine, "decode_attention", decode_attention_plain, every_row(0)),
+            "rf_sampler": (rf_head, "rf_sample_fused", rf_sample_fused_plain, every_row(2))}
+
+
+@contextlib.contextmanager
+def decode_moe_capture(rows: int):
+    """For the block, record the (args, kwargs) of the first decode-MoE call
+    (`bailing_moe.moe_experts_stream`, whatever stands there) over `rows` rows;
+    yields a dict whose "call" holds them."""
+    from mingunivision_tpu_torch.models import bailing_moe as bm
+
+    seen = {}
+    entry = bm.moe_experts_stream
+
+    def capture(*args, **kwargs):
+        if "call" not in seen and args[1].shape[0] == rows:
+            seen["call"] = (args, kwargs)
+        return entry(*args, **kwargs)
+
+    bm.moe_experts_stream = capture
+    try:
+        yield seen
+    finally:
+        bm.moe_experts_stream = entry
+
+
+def run_reference_pool(torch, device, tier="int4", results=None) -> bool:
+    """The small model's image pool (`ImagePoolEngine`, 3 slots, chunk 2, 16
+    image tokens, the noise off): two requests, then a third admitted while
+    they are mid-loop, with per-slot text_cfg 1.0 / 3.0 / 9.0 (at int4 through
+    the fused int4 sampler, one group per active slot). Every LLM kernel entry
+    and the fused sampler held against its plain version on the same inputs
+    at every call (within REL_TOL); three finite images in [-1, 1] that
+    differ; on the card at int4, the sampler launched once per active slot
+    and micro-step. At bf16 (whose expert tables row 12 takes), row 12 held in
+    context: one pool step's decode-MoE inputs captured, and
+    `moe_experts_gather_kernel` on them within REL_TOL of its plain version
+    and of the decode MoE's output."""
+    import numpy as np
+
+    from mingunivision_tpu_torch.config import RuntimeConfig
+    from mingunivision_tpu_torch.engine.image_pool import ImagePoolEngine
+    from mingunivision_tpu_torch.ops.kernels import expert_matmul
+    from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused
+
+    cfg, params, _ = small_model(torch, device, tier)
+    reqs = pool_requests(cfg, (37, 60, 45), seed=11)
+    scales = (1.0, 3.0, 9.0)
+    slots, n_tok = 3, cfg.image_gen.num_image_tokens
+    sampler_launches = rf_sample_fused.launches
+    eng = ImagePoolEngine(params, cfg, RuntimeConfig(max_seq_len=512), slots=slots, chunk=2, device=device)
+    with held_against_plain(torch, pool_entries(torch)) as errs, decode_moe_capture(3 * slots) as seen:
+        done = [eng.add_request(r, i, text_cfg=s) for i, (r, s) in enumerate(zip(reqs[:2], scales))]
+        eng.step()
+        done.append(eng.add_request(reqs[2], 2, text_cfg=scales[2]))
+        eng.run_until_idle()
+    sampler_launches = rf_sample_fused.launches - sampler_launches
+    imgs = [r.image for r in done]
+    checks = [("3 images done", all(r.done for r in done)),
+              ("finite, in [-1, 1]", all(np.isfinite(i).all() and i.min() >= -1 and i.max() <= 1 for i in imgs)),
+              ("images of different scales differ",
+               min(float(np.abs(imgs[a] - imgs[b]).max()) for a, b in ((0, 1), (1, 2), (0, 2))) > 1e-3),
+              (f"{eng.micro_steps} micro-steps == {n_tok + 1 + 2}", eng.micro_steps == n_tok + 3)]
+    checks += held_checks({k: v for k, v in errs.items() if k != "rf_sampler"})
+    if tier == "int4":
+        v = errs["rf_sampler"]
+        checks.append((f"rf_sampler in context within {max(v, default=1.0):.3e} <= {REL_TOL} of its plain version at "
+                       f"all {len(v)} calls", bool(v) and max(v) <= REL_TOL))
+        if device.type == "cuda":
+            want = slots * (n_tok + 1)
+            checks.append((f"sampler launches {sampler_launches} == {want} (one per active slot and micro-step)",
+                           sampler_launches == want))
+    if tier == "bfloat16":
+        from mingunivision_tpu_torch.models import bailing_moe as bm
+
+        args, kwargs = seen["call"]
+        layer = kwargs.get("layer_idx")
+        before = expert_matmul.gathered_expert_matmul.launches
+        got = expert_matmul.moe_experts_gather_kernel(*args[:4], layer_idx=layer)
+        launched = expert_matmul.gathered_expert_matmul.launches - before
+        for what, want in (("its plain version", expert_matmul.moe_experts_gather_plain(*args[:4], layer_idx=layer)),
+                           ("the decode MoE on the same inputs", bm.moe_experts_stream(*args, **kwargs))):
+            same, _, rel = compare(torch, got, want)
+            checks.append((f"row 12 in context ({args[1].shape[0]} rows x top-{args[2].shape[1]}, layer {layer}) vs "
+                           f"{what}: {rel:.3e} <= {REL_TOL}", same))
+        if device.type == "cuda":
+            checks.append((f"gathered_expert_matmul launches {launched} == 3", launched == 3))
+        if results is not None:
+            entry = results.setdefault("gathered_expert_matmul", {})
+            entry.setdefault("launches_by_path", {})["reference image pool (in context)"] = launched
+    print(f"reference ({tier} small model on the card, image pool: 3 slots, chunk 2, a request admitted mid-loop, "
+          "text_cfg 1 / 3 / 9): " + "; ".join(f"{label}={'ok' if p else 'FAILED'}" for label, p in checks))
+    return all(p for _, p in checks)
+
+
+def image_round_checks(imgs, n, size=512) -> list:
+    """n finite images of (3, size, size) in [-1, 1] that differ pairwise."""
+    import numpy as np
+
+    checks = [(f"{n} images", len(imgs) == n)]
+    if len(imgs) == n:
+        checks += [(f"shape (3, {size}, {size}), finite, in [-1, 1]",
+                    all(i.shape == (3, size, size) and np.isfinite(i).all() and i.min() >= -1 and i.max() <= 1
+                        for i in imgs)),
+                   ("images differ pairwise", min((float(np.abs(imgs[a] - imgs[b]).max())
+                                                   for a in range(n) for b in range(a + 1, n)), default=0) > 1e-3)]
+    return checks
+
+
+def run_images(torch, cfg, params, device, results: dict, tier="int4") -> bool:
+    """T2I with n_images=2 through the session at full width: the 37-id
+    prompt, 2 CFG rows x 2 images = 4 rows in one loop (the decode MoE over 4
+    rows, one fused-sampler launch per image token for both images: 4 rows
+    fill one launch)."""
+    from mingunivision_tpu_torch.config import GenerationConfig, RuntimeConfig
+    from mingunivision_tpu_torch.engine.session import MingUniVisionSession
+
+    L, n_tok = cfg.llm.num_hidden_layers, cfg.image_gen.num_image_tokens
+    ids, am, um, tm = t2i_prompt(cfg.llm.vocab_size, cfg.llm.image_start_token)
+    bias_to_image_start(torch, params, cfg, ids, device)
+    label = f"images_{tier}"
+
+    def run():
+        sess = MingUniVisionSession(params, cfg, RuntimeConfig(), seed=0, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sess.generate(ids, am, uncond_attention_mask=um, text_uncond_attention_mask=tm,
+                            generation=GenerationConfig(max_new_tokens=1), n_images=2)
+        torch.cuda.synchronize()
+        return out, sess, time.perf_counter() - t0
+
+    (out, sess, total_s), launches, peak = counted_round(torch, results, label, run)
+    t = sess.timings
+    decode_moe, prefill_moe, sampler = tier_kernels(tier)
+    floors = {decode_moe: L * (n_tok + 1), prefill_moe: L, "decode_attention": L * (n_tok + 1), sampler: n_tok}
+    checks = image_round_checks(out.images, 2) + launch_checks(launches, floors)
+    checks += [("2 CFG rows x 2 images", (t.get("cfg_rows"), t.get("n_images")) == (2, 2)),
+               (f"{sampler} launches == {n_tok} (4 rows: one launch)", launches[sampler] == n_tok)]
+    print(f"{label} T2I n_images=2: prompt {ids.shape[1]} ids, {L} layers, {tier}, rows=4, "
+          f"prefill_ms={t['prefill_ms']:.2f} image_loop_ms={t['image_loop_ms']:.1f} "
+          f"ms_per_ar_token={t['image_loop_ms'] / n_tok:.3f} pixel_decode_ms={t['pixel_decode_ms']:.2f} "
+          f"total_s={total_s:.3f} images_per_min={2 * 60 / total_s:.3f} launches_per_llm_step: "
+          f"{decode_moe}={launches[decode_moe] / (n_tok + 1):.2f} "
+          f"decode_attention={launches['decode_attention'] / (n_tok + 1):.2f} "
+          f"{sampler}={launches[sampler] / n_tok:.2f} "
+          f"max_memory_allocated_gib={peak / 2**30:.3f}")
+    return report(label, launches, checks)
+
+
+def run_image_batch(torch, cfg, params, device, results: dict, tier="int4") -> bool:
+    """The barrier batcher at full width: 3 T2I prompts of 37, 90 and 200 ids
+    (one 256-id bucket, a 768-row batched prefill through the capacity
+    dispatch), 3 CFG rows each: 9 rows in one loop, one fused-sampler launch
+    per image and token (3 rows each)."""
+    from mingunivision_tpu_torch.config import RuntimeConfig
+    from mingunivision_tpu_torch.ops.kernels.moe_capacity import moe_experts_capacity_gmm_exact
+    from mingunivision_tpu_torch.serving.image_batch import batched_image_generation
+
+    L, n_tok, n = cfg.llm.num_hidden_layers, cfg.image_gen.num_image_tokens, 3
+    reqs = pool_requests(cfg, (37, 90, 200), seed=40)
+    label = f"image_batch_{tier}"
+    fallbacks = moe_experts_capacity_gmm_exact.fallbacks
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs = batched_image_generation(params, cfg, RuntimeConfig(), reqs, 0)
+        torch.cuda.synchronize()
+        return imgs, time.perf_counter() - t0
+
+    (imgs, total_s), launches, peak = counted_round(torch, results, label, run)
+    fallbacks = moe_experts_capacity_gmm_exact.fallbacks - fallbacks
+    decode_moe, prefill_moe, sampler = tier_kernels(tier)
+    floors = {decode_moe: L * (n_tok + 1), prefill_moe: L, "decode_attention": L * (n_tok + 1), sampler: n * n_tok}
+    checks = image_round_checks(list(imgs), n)
+    checks += launch_checks({k: v for k, v in launches.items() if k != "moe_capacity"}, floors)
+    checks += [(f"{sampler} launches == {n * n_tok} (one per image and token)", launches[sampler] == n * n_tok),
+               (f"capacity dispatch {launches['moe_capacity']} + fallbacks {fallbacks} == {L}",
+                launches["moe_capacity"] + fallbacks == L)]
+    print(f"{label}: 3 prompts of 37 / 90 / 200 ids (bucket 256), {L} layers, {tier}, rows=9, total_s={total_s:.3f} "
+          f"ms_per_ar_token={total_s * 1e3 / n_tok:.3f} (the round's wall time / {n_tok}, prefill and pixel decode "
+          f"included) images_per_min={n * 60 / total_s:.3f} launches_per_llm_step: "
+          f"{decode_moe}={launches[decode_moe] / (n_tok + 1):.2f} "
+          f"decode_attention={launches['decode_attention'] / (n_tok + 1):.2f} "
+          f"{sampler}={launches[sampler] / n_tok:.2f} "
+          f"max_memory_allocated_gib={peak / 2**30:.3f}")
+    return report(label, launches, checks)
+
+
+class MicroClock:
+    """Wraps an ImagePoolEngine's micro-step: synchronised milliseconds of each
+    one, keyed by the number of active slots it ran."""
+
+    def __init__(self, torch, engine):
+        self.torch, self.engine, self.micro = torch, engine, engine._micro
+        self.ms: dict = {}
+        engine._micro = self
+
+    def __call__(self):
+        active = sum(self.engine._active)
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.micro()
+        self.torch.cuda.synchronize()
+        if active:
+            self.ms.setdefault(active, []).append((time.perf_counter() - t0) * 1e3)
+
+
+def run_image_pool(torch, cfg, params, device, results: dict, tier="int4") -> bool:
+    """Continuous admission at full width: `ImagePoolWorker` over
+    `ImagePoolEngine(slots=4, chunk=32)` (max_seq_len 4096); two T2I requests,
+    then two more submitted once the pool has run 64 micro-steps, text_cfg
+    3.0 / 3.0 / 1.0 / 5.0, seeds 0-3. Per micro-step: one LLM step over the
+    12 rows, one fused-sampler launch per active slot, the semantic decoder
+    at per-slot positions. ms per micro-step at 2 and 4 active slots (median,
+    synchronised), images per minute from the first submit to the last image."""
+    import numpy as np
+
+    from mingunivision_tpu_torch.config import RuntimeConfig
+    from mingunivision_tpu_torch.engine.image_pool import ImagePoolEngine
+    from mingunivision_tpu_torch.serving.server import ImagePoolWorker
+
+    L, n_tok = cfg.llm.num_hidden_layers, cfg.image_gen.num_image_tokens
+    reqs = pool_requests(cfg, (37, 52, 41, 64), seed=50)
+    scales = (3.0, 3.0, 1.0, 5.0)
+    label = f"image_pool_{tier}"
+
+    def run():
+        eng = ImagePoolEngine(params, cfg, RuntimeConfig(), slots=4, chunk=32, device=device)
+        clock = MicroClock(torch, eng)
+        worker = ImagePoolWorker(eng)
+        try:
+            t0 = time.perf_counter()
+            items = [worker.submit(reqs[i], i, {"text_cfg": scales[i]}) for i in (0, 1)]
+            while eng.micro_steps < 64 and not all(i["event"].is_set() for i in items):
+                time.sleep(0.01)
+            items += [worker.submit(reqs[i], i, {"text_cfg": scales[i]}) for i in (2, 3)]
+            finished = [item["event"].wait(600) for item in items]
+            wall = time.perf_counter() - t0
+        finally:
+            worker.stop()
+        errors = [item.get("error") for item in items if item.get("error")]
+        imgs = [item["req"].image for item in items if item.get("req") is not None and item["req"].done]
+        return eng, clock, imgs, all(finished) and not errors, errors, wall
+
+    (eng, clock, imgs, served, errors, wall), launches, peak = counted_round(torch, results, label, run)
+    steps = eng.micro_steps
+    decode_moe, prefill_moe, sampler = tier_kernels(tier)
+    floors = {decode_moe: L * steps, prefill_moe: 4 * L, "decode_attention": L * steps, sampler: 4 * (n_tok + 1)}
+    checks = [(f"4 requests served{'' if served else f' ({errors})'}", served)] + image_round_checks(imgs, 4)
+    checks += launch_checks(launches, floors)
+    checks += [(f"{sampler} launches == {4 * (n_tok + 1)} (one per active slot and micro-step)",
+                launches[sampler] == 4 * (n_tok + 1)),
+               (f"{decode_moe} launches == {L} x {steps} micro-steps", launches[decode_moe] == L * steps),
+               (f"micro-steps {steps}: the late pair's {n_tok + 1} after its admission at a chunk boundary >= 64",
+                steps - (n_tok + 1) >= 64 and (steps - (n_tok + 1)) % 32 == 0)]
+    st = eng.state
+    kv_bytes = 2 * st.k.numel() * st.k.element_size()
+    sem_bytes = 2 * st.sem_k.numel() * st.sem_k.element_size()
+    ms = {a: statistics.median(v) for a, v in sorted(clock.ms.items())}
+    print(f"{label}: 4 slots x 3 CFG rows, chunk 32, {L} layers, {tier}, prompts 37 / 52 / 41 / 64 ids, text_cfg "
+          f"{' / '.join(map(str, scales))}, {steps} micro-steps, wall_s={wall:.3f} images_per_min={4 * 60 / wall:.3f} "
+          + " ".join(f"ms_per_micro_step_at_{a}_active={v:.3f} (n={len(clock.ms[a])})" for a, v in ms.items())
+          + f" launches_per_micro_step: {decode_moe}={launches[decode_moe] / steps:.2f} "
+          f"decode_attention={launches['decode_attention'] / steps:.2f} {sampler}={launches[sampler] / steps:.3f} "
+          f"pool_kv_bytes={kv_bytes} ({kv_bytes / 2**30:.3f} GiB; semantic-decoder cache {sem_bytes}) "
+          f"max_memory_allocated_gib={peak / 2**30:.3f}")
+    del eng
+    return report(label, launches, checks)
+
+
 def kernel_entry(name: str, r: dict, capacity: dict) -> dict:
     """One kernel's entry of the JSON line, from what this run measured:
     `launches` from the main path that runs it (its tier's T2I slice; the
@@ -3145,7 +3539,7 @@ def jax_modules():
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="device,build,kernels,reference,train,train_mingtok,slice,slice_int4,"
-                                        "slice_int4_exact,"
+                                        "slice_int4_exact,images_int4,image_batch_int4,image_pool_int4,"
                                         "slice_int4_perstep,slice_int4_rf8,slice_int8,slice_int8_s8,slice_int8_perstep,"
                                         "slice_nf4,understand,edit,recon,serve")
     ap.add_argument("--tier", default="bfloat16", choices=("bfloat16", "int4", "int8", "nf4"),
@@ -3208,6 +3602,8 @@ def main(argv=None) -> int:
         for tier, runtime_kw in PER_STEP_REFERENCE_TIERS:
             ok &= run_reference(torch, cuda, tier, results, **runtime_kw)
         ok &= run_reference_serve(torch, cuda)
+        ok &= run_reference_pool(torch, cuda, "bfloat16", results)
+        ok &= run_reference_pool(torch, cuda, "int4", results)
         ok &= run_reference_train(torch, cuda)
         ok &= run_reference_mingtok(torch, cuda, "bf16")
         ok &= run_reference_mingtok(torch, cuda, "default", remat=True)
@@ -3227,8 +3623,8 @@ def main(argv=None) -> int:
         stamp("recon")
     # per tier: (its T2I phase, the other phases it runs); the int4 tier's model also serves the mixed tier
     tier_phases = {"bfloat16": ("slice", {"understand", "edit", "serve"}),
-                   "int4": ("slice_int4", {"slice_int4_exact", "slice_int4_perstep", "slice_int4_rf8", "understand", "edit",
-                                           "serve"}),
+                   "int4": ("slice_int4", {"slice_int4_exact", "slice_int4_perstep", "slice_int4_rf8", "images_int4",
+                                           "image_batch_int4", "image_pool_int4", "understand", "edit", "serve"}),
                    "int8": ("slice_int8", {"slice_int8_s8", "slice_int8_perstep", "understand", "edit"}),
                    "nf4": ("slice_nf4", set())}
     for tier, (slice_phase, others) in tier_phases.items():
@@ -3236,6 +3632,9 @@ def main(argv=None) -> int:
         if not run:
             continue
         cfg = MingUniVisionConfig()
+        if tier == "nf4":  # its plain-dequant loop is the slowest per token: cut to NF4_IMAGE_TOKENS
+            cfg = dataclasses.replace(cfg, image_gen=dataclasses.replace(cfg.image_gen,
+                                                                         num_image_tokens=NF4_IMAGE_TOKENS))
         mixed = "slice_int4_rf8" in run
         params = full_model(torch, cfg, cuda, tier, keep_rf_bf16=mixed)  # built once for the tier's phases
         if slice_phase in run:
@@ -3250,6 +3649,12 @@ def main(argv=None) -> int:
                             f"slice_{tier}_perstep")
         if mixed:
             ok &= run_slice_mixed(torch, cfg, params, cuda, results)
+        # several images per request: n_images=2, the barrier batcher, the image pool
+        for phase, round_fn in (("images", run_images), ("image_batch", run_image_batch),
+                                ("image_pool", run_image_pool)):
+            if f"{phase}_{tier}" in run:
+                ok &= round_fn(torch, cfg, params, cuda, results, tier)
+                torch.cuda.empty_cache()
         if "edit" in run:
             ok &= run_edit(torch, cfg, params, cuda, results, tier)
         if "understand" in run:  # it steers the LM head towards text

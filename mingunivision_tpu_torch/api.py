@@ -69,10 +69,9 @@ class MingUniVisionInfer:
         JAX API's arguments in its order. Each generated image (3, H, W) in
         [-1, 1] is kept in `last_images` and written as a PNG at
         `output_image_prefix` (`prefix.png`, or `prefix_1.png`, ... when the
-        name is taken). `n_images` other than 1 raises NotImplementedError
-        (ROADMAP.md Queue 1.2), as the server does."""
-        if n_images != 1:
-            raise NotImplementedError("n_images > 1 is not ported to the PyTorch package yet (ROADMAP.md Queue 1.2)")
+        name is taken). `n_images` variants of each image are made in one
+        loop (`MingUniVisionSession.generate`); all of them are kept and
+        written."""
         text = self.processor.apply_chat_template(messages, add_generation_prompt=True)
         images = self.processor.process_vision_info(messages)
         batch = self.processor(text=text, images=images, for_edit=for_edit)
@@ -86,7 +85,8 @@ class MingUniVisionInfer:
         out = self.session.generate(batch.input_ids, batch.attention_mask,
                                     uncond_attention_mask=batch.uncond_attention_mask,
                                     text_uncond_attention_mask=batch.text_uncond_attention_mask,
-                                    pixel_values=batch.pixel_values, generation=gen, image_gen=igen)
+                                    pixel_values=batch.pixel_values, generation=gen, image_gen=igen,
+                                    n_images=n_images)
         self.last_images = out.images
         for img in out.images:
             save_image_with_suffix(img, output_image_prefix)

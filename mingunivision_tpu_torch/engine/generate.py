@@ -10,7 +10,7 @@ read a sampled token.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -100,47 +100,73 @@ def decode_text(params, cfg, first_token: int, cache: LLMCache, mask, generator=
 
 @dataclasses.dataclass
 class ImageGenResult:
-    sem_tokens: torch.Tensor  # (1, 256, feature_dim)
-    last_hidden: torch.Tensor  # (1, 1, h) hidden state of the cond row after the trailing LLM step
+    sem_tokens: torch.Tensor  # (n_images, 256, feature_dim)
+    last_hidden: torch.Tensor  # (n_images, 1, h) hidden state of each cond row after the trailing LLM step
     cache: LLMCache  # CFG-row cache (caller truncates to row 0)
-    mask: torch.Tensor  # (cfg_rows, Smax) grown attention masks
+    mask: torch.Tensor  # (cfg_rows * n_images, Smax) grown attention masks
 
 
-def _cfg_at(gen_cfg, i: int):
+def cfg_at(gen_cfg, i: int, text_cfg: Optional[float] = None, image_cfg: Optional[float] = None):
+    """The guidance scales of loop step i under the schedule, from the base
+    scales (default: the config's)."""
+    t0 = gen_cfg.text_cfg if text_cfg is None else text_cfg
+    g0 = gen_cfg.image_cfg if image_cfg is None else image_cfg
     if gen_cfg.cfg_schedule == "constant":
-        return gen_cfg.text_cfg, gen_cfg.image_cfg
+        return t0, g0
     if gen_cfg.cfg_schedule == "linear":
         frac = (256.0 - i) / 256.0
     elif gen_cfg.cfg_schedule == "linear-reverse":
         frac = i / 255.0
     else:
         raise NotImplementedError(gen_cfg.cfg_schedule)
-    return 1.0 + (gen_cfg.text_cfg - 1.0) * frac, 1.0 + (gen_cfg.image_cfg - 1.0) * frac
+    return 1.0 + (t0 - 1.0) * frac, 1.0 + (g0 - 1.0) * frac
+
+
+def image_noise(generators, channels: int, device) -> torch.Tensor:
+    """One RF noise row per image, (n, channels) fp32: image i's row drawn
+    from generators[i] (None: the global generator)."""
+    return torch.cat([torch.randn((1, channels), generator=g, device=device) for g in generators])
 
 
 def generate_image_tokens(params, llm_cfg, mingtok_cfg, rf_cfg, gen_cfg, image_start_embed, cache: LLMCache,
                           row_masks, generator: Optional[torch.Generator] = None, *,
-                          int_dots: bool = True, rf_int_dots: bool = False, rf_fused: bool = True,
+                          generators: Optional[Sequence[torch.Generator]] = None, cfg_rows: Optional[int] = None,
+                          n_images: int = 1, int_dots: bool = True, rf_int_dots: bool = False, rf_fused: bool = True,
                           rf_int4_int_dots: bool = True) -> ImageGenResult:
     """The AR image loop. Per token: LLM step over the CFG rows -> vis_head ->
     rectified-flow Euler sample -> MingTok semantic-decoder step -> linear_proj
     -> next LLM input; every row's mask grows by one. A trailing LLM step gives
     the hidden state for the next text token.
 
-    The CFG rows are [cond, uncond (, text_uncond)], one per row of
-    `row_masks` (cfg_rows, Smax); `cache` is already expanded to them and is
-    written IN PLACE. The RF noise of each token is drawn from `generator`;
-    int_dots: the decode MoE's dot mode over quantized tables; rf_int_dots,
-    rf_fused and rf_int4_int_dots: `rf_sample`'s int_dots, fused and
-    int4_int_dots (RuntimeConfig.rf_int_dots, rf_fused_sampler and
-    rf_int4_int_dots)."""
-    R = row_masks.shape[0]
+    n_images variants share the loop. The rows are laid out BLOCK-major,
+    [conds 0..n | unconds 0..n (| text_unconds 0..n)], one per row of
+    `row_masks` (cfg_rows * n_images, Smax); `cache` is already expanded to
+    them and is written IN PLACE. cfg_rows defaults to the rows per image.
+
+    Noise: at every token image i draws one (1, C) row from its own generator,
+    generators[i], shared by its CFG rows, so an image does not depend on how
+    many others share the loop. With one image and no `generators`, the row is
+    drawn from `generator`. int_dots: the decode MoE's dot mode over
+    quantized tables; rf_int_dots, rf_fused and rf_int4_int_dots: `rf_sample`'s
+    int_dots, fused and int4_int_dots (RuntimeConfig.rf_int_dots,
+    rf_fused_sampler and rf_int4_int_dots)."""
+    n = n_images
+    Rt = row_masks.shape[0]
+    R = Rt // n if cfg_rows is None else cfg_rows
+    if R * n != Rt:
+        raise ValueError(f"{Rt} row masks are not {R} CFG rows x {n} images")
+    if generators is None:
+        if n != 1:
+            raise ValueError("several images need one generator each (generators=)")
+        generators = [generator]
+    elif len(generators) != n:
+        raise ValueError(f"{len(generators)} generators for {n} images")
     n_tokens = gen_cfg.num_image_tokens
     dev = image_start_embed.device
     sem_dtype = image_start_embed.dtype
-    sem_cache = make_semdec_cache(mingtok_cfg.semantic_decoder, 1, n_tokens + 1, dtype=sem_dtype, device=dev)
-    sem_tokens = torch.zeros((1, n_tokens, mingtok_cfg.feature_dim), dtype=sem_dtype, device=dev)
-    embeds = image_start_embed.expand(R, 1, -1)
+    sem_cache = make_semdec_cache(mingtok_cfg.semantic_decoder, n, n_tokens + 1, dtype=sem_dtype, device=dev)
+    sem_tokens = torch.zeros((n, n_tokens, mingtok_cfg.feature_dim), dtype=sem_dtype, device=dev)
+    embeds = image_start_embed.expand(Rt, 1, -1)
     masks = row_masks.bool().clone()
 
     def llm_step(embeds, cache):
@@ -151,20 +177,20 @@ def generate_image_tokens(params, llm_cfg, mingtok_cfg, rf_cfg, gen_cfg, image_s
     for i in range(n_tokens):
         hidden, cache = llm_step(embeds, cache)
         z = vis_head_apply(params["vis_head"], hidden[:, -1])
-        tcfg, icfg = _cfg_at(gen_cfg, i)
-        noise = torch.randn((1, rf_cfg.target_channels), generator=generator, device=dev)
-        latent = rf_sample(params["rf_head"], rf_cfg, z, noise=noise, temperature=gen_cfg.temperature,
-                           text_cfg=tcfg, image_cfg=icfg, cfg_renorm_type=gen_cfg.cfg_renorm_type,
-                           time_shifting_factor=gen_cfg.time_shifting_factor, cfg_rows=R, int_dots=rf_int_dots,
-                           fused=rf_fused, int4_int_dots=rf_int4_int_dots)
-        sem_out, sem_cache = mingtok_feature_decoder(params["mingtok"], mingtok_cfg, latent[:1, None, :], sem_cache,
+        tcfg, icfg = cfg_at(gen_cfg, i)
+        latent = rf_sample(params["rf_head"], rf_cfg, z, noise=image_noise(generators, rf_cfg.target_channels, dev),
+                           temperature=gen_cfg.temperature, text_cfg=tcfg, image_cfg=icfg,
+                           cfg_renorm_type=gen_cfg.cfg_renorm_type, time_shifting_factor=gen_cfg.time_shifting_factor,
+                           cfg_rows=R, int_dots=rf_int_dots, fused=rf_fused, int4_int_dots=rf_int4_int_dots)
+        # the cond block's latents: image i's guided sample
+        sem_out, sem_cache = mingtok_feature_decoder(params["mingtok"], mingtok_cfg, latent[:n, None, :], sem_cache,
                                                      compute_dtype=sem_dtype)
-        sem = sem_out["x_norm_patchtokens"]  # (1, 1, feat)
+        sem = sem_out["x_norm_patchtokens"]  # (n, 1, feat)
         sem_tokens[:, i] = sem[:, 0].to(sem_tokens.dtype)
         nxt = linear_proj_apply(params["linear_proj"], sem).to(embeds.dtype)
-        embeds = nxt.expand(R, 1, -1)  # the same next input in every CFG row
+        embeds = nxt.repeat(R, 1, 1)  # block-major: image i's next input in each of its CFG rows
     hidden, cache = llm_step(embeds, cache)
-    return ImageGenResult(sem_tokens, hidden[:1, -1:], cache, masks)
+    return ImageGenResult(sem_tokens, hidden[:n, -1:], cache, masks)
 
 
 def pixel_decode(mingtok_params, mingtok_cfg, sem_tokens):

@@ -11,6 +11,7 @@ bucket passes `flash_usable` prefills through the flash-attention kernel.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from typing import List, Optional
 
@@ -58,7 +59,13 @@ class MingUniVisionSession:
     milliseconds (host clock around synchronised work): `encode_ms` (image
     inputs only), `prefill_ms` with `prefill_tokens` (the padded prompt) and
     `use_flash`, `text_decode_ms` with `text_tokens` (the decoded text steps),
-    `image_loop_ms` / `pixel_decode_ms` and the CFG row count."""
+    `image_loop_ms` / `pixel_decode_ms`, the CFG row count and `n_images`.
+
+    `generate(n_images=)` makes that many variants of the image in one loop
+    (block-major CFG rows). Variant 0 draws its RF noise from the session's
+    generator, as a single image does; variant i > 0 from a generator seeded
+    by a hash of the session generator's state before the loop and i, so the
+    variants of a round differ and repeat with the session's seed."""
 
     def __init__(self, params, cfg, runtime, seed: int = 0, device=None):
         self.params = params
@@ -107,7 +114,13 @@ class MingUniVisionSession:
         pixel_values=None,
         generation: Optional[GenerationConfig] = None,
         image_gen: Optional[ImageGenConfig] = None,
+        n_images: int = 1,
     ) -> RoundOutput:
+        """One round. n_images: the variants each image phase makes (every
+        image is returned, `RoundOutput.images`); the conversation goes on
+        from variant 0's row."""
+        if n_images < 1:
+            raise ValueError(f"n_images must be at least 1, got {n_images}")
         gen = generation or GenerationConfig()
         igen = image_gen or self.cfg.image_gen
         llm_cfg = self.cfg.llm
@@ -167,8 +180,8 @@ class MingUniVisionSession:
             if cur == llm_cfg.eos_token_id:
                 break
             if cur == llm_cfg.image_start_token:
-                cur, image = self._run_image_phase(cur, prompt_end, igen)
-                images.append(image)
+                cur, new_images = self._run_image_phase(cur, prompt_end, igen, n_images=n_images)
+                images.extend(new_images)
                 continue
             if budget <= 0:
                 break
@@ -230,8 +243,8 @@ class MingUniVisionSession:
             if cur == llm_cfg.eos_token_id:
                 break
             if cur == llm_cfg.image_start_token:
-                cur, image = self._run_image_phase(cur, self._prompt_end, self.cfg.image_gen)
-                images.append(image)
+                cur, new_images = self._run_image_phase(cur, self._prompt_end, self.cfg.image_gen)
+                images.extend(new_images)
                 continue
             if budget <= 0:
                 break
@@ -250,9 +263,21 @@ class MingUniVisionSession:
         self._keep_text_uncond_mask(self._prompt_end)  # a streamed round is one round in chunks
         return RoundOutput(out_tokens, images)
 
-    def _run_image_phase(self, image_start_token: int, prompt_end: int, igen: ImageGenConfig):
-        """The 256-token AR image loop and the pixel decode; returns (the next
-        text token, the image (3, H, W))."""
+    def _variant_generators(self, n_images: int) -> list:
+        """The RF noise generators of an image phase's variants: the session's
+        own for variant 0, for variant i a new one seeded by the SHA-256 of the
+        session generator's state and i (read on the host: no device sync)."""
+        state = self.generator.get_state().numpy().tobytes()
+        gens = [self.generator]
+        for i in range(1, n_images):
+            seed = int.from_bytes(hashlib.sha256(state + i.to_bytes(4, "little")).digest()[:8], "little")
+            gens.append(torch.Generator(device=self.device).manual_seed(seed))
+        return gens
+
+    def _run_image_phase(self, image_start_token: int, prompt_end: int, igen: ImageGenConfig, n_images: int = 1):
+        """The 256-token AR image loop for `n_images` variants and their pixel
+        decode; returns (the next text token, the images, each (3, H, W)). The
+        conversation continues from variant 0's cond row."""
         llm_cfg = self.cfg.llm
         pos = torch.arange(self.runtime.max_seq_len, device=self.device)[None, :]
         cond = self.mask
@@ -262,24 +287,29 @@ class MingUniVisionSession:
         has_text_row = bool((text_uncond != uncond).any()) and bool(text_uncond.any())
         rows = [cond, uncond] + ([text_uncond] if has_text_row else [])
         cfg_rows = len(rows)
+        # BLOCK-major: [conds x n | unconds x n (| text_unconds x n)]; the batch-1 cache repeats to that layout
+        row_masks = torch.cat([r for kind in rows for r in [kind] * n_images])
 
-        cache_r = self.cache.repeat_rows(cfg_rows)
+        cache_r = self.cache.repeat_rows(cfg_rows * n_images)
         start_embed = embed_tokens(self.params["llm"], torch.tensor([[image_start_token]], device=self.device))
         self._sync()
         t0 = time.perf_counter()
         result = generate_image_tokens(self.params, llm_cfg, self.cfg.mingtok, self.cfg.rf_head, igen,
-                                       start_embed.to(self._dtype), cache_r, torch.cat(rows), self.generator,
-                                       int_dots=self.runtime.moe_int_dots, rf_int_dots=self.rf_int_dots,
-                                       rf_fused=self.rf_fused, rf_int4_int_dots=self.rf_int4_int_dots)
+                                       start_embed.to(self._dtype), cache_r, row_masks,
+                                       generators=self._variant_generators(n_images), cfg_rows=cfg_rows,
+                                       n_images=n_images, int_dots=self.runtime.moe_int_dots,
+                                       rf_int_dots=self.rf_int_dots, rf_fused=self.rf_fused,
+                                       rf_int4_int_dots=self.rf_int4_int_dots)
         self._sync()
         t1 = time.perf_counter()
         self.cache = result.cache.first_row()
         self.mask = result.mask[0:1].clone()
         self.seq_len = self.cache.length
 
-        img = pixel_decode(self.params["mingtok"], self.cfg.mingtok, result.sem_tokens)[0].float().cpu().numpy()
+        imgs = pixel_decode(self.params["mingtok"], self.cfg.mingtok, result.sem_tokens).float().cpu().numpy()
         t2 = time.perf_counter()
-        self.timings.update(cfg_rows=cfg_rows, image_loop_ms=(t1 - t0) * 1e3, pixel_decode_ms=(t2 - t1) * 1e3)
+        self.timings.update(cfg_rows=cfg_rows, n_images=n_images, image_loop_ms=(t1 - t0) * 1e3,
+                            pixel_decode_ms=(t2 - t1) * 1e3)
 
-        logits = compute_logits(self.params["llm"], llm_cfg, result.last_hidden)[:, -1]
-        return int(sample_token(logits, self.generator)[0]), img
+        logits = compute_logits(self.params["llm"], llm_cfg, result.last_hidden[:1])[:, -1]
+        return int(sample_token(logits, self.generator)[0]), list(imgs)

@@ -21,7 +21,13 @@ import math
 
 import torch
 
-from mingunivision_tpu_torch.models.vit import ViTCache, patch_embed_apply, run_blocks, run_blocks_cached
+from mingunivision_tpu_torch.models.vit import (
+    ViTCache,
+    patch_embed_apply,
+    run_blocks,
+    run_blocks_cached,
+    run_blocks_cached_rows,
+)
 from mingunivision_tpu_torch.ops.activations import gelu_exact
 from mingunivision_tpu_torch.ops.linear import dense, fp32_matmul_precision
 from mingunivision_tpu_torch.ops.norms import layer_norm
@@ -83,6 +89,20 @@ def mingtok_feature_decoder(params, cfg, latents, cache: ViTCache, *, compute_dt
     x = latents * cfg.scaling_factor + cfg.mean
     return semantic_decoder_step(params["semantic_decoder"], cfg.semantic_decoder, x, cache,
                                  compute_dtype=compute_dtype)
+
+
+def mingtok_feature_decoder_rows(params, cfg, latents, k, v, write_pos, *, compute_dtype=torch.bfloat16):
+    """`mingtok_feature_decoder` with PER-ROW cache positions (pool decode):
+    latents (B, 1, z); k/v the stacked semantic-decoder caches (depth, B, H,
+    max_len, D), written IN PLACE; write_pos (B,) row b's token index in its
+    own sequence. Returns {"x_norm_patchtokens": (B, 1, D)}."""
+    sd = cfg.semantic_decoder
+    x = latents * cfg.scaling_factor + cfg.mean
+    p = params["semantic_decoder"]
+    x = _sem_in_proj(p, sd, x.to(compute_dtype))
+    x = run_blocks_cached_rows(p["blocks"], x, k, v, write_pos, num_heads=sd.num_heads, ffn_layer=sd.ffn_layer,
+                               ln_eps=sd.ln_eps)
+    return {"x_norm_patchtokens": layer_norm(x, p["norm"]["w"], p["norm"]["b"], eps=sd.ln_eps)}
 
 
 def mingtok_encode(params, cfg, images, *, compute_dtype=torch.bfloat16, remat: bool = False):

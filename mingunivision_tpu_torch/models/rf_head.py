@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from mingunivision_tpu_torch.ops.activations import swiglu
 from mingunivision_tpu_torch.ops.kernels.rf_mlp import rf_mlp_stack, rf_mlp_supported, stack_bits
-from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused, rf_sampler_supported
+from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused, rf_sampler_supported, scale_rows
 from mingunivision_tpu_torch.ops.linear import dense
 from mingunivision_tpu_torch.ops.norms import layer_norm
 from mingunivision_tpu_torch.utils.pytree import layer_view
@@ -148,8 +148,8 @@ def rf_sample(
     *,
     noise: torch.Tensor,
     temperature: float = 1.0,
-    text_cfg: float = 1.0,
-    image_cfg: float = 1.0,
+    text_cfg=1.0,
+    image_cfg=1.0,
     cfg_renorm_type: Optional[str] = None,
     time_shifting_factor: Optional[float] = None,
     cfg_rows: int = 1,
@@ -163,7 +163,10 @@ def rf_sample(
     `noise` (n_images or B, C) is tiled across the CFG rows and scaled by
     `temperature`. cfg_rows in (1, 2, 3): 2 combines v_u + text_cfg*(v_c - v_u),
     3 combines v_u + image_cfg*(v_tu - v_u) + text_cfg*(v_c - v_tu); "channel"
-    renorm caps |v| at |v_c| per row. int_dots: s8 dots over int8 tables
+    renorm caps |v| at |v_c| per row. text_cfg / image_cfg are numbers, or one
+    per image (a host sequence or an (n_images,) tensor): the Euler loop
+    broadcasts them over each image's rows; the fused sampler launches once
+    per group of images with equal scales. int_dots: s8 dots over int8 tables
     (RuntimeConfig.rf_int_dots); fused: the fused whole-sample kernel over
     quantized linear tables, else the Euler steps through the per-step stack
     (RuntimeConfig.rf_fused_sampler); int4_int_dots: s8 dots in the per-step
@@ -189,6 +192,7 @@ def rf_sample(
                               compute_dtype=dtype if dtype != torch.float32 else torch.bfloat16, s8_dots=int_dots)
         return out.to(dtype)
     n = B // cfg_rows
+    text_cfg, image_cfg = scale_rows(text_cfg, n, z.device), scale_rows(image_cfg, n, z.device)
     if not rf_mlp_supported(params["res_blocks"]):
         params = _dequantized_blocks(params, dtype)
     for i in range(cfg.num_sampling_steps):

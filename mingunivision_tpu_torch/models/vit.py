@@ -187,6 +187,40 @@ def block_apply_cached(params, x, k_cache, v_cache, length: int, *, num_heads: i
     return x + ffn_apply(params["mlp"], h, ffn_layer)
 
 
+def block_apply_cached_rows(params, x, k_cache, v_cache, write_pos, *, num_heads: int, ffn_layer: str,
+                            ln_eps: float = 1e-6):
+    """`block_apply_cached` for one token with PER-ROW write positions (the
+    slots of a continuous-batching pool sit at different offsets): row b
+    writes its K/V at write_pos[b] IN PLACE and attends to positions
+    [0, write_pos[b]]. x (B, 1, C); k_cache/v_cache (B, H, max_len, D) of this
+    block; write_pos (B,) int64."""
+    B, T, C = x.shape
+    if T != 1:
+        raise ValueError(f"block_apply_cached_rows is a one-token step, got T={T}")
+    h = layer_norm(x, params["norm1"]["w"], params["norm1"]["b"], eps=ln_eps)
+    q, k, v = _qkv(params, h, num_heads)  # (B, 1, H, D)
+    rows = torch.arange(B, device=x.device)
+    k_cache[rows, :, write_pos] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, :, write_pos] = v[:, 0].to(v_cache.dtype)
+    valid = torch.arange(k_cache.shape[2], device=x.device)[None, :] <= write_pos[:, None]  # (B, max_len)
+    a = mha(q, k_cache, v_cache, mask=valid[:, None, None, :], kv_head_major=True)
+    x = x + dense(a.reshape(B, T, C), params["attn"]["proj"])
+    h = layer_norm(x, params["norm2"]["w"], params["norm2"]["b"], eps=ln_eps)
+    return x + ffn_apply(params["mlp"], h, ffn_layer)
+
+
+def run_blocks_cached_rows(stacked_params, x, k, v, write_pos, *, num_heads: int, ffn_layer: str,
+                           ln_eps: float = 1e-6):
+    """The causal blocks for one token per row at per-row write positions
+    (pool decode). k/v (depth, B, H, max_len, D) written IN PLACE; write_pos
+    (B,). The caller keeps each row's length (a host int cannot hold rows at
+    different offsets). Returns y (B, 1, C)."""
+    for d in range(k.shape[0]):
+        x = block_apply_cached_rows(layer_view(stacked_params, d), x, k[d], v[d], write_pos, num_heads=num_heads,
+                                    ffn_layer=ffn_layer, ln_eps=ln_eps)
+    return x
+
+
 def run_blocks_cached(stacked_params, x, cache: ViTCache, *, num_heads: int, ffn_layer: str, ln_eps: float = 1e-6):
     """The causal blocks over the stacked cache; returns (y, cache advanced by T)."""
     for d in range(cache.k.shape[0]):

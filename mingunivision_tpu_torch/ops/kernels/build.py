@@ -49,6 +49,7 @@ _SIGNATURES = {
     "mu_gmm": [_P] * 4 + [_I] * 6 + [_P],
     "mu_tgmm": [_P] * 4 + [_I] * 5 + [_P],
     "mu_gmm_tile_rows": [],
+    "mu_gathered_expert_matmul": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 _lib = None

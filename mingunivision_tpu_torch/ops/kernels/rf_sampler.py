@@ -56,6 +56,8 @@ launches the kernel of the table type or raises.
 
 from __future__ import annotations
 
+import numbers
+
 import torch
 import torch.nn.functional as F
 
@@ -166,11 +168,40 @@ def _norm(a):
     return torch.sqrt(_seq_dot(a * a, torch.ones((a.shape[1], 1), dtype=a.dtype, device=a.device)))
 
 
-def cfg_combine(v, cfg_rows: int, text_cfg: float, image_cfg: float, renorm_channel: bool):
-    """Guided velocity of every row from the block-major rows [cond | uncond (| text_uncond)]."""
+def image_scales(scale, n: int) -> list:
+    """A guidance scale as n host floats, one per image: a number applies to
+    every image; a host sequence or an (n,) tensor gives one each (a tensor
+    on the card is read back, one sync: pass host values on a hot path)."""
+    if isinstance(scale, torch.Tensor):
+        scale = scale.reshape(-1).tolist() if scale.dim() else float(scale)
+    if isinstance(scale, numbers.Real):
+        return [float(scale)] * n
+    scale = [float(s) for s in scale]
+    if len(scale) != n:
+        raise ValueError(f"{len(scale)} guidance scales for {n} images")
+    return scale
+
+
+def scale_rows(scale, n: int, device):
+    """A guidance scale as the CFG combine takes it: a number as it is, per-image
+    values as an (n, 1) fp32 tensor on `device` (broadcast over each image's row)."""
+    if isinstance(scale, numbers.Real):
+        return scale
+    if isinstance(scale, torch.Tensor) and scale.dim() == 0:
+        return float(scale)
+    rows = torch.as_tensor(scale, dtype=torch.float32).reshape(-1).to(device)
+    if rows.numel() != n:
+        raise ValueError(f"{rows.numel()} guidance scales for {n} images")
+    return rows[:, None]
+
+
+def cfg_combine(v, cfg_rows: int, text_cfg, image_cfg, renorm_channel: bool):
+    """Guided velocity of every row from the block-major rows [cond | uncond (|
+    text_uncond)]; the scales are numbers or one per image (`scale_rows`)."""
     if cfg_rows == 1:
         return v
     n = v.shape[0] // cfg_rows
+    text_cfg, image_cfg = scale_rows(text_cfg, n, v.device), scale_rows(image_cfg, n, v.device)
     if cfg_rows == 3:
         v_c, v_u, v_tu = v[:n], v[n : 2 * n], v[2 * n :]
         vg = v_u + image_cfg * (v_tu - v_u) + text_cfg * (v_c - v_tu)
@@ -289,7 +320,8 @@ def rf_sample_fused_plain(params, cfg, noise, block_mods, final_mods, dts, text_
     "pipelined", `_sampler_q4_s8_pipelined` with `down_chunk` packed w3 rows
     per piece) or `_sampler_q8` (int8 tables, in the dot mode `s8_dots`;
     `schedule` is read for int4 tables only): noise (B, C) fp32 (CFG rows
-    tiled), block_mods (L, S, B, 3w), final_mods (S, B, 2w), dts (S,) -> (B, C) fp32."""
+    tiled), block_mods (L, S, B, 3w), final_mods (S, B, 2w), dts (S,);
+    text_cfg / image_cfg numbers or one per image (`cfg_combine`) -> (B, C) fp32."""
     bits = table_bits(params)
     if bits is None:
         raise ValueError("rf_sample_fused_plain: needs linear int4 or int8 res_blocks tables")
@@ -340,8 +372,10 @@ def rf_sample_fused(params, cfg, noise, block_mods, final_mods, dts, text_cfg, i
     read) per group of images whose CFG rows fit its MAX_ROWS (each
     image's block-major rows {i, n + i, 2n + i} gathered, the results
     scattered back: the rows of different images never mix, so the groups
-    give the ungrouped result). Arguments as `rf_sample_fused_plain`; returns
-    (B, C) fp32."""
+    give the ungrouped result). `text_cfg` / `image_cfg` are numbers or one
+    per image (`image_scales`); a launch takes two scales by value, so the
+    groups are formed from images with equal scale pairs. Arguments as
+    `rf_sample_fused_plain`; returns (B, C) fp32."""
     B = noise.shape[0]
     if cfg_rows not in (1, 2, 3) or B % cfg_rows:
         raise ValueError(f"rf_sample_fused: {B} rows do not split into cfg_rows={cfg_rows}")
@@ -351,14 +385,19 @@ def rf_sample_fused(params, cfg, noise, block_mods, final_mods, dts, text_cfg, i
               schedule=schedule, down_chunk=down_chunk)
     n = B // cfg_rows
     per = max(1, MAX_ROWS // cfg_rows)  # images per launch
-    if n <= per:
-        return _rf_sample_group(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, **kw)
+    pairs = list(zip(image_scales(text_cfg, n), image_scales(image_cfg, n)))
+    groups: dict = {}  # (text_cfg, image_cfg) -> its images, in order
+    for i, pair in enumerate(pairs):
+        groups.setdefault(pair, []).append(i)
+    if len(groups) == 1 and n <= per:
+        return _rf_sample_group(params, cfg, noise, block_mods, final_mods, dts, *pairs[0], **kw)
     out = torch.empty((B, noise.shape[1]), dtype=torch.float32, device=noise.device)
-    for i0 in range(0, n, per):
-        images = torch.arange(i0, min(i0 + per, n), device=noise.device)
-        rows = (torch.arange(cfg_rows, device=noise.device)[:, None] * n + images[None, :]).reshape(-1)
-        out[rows] = _rf_sample_group(params, cfg, noise[rows], block_mods[:, :, rows], final_mods[:, rows], dts,
-                                     text_cfg, image_cfg, **kw)
+    for (tcfg, icfg), images in groups.items():
+        for i0 in range(0, len(images), per):
+            idx = torch.tensor(images[i0 : i0 + per], device=noise.device)
+            rows = (torch.arange(cfg_rows, device=noise.device)[:, None] * n + idx[None, :]).reshape(-1)
+            out[rows] = _rf_sample_group(params, cfg, noise[rows], block_mods[:, :, rows], final_mods[:, rows], dts,
+                                         tcfg, icfg, **kw)
     return out
 
 

@@ -63,6 +63,19 @@ def build_cfg_masks(
     return mask, text_mask
 
 
+def request_masks(request: dict):
+    """(input_ids (1, T), cond, uncond, text-uncond masks, each (1, T) bool) of
+    a processor-output dict; the uncond mask defaults to the cond one, the
+    text-uncond mask to the uncond one."""
+    ids = np.asarray(request["input_ids"]).reshape(1, -1)
+    am = np.asarray(request["attention_mask"]).astype(bool).reshape(1, -1)
+    um = request.get("uncond_attention_mask")
+    um = am if um is None else np.asarray(um).astype(bool).reshape(1, -1)
+    tm = request.get("text_uncond_attention_mask")
+    tm = um if tm is None else np.asarray(tm).astype(bool).reshape(1, -1)
+    return ids, am, um, tm
+
+
 @dataclass
 class ProcessorOutput:
     input_ids: np.ndarray  # (1, T) int64

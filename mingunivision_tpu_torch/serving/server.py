@@ -8,16 +8,23 @@ aiohttp app with:
   - POST /generate_batch    text generation through the continuous-batching
                             engine (`batch_slots > 0`): the paged pool by
                             default, the dense pool with `paged_kv=False`
+  - POST /generate_image_batch  several text-to-image requests: one barrier
+                            batch (serving/image_batch.py), or with
+                            `image_pool_slots > 0` continuous admission into
+                            the image pool (engine/image_pool.py), whose
+                            slots honour each request's seed, text_cfg,
+                            image_cfg and temperature
 
 Session work runs on one executor thread (one device stream), sessions per
 `session_id` with LRU expiry and a per-session lock; the batching engine runs
-on its own worker thread. JSON responses carry a `ret_code` (`RetCode`).
+on its own worker thread, and so does the image pool. `/generate` takes
+`n_images` (variants of each image in one loop). JSON responses carry a
+`ret_code` (`RetCode`).
 
 Not ported yet, and refused rather than ignored: `/tts` and a talker
-pipeline (ROADMAP.md Queue 1.7), `/generate_image_batch` and
-`image_pool_slots > 0` and `n_images > 1` (Queue 1.2), LoRA adapters and a
-request's `lora` (Queue 1.4). The endpoints answer BAD_REQUEST, the
-constructor raises NotImplementedError.
+pipeline (ROADMAP.md Queue 1.7), LoRA adapters and a request's `lora`
+(Queue 1.4). The endpoints answer BAD_REQUEST, the constructor raises
+NotImplementedError.
 Generated images come back base64 in the response and, as in the JAX server,
 are written as PNGs at the request's `output_image_prefix` (default
 `serve_out` in the temporary directory; `MingUniVisionInfer.generate`).
@@ -165,20 +172,104 @@ class BatchTextWorker:
             self._inflight = still
 
 
+class ImagePoolWorker:
+    """Continuous-admission T2I serving (engine/image_pool.py): requests from
+    any /generate_image_batch POST are admitted into free pool slots while
+    earlier ones are mid-loop. The same thread, queue and drain discipline as
+    BatchTextWorker: a step that raises fails every request in flight and
+    queued, and the worker stops."""
+
+    def __init__(self, engine):
+        self.engine = engine  # an ImagePoolEngine
+        self.queue: "queue.Queue" = queue.Queue()
+        self._pending: deque = deque()
+        self._inflight: list = []
+        self._running = True
+        self.failure: Optional[str] = None
+        self._thread = threading.Thread(target=self._loop, name="image-pool-worker", daemon=True)
+        self._thread.start()
+
+    def submit(self, batch: dict, seed: int, gen_kwargs: Optional[dict] = None) -> dict:
+        item = {"batch": batch, "seed": int(seed), "gen": gen_kwargs or {}, "event": threading.Event(), "req": None}
+        if self.failure is not None:
+            item["error"] = self.failure
+            item["event"].set()
+        else:
+            self.queue.put(item)
+        return item
+
+    def _fail_all(self, message: str):
+        leftovers = list(self._pending) + list(self._inflight)
+        self._pending.clear()
+        self._inflight = []
+        try:
+            while True:
+                leftovers.append(self.queue.get_nowait())
+        except queue.Empty:
+            pass
+        for item in leftovers:
+            item.setdefault("error", message)
+            item["event"].set()
+
+    def stop(self):
+        self._running = False
+        self._thread.join(timeout=5)
+        self._fail_all("server shutting down")
+
+    def _loop(self):
+        pending = self._pending
+        while self._running:
+            try:
+                while True:
+                    pending.append(self.queue.get_nowait())
+            except queue.Empty:
+                pass
+            while pending and self.engine.has_free_slot():
+                item = pending.popleft()
+                try:
+                    item["req"] = self.engine.add_request(item["batch"], item["seed"], **item["gen"])
+                except Exception as e:  # noqa: BLE001 - a bad request must not kill the worker
+                    item["error"] = str(e)
+                    item["event"].set()
+                    continue
+                self._inflight.append(item)
+            if not self.engine.slot_req:
+                try:
+                    pending.append(self.queue.get(timeout=0.05))
+                except queue.Empty:
+                    pass
+                continue
+            try:
+                self.engine.step()  # `chunk` micro-steps for every active slot
+            except Exception as e:  # noqa: BLE001 - fail the requests instead of hanging them
+                self.failure = f"image pool step failed: {e!r}"
+                self._running = False
+                self._fail_all(self.failure)
+                return
+            still = []
+            for item in self._inflight:
+                if item["req"].done:
+                    item["event"].set()
+                else:
+                    still.append(item)
+            self._inflight = still
+
+
 class InferenceServer:
     def __init__(self, infer, host: str = "0.0.0.0", port: int = 8816, max_sessions: int = 8, max_queue: int = 64,
                  talker_pipeline=None, batch_slots: int = 0, batch_max_len: int = 1024, image_pool_slots: int = 0,
-                 paged_kv: Optional[bool] = None, page_size: int = 64,
+                 image_pool_chunk: int = 32, paged_kv: Optional[bool] = None, page_size: int = 64,
                  num_pages: Optional[int] = None, prefix_cache: bool = False, lora_adapters: Optional[dict] = None):
         """batch_slots > 0 enables /generate_batch with that many decode slots,
         on the block-paged pool (`paged_kv` None or True: KV memory follows the
         tokens in flight, `num_pages * page_size` of them; an exhausted pool
         stalls slots) or on the dense pool (`paged_kv=False`). prefix_cache
-        shares full prompt pages between requests with the same prefix."""
+        shares full prompt pages between requests with the same prefix.
+        image_pool_slots > 0 switches /generate_image_batch to continuous
+        admission into an image pool of that many slots, `image_pool_chunk`
+        micro-steps between scheduling points."""
         if talker_pipeline is not None:
             raise not_ported("the talker pipeline (/tts)", "Queue 1.7")
-        if image_pool_slots > 0:
-            raise not_ported("the image pool (image_pool_slots > 0)", "Queue 1.2")
         if lora_adapters:
             raise not_ported("LoRA adapters", "Queue 1.4")
         self.infer = infer  # a MingUniVisionInfer (holds the default session)
@@ -212,6 +303,13 @@ class InferenceServer:
 
                 engine = ContinuousBatchingEngine(infer.params["llm"], infer.config.llm, **kw)
             self.batch_worker = BatchTextWorker(engine, infer.config.llm.eos_token_id)
+        self.image_pool_worker = None
+        if image_pool_slots > 0:
+            from mingunivision_tpu_torch.engine.image_pool import ImagePoolEngine
+
+            pool = ImagePoolEngine(infer.params, infer.config, infer.runtime, slots=image_pool_slots,
+                                   chunk=image_pool_chunk, device=infer.session.device)
+            self.image_pool_worker = ImagePoolWorker(pool)
 
     # -- request handling -----------------------------------------------------
 
@@ -280,6 +378,7 @@ class InferenceServer:
             temperature=float(payload.get("temperature", 1.0)),
             top_k=int(payload.get("top_k", 0)),
             top_p=float(payload.get("top_p", 1.0)),
+            n_images=int(payload.get("n_images", 1)),
         )
         images = [_png_b64(img) for img in getattr(self.infer, "last_images", [])]
         self.stats["requests"] += 1
@@ -287,11 +386,39 @@ class InferenceServer:
         self.stats["images"] += len(images)
         return {"ret_code": int(RetCode.OK), "text": text, "images": images}
 
+    def _build_image_batches(self, requests) -> list:
+        """Processor outputs of the T2I requests. A request is a `messages`
+        list or {"messages": [...], "seed"/"text_cfg"/"image_cfg"/
+        "temperature": ...} (per-request generation values, honoured per slot
+        in pool mode); each output carries its options under "_opts"."""
+        batches = []
+        for r in requests:
+            opts = r if isinstance(r, dict) and "messages" in r else {}
+            messages = self._decode_images(opts.get("messages", r))
+            text = self.infer.processor.apply_chat_template(messages, add_generation_prompt=True)
+            b = self.infer.processor(text=text, images=self.infer.processor.process_vision_info(messages))
+            batches.append({"input_ids": b.input_ids, "attention_mask": b.attention_mask,
+                            "uncond_attention_mask": b.uncond_attention_mask,
+                            "text_uncond_attention_mask": b.text_uncond_attention_mask, "_opts": opts})
+        return batches
+
+    def _run_generate_image_batch(self, payload: dict) -> dict:
+        """The T2I requests through ONE barrier batch
+        (`serving/image_batch.batched_image_generation`): image i's noise
+        seeded `seed + i`."""
+        from mingunivision_tpu_torch.serving.image_batch import batched_image_generation
+
+        requests = payload["requests"]
+        batches = [{k: v for k, v in b.items() if k != "_opts"} for b in self._build_image_batches(requests)]
+        imgs = batched_image_generation(self.infer.params, self.infer.config, self.infer.runtime, batches,
+                                        int(payload.get("seed", 0)), device=self.infer.session.device)
+        self.stats["requests"] += len(requests)
+        self.stats["images"] += len(imgs)
+        return {"ret_code": int(RetCode.OK), "images": [_png_b64(im) for im in imgs]}
+
     @staticmethod
     def _unported_field(payload: dict) -> Optional[str]:
         """Why a request asks for what the port does not run yet, or None."""
-        if int(payload.get("n_images", 1)) != 1:
-            return "n_images > 1 is not ported to the PyTorch package yet (ROADMAP.md Queue 1.2)"
         if payload.get("lora") is not None:
             return "a named LoRA adapter is not ported to the PyTorch package yet (ROADMAP.md Queue 1.4)"
         return None
@@ -425,6 +552,47 @@ class InferenceServer:
             self.stats["tokens"] += len(ids)
             return reply(RetCode.OK, 200, text=self.infer.processor.decode(ids))
 
+        async def generate_image_batch(request):
+            """Several T2I requests: one barrier batch, or with the image pool
+            each request admitted into a free slot (concurrent POSTs share the
+            pool mid-loop), request i seeded `seed + i` unless it names its own."""
+            try:
+                payload = await request.json()
+            except (json.JSONDecodeError, UnicodeDecodeError):
+                return reply(RetCode.BAD_REQUEST, 400, error="invalid json")
+            if not isinstance(payload, dict) or not payload.get("requests"):
+                return reply(RetCode.BAD_REQUEST, 400, error="missing requests")
+            loop = asyncio.get_running_loop()
+            if self.image_pool_worker is None:
+                try:
+                    return web.json_response(await loop.run_in_executor(self.executor, self._run_generate_image_batch,
+                                                                        payload))
+                except Exception as e:  # noqa: BLE001
+                    self.stats["errors"] += 1
+                    return reply(RetCode.INTERNAL_ERROR, 500, error=str(e))
+            try:
+                batches = await loop.run_in_executor(self.executor, self._build_image_batches, payload["requests"])
+            except Exception as e:  # noqa: BLE001
+                self.stats["errors"] += 1
+                return reply(RetCode.INTERNAL_ERROR, 500, error=str(e))
+            seed = int(payload.get("seed", 0))
+            items = []
+            for i, b in enumerate(batches):
+                opts = b.pop("_opts", {})
+                gen = {k: float(opts[k]) for k in ("text_cfg", "image_cfg", "temperature") if k in opts}
+                items.append(self.image_pool_worker.submit(b, int(opts.get("seed", seed + i)), gen))
+            images = []
+            for item in items:
+                if not await loop.run_in_executor(None, item["event"].wait, 600.0):
+                    item["error"] = "image pool timeout"
+                if item.get("error"):
+                    self.stats["errors"] += 1
+                    return reply(RetCode.INTERNAL_ERROR, 500, error=item["error"])
+                images.append(_png_b64(item["req"].image))
+            self.stats["requests"] += len(items)
+            self.stats["images"] += len(items)
+            return reply(RetCode.OK, 200, images=images)
+
         def refused(why: str):
             async def handler(request):
                 return reply(RetCode.BAD_REQUEST, 400, error=why)
@@ -436,8 +604,7 @@ class InferenceServer:
         app.router.add_post("/generate", generate)
         app.router.add_post("/generate_stream", generate_stream)
         app.router.add_post("/generate_batch", generate_batch)
-        app.router.add_post("/generate_image_batch", refused(
-            "/generate_image_batch is not ported to the PyTorch package yet (ROADMAP.md Queue 1.2)"))
+        app.router.add_post("/generate_image_batch", generate_image_batch)
         app.router.add_post("/tts", refused("/tts is not ported to the PyTorch package yet (ROADMAP.md Queue 1.7)"))
         return app
 

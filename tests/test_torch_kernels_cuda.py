@@ -936,3 +936,59 @@ def test_vit_projections_round_once_on_the_card(dev):
         outs.append([t.detach().float().cpu() for t in (y, xs.grad, ws.grad, bs.grad)])
     for cpu, card in zip(*outs):
         assert (cpu - card).abs().max().item() <= 2 ** -7 * cpu.abs().max().item()
+
+
+@pytest.mark.parametrize("A,N,ragged_h", [(12, 1408, False), (36, 2048, False), (5, 88, True)],
+                         ids=["12-assignments-gate", "36-assignments-down", "ragged-tile-and-h"])
+def test_gathered_expert_matmul_kernel_matches_plain(dev, A, N, ragged_h):
+    """Row 12 against its plain version: a full 256-column tile and a ragged
+    last one (1408 = 5.5 tiles), h not a multiple of the 8 warps x 4 rows."""
+    from mingunivision_tpu_torch.ops.kernels.expert_matmul import gathered_expert_matmul, gathered_expert_matmul_plain
+
+    g = torch.Generator(device=dev).manual_seed(29)
+    h = 100 if ragged_h else 256
+    w = torch.empty((E, h, N), device=dev, dtype=torch.bfloat16).normal_(0, 0.05, generator=g)
+    x = torch.randn((A, h), device=dev, generator=g).to(torch.bfloat16)
+    ids = torch.randint(0, E, (A,), device=dev, generator=g, dtype=torch.int32)
+    before = gathered_expert_matmul.launches
+    got = gathered_expert_matmul(x, w, ids)
+    torch.cuda.synchronize()
+    assert gathered_expert_matmul.launches == before + 1 and got.dtype == torch.bfloat16
+    _close_bf16(got, gathered_expert_matmul_plain(x, w, ids))
+
+
+@pytest.mark.parametrize("n", [2, 6], ids=["2rows", "6rows-shared-experts"])
+def test_moe_experts_gather_kernel_matches_plain_and_stream(dev, n):
+    """The whole gathered dispatch (three launches) against its plain version
+    and against the decode-MoE stream kernel on the same stacked tables."""
+    from mingunivision_tpu_torch.ops.kernels.expert_matmul import (
+        gathered_expert_matmul,
+        moe_experts_gather_kernel,
+        moe_experts_gather_plain,
+    )
+
+    ex = _experts(dev, seed=31)
+    idx, w = _routing(dev, n, 6, seed=32)
+    x = torch.randn(n, H, device=dev).to(torch.bfloat16)
+    before = gathered_expert_matmul.launches
+    got = moe_experts_gather_kernel(ex, x, idx, w, layer_idx=1)
+    torch.cuda.synchronize()
+    assert gathered_expert_matmul.launches == before + 3
+    _close_bf16(got, moe_experts_gather_plain(ex, x, idx, w, layer_idx=1))
+    _close_bf16(got, moe_experts_stream(ex, x, idx, w, layer_idx=1))
+
+
+def test_gathered_expert_matmul_raises_on_unsupported_input(dev):
+    from mingunivision_tpu_torch.ops.kernels.expert_matmul import gathered_expert_matmul, moe_experts_gather_kernel
+
+    w = torch.zeros((E, 64, 64), device=dev, dtype=torch.bfloat16)
+    x = torch.zeros((3, 64), device=dev, dtype=torch.bfloat16)
+    ids = torch.zeros(3, device=dev, dtype=torch.int32)
+    for bad in (dict(ids=ids.long()), dict(ids=ids[:2]), dict(ids=ids.cpu()), dict(x=x.float()),
+                dict(w=torch.zeros((E, 64, 60), device=dev, dtype=torch.bfloat16))):
+        kw = dict(x=x, w=w, ids=ids) | bad
+        with pytest.raises(ValueError):
+            gathered_expert_matmul(kw["x"], kw["w"], kw["ids"])
+    idx, tw = _routing(dev, 3, 2)
+    with pytest.raises(ValueError, match="layer index"):
+        moe_experts_gather_kernel(_experts(dev), x.new_zeros((3, H)), idx, tw)

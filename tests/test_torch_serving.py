@@ -3,7 +3,8 @@ aiohttp) on a tiny torch infer built from the JAX tiny infer's params and the
 test tokenizer, against the JAX package's server on the same payloads, at
 fp32 on the CPU: /health, /metrics, /generate, /generate_stream and
 /generate_batch over both KV pools give the JAX server's texts; what is not
-ported yet answers an error code at once."""
+ported yet (/tts, LoRA) answers an error code at once. The image paths are in
+test_torch_serving_images.py."""
 
 import asyncio
 import json
@@ -156,21 +157,22 @@ def test_unported_features_answer_an_error(infers):
 
     async def body(client):
         statuses = []
-        for path, payload in (("/generate_image_batch", {"requests": [_msgs("a cat")]}), ("/tts", {"text": "hi"}),
-                              ("/generate", {"messages": _msgs("a cat"), "n_images": 2}),
+        for path, payload in (("/generate_image_batch", {"requests": []}), ("/tts", {"text": "hi"}),
+                              ("/generate", {"messages": _msgs("a cat"), "lora": "x"}),
                               ("/generate_batch", {"messages": _msgs("a cat")})):
             r = await asyncio.wait_for(client.post(path, json=payload), timeout=30)
             out = await r.json()
             statuses.append((r.status, out["ret_code"]))
         return statuses
 
-    assert _run(srv.build_app(), body) == [(400, 1)] * 4  # batching is off: /generate_batch too
+    # an empty image batch, /tts, a LoRA adapter; batching is off: /generate_batch too
+    assert _run(srv.build_app(), body) == [(400, 1)] * 4
     bsrv = InferenceServer(port, batch_slots=1, batch_max_len=256)
     try:
         r = _run(bsrv.build_app(), lambda c: c.post("/generate_batch", json={"messages": _msgs("a"), "lora": "x"}))
         assert r.status == 400
     finally:
         bsrv.batch_worker.stop()
-    for kw in ({"image_pool_slots": 2}, {"lora_adapters": {"a": {}}}, {"talker_pipeline": object()}):
+    for kw in ({"lora_adapters": {"a": {}}}, {"talker_pipeline": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             InferenceServer(port, **kw)

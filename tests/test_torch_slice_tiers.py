@@ -301,5 +301,8 @@ def test_infer_generate_takes_the_jax_positional_arguments_and_writes_pngs(tmp_p
         got = _read_png(tmp_path / "port" / name)
         assert got.shape == want.shape == api.last_images[0].shape[1:] + (3,)
         np.testing.assert_array_equal(got, want)
-    with pytest.raises(NotImplementedError, match="Queue 1.2"):
-        api.generate(messages, 8, str(tmp_path / "port" / "out"), n_images=2)
+    # what stays refused: no variant at all, and a checkpoint directory in place of params (ROADMAP Queue 1.3)
+    with pytest.raises(ValueError, match="n_images"):
+        api.generate(messages, 8, str(tmp_path / "port" / "out"), n_images=0)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        MingUniVisionInfer(str(tmp_path / "checkpoint"), tokenizer=tok)
