@@ -24,8 +24,12 @@ Phases, one printed line each; any failure exits non-zero:
               1,152; int8: 128 tokens); the RF kernels to the bit; the
               grouped matmuls of MoE training (gmm, gmm_trhs, tgmm) at the
               train step's 12,288 rows, uniform and skewed with empty experts
-              and a padded last group, and the differentiable fused prefill
-              MoE at full width, its forward and every grad; the ViT flash
+              and a padded last group (gmm and gmm_trhs: the body each case
+              takes, its kernel-alone device time from torch.profiler beside
+              the wrapper's, and the mma_sync body timed beside the wgmma one;
+              one odd-width case on the mma_sync body), and the
+              differentiable fused prefill MoE at full width, its forward and
+              every grad; the ViT flash
               forward with residuals (output and log-sum-exp) and its two
               backward kernels (dK / dV, dQ) at the pixel decoder's 16 heads x
               1,024 tokens x 64, batch 2 and 8, beside SDPA's backward; the
@@ -67,8 +71,10 @@ Phases, one printed line each; any failure exits non-zero:
               same batch: the loss must fall), then the image-generation step
               (32 text ids + 256 image positions, the full RF head, 2 steps):
               losses, ms per step, tokens/s, resident and peak memory, one
-              profiled LM step's device time by kernel, launches (per layer
-              and step: the fused prefill MoE 1, gmm 3, gmm_trhs 3, tgmm 3)
+              profiled LM step's device time by kernel and the grouped
+              matmuls' share, the routing the step's grouped matmuls see,
+              launches (per layer and step: the fused prefill MoE 1, gmm 3,
+              gmm_trhs 3, tgmm 3, every gmm and gmm_trhs on the wgmma body)
  4c. train_mingtok  MingTok joint training as examples/train_mingtok.py runs
               it: the full MingTokConfig() (0.7 B params, bf16), B 2 x 512 px
               of the synthetic image stream, teacher features, AdamW 1e-4;
@@ -1502,7 +1508,8 @@ def run_slice_mixed(torch, cfg, params, device, results: dict) -> bool:
 
 def launch_counters():
     """kernel name -> the wrapper that counts its launches ("moe_capacity": the
-    launches of the prefill MoE kernels that went through the capacity dispatch)."""
+    launches of the prefill MoE kernels that went through the capacity dispatch;
+    "gmm_wgmma" / "gmm_trhs_wgmma": those of gmm / gmm_trhs on the wgmma body)."""
     from mingunivision_tpu_torch.ops.kernels import expert_matmul, moe_gmm
     from mingunivision_tpu_torch.ops.kernels import moe_stream as ms
     from mingunivision_tpu_torch.ops.kernels import moe_swiglu_gmm as gmm
@@ -1533,6 +1540,8 @@ def launch_counters():
             "moe_swiglu_gmm_q4_full": gmm.moe_experts_swiglu_gmm_q4_full,
             "moe_swiglu_gmm_q8_full": gmm.moe_experts_swiglu_gmm_q8_full,
             "gmm": moe_gmm.gmm, "gmm_trhs": moe_gmm.gmm_trhs, "tgmm": moe_gmm.tgmm,
+            "gmm_wgmma": moe_gmm.route_counts["gmm"]["wgmma"],
+            "gmm_trhs_wgmma": moe_gmm.route_counts["gmm_trhs"]["wgmma"],
             "flash_vit_bwd_dkv": flash_vit_bwd_dkv, "flash_vit_bwd_dq": flash_vit_bwd_dq,
             "gathered_expert_matmul": expert_matmul.gathered_expert_matmul}
 
@@ -2494,6 +2503,56 @@ def grouped_library(torch, kind, lhs, rhs, sizes, transpose=False):
     return lambda: torch._grouped_mm(a.t(), b, offs=offs)
 
 
+# the CUDA kernels of the grouped matmuls by body, as torch.profiler names them
+GROUPED_KERNELS = {"wgmma": ("gmm_wgmma_kernel<",), "mma_sync": ("::gmm_kernel<",), "tgmm": ("::tgmm_kernel<",)}
+
+
+def kernel_device_ms(torch, fn, names, iters: int = 10) -> float:
+    """Device ms per call of the CUDA kernels whose profiler names hold one of
+    `names`, over `iters` calls of `fn` after a warm-up: the kernel alone,
+    without the wrapper's other launches and host work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages() if any(n in e.key for n in names)) / iters / 1e3
+
+
+def grouped_case(torch, results, name, label, kern, plain, nbytes, ops, library, gmm_args=None) -> bool:
+    """One grouped-matmul case (`run_case`), then the body it took and its
+    kernel-alone device time. gmm / gmm_trhs (`gmm_args`: lhs, rhs, group
+    sizes, out dtype, transposed, the layer's schedule) are timed as the train
+    step calls them, with the layer's schedule, and beside that also building
+    their own (`own_schedule_ms`); on the wgmma body also the mma_sync body on
+    the same operands, through the wrapper's private route argument."""
+    from mingunivision_tpu_torch.ops.kernels import moe_gmm
+
+    route, others = "tgmm", {}
+    if gmm_args is not None:
+        lhs, rhs, sizes, out_dtype, trans, sched = gmm_args
+        route = moe_gmm.gmm_route(lhs, rhs, lhs.shape[1], rhs.shape[1] if trans else rhs.shape[2])
+        others["own_schedule"] = lambda: moe_gmm.gmm(lhs, rhs, sizes, out_dtype=out_dtype, transpose_rhs=trans)
+        if route == "wgmma":
+            others["mma_sync"] = lambda: moe_gmm._launch_gmm(lhs, rhs, sizes, out_dtype, trans, sched, "mma_sync")
+    ok = run_case(torch, results, name, label, kern, plain, nbytes, ops, "bf16", library=library, plain_iters=5,
+                  others=others)
+    case = results[name]["cases"][-1]
+    case["route"] = "mma_sync" if route == "tgmm" else route
+    case["device_ms"] = kernel_device_ms(torch, kern, GROUPED_KERNELS[route])
+    line = f"route={case['route']} wrapper_ms={case['ms']:.4f} device_ms={case['device_ms']:.4f}"
+    if "own_schedule" in others:
+        line += f" (wrapper building its own schedule: {case['own_schedule_ms']:.4f})"
+    if "mma_sync" in others:
+        case["mma_sync_device_ms"] = kernel_device_ms(torch, others["mma_sync"], GROUPED_KERNELS["mma_sync"])
+        line += f"; mma_sync body: wrapper_ms={case['mma_sync_ms']:.4f} device_ms={case['mma_sync_device_ms']:.4f}"
+    print(f"kernel {name} [{label.split(';')[0]}]: {line}")
+    return ok
+
+
 def check_train_kernels(torch, results: dict) -> bool:
     """The grouped matmuls of MoE training at the train phase's shape (2 x 1024
     tokens x top-6 = 12,288 rows, 64 experts, h 2048, m 1408), each against
@@ -2501,9 +2560,11 @@ def check_train_kernels(torch, results: dict) -> bool:
     down tables, gmm_trhs (fp32 rows, bf16 out) of the down and gate tables'
     dx, tgmm (bf16 rows, fp32 grad, bf16 out) of the gate and down tables; on
     uniform routing and on routing skewed to 8 experts (56 empty, 2,000
-    tokens: 12,000 rows padded into the last group to 12,032). Then the
-    differentiable fused MoE on one layer's tables at full width (2 x 1024
-    tokens): forward and every grad against the same Function through the
+    tokens: 12,000 rows padded into the last group to 12,032); each with the
+    body it took and its kernel-alone device time, gmm and gmm_trhs also on the
+    mma_sync body; then gmm at widths TMA cannot describe (the mma_sync body).
+    Then the differentiable fused MoE on one layer's tables at full width (2 x
+    1024 tokens): forward and every grad against the same Function through the
     plain versions at bf16 (within REL_TOL) and printed against fp32."""
     from mingunivision_tpu_torch.config import BailingMoeConfig
     from mingunivision_tpu_torch.ops.kernels import moe_gmm
@@ -2534,36 +2595,51 @@ def check_train_kernels(torch, results: dict) -> bool:
         a = (torch.randn((A_pad, m), device=dev, generator=g) * pad).to(bf)
         dy = torch.randn((A_pad, h), device=dev, generator=g) * pad
         dg = torch.randn((A_pad, m), device=dev, generator=g) * pad
+        sched = moe_gmm.gmm_schedule(sizes, A_pad)  # the layer's schedule, as moe_experts_gmm builds it
         tag = f"{label}: {A_pad} rows, {used} groups"
-        # (name, label, kernel, plain, library args, bytes, operations)
+        # (name, label, kernel, plain, library args, bytes, gmm's operands)
         cases = [
-            ("gmm", f"gate/up forward {h}->{m}, {tag}", lambda: moe_gmm.gmm(xs, w_gate, sizes),  # noqa: B023
+            ("gmm", f"gate/up forward {h}->{m}, {tag}",
+             lambda: moe_gmm.gmm(xs, w_gate, sizes, sched=sched),  # noqa: B023
              lambda: moe_gmm.gmm_plain(xs, w_gate, sizes), ("gmm", xs, w_gate, sizes),  # noqa: B023
-             A_pad * h * 2 + used * h * m * 2 + A_pad * m * 4),
-            ("gmm", f"down forward {m}->{h}, {tag}", lambda: moe_gmm.gmm(a, w_down, sizes),  # noqa: B023
+             A_pad * h * 2 + used * h * m * 2 + A_pad * m * 4, (xs, w_gate, sizes, torch.float32, False, sched)),
+            ("gmm", f"down forward {m}->{h}, {tag}", lambda: moe_gmm.gmm(a, w_down, sizes, sched=sched),  # noqa: B023
              lambda: moe_gmm.gmm_plain(a, w_down, sizes), ("gmm", a, w_down, sizes),  # noqa: B023
-             A_pad * m * 2 + used * h * m * 2 + A_pad * h * 4),
+             A_pad * m * 2 + used * h * m * 2 + A_pad * h * 4, (a, w_down, sizes, torch.float32, False, sched)),
             ("gmm_trhs", f"down dx: fp32 dy x w2^T {h}->{m}, {tag}",
-             lambda: moe_gmm.gmm(dy, w_down, sizes, out_dtype=bf, transpose_rhs=True),  # noqa: B023
+             lambda: moe_gmm.gmm(dy, w_down, sizes, out_dtype=bf, transpose_rhs=True, sched=sched),  # noqa: B023
              lambda: moe_gmm.gmm_plain(dy, w_down, sizes, out_dtype=bf, transpose_rhs=True),  # noqa: B023
-             ("gmm", dy, w_down, sizes, True), A_pad * h * 4 + used * h * m * 2 + A_pad * m * 2),
+             ("gmm", dy, w_down, sizes, True), A_pad * h * 4 + used * h * m * 2 + A_pad * m * 2,
+             (dy, w_down, sizes, bf, True, sched)),
             ("gmm_trhs", f"gate dx: fp32 dg x w1^T {m}->{h}, {tag}",
-             lambda: moe_gmm.gmm(dg, w_gate, sizes, out_dtype=bf, transpose_rhs=True),  # noqa: B023
+             lambda: moe_gmm.gmm(dg, w_gate, sizes, out_dtype=bf, transpose_rhs=True, sched=sched),  # noqa: B023
              lambda: moe_gmm.gmm_plain(dg, w_gate, sizes, out_dtype=bf, transpose_rhs=True),  # noqa: B023
-             ("gmm", dg, w_gate, sizes, True), A_pad * m * 4 + used * h * m * 2 + A_pad * h * 2),
+             ("gmm", dg, w_gate, sizes, True), A_pad * m * 4 + used * h * m * 2 + A_pad * h * 2,
+             (dg, w_gate, sizes, bf, True, sched)),
             ("tgmm", f"gate table grad: xs^T dg -> ({E}, {h}, {m}), {tag}",
              lambda: moe_gmm.tgmm(xs, dg, sizes),  # noqa: B023
              lambda: moe_gmm.tgmm_plain(xs, dg, sizes), ("tgmm", xs, dg, sizes),  # noqa: B023
-             A_pad * h * 2 + A_pad * m * 4 + E * h * m * 2),
+             A_pad * h * 2 + A_pad * m * 4 + E * h * m * 2, None),
             ("tgmm", f"down table grad: a^T dy -> ({E}, {m}, {h}), {tag}",
              lambda: moe_gmm.tgmm(a, dy, sizes),  # noqa: B023
              lambda: moe_gmm.tgmm_plain(a, dy, sizes), ("tgmm", a, dy, sizes),  # noqa: B023
-             A_pad * m * 2 + A_pad * h * 4 + E * h * m * 2),
+             A_pad * m * 2 + A_pad * h * 4 + E * h * m * 2, None),
         ]
-        for name, case_label, kern, plain, lib_args, nbytes in cases:
-            ok &= run_case(torch, results, name, f"{case_label}; library: torch._grouped_mm, bf16 operands", kern, plain,
-                           nbytes, 2.0 * A * h * m, "bf16", library=grouped_library(torch, *lib_args), plain_iters=5)
+        for name, case_label, kern, plain, lib_args, nbytes, gmm_args in cases:
+            ok &= grouped_case(torch, results, name, f"{case_label}; library: torch._grouped_mm, bf16 operands", kern,
+                               plain, nbytes, 2.0 * A * h * m, grouped_library(torch, *lib_args), gmm_args)
         del xs, a, dy, dg
+    # widths TMA cannot describe (rows of 200 bytes): the mma_sync body; no library line (_grouped_mm needs
+    # 16-byte rows too)
+    sizes = torch.full((8,), 125, dtype=torch.int32, device=dev)
+    x_odd = torch.randn((1000, 100), device=dev, generator=g).to(bf)
+    w_odd = torch.empty((8, 100, 150), device=dev, dtype=bf).normal_(0, 0.02, generator=g)
+    sched = moe_gmm.gmm_schedule(sizes, 1000)
+    ok &= grouped_case(torch, results, "gmm", "odd widths 100->150, 1000 rows, 8 groups",
+                       lambda: moe_gmm.gmm(x_odd, w_odd, sizes, sched=sched),
+                       lambda: moe_gmm.gmm_plain(x_odd, w_odd, sizes),
+                       1000 * 100 * 2 + 8 * 100 * 150 * 2 + 1000 * 150 * 4, 2.0 * 1000 * 100 * 150, None,
+                       (x_odd, w_odd, sizes, torch.float32, False, sched))
     ok &= check_ad_full_width(torch, w_gate, w_down, g, results)
     del w_gate, w_down
     torch.cuda.empty_cache()
@@ -2818,9 +2894,10 @@ def full_train_model(torch, device):
 
 def train_launch_checks(launches, layers: int, steps: int):
     """Per layer and step: the fused forward once, gmm (the recompute), gmm_trhs
-    and tgmm three times each; no other kernel."""
+    and tgmm three times each, every gmm and gmm_trhs on the wgmma body; no
+    other kernel."""
     want = {"moe_swiglu_gmm": layers * steps, "gmm": 3 * layers * steps, "gmm_trhs": 3 * layers * steps,
-            "tgmm": 3 * layers * steps}
+            "tgmm": 3 * layers * steps, "gmm_wgmma": 3 * layers * steps, "gmm_trhs_wgmma": 3 * layers * steps}
     return ([(f"{name} launches {launches[name]} == {n} ({n // steps} per step)", launches[name] == n)
              for name, n in want.items()]
             + [(f"{name} launches {n} == 0", n == 0) for name, n in launches.items() if name not in want and n])
@@ -2831,18 +2908,25 @@ def profile_train_step(torch, state, step, record: dict):
     range: device ms of the forward, of the optimizer update (the span of
     PyTorch's own `Optimizer.step` range on the device), of the backward (the
     rest of the step's kernel time), the device busy share of the step's wall
-    time, and the top kernels. Returns the state."""
+    time, the top kernels, the grouped matmuls' device ms per call and share,
+    and the routing they see (each layer's group sizes, kept from its schedule
+    as the step builds it). Returns the state."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from mingunivision_tpu_torch.engine import train as train_mod
+    from mingunivision_tpu_torch.ops.kernels import moe_gmm
 
-    loss_fn = train_mod.lm_loss
+    loss_fn, schedule, group_sizes = train_mod.lm_loss, moe_gmm.gmm_schedule, []
 
     def ranged(*args, **kwargs):
         with record_function("train_forward"):
             return loss_fn(*args, **kwargs)
 
-    train_mod.lm_loss = ranged
+    def kept(sizes, rows):
+        group_sizes.append(sizes.clone())
+        return schedule(sizes, rows)
+
+    train_mod.lm_loss, moe_gmm.gmm_schedule = ranged, kept
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -2851,7 +2935,7 @@ def profile_train_step(torch, state, step, record: dict):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        train_mod.lm_loss = loss_fn
+        train_mod.lm_loss, moe_gmm.gmm_schedule = loss_fn, schedule
     cuda = torch.autograd.DeviceType.CUDA
 
     def annotation(e):  # a profiler range, not a kernel (events have `name`, their averages `key`)
@@ -2872,6 +2956,23 @@ def profile_train_step(torch, state, step, record: dict):
     for e in sorted(top, key=lambda e: -e.self_device_time_total)[:14]:
         print(f"train lm profile kernel: {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} calls "
               f"{e.self_device_time_total / max(e.count, 1):10.3f} us/call  {e.key[:90]}")
+    grouped = {}  # kernel body and types -> (device ms, calls)
+    for e in top:
+        body = next((b for b, names in GROUPED_KERNELS.items() if any(n in e.key for n in names)), None)
+        if body is not None:
+            types = e.key[e.key.index("<") + 1:e.key.index(">")]
+            grouped[f"{body}<{types}>"] = (e.self_device_time_total / 1e3, e.count)
+    grouped_ms = sum(ms for ms, _ in grouped.values())
+    sizes = torch.stack(group_sizes).long().cpu() if group_sizes else torch.zeros((0, 1), dtype=torch.long)
+    routing = {"experts_used": (sizes > 0).sum(1).tolist(), "largest_group": sizes.max(1).values.tolist(),
+               "row_tiles": (-(-sizes // moe_gmm.TILE_ROWS)).sum(1).tolist()}
+    record["profile"].update(grouped_matmul_ms=grouped_ms, grouped_matmul_share=grouped_ms / busy_ms,
+                             grouped_per_call_ms={k: ms / n for k, (ms, n) in grouped.items()}, routing=routing)
+    print(f"train lm profile grouped matmuls: {grouped_ms:.2f} ms device, {grouped_ms / busy_ms:.3f} of busy; per "
+          f"call: " + "; ".join(f"{k} {ms / n:.4f} ms x {n}" for k, (ms, n) in grouped.items()))
+    print(f"train lm profile routing (per layer): experts used {routing['experts_used']}, largest group "
+          f"{routing['largest_group']} rows, row tiles {routing['row_tiles']} (uniform: 64 experts, 192 rows, 128 "
+          f"tiles)")
     return state
 
 

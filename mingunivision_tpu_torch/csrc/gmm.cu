@@ -7,39 +7,66 @@
 // gmm.py:gmm and, in its custom VJP ops.py:_gmm_bwd, gmm with the rhs
 // transposed and gmm.py:tgmm). At the training shape (2 x 1024 tokens x top-6
 // = 12,288 rows, 64 experts of 2048 x 1408) each call moves one bf16 expert
-// table (369 MB) and the rows once: bound by bytes at about 0.14 ms, with
-// 70.9 GFLOP of products (0.072 ms at the bf16 tensor-core rate) beside it.
-// What the kernels must do about that is keep the products on the tensor
-// cores and read each table tile once per row tile.
+// table (369 MB), the rows and the output once: bound by bytes at about
+// 0.15 ms, with 70.9 GFLOP of products (0.072 ms at the bf16 tensor-core
+// rate; 141.7 GFLOP, 0.143 ms, where an fp32 operand enters as two bf16
+// parts) beside it. What the kernels must do about that is keep the products
+// on the tensor cores, keep the table's loads in flight while they run, and
+// read each table tile once per row tile.
 //
-// Design. One block of 8 warps computes a 128 x 128 output tile with
-// mma.sync.m16n8k16 bf16 products into fp32 accumulators (each warp 64 x 32).
-// Operands are staged through shared memory in 32-deep k-chunks, each in its
-// memory order: [row][k] where k is contiguous (the rows of gmm, the
-// transposed table), [k][row] where rows are (the forward table, both tgmm
-// operands), rows padded by 16 bytes so fragment reads hit distinct banks;
-// [k][row] tiles reach the tensor cores through ldmatrix .trans. Zeros fill
-// the tiles outside the valid rows, columns and k-range. An fp32
-// operand (the fp32 cotangent of the VJP) is split into hi = bf16(v) and
-// lo = bf16(v - hi) and enters two products, so it keeps 16 bits of its
-// mantissa (the JAX package multiplies such mixed operands in fp32).
-//   gmm    grid (column tiles, schedule tiles): the wrapper's schedule of
-//          (group, first row, end row) tiles of at most 128 rows that start at
-//          each group's first row (moe_swiglu_gmm.tile_schedule, built on the
-//          device: no host sync); empty entries exit at once; rows past the
-//          tile's end are computed as zeros and not stored.
+// gmm, the wgmma route (shapes TMA can describe: 16-byte aligned operands,
+// K and N multiples of 8; the training shapes). One block per (256-column
+// tile, schedule tile) of 384 threads: two consumer warpgroups, each
+// computing 64 rows x 256 columns with wgmma.m64n256k16 bf16 products into
+// fp32 registers, and a producer warpgroup whose one thread keeps a ring of
+// 3-4 stages of TMA copies in flight (full / empty mbarriers; setmaxnreg moves
+// the producer's registers to the consumers). A stage holds the tile's 128
+// rows and the table's 256 columns over 64 of K, both 128-byte swizzled: the
+// transposed table (E, N, K) is K-major, as wgmma reads B by default; the
+// forward table (E, K, N) is N-major, read through the descriptor's MN-major
+// layout (leading byte offset: the stride between 64-column chunks, stride
+// byte offset: between 8-row groups of K) and wgmma's transpose-B bit. bf16
+// rows enter wgmma from shared memory. fp32 rows (the VJP's cotangent) are
+// copied as fp32 and split in registers into hi = bf16(v) and lo = bf16(v -
+// hi), which enter two register-A wgmma products against the same B
+// descriptor: 16 bits of the cotangent's mantissa, as the JAX package's fp32
+// product keeps. The rows are read again for every column tile, twice the
+// bytes when they are fp32: 256 columns rather than 128 halve that (N = 1408
+// takes 5.5 tiles, the last half zero-filled, and was measured no slower).
+// TMA fills rows past R, columns past N and K past its end with zeros; rows
+// past the tile's end are computed and never stored (the epilogue stores from
+// registers under a row mask); a tile of 64 rows or fewer leaves the second
+// warpgroup without products (it still keeps the ring's barriers).
+//
+// gmm, the mma.sync route (widths TMA cannot take), and tgmm: one block of 8
+// warps computes a 128 x 128 output tile with mma.sync.m16n8k16 bf16
+// products into fp32 accumulators (each warp 64 x 32). Operands are staged
+// through shared memory in 32-deep k-chunks, each in its memory order:
+// [row][k] where k is contiguous (the rows of gmm, the transposed table),
+// [k][row] where rows are (the forward table, both tgmm operands), rows
+// padded by 16 bytes so fragment reads hit distinct banks; [k][row] tiles
+// reach the tensor cores through ldmatrix .trans. Zeros fill the tiles
+// outside the valid rows, columns and k-range. An fp32 operand is split into
+// hi and lo when it is staged, and enters two products. Loads are 16-byte
+// copies (element copies where a row's width or the operand's alignment does
+// not allow them) followed by a barrier, without pipelining.
+//   gmm    grid (column tiles, schedule tiles), either route: the wrapper's
+//          schedule of (group, first row, end row) tiles of at most 128 rows
+//          that start at each group's first row (moe_gmm.gmm_schedule, built
+//          on the device: no host sync), then tiles of group -1 over the rows
+//          of no group, which the kernels fill with zeros (the output is not
+//          zero-filled beforehand); empty entries exit at once.
 //   tgmm   grid (column tiles, row tiles of K, groups): each block walks its
 //          group's rows 32 at a time; a group with no rows stores zeros.
-// Loads are 16-byte copies (element copies where a row's width or the
-// operand's alignment does not allow them) followed by a barrier: cp.async /
-// TMA pipelining, wgmma and a persistent schedule are later work.
+#include <cuda.h>
+
 #include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int BM = 128;   // output rows per block (schedule tile rows for gmm)
+constexpr int BM = 128;   // output rows per block: the schedule's tile rows (moe_gmm.TILE_ROWS), both routes
 constexpr int BN = 128;   // output columns per block
 constexpr int BK = 32;    // contraction chunk staged per step
 constexpr int LDS = BK + 8;  // [row][k] tile row stride (bf16): 80 bytes
@@ -241,8 +268,18 @@ __device__ __forceinline__ void store_tile(const float (&acc)[4][4][4], TO* __re
       }
 }
 
+// Zeros in rows r0 .. r1 - 1 of out (R, N), columns n0 .. n0 + width - 1
+// within N: a schedule tile of group -1, rows that belong to no group.
+template <typename TO>
+__device__ __forceinline__ void zero_rows(TO* __restrict__ out, int N, int r0, int r1, int n0, int width) {
+  const int cols = min(width, N - n0);
+  for (int i = threadIdx.x; i < (r1 - r0) * cols; i += blockDim.x)
+    out[(long)(r0 + i / cols) * N + n0 + i % cols] = from_f32<TO>(0.0f);
+}
+
 // out (R, N) = lhs (R, K) . rhs[group] with rhs (E, K, N), or rhs (E, N, K)
-// read transposed (TRANS), over the schedule's (group, first row, end row) tiles.
+// read transposed (TRANS), over the schedule's (group, first row, end row)
+// tiles; tiles of group -1 get zeros.
 template <typename TL, bool TRANS, typename TO>
 __global__ void __launch_bounds__(kThreads) gmm_kernel(const TL* __restrict__ lhs, const bf16* __restrict__ rhs,
                                                        const int* __restrict__ sched, TO* __restrict__ out, int K,
@@ -253,6 +290,10 @@ __global__ void __launch_bounds__(kThreads) gmm_kernel(const TL* __restrict__ lh
   const int r1 = sched[3 * tile + 2];
   if (r0 >= r1) return;
   const int n0 = blockIdx.x * BN;
+  if (e < 0) {
+    zero_rows(out, N, r0, r1, n0, BN);
+    return;
+  }
   __shared__ __align__(16) bf16 ah[TILE];
   __shared__ __align__(16) bf16 al[TILE];
   __shared__ __align__(16) bf16 bh[TILE];
@@ -339,25 +380,385 @@ int launch_tgmm(const void* lhs, const void* grad, const void* offsets, void* ou
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// gmm, the wgmma route: a TMA-fed stage ring, two consumer warpgroups and a
+// producer warpgroup per block
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int BK = 64;                             // K per stage: one 128-byte swizzle row of bf16
+constexpr int TN = 256;                            // output columns per block
+constexpr int kConsumers = 2;                      // warpgroups of 64 output rows each
+constexpr int kThreads = 128 * (kConsumers + 1);   // + the producer warpgroup
+constexpr uint32_t kGroupBytes = 1024;             // 8 swizzled rows of 128 bytes: the stride of 8-row groups
+constexpr uint32_t kChunkBBytes = 64 * BK * 2;    // one 64-column chunk of an N-major table tile
+static_assert(BM == kConsumers * 64, "a consumer warpgroup per 64 rows");
+
+// The ring of one lhs type: a stage holds A (128 rows x 64 of K in the lhs
+// type; fp32 as two 32-column boxes, 128 bytes wide each) and B (256 columns
+// x 64 of K, bf16): 48 KB and 4 stages for bf16 rows, 64 KB and 3 for fp32.
+template <typename TL>
+struct Ring {
+  static constexpr bool F32 = std::is_same<TL, float>::value;
+  static constexpr uint32_t kABytes = BM * BK * sizeof(TL);
+  static constexpr uint32_t kBBytes = TN * BK * 2;
+  static constexpr uint32_t kStageBytes = kABytes + kBBytes;
+  static constexpr int kStages = 200 * 1024 / kStageBytes;
+  static constexpr size_t kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;  // + barriers, + alignment
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
+      "[%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma's descriptor of a 128-byte-swizzled operand in shared memory: start
+// address, leading and stride byte offsets (each in 16-byte units), layout
+// type 1 (128-byte swizzle) in bits 62-63.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 | (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
+}
+
+// The table tile's descriptor at k16 step ks. K-major (the transposed table,
+// rows of 64 K): the step moves 32 bytes along each swizzled row; the leading
+// offset is unused. N-major (the forward table: 64 rows of K, each 64 columns
+// of N, per chunk): the step moves 16 rows; the leading offset is the stride
+// between the 64-column chunks, the stride offset between 8-row groups.
+template <bool TRANS>
+__device__ __forceinline__ uint64_t b_desc(uint32_t b, int ks) {
+  return TRANS ? smem_desc(b + ks * 32, 16, kGroupBytes) : smem_desc(b + ks * 16 * 128, kChunkBBytes, kGroupBytes);
+}
+
+// The warpgroup's 128 accumulator registers, as wgmma's operand list and as asm outputs.
+#define WG_ACC \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+#define WG_OUTS(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), \
+  "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+  "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+  "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+  "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
+  "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+  "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
+  "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+  "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+
+// d (64 x 256 fp32, the warpgroup's accumulators) += A (64 x 16) . B (16 x 256):
+// ss with A from shared memory, rs with A from registers (each thread's 4
+// registers of bf16 pairs); MN_B: B is N-major (wgmma's transpose-B bit).
+template <int MN_B>
+struct Wgmma {
+  static __device__ __forceinline__ void ss(float (&d)[128], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WG_ACC ", %128, %129, p, 1, 1, 0, %131;\n}\n"
+        : WG_OUTS(d)
+        : "l"(da), "l"(db), "r"(1), "n"(MN_B));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WG_ACC
+        ", {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+        : WG_OUTS(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(MN_B));
+  }
+};
+
+#undef WG_ACC
+#undef WG_OUTS
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// Keep the compiler from moving accumulator reads or writes across a wgmma
+// launch or wait (the products write the registers asynchronously).
+__device__ __forceinline__ void fence_acc(float (&d)[TN / 2]) {
+#pragma unroll
+  for (int i = 0; i < TN / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The thread's A registers of k16 step ks from a staged fp32 tile (two boxes
+// of 32 K, 128 rows of 128 bytes each, 16-byte chunk c of row r at c ^ (r % 8)),
+// each value split into hi = bf16(v) and lo = bf16(v - hi): registers (row g,
+// k 2t, 2t + 1), (g + 8, the same), (g, k + 8), (g + 8, k + 8) of the warp's
+// 16 rows from `row` (a multiple of 16, so r % 8 == g).
+__device__ __forceinline__ void split_frags(const uint8_t* tile, int row, int ks, int lane, uint32_t (&hi)[4],
+                                            uint32_t (&lo)[4]) {
+  const int g = lane >> 2, t = lane & 3;
+  const uint8_t* box = tile + (ks >> 1) * (BM * 128);
+  const int c = 4 * (ks & 1) + (t >> 1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row + g + 8 * (i & 1), cc = c + 2 * (i >> 1);
+    const float2 v = *reinterpret_cast<const float2*>(box + r * 128 + ((cc ^ g) << 4) + (t & 1) * 8);
+    const bf162 h = __floats2bfloat162_rn(v.x, v.y);
+    const float2 hf = __bfloat1622float2(h);
+    const bf162 l = __floats2bfloat162_rn(v.x - hf.x, v.y - hf.y);
+    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[i] = *reinterpret_cast<const uint32_t*>(&l);
+  }
+}
+
+// Store the warp's accumulators (rows `row` .. row + 15 of the tile) at
+// out[(r0 + r) * N + c] for r < rows, c < N: thread (g, t) holds rows g and
+// g + 8, columns 8 j + 2 t and + 1 (N is a multiple of 8 on this route).
+template <typename TO>
+__device__ __forceinline__ void store_acc(const float (&acc)[TN / 2], TO* __restrict__ out, int N, int r0, int rows,
+                                          int row, int n0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row + g + 8 * h, c = n0 + 8 * j + 2 * t;
+      if (r >= rows || c >= N) continue;
+      TO* p = out + (long)(r0 + r) * N + c;
+      if constexpr (std::is_same<TO, float>::value)
+        *reinterpret_cast<float2*>(p) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      else
+        *reinterpret_cast<bf162*>(p) = __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+}
+
+// out (R, N) = lhs (R, K) . rhs[group], 128 rows x 256 columns per block:
+// rhs (E, K, N) (N-major B), or (E, N, K) read transposed (TRANS: K-major B);
+// lhs_map over lhs (K, R innermost first, boxes of 64 | 32 K x 128 rows),
+// rhs_map over rhs (boxes of 64 K x 256 N, or 64 N x 64 K). Tiles of group -1
+// get zeros.
+template <typename TL, bool TRANS, typename TO>
+__global__ void __launch_bounds__(kThreads, 1)
+    gmm_wgmma_kernel(const __grid_constant__ CUtensorMap lhs_map, const __grid_constant__ CUtensorMap rhs_map,
+                     const int* __restrict__ sched, TO* __restrict__ out, int K, int N) {
+  using Cfg = Ring<TL>;
+  using Mma = Wgmma<TRANS ? 0 : 1>;
+  const int tile = blockIdx.y;
+  const int e = sched[3 * tile], r0 = sched[3 * tile + 1], r1 = sched[3 * tile + 2];
+  if (r0 >= r1) return;
+  const int n0 = blockIdx.x * TN;
+  if (e < 0) {
+    zero_rows(out, N, r0, r1, n0, TN);
+    return;
+  }
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // 128-byte swizzle atoms start on 1024-byte boundaries
+  const uint8_t* tiles = smem_raw + (base - raw);
+  const uint32_t full0 = base + Cfg::kStages * Cfg::kStageBytes, empty0 = full0 + 8 * Cfg::kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Cfg::kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int k_tiles = (K + BK - 1) / BK;
+  const int wgi = threadIdx.x / 128;
+  if (wgi == kConsumers) {  // the producer: one thread starts every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == kConsumers * 128) {
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int s = kt % Cfg::kStages, k0 = kt * BK;
+        const uint32_t full = full0 + 8 * s, a = base + s * Cfg::kStageBytes, b = a + Cfg::kABytes;
+        mbar_wait(empty0 + 8 * s, ((kt / Cfg::kStages) & 1) ^ 1);
+        mbar_expect_tx(full, Cfg::kStageBytes);
+        tma_load_2d(a, &lhs_map, full, k0, r0);
+        if constexpr (Cfg::F32) tma_load_2d(a + Cfg::kABytes / 2, &lhs_map, full, k0 + BK / 2, r0);
+        if constexpr (TRANS) {
+          tma_load_3d(b, &rhs_map, full, k0, n0, e);
+        } else {
+#pragma unroll
+          for (int c = 0; c < TN / 64; ++c) tma_load_3d(b + c * kChunkBBytes, &rhs_map, full, n0 + 64 * c, k0, e);
+        }
+      }
+    }
+  } else {  // a consumer: rows 64 wgi .. 64 wgi + 63 of the tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    float acc[TN / 2];
+#pragma unroll
+    for (int i = 0; i < TN / 2; ++i) acc[i] = 0.0f;
+    const int lane = threadIdx.x % 32, row = wgi * 64 + (threadIdx.x % 128) / 32 * 16;
+    const bool active = wgi * 64 < r1 - r0;  // else the tile's rows end in the first warpgroup's half
+    for (int kt = 0; kt < k_tiles; ++kt) {
+      const int s = kt % Cfg::kStages;
+      const uint32_t a = base + s * Cfg::kStageBytes, b = a + Cfg::kABytes;
+      mbar_wait(full0 + 8 * s, (kt / Cfg::kStages) & 1);
+      if (active) {
+        if constexpr (Cfg::F32) {
+          uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) split_frags(tiles + s * Cfg::kStageBytes, row, ks, lane, hi[ks], lo[ks]);
+          fence_acc(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) {
+            Mma::rs(acc, hi[ks], b_desc<TRANS>(b, ks));
+            Mma::rs(acc, lo[ks], b_desc<TRANS>(b, ks));
+          }
+        } else {
+          fence_acc(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            Mma::ss(acc, smem_desc(a + wgi * 64 * 128 + ks * 32, 16, kGroupBytes), b_desc<TRANS>(b, ks));
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(acc);
+      }
+      if (threadIdx.x % 128 == 0) mbar_arrive(empty0 + 8 * s);  // the stage is free once both warpgroups are done
+    }
+    if (active) store_acc(acc, out, N, r0, r1 - r0, row, n0, lane);
+  }
+}
+
+}  // namespace wg
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, reached through the runtime's entry-point
+// query (so the library links without -lcuda); null where it is missing.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                                            &found);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (rc == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tensor map of `rank` dimensions (innermost first; byte strides of the
+// outer ones), 128-byte swizzled boxes, zeros out of bounds.
+bool encode(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* ptr, const cuuint64_t* dims,
+            const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn != nullptr &&
+         fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The descriptors are encoded per call: the table pointer is a layer's view of
+// the depth-stacked leaf.
+template <typename TL, bool TRANS, typename TO>
+int launch_gmm_wgmma(const void* lhs, const void* rhs, const void* sched, void* out, int n_tiles, int R, int E, int K,
+                     int N, cudaStream_t st) {
+  using Cfg = wg::Ring<TL>;
+  if (!vectors_fit(lhs, rhs, K, N) || R < 1) return (int)cudaErrorInvalidValue;  // TMA needs 16-byte rows
+  const cuuint64_t a_dims[2] = {(cuuint64_t)K, (cuuint64_t)R}, a_strides[1] = {(cuuint64_t)K * sizeof(TL)};
+  const cuuint32_t a_box[2] = {Cfg::F32 ? wg::BK / 2 : wg::BK, BM};
+  const cuuint64_t inner = TRANS ? K : N, outer = TRANS ? N : K;
+  const cuuint64_t b_dims[3] = {inner, outer, (cuuint64_t)E}, b_strides[2] = {inner * 2, inner * outer * 2};
+  const cuuint32_t b_box[3] = {(cuuint32_t)(TRANS ? wg::BK : 64), (cuuint32_t)(TRANS ? wg::TN : wg::BK), 1};
+  CUtensorMap lhs_map, rhs_map;
+  if (!encode(&lhs_map, Cfg::F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, lhs, a_dims,
+              a_strides, a_box) ||
+      !encode(&rhs_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, rhs, b_dims, b_strides, b_box))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = wg::gmm_wgmma_kernel<TL, TRANS, TO>;
+  const cudaError_t rc = allow_dynamic_smem(kernel, Cfg::kSmem);
+  if (rc != cudaSuccess) return (int)rc;
+  dim3 grid((N + wg::TN - 1) / wg::TN, n_tiles);
+  kernel<<<grid, wg::kThreads, Cfg::kSmem, st>>>(lhs_map, rhs_map, static_cast<const int*>(sched),
+                                                   static_cast<TO*>(out), K, N);
+  return (int)cudaGetLastError();
+}
+
+template <typename TL, bool TRANS, typename TO>
+int launch_gmm_route(int route, const void* lhs, const void* rhs, const void* sched, void* out, int n_tiles, int R,
+                     int E, int K, int N, cudaStream_t st) {
+  return route ? launch_gmm_wgmma<TL, TRANS, TO>(lhs, rhs, sched, out, n_tiles, R, E, K, N, st)
+               : launch_gmm<TL, TRANS, TO>(lhs, rhs, sched, out, n_tiles, K, N, st);
+}
+
 }  // namespace
 
 // out (R, N) = lhs (R, K) . rhs[group of each row]: rhs (E, K, N) bf16, or
 // (E, N, K) read transposed with `transpose`; lhs bf16 or fp32 (lhs_f32); out
 // fp32 or bf16 (out_f32); sched (n_tiles, 3) int32 (group, first row, end
-// row), tiles of at most mu_gmm_tile_rows() rows, empty entries first == end.
-extern "C" int mu_gmm(const void* lhs, const void* rhs, const void* sched, void* out, int n_tiles, int K, int N,
-                      int lhs_f32, int transpose, int out_f32, void* stream) {
+// row), tiles of at most mu_gmm_tile_rows() rows, group -1 for rows of no
+// group (zeros), empty entries first == end. route 1: the wgmma body (16-byte
+// aligned lhs and rhs, K and N multiples of 8, else cudaErrorInvalidValue),
+// 0: the mma.sync body (any widths). The wrapper chooses it by shape and
+// alignment (moe_gmm.gmm_route).
+extern "C" int mu_gmm(const void* lhs, const void* rhs, const void* sched, void* out, int n_tiles, int R, int E, int K,
+                      int N, int lhs_f32, int transpose, int out_f32, int route, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int mode = (lhs_f32 ? 4 : 0) | (transpose ? 2 : 0) | (out_f32 ? 1 : 0);
   switch (mode) {
-    case 0: return launch_gmm<bf16, false, bf16>(lhs, rhs, sched, out, n_tiles, K, N, st);
-    case 1: return launch_gmm<bf16, false, float>(lhs, rhs, sched, out, n_tiles, K, N, st);
-    case 2: return launch_gmm<bf16, true, bf16>(lhs, rhs, sched, out, n_tiles, K, N, st);
-    case 3: return launch_gmm<bf16, true, float>(lhs, rhs, sched, out, n_tiles, K, N, st);
-    case 4: return launch_gmm<float, false, bf16>(lhs, rhs, sched, out, n_tiles, K, N, st);
-    case 5: return launch_gmm<float, false, float>(lhs, rhs, sched, out, n_tiles, K, N, st);
-    case 6: return launch_gmm<float, true, bf16>(lhs, rhs, sched, out, n_tiles, K, N, st);
-    default: return launch_gmm<float, true, float>(lhs, rhs, sched, out, n_tiles, K, N, st);
+    case 0: return launch_gmm_route<bf16, false, bf16>(route, lhs, rhs, sched, out, n_tiles, R, E, K, N, st);
+    case 1: return launch_gmm_route<bf16, false, float>(route, lhs, rhs, sched, out, n_tiles, R, E, K, N, st);
+    case 2: return launch_gmm_route<bf16, true, bf16>(route, lhs, rhs, sched, out, n_tiles, R, E, K, N, st);
+    case 3: return launch_gmm_route<bf16, true, float>(route, lhs, rhs, sched, out, n_tiles, R, E, K, N, st);
+    case 4: return launch_gmm_route<float, false, bf16>(route, lhs, rhs, sched, out, n_tiles, R, E, K, N, st);
+    case 5: return launch_gmm_route<float, false, float>(route, lhs, rhs, sched, out, n_tiles, R, E, K, N, st);
+    case 6: return launch_gmm_route<float, true, bf16>(route, lhs, rhs, sched, out, n_tiles, R, E, K, N, st);
+    default: return launch_gmm_route<float, true, float>(route, lhs, rhs, sched, out, n_tiles, R, E, K, N, st);
   }
 }
 

@@ -20,9 +20,14 @@ Rows are grouped by `group_sizes` (E,): group e holds the rows after the
 first e groups. Rows past sum(group_sizes) belong to no group: gmm leaves them
 zero, tgmm reads none of them. On the card the kernels read the (E, K, N) bf16
 tables as they lie (a layer's view of the depth-stacked leaf, no copy) and
-schedule their row tiles on the device (`moe_swiglu_gmm.tile_schedule`: no
-host sync). The wrappers run the plain versions for CPU tensors only; for
-CUDA tensors they launch their kernel or raise. The JAX package's
+schedule their row tiles on the device (`gmm_schedule`: no host sync);
+`moe_experts_gmm` builds one schedule per layer for its six `gmm` calls.
+`gmm` has two kernel bodies in `csrc/gmm.cu`, chosen by shape and alignment
+alone (`gmm_route`): "wgmma", a TMA-fed ring of stages into wgmma products,
+where TMA can describe the operands (every shape of the model), and
+"mma_sync" for the rest; each route counts its launches in `route_counts`.
+The wrappers run the plain versions for CPU tensors only; for CUDA tensors
+they launch their kernel or raise. The JAX package's
 `expert_sort` (a counting sort its benchmark measured slower than argsort)
 has no counterpart: no entry point calls it.
 """
@@ -37,7 +42,19 @@ from mingunivision_tpu_torch.ops.kernels.moe_stream import layer_tables
 from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import tile_schedule
 
 PAD_ROWS = 128  # moe_experts_gmm pads the sorted rows to a multiple of this (megablox's row tile)
+TILE_ROWS = 128  # rows per schedule tile of both gmm routes (csrc/gmm.cu's BM, `mu_gmm_tile_rows`)
+GMM_ROUTES = ("wgmma", "mma_sync")
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+class RouteCount:
+    """The launches of one kernel route (the kernel's own `launches` counts every route)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+route_counts = {op: {route: RouteCount() for route in GMM_ROUTES} for op in ("gmm", "gmm_trhs")}
 
 
 def _group_bounds(group_sizes: torch.Tensor, rows: int):
@@ -51,10 +68,10 @@ def _group_bounds(group_sizes: torch.Tensor, rows: int):
     return bounds
 
 
-def gmm_plain(lhs, rhs, group_sizes, *, out_dtype=torch.float32, transpose_rhs: bool = False):
+def gmm_plain(lhs, rhs, group_sizes, *, out_dtype=torch.float32, transpose_rhs: bool = False, sched=None):
     """Plain version of `gmm`: out[rows of e] = lhs[rows of e] @ rhs[e] (rhs[e]^T
     with `transpose_rhs`), one fp32 matmul per group, rounded to `out_dtype`;
-    rows of no group are zeros."""
+    rows of no group are zeros. `sched`, the kernels' tiles, is not needed."""
     N = rhs.shape[1] if transpose_rhs else rhs.shape[2]
     out = torch.zeros((lhs.shape[0], N), dtype=out_dtype, device=lhs.device)
     for e, r0, r1 in _group_bounds(group_sizes, lhs.shape[0]):
@@ -73,9 +90,26 @@ def tgmm_plain(lhs, grad, group_sizes, *, out_dtype=torch.bfloat16):
     return out
 
 
-def tile_rows() -> int:
-    """Rows per schedule tile the gmm kernel was compiled for."""
-    return build.load().mu_gmm_tile_rows()
+def gmm_schedule(group_sizes: torch.Tensor, rows: int) -> torch.Tensor:
+    """The gmm kernels' schedule over `rows` group-sorted rows, on the device (no
+    host sync): (n_tiles, 3) int32 rows of (group, first row, end row), the
+    groups' tiles of at most TILE_ROWS rows from each group's first row
+    (`tile_schedule`), then tiles of group -1 over the rows past the groups'
+    sum, which the kernels fill with zeros; unused entries are empty."""
+    sizes = group_sizes.long()
+    E = sizes.shape[0]
+    rest = (rows - sizes.sum()).clamp(min=0).reshape(1)  # the rows of no group, as one more group
+    sched = tile_schedule(torch.cat([sizes, rest]), rows, TILE_ROWS)
+    sched[:, 0] = torch.where(sched[:, 0] == E, -1, sched[:, 0])
+    return sched
+
+
+def gmm_route(lhs: torch.Tensor, rhs: torch.Tensor, K: int, N: int) -> str:
+    """The kernel body `gmm` launches, by shape and alignment alone: "wgmma"
+    (TMA copies, which need 16-byte aligned operands and rows: K and N
+    multiples of 8 elements), else "mma_sync"."""
+    tma = K % 8 == 0 and N % 8 == 0 and lhs.data_ptr() % 16 == 0 and rhs.data_ptr() % 16 == 0
+    return "wgmma" if tma else "mma_sync"
 
 
 def _check(op: str, dev, group_sizes, out_dtype, **tensors):
@@ -89,11 +123,13 @@ def _check(op: str, dev, group_sizes, out_dtype, **tensors):
         raise ValueError(f"{op}: group_sizes must be a 1-d tensor on {dev}")
 
 
-def gmm(lhs, rhs, group_sizes, *, out_dtype=torch.float32, transpose_rhs: bool = False):
+def gmm(lhs, rhs, group_sizes, *, out_dtype=torch.float32, transpose_rhs: bool = False, sched=None):
     """out (R, N) = each row of lhs (R, K) times its group's matrix: rhs (E, K, N),
     or rhs (E, N, K) transposed with `transpose_rhs`. On the card: bf16 tables,
-    bf16 or fp32 lhs, fp32 or bf16 out; the launch counts on `gmm`, or on
-    `gmm_trhs` when transposed. CPU tensors take `gmm_plain`."""
+    bf16 or fp32 lhs, fp32 or bf16 out, the body `gmm_route` picks; the launch
+    counts on `gmm`, or on `gmm_trhs` when transposed, and on its route.
+    `sched`: `gmm_schedule(group_sizes, R)`, built here when not given. CPU
+    tensors take `gmm_plain`."""
     if lhs.device.type == "cpu":
         return gmm_plain(lhs, rhs, group_sizes, out_dtype=out_dtype, transpose_rhs=transpose_rhs)
     op = "gmm_trhs" if transpose_rhs else "gmm"
@@ -103,20 +139,32 @@ def gmm(lhs, rhs, group_sizes, *, out_dtype=torch.float32, transpose_rhs: bool =
     if K_rhs != K or group_sizes.shape[0] != E:
         raise ValueError(f"{op}: lhs {tuple(lhs.shape)}, rhs {tuple(rhs.shape)} and {group_sizes.shape[0]} groups "
                          f"do not agree")
-    sched = tile_schedule(group_sizes, R, tile_rows())
-    out = torch.zeros((R, N), dtype=out_dtype, device=lhs.device)
-    rc = build.load().mu_gmm(lhs.data_ptr(), rhs.data_ptr(), sched.data_ptr(), out.data_ptr(), sched.shape[0], K, N,
-                             int(lhs.dtype == torch.float32), int(transpose_rhs), int(out_dtype == torch.float32),
-                             build.stream_handle(lhs))
-    build.check(rc, "mu_gmm")
+    return _launch_gmm(lhs, rhs, group_sizes, out_dtype, transpose_rhs, sched, gmm_route(lhs, rhs, K, N))
+
+
+def _launch_gmm(lhs, rhs, group_sizes, out_dtype, transpose_rhs, sched, route):
+    """`gmm`'s launch on `route` and its counts, on checked operands
+    (chip_smoke.py also times the mma_sync body at shapes the wgmma one takes)."""
+    R, K = lhs.shape
+    E, N = rhs.shape[0], rhs.shape[1] if transpose_rhs else rhs.shape[2]
+    out = torch.empty((R, N), dtype=out_dtype, device=lhs.device)  # the kernels write every row
+    if R == 0:
+        return out
+    if sched is None:
+        sched = gmm_schedule(group_sizes, R)
+    rc = build.load().mu_gmm(lhs.data_ptr(), rhs.data_ptr(), sched.data_ptr(), out.data_ptr(), sched.shape[0], R, E,
+                             K, N, int(lhs.dtype == torch.float32), int(transpose_rhs),
+                             int(out_dtype == torch.float32), int(route == "wgmma"), build.stream_handle(lhs))
+    build.check(rc, f"mu_gmm ({route})")
     (gmm_trhs if transpose_rhs else gmm).launches += 1
+    route_counts["gmm_trhs" if transpose_rhs else "gmm"][route].launches += 1
     return out
 
 
-def gmm_trhs(lhs, rhs, group_sizes, *, out_dtype=torch.bfloat16):
+def gmm_trhs(lhs, rhs, group_sizes, *, out_dtype=torch.bfloat16, sched=None):
     """`gmm` with the rhs transposed (the VJP's grad_lhs; the name that carries
     those launches' count)."""
-    return gmm(lhs, rhs, group_sizes, out_dtype=out_dtype, transpose_rhs=True)
+    return gmm(lhs, rhs, group_sizes, out_dtype=out_dtype, transpose_rhs=True, sched=sched)
 
 
 def tgmm(lhs, grad, group_sizes, *, out_dtype=torch.bfloat16):
@@ -145,26 +193,29 @@ class GroupedMatmul(torch.autograd.Function):
     """`gmm` with megablox's VJP (ops.py `_gmm_bwd`): grad_lhs = gmm(grad, rhs,
     transpose_rhs=not t) in the lhs dtype, grad_rhs = tgmm(lhs, grad) in the
     rhs dtype (transposed back when t). `gmm` and `tgmm` are looked up in this
-    module at each call."""
+    module at each call. `sched` (`gmm_schedule` of the group sizes and rows, or
+    None) serves the forward and the grad_lhs launch: the same rows, the same
+    tiles."""
 
     @staticmethod
-    def forward(ctx, lhs, rhs, group_sizes, out_dtype, transpose_rhs):
-        ctx.save_for_backward(lhs, rhs, group_sizes)
+    def forward(ctx, lhs, rhs, group_sizes, out_dtype, transpose_rhs, sched=None):
+        ctx.save_for_backward(lhs, rhs, group_sizes, sched)
         ctx.transpose_rhs = transpose_rhs
-        return gmm(lhs, rhs, group_sizes, out_dtype=out_dtype, transpose_rhs=transpose_rhs)
+        return gmm(lhs, rhs, group_sizes, out_dtype=out_dtype, transpose_rhs=transpose_rhs, sched=sched)
 
     @staticmethod
     def backward(ctx, grad):
-        lhs, rhs, group_sizes = ctx.saved_tensors
+        lhs, rhs, group_sizes, sched = ctx.saved_tensors
         grad = grad.contiguous()
         grad_lhs = grad_rhs = None
         if ctx.needs_input_grad[0]:
-            grad_lhs = gmm(grad, rhs, group_sizes, out_dtype=lhs.dtype, transpose_rhs=not ctx.transpose_rhs)
+            grad_lhs = gmm(grad, rhs, group_sizes, out_dtype=lhs.dtype, transpose_rhs=not ctx.transpose_rhs,
+                           sched=sched)
         if ctx.needs_input_grad[1]:
             grad_rhs = tgmm(lhs, grad, group_sizes, out_dtype=rhs.dtype)
             if ctx.transpose_rhs:
                 grad_rhs = grad_rhs.transpose(1, 2)
-        return grad_lhs, grad_rhs, None, None, None
+        return grad_lhs, grad_rhs, None, None, None, None
 
 
 def moe_experts_gmm(experts, x_flat, topk_idx, topk_w, num_experts: int, *, layer_idx=None):
@@ -184,11 +235,12 @@ def moe_experts_gmm(experts, x_flat, topk_idx, topk_w, num_experts: int, *, laye
         xs = torch.cat([xs, xs.new_zeros((A_pad - A, xs.shape[1]))])
         sizes[-1] += A_pad - A
     sizes = sizes.to(torch.int32)
+    sched = gmm_schedule(sizes, A_pad)  # one schedule for the layer's six gmm launches
     dt = xs.dtype
-    g = GroupedMatmul.apply(xs, w1.to(dt), sizes, torch.float32, False)
-    u = GroupedMatmul.apply(xs, w3.to(dt), sizes, torch.float32, False)
+    g = GroupedMatmul.apply(xs, w1.to(dt), sizes, torch.float32, False, sched)
+    u = GroupedMatmul.apply(xs, w3.to(dt), sizes, torch.float32, False, sched)
     a = (F.silu(g.float()) * u.float()).to(dt)
-    y = GroupedMatmul.apply(a, w2.to(dt), sizes, torch.float32, False)
+    y = GroupedMatmul.apply(a, w2.to(dt), sizes, torch.float32, False, sched)
     inv = torch.empty_like(order)
     inv[order] = torch.arange(A, device=order.device)
     y_orig = y[:A][inv].reshape(N, k, -1).float()

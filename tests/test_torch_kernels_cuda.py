@@ -677,14 +677,20 @@ GMM_SIZES = {
 }
 
 
+# gmm only: groups of 1-63 rows (the second consumer warpgroup of the wgmma body idle), of exactly 128 and of 129
+# rows (a 1-row tile), empty groups, then GMM_NO_GROUP_ROWS rows past the groups' sum that belong to none
+GMM_CASES = {**GMM_SIZES, "edges-and-rows-of-no-group": [40, 128, 0, 129, 0, 63]}
+GMM_NO_GROUP_ROWS = 40
+
+
 def _gmm_operands(dev, case, K, N, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
-    sizes = torch.tensor(GMM_SIZES[case], dtype=torch.int32, device=dev)
-    R = int(sizes.sum())
+    sizes = torch.tensor(GMM_CASES[case], dtype=torch.int32, device=dev)
+    R = int(sizes.sum()) + (GMM_NO_GROUP_ROWS if case == "edges-and-rows-of-no-group" else 0)
     lhs = torch.randn((R, K), device=dev, generator=g)
     if case == "padded-last-group":
         lhs[-24:] = 0.0
-    rhs = torch.empty((len(GMM_SIZES[case]), K, N), device=dev).normal_(0, 0.05, generator=g).to(torch.bfloat16)
+    rhs = torch.empty((len(GMM_CASES[case]), K, N), device=dev).normal_(0, 0.05, generator=g).to(torch.bfloat16)
     grad = torch.randn((R, N), device=dev, generator=g)
     return sizes, lhs, rhs, grad
 
@@ -698,30 +704,66 @@ def _close(got, want, rel):
 # (K, N): multiples of 8 but not of the tiles (16-byte staging, ragged edges), and widths the
 # kernels stage element by element
 GMM_WIDTHS = {"16-byte-rows": (200, 312), "odd-widths": (100, 150)}
+# gmm also at the model's widths (h 2048, m 1408), both ways
+GMM_TEST_WIDTHS = {**GMM_WIDTHS, "model-h-to-m": (2048, 1408), "model-m-to-h": (1408, 2048)}
 
 
-@pytest.mark.parametrize("width", list(GMM_WIDTHS))
+def _gmm_case(dev, case, width, transpose, lhs_dtype, seed=41):
+    """(sizes, lhs, rhs (E, K, N) bf16, output columns) of one gmm case: rows
+    (R, K) against rhs, or with `transpose` the cotangent (R, N) against rhs
+    transposed."""
+    sizes, lhs, rhs, grad = _gmm_operands(dev, case, *GMM_TEST_WIDTHS[width], seed=seed)
+    if transpose:  # grad (R, N) against rhs (E, K, N) transposed -> (R, K)
+        lhs = grad
+    return sizes, lhs.to(lhs_dtype).contiguous(), rhs, rhs.shape[1] if transpose else rhs.shape[2]
+
+
+@pytest.mark.parametrize("width", list(GMM_TEST_WIDTHS))
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["out-fp32", "out-bf16"])
 @pytest.mark.parametrize("lhs_dtype", [torch.bfloat16, torch.float32], ids=["lhs-bf16", "lhs-fp32"])
 @pytest.mark.parametrize("transpose", [False, True], ids=["rhs", "rhs-transposed"])
-@pytest.mark.parametrize("case", list(GMM_SIZES))
+@pytest.mark.parametrize("case", list(GMM_CASES))
 def test_gmm_kernel_matches_plain(dev, case, transpose, lhs_dtype, out_dtype, width):
     """Both rhs orientations, bf16 or fp32 rows (fp32 split into two bf16
     parts), fp32 or bf16 outputs, at widths that are no multiples of the
-    kernel's tiles. fp32 outputs within 1e-4 of max, bf16 ones within 1e-2."""
-    from mingunivision_tpu_torch.ops.kernels import moe_gmm
+    kernel's tiles and at the model's: fp32 outputs within 1e-4 of max, bf16
+    ones within 1e-2. The odd widths take the mma_sync body, the others the
+    wgmma one (counted on the route); rows of no group are exactly zero in an
+    output the kernel did not find zeroed (NaN left where it is allocated)."""
+    from mingunivision_tpu_torch.ops.kernels import build, moe_gmm
 
-    sizes, lhs, rhs, grad = _gmm_operands(dev, case, *GMM_WIDTHS[width], seed=41)
-    if transpose:  # grad (R, N) against rhs (E, K, N) transposed -> (R, K)
-        lhs = grad
-    lhs = lhs.to(lhs_dtype).contiguous()
-    counter = moe_gmm.gmm_trhs if transpose else moe_gmm.gmm
-    before = counter.launches
+    sizes, lhs, rhs, cols = _gmm_case(dev, case, width, transpose, lhs_dtype)
+    route = "mma_sync" if width == "odd-widths" else "wgmma"
+    assert moe_gmm.gmm_route(lhs, rhs, lhs.shape[1], cols) == route
+    assert build.load().mu_gmm_tile_rows() == moe_gmm.TILE_ROWS
+    op = "gmm_trhs" if transpose else "gmm"
+    counters = (getattr(moe_gmm, op), moe_gmm.route_counts[op][route])
+    before = [c.launches for c in counters]
+    nan = torch.full((lhs.shape[0], cols), float("nan"), dtype=out_dtype, device=dev)
+    del nan  # the caching allocator hands its NaN block to the output
     got = moe_gmm.gmm(lhs, rhs, sizes, out_dtype=out_dtype, transpose_rhs=transpose)
     torch.cuda.synchronize()
-    assert counter.launches == before + 1 and got.dtype == out_dtype
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1] and got.dtype == out_dtype
+    assert not got[int(sizes.sum()):].any()
     _close(got, moe_gmm.gmm_plain(lhs, rhs, sizes, out_dtype=out_dtype, transpose_rhs=transpose),
            1e-4 if out_dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("lhs_dtype", [torch.bfloat16, torch.float32], ids=["lhs-bf16", "lhs-fp32"])
+@pytest.mark.parametrize("transpose", [False, True], ids=["rhs", "rhs-transposed"])
+def test_gmm_mma_sync_body_at_the_model_widths(dev, transpose, lhs_dtype):
+    """The mma_sync body, which chip_smoke.py times beside the wgmma one through
+    the private route argument, is right at shapes the wgmma body serves; the
+    wgmma body refuses widths TMA cannot take (the launch raises)."""
+    from mingunivision_tpu_torch.ops.kernels import moe_gmm
+
+    sizes, lhs, rhs, _ = _gmm_case(dev, "edges-and-rows-of-no-group", "model-h-to-m", transpose, lhs_dtype)
+    got = moe_gmm._launch_gmm(lhs, rhs, sizes, torch.float32, transpose, None, "mma_sync")
+    torch.cuda.synchronize()
+    _close(got, moe_gmm.gmm_plain(lhs, rhs, sizes, transpose_rhs=transpose), 1e-4)
+    sizes, lhs, rhs, _ = _gmm_case(dev, "edges-and-rows-of-no-group", "odd-widths", transpose, lhs_dtype)
+    with pytest.raises(RuntimeError):
+        moe_gmm._launch_gmm(lhs, rhs, sizes, torch.float32, transpose, None, "wgmma")
 
 
 @pytest.mark.parametrize("width", list(GMM_WIDTHS))

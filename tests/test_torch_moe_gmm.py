@@ -187,3 +187,108 @@ def test_swiglu_gmm_ad_on_stacked_tables_grads_the_layer_slice():
         g = stacked[name].grad
         assert not g[0].any()
         torch.testing.assert_close(g[1], want, rtol=0, atol=0)
+
+
+# --- the card route's choice and schedule, on the CPU ------------------------------------------------------
+
+def _misaligned(t):
+    """`t`'s values in a contiguous tensor whose data starts 2 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype)
+    out = flat[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# (lhs dtype, K, N, transposed table, which operand starts off a 16-byte boundary) -> route
+ROUTE_CASES = {
+    "model-h-to-m-bf16": (torch.bfloat16, 2048, 1408, False, None, "wgmma"),
+    "model-m-to-h-bf16": (torch.bfloat16, 1408, 2048, False, None, "wgmma"),
+    "cotangent-fp32-transposed": (torch.float32, 2048, 1408, True, None, "wgmma"),
+    "16-byte-rows": (torch.bfloat16, 200, 312, False, None, "wgmma"),
+    "odd-widths": (torch.bfloat16, 100, 150, False, None, "mma_sync"),
+    "fp32-K-multiple-of-4-only": (torch.float32, 100, 312, True, None, "mma_sync"),
+    "N-not-multiple-of-8": (torch.bfloat16, 2048, 1404, False, None, "mma_sync"),
+    "lhs-off-16-bytes": (torch.bfloat16, 2048, 1408, False, "lhs", "mma_sync"),
+    "table-off-16-bytes": (torch.float32, 1408, 2048, True, "rhs", "mma_sync"),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_gmm_route_depends_on_shape_and_alignment_alone(case):
+    """`gmm_route` sends every operand TMA can describe (16-byte aligned bases,
+    K and N multiples of 8) to the wgmma body, the rest to the mma_sync body,
+    whatever the dtypes and orientation."""
+    dtype, K, N, transposed, off, want = ROUTE_CASES[case]
+    lhs = torch.zeros((16, K), dtype=dtype)
+    rhs = torch.zeros((2, N, K) if transposed else (2, K, N), dtype=torch.bfloat16)
+    if off == "lhs":
+        lhs = _misaligned(lhs)
+    elif off == "rhs":
+        rhs = _misaligned(rhs)
+    assert lhs.is_contiguous() and rhs.is_contiguous()
+    assert moe_gmm.gmm_route(lhs, rhs, K, N) == want
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_gmm_schedule_covers_every_row_once(seed):
+    """`gmm_schedule` at the kernels' TILE_ROWS, for random sizes with empty
+    groups and rows past (or short of) the groups' sum: every row lies in
+    exactly one non-empty tile, of its own group (-1 past the sum), tiles hold
+    at most TILE_ROWS rows, and walking the tiles as the kernels do (each a
+    product of its rows with its group's table, zeros for group -1) into a
+    NaN-filled output gives `gmm_plain`'s output."""
+    rng = np.random.default_rng(seed)
+    E_ = int(rng.integers(1, 9))
+    sizes = rng.integers(0, 300, E_) * (rng.random(E_) < 0.7)
+    R = int(sizes.sum()) + int(rng.integers(-40 if sizes.sum() > 40 else 0, 200))
+    sched = moe_gmm.gmm_schedule(torch.from_numpy(sizes).to(torch.int32), R)
+    assert sched.dtype == torch.int32 and sched.shape == (-(-R // moe_gmm.TILE_ROWS) + E_ + 1, 3)
+    group_of = np.full(R, -1)
+    ends = np.minimum(np.cumsum(sizes), R)
+    for e, (start, end) in enumerate(zip(np.concatenate([[0], ends[:-1]]), ends)):
+        group_of[start:end] = e
+    cover = np.zeros(R, np.int64)
+    for e, r0, r1 in sched.tolist():
+        if r0 >= r1:
+            continue
+        assert r1 - r0 <= moe_gmm.TILE_ROWS and (group_of[r0:r1] == e).all()
+        cover[r0:r1] += 1
+    assert (cover == 1).all()
+    lhs = torch.from_numpy(rng.standard_normal((R, 24)).astype(np.float32))
+    rhs = torch.from_numpy(rng.standard_normal((E_, 24, 40)).astype(np.float32))
+    out = torch.full((R, 40), float("nan"))
+    for e, r0, r1 in sched.tolist():
+        if r0 < r1:
+            out[r0:r1] = lhs[r0:r1] @ rhs[e] if e >= 0 else 0.0
+    want = moe_gmm.gmm_plain(lhs, rhs, torch.from_numpy(sizes))
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_moe_experts_gmm_builds_one_schedule_per_layer(dtype, monkeypatch):
+    """`moe_experts_gmm` builds `gmm_schedule` once and hands that one tensor to
+    its six gmm launches (three forward, three grad_lhs in the backward); the
+    value and grads still match the JAX package's `moe_experts_gmm` as in
+    `test_moe_experts_gmm_and_grads_match_jax`."""
+    E_, h, m, k, n = 4, 128, 256, 2, 60
+    experts, x, idx, w, cot = _moe_inputs(E_, h, m, n, k, seed=n)
+    seen, real = [], moe_gmm.gmm
+
+    def spy(*args, **kwargs):
+        seen.append((kwargs.get("sched"), kwargs.get("transpose_rhs", False), args[2]))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(moe_gmm, "gmm", spy)
+    y_p, g_p = _port_value_and_grads(lambda e, xx, i, ww: moe_gmm.moe_experts_gmm(e, xx, i, ww, E_), experts, x, idx,
+                                     w, cot, dtype)
+    assert len(seen) == 6 and sorted(t for _, t, _ in seen) == [False] * 3 + [True] * 3
+    sched, sizes = seen[0][0], seen[0][2]
+    assert all(s is sched for s, _, _ in seen)
+    torch.testing.assert_close(sched, moe_gmm.gmm_schedule(sizes, -(-n * k // moe_gmm.PAD_ROWS) * moe_gmm.PAD_ROWS),
+                               rtol=0, atol=0)
+    y_j, g_j = _jax_value_and_grads(
+        lambda e, xx, ww: jax_moe_experts_gmm(e, xx, jnp.asarray(idx), ww, E_, interpret=True), experts, x, w, cot,
+        dtype)
+    _hold(y_p, y_j, dtype)
+    for gp, gj in zip(g_p, g_j):
+        _hold(gp, gj, dtype)
