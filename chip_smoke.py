@@ -1509,7 +1509,8 @@ def run_slice_mixed(torch, cfg, params, device, results: dict) -> bool:
 def launch_counters():
     """kernel name -> the wrapper that counts its launches ("moe_capacity": the
     launches of the prefill MoE kernels that went through the capacity dispatch;
-    "gmm_wgmma" / "gmm_trhs_wgmma": those of gmm / gmm_trhs on the wgmma body)."""
+    "gmm_wgmma" / "gmm_trhs_wgmma" / "tgmm_wgmma": those of gmm / gmm_trhs /
+    tgmm on the wgmma body)."""
     from mingunivision_tpu_torch.ops.kernels import expert_matmul, moe_gmm
     from mingunivision_tpu_torch.ops.kernels import moe_stream as ms
     from mingunivision_tpu_torch.ops.kernels import moe_swiglu_gmm as gmm
@@ -1542,6 +1543,7 @@ def launch_counters():
             "gmm": moe_gmm.gmm, "gmm_trhs": moe_gmm.gmm_trhs, "tgmm": moe_gmm.tgmm,
             "gmm_wgmma": moe_gmm.route_counts["gmm"]["wgmma"],
             "gmm_trhs_wgmma": moe_gmm.route_counts["gmm_trhs"]["wgmma"],
+            "tgmm_wgmma": moe_gmm.route_counts["tgmm"]["wgmma"],
             "flash_vit_bwd_dkv": flash_vit_bwd_dkv, "flash_vit_bwd_dq": flash_vit_bwd_dq,
             "gathered_expert_matmul": expert_matmul.gathered_expert_matmul}
 
@@ -2504,7 +2506,8 @@ def grouped_library(torch, kind, lhs, rhs, sizes, transpose=False):
 
 
 # the CUDA kernels of the grouped matmuls by body, as torch.profiler names them
-GROUPED_KERNELS = {"wgmma": ("gmm_wgmma_kernel<",), "mma_sync": ("::gmm_kernel<",), "tgmm": ("::tgmm_kernel<",)}
+GROUPED_KERNELS = {"wgmma": ("::gmm_wgmma_kernel<",), "mma_sync": ("::gmm_kernel<",),
+                   "tgmm_wgmma": ("::tgmm_wgmma_kernel<",), "tgmm_mma_sync": ("::tgmm_kernel<",)}
 
 
 def kernel_device_ms(torch, fn, names, iters: int = 10) -> float:
@@ -2522,33 +2525,55 @@ def kernel_device_ms(torch, fn, names, iters: int = 10) -> float:
     return sum(e.self_device_time_total for e in prof.key_averages() if any(n in e.key for n in names)) / iters / 1e3
 
 
-def grouped_case(torch, results, name, label, kern, plain, nbytes, ops, library, gmm_args=None) -> bool:
+def grouped_case(torch, results, name, label, kern, plain, nbytes, ops, library, gmm_args=None,
+                 tgmm_args=None) -> bool:
     """One grouped-matmul case (`run_case`), then the body it took and its
     kernel-alone device time. gmm / gmm_trhs (`gmm_args`: lhs, rhs, group
     sizes, out dtype, transposed, the layer's schedule) are timed as the train
     step calls them, with the layer's schedule, and beside that also building
-    their own (`own_schedule_ms`); on the wgmma body also the mma_sync body on
-    the same operands, through the wrapper's private route argument."""
+    their own (`own_schedule_ms`); tgmm (`tgmm_args`: lhs, grad, group sizes)
+    on the body `tgmm_route` picks. On the wgmma body also the mma_sync body on
+    the same operands, through the wrapper's private route argument, and
+    tgmm's wgmma body on a grid of one block per item beside its persistent
+    one (`grid_ms`), on half the multiprocessors (`half_sms_ms`: twice the time
+    where the limit is in each SM, less where it is in L2 or HBM) and on the
+    grad rounded to bf16 (`bf16_grad_ms`: no split, half the grad's bytes)."""
     from mingunivision_tpu_torch.ops.kernels import moe_gmm
 
-    route, others = "tgmm", {}
+    others = {}
     if gmm_args is not None:
         lhs, rhs, sizes, out_dtype, trans, sched = gmm_args
         route = moe_gmm.gmm_route(lhs, rhs, lhs.shape[1], rhs.shape[1] if trans else rhs.shape[2])
+        names = {"route": GROUPED_KERNELS[route], "mma_sync": GROUPED_KERNELS["mma_sync"]}
         others["own_schedule"] = lambda: moe_gmm.gmm(lhs, rhs, sizes, out_dtype=out_dtype, transpose_rhs=trans)
         if route == "wgmma":
             others["mma_sync"] = lambda: moe_gmm._launch_gmm(lhs, rhs, sizes, out_dtype, trans, sched, "mma_sync")
+    else:
+        lhs, grad, sizes = tgmm_args
+        E, K, N = sizes.shape[0], lhs.shape[1], grad.shape[1]
+        route = moe_gmm.tgmm_route(lhs, grad, K, N, E)
+        names = {"route": GROUPED_KERNELS[f"tgmm_{route}"], "mma_sync": GROUPED_KERNELS["tgmm_mma_sync"],
+                 "grid": GROUPED_KERNELS["tgmm_wgmma"]}
+        if route == "wgmma":
+            grad_bf16 = grad.to(torch.bfloat16)
+            others["mma_sync"] = lambda: moe_gmm._launch_tgmm(lhs, grad, sizes, torch.bfloat16, "mma_sync")
+            others["grid"] = lambda: moe_gmm._launch_tgmm(lhs, grad, sizes, torch.bfloat16, "wgmma",
+                                                          max_blocks=2**30)  # a block per item
+            others["bf16_grad"] = lambda: moe_gmm.tgmm(lhs, grad_bf16, sizes)  # one product per k16 step, half A's bytes
+            half = torch.cuda.get_device_properties(lhs.device).multi_processor_count // 2
+            others["half_sms"] = lambda: moe_gmm._launch_tgmm(lhs, grad, sizes, torch.bfloat16, "wgmma", max_blocks=half)
     ok = run_case(torch, results, name, label, kern, plain, nbytes, ops, "bf16", library=library, plain_iters=5,
                   others=others)
     case = results[name]["cases"][-1]
-    case["route"] = "mma_sync" if route == "tgmm" else route
-    case["device_ms"] = kernel_device_ms(torch, kern, GROUPED_KERNELS[route])
+    case["route"] = route
+    case["device_ms"] = kernel_device_ms(torch, kern, names["route"])
     line = f"route={case['route']} wrapper_ms={case['ms']:.4f} device_ms={case['device_ms']:.4f}"
     if "own_schedule" in others:
         line += f" (wrapper building its own schedule: {case['own_schedule_ms']:.4f})"
-    if "mma_sync" in others:
-        case["mma_sync_device_ms"] = kernel_device_ms(torch, others["mma_sync"], GROUPED_KERNELS["mma_sync"])
-        line += f"; mma_sync body: wrapper_ms={case['mma_sync_ms']:.4f} device_ms={case['mma_sync_device_ms']:.4f}"
+    for body, what in (("mma_sync", "mma_sync body"), ("grid", "wgmma body, one block per item")):
+        if body in others:
+            case[f"{body}_device_ms"] = kernel_device_ms(torch, others[body], names[body])
+            line += f"; {what}: wrapper_ms={case[f'{body}_ms']:.4f} device_ms={case[f'{body}_device_ms']:.4f}"
     print(f"kernel {name} [{label.split(';')[0]}]: {line}")
     return ok
 
@@ -2619,15 +2644,16 @@ def check_train_kernels(torch, results: dict) -> bool:
             ("tgmm", f"gate table grad: xs^T dg -> ({E}, {h}, {m}), {tag}",
              lambda: moe_gmm.tgmm(xs, dg, sizes),  # noqa: B023
              lambda: moe_gmm.tgmm_plain(xs, dg, sizes), ("tgmm", xs, dg, sizes),  # noqa: B023
-             A_pad * h * 2 + A_pad * m * 4 + E * h * m * 2, None),
+             A_pad * h * 2 + A_pad * m * 4 + E * h * m * 2, (xs, dg, sizes)),
             ("tgmm", f"down table grad: a^T dy -> ({E}, {m}, {h}), {tag}",
              lambda: moe_gmm.tgmm(a, dy, sizes),  # noqa: B023
              lambda: moe_gmm.tgmm_plain(a, dy, sizes), ("tgmm", a, dy, sizes),  # noqa: B023
-             A_pad * m * 2 + A_pad * h * 4 + E * h * m * 2, None),
+             A_pad * m * 2 + A_pad * h * 4 + E * h * m * 2, (a, dy, sizes)),
         ]
-        for name, case_label, kern, plain, lib_args, nbytes, gmm_args in cases:
+        for name, case_label, kern, plain, lib_args, nbytes, args in cases:
             ok &= grouped_case(torch, results, name, f"{case_label}; library: torch._grouped_mm, bf16 operands", kern,
-                               plain, nbytes, 2.0 * A * h * m, grouped_library(torch, *lib_args), gmm_args)
+                               plain, nbytes, 2.0 * A * h * m, grouped_library(torch, *lib_args),
+                               **{"tgmm_args" if name == "tgmm" else "gmm_args": args})
         del xs, a, dy, dg
     # widths TMA cannot describe (rows of 200 bytes): the mma_sync body; no library line (_grouped_mm needs
     # 16-byte rows too)
@@ -2639,7 +2665,7 @@ def check_train_kernels(torch, results: dict) -> bool:
                        lambda: moe_gmm.gmm(x_odd, w_odd, sizes, sched=sched),
                        lambda: moe_gmm.gmm_plain(x_odd, w_odd, sizes),
                        1000 * 100 * 2 + 8 * 100 * 150 * 2 + 1000 * 150 * 4, 2.0 * 1000 * 100 * 150, None,
-                       (x_odd, w_odd, sizes, torch.float32, False, sched))
+                       gmm_args=(x_odd, w_odd, sizes, torch.float32, False, sched))
     ok &= check_ad_full_width(torch, w_gate, w_down, g, results)
     del w_gate, w_down
     torch.cuda.empty_cache()
@@ -2894,23 +2920,56 @@ def full_train_model(torch, device):
 
 def train_launch_checks(launches, layers: int, steps: int):
     """Per layer and step: the fused forward once, gmm (the recompute), gmm_trhs
-    and tgmm three times each, every gmm and gmm_trhs on the wgmma body; no
-    other kernel."""
+    and tgmm three times each, every gmm, gmm_trhs and tgmm on the wgmma body;
+    no other kernel."""
     want = {"moe_swiglu_gmm": layers * steps, "gmm": 3 * layers * steps, "gmm_trhs": 3 * layers * steps,
-            "tgmm": 3 * layers * steps, "gmm_wgmma": 3 * layers * steps, "gmm_trhs_wgmma": 3 * layers * steps}
+            "tgmm": 3 * layers * steps, "gmm_wgmma": 3 * layers * steps, "gmm_trhs_wgmma": 3 * layers * steps,
+            "tgmm_wgmma": 3 * layers * steps}
     return ([(f"{name} launches {launches[name]} == {n} ({n // steps} per step)", launches[name] == n)
              for name, n in want.items()]
             + [(f"{name} launches {n} == 0", n == 0) for name, n in launches.items() if name not in want and n])
 
 
-def profile_train_step(torch, state, step, record: dict):
+# the autograd nodes that carry each layer's gradient to its depth-stacked leaf: per-layer indexing's
+# (one full-size zero gradient per layer and leaf, summed at the leaf) and layer_views' (one stack per leaf)
+GRAD_PATH_NODES = ("SelectBackward0", "UnbindBackward0", "AccumulateGrad")
+
+
+def grad_path_ms(prof) -> dict:
+    """Device ms of the kernels that the GRAD_PATH_NODES of a profiled step
+    launched, by node and by kernel kind (fill, add, stack, copy, other)."""
+    nodes = {node: 0.0 for node in GRAD_PATH_NODES}
+    kinds = {kind: 0.0 for kind in ("fill", "add", "stack", "copy", "other")}
+
+    def kind(name):
+        low = name.lower()
+        return next((k for k, key in (("fill", "fill"), ("stack", "catarray"), ("add", "add"), ("copy", "copy"))
+                     if key in low), "other")
+
+    def walk(e):
+        for k in e.kernels:
+            kinds[kind(k.name)] += k.duration / 1e3
+        for child in e.cpu_children:
+            walk(child)
+
+    for e in prof.events():
+        if e.name.startswith("autograd::engine::evaluate_function: "):
+            node = next((n for n in GRAD_PATH_NODES if e.name.endswith(n)), None)
+            if node is not None:
+                nodes[node] += e.device_time_total / 1e3
+                walk(e)
+    return {"total_ms": sum(nodes.values()), "by_node_ms": nodes, "by_kind_ms": kinds}
+
+
+def profile_train_step(torch, state, step, record: dict, label: str = "train lm profile"):
     """One more LM step under torch.profiler, the loss (`lm_loss`) in a profiler
     range: device ms of the forward, of the optimizer update (the span of
     PyTorch's own `Optimizer.step` range on the device), of the backward (the
     rest of the step's kernel time), the device busy share of the step's wall
     time, the top kernels, the grouped matmuls' device ms per call and share,
-    and the routing they see (each layer's group sizes, kept from its schedule
-    as the step builds it). Returns the state."""
+    the routing they see (each layer's group sizes, kept from its schedule
+    as the step builds it), and the device ms of the way the layers'
+    gradients take to the stacked leaves (`grad_path_ms`). Returns the state."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from mingunivision_tpu_torch.engine import train as train_mod
@@ -2947,14 +3006,19 @@ def profile_train_step(torch, state, step, record: dict):
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     fwd_ms = stage_device_ms(device_events, ("train_forward",))["train_forward"][1]
     opt_ms = sum(e.time_range.elapsed_us() for e in device_events if e.name.startswith("Optimizer.step")) / 1e3
+    path = grad_path_ms(prof)
     record["profile"] = {"wall_ms": wall_ms, "busy_ms": busy_ms, "forward_ms": fwd_ms, "optimizer_ms": opt_ms,
-                         "backward_ms": busy_ms - fwd_ms - opt_ms}
-    print(f"train lm profile (one step, profiled): wall_ms={wall_ms:.1f} device_busy_ms={busy_ms:.1f} "
+                         "backward_ms": busy_ms - fwd_ms - opt_ms, "grad_path": path}
+    print(f"{label} (one step, profiled): wall_ms={wall_ms:.1f} device_busy_ms={busy_ms:.1f} "
           f"busy_share={busy_ms / wall_ms:.3f}; device ms: forward {fwd_ms:.1f}, backward {busy_ms - fwd_ms - opt_ms:.1f}, "
           f"optimizer {opt_ms:.1f} (its span); device events {len(kernels)}")
+    print(f"{label} gradient path to the stacked leaves: {path['total_ms']:.2f} ms device, "
+          f"{path['total_ms'] / busy_ms:.3f} of busy; by node: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in path["by_node_ms"].items()) + "; by kernel: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in path["by_kind_ms"].items()))
     top = [e for e in prof.key_averages() if e.device_type == cuda and not annotation(e)]
     for e in sorted(top, key=lambda e: -e.self_device_time_total)[:14]:
-        print(f"train lm profile kernel: {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} calls "
+        print(f"{label} kernel: {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} calls "
               f"{e.self_device_time_total / max(e.count, 1):10.3f} us/call  {e.key[:90]}")
     grouped = {}  # kernel body and types -> (device ms, calls)
     for e in top:
@@ -2968,9 +3032,9 @@ def profile_train_step(torch, state, step, record: dict):
                "row_tiles": (-(-sizes // moe_gmm.TILE_ROWS)).sum(1).tolist()}
     record["profile"].update(grouped_matmul_ms=grouped_ms, grouped_matmul_share=grouped_ms / busy_ms,
                              grouped_per_call_ms={k: ms / n for k, (ms, n) in grouped.items()}, routing=routing)
-    print(f"train lm profile grouped matmuls: {grouped_ms:.2f} ms device, {grouped_ms / busy_ms:.3f} of busy; per "
+    print(f"{label} grouped matmuls: {grouped_ms:.2f} ms device, {grouped_ms / busy_ms:.3f} of busy; per "
           f"call: " + "; ".join(f"{k} {ms / n:.4f} ms x {n}" for k, (ms, n) in grouped.items()))
-    print(f"train lm profile routing (per layer): experts used {routing['experts_used']}, largest group "
+    print(f"{label} routing (per layer): experts used {routing['experts_used']}, largest group "
           f"{routing['largest_group']} rows, row tiles {routing['row_tiles']} (uniform: 64 experts, 192 rows, 128 "
           f"tiles)")
     return state
@@ -3035,6 +3099,31 @@ def run_train(torch, device, results: dict) -> bool:
     results["train"] = {"lm": {"losses": losses, "step_ms": step_ms, "ms_per_step": ms, "tokens_per_s": B * T / ms * 1e3,
                                "resident_gib": resident / 2**30, "peak_gib": peak / 2**30, "params_b": n_params / 1e9}}
     state = profile_train_step(torch, state, lambda st: step(st, ids, mask), results["train"]["lm"])
+    # the same steps with the layers read by per-layer indexing, as quantized trees read them and as the train
+    # forward did before it took layer_views (one full-size zero gradient per layer and leaf): step time, peak
+    # memory and the gradient path beside the above, on the same weights and batch
+    from mingunivision_tpu_torch.models import bailing_moe
+
+    float_tree, idx_ms = bailing_moe.is_float_tree, []
+    bailing_moe.is_float_tree = lambda tree: False
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(4):
+            t1 = time.perf_counter()
+            state, loss = step(state, ids, mask)
+            float(loss)
+            torch.cuda.synchronize()
+            idx_ms.append((time.perf_counter() - t1) * 1e3)
+        idx_peak = torch.cuda.max_memory_allocated()
+        indexed = {"step_ms": idx_ms, "ms_per_step": statistics.median(idx_ms[1:]), "peak_gib": idx_peak / 2**30}
+        state = profile_train_step(torch, state, lambda st: step(st, ids, mask), indexed,
+                                   "train lm profile, per-layer indexing")
+    finally:
+        bailing_moe.is_float_tree = float_tree
+    results["train"]["lm"]["indexed_layers"] = indexed
+    print(f"train lm, per-layer indexing: ms/step {indexed['ms_per_step']:.1f} (steps "
+          f"{', '.join(f'{v:.1f}' for v in idx_ms)}) tokens/s {B * T / indexed['ms_per_step'] * 1e3:.1f}; peak "
+          f"{indexed['peak_gib']:.3f} GiB (layer_views: {ms:.1f} ms, {peak / 2**30:.3f} GiB)")
     del state, step
     gc.collect()
     torch.cuda.empty_cache()

@@ -38,7 +38,29 @@
 // registers under a row mask); a tile of 64 rows or fewer leaves the second
 // warpgroup without products (it still keeps the ring's barriers).
 //
-// gmm, the mma.sync route (widths TMA cannot take), and tgmm: one block of 8
+// tgmm, the wgmma route (the same TMA rule, at most 1,024 groups). The
+// products run transposed, out[e]^T (N x K) = grad[rows]^T . lhs[rows], so the
+// fp32 operand is A and splits in registers as above: A is read from the
+// staged grad tile (TMA, 128-byte swizzled, rows of N) transposed, two
+// neighbouring rows per register; B is the lhs tile, N-major as the forward
+// table. An item is (group, 128 grad columns, 256 lhs columns); a stage holds
+// 64 of the group's rows (2 stages). A group's rows start anywhere, and TMA
+// fills zeros only past R: in a group's last stage the rows of what follows
+// are zeroed in A's split and in B's shared tile (generic stores, then
+// fence.proxy.async before the products), so neither a next group's value nor
+// its NaN or Inf reaches this group. The epilogue stages each consumer
+// warpgroup's 64 x 256 tile transposed (stmatrix .trans) in its own
+// 128-byte-swizzled shared tile and stores it with TMA (clipped at K and N:
+// K = 1408 takes 5.5 column tiles); the next item's loads and products do not
+// wait for it. At the train shape a uniform item holds only about 192 rows,
+// so each block is persistent, one per multiprocessor, walking items from the
+// largest group down (a skewed routing's heavy groups start first; each block
+// sums and ranks the groups' sizes in shared memory), its producer filling
+// the next item's stages while the consumers finish one (on an H100 1.3-1.5x
+// faster than a block per item). Empty groups' items store zeros. Each SM's
+// shared memory is the likely limit: per stage the lhs tile is read twice by
+// the products (hi and lo), the grad tile by the split, and TMA writes both.
+// gmm, the mma.sync route (widths TMA cannot take), and tgmm's: one block of 8
 // warps computes a 128 x 128 output tile with mma.sync.m16n8k16 bf16
 // products into fp32 accumulators (each warp 64 x 32). Operands are staged
 // through shared memory in 32-deep k-chunks, each in its memory order:
@@ -56,8 +78,9 @@
 //          on the device: no host sync), then tiles of group -1 over the rows
 //          of no group, which the kernels fill with zeros (the output is not
 //          zero-filled beforehand); empty entries exit at once.
-//   tgmm   grid (column tiles, row tiles of K, groups): each block walks its
-//          group's rows 32 at a time; a group with no rows stores zeros.
+//   tgmm   mma.sync route: grid (column tiles, row tiles of K, groups): each
+//          block walks its group's rows 32 at a time; a group with no rows
+//          stores zeros.
 #include <cuda.h>
 
 #include <type_traits>
@@ -321,16 +344,26 @@ __global__ void __launch_bounds__(kThreads) gmm_kernel(const TL* __restrict__ lh
   store_tile(acc, out + (long)r0 * N + n0, N, r1 - r0, N - n0);
 }
 
+// Group e's rows, s .. end - 1: after the first e groups' sizes, cut at R.
+__device__ __forceinline__ void group_rows(const int* __restrict__ sizes, int e, int R, int& s, int& end) {
+  long long c = 0;
+  for (int f = 0; f < e; ++f) c += sizes[f];
+  s = c < R ? (int)c : R;
+  c += sizes[e];
+  end = c < R ? (int)c : R;
+}
+
 // out (E, K, N): out[e] = lhs[rows of e]^T . grad[rows of e], lhs (R, K) bf16,
-// grad (R, N); offsets (E + 1,) int32 are the groups' first rows.
+// grad (R, N); sizes (E,) int32, the groups' rows in order.
 template <typename TG, typename TO>
 __global__ void __launch_bounds__(kThreads) tgmm_kernel(const bf16* __restrict__ lhs, const TG* __restrict__ grad,
-                                                        const int* __restrict__ offsets, TO* __restrict__ out, int K,
-                                                        int N, bool vec) {
+                                                        const int* __restrict__ sizes, TO* __restrict__ out, int R,
+                                                        int K, int N, bool vec) {
   const int e = blockIdx.z;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
-  const int s = offsets[e], end = offsets[e + 1];
+  int s, end;
+  group_rows(sizes, e, R, s, end);
   __shared__ __align__(16) bf16 ah[TILE];
   __shared__ __align__(16) bf16 bh[TILE];
   __shared__ __align__(16) bf16 bl[TILE];
@@ -371,11 +404,11 @@ int launch_gmm(const void* lhs, const void* rhs, const void* sched, void* out, i
 }
 
 template <typename TG, typename TO>
-int launch_tgmm(const void* lhs, const void* grad, const void* offsets, void* out, int E, int K, int N,
+int launch_tgmm(const void* lhs, const void* grad, const void* sizes, void* out, int R, int E, int K, int N,
                 cudaStream_t st) {
   dim3 grid((N + BN - 1) / BN, (K + BM - 1) / BM, E);
   tgmm_kernel<TG, TO><<<grid, kThreads, 0, st>>>(static_cast<const bf16*>(lhs), static_cast<const TG*>(grad),
-                                                 static_cast<const int*>(offsets), static_cast<TO*>(out), K, N,
+                                                 static_cast<const int*>(sizes), static_cast<TO*>(out), R, K, N,
                                                  vectors_fit(lhs, grad, K, N));
   return (int)cudaGetLastError();
 }
@@ -667,6 +700,293 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// tgmm, the wgmma route: out[e]^T (N x K) = grad[rows of e]^T . lhs[rows of e],
+// persistent blocks over (group, 128 grad columns, 256 lhs columns) items
+// ---------------------------------------------------------------------------
+
+constexpr int TS = 64;                         // rows (the contraction) per tgmm stage
+constexpr int TM = 128;                        // grad columns per item: the products' M, 64 per consumer warpgroup
+constexpr uint32_t kTBoxBytes = TS * 128;      // one 128-byte-wide TMA box of a stage
+constexpr uint32_t kEpiBytes = 32 * 1024;      // a consumer warpgroup's staged output tile
+constexpr int kMaxGroups = 1024;               // groups ordered in shared memory
+
+// The ring of one grad type: a stage holds A (TS rows x 128 grad columns:
+// fp32 as four 32-column boxes, bf16 as two 64-column ones) and B (TS rows x
+// 256 lhs columns, four 64-column boxes); each consumer warpgroup has its own
+// epilogue tile; the groups' offsets and their order by size follow.
+template <typename TG>
+struct TRing {
+  static constexpr bool F32 = std::is_same<TG, float>::value;
+  static constexpr uint32_t kABytes = TS * TM * sizeof(TG);
+  static constexpr uint32_t kBBytes = TS * TN * 2;
+  static constexpr uint32_t kStageBytes = kABytes + kBBytes;
+  static constexpr int kStages = (200 * 1024 - kConsumers * kEpiBytes) / kStageBytes;  // 2 for either grad
+  static constexpr size_t kSmem =
+      kStages * kStageBytes + kConsumers * kEpiBytes + 2 * kStages * 8 + (2 * kMaxGroups + 2) * 4 + 1024;
+};
+
+__device__ __forceinline__ void named_bar(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+// Four 8 x 8 bf16 blocks of the warp's registers into shared memory, each
+// transposed (lanes 8i .. 8i + 7 give the row addresses of block i).
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, const uint32_t (&v)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v[0]),
+               "r"(v[1]), "r"(v[2]), "r"(v[3])
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+// One work item: group e, grad columns n0 .. n0 + 127, lhs columns k0 .. k0 +
+// 255, the group's rows r0 .. r1 - 1. Items run through the groups from the
+// largest (order), each group's items with the grad columns fastest.
+struct TItem {
+  int e, n0, k0, r0, r1;
+};
+
+__device__ __forceinline__ TItem t_item(int i, const int* offs, const int* order, int m_tiles, int per_group) {
+  const int e = order[i / per_group], t = i % per_group;
+  return {e, (t % m_tiles) * TM, (t / m_tiles) * TN, offs[e], offs[e + 1]};
+}
+
+// The thread's A registers of k16 step ks, A[m][k] = grad[row k][column m]
+// from a staged grad tile (rows of 128 bytes, 16-byte chunk c of row k at
+// c ^ (k % 8)): registers (m = mrow + g, k 2t, 2t + 1), (m + 8, the same),
+// (m, k + 8), (m + 8, k + 8); rows at or past `valid` (the group's end) read
+// as zeros. fp32 values are split into hi = bf16(v) and lo = bf16(v - hi).
+template <typename TG>
+__device__ __forceinline__ void t_frags(const uint8_t* tile, int mrow, int ks, int lane, int valid, uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = mrow + g + 8 * (i & 1), k = 16 * ks + 2 * t + 8 * (i >> 1);
+    if constexpr (std::is_same<TG, float>::value) {
+      const uint8_t* col = tile + (m >> 5) * kTBoxBytes + (m & 3) * 4;
+      float v[2];
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+        v[p] = k + p < valid ? *reinterpret_cast<const float*>(col + (k + p) * 128 + ((((m & 31) >> 2) ^ (2 * t + p)) << 4))
+                             : 0.0f;
+      const bf162 h = __floats2bfloat162_rn(v[0], v[1]);
+      const float2 hf = __bfloat1622float2(h);
+      const bf162 l = __floats2bfloat162_rn(v[0] - hf.x, v[1] - hf.y);
+      hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[i] = *reinterpret_cast<const uint32_t*>(&l);
+    } else {
+      const uint8_t* col = tile + (m >> 6) * kTBoxBytes + (m & 7) * 2;
+      bf16 v[2];
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+        v[p] = k + p < valid ? *reinterpret_cast<const bf16*>(col + (k + p) * 128 + ((((m & 63) >> 3) ^ (2 * t + p)) << 4))
+                             : __float2bfloat16(0.0f);
+      const bf162 h = __halves2bfloat162(v[0], v[1]);
+      hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+  }
+}
+
+// The consumer warpgroup's tile (64 grad columns x 256 lhs columns, thread
+// (warp, g, t) holding columns 16 warp + g (+ 8) at lhs columns 8 j + 2 t (+ 1))
+// into out[e] (K, N) at rows k0.., columns nw..: staged transposed in the
+// warpgroup's 128-byte-swizzled tile (rows of lhs columns, grad columns
+// contiguous), then TMA stores that clip at K and N. bf16: stmatrix .trans
+// writes each 8 x 8 block of the accumulators transposed; the 256 rows in one
+// store. fp32: two passes of 128 rows, each two 32-column boxes.
+template <typename TO>
+__device__ __forceinline__ void t_store(const float (&acc)[TN / 2], uint8_t* buf, uint32_t buf_s,
+                                        const CUtensorMap* out_map, int e, int nw, int k0, int N, int K, int wgi,
+                                        int tid) {
+  constexpr bool F32 = std::is_same<TO, float>::value;
+  const int warp = tid / 32, lane = tid % 32;
+#pragma unroll
+  for (int q = 0; q < (F32 ? 2 : 1); ++q) {
+    if (tid == 0) bulk_wait_read();  // the previous store has read the tile
+    named_bar(2 + wgi, 128);
+    if constexpr (F32) {
+      const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            const int r = 8 * jj + 2 * t + p, m = 16 * warp + 8 * h + g;
+            *reinterpret_cast<float*>(buf + (m >> 5) * (kEpiBytes / 2) + r * 128 + ((((m & 31) >> 2) ^ (r & 7)) << 4) +
+                                      (m & 3) * 4) = acc[4 * (16 * q + jj) + 2 * h + p];
+          }
+    } else {
+      // the 8 x 8 blocks (grad columns 16 warp + 8 h.., lhs columns 8 j..), four per stmatrix .trans: lane l
+      // names row l % 8 (lhs column 8 j + l % 8) of block l / 8 (j = 2 p + (l / 8) / 2, h = (l / 8) % 2)
+      const uint32_t row = (uint32_t)(lane & 7), q = (uint32_t)(lane >> 3);
+#pragma unroll
+      for (int p = 0; p < TN / 16; ++p) {
+        uint32_t v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bf162 pair = __floats2bfloat162_rn(acc[4 * (2 * p + (i >> 1)) + 2 * (i & 1)],
+                                                   acc[4 * (2 * p + (i >> 1)) + 2 * (i & 1) + 1]);
+          v[i] = *reinterpret_cast<const uint32_t*>(&pair);
+        }
+        const uint32_t c = 16 * p + 8 * (q >> 1) + row, chunk = 2 * warp + (q & 1);
+        stmatrix_x4_trans(buf_s + c * 128 + ((chunk ^ row) << 4), v);
+      }
+    }
+    fence_async_smem();
+    named_bar(2 + wgi, 128);
+    if (tid == 0) {
+      const int kq = k0 + 128 * q;
+      if (kq < K) {
+        if constexpr (F32) {
+          if (nw < N) tma_store_3d(out_map, buf_s, nw, kq, e);
+          if (nw + 32 < N) tma_store_3d(out_map, buf_s + kEpiBytes / 2, nw + 32, kq, e);
+        } else if (nw < N) {
+          tma_store_3d(out_map, buf_s, nw, kq, e);
+        }
+      }
+      bulk_commit();
+    }
+  }
+}
+
+// One stage of a consumer warpgroup's item (the ring's ctr-th): wait for its
+// copies; where the group ends inside it (the group's last rows r .. r1 - 1),
+// zero B's rows past the end (both warpgroups, then fence.proxy.async and
+// their barrier); then per k16 step split A into its own registers and issue
+// its products, so each step's split runs beside the previous step's
+// products; wait for them and free the slot.
+template <typename TG>
+__device__ __forceinline__ void t_stage(float (&acc)[TN / 2], uint8_t* tiles, uint32_t base, uint32_t full0,
+                                        uint32_t empty0, int ctr, int r, int r1, int mrow, int lane, int tid) {
+  using Cfg = TRing<TG>;
+  const int s = ctr % Cfg::kStages, valid = min(TS, r1 - r);
+  const uint32_t b = base + s * Cfg::kStageBytes + Cfg::kABytes;
+  mbar_wait(full0 + 8 * s, (ctr / Cfg::kStages) & 1);
+  if (valid < TS) {  // the group ends in this stage: zero B's rows of what follows it
+    uint8_t* bp = tiles + (b - base);
+    const int per_box = (TS - valid) * 8;  // 16-byte vectors
+    for (int v = threadIdx.x; v < per_box * (TN / 64); v += kConsumers * 128)
+      *reinterpret_cast<uint4*>(bp + (v / per_box) * kTBoxBytes + valid * 128 + (v % per_box) * 16) =
+          make_uint4(0, 0, 0, 0);
+    fence_async_smem();
+    named_bar(1, kConsumers * 128);
+  }
+  uint32_t hi[TS / 16][4], lo[TS / 16][4];
+  fence_acc(acc);
+#pragma unroll
+  for (int ks = 0; ks < TS / 16; ++ks) {
+    t_frags<TG>(tiles + s * Cfg::kStageBytes, mrow, ks, lane, valid, hi[ks], lo[ks]);
+    wgmma_fence();
+    const uint64_t db = smem_desc(b + ks * 16 * 128, kTBoxBytes, kGroupBytes);
+    Wgmma<1>::rs(acc, hi[ks], db);
+    if constexpr (Cfg::F32) Wgmma<1>::rs(acc, lo[ks], db);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_acc(acc);
+  if (tid == 0) mbar_arrive(empty0 + 8 * s);
+}
+
+// out (E, K, N) bf16 or fp32: out[e] = lhs[rows of e]^T . grad[rows of e], as
+// out[e]^T = grad^T . lhs: A = the grad tile read transposed from shared
+// memory into registers (fp32 split into two products), B = the lhs tile,
+// N-major (the MN-major descriptor, transpose-B bit). grad_map over grad
+// (N, R innermost first; boxes of 128 bytes x TS rows), lhs_map over lhs (K,
+// R; boxes of 64 x TS), out_map over out (N, K, E; boxes of 64 x 256 x 1 bf16,
+// 32 x 128 x 1 fp32). sizes (E,) int32: the groups' rows in order (their
+// bounds are summed in shared memory, cut at R). Rows of other groups in a
+// group's last stage are zeroed in both operands (A in the split, B in shared
+// memory before the products), so nothing of them leaks, not even a NaN; an
+// empty group's items store zeros.
+template <typename TG, typename TO>
+__global__ void __launch_bounds__(kThreads, 1)
+    tgmm_wgmma_kernel(const __grid_constant__ CUtensorMap grad_map, const __grid_constant__ CUtensorMap lhs_map,
+                      const __grid_constant__ CUtensorMap out_map, const int* __restrict__ sizes, int R, int E,
+                      int K, int N) {
+  using Cfg = TRing<TG>;
+  constexpr int kAB = 128 / sizeof(TG);  // grad columns per 128-byte box
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* tiles = smem_raw + (base - raw);
+  const uint32_t epi0 = base + Cfg::kStages * Cfg::kStageBytes;
+  const uint32_t full0 = epi0 + kConsumers * kEpiBytes, empty0 = full0 + 8 * Cfg::kStages;
+  int* offs = reinterpret_cast<int*>(tiles + (empty0 + 8 * Cfg::kStages - base));
+  int* order = offs + E + 1;
+  for (int i = threadIdx.x; i < E; i += blockDim.x) order[i] = sizes[i];  // the sizes, until the ranking below
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Cfg::kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e <= E; e += blockDim.x) {  // the groups' bounds: offs[e] is group e's first row
+    long long c = 0;
+    for (int f = 0; f < e; ++f) c += order[f];
+    offs[e] = c < R ? (int)c : R;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < E; e += blockDim.x) {  // rank the groups by size, largest first, ties by index
+    const int size = offs[e + 1] - offs[e];
+    int rank = 0;
+    for (int f = 0; f < E; ++f) {
+      const int sf = offs[f + 1] - offs[f];
+      rank += sf > size || (sf == size && f < e);
+    }
+    order[rank] = e;
+  }
+  __syncthreads();
+  const int m_tiles = (N + TM - 1) / TM, per_group = m_tiles * ((K + TN - 1) / TN), n_items = E * per_group;
+  const int wgi = threadIdx.x / 128;
+  if (wgi == kConsumers) {  // the producer: one thread starts every copy, running ahead into the next items
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == kConsumers * 128) {
+      int ctr = 0;
+      for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+        const TItem it = t_item(i, offs, order, m_tiles, per_group);
+        for (int r = it.r0; r < it.r1; r += TS, ++ctr) {
+          const int s = ctr % Cfg::kStages;
+          const uint32_t full = full0 + 8 * s, a = base + s * Cfg::kStageBytes, b = a + Cfg::kABytes;
+          mbar_wait(empty0 + 8 * s, ((ctr / Cfg::kStages) & 1) ^ 1);
+          mbar_expect_tx(full, Cfg::kStageBytes);
+#pragma unroll
+          for (int c = 0; c < TM / kAB; ++c) tma_load_2d(a + c * kTBoxBytes, &grad_map, full, it.n0 + kAB * c, r);
+#pragma unroll
+          for (int c = 0; c < TN / 64; ++c) tma_load_2d(b + c * kTBoxBytes, &lhs_map, full, it.k0 + 64 * c, r);
+        }
+      }
+    }
+  } else {  // a consumer: grad columns 64 wgi .. 64 wgi + 63 of each item
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int tid = threadIdx.x % 128, lane = tid % 32, mrow = wgi * 64 + tid / 32 * 16;
+    uint8_t* buf = tiles + (epi0 - base) + wgi * kEpiBytes;
+    float acc[TN / 2];
+    int ctr = 0;
+    for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+      const TItem it = t_item(i, offs, order, m_tiles, per_group);
+#pragma unroll
+      for (int j = 0; j < TN / 2; ++j) acc[j] = 0.0f;
+      for (int r = it.r0; r < it.r1; r += TS, ++ctr)
+        t_stage<TG>(acc, tiles, base, full0, empty0, ctr, r, it.r1, mrow, lane, tid);
+      t_store<TO>(acc, buf, epi0 + wgi * kEpiBytes, &out_map, it.e, it.n0 + 64 * wgi, it.k0, N, K, wgi, tid);
+    }
+    if (tid == 0) bulk_wait();
+  }
+}
+
 }  // namespace wg
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -729,6 +1049,58 @@ int launch_gmm_wgmma(const void* lhs, const void* rhs, const void* sched, void* 
   return (int)cudaGetLastError();
 }
 
+// The multiprocessors of the current device: the persistent grid's width.
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+// tgmm's wgmma route: one block per multiprocessor (or `max_blocks`, when
+// positive: at one block per item it is the one-block-per-tile grid), each
+// walking its share of the E x ceil(N / 128) x ceil(K / 256) items.
+template <typename TG, typename TO>
+int launch_tgmm_wgmma(const void* lhs, const void* grad, const void* sizes, void* out, int R, int E, int K, int N,
+                      int max_blocks, cudaStream_t st) {
+  using Cfg = wg::TRing<TG>;
+  constexpr bool OUT_F32 = std::is_same<TO, float>::value;
+  if (!vectors_fit(lhs, grad, K, N) || reinterpret_cast<uintptr_t>(out) % 16 != 0 || R < 1 || E < 1 ||
+      E > wg::kMaxGroups)
+    return (int)cudaErrorInvalidValue;  // TMA needs 16-byte rows; the groups are ordered in shared memory
+  const cuuint64_t g_dims[2] = {(cuuint64_t)N, (cuuint64_t)R}, g_strides[1] = {(cuuint64_t)N * sizeof(TG)};
+  const cuuint32_t g_box[2] = {128 / sizeof(TG), wg::TS};
+  const cuuint64_t l_dims[2] = {(cuuint64_t)K, (cuuint64_t)R}, l_strides[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t l_box[2] = {64, wg::TS};
+  const cuuint64_t o_dims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)E};
+  const cuuint64_t o_strides[2] = {(cuuint64_t)N * sizeof(TO), (cuuint64_t)K * N * sizeof(TO)};
+  const cuuint32_t o_box[3] = {OUT_F32 ? 32u : 64u, OUT_F32 ? 128u : 256u, 1};
+  CUtensorMap grad_map, lhs_map, out_map;
+  if (!encode(&grad_map, Cfg::F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, grad,
+              g_dims, g_strides, g_box) ||
+      !encode(&lhs_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, lhs, l_dims, l_strides, l_box) ||
+      !encode(&out_map, OUT_F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, out, o_dims,
+              o_strides, o_box))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = wg::tgmm_wgmma_kernel<TG, TO>;
+  const cudaError_t rc = allow_dynamic_smem(kernel, Cfg::kSmem);
+  if (rc != cudaSuccess) return (int)rc;
+  const long items = (long)E * ((N + wg::TM - 1) / wg::TM) * ((K + wg::TN - 1) / wg::TN);
+  static const int sms = sm_count();  // the persistent grid's width, queried once
+  const int width = max_blocks > 0 ? max_blocks : sms;
+  if (width < 1) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)(items < width ? items : width), wg::kThreads, Cfg::kSmem, st>>>(
+      grad_map, lhs_map, out_map, static_cast<const int*>(sizes), R, E, K, N);
+  return (int)cudaGetLastError();
+}
+
+template <typename TG, typename TO>
+int launch_tgmm_route(int route, const void* lhs, const void* grad, const void* sizes, void* out, int R, int E, int K,
+                      int N, int max_blocks, cudaStream_t st) {
+  return route ? launch_tgmm_wgmma<TG, TO>(lhs, grad, sizes, out, R, E, K, N, max_blocks, st)
+               : launch_tgmm<TG, TO>(lhs, grad, sizes, out, R, E, K, N, st);
+}
+
 template <typename TL, bool TRANS, typename TO>
 int launch_gmm_route(int route, const void* lhs, const void* rhs, const void* sched, void* out, int n_tiles, int R,
                      int E, int K, int N, cudaStream_t st) {
@@ -762,17 +1134,22 @@ extern "C" int mu_gmm(const void* lhs, const void* rhs, const void* sched, void*
   }
 }
 
-// out (E, K, N) = per group e, lhs[offsets[e]:offsets[e+1]]^T . grad[...]:
-// lhs (R, K) bf16, grad (R, N) bf16 or fp32 (grad_f32), out bf16 or fp32
-// (out_f32), fp32 accumulation rounded once; a group without rows gets zeros.
-extern "C" int mu_tgmm(const void* lhs, const void* grad, const void* offsets, void* out, int E, int K, int N,
-                       int grad_f32, int out_f32, void* stream) {
+// out (E, K, N) = per group e, lhs[rows of e]^T . grad[rows of e]: lhs (R,
+// K) bf16, grad (R, N) bf16 or fp32 (grad_f32), out bf16 or fp32 (out_f32),
+// fp32 accumulation rounded once; sizes (E,) int32, the groups' rows in order
+// (rows past R belong to none); a group without rows gets zeros.
+// route 1: the wgmma body (16-byte aligned lhs, grad and out, K and N
+// multiples of 8, R >= 1, E <= 1024, else cudaErrorInvalidValue; max_blocks
+// <= 0: one persistent block per multiprocessor), 0: the mma_sync body (any
+// widths; max_blocks unused). The wrapper chooses it (moe_gmm.tgmm_route).
+extern "C" int mu_tgmm(const void* lhs, const void* grad, const void* sizes, void* out, int R, int E, int K, int N,
+                       int grad_f32, int out_f32, int route, int max_blocks, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (grad_f32)
-    return out_f32 ? launch_tgmm<float, float>(lhs, grad, offsets, out, E, K, N, st)
-                   : launch_tgmm<float, bf16>(lhs, grad, offsets, out, E, K, N, st);
-  return out_f32 ? launch_tgmm<bf16, float>(lhs, grad, offsets, out, E, K, N, st)
-                 : launch_tgmm<bf16, bf16>(lhs, grad, offsets, out, E, K, N, st);
+    return out_f32 ? launch_tgmm_route<float, float>(route, lhs, grad, sizes, out, R, E, K, N, max_blocks, st)
+                   : launch_tgmm_route<float, bf16>(route, lhs, grad, sizes, out, R, E, K, N, max_blocks, st);
+  return out_f32 ? launch_tgmm_route<bf16, float>(route, lhs, grad, sizes, out, R, E, K, N, max_blocks, st)
+                 : launch_tgmm_route<bf16, bf16>(route, lhs, grad, sizes, out, R, E, K, N, max_blocks, st);
 }
 
 // Rows per schedule tile the gmm kernel was compiled for.

@@ -5,7 +5,8 @@ tree: depth-stacked layer leaves (L, ...), `(in, out)` linear weights, expert
 tables (L, E, h, m) / (L, E, m, h), and a head-major KV cache
 (L, B, Hkv, Smax, D). The layer loop is a Python loop; each layer reads
 zero-copy views of the stacked leaves, and the MoE kernels read the layer's
-expert tables as views of the stacked tables.
+expert tables as views of the stacked tables (in training, a float tree's
+leaves are split by one unbind each, the expert tables too).
 
 Dispatch: decode-shape MoE (B*T <= MOE_DECODE_MAX_TOKENS) goes to the
 decode-MoE kernel, larger token counts to the grouped-SwiGLU prefill kernel
@@ -43,7 +44,7 @@ from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swigl
 from mingunivision_tpu_torch.ops.linear import dense
 from mingunivision_tpu_torch.ops.norms import rms_norm
 from mingunivision_tpu_torch.ops.rope import apply_rope, mrope_cos_sin, rope_cos_sin
-from mingunivision_tpu_torch.utils.pytree import layer_view
+from mingunivision_tpu_torch.utils.pytree import is_float_tree, layer_view, layer_views, leaves
 from mingunivision_tpu_torch.utils.quantize import QuantizedArray, dequant_weight, is_nf4
 
 # At or below this many rows the decode-shape MoE runs (as in the JAX package).
@@ -130,7 +131,8 @@ def moe_block_apply(params, cfg, x, image_mask=None, audio_mask=None, *, experts
 
     x (B, T, h); image_mask/audio_mask: optional bool (B, T) selecting tokens
     routed by the modality gates. `experts_stacked` are the depth-stacked
-    tables, indexed by `layer_idx` inside the kernels. token_valid: optional
+    tables, indexed by `layer_idx` inside the kernels, or one layer's (E, ...)
+    tables with `layer_idx` None (the train forward). token_valid: optional
     bool (B, T) of real (non-padding) tokens, read by the capacity-dense
     dispatch only (see `moe_experts_capacity_gmm_exact`); the padding rows'
     outputs are discarded downstream. int_dots: the decode MoE's dot mode over
@@ -256,7 +258,10 @@ def bailing_forward(params, cfg, inputs_embeds, cache: LLMCache | None, attn_mas
     the cache returned is None. return_router_stats: also return (logits
     (L, N, E) fp32, topk_idx (L, N, k)), stacked over the layers, for the
     training aux losses. cfg.remat_layers: each layer's activations are
-    recomputed in the backward (torch.utils.checkpoint) when grad is enabled."""
+    recomputed in the backward (torch.utils.checkpoint) when grad is enabled.
+    Under grad, when a leaf of a float tree wants a grad (training), the
+    layers are read through `layer_views`, so each stacked leaf's gradient is
+    one stack of its layers' gradients."""
     B, T, _ = inputs_embeds.shape
     length = 0 if cache is None else cache.length
     if positions is None:
@@ -269,19 +274,30 @@ def bailing_forward(params, cfg, inputs_embeds, cache: LLMCache | None, attn_mas
     # the valid (non-padding) flags of the T new tokens: attn_mask is True exactly at the valid
     # positions of [cache.length, cache.length + T) (the prefill contract); a decode step's token is valid
     token_valid = attn_mask[:, length : length + T] if T > 1 else None
-    # the expert tables stay stacked: the MoE kernels take a layer's view themselves
     layers = params["layers"]
-    experts = layers["mlp"]["experts"]
-    per_layer = {**layers, "mlp": {k: v for k, v in layers["mlp"].items() if k != "experts"}}
+    L = cfg.num_hidden_layers
+    if torch.is_grad_enabled() and is_float_tree(layers) and any(t.requires_grad for t in leaves(layers)):
+        # training: every leaf, the expert tables too, is split by one unbind (its backward one stack per leaf;
+        # indexing the leaf once per layer would give it one full-size zero gradient per layer) and the MoE
+        # entries take the layer's own (E, ...) tables; the views are taken outside the checkpointed layer
+        views = layer_views(layers, L)
+        per_layer = [{**v, "mlp": {k: t for k, t in v["mlp"].items() if k != "experts"}} for v in views]
+        experts, layer_idx = [v["mlp"]["experts"] for v in views], [None] * L
+    else:
+        # inference (no leaf that wants a grad), and quantized trees: zero-copy views of each layer, the expert
+        # tables stay stacked (the MoE kernels take a layer's view themselves)
+        stacked = {**layers, "mlp": {k: v for k, v in layers["mlp"].items() if k != "experts"}}
+        per_layer = [layer_view(stacked, l) for l in range(L)]
+        experts, layer_idx = [layers["mlp"]["experts"]] * L, list(range(L))
     remat = cfg.remat_layers and torch.is_grad_enabled()
     x, stats = inputs_embeds, []
-    for l in range(cfg.num_hidden_layers):
+    for l in range(L):
         kc, vc = (None, None) if cache is None else (cache.k[l], cache.v[l])
 
         def layer(x, l=l, kc=kc, vc=vc):
-            return decoder_layer_apply(layer_view(per_layer, l), cfg, x, cos, sin, kc, vc, length, attn_mask,
-                                       image_mask, audio_mask, use_flash=use_flash, experts_stacked=experts,
-                                       layer_idx=l, token_valid=token_valid, int_dots=int_dots,
+            return decoder_layer_apply(per_layer[l], cfg, x, cos, sin, kc, vc, length, attn_mask, image_mask,
+                                       audio_mask, use_flash=use_flash, experts_stacked=experts[l],
+                                       layer_idx=layer_idx[l], token_valid=token_valid, int_dots=int_dots,
                                        prefill_int_dots=prefill_int_dots, return_router_stats=return_router_stats,
                                        kv_dtype=kv_dtype)
 

@@ -47,7 +47,7 @@ _SIGNATURES = {
     "mu_rf_mlp_stack": [_P] * 12 + [_I] * 9 + [ctypes.c_float, _P],
     "mu_swiglu_gmm_full": [_P] * 10 + [_I] * 4 + [_P],
     "mu_gmm": [_P] * 4 + [_I] * 9 + [_P],
-    "mu_tgmm": [_P] * 4 + [_I] * 5 + [_P],
+    "mu_tgmm": [_P] * 4 + [_I] * 8 + [_P],
     "mu_gmm_tile_rows": [],
     "mu_gathered_expert_matmul": [_P] * 4 + [_I] * 4 + [_P],
 }

@@ -22,10 +22,11 @@ zero, tgmm reads none of them. On the card the kernels read the (E, K, N) bf16
 tables as they lie (a layer's view of the depth-stacked leaf, no copy) and
 schedule their row tiles on the device (`gmm_schedule`: no host sync);
 `moe_experts_gmm` builds one schedule per layer for its six `gmm` calls.
-`gmm` has two kernel bodies in `csrc/gmm.cu`, chosen by shape and alignment
-alone (`gmm_route`): "wgmma", a TMA-fed ring of stages into wgmma products,
-where TMA can describe the operands (every shape of the model), and
-"mma_sync" for the rest; each route counts its launches in `route_counts`.
+`gmm` and `tgmm` each have two kernel bodies in `csrc/gmm.cu`, chosen by
+shape and alignment alone (`gmm_route`, `tgmm_route`): "wgmma", a TMA-fed
+ring of stages into wgmma products (tgmm's in persistent blocks), where TMA
+can describe the operands (every shape of the model), and "mma_sync" for the
+rest; each route counts its launches in `route_counts`.
 The wrappers run the plain versions for CPU tensors only; for CUDA tensors
 they launch their kernel or raise. The JAX package's
 `expert_sort` (a counting sort its benchmark measured slower than argsort)
@@ -44,6 +45,7 @@ from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import tile_schedule
 PAD_ROWS = 128  # moe_experts_gmm pads the sorted rows to a multiple of this (megablox's row tile)
 TILE_ROWS = 128  # rows per schedule tile of both gmm routes (csrc/gmm.cu's BM, `mu_gmm_tile_rows`)
 GMM_ROUTES = ("wgmma", "mma_sync")
+TGMM_MAX_GROUPS = 1024  # groups the wgmma tgmm orders by size in shared memory
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -54,7 +56,7 @@ class RouteCount:
         self.launches = 0
 
 
-route_counts = {op: {route: RouteCount() for route in GMM_ROUTES} for op in ("gmm", "gmm_trhs")}
+route_counts = {op: {route: RouteCount() for route in GMM_ROUTES} for op in ("gmm", "gmm_trhs", "tgmm")}
 
 
 def _group_bounds(group_sizes: torch.Tensor, rows: int):
@@ -110,6 +112,14 @@ def gmm_route(lhs: torch.Tensor, rhs: torch.Tensor, K: int, N: int) -> str:
     multiples of 8 elements), else "mma_sync"."""
     tma = K % 8 == 0 and N % 8 == 0 and lhs.data_ptr() % 16 == 0 and rhs.data_ptr() % 16 == 0
     return "wgmma" if tma else "mma_sync"
+
+
+def tgmm_route(lhs: torch.Tensor, grad: torch.Tensor, K: int, N: int, E: int) -> str:
+    """The kernel body `tgmm` launches, by shape and alignment alone: "wgmma"
+    (TMA copies: 16-byte aligned operands, K and N multiples of 8; at least one
+    row, at most TGMM_MAX_GROUPS groups), else "mma_sync"."""
+    tma = K % 8 == 0 and N % 8 == 0 and lhs.data_ptr() % 16 == 0 and grad.data_ptr() % 16 == 0
+    return "wgmma" if tma and lhs.shape[0] > 0 and 0 < E <= TGMM_MAX_GROUPS else "mma_sync"
 
 
 def _check(op: str, dev, group_sizes, out_dtype, **tensors):
@@ -171,21 +181,31 @@ def tgmm(lhs, grad, group_sizes, *, out_dtype=torch.bfloat16):
     """out (E, K, N): per group e, lhs[rows of e]^T @ grad[rows of e], fp32
     accumulation rounded once; zeros for an empty group (megablox's
     `num_actual_groups` visit). On the card: bf16 lhs, bf16 or fp32 grad,
-    bf16 or fp32 out. CPU tensors take `tgmm_plain`."""
+    bf16 or fp32 out, the body `tgmm_route` picks; the launch counts on `tgmm`
+    and on its route. CPU tensors take `tgmm_plain`."""
     if lhs.device.type == "cpu":
         return tgmm_plain(lhs, grad, group_sizes, out_dtype=out_dtype)
     _check("tgmm", lhs.device, group_sizes, out_dtype, lhs=(lhs, (torch.bfloat16,), 2), grad=(grad, _OUT_DTYPES, 2))
     (R, K), N, E = lhs.shape, grad.shape[1], group_sizes.shape[0]
     if grad.shape[0] != R:
         raise ValueError(f"tgmm: lhs {tuple(lhs.shape)} and grad {tuple(grad.shape)} need the same rows")
-    ends = group_sizes.long().cumsum(0).clamp(max=R)
-    offsets = torch.cat([ends.new_zeros(1), ends]).to(torch.int32)
-    out = torch.empty((E, K, N), dtype=out_dtype, device=lhs.device)
-    rc = build.load().mu_tgmm(lhs.data_ptr(), grad.data_ptr(), offsets.data_ptr(), out.data_ptr(), E, K, N,
+    return _launch_tgmm(lhs, grad, group_sizes, out_dtype, tgmm_route(lhs, grad, K, N, E))
+
+
+def _launch_tgmm(lhs, grad, group_sizes, out_dtype, route, max_blocks: int = 0):
+    """`tgmm`'s launch on `route` and its counts, on checked operands
+    (chip_smoke.py also times the mma_sync body at shapes the wgmma one takes,
+    and the wgmma body on a grid of `max_blocks` blocks: 0 is one per
+    multiprocessor)."""
+    (R, K), N, E = lhs.shape, grad.shape[1], group_sizes.shape[0]
+    sizes = group_sizes.to(torch.int32).contiguous()  # the kernels sum the groups' bounds themselves
+    out = torch.empty((E, K, N), dtype=out_dtype, device=lhs.device)  # the kernels write every group
+    rc = build.load().mu_tgmm(lhs.data_ptr(), grad.data_ptr(), sizes.data_ptr(), out.data_ptr(), R, E, K, N,
                               int(grad.dtype == torch.float32), int(out_dtype == torch.float32),
-                              build.stream_handle(lhs))
-    build.check(rc, "mu_tgmm")
+                              int(route == "wgmma"), max_blocks, build.stream_handle(lhs))
+    build.check(rc, f"mu_tgmm ({route})")
     tgmm.launches += 1
+    route_counts["tgmm"][route].launches += 1
     return out
 
 

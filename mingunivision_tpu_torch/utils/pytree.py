@@ -30,6 +30,16 @@ def leaves(tree):
         yield tree
 
 
+def is_float_tree(tree) -> bool:
+    """Whether every leaf is a plain tensor (no QuantizedArray): the trees
+    `layer_views` takes."""
+    if isinstance(tree, dict):
+        return all(is_float_tree(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(is_float_tree(v) for v in tree)
+    return not isinstance(tree, QuantizedArray)
+
+
 def layer_view(tree, i: int):
     """Layer i of a depth-stacked tree: zero-copy views of every leaf (q[i] and
     s[i] of a quantized one)."""

@@ -766,24 +766,110 @@ def test_gmm_mma_sync_body_at_the_model_widths(dev, transpose, lhs_dtype):
         moe_gmm._launch_gmm(lhs, rhs, sizes, torch.float32, transpose, None, "wgmma")
 
 
-@pytest.mark.parametrize("width", list(GMM_WIDTHS))
-@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["out-bf16", "out-fp32"])
-@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16], ids=["grad-fp32", "grad-bf16"])
-@pytest.mark.parametrize("case", list(GMM_SIZES))
-def test_tgmm_kernel_matches_plain(dev, case, grad_dtype, out_dtype, width):
-    """Per-group lhs^T grad; an empty group's table is exactly zero."""
+# tgmm: the gmm cases, groups that start off the wgmma body's 64-row stages (a group of one row among them),
+# one group holding every row, and rows past the groups' sum (TGMM_NO_GROUP_ROWS) that belong to none
+TGMM_CASES = {**GMM_SIZES, "starts-off-the-stages": [37, 91, 150, 1, 200, 0, 77, 64],
+              "one-group-holds-every-row": [0, 0, 0, 1000, 0, 0, 0, 0],
+              "rows-of-no-group": [40, 128, 0, 129, 0, 63, 33, 7]}
+TGMM_NO_GROUP_ROWS = 40
+# (K, N): lhs and grad widths; the odd ones take the mma_sync body, the rest the wgmma one
+TGMM_WIDTHS = {**GMM_WIDTHS, "model-gate-table": (2048, 1408), "model-down-table": (1408, 2048)}
+
+
+def _tgmm_operands(dev, case, width, grad_dtype, seed=42):
+    """(sizes, lhs (R, K) bf16, grad (R, N)) of one tgmm case."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    K, N = TGMM_WIDTHS[width]
+    sizes = torch.tensor(TGMM_CASES[case], dtype=torch.int32, device=dev)
+    R = int(sizes.sum()) + (TGMM_NO_GROUP_ROWS if case == "rows-of-no-group" else 0)
+    lhs = torch.randn((R, K), device=dev, generator=g).to(torch.bfloat16)
+    grad = torch.randn((R, N), device=dev, generator=g).to(grad_dtype)
+    return sizes, lhs, grad
+
+
+def _tgmm_on_nan(lhs, grad, sizes, out_dtype, route, **kw):
+    """tgmm on `route` into an output the kernel finds full of NaN (the caching
+    allocator hands the freed block on), with its counts checked."""
     from mingunivision_tpu_torch.ops.kernels import moe_gmm
 
-    sizes, lhs, _, grad = _gmm_operands(dev, case, *GMM_WIDTHS[width], seed=42)
-    lhs, grad = lhs.to(torch.bfloat16), grad.to(grad_dtype)
-    before = moe_gmm.tgmm.launches
+    nan = torch.full((sizes.shape[0], lhs.shape[1], grad.shape[1]), float("nan"), dtype=out_dtype, device=lhs.device)
+    del nan
+    counters = (moe_gmm.tgmm, moe_gmm.route_counts["tgmm"][route])
+    before = [c.launches for c in counters]
+    got = moe_gmm._launch_tgmm(lhs, grad, sizes, out_dtype, route, **kw)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1] and got.dtype == out_dtype
+    return got
+
+
+@pytest.mark.parametrize("width", list(TGMM_WIDTHS))
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["out-bf16", "out-fp32"])
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16], ids=["grad-fp32", "grad-bf16"])
+@pytest.mark.parametrize("case", list(TGMM_CASES))
+def test_tgmm_kernel_matches_plain(dev, case, grad_dtype, out_dtype, width):
+    """Per-group lhs^T grad on the body `tgmm_route` picks (the odd widths the
+    mma_sync one, the others the wgmma one, counted on the route): fp32 outputs
+    within 1e-4 of max, bf16 ones within 1e-2; an empty group's table is
+    exactly zero in an output the kernel found full of NaN."""
+    from mingunivision_tpu_torch.ops.kernels import moe_gmm
+
+    sizes, lhs, grad = _tgmm_operands(dev, case, width, grad_dtype)
+    route = "mma_sync" if width == "odd-widths" else "wgmma"
+    assert moe_gmm.tgmm_route(lhs, grad, lhs.shape[1], grad.shape[1], sizes.shape[0]) == route
+    before = moe_gmm.route_counts["tgmm"][route].launches
     got = moe_gmm.tgmm(lhs, grad, sizes, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    assert moe_gmm.tgmm.launches == before + 1
+    assert moe_gmm.route_counts["tgmm"][route].launches == before + 1
     _close(got, moe_gmm.tgmm_plain(lhs, grad, sizes, out_dtype=out_dtype),
            1e-4 if out_dtype == torch.float32 else 1e-2)
+    got = _tgmm_on_nan(lhs, grad, sizes, out_dtype, route)
     for e in (sizes == 0).nonzero().flatten().tolist():
         assert not got[e].any()
+
+
+@pytest.mark.parametrize("width", ["16-byte-rows", "odd-widths", "model-gate-table", "model-down-table"])
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16], ids=["grad-fp32", "grad-bf16"])
+def test_tgmm_keeps_a_neighbours_nan_and_inf_out(dev, grad_dtype, width):
+    """NaN and Inf in one group's rows of lhs and of grad (its first rows fall in
+    the previous group's last wgmma stage) and in the rows of no group after
+    the last: every other group's table is finite and equal to the plain
+    version's, on both bodies."""
+    from mingunivision_tpu_torch.ops.kernels import moe_gmm
+
+    sizes, lhs, grad = _tgmm_operands(dev, "rows-of-no-group", width, grad_dtype)
+    ends = sizes.long().cumsum(0).tolist()
+    poisoned = 5  # rows 297 .. 359; the group before, rows 168 .. 296, ends one row into its last 64-row stage
+    for t in (lhs, grad):
+        t[ends[poisoned - 1]:ends[poisoned - 1] + 5] = float("nan")
+        t[ends[poisoned - 1] + 5:ends[poisoned]] = float("inf")
+        t[ends[-1]:] = float("nan")
+    want = moe_gmm.tgmm_plain(lhs, grad, sizes)
+    clean = [e for e in range(sizes.shape[0]) if e != poisoned]
+    for route in ("wgmma", "mma_sync") if width != "odd-widths" else ("mma_sync",):
+        got = _tgmm_on_nan(lhs, grad, sizes, torch.bfloat16, route)
+        _close(got[clean], want[clean], 1e-2)
+
+
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16], ids=["grad-fp32", "grad-bf16"])
+@pytest.mark.parametrize("width", ["model-gate-table", "model-down-table"])
+def test_tgmm_bodies_and_grids_at_the_model_widths(dev, width, grad_dtype):
+    """At the model's widths the mma_sync body, which chip_smoke.py times
+    beside the wgmma one through the private route argument, is right too;
+    the wgmma body gives the same bits on any grid (one block walking every
+    item, a few, one block per item) as on its persistent one; and it refuses
+    widths TMA cannot take (the launch raises)."""
+    from mingunivision_tpu_torch.ops.kernels import moe_gmm
+
+    sizes, lhs, grad = _tgmm_operands(dev, "starts-off-the-stages", width, grad_dtype)
+    want = moe_gmm.tgmm_plain(lhs, grad, sizes, out_dtype=torch.float32)
+    _close(_tgmm_on_nan(lhs, grad, sizes, torch.float32, "mma_sync"), want, 1e-4)
+    persistent = _tgmm_on_nan(lhs, grad, sizes, torch.float32, "wgmma")
+    _close(persistent, want, 1e-4)
+    for blocks in (1, 7, 2**30):
+        assert torch.equal(_tgmm_on_nan(lhs, grad, sizes, torch.float32, "wgmma", max_blocks=blocks), persistent)
+    sizes, lhs, grad = _tgmm_operands(dev, "uniform", "odd-widths", grad_dtype)
+    with pytest.raises(RuntimeError):
+        moe_gmm._launch_tgmm(lhs, grad, sizes, torch.bfloat16, "wgmma")
 
 
 def test_gmm_wrappers_raise_on_unsupported_input(dev):

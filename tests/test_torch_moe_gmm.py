@@ -229,6 +229,39 @@ def test_gmm_route_depends_on_shape_and_alignment_alone(case):
     assert moe_gmm.gmm_route(lhs, rhs, K, N) == want
 
 
+# (grad dtype, K, N, rows, groups, which operand starts off a 16-byte boundary) -> tgmm's route
+TGMM_ROUTE_CASES = {
+    "gate-table-fp32-grad": (torch.float32, 2048, 1408, 64, 64, None, "wgmma"),
+    "down-table-fp32-grad": (torch.float32, 1408, 2048, 64, 64, None, "wgmma"),
+    "bf16-grad-16-byte-rows": (torch.bfloat16, 200, 312, 64, 8, None, "wgmma"),
+    "odd-widths": (torch.float32, 100, 150, 64, 8, None, "mma_sync"),
+    "K-multiple-of-4-only": (torch.float32, 100, 312, 64, 8, None, "mma_sync"),
+    "N-not-multiple-of-8": (torch.bfloat16, 2048, 1404, 64, 8, None, "mma_sync"),
+    "lhs-off-16-bytes": (torch.float32, 2048, 1408, 64, 8, "lhs", "mma_sync"),
+    "grad-off-16-bytes": (torch.float32, 2048, 1408, 64, 8, "grad", "mma_sync"),
+    "no-rows": (torch.float32, 2048, 1408, 0, 8, None, "mma_sync"),
+    "most-groups-it-orders": (torch.float32, 2048, 1408, 64, moe_gmm.TGMM_MAX_GROUPS, None, "wgmma"),
+    "more-groups-than-it-orders": (torch.float32, 2048, 1408, 64, moe_gmm.TGMM_MAX_GROUPS + 1, None, "mma_sync"),
+}
+
+
+@pytest.mark.parametrize("case", list(TGMM_ROUTE_CASES))
+def test_tgmm_route_depends_on_shape_and_alignment_alone(case):
+    """`tgmm_route` sends every operand pair TMA can describe (16-byte aligned
+    bases, K and N multiples of 8, at least one row) over at most
+    TGMM_MAX_GROUPS groups to the wgmma body, the rest to the mma_sync body,
+    whatever the grad's dtype."""
+    dtype, K, N, rows, groups, off, want = TGMM_ROUTE_CASES[case]
+    lhs = torch.zeros((rows, K), dtype=torch.bfloat16)
+    grad = torch.zeros((rows, N), dtype=dtype)
+    if off == "lhs":
+        lhs = _misaligned(lhs)
+    elif off == "grad":
+        grad = _misaligned(grad)
+    assert lhs.is_contiguous() and grad.is_contiguous()
+    assert moe_gmm.tgmm_route(lhs, grad, K, N, groups) == want
+
+
 @pytest.mark.parametrize("seed", range(6))
 def test_gmm_schedule_covers_every_row_once(seed):
     """`gmm_schedule` at the kernels' TILE_ROWS, for random sizes with empty

@@ -16,13 +16,18 @@ an image span (the image gate):
   - at bf16, with the aux losses: each grad's error against the JAX package's
     fp32 grads within twice the JAX package's own bf16 error;
   - every leaf gets a nonzero grad (audio_gate aside: no loss reaches it, and
-    its JAX grad is zero too); `remat_layers=True` gives the same grads.
+    its JAX grad is zero too); `remat_layers=True` gives the same grads;
+  - the layers read through one `unbind` per stacked leaf (`layer_views`, the
+    train forward's route) give the loss and grads of per-layer indexing
+    (`layer_view` and the stacked expert tables), bit for bit, with and
+    without remat.
 The optimizer and the train steps are in tests/test_torch_train_step.py,
 `image_gen_loss` in tests/test_torch_train_image.py.
 """
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -83,3 +88,27 @@ def test_remat_layers_gives_the_same_grads(batch, shipped):
     for a, b in zip(leaves(port), leaves(remat)):
         if a.grad is not None:
             torch.testing.assert_close(b.grad, a.grad, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["layers", "remat-layers"])
+def test_unbind_layer_views_give_the_indexing_grads_to_the_bit(batch, remat, monkeypatch):
+    """The train forward takes each layer from one `unbind` per stacked leaf,
+    the expert tables too (whose backward is one stack per leaf); the inference
+    route's per-layer indexing, forced here, gives the same loss and grads to
+    the bit."""
+    from mingunivision_tpu_torch.models import bailing_moe
+
+    cfg, params, ids, mask, image = batch
+    cfg = dataclasses.replace(cfg, remat_layers=remat)
+    split = bailing_moe.layer_views
+    depths = []
+    monkeypatch.setattr(bailing_moe, "layer_views", lambda tree, depth: depths.append(depth) or split(tree, depth))
+    loss, viewed = port_lm_loss_grads(params, cfg, ids, mask, image, **AUX)
+    assert depths == [cfg.num_hidden_layers]
+    monkeypatch.setattr(bailing_moe, "is_float_tree", lambda tree: False)  # the route of quantized trees
+    loss_i, indexed = port_lm_loss_grads(params, cfg, ids, mask, image, **AUX)
+    assert depths == [cfg.num_hidden_layers] and loss == loss_i
+    for path, a, b in zip(tree_paths(viewed), leaves(viewed), leaves(indexed)):
+        assert (a.grad is None) == (b.grad is None), path
+        if a.grad is not None:
+            assert np.array_equal(a.grad.numpy(), b.grad.numpy()), path
