@@ -25,14 +25,18 @@ Phases, one printed line each; any failure exits non-zero:
               grouped matmuls of MoE training (gmm, gmm_trhs, tgmm) at the
               train step's 12,288 rows, uniform and skewed with empty experts
               and a padded last group (gmm and gmm_trhs: the body each case
-              takes, its kernel-alone device time from torch.profiler beside
+              takes, its kernel-alone device time (`kernel_device_ms`) beside
               the wrapper's, and the mma_sync body timed beside the wgmma one;
               one odd-width case on the mma_sync body), and the
               differentiable fused prefill MoE at full width, its forward and
-              every grad; the ViT flash
-              forward with residuals (output and log-sum-exp) and its two
-              backward kernels (dK / dV, dQ) at the pixel decoder's 16 heads x
-              1,024 tokens x 64, batch 2 and 8, beside SDPA's backward; the
+              every grad; decode attention (the split-S kernel) at the
+              table's 1,072-position case and at the image loop's 300-position
+              prefix at 2, 3 and 12 rows, with its kernel-alone device time;
+              the ViT flash forward at the pixel decoder's 16 heads x 1,024
+              tokens x 64 at 1, 2 and 8 images, with and without residuals
+              (output and log-sum-exp), on its wgmma body, kernel-alone too; its two
+              backward kernels (dK / dV, dQ) at batch 2 and 8, beside SDPA's
+              backward; the
               gathered-expert matmul at the pool's decode shapes (12-72
               assignments, skewed) beside torch._grouped_mm, and the decode
               MoE built on it held against the decode-MoE kernel
@@ -81,8 +85,8 @@ Phases, one printed line each; any failure exits non-zero:
               the pixel decoder's "bf16" tier (4 steps: the loss must fall),
               "bf16" with remat, "default" and "high" (2 steps each): losses,
               ms per step, images/s, memory, launches per step (the flash
-              forward 24, 48 with remat, dK / dV 24, dQ 24; none at "high"),
-              one profiled "bf16" step
+              forward 24, 48 with remat, each on the wgmma body, dK / dV 24,
+              dQ 24; none at "high"), one profiled "bf16" step
   5. slice    single-image text-to-image through MingUniVisionSession.generate
               at the full 16B-A3B width (random weights from a seed, bf16,
               max_seq_len 4096): output checks, launch counts of every kernel,
@@ -95,7 +99,9 @@ Phases, one printed line each; any failure exits non-zero:
               its RF head swapped for an int8 one, quantized on the card from a
               bf16 copy kept aside; the int4 LLM kernels and the int8 sampler
      slice_int4_exact  the int4 model's round with moe_int_dots=False: the
-              exact-dequant int4 decode MoE
+              exact-dequant int4 decode MoE (this and the other rounds in
+              another dot mode or RF route below cut to 64 image tokens, a
+              256-px image, to keep the run in its limit)
      slice_int8  the same round on the int8 quality tier (LLM and RF head int8):
               the int8 decode MoE with s8 dots, the int8 prefill MoE, the int8
               sampler
@@ -132,8 +138,8 @@ Phases, one printed line each; any failure exits non-zero:
               loop with 3 CFG rows; launch counts, ms per AR token
   9. recon    MingTok reconstruction (encode -> pixel decode) at 512 px, batch
               1 and 8, on the pixel decoder's "high", "default" and "bf16"
-              tiers: flash-ViT launches, PSNR of the reduced tiers against
-              "high", ms per image
+              tiers: flash-ViT launches (each on the wgmma body), PSNR of the
+              reduced tiers against "high", ms per image
  10. serve    continuous-batching text serving on each tier's model: 24
               requests (12 sharing a 256-id system prefix, 4 sampled) from 4
               client threads in 3 waves through InferenceServer's
@@ -161,7 +167,8 @@ Then a JSON line with every kernel's numbers, and as the last line
               0 and over the loop, image error
   profile     the slice with a 16-token image loop under torch.profiler:
               device ms per stage, device busy share, device events per token,
-              top kernels; then the same round unprofiled (`--tier int4` or
+              top kernels, decode attention's device ms per LLM step; then the
+              same round unprofiled (`--tier int4` or
               `--tier int8` for the quantized slices)
   profile_understand  the understanding round with 8 text tokens under
               torch.profiler: device ms of the encode, prefill and text-decode
@@ -250,6 +257,10 @@ KERNELS = {
 }
 BF16_KERNELS = ("moe_stream", "moe_swiglu_gmm", "decode_attention")
 NF4_IMAGE_TOKENS = 64  # the slice_nf4 round's image loop (256-304 ms per token), cut to keep the run in its limit
+# the image loops of the rounds that rerun a tier's T2I in another dot mode or RF route (slice_int4_exact,
+# slice_int8_s8, slice_int4_perstep, slice_int8_perstep), cut to keep the run in its limit: each still
+# launches its kernels at every LLM step and image token, held by the same floors
+VARIANT_IMAGE_TOKENS = 64
 REL_TOL = 1e-2  # kernel vs plain: max |err| <= REL_TOL * max |plain| (bf16 keeps ~3 digits)
 # H100 SXM data sheet: HBM3 bytes/s and dense peak operations/s by operand type
 HBM_BYTES_S = 3.35e12
@@ -427,13 +438,7 @@ def check_kernels(torch, results: dict) -> bool:
     cache, the RF head at full width over 16 Euler steps)."""
     from mingunivision_tpu_torch.config import MingUniVisionConfig
     from mingunivision_tpu_torch.models.rf_head import _time_grid, precompute_modulations
-    from mingunivision_tpu_torch.ops.kernels.decode_attention import decode_attention, decode_attention_plain
-    from mingunivision_tpu_torch.ops.kernels.flash import (
-        flash_prefill_attention,
-        flash_prefill_attention_plain,
-        flash_vit_attention,
-        flash_vit_attention_plain,
-    )
+    from mingunivision_tpu_torch.ops.kernels.flash import flash_prefill_attention, flash_prefill_attention_plain
     from mingunivision_tpu_torch.ops.kernels.moe_capacity import (
         default_capacity,
         moe_experts_capacity_gmm,
@@ -616,22 +621,8 @@ def check_kernels(torch, results: dict) -> bool:
     all_ok &= full_block_cases(q8, "moe_swiglu_gmm_q8_full", per_expert, prefill[:1])
     del q8
 
-    B, Hq, Hkv, S, D = 2, cfg.llm.num_attention_heads, cfg.llm.num_key_value_heads, 4096, cfg.llm.head_dim
-    q = torch.randn((B, 1, Hq, D), device=dev, generator=g).to(bf)
-    kc = torch.randn((B, Hkv, S, D), device=dev, generator=g).to(bf)
-    vc = torch.randn((B, Hkv, S, D), device=dev, generator=g).to(bf)
-    mask = torch.zeros((B, S), dtype=torch.bool, device=dev)
-    mask[0, :700] = True
-    mask[1, :321] = True
-    mask[1, 400:450] = True  # CFG-style hole
-    mask[1, 3000:3001] = True  # an isolated allowed position in a late tile
-    allowed = int(mask.sum())
-    nbytes = allowed * Hkv * D * 2 * 2 + 2 * B * Hq * D * 2 + B * S  # K and V where allowed, q, out, mask
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        q.transpose(1, 2), kc, vc, attn_mask=mask[:, None, None, :], enable_gqa=True)
-    all_ok &= run_case(torch, results, "decode_attention", "B=2 S=4096 CFG holes",
-                       lambda: decode_attention(q, kc, vc, mask), lambda: decode_attention_plain(q, kc, vc, mask),
-                       nbytes, 4.0 * Hq * D * allowed, "bf16", library=sdpa)
+    all_ok &= decode_attention_cases(torch, results, g, cfg)
+    Hq, Hkv, D = cfg.llm.num_attention_heads, cfg.llm.num_key_value_heads, cfg.llm.head_dim
 
     # flash prefill at the understanding prompt's shape (T = 1152 of which 92 padding, and none), against
     # SDPA with the same mask; operations counted over the allowed query-key pairs
@@ -652,16 +643,7 @@ def check_kernels(torch, results: dict) -> bool:
                            nbytes, 4.0 * D * Hq * pairs, "bf16",
                            library=lambda: sdpa_fn(q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),  # noqa: B023
                                                    attn_mask=allowed2d[None, None], enable_gqa=True))  # noqa: B023
-    # flash ViT at the pixel decoder's shape (16 heads x 1024 tokens x 64), one image and eight
-    Hv, Nv, Dv = cfg.mingtok.pixel_decoder.num_heads, 1024, cfg.mingtok.pixel_decoder.embed_dim // 16
-    for Bv in (1, 8):
-        q, kk, vv = (torch.randn((Bv, Hv, Nv, Dv), device=dev, generator=g).to(bf) for _ in range(3))
-        all_ok &= run_case(torch, results, "flash_vit", f"{Bv}x{Hv}x{Nv}x{Dv} head-major",
-                           lambda: flash_vit_attention(q, kk, vv, scale=Dv**-0.5),  # noqa: B023
-                           lambda: flash_vit_attention_plain(q, kk, vv, scale=Dv**-0.5),  # noqa: B023
-                           4 * q.numel() * 2, 4.0 * Dv * Hv * Nv * Nv * Bv, "bf16",
-                           library=lambda: sdpa_fn(q, kk, vv))  # noqa: B023
-    del q, kk, vv
+    all_ok &= flash_vit_cases(torch, results, g, cfg)
 
     # the RF head at full width, int4 then int8, its AdaLN weights at the slice's std 0.02. The random head is
     # chaotic at the int4 sampler's s8 boundaries and at the int8 sampler's bf16 roundings (a 1-ulp change of
@@ -762,6 +744,98 @@ def check_kernels(torch, results: dict) -> bool:
     torch.cuda.empty_cache()
     all_ok &= paged_cases(torch, results, g, cfg)
     return all_ok
+
+
+def decode_mask(torch, B: int, S: int, prefix: int, dev):
+    """The image loop's (B, S) mask of the main path's CFG rows: each row allows
+    the first `prefix` positions (prompt and image tokens so far); every odd
+    (unconditional) row skips the prompt's 30 text ids after the first."""
+    mask = torch.zeros((B, S), dtype=torch.bool, device=dev)
+    mask[:, :prefix] = True
+    mask[1::2, 1:31] = False
+    return mask
+
+
+def decode_attention_cases(torch, results, g, cfg) -> bool:
+    """Decode attention (one LLM step's query against the 4,096-position cache of
+    one layer) at the table's case (2 rows, 1,072 allowed positions: CFG holes
+    and an isolated late position) and at the image loop's ~300-position
+    prefix at 2 rows (T2I), 3 (editing) and 12 (the image pool); each beside
+    SDPA on the same mask and with the kernel's own device time
+    (`kernel_device_ms`, `device_ms`). The bound counts K and V at the allowed
+    positions, q, the output and the mask."""
+    from mingunivision_tpu_torch.ops.kernels.decode_attention import decode_attention, decode_attention_plain
+
+    dev = torch.device("cuda")
+    Hq, Hkv, S, D = cfg.llm.num_attention_heads, cfg.llm.num_key_value_heads, 4096, cfg.llm.head_dim
+    table = torch.zeros((2, S), dtype=torch.bool, device=dev)
+    table[0, :700] = True
+    table[1, :321] = True
+    table[1, 400:450] = True  # CFG-style hole
+    table[1, 3000:3001] = True  # an isolated allowed position in a late tile
+    cases = [("B=2 S=4096 CFG holes", table)] + [
+        (f"B={B} S=4096 image loop, 300-position prefix", decode_mask(torch, B, S, 300, dev)) for B in (2, 3, 12)]
+    ok = True
+    for label, mask in cases:
+        B = mask.shape[0]
+        q = torch.randn((B, 1, Hq, D), device=dev, generator=g).to(torch.bfloat16)
+        kc, vc = (torch.randn((B, Hkv, S, D), device=dev, generator=g).to(torch.bfloat16) for _ in range(2))
+        allowed = int(mask.sum())
+        nbytes = allowed * Hkv * D * 2 * 2 + 2 * B * Hq * D * 2 + B * S  # K and V where allowed, q, out, mask
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q.transpose(1, 2), kc, vc, attn_mask=mask[:, None, None, :], enable_gqa=True)  # noqa: B023
+        kern = lambda: decode_attention(q, kc, vc, mask)  # noqa: B023, E731
+        ok &= run_case(torch, results, "decode_attention", f"{label} ({allowed} allowed)", kern,
+                       lambda: decode_attention_plain(q, kc, vc, mask),  # noqa: B023
+                       nbytes, 4.0 * Hq * D * allowed, "bf16", library=sdpa)
+        case = results["decode_attention"]["cases"][-1]
+        case["device_ms"] = kernel_device_ms(torch, kern)
+        ok &= case["device_ms"] is not None
+        print(f"kernel decode_attention [{label}]: wrapper_ms={case['ms']:.4f} device_ms={fmt_ms(case['device_ms'])} "
+              f"library_ms={case['library_ms']:.4f}")
+    return ok
+
+
+# the ViT forward's kernel, as torch.profiler names it
+VIT_FORWARD_KERNEL = ("flash_vit_wgmma_kernel<",)
+
+
+def flash_vit_cases(torch, results, g, cfg) -> bool:
+    """The ViT flash forward at the pixel decoder's shape (16 heads x 1,024
+    tokens x 64) at 1, 2 and 8 images, without and with residuals (the lse
+    beside the output, held within 1e-4 of its plain version: the backward
+    kernels read it): the wrapper's time, the kernel-alone device time
+    (`kernel_device_ms`), and SDPA's forward."""
+    from mingunivision_tpu_torch.ops.kernels import flash
+
+    dev = torch.device("cuda")
+    H, N, D = cfg.mingtok.pixel_decoder.num_heads, 1024, cfg.mingtok.pixel_decoder.embed_dim // 16
+    scale = D**-0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ok = True
+    for B in (1, 2, 8):
+        q, k, v = (torch.randn((B, H, N, D), device=dev, generator=g).to(torch.bfloat16) for _ in range(3))
+        for with_lse in (False, True):
+            label = f"{B}x{H}x{N}x{D} head-major" + (", with residuals (out, lse)" if with_lse else "")
+            if with_lse:
+                kern = lambda: flash.flash_vit_attention_lse(q, k, v, scale=scale)  # noqa: B023, E731
+                plain = lambda: flash.flash_vit_attention_lse_plain(q, k, v, scale=scale)  # noqa: B023, E731
+            else:
+                kern = lambda: flash.flash_vit_attention(q, k, v, scale=scale)  # noqa: B023, E731
+                plain = lambda: flash.flash_vit_attention_plain(q, k, v, scale=scale)  # noqa: B023, E731
+            ok &= run_case(torch, results, "flash_vit", label, kern, plain,
+                           4 * q.numel() * 2 + (B * H * N * 4 if with_lse else 0), 4.0 * D * H * N * N * B, "bf16",
+                           library=lambda: sdpa(q, k, v))  # noqa: B023
+            if with_lse:  # the lse on its own tolerance
+                lse_err = (kern()[1] - plain()[1]).abs().max().item()
+                ok &= lse_err <= 1e-4 * plain()[1].abs().max().item() + 1e-5
+            case = results["flash_vit"]["cases"][-1]
+            case["device_ms"] = kernel_device_ms(torch, kern)
+            ok &= case["device_ms"] is not None
+            print(f"kernel flash_vit [{label}]: wrapper_ms={case['ms']:.4f} device_ms={fmt_ms(case['device_ms'])} "
+                  f"library_ms={case['library_ms']:.4f}" + (f"; lse max_abs_err={lse_err:.3e}" if with_lse else ""))
+        del q, k, v
+    return ok
 
 
 def paged_inputs(torch, g, B: int, Hq: int, Hkv: int, D: int, page: int = 64, maxp: int = 32):
@@ -1649,8 +1723,11 @@ def run_slice(torch, cfg, params, device, results: dict, tier="bfloat16", runtim
           f"ms_per_ar_token={t['image_loop_ms'] / n_tok:.3f} pixel_decode_ms={t['pixel_decode_ms']:.2f} "
           f"total_s={total_s:.3f} resident_gib={resident / 2**30:.3f} max_memory_allocated_gib={peak / 2**30:.3f}")
     if tier not in ("int4_rf8", "nf4"):  # the mixed tier's kernels keep the launches of their own tier's slice
+        # a round in another dot mode or RF route (a shorter loop) records only the kernel it varies
+        shared = set() if label in ("slice", f"slice_{tier}") else set(tier_kernels(tier)) | {"decode_attention"}
         for name in floors:
-            results[name]["launches"] = launches[name]
+            if name not in shared:
+                results[name]["launches"] = launches[name]
     return report(label, launches, checks)
 
 
@@ -2359,6 +2436,12 @@ def run_profile(torch, cfg, device, tier="bfloat16", n_tok: int = 16) -> bool:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"profile kernel: {e.self_device_time_total / 1e3:9.3f} ms {e.count:7d} calls "
               f"{e.self_device_time_total / max(e.count, 1):9.3f} us/call  {e.key[:90]}")
+    # decode attention (one launch per layer and decode step) per LLM step: the steps after the prefill
+    attn = [e for e in kernels if "decode_split_kernel" in e.key]
+    attn_ms, attn_calls = sum(e.self_device_time_total for e in attn) / 1e3, sum(e.count for e in attn)
+    print(f"profile decode_attention: launches={attn_calls} device_ms={attn_ms:.3f} "
+          f"per_llm_step_ms={attn_ms / max(n_llm - 1, 1):.4f} ({n_llm - 1} decode steps) "
+          f"per_launch_us={attn_ms * 1e3 / max(attn_calls, 1):.3f}")
     _, sess, wall_s = _generate(torch, params, cfg, RuntimeConfig(), device, prompt, igen)
     t = sess.timings
     print(f"profile (same round, unprofiled): wall_s={wall_s:.3f} prefill_ms={t['prefill_ms']:.2f} "
@@ -2510,19 +2593,37 @@ GROUPED_KERNELS = {"wgmma": ("::gmm_wgmma_kernel<",), "mma_sync": ("::gmm_kernel
                    "tgmm_wgmma": ("::tgmm_wgmma_kernel<",), "tgmm_mma_sync": ("::tgmm_kernel<",)}
 
 
-def kernel_device_ms(torch, fn, names, iters: int = 10) -> float:
-    """Device ms per call of the CUDA kernels whose profiler names hold one of
-    `names`, over `iters` calls of `fn` after a warm-up: the kernel alone,
-    without the wrapper's other launches and host work."""
-    from torch.profiler import ProfilerActivity, profile
-
+def kernel_device_ms(torch, fn, iters: int = 10):
+    """Device ms per call of `fn` with the host out of the way: a sleep kernel
+    holds the stream while the host queues `iters` calls between two CUDA
+    events, so the card runs them back to back, and their time over `iters`
+    is the card's own (for a wrapper that launches one kernel, the kernel
+    alone and its launch gap). Valid only where the card had not reached the
+    first event when the host had queued every call; else asked again with a
+    4x longer sleep, three times in all, and then None (not measured: the
+    case fails; no time is made up)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    cycles = 20_000_000  # about 10 ms at the H100's clock
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages() if any(n in e.key for n in names)) / iters / 1e3
+        end.record()
+        queued_ahead = not start.query()
+        end.synchronize()
+        if queued_ahead:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    print(f"kernel_device_ms: the host did not queue {iters} calls within the sleep, three times: not measured")
+    return None
+
+
+def fmt_ms(ms) -> str:
+    """A kernel-alone time for a printed line: "not measured" where it could not be taken."""
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def grouped_case(torch, results, name, label, kern, plain, nbytes, ops, library, gmm_args=None,
@@ -2544,7 +2645,6 @@ def grouped_case(torch, results, name, label, kern, plain, nbytes, ops, library,
     if gmm_args is not None:
         lhs, rhs, sizes, out_dtype, trans, sched = gmm_args
         route = moe_gmm.gmm_route(lhs, rhs, lhs.shape[1], rhs.shape[1] if trans else rhs.shape[2])
-        names = {"route": GROUPED_KERNELS[route], "mma_sync": GROUPED_KERNELS["mma_sync"]}
         others["own_schedule"] = lambda: moe_gmm.gmm(lhs, rhs, sizes, out_dtype=out_dtype, transpose_rhs=trans)
         if route == "wgmma":
             others["mma_sync"] = lambda: moe_gmm._launch_gmm(lhs, rhs, sizes, out_dtype, trans, sched, "mma_sync")
@@ -2552,8 +2652,6 @@ def grouped_case(torch, results, name, label, kern, plain, nbytes, ops, library,
         lhs, grad, sizes = tgmm_args
         E, K, N = sizes.shape[0], lhs.shape[1], grad.shape[1]
         route = moe_gmm.tgmm_route(lhs, grad, K, N, E)
-        names = {"route": GROUPED_KERNELS[f"tgmm_{route}"], "mma_sync": GROUPED_KERNELS["tgmm_mma_sync"],
-                 "grid": GROUPED_KERNELS["tgmm_wgmma"]}
         if route == "wgmma":
             grad_bf16 = grad.to(torch.bfloat16)
             others["mma_sync"] = lambda: moe_gmm._launch_tgmm(lhs, grad, sizes, torch.bfloat16, "mma_sync")
@@ -2566,14 +2664,16 @@ def grouped_case(torch, results, name, label, kern, plain, nbytes, ops, library,
                   others=others)
     case = results[name]["cases"][-1]
     case["route"] = route
-    case["device_ms"] = kernel_device_ms(torch, kern, names["route"])
-    line = f"route={case['route']} wrapper_ms={case['ms']:.4f} device_ms={case['device_ms']:.4f}"
+    case["device_ms"] = kernel_device_ms(torch, kern)
+    ok &= case["device_ms"] is not None
+    line = f"route={case['route']} wrapper_ms={case['ms']:.4f} device_ms={fmt_ms(case['device_ms'])}"
     if "own_schedule" in others:
         line += f" (wrapper building its own schedule: {case['own_schedule_ms']:.4f})"
     for body, what in (("mma_sync", "mma_sync body"), ("grid", "wgmma body, one block per item")):
         if body in others:
-            case[f"{body}_device_ms"] = kernel_device_ms(torch, others[body], names[body])
-            line += f"; {what}: wrapper_ms={case[f'{body}_ms']:.4f} device_ms={case[f'{body}_device_ms']:.4f}"
+            case[f"{body}_device_ms"] = kernel_device_ms(torch, others[body])
+            ok &= case[f"{body}_device_ms"] is not None
+            line += f"; {what}: wrapper_ms={case[f'{body}_ms']:.4f} device_ms={fmt_ms(case[f'{body}_device_ms'])}"
     print(f"kernel {name} [{label.split(';')[0]}]: {line}")
     return ok
 
@@ -2712,13 +2812,13 @@ def check_ad_full_width(torch, w_gate, w_down, g, results) -> bool:
 
 
 def check_flash_vit_train_kernels(torch, results: dict) -> bool:
-    """The ViT flash attention of MingTok training at the pixel decoder's shape
-    (16 heads x 1024 tokens x 64, batch 2 and 8): the forward with residuals
-    (output and log-sum-exp) against its plain version, and the two backward
-    kernels (dK / dV, dQ) against theirs on the kernel forward's residuals,
-    within REL_TOL. The library time of the backward kernels is one
-    `torch.autograd.grad` through `scaled_dot_product_attention` on the same q,
-    k, v and dO (its whole backward: the work of the pair); timed only."""
+    """The ViT flash attention's backward kernels of MingTok training at the
+    pixel decoder's shape (16 heads x 1024 tokens x 64, batch 2 and 8): dK / dV
+    and dQ against their plain versions on the kernel forward's residuals
+    (the forward with residuals is held in `flash_vit_cases`), within REL_TOL.
+    The library time of the backward kernels is one `torch.autograd.grad`
+    through `scaled_dot_product_attention` on the same q, k, v and dO (its
+    whole backward: the work of the pair); timed only."""
     from mingunivision_tpu_torch.ops.kernels import flash
 
     dev = torch.device("cuda")
@@ -2731,10 +2831,6 @@ def check_flash_vit_train_kernels(torch, results: dict) -> bool:
         q, k, v, do = (torch.randn((B, H, N, D), device=dev, generator=g).to(torch.bfloat16) for _ in range(4))
         numel, rows, pair_ops = q.numel(), B * H * N, 2.0 * N * N * D * H * B  # one N x N x D product
         label = f"{B}x{H}x{N}x{D} head-major"
-        ok &= run_case(torch, results, "flash_vit", f"{label}, with residuals (out, lse)",
-                       lambda: flash.flash_vit_attention_lse(q, k, v, scale=scale),  # noqa: B023
-                       lambda: flash.flash_vit_attention_lse_plain(q, k, v, scale=scale),  # noqa: B023
-                       4 * numel * 2 + rows * 4, 2 * pair_ops, "bf16", library=lambda: sdpa(q, k, v))  # noqa: B023
         out, lse = flash.flash_vit_attention_lse(q, k, v, scale=scale)
         delta = flash.flash_vit_delta(out, do)
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
@@ -3177,8 +3273,8 @@ def run_train(torch, device, results: dict) -> bool:
 
 def mingtok_round_checks(launches, tier: str, steps: int, remat: bool):
     """Per step: the flash forward with residuals once per pixel-decoder layer
-    (twice with remat: the recompute), dK / dV and dQ once each; none at
-    "high"; no other kernel."""
+    (twice with remat: the recompute), each on the wgmma body, dK / dV and dQ
+    once each; none at "high"; no other kernel."""
     per = 24 if tier != "high" else 0
     want = {"flash_vit": (2 if remat else 1) * per * steps, "flash_vit_bwd_dkv": per * steps,
             "flash_vit_bwd_dq": per * steps}
@@ -3224,9 +3320,9 @@ def profile_mingtok_step(torch, state, step, record: dict):
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     fwd_ms = stage_device_ms(device_events, ("train_forward",))["train_forward"][1]
     opt_ms = sum(e.time_range.elapsed_us() for e in device_events if e.name.startswith("Optimizer.step")) / 1e3
-    flash_ms = {part: sum(e.time_range.elapsed_us() for e in kernels if pattern in e.name) / 1e3
-                for part, pattern in (("forward", "flash_kernel"), ("dkv", "flash_vit_bwd_dkv"),
-                                      ("dq", "flash_vit_bwd_dq"))}
+    flash_ms = {part: sum(e.time_range.elapsed_us() for e in kernels if any(p in e.name for p in patterns)) / 1e3
+                for part, patterns in (("forward", VIT_FORWARD_KERNEL),
+                                       ("dkv", ("flash_vit_bwd_dkv",)), ("dq", ("flash_vit_bwd_dq",)))}
     record["profile"] = {"wall_ms": wall_ms, "busy_ms": busy_ms, "forward_ms": fwd_ms, "optimizer_ms": opt_ms,
                          "backward_ms": busy_ms - fwd_ms - opt_ms, "flash_ms": flash_ms,
                          "flash_share": sum(flash_ms.values()) / max(busy_ms, 1e-9)}
@@ -3829,13 +3925,16 @@ def main(argv=None) -> int:
         params = full_model(torch, cfg, cuda, tier, keep_rf_bf16=mixed)  # built once for the tier's phases
         if slice_phase in run:
             ok &= run_slice(torch, cfg, params, cuda, results, tier)
+        short = dataclasses.replace(cfg, image_gen=dataclasses.replace(cfg.image_gen,
+                                                                       num_image_tokens=VARIANT_IMAGE_TOKENS))
         if "slice_int4_exact" in run:  # the exact-dequant int4 decode kernel
-            ok &= run_slice(torch, cfg, params, cuda, results, tier, RuntimeConfig(moe_int_dots=False),
+            ok &= run_slice(torch, short, params, cuda, results, tier, RuntimeConfig(moe_int_dots=False),
                             "slice_int4_exact")
         if "slice_int8_s8" in run:  # the int8 sampler with s8 dots
-            ok &= run_slice(torch, cfg, params, cuda, results, tier, RuntimeConfig(rf_int_dots=True), "slice_int8_s8")
+            ok &= run_slice(torch, short, params, cuda, results, tier, RuntimeConfig(rf_int_dots=True),
+                            "slice_int8_s8")
         if f"slice_{tier}_perstep" in run:  # the per-step RF route: the stack kernel in the tier's default body
-            ok &= run_slice(torch, cfg, params, cuda, results, tier, RuntimeConfig(rf_fused_sampler=False),
+            ok &= run_slice(torch, short, params, cuda, results, tier, RuntimeConfig(rf_fused_sampler=False),
                             f"slice_{tier}_perstep")
         if mixed:
             ok &= run_slice_mixed(torch, cfg, params, cuda, results)

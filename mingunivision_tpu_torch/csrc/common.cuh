@@ -27,6 +27,14 @@ __device__ __forceinline__ float silu_exact(float v) {
 
 __host__ __device__ __forceinline__ size_t align16(size_t bytes) { return (bytes + 15) & ~size_t(15); }
 
+// 2^x by the special-function unit alone (ex2.approx.ftz: about 2 ulp, subnormal results flushed to 0;
+// 2^-inf = 0). exp2f adds range handling around the same instruction.
+__device__ __forceinline__ float ex2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

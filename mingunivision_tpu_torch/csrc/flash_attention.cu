@@ -1,12 +1,13 @@
 // Flash attention: softmax(Q K^T * scale) V over full sequences, tile by tile,
-// with the scores never written to device memory. Two forward entry points
-// from one templated body:
+// with the scores never written to device memory. Two forward entry points:
 //   mu_flash_prefill_bf16  first-round LLM prefill, token-major (B, T, H, D),
 //                          GQA by indexing the kv head, causal, and a row sees
-//                          a key only when both are valid or both are padding;
+//                          a key only when both are valid or both are padding
+//                          (an mma.sync body);
 //   mu_flash_vit_bf16      non-causal ViT attention, head-major (B, H, N, D),
 //                          also writing each row's log-sum-exp (fp32, B x H x N)
-//                          when asked: the residual of the backward;
+//                          when asked: the residual of the backward (a wgmma
+//                          body fed by a TMA ring);
 // and the two backward kernels of the ViT entry, mu_flash_vit_bwd_dkv_bf16 and
 // mu_flash_vit_bwd_dq_bf16 (see their note below).
 //
@@ -21,7 +22,8 @@
 // once); what a kernel must do about that is keep the two products on the
 // tensor cores and the (rows, keys) scores on chip.
 //
-// Design. One block of 4 warps per (batch, query head, 64-row query tile);
+// Design of the prefill's mma.sync body. One block of 4 warps per (batch,
+// query head, 64-row query tile);
 // each warp owns 16 query rows. The block loops over 64-key tiles: K and V
 // tiles are staged in shared memory (rows padded by 16 bytes, so ldmatrix
 // reads hit distinct banks), S = Q K^T and O += P V run as
@@ -33,9 +35,32 @@
 // rounds them to V's type. Causal tiles above the diagonal are never visited,
 // and the heaviest query tiles are scheduled first. K and V of a GQA group are
 // read through the query head's kv head; they are never repeated in memory.
-// Loads are plain 16-byte copies followed by a barrier: cp.async / TMA
-// pipelining and wgmma are later work.
+// Loads are plain 16-byte copies followed by a barrier.
+//
+// Design of the ViT forward's wgmma body (N a multiple of 128, 16-byte aligned
+// operands, D 64 or 128; the pixel decoder's 16 heads x 1,024 tokens x 64). One block of three warpgroups per (128-row
+// query tile, head, image). The producer warpgroup gives up registers
+// (setmaxnreg) and one of its threads loads the block's Q tile once by TMA,
+// then keeps a ring of 128-key K and V tiles full (4 stages at D 64, 2 at D
+// 128; 128-byte swizzled TMA boxes of 64 columns; full and empty mbarriers).
+// Each consumer warpgroup owns 64 query rows: per stage, S = Q K^T is
+// wgmma.m64n128k16 with Q and K both K-major in shared memory (D / 16 k16
+// steps); the online softmax runs on S in fp32 registers, the scale inside
+// exp2 as above; P is rounded to bf16 in registers and is the register A of
+// O += P V, wgmma.m64n64k16 (n128 at D 128) with V read N-major from its tile
+// (the descriptor's MN-major layout and the transpose-B bit), 8 k16 steps.
+// At D 64 the exponentials cost the SM about as long as the products, so the
+// two are overlapped as FlashAttention-3 does: a warpgroup issues tile j's
+// S = Q K^T and tile j - 1's O += P V together, takes tile j's softmax while
+// the second product runs, then frees tile j - 1's stage, rescales O and
+// keeps tile j's P for the next round; and the consumer warpgroups take
+// turns to issue their products (named barriers), so one's softmax runs
+// beside the others' products. The output is normalised by l once at the
+// end and stored from registers; the lse beside it when asked. TMA fills
+// zeros only past the tensor's end, so the entry asks N to be a multiple of
+// the tile: no read runs past a head's N keys, and no tile is partial.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -84,14 +109,11 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, size_t str
 }
 
 // q / out: element (b, h, row, d) at b * q_bs + h * q_hs + row * q_rs + d;
-// k / v likewise with k_bs, k_hs, k_rs; valid (B, n_rows) bytes (PREFILL only);
-// lse (B, heads, n_rows) fp32, written when LSE: m * scale + log(l) of each
-// row, the natural-log normaliser of its softmax (the library's residuals m
-// and l in one number).
-template <int D, bool PREFILL, bool LSE>
+// k / v likewise with k_bs, k_hs, k_rs; valid (B, n_rows) bytes.
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const uint8_t* __restrict__ valid, bf16* __restrict__ out, float* __restrict__ lse, int n_rows, int group,
+    const uint8_t* __restrict__ valid, bf16* __restrict__ out, int n_rows, int group,
     size_t q_bs, size_t q_hs, size_t q_rs, size_t k_bs, size_t k_hs, size_t k_rs, float scale_log2e) {
   constexpr int LD = D + 8;  // padded shared row, in elements
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -101,7 +123,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
   uint8_t* kval = reinterpret_cast<uint8_t*>(Vs + BN * LD);
 
   // causal: the last query tiles visit the most key tiles, so they go first
-  const int qt = PREFILL ? (int)(gridDim.x - 1 - blockIdx.x) : (int)blockIdx.x;
+  const int qt = (int)(gridDim.x - 1 - blockIdx.x);
   const int hq = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = hq / group;
@@ -115,7 +137,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
   bf16* ob = out + (size_t)b * q_bs + (size_t)hq * q_hs + (size_t)qt * BM * q_rs;
   const bf16* kb = k + (size_t)b * k_bs + (size_t)hk * k_hs;
   const bf16* vb = v + (size_t)b * k_bs + (size_t)hk * k_hs;
-  const uint8_t* vrow = PREFILL ? valid + (size_t)b * n_rows : nullptr;
+  const uint8_t* vrow = valid + (size_t)b * n_rows;
 
   load_tile<D, LD>(Qs, qb, q_rs, BM);
   __syncthreads();
@@ -128,8 +150,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
   // this thread's two query rows: r0 = g, r1 = g + 8 of the warp's 16
   const int row0 = qt * BM + warp * 16 + g;
   const int row1 = row0 + 8;
-  const uint8_t qv0 = PREFILL ? vrow[row0] : 1;
-  const uint8_t qv1 = PREFILL ? vrow[row1] : 1;
+  const uint8_t qv0 = vrow[row0];
+  const uint8_t qv1 = vrow[row1];
 
   float acc[D / 8][4];
 #pragma unroll
@@ -139,12 +161,12 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
   float m0 = -INFINITY, m1 = -INFINITY;  // running maxima of the raw scores
   float l0 = 0.0f, l1 = 0.0f;            // this thread's share of the running sums
 
-  const int n_kt = PREFILL ? qt + 1 : n_rows / BN;
+  const int n_kt = qt + 1;
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();  // the previous tile's K and V are no longer read
     load_tile<D, LD>(Ks, kb + (size_t)kt * BN * k_rs, k_rs, BN);
     load_tile<D, LD>(Vs, vb + (size_t)kt * BN * k_rs, k_rs, BN);
-    if (PREFILL && tid < BN) kval[tid] = vrow[kt * BN + tid];
+    if (tid < BN) kval[tid] = vrow[kt * BN + tid];
     __syncthreads();
 
     // S = Q K^T for the warp's 16 rows x 64 keys
@@ -170,12 +192,10 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
     for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        if (PREFILL) {
-          const int kc = j * 8 + 2 * t + (c & 1);
-          const int key = kt * BN + kc;
-          const bool ok = (c < 2) ? (key <= row0 && kval[kc] == qv0) : (key <= row1 && kval[kc] == qv1);
-          if (!ok) s[j][c] = -INFINITY;
-        }
+        const int kc = j * 8 + 2 * t + (c & 1);
+        const int key = kt * BN + kc;
+        const bool ok = (c < 2) ? (key <= row0 && kval[kc] == qv0) : (key <= row1 && kval[kc] == qv1);
+        if (!ok) s[j][c] = -INFINITY;
       }
       mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
       mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
@@ -236,11 +256,6 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.0f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.0f / fmaxf(l1, 1e-30f);
-  if (LSE && t == 0) {
-    float* lrow = lse + ((size_t)b * gridDim.y + hq) * n_rows;
-    lrow[row0] = (m0 * scale_log2e + log2f(l0)) * 0.6931471805599453f;
-    lrow[row1] = (m1 * scale_log2e + log2f(l1)) * 0.6931471805599453f;
-  }
 
   // Stage the warp's 16 output rows in its own rows of Qs (read for the last
   // time before the loop's first barrier), then write 16 bytes a thread.
@@ -261,19 +276,312 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
   }
 }
 
-template <int D, bool PREFILL, bool LSE>
-int launch_flash(const void* q, const void* k, const void* v, const void* valid, void* out, void* lse, int B,
-                 int heads, int n_rows, int group, size_t q_bs, size_t q_hs, size_t q_rs, size_t k_bs, size_t k_hs,
-                 size_t k_rs, float scale, void* stream) {
+template <int D>
+int launch_flash(const void* q, const void* k, const void* v, const void* valid, void* out, int B, int heads,
+                 int n_rows, int group, size_t q_bs, size_t q_hs, size_t q_rs, size_t k_bs, size_t k_hs, size_t k_rs,
+                 float scale, void* stream) {
   const size_t smem = (size_t)(BM + 2 * BN) * (D + 8) * sizeof(bf16) + BN;
-  cudaError_t err = allow_dynamic_smem(flash_kernel<D, PREFILL, LSE>, smem);
+  cudaError_t err = allow_dynamic_smem(flash_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(n_rows / BM, heads, B);
-  flash_kernel<D, PREFILL, LSE><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  flash_kernel<D><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const uint8_t*>(valid), static_cast<bf16*>(out), static_cast<float*>(lse), n_rows, group, q_bs,
-      q_hs, q_rs, k_bs, k_hs, k_rs, scale * 1.4426950408889634f);
+      static_cast<const uint8_t*>(valid), static_cast<bf16*>(out), n_rows, group, q_bs, q_hs, q_rs, k_bs, k_hs, k_rs,
+      scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The ViT forward on wgmma (mu_flash_vit_bf16): see the note at the head of
+// this file
+// ---------------------------------------------------------------------------
+namespace vw {
+
+constexpr int kConsumers = 2;              // consumer warpgroups, 64 query rows each
+constexpr int BM = 64 * kConsumers;        // query rows per block
+constexpr int BN = 128;                    // keys per stage
+constexpr int kThreads = 128 * (kConsumers + 1);  // and the producer warpgroup
+constexpr uint32_t kBox = BN * 128;        // one TMA box: 128 rows of 64 bf16 columns, 128-byte swizzled
+constexpr uint32_t kGroup = 1024;          // 8 swizzled rows: the stride of 8-row groups
+
+// Shared memory: the Q tile, then per stage a K tile and a V tile (each
+// D / 64 boxes), then the barriers: 144 KB at D 64 (4 stages), 160 KB at D 128 (2).
+template <int D>
+struct Cfg {
+  static constexpr int kBoxes = D / 64;
+  static constexpr uint32_t kTile = kBoxes * kBox;
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr size_t kSmem = (1 + 2 * kStages) * kTile + (1 + 2 * kStages) * 8 + 1024;
+};
+
+// S (64 x 128 fp32, the warpgroup's scores) = Q (64 x 16, shared, K-major) . K^T
+// (16 x 128: K's 128 rows, K-major), added to S unless `accumulate` is 0.
+__device__ __forceinline__ void wg_qk(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, "
+      "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, "
+      "%51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),
+        "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]),
+        "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O (64 x D fp32) += P (64 x 16 bf16, registers) . V (16 x D: 16 of V's rows, N-major:
+// wgmma's transpose-B bit), at D 64 and 128.
+__device__ __forceinline__ void wg_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, "
+      "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),
+        "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wg_pv(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, "
+      "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, "
+      "%51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, "
+      "1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),
+        "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]),
+        "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// q_map / k_map / v_map over (B * H, N, D) bf16 (innermost first: D, N, B * H;
+// boxes of 64 x 128 x 1); out (B, H, N, D) bf16; lse (B, H, N) fp32 when LSE.
+// N a multiple of BN. Grid (N / BM, H, B).
+template <int D, bool LSE>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_vit_wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out, float* __restrict__ lse,
+                           int N, float scale_log2e) {
+  using C = Cfg<D>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms start on 1024-byte boundaries
+  const uint32_t kv0 = q_s + C::kTile;                        // stage s: K at kv0 + 2 s kTile, V after it
+  const uint32_t q_bar = kv0 + 2 * C::kStages * C::kTile, full0 = q_bar + 8, empty0 = full0 + 8 * C::kStages;
+  const int n0 = blockIdx.x * BM, bh = blockIdx.z * gridDim.y + blockIdx.y, n_kt = N / BN;
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wgi = threadIdx.x / 128;
+  if (wgi == kConsumers) {  // the producer: one thread loads Q once and keeps the ring of K and V tiles full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect_tx(q_bar, C::kTile);
+#pragma unroll
+      for (int c = 0; c < C::kBoxes; ++c) tma_load_3d(q_s + c * kBox, &q_map, q_bar, 64 * c, n0, bh);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % C::kStages;
+        const uint32_t full = full0 + 8 * s, k_s = kv0 + 2 * s * C::kTile, v_s = k_s + C::kTile;
+        mbar_wait(empty0 + 8 * s, ((kt / C::kStages) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * C::kTile);
+#pragma unroll
+        for (int c = 0; c < C::kBoxes; ++c) {
+          tma_load_3d(k_s + c * kBox, &k_map, full, 64 * c, kt * BN, bh);
+          tma_load_3d(v_s + c * kBox, &v_map, full, 64 * c, kt * BN, bh);
+        }
+      }
+    }
+    return;
+  }
+  // a consumer: query rows n0 + 64 wgi .. + 63; thread (warp, g, t) holds rows 16 warp + g and + 8
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  float o[D / 2], s[BN / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running maxima of the raw scores
+  float l0 = 0.0f, l1 = 0.0f;            // this thread's share of the running sums
+  const uint32_t q_rows = q_s + wgi * 64 * 128;
+  uint32_t p[BN / 16][4];  // P of the tile before, bf16 pairs: the A fragments of O += P V
+  auto scores = [&](uint32_t k_s) {  // S = Q K^T: 32 bytes of D per k16 step, the next box every 4
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t off = (ks / 4) * kBox + (ks % 4) * 32;
+      wg_qk(s, smem_desc(q_rows + off, 16, kGroup), smem_desc(k_s + off, 16, kGroup), ks);
+    }
+  };
+  auto products = [&](uint32_t v_s) {  // O += P V
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) wg_pv(o, p[kk], smem_desc(v_s + kk * 16 * 128, kBox, kGroup));
+  };
+  float corr0, corr1;
+  // The online softmax update of the thread's two rows (each spread over a quad of threads), in place in S.
+  auto softmax = [&]() {
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float ms0 = (mx0 == -INFINITY) ? 0.0f : mx0 * scale_log2e;
+    const float ms1 = (mx1 == -INFINITY) ? 0.0f : mx1 * scale_log2e;
+    corr0 = ex2_fast(m0 * scale_log2e - ms0);
+    corr1 = ex2_fast(m1 * scale_log2e - ms1);
+    m0 = mx0;
+    m1 = mx1;
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      s[4 * j] = ex2_fast(s[4 * j] * scale_log2e - ms0);
+      s[4 * j + 1] = ex2_fast(s[4 * j + 1] * scale_log2e - ms0);
+      s[4 * j + 2] = ex2_fast(s[4 * j + 2] * scale_log2e - ms1);
+      s[4 * j + 3] = ex2_fast(s[4 * j + 3] * scale_log2e - ms1);
+      sum0 += s[4 * j] + s[4 * j + 1];
+      sum1 += s[4 * j + 2] + s[4 * j + 3];
+    }
+    l0 = l0 * corr0 + sum0;
+    l1 = l1 * corr1 + sum1;
+  };
+  auto keep_p = [&]() {  // keys 16 kk .. 16 kk + 15 are score blocks 2 kk and 2 kk + 1
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  };
+
+  // The consumer warpgroups take turns, in order, to issue their products: warpgroup i waits at named
+  // barrier 1 + i for the one before it (warpgroup 0 first). No branch may run while a product is in
+  // flight: ptxas would serialize every wgmma (C7520).
+  const int my_turn = 1 + wgi, next_turn = 1 + (wgi + 1) % kConsumers;
+  mbar_wait(q_bar, 0);
+  if (wgi == kConsumers - 1) named_bar_arrive(1, 256);
+  mbar_wait(full0, 0);  // tile 0: its scores and softmax; its P V goes with tile 1's scores
+  named_bar(my_turn, 256);
+  fence_regs(s);
+  wgmma_fence();
+  scores(kv0);
+  wgmma_commit();
+  named_bar_arrive(next_turn, 256);
+  wgmma_wait<0>();
+  fence_regs(s);
+  softmax();
+  keep_p();
+  for (int kt = 1; kt < n_kt; ++kt) {
+    const int st = kt % C::kStages, prev = (kt - 1) % C::kStages;
+    mbar_wait(full0 + 8 * st, (kt / C::kStages) & 1);
+    named_bar(my_turn, 256);
+    fence_regs(s);
+    fence_regs(o);
+    wgmma_fence();
+    scores(kv0 + 2 * st * C::kTile);
+    wgmma_commit();
+    products(kv0 + (2 * prev + 1) * C::kTile);
+    wgmma_commit();
+    named_bar_arrive(next_turn, 256);
+    wgmma_wait<1>();  // S is ready; the P V product runs on under the softmax
+    fence_regs(s);
+    softmax();
+    wgmma_wait<0>();
+    fence_regs(o);
+    if (tid == 0) mbar_arrive(empty0 + 8 * prev);  // both products of the tile before have read its stage
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= corr0;
+      o[4 * j + 1] *= corr0;
+      o[4 * j + 2] *= corr1;
+      o[4 * j + 3] *= corr1;
+    }
+    keep_p();
+  }
+  {  // the last tile's O += P V
+    const int last = (n_kt - 1) % C::kStages;
+    fence_regs(o);
+    wgmma_fence();
+    products(kv0 + (2 * last + 1) * C::kTile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    if (tid == 0) mbar_arrive(empty0 + 8 * last);
+  }
+  if (wgi == 0) named_bar(1, 256);  // the last warpgroup's last arrival
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.0f / fmaxf(l0, 1e-30f), inv1 = 1.0f / fmaxf(l1, 1e-30f);
+  const int row0 = n0 + wgi * 64 + warp * 16 + g, row1 = row0 + 8;
+  if (LSE && t == 0) {
+    lse[(size_t)bh * N + row0] = (m0 * scale_log2e + log2f(l0)) * 0.6931471805599453f;
+    lse[(size_t)bh * N + row1] = (m1 * scale_log2e + log2f(l1)) * 0.6931471805599453f;
+  }
+  bf16* o0 = out + ((size_t)bh * N + row0) * D;
+  bf16* o1 = out + ((size_t)bh * N + row1) * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    *reinterpret_cast<bf162*>(o0 + 8 * j + 2 * t) = __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+    *reinterpret_cast<bf162*>(o1 + 8 * j + 2 * t) = __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+  }
+}
+
+}  // namespace vw
+
+// The tensor maps are encoded per call (the operands are new tensors every call).
+template <int D, bool LSE>
+int launch_vit_wgmma(const void* q, const void* k, const void* v, void* out, void* lse, int B, int H, int N,
+                     float scale, cudaStream_t st) {
+  using C = vw::Cfg<D>;
+  const void* ops[3] = {q, k, v};
+  for (const void* p : ops)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return (int)cudaErrorInvalidValue;  // TMA needs 16-byte rows
+  if (N < vw::BN || N % vw::BN != 0 || reinterpret_cast<uintptr_t>(out) % 4 != 0) return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)B * H};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)N * D * 2};
+  const cuuint32_t box[3] = {64, vw::BN, 1};
+  CUtensorMap maps[3];
+  for (int i = 0; i < 3; ++i)
+    if (!encode(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ops[i], dims, strides, box))
+      return (int)cudaErrorInvalidValue;
+  auto kernel = vw::flash_vit_wgmma_kernel<D, LSE>;
+  const cudaError_t rc = allow_dynamic_smem(kernel, C::kSmem);
+  if (rc != cudaSuccess) return (int)rc;
+  dim3 grid(N / vw::BM, H, B);
+  kernel<<<grid, vw::kThreads, C::kSmem, st>>>(maps[0], maps[1], maps[2], static_cast<bf16*>(out),
+                                                 static_cast<float*>(lse), N, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_vit(const void* q, const void* k, const void* v, void* out, void* lse, int B, int H, int N, float scale,
+               cudaStream_t st) {
+  return lse != nullptr ? launch_vit_wgmma<D, true>(q, k, v, out, lse, B, H, N, scale, st)
+                        : launch_vit_wgmma<D, false>(q, k, v, out, lse, B, H, N, scale, st);
 }
 
 }  // namespace
@@ -285,34 +593,22 @@ extern "C" int mu_flash_prefill_bf16(const void* q, const void* k, const void* v
                                      int T, int Hq, int Hkv, int D, float scale, void* stream) {
   const size_t qrs = (size_t)Hq * D, krs = (size_t)Hkv * D;
   if (D == 128)
-    return launch_flash<128, true, false>(q, k, v, valid, out, nullptr, B, Hq, T, Hq / Hkv, T * qrs, D, qrs, T * krs,
-                                          D, krs, scale, stream);
+    return launch_flash<128>(q, k, v, valid, out, B, Hq, T, Hq / Hkv, T * qrs, D, qrs, T * krs, D, krs, scale, stream);
   if (D == 64)
-    return launch_flash<64, true, false>(q, k, v, valid, out, nullptr, B, Hq, T, Hq / Hkv, T * qrs, D, qrs, T * krs,
-                                         D, krs, scale, stream);
+    return launch_flash<64>(q, k, v, valid, out, B, Hq, T, Hq / Hkv, T * qrs, D, qrs, T * krs, D, krs, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 // q / k / v / out (B, H, N, D) bf16 contiguous, head-major; non-causal; lse
-// (B, H, N) fp32 or null (then not written: inference).
-// N must be a multiple of 64 and D 64 or 128 (the wrapper checks).
+// (B, H, N) fp32 or null (then not written: inference): m * scale + log(l)
+// of each row, the natural-log normaliser of its softmax (the library's
+// residuals m and l in one number). N a multiple of 128, 16-byte aligned q, k,
+// v, D 64 or 128, else cudaErrorInvalidValue (the wrapper checks the shapes).
 extern "C" int mu_flash_vit_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int B, int H,
                                  int N, int D, float scale, void* stream) {
-  const size_t hs = (size_t)N * D, bs = (size_t)H * hs;
-  if (lse != nullptr) {
-    if (D == 64)
-      return launch_flash<64, false, true>(q, k, v, nullptr, out, lse, B, H, N, 1, bs, hs, D, bs, hs, D, scale, stream);
-    if (D == 128)
-      return launch_flash<128, false, true>(q, k, v, nullptr, out, lse, B, H, N, 1, bs, hs, D, bs, hs, D, scale,
-                                            stream);
-    return (int)cudaErrorInvalidValue;
-  }
-  if (D == 64)
-    return launch_flash<64, false, false>(q, k, v, nullptr, out, nullptr, B, H, N, 1, bs, hs, D, bs, hs, D, scale,
-                                          stream);
-  if (D == 128)
-    return launch_flash<128, false, false>(q, k, v, nullptr, out, nullptr, B, H, N, 1, bs, hs, D, bs, hs, D, scale,
-                                           stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch_vit<64>(q, k, v, out, lse, B, H, N, scale, st);
+  if (D == 128) return launch_vit<128>(q, k, v, out, lse, B, H, N, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -81,11 +81,10 @@
 //   tgmm   mma.sync route: grid (column tiles, row tiles of K, groups): each
 //          block walks its group's rows 32 at a time; a group with no rows
 //          stores zeros.
-#include <cuda.h>
-
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -441,56 +440,6 @@ struct Ring {
   static constexpr size_t kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;  // + barriers, + alignment
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
-          dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
-      "[%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma's descriptor of a 128-byte-swizzled operand in shared memory: start
-// address, leading and stride byte offsets (each in 16-byte units), layout
-// type 1 (128-byte swizzle) in bits 62-63.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 | (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
-}
-
 // The table tile's descriptor at k16 step ks. K-major (the transposed table,
 // rows of 64 K): the step moves 32 bytes along each swizzled row; the leading
 // offset is unused. N-major (the forward table: 64 rows of K, each 64 columns
@@ -553,17 +502,6 @@ struct Wgmma {
 
 #undef WG_ACC
 #undef WG_OUTS
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-
-// Keep the compiler from moving accumulator reads or writes across a wgmma
-// launch or wait (the products write the registers asynchronously).
-__device__ __forceinline__ void fence_acc(float (&d)[TN / 2]) {
-#pragma unroll
-  for (int i = 0; i < TN / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // The thread's A registers of k16 step ks from a staged fp32 tile (two boxes
 // of 32 K, 128 rows of 128 bytes each, 16-byte chunk c of row r at c ^ (r % 8)),
@@ -676,7 +614,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           uint32_t hi[4][4], lo[4][4];
 #pragma unroll
           for (int ks = 0; ks < 4; ++ks) split_frags(tiles + s * Cfg::kStageBytes, row, ks, lane, hi[ks], lo[ks]);
-          fence_acc(acc);
+          fence_regs(acc);
           wgmma_fence();
 #pragma unroll
           for (int ks = 0; ks < 4; ++ks) {
@@ -684,15 +622,15 @@ __global__ void __launch_bounds__(kThreads, 1)
             Mma::rs(acc, lo[ks], b_desc<TRANS>(b, ks));
           }
         } else {
-          fence_acc(acc);
+          fence_regs(acc);
           wgmma_fence();
 #pragma unroll
           for (int ks = 0; ks < 4; ++ks)
             Mma::ss(acc, smem_desc(a + wgi * 64 * 128 + ks * 32, 16, kGroupBytes), b_desc<TRANS>(b, ks));
         }
         wgmma_commit();
-        wgmma_wait_all();
-        fence_acc(acc);
+        wgmma_wait<0>();
+        fence_regs(acc);
       }
       if (threadIdx.x % 128 == 0) mbar_arrive(empty0 + 8 * s);  // the stage is free once both warpgroups are done
     }
@@ -725,11 +663,6 @@ struct TRing {
   static constexpr size_t kSmem =
       kStages * kStageBytes + kConsumers * kEpiBytes + 2 * kStages * 8 + (2 * kMaxGroups + 2) * 4 + 1024;
 };
-
-__device__ __forceinline__ void named_bar(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2) {
   asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
@@ -883,7 +816,7 @@ __device__ __forceinline__ void t_stage(float (&acc)[TN / 2], uint8_t* tiles, ui
     named_bar(1, kConsumers * 128);
   }
   uint32_t hi[TS / 16][4], lo[TS / 16][4];
-  fence_acc(acc);
+  fence_regs(acc);
 #pragma unroll
   for (int ks = 0; ks < TS / 16; ++ks) {
     t_frags<TG>(tiles + s * Cfg::kStageBytes, mrow, ks, lane, valid, hi[ks], lo[ks]);
@@ -893,8 +826,8 @@ __device__ __forceinline__ void t_stage(float (&acc)[TN / 2], uint8_t* tiles, ui
     if constexpr (Cfg::F32) Wgmma<1>::rs(acc, lo[ks], db);
   }
   wgmma_commit();
-  wgmma_wait_all();
-  fence_acc(acc);
+  wgmma_wait<0>();
+  fence_regs(acc);
   if (tid == 0) mbar_arrive(empty0 + 8 * s);
 }
 
@@ -988,40 +921,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 }  // namespace wg
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, reached through the runtime's entry-point
-// query (so the library links without -lcuda); null where it is missing.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                                            &found);
-#else
-    const cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (rc == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A tensor map of `rank` dimensions (innermost first; byte strides of the
-// outer ones), 128-byte swizzled boxes, zeros out of bounds.
-bool encode(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* ptr, const cuuint64_t* dims,
-            const cuuint64_t* strides, const cuuint32_t* box) {
-  const EncodeTiled fn = encode_tiled();
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn != nullptr &&
-         fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // The descriptors are encoded per call: the table pointer is a layer's view of
 // the depth-stacked leaf.

@@ -31,7 +31,8 @@ _SIGNATURES = {
     "mu_moe_stream_bf16": [_P] * 10 + [_I] * 4 + [_P],
     "mu_swiglu_gmm_bf16": [_P] * 8 + [_I] * 3 + [_P],
     "mu_swiglu_gmm_tile_rows": [],
-    "mu_decode_attention_bf16": [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P],
+    "mu_decode_attention_bf16": [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P],
+    "mu_decode_attention_tile": [],
     "mu_moe_stream_q4": [_P] * 13 + [_I] * 5 + [_P],
     "mu_swiglu_gmm_q4": [_P] * 17 + [_I] * 5 + [_P],
     "mu_rf_sampler_q4s8": [_P] * 20 + [_I] * 10 + [ctypes.c_float] * 3 + [_P],
@@ -134,7 +135,8 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_handle(tensor) -> int:
-    """The raw CUDA stream PyTorch would run `tensor`'s next op on."""
+    """The raw CUDA stream PyTorch would run `tensor`'s next op on (read without
+    building a `torch.cuda.Stream`: the launch's host cost counts at decode)."""
     import torch
 
-    return torch.cuda.current_stream(tensor.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(tensor.get_device())

@@ -12,8 +12,10 @@ residuals and the backward kernels `_flash_attention_bwd_dkv` and
 sequence whose fresh keys are the whole context, with the (rows, keys) scores
 kept out of device memory. On the H100 it is bound by its operations (4 * D
 per allowed query-key pair; q, k, v and the output each move once), so the
-kernel keeps both products on the tensor cores (`mma.sync` bf16, fp32
-accumulators) and the online-softmax state in registers; see the source note.
+kernel keeps both products on the tensor cores (bf16, fp32 accumulators)
+and the online-softmax state in registers; see the source note: the prefill
+on mma.sync, the ViT forward on wgmma over a TMA-fed ring (N a multiple of
+128, as its gate requires), the ViT backward on mma.sync.
 
 The gates follow the JAX package's TPU dispatch on every device (the port's
 CPU path is the plain version of the same function, not another path).
@@ -31,7 +33,8 @@ from mingunivision_tpu_torch.ops.kernels import build
 from mingunivision_tpu_torch.ops.linear import current_fp32_precision
 
 _KERNEL_HEAD_DIMS = (64, 128)
-_TILE = 64  # the kernel's query and key tile
+_TILE = 64  # the mma.sync bodies' query and key tile (prefill, ViT backward)
+VIT_TILE = 128  # the ViT forward's (wgmma) query and key tile
 
 
 def flash_usable(T: int) -> bool:
@@ -156,24 +159,32 @@ def flash_vit_attention_bwd_plain(q, k, v, o, lse, do, *, scale: float):
     return flash_vit_bwd_dq_plain(q, k, v, lse, do, delta, scale=scale), dk, dv
 
 
-def _check_vit(name, *tensors):
+def _check_vit(name, *tensors, tile: int = _TILE):
     """The kernels' contract: bf16 head-major (B, H, N, D) of one shape, D in
-    _KERNEL_HEAD_DIMS, N a multiple of the tile."""
+    _KERNEL_HEAD_DIMS, N a multiple of the kernel's tile."""
     shape = tensors[0].shape
-    if any(t.dtype != torch.bfloat16 for t in tensors):
-        raise ValueError(f"{name}: needs bf16 q/k/v, got {[t.dtype for t in tensors]}")
-    if any(t.shape != shape for t in tensors):
-        raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in tensors]}")
+    for t in tensors:
+        if t.dtype is not torch.bfloat16:
+            raise ValueError(f"{name}: needs bf16 q/k/v, got {[t.dtype for t in tensors]}")
+        if t.shape != shape:
+            raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in tensors]}")
     D, N = shape[3], shape[2]
-    if D not in _KERNEL_HEAD_DIMS or N % _TILE:
-        raise ValueError(f"{name}: needs head_dim in {_KERNEL_HEAD_DIMS} and N a multiple of {_TILE} (D={D}, N={N})")
+    if D not in _KERNEL_HEAD_DIMS or N % tile:
+        raise ValueError(f"{name}: needs head_dim in {_KERNEL_HEAD_DIMS} and N a multiple of {tile} (D={D}, N={N})")
     return shape
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and 16-byte aligned (a copy where it is not): TMA reads 16-byte rows."""
+    if not t.is_contiguous():
+        return t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _vit_forward(q, k, v, scale: float, with_lse: bool):
     """Launch the ViT forward on bf16 CUDA tensors: out, and lse when asked."""
-    B, H, N, D = _check_vit("flash_vit_attention", q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    B, H, N, D = _check_vit("flash_vit_attention", q, k, v, tile=VIT_TILE)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device) if with_lse else None
     rc = build.load().mu_flash_vit_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -265,7 +276,8 @@ def flash_vit_attention(q, k, v, *, scale: float):
         return flash_vit_attention_plain(q, k, v, scale=scale).to(dt)
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise ValueError(f"flash_vit_attention: needs bf16 or fp32 q/k/v, got {dt}/{k.dtype}/{v.dtype}")
-    return _vit_forward(q, k, v, scale, False)[0].to(dt)
+    out = _vit_forward(q, k, v, scale, False)[0]
+    return out if dt is torch.bfloat16 else out.to(dt)
 
 
 flash_vit_attention.launches = 0

@@ -1120,3 +1120,121 @@ def test_gathered_expert_matmul_raises_on_unsupported_input(dev):
     idx, tw = _routing(dev, 3, 2)
     with pytest.raises(ValueError, match="layer index"):
         moe_experts_gather_kernel(_experts(dev), x.new_zeros((3, H)), idx, tw)
+
+
+# ---------------------------------------------------------------------------
+# decode attention, split over the cache (one launch: partials merged by the last block of each row)
+# ---------------------------------------------------------------------------
+
+_DECODE_MASKS = ("causal-prefix", "cfg-holes", "lone-last-tile", "fully-masked-row")
+
+
+def _decode_mask(kind, B, S, dev):
+    """(B, S) bool: row b allows a prefix of min(S, 300 + 37 b) positions (the
+    slice's causal bound); with CFG holes, odd rows skip 50 positions from a
+    third of it; or only position S - 1 - b (in the last split); or the
+    prefixes with row 0 fully masked."""
+    mask = torch.zeros(B, S, dtype=torch.bool, device=dev)
+    for b in range(B):
+        n = min(S, 300 + 37 * b)
+        if kind == "lone-last-tile":
+            mask[b, S - 1 - b] = True
+            continue
+        mask[b, :n] = True
+        if kind == "cfg-holes" and b % 2:
+            mask[b, n // 3 : n // 3 + 50] = False
+    if kind == "fully-masked-row":
+        mask[0] = False
+    return mask
+
+
+def test_decode_attention_split_tile_matches_the_kernel(dev):
+    from mingunivision_tpu_torch.ops.kernels import build
+    from mingunivision_tpu_torch.ops.kernels import decode_attention as da
+
+    assert build.load().mu_decode_attention_tile() == da.SPLIT_TILE
+
+
+@pytest.mark.parametrize("poison", [False, True], ids=["clean", "nan-inf-masked"])
+@pytest.mark.parametrize("kind", _DECODE_MASKS)
+@pytest.mark.parametrize("S", [4096, 512])
+@pytest.mark.parametrize("B", [1, 2, 3, 4, 9, 12, 16])
+def test_decode_attention_split_kernel_matches_plain(dev, B, S, kind, poison):
+    """Every batch the port calls decode attention with (understanding 1, T2I 2,
+    editing 3, n_images=2 4, the barrier batch 9, the image pool 12, the text
+    pool up to 16), G 4, D 128: one launch per call; rows with an allowed
+    position within bf16's precision of the plain version on the clean cache,
+    a fully masked row exactly zero; NaN in every masked K position and Inf in
+    every masked V position change nothing (they are never loaded)."""
+    Hkv, G, D = 4, 4, 128
+    g = torch.Generator(device=dev).manual_seed(31 + B)
+    q = torch.randn(B, 1, Hkv * G, D, device=dev, generator=g).to(torch.bfloat16)
+    k = torch.randn(B, Hkv, S, D, device=dev, generator=g).to(torch.bfloat16)
+    v = torch.randn(B, Hkv, S, D, device=dev, generator=g).to(torch.bfloat16)
+    mask = _decode_mask(kind, B, S, dev)
+    want = decode_attention_plain(q, k, v, mask)
+    kc, vc = k.clone(), v.clone()
+    if poison:
+        hidden = ~mask[:, None, :, None].expand_as(kc)
+        kc[hidden] = float("nan")
+        vc[hidden] = float("inf")
+    before = decode_attention.launches
+    got = decode_attention(q, kc, vc, mask)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    rows = mask.any(-1)
+    if rows.any():
+        _close_bf16(got[rows], want[rows])
+    assert torch.equal(got[~rows].float(), torch.zeros_like(got[~rows].float()))
+    again = decode_attention(q, kc, vc, mask)  # the counters were left at zero: the next launch merges again
+    assert torch.equal(again, got)
+
+
+# ---------------------------------------------------------------------------
+# the ViT flash forward's wgmma body against the plain version
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,N,D", [(1, 1024, 64), (2, 1024, 64), (8, 1024, 64), (1, 512, 64), (2, 512, 64),
+                                   (8, 512, 64), (1, 512, 128), (2, 1024, 128)])
+def test_flash_vit_wgmma_body_matches_plain(dev, B, N, D):
+    from mingunivision_tpu_torch.ops.kernels import flash
+
+    H = 16 if D == 64 else 4
+    q, k, v, _ = _vit_inputs(dev, B, H, N, D, seed=40 + B)
+    scale = D**-0.5
+    before = flash.flash_vit_attention.launches
+    out, lse = flash.flash_vit_attention_lse(q, k, v, scale=scale)
+    plain_out = flash.flash_vit_attention(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    assert flash.flash_vit_attention.launches == before + 2
+    want, want_lse = flash.flash_vit_attention_lse_plain(q, k, v, scale=scale)
+    _close_bf16(out, want)
+    assert (lse - want_lse).abs().max().item() <= 1e-4 * want_lse.abs().max().item() + 1e-5
+    assert out.equal(plain_out)  # the residual mode only adds the lse
+
+
+def test_flash_vit_forward_raises_off_its_tile(dev):
+    """N 576, a multiple of 64 but not of the forward's 128-row tile: the
+    wrapper raises (the pixel decoder's gate never sends it one)."""
+    from mingunivision_tpu_torch.ops.kernels import flash
+
+    q, k, v, _ = _vit_inputs(dev, 2, 4, 576, 64)
+    before = flash.flash_vit_attention.launches
+    with pytest.raises(ValueError):
+        flash.flash_vit_attention_lse(q, k, v, scale=0.125)
+    assert flash.flash_vit_attention.launches == before
+
+
+def test_flash_vit_misaligned_operand_is_copied_onto_the_wgmma_body(dev):
+    from mingunivision_tpu_torch.ops.kernels import flash
+
+    q, k, v, _ = _vit_inputs(dev, 1, 16, 1024, 64)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+    q_off = flat[1:].view(q.shape)  # 2 bytes past an aligned start: TMA cannot read it in place
+    q_off.copy_(q)
+    before = flash.flash_vit_attention.launches
+    out = flash.flash_vit_attention(q_off, k, v, scale=0.125)
+    torch.cuda.synchronize()
+    assert flash.flash_vit_attention.launches == before + 1
+    _close_bf16(out, flash.flash_vit_attention_plain(q, k, v, scale=0.125))
