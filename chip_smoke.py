@@ -2815,10 +2815,15 @@ def check_flash_vit_train_kernels(torch, results: dict) -> bool:
     """The ViT flash attention's backward kernels of MingTok training at the
     pixel decoder's shape (16 heads x 1024 tokens x 64, batch 2 and 8): dK / dV
     and dQ against their plain versions on the kernel forward's residuals
-    (the forward with residuals is held in `flash_vit_cases`), within REL_TOL.
-    The library time of the backward kernels is one `torch.autograd.grad`
-    through `scaled_dot_product_attention` on the same q, k, v and dO (its
-    whole backward: the work of the pair); timed only."""
+    (the forward with residuals is held in `flash_vit_cases`), within REL_TOL,
+    each with its kernel-alone device time (`kernel_device_ms`; a case it
+    cannot take fails) and achieved TFLOP/s. The library time of the backward
+    kernels is one `torch.autograd.grad` through `scaled_dot_product_attention`
+    on the same q, k, v and dO (its whole backward: the work of the pair);
+    timed only. Beside it, the whole backward as `FlashViTAttention.backward`
+    runs it (delta, then both wrappers), through the wrappers and alone, with
+    SDPA's whole backward timed again in turn; recorded in the dQ case's
+    `pair`."""
     from mingunivision_tpu_torch.ops.kernels import flash
 
     dev = torch.device("cuda")
@@ -2846,11 +2851,31 @@ def check_flash_vit_train_kernels(torch, results: dict) -> bool:
                        lambda: flash.flash_vit_bwd_dq_plain(*args, scale=scale),  # noqa: B023
                        5 * numel * 2 + 2 * rows * 4, 3 * pair_ops, "bf16", library=library, plain_iters=5)
         dkv, dq = results["flash_vit_bwd_dkv"]["cases"][-1], results["flash_vit_bwd_dq"]["cases"][-1]
-        pair_bound = bound(7 * numel * 2 + 2 * rows * 4, 5 * pair_ops, "bf16")[0]
-        print(f"kernel flash_vit_bwd pair [{label}]: ms={dkv['ms'] + dq['ms']:.4f} "
-              f"library_ms={dkv['library_ms']:.4f} bound_ms={pair_bound:.4f} (operations: 10 N^2 D per head and "
-              f"image, {pair_bound / B:.4f} per image)")
-        del q, k, v, do, out, lse, delta, leaves, lib_out, library, args
+        for case, kern, ops in ((dkv, lambda: flash.flash_vit_bwd_dkv(*args, scale=scale), 4 * pair_ops),  # noqa: B023
+                                (dq, lambda: flash.flash_vit_bwd_dq(*args, scale=scale), 3 * pair_ops)):  # noqa: B023
+            case["device_ms"] = kernel_device_ms(torch, kern)
+            ok &= case["device_ms"] is not None
+            case["device_tflops"] = ops / case["device_ms"] / 1e9 if case["device_ms"] else None
+
+        def function_backward():  # FlashViTAttention.backward's work on a contiguous bf16 dO
+            d = flash.flash_vit_delta(out, do)  # noqa: B023
+            dk_dv = flash.flash_vit_bwd_dkv(q, k, v, lse, do, d, scale=scale)  # noqa: B023
+            return flash.flash_vit_bwd_dq(q, k, v, lse, do, d, scale=scale), *dk_dv  # noqa: B023
+
+        pair = {"function_ms": cuda_ms(torch, function_backward), "library_ms": cuda_ms(torch, library),
+                "function_device_ms": kernel_device_ms(torch, function_backward),
+                "library_device_ms": kernel_device_ms(torch, library)}
+        ok &= pair["function_device_ms"] is not None and pair["library_device_ms"] is not None
+        pair["bound_ms"] = bound(7 * numel * 2 + 2 * rows * 4, 5 * pair_ops, "bf16")[0]
+        dq["pair"] = pair
+        tflops = ", ".join(f"{n} {fmt_ms(c['device_ms'])} ms alone, {c['device_tflops'] or 0:.1f} TFLOP/s"
+                           for n, c in (("dkv", dkv), ("dq", dq)))
+        print(f"kernel flash_vit_bwd pair [{label}]: ms={dkv['ms'] + dq['ms']:.4f} ({tflops}); the whole backward "
+              f"as the Function runs it (delta + both wrappers): ms={pair['function_ms']:.4f} "
+              f"device_ms={fmt_ms(pair['function_device_ms'])}; SDPA's whole backward: ms={pair['library_ms']:.4f} "
+              f"device_ms={fmt_ms(pair['library_device_ms'])}; bound_ms={pair['bound_ms']:.4f} (operations: 10 N^2 "
+              f"D per head and image, {pair['bound_ms'] / B:.4f} per image)")
+        del q, k, v, do, out, lse, delta, leaves, lib_out, library, args, function_backward
     torch.cuda.empty_cache()
     return ok
 

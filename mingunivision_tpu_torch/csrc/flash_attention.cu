@@ -9,7 +9,8 @@
 //                          when asked: the residual of the backward (a wgmma
 //                          body fed by a TMA ring);
 // and the two backward kernels of the ViT entry, mu_flash_vit_bwd_dkv_bf16 and
-// mu_flash_vit_bwd_dq_bf16 (see their note below).
+// mu_flash_vit_bwd_dq_bf16 (wgmma bodies fed by TMA rings, built from the
+// forward's pieces; see their note below).
 //
 // Replaces the TPU path mingunivision_tpu/ops/kernels/flash.py
 // (flash_prefill_attention and flash_vit_attention, which call the Pallas
@@ -622,9 +623,10 @@ extern "C" int mu_flash_vit_bf16(const void* q, const void* k, const void* v, vo
 // library's: one kernel accumulates dK and dV over the query tiles of a key
 // tile, the other dQ over the key tiles of a query tile, so no two blocks
 // write the same output and no atomics are needed; the result does not
-// depend on the order blocks run in. Both recompute the scores from q, k and
-// the forward's log-sum-exp: P = exp(S * scale - lse). delta = rowsum(O * dO)
-// (fp32) comes from the caller, as the library computes it in XLA.
+// depend on the order blocks run in, and two calls on the same inputs agree
+// to the bit. Both recompute the scores from q, k and the forward's
+// log-sum-exp: P = exp(S * scale - lse). delta = rowsum(O * dO) (fp32) comes
+// from the caller, as the library computes it in XLA.
 //
 //   dkv: dV += P^T dO, dP = dO V^T, dS = P * (dP - delta) * scale, dK += dS^T Q
 //   dq:  dQ += dS K (dS recomputed the same way)
@@ -641,249 +643,418 @@ extern "C" int mu_flash_vit_bf16(const void* q, const void* k, const void* v, vo
 // since each recomputes S and dP) against 8 N D bf16 elements read and 3 N D
 // written.
 //
-// Design. Blocks of 4 warps over 64-row tiles, as the forward: dkv one block
-// per (batch, head, 64-key tile), each warp owning 16 keys, looping over the
-// 64-query tiles; dq one block per (batch, head, 64-query tile), each warp
-// owning 16 queries, looping over the 64-key tiles. All products are
-// mma.sync.m16n8k16 bf16 with fp32 accumulators in registers. Every operand
-// is staged in shared memory in its memory order (rows of D, padded by 16
-// bytes) and a transposed operand is read through ldmatrix .trans, never
-// staged transposed: Q and dO are the B operand of S^T and dP^T as [query][d]
-// rows and of dK and dV through .trans; K is read through .trans for dQ. The
-// score-shaped results (S^T, P^T, dS^T in dkv; S, P, dS in dq) stay in
-// registers, and their accumulator fragments are repacked as the A fragments
-// of the next product, as the forward does with P. The loads are plain
-// 16-byte copies between barriers: cp.async / TMA pipelining and wgmma are
-// later work.
+// Design: wgmma fed by TMA rings, the forward's pieces (N a multiple of 128,
+// 16-byte aligned operands, D 64 or 128). Both kernels run one block of three
+// warpgroups per (128-row tile, head, image): a producer warpgroup that gives
+// up registers (setmaxnreg) and of which one thread loads the block's two
+// resident tiles once by TMA, then keeps a ring of 4 stages of the streamed
+// tiles full (128-byte swizzled boxes of 64 columns; full and empty
+// mbarriers); and two consumer warpgroups that each own 64 rows of the
+// resident tiles. A stage streams T rows: 128 at D 64, 64 at D 128, where the
+// accumulators of D columns leave no registers for 128-wide score tiles.
+// Every product is one of two shapes: a score-shaped one (64 x T) with both
+// operands K-major in shared memory (wgmma.m64n128k16, m64n64k16 at T 64),
+// and a D-wide one whose A is a score-shaped block in registers (packed to
+// bf16 straight from the fp32 accumulators, as the forward's P) and whose B
+// is a streamed tile read N-major (the MN-major descriptor, the transpose-B
+// bit), as the forward's V.
+//
+//   dkv (resident K and V of 128 keys; streamed Q, dO and the stage's lse and
+//   delta, the last two by plain bulk copies): per stage a consumer issues
+//   S^T = K Q^T and dP^T = V dO^T together, takes P^T = exp2(S^T scale log2 e
+//   - lse log2 e) while dP^T runs, then dS^T = P^T (dP^T - delta) scale in
+//   fp32, packs both to bf16 and issues dV += P^T dO and dK += dS^T Q, and
+//   frees the stage when they are done. lse and delta are indexed by the
+//   accumulator's column (the stage's queries), so they come from the stage
+//   in shared memory, never from device memory inside the loop. Its
+//   consumers do not take turns: measured, turns did not make it faster.
+//   dq (resident Q and dO of 128 queries; streamed K and V): per stage a
+//   consumer issues S = Q K^T and dP = dO V^T beside the stage before's
+//   dQ += dS K, takes P while they run (each thread's two rows' lse and delta
+//   sit in registers), then dS, packed to bf16 for the next round; the first
+//   stage is peeled and the consumers take turns to issue (named barriers), as
+//   in the forward. No branch runs while a product is in flight: ptxas would
+//   serialize every wgmma (C7520).
+// dK, dV and dQ are stored once at the end from registers.
 // ---------------------------------------------------------------------------
 
 namespace {
+namespace vw {
 
+// S (64 x 64 fp32) = A (64 x 16, shared, K-major) . B^T (16 x 64: B's 64 rows, K-major): the score-shaped
+// product of a 64-row stage.
+__device__ __forceinline__ void wg_qk(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, "
+      "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),
+        "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// Shared memory of both backward kernels: two resident tiles of 128 rows, then per stage two streamed
+// tiles of T rows, then per stage T lse and T delta values (dkv only), then the barriers: 165 KB at D 64,
+// 195 KB at D 128.
 template <int D>
-constexpr size_t bwd_smem_bytes() {
-  return (size_t)4 * 64 * (D + 8) * sizeof(bf16) + 2 * 64 * sizeof(float);
-}
+struct Bwd {
+  static constexpr int kBoxes = D / 64;
+  static constexpr int T = D == 64 ? 128 : 64;  // rows of a streamed tile
+  static constexpr int kStages = 4;
+  static constexpr uint32_t kResBox = BM * 128, kStrBox = T * 128;  // one 64-column box of each
+  static constexpr uint32_t kRes = kBoxes * kResBox, kStr = kBoxes * kStrBox;
+  static constexpr uint32_t kRows = 2 * T * 4;  // a stage's lse and delta
+  static constexpr size_t kSmem = 2 * kRes + kStages * (2 * kStr + kRows) + (1 + 2 * kStages) * 8 + 1024;
+};
 
-// A fragment (16 x 16, rows r0.., k chunk kk) of a row-major [row][LD] tile.
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t (&r)[4], const bf16* tile, int r0, int kk, int lane) {
-  ldmatrix_x4(r, tile + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + kk * 16 + (lane >> 4) * 8);
-}
-
-// B fragments of two 8-column n tiles (2 * nj, 2 * nj + 1) for k chunk kk, from
-// a tile stored [n][k] (rows are the product's columns): b[0], b[1] for the
-// first, b[2], b[3] for the second.
-template <int LD>
-__device__ __forceinline__ void load_b_nk(uint32_t (&r)[4], const bf16* tile, int nj, int kk, int lane) {
-  ldmatrix_x4(r, tile + (nj * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 + ((lane >> 3) & 1) * 8);
-}
-
-// The same from a tile stored [k][n] (rows are the product's depth), through .trans.
-template <int LD>
-__device__ __forceinline__ void load_b_kn(uint32_t (&r)[4], const bf16* tile, int nj, int kk, int lane) {
-  ldmatrix_x4_trans(r, tile + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + nj * 16 + (lane >> 4) * 8);
-}
-
-// acc[8][4] = X_w Y^T for the warp's 16 rows of X (a [row][d] tile) against
-// the 64 rows of Y (a [row][d] tile): a 16 x 64 score-shaped block.
-template <int D, int LD>
-__device__ __forceinline__ void scores16x64(float (&acc)[8][4], const bf16* X, int r0, const bf16* Y, int lane) {
+// Score-shaped product of 64 resident rows (a) against a streamed tile (b), D / 16 k16 steps: 32 bytes of D
+// per step, the next 64-column box every 4.
+template <int D, int N>
+__device__ __forceinline__ void scores_bwd(float (&d)[N], uint32_t a, uint32_t b) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    load_a<LD>(a, X, r0, kk, lane);
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj) {
-      uint32_t b[4];
-      load_b_nk<LD>(b, Y, nj, kk, lane);
-      mma_bf16(acc[2 * nj], a, b[0], b[1]);
-      mma_bf16(acc[2 * nj + 1], a, b[2], b[3]);
-    }
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint32_t k = (ks % 4) * 32;
+    wg_qk(d, smem_desc(a + (ks / 4) * Bwd<D>::kResBox + k, 16, kGroup),
+          smem_desc(b + (ks / 4) * Bwd<D>::kStrBox + k, 16, kGroup), ks);
   }
 }
 
-// out[D/8][4] += A Z for A a 16 x 64 score-shaped block in registers (rounded
-// to bf16 here) and Z a [64][d] tile (k = its rows).
-template <int D, int LD>
-__device__ __forceinline__ void accumulate16xD(float (&out)[D / 8][4], const float (&A)[8][4], const bf16* Z,
-                                               int lane) {
+// acc (64 x D) += A (64 x T, bf16 fragments in registers) . B (a streamed tile, T x D, read N-major).
+template <int D, int N>
+__device__ __forceinline__ void products_bwd(float (&acc)[N], const uint32_t (&a)[Bwd<D>::T / 16][4], uint32_t b) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(A[2 * kk][0], A[2 * kk][1]);
-    a[1] = pack_bf16(A[2 * kk][2], A[2 * kk][3]);
-    a[2] = pack_bf16(A[2 * kk + 1][0], A[2 * kk + 1][1]);
-    a[3] = pack_bf16(A[2 * kk + 1][2], A[2 * kk + 1][3]);
-#pragma unroll
-    for (int dj = 0; dj < D / 16; ++dj) {
-      uint32_t b[4];
-      load_b_kn<LD>(b, Z, dj, kk, lane);
-      mma_bf16(out[2 * dj], a, b[0], b[1]);
-      mma_bf16(out[2 * dj + 1], a, b[2], b[3]);
-    }
-  }
+  for (int kk = 0; kk < Bwd<D>::T / 16; ++kk)
+    wg_pv(acc, a[kk], smem_desc(b + kk * 16 * 128, Bwd<D>::kStrBox, kGroup));
 }
 
-// Write a warp's 16 x D fp32 accumulator rows as bf16 at dst (row stride D).
+// The A fragments of k16 step kk are score blocks 2 kk and 2 kk + 1: register pairs 8 kk + 2 e, e = 0..3,
+// of columns 16 kk + 8 (e / 2) + 2 t and + 1.
+template <int N>
+__device__ __forceinline__ uint32_t pack_pair(const float (&d)[N], int kk, int e) {
+  return pack_bf16(d[8 * kk + 2 * e], d[8 * kk + 2 * e + 1]);
+}
+
 template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 8][4], int g, int t) {
+__device__ __forceinline__ void zero(float (&d)[D]) {
+#pragma unroll
+  for (int i = 0; i < D; ++i) d[i] = 0.0f;
+}
+
+// Store a consumer's 64 x D fp32 accumulator as bf16 rows: thread (warp, g, t) holds rows 16 warp + g and + 8.
+template <int D>
+__device__ __forceinline__ void store_bwd(bf16* dst, const float (&acc)[D / 2], int warp, int g, int t) {
+  bf16* r0 = dst + (size_t)(warp * 16 + g) * D;
+  bf16* r1 = r0 + 8 * D;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
-    *reinterpret_cast<bf162*>(dst + (size_t)g * D + j * 8 + 2 * t) = __floats2bfloat162_rn(acc[j][0], acc[j][1]);
-    *reinterpret_cast<bf162*>(dst + (size_t)(g + 8) * D + j * 8 + 2 * t) =
-        __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+    *reinterpret_cast<bf162*>(r0 + 8 * j + 2 * t) = __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<bf162*>(r1 + 8 * j + 2 * t) = __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 
-// grid (N / 64 key tiles, H, B). q, k, v, dO (B, H, N, D) bf16; lse, delta
-// (B, H, N) fp32; dK, dV (B, H, N, D) bf16.
+// Maps over (B * H, N, D) bf16 as the forward's; the resident operands' boxes have 128 rows, the streamed
+// ones' T. lse, delta (B, H, N) fp32, 16-byte aligned; dk, dv (B, H, N, D) bf16. Grid (N / 128, H, B).
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_vit_bwd_dkv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const float* __restrict__ lse, const bf16* __restrict__ dout, const float* __restrict__ delta,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int N, float scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + 64 * LD;
-  bf16* Qs = Vs + 64 * LD;
-  bf16* dOs = Qs + 64 * LD;
-  float* lse_s = reinterpret_cast<float*>(dOs + 64 * LD);  // lse * log2(e) of the tile's queries
-  float* del_s = lse_s + 64;
-
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const size_t head = ((size_t)b * gridDim.y + h) * N;  // (b, h) row offset
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_vit_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                                   const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+                                   const float* __restrict__ lse, const float* __restrict__ delta,
+                                   bf16* __restrict__ dk, bf16* __restrict__ dv, int N, float scale) {
+  using C = Bwd<D>;
+  constexpr int T = C::T;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);  // swizzle atoms on 1024 bytes
+  const uint32_t k_s = smem_u32(base), v_s = k_s + C::kRes;
+  const uint32_t str0 = v_s + C::kRes;                           // stage s: Q at str0 + 2 s kStr, dO after it
+  const uint32_t rows_off = 2 * C::kRes + 2 * C::kStages * C::kStr;  // stage s: lse, then delta, at + s kRows
+  const uint32_t kv_bar = k_s + rows_off + C::kStages * C::kRows, full0 = kv_bar + 8, empty0 = full0 + 8 * C::kStages;
+  const int n0 = blockIdx.x * BM, bh = blockIdx.z * gridDim.y + blockIdx.y, n_st = N / T;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_bar, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wgi = threadIdx.x / 128;
+  if (wgi == kConsumers) {  // the producer: K and V once, then the ring of Q, dO, lse and delta stages
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect_tx(kv_bar, 2 * C::kRes);
+#pragma unroll
+      for (int c = 0; c < C::kBoxes; ++c) {
+        tma_load_3d(k_s + c * C::kResBox, &k_map, kv_bar, 64 * c, n0, bh);
+        tma_load_3d(v_s + c * C::kResBox, &v_map, kv_bar, 64 * c, n0, bh);
+      }
+      const float* lse_h = lse + (size_t)bh * N;
+      const float* delta_h = delta + (size_t)bh * N;
+      for (int j = 0; j < n_st; ++j) {
+        const int s = j % C::kStages;
+        const uint32_t full = full0 + 8 * s, q_st = str0 + 2 * s * C::kStr, r_st = k_s + rows_off + s * C::kRows;
+        mbar_wait(empty0 + 8 * s, ((j / C::kStages) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * C::kStr + C::kRows);
+#pragma unroll
+        for (int c = 0; c < C::kBoxes; ++c) {
+          tma_load_3d(q_st + c * C::kStrBox, &q_map, full, 64 * c, j * T, bh);
+          tma_load_3d(q_st + C::kStr + c * C::kStrBox, &do_map, full, 64 * c, j * T, bh);
+        }
+        bulk_load(r_st, lse_h + j * T, T * 4, full);
+        bulk_load(r_st + T * 4, delta_h + j * T, T * 4, full);
+      }
+    }
+    return;
+  }
+  // a consumer: keys n0 + 64 wgi .. + 63; thread (warp, g, t) holds keys 16 warp + g and + 8, and of the
+  // stage's queries the columns 8 j + 2 t and + 1
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
   const float scale_log2e = scale * 1.4426950408889634f;
-
-  load_tile<D, LD>(Ks, k + (head + (size_t)kt * 64) * D, D, 64);
-  load_tile<D, LD>(Vs, v + (head + (size_t)kt * 64) * D, D, 64);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  float dk_acc[D / 2], dv_acc[D / 2], s[T / 2], dp[T / 2];
+  uint32_t pa[T / 16][4], da[T / 16][4];  // P^T and dS^T in bf16: the A fragments of dV and dK
+  zero(dk_acc);
+  zero(dv_acc);
+  const uint32_t k_rows = k_s + wgi * 64 * 128, v_rows = v_s + wgi * 64 * 128;
+  mbar_wait(kv_bar, 0);
+  for (int j = 0; j < n_st; ++j) {
+    const int st = j % C::kStages;
+    const uint32_t q_st = str0 + 2 * st * C::kStr, do_st = q_st + C::kStr;
+    const float2* lse2 = reinterpret_cast<const float2*>(base + rows_off + st * C::kRows);
+    const float2* delta2 = lse2 + T / 2;
+    mbar_wait(full0 + 8 * st, (j / C::kStages) & 1);
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    scores_bwd<D>(s, k_rows, q_st);  // S^T = K Q^T
+    wgmma_commit();
+    scores_bwd<D>(dp, v_rows, do_st);  // dP^T = V dO^T, under the exponentials
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    dk_acc[j][0] = dk_acc[j][1] = dk_acc[j][2] = dk_acc[j][3] = 0.0f;
-    dv_acc[j][0] = dv_acc[j][1] = dv_acc[j][2] = dv_acc[j][3] = 0.0f;
-  }
-
-  for (int qt = 0; qt < N / 64; ++qt) {
-    __syncthreads();  // the previous query tile is no longer read
-    const size_t row = head + (size_t)qt * 64;
-    load_tile<D, LD>(Qs, q + row * D, D, 64);
-    load_tile<D, LD>(dOs, dout + row * D, D, 64);
-    if (tid < 64) lse_s[tid] = lse[row + tid] * 1.4426950408889634f;
-    else del_s[tid - 64] = delta[row + tid - 64];
-    __syncthreads();
-
-    // P^T = exp(S^T * scale - lse) for the warp's 16 keys x 64 queries
-    float p[8][4];
-    scores16x64<D, LD>(p, Ks, warp * 16, Qs, lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) p[j][c] = exp2f(p[j][c] * scale_log2e - lse_s[j * 8 + 2 * t + (c & 1)]);
+    for (int c = 0; c < T / 8; ++c) {  // P^T = exp2(S^T scale log2 e - lse log2 e), lse by column
+      const float2 l = lse2[4 * c + t];
+      const float l0 = l.x * 1.4426950408889634f, l1 = l.y * 1.4426950408889634f;
+      s[4 * c] = ex2_fast(s[4 * c] * scale_log2e - l0);
+      s[4 * c + 1] = ex2_fast(s[4 * c + 1] * scale_log2e - l1);
+      s[4 * c + 2] = ex2_fast(s[4 * c + 2] * scale_log2e - l0);
+      s[4 * c + 3] = ex2_fast(s[4 * c + 3] * scale_log2e - l1);
     }
-    // dV += P^T dO (P rounded to bf16)
-    accumulate16xD<D, LD>(dv_acc, p, dOs, lane);
-    // dP^T = V dO^T; dS^T = P^T * (dP^T - delta) * scale, in fp32
-    float ds[8][4];
-    scores16x64<D, LD>(ds, Vs, warp * 16, dOs, lane);
+    wgmma_wait<0>();
+    fence_regs(dp);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) ds[j][c] = p[j][c] * (ds[j][c] - del_s[j * 8 + 2 * t + (c & 1)]) * scale;
+    for (int c = 0; c < T / 8; ++c) {  // dS^T = P^T (dP^T - delta) scale, in fp32
+      const float2 dl = delta2[4 * c + t];
+      dp[4 * c] = s[4 * c] * (dp[4 * c] - dl.x) * scale;
+      dp[4 * c + 1] = s[4 * c + 1] * (dp[4 * c + 1] - dl.y) * scale;
+      dp[4 * c + 2] = s[4 * c + 2] * (dp[4 * c + 2] - dl.x) * scale;
+      dp[4 * c + 3] = s[4 * c + 3] * (dp[4 * c + 3] - dl.y) * scale;
     }
-    // dK += dS^T Q (dS rounded to bf16)
-    accumulate16xD<D, LD>(dk_acc, ds, Qs, lane);
+#pragma unroll
+    for (int kk = 0; kk < T / 16; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pa[kk][e] = pack_pair(s, kk, e);
+        da[kk][e] = pack_pair(dp, kk, e);
+      }
+    }
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    wgmma_fence();
+    products_bwd<D>(dv_acc, pa, do_st);  // dV += P^T dO
+    products_bwd<D>(dk_acc, da, q_st);   // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    if (tid == 0) mbar_arrive(empty0 + 8 * st);  // both products have read the stage
   }
-
-  const size_t out_row = head + (size_t)kt * 64 + warp * 16;
-  store_rows<D>(dk + out_row * D, dk_acc, g, t);
-  store_rows<D>(dv + out_row * D, dv_acc, g, t);
+  const size_t row = (size_t)bh * N + n0 + wgi * 64;
+  store_bwd<D>(dk + row * D, dk_acc, warp, g, t);
+  store_bwd<D>(dv + row * D, dv_acc, warp, g, t);
 }
 
-// grid (N / 64 query tiles, H, B). dQ (B, H, N, D) bf16.
+// The same maps and inputs; the resident operands are Q and dO, the streamed ones K and V. dq (B, H, N, D)
+// bf16. Grid (N / 128, H, B).
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_vit_bwd_dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const float* __restrict__ lse, const bf16* __restrict__ dout, const float* __restrict__ delta,
-    bf16* __restrict__ dq, int N, float scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + 64 * LD;
-  bf16* Ks = dOs + 64 * LD;
-  bf16* Vs = Ks + 64 * LD;
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const size_t head = ((size_t)b * gridDim.y + h) * N;
-  const size_t qrow = head + (size_t)qt * 64;
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_vit_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                                  const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+                                  const float* __restrict__ lse, const float* __restrict__ delta,
+                                  bf16* __restrict__ dq, int N, float scale) {
+  using C = Bwd<D>;
+  constexpr int T = C::T;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u, do_s = q_s + C::kRes;
+  const uint32_t str0 = do_s + C::kRes;  // stage s: K at str0 + 2 s kStr, V after it
+  const uint32_t qd_bar = str0 + 2 * C::kStages * C::kStr, full0 = qd_bar + 8, empty0 = full0 + 8 * C::kStages;
+  const int n0 = blockIdx.x * BM, bh = blockIdx.z * gridDim.y + blockIdx.y, n_st = N / T;
+  if (threadIdx.x == 0) {
+    mbar_init(qd_bar, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wgi = threadIdx.x / 128;
+  if (wgi == kConsumers) {  // the producer: Q and dO once, then the ring of K and V stages
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect_tx(qd_bar, 2 * C::kRes);
+#pragma unroll
+      for (int c = 0; c < C::kBoxes; ++c) {
+        tma_load_3d(q_s + c * C::kResBox, &q_map, qd_bar, 64 * c, n0, bh);
+        tma_load_3d(do_s + c * C::kResBox, &do_map, qd_bar, 64 * c, n0, bh);
+      }
+      for (int j = 0; j < n_st; ++j) {
+        const int s = j % C::kStages;
+        const uint32_t full = full0 + 8 * s, k_st = str0 + 2 * s * C::kStr;
+        mbar_wait(empty0 + 8 * s, ((j / C::kStages) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * C::kStr);
+#pragma unroll
+        for (int c = 0; c < C::kBoxes; ++c) {
+          tma_load_3d(k_st + c * C::kStrBox, &k_map, full, 64 * c, j * T, bh);
+          tma_load_3d(k_st + C::kStr + c * C::kStrBox, &v_map, full, 64 * c, j * T, bh);
+        }
+      }
+    }
+    return;
+  }
+  // a consumer: queries n0 + 64 wgi .. + 63; thread (warp, g, t) holds rows 16 warp + g and + 8
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
   const float scale_log2e = scale * 1.4426950408889634f;
-
-  load_tile<D, LD>(Qs, q + qrow * D, D, 64);
-  load_tile<D, LD>(dOs, dout + qrow * D, D, 64);
-  // this thread's two query rows: g and g + 8 of the warp's 16
-  const size_t r0 = qrow + warp * 16 + g, r1 = r0 + 8;
+  const size_t row = (size_t)bh * N + n0 + wgi * 64, r0 = row + warp * 16 + g, r1 = r0 + 8;
   const float l0 = lse[r0] * 1.4426950408889634f, l1 = lse[r1] * 1.4426950408889634f;
   const float d0 = delta[r0], d1 = delta[r1];
-
-  float dq_acc[D / 8][4];
+  float dq_acc[D / 2], s[T / 2], dp[T / 2];
+  uint32_t da[T / 16][4];  // dS of the stage before in bf16: the A fragments of dQ += dS K
+  zero(dq_acc);
+  const uint32_t q_rows = q_s + wgi * 64 * 128, do_rows = do_s + wgi * 64 * 128;
+  auto probs = [&]() {  // P = exp2(S scale log2 e - lse log2 e), in place
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) dq_acc[j][0] = dq_acc[j][1] = dq_acc[j][2] = dq_acc[j][3] = 0.0f;
-
-  for (int kt = 0; kt < N / 64; ++kt) {
-    __syncthreads();  // the previous key tile is no longer read (and Q, dO are staged)
-    load_tile<D, LD>(Ks, k + (head + (size_t)kt * 64) * D, D, 64);
-    load_tile<D, LD>(Vs, v + (head + (size_t)kt * 64) * D, D, 64);
-    __syncthreads();
-
-    // P = exp(S * scale - lse) for the warp's 16 queries x 64 keys
-    float p[8][4];
-    scores16x64<D, LD>(p, Qs, warp * 16, Ks, lane);
-    // dP = dO V^T; dS = P * (dP - delta) * scale, in fp32
-    float ds[8][4];
-    scores16x64<D, LD>(ds, dOs, warp * 16, Vs, lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float p0 = exp2f(p[j][0] * scale_log2e - l0), p1 = exp2f(p[j][1] * scale_log2e - l0);
-      const float p2 = exp2f(p[j][2] * scale_log2e - l1), p3 = exp2f(p[j][3] * scale_log2e - l1);
-      ds[j][0] = p0 * (ds[j][0] - d0) * scale;
-      ds[j][1] = p1 * (ds[j][1] - d0) * scale;
-      ds[j][2] = p2 * (ds[j][2] - d1) * scale;
-      ds[j][3] = p3 * (ds[j][3] - d1) * scale;
+    for (int c = 0; c < T / 8; ++c) {
+      s[4 * c] = ex2_fast(s[4 * c] * scale_log2e - l0);
+      s[4 * c + 1] = ex2_fast(s[4 * c + 1] * scale_log2e - l0);
+      s[4 * c + 2] = ex2_fast(s[4 * c + 2] * scale_log2e - l1);
+      s[4 * c + 3] = ex2_fast(s[4 * c + 3] * scale_log2e - l1);
     }
-    // dQ += dS K (dS rounded to bf16)
-    accumulate16xD<D, LD>(dq_acc, ds, Ks, lane);
+  };
+  auto grads = [&]() {  // dS = P (dP - delta) scale in fp32, kept as bf16 A fragments
+#pragma unroll
+    for (int c = 0; c < T / 8; ++c) {
+      dp[4 * c] = s[4 * c] * (dp[4 * c] - d0) * scale;
+      dp[4 * c + 1] = s[4 * c + 1] * (dp[4 * c + 1] - d0) * scale;
+      dp[4 * c + 2] = s[4 * c + 2] * (dp[4 * c + 2] - d1) * scale;
+      dp[4 * c + 3] = s[4 * c + 3] * (dp[4 * c + 3] - d1) * scale;
+    }
+#pragma unroll
+    for (int kk = 0; kk < T / 16; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) da[kk][e] = pack_pair(dp, kk, e);
+    }
+  };
+
+  // The consumers take turns, in order, to issue their products (named barriers 1 and 2), as in the forward.
+  const int my_turn = 1 + wgi, next_turn = 1 + (wgi + 1) % kConsumers;
+  mbar_wait(qd_bar, 0);
+  if (wgi == kConsumers - 1) named_bar_arrive(1, 256);
+  mbar_wait(full0, 0);  // stage 0: its S and dP; its dS K goes with stage 1's
+  named_bar(my_turn, 256);
+  fence_regs(s);
+  fence_regs(dp);
+  wgmma_fence();
+  scores_bwd<D>(s, q_rows, str0);
+  wgmma_commit();
+  scores_bwd<D>(dp, do_rows, str0 + C::kStr);
+  wgmma_commit();
+  named_bar_arrive(next_turn, 256);
+  wgmma_wait<1>();
+  fence_regs(s);
+  probs();
+  wgmma_wait<0>();
+  fence_regs(dp);
+  grads();
+  for (int j = 1; j < n_st; ++j) {
+    const int st = j % C::kStages, prev = (j - 1) % C::kStages;
+    const uint32_t k_st = str0 + 2 * st * C::kStr;
+    mbar_wait(full0 + 8 * st, (j / C::kStages) & 1);
+    named_bar(my_turn, 256);
+    fence_regs(s);
+    fence_regs(dp);
+    fence_regs(dq_acc);
+    wgmma_fence();
+    scores_bwd<D>(s, q_rows, k_st);  // S = Q K^T
+    wgmma_commit();
+    scores_bwd<D>(dp, do_rows, k_st + C::kStr);  // dP = dO V^T
+    products_bwd<D>(dq_acc, da, str0 + 2 * prev * C::kStr);  // dQ += dS K of the stage before
+    wgmma_commit();
+    named_bar_arrive(next_turn, 256);
+    wgmma_wait<1>();  // S is ready; dP and the dQ product run on under the exponentials
+    fence_regs(s);
+    probs();
+    wgmma_wait<0>();
+    fence_regs(dp);
+    fence_regs(dq_acc);
+    if (tid == 0) mbar_arrive(empty0 + 8 * prev);  // the dQ product has read the stage before
+    grads();
   }
-  store_rows<D>(dq + (qrow + warp * 16) * D, dq_acc, g, t);
+  {  // the last stage's dQ += dS K
+    const int last = (n_st - 1) % C::kStages;
+    fence_regs(dq_acc);
+    wgmma_fence();
+    products_bwd<D>(dq_acc, da, str0 + 2 * last * C::kStr);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+    if (tid == 0) mbar_arrive(empty0 + 8 * last);
+  }
+  if (wgi == 0) named_bar(1, 256);  // the last warpgroup's last arrival
+  store_bwd<D>(dq + row * D, dq_acc, warp, g, t);
 }
 
-template <int D>
-int launch_bwd_dkv(const void* q, const void* k, const void* v, const void* lse, const void* dout, const void* delta,
-                   void* dk, void* dv, int B, int H, int N, float scale, void* stream) {
-  const size_t smem = bwd_smem_bytes<D>();
-  cudaError_t err = allow_dynamic_smem(flash_vit_bwd_dkv_kernel<D>, smem);
-  if (err != cudaSuccess) return (int)err;
-  flash_vit_bwd_dkv_kernel<D><<<dim3(N / 64, H, B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(lse), static_cast<const bf16*>(dout), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), N, scale);
-  return (int)cudaGetLastError();
-}
+}  // namespace vw
 
+// One backward launch: the four tensor maps (the resident operands' boxes of 128 rows, the streamed ones' of
+// T), encoded per call. `dkv`: dK / dV (out0, out1), else dQ (out0).
 template <int D>
-int launch_bwd_dq(const void* q, const void* k, const void* v, const void* lse, const void* dout, const void* delta,
-                  void* dq, int B, int H, int N, float scale, void* stream) {
-  const size_t smem = bwd_smem_bytes<D>();
-  cudaError_t err = allow_dynamic_smem(flash_vit_bwd_dq_kernel<D>, smem);
-  if (err != cudaSuccess) return (int)err;
-  flash_vit_bwd_dq_kernel<D><<<dim3(N / 64, H, B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(lse), static_cast<const bf16*>(dout), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), N, scale);
+int launch_vit_bwd(bool dkv, const void* q, const void* k, const void* v, const void* lse, const void* dout,
+                   const void* delta, void* out0, void* out1, int B, int H, int N, float scale, cudaStream_t st) {
+  using C = vw::Bwd<D>;
+  const void* ops[6] = {q, k, v, dout, lse, delta};
+  for (const void* p : ops)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return (int)cudaErrorInvalidValue;  // TMA and bulk copies
+  if (N < vw::BM || N % vw::BM != 0) return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)B * H};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)N * D * 2};
+  const cuuint32_t res_box[3] = {64, (cuuint32_t)vw::BM, 1}, str_box[3] = {64, (cuuint32_t)C::T, 1};
+  const bool resident[4] = {!dkv, dkv, dkv, !dkv};  // q, k, v, dO
+  CUtensorMap maps[4];
+  for (int i = 0; i < 4; ++i)
+    if (!encode(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ops[i], dims, strides, resident[i] ? res_box : str_box))
+      return (int)cudaErrorInvalidValue;
+  const dim3 grid(N / vw::BM, H, B);
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(delta);
+  if (dkv) {
+    auto kernel = vw::flash_vit_bwd_dkv_wgmma_kernel<D>;
+    const cudaError_t rc = allow_dynamic_smem(kernel, C::kSmem);
+    if (rc != cudaSuccess) return (int)rc;
+    kernel<<<grid, vw::kThreads, C::kSmem, st>>>(maps[0], maps[1], maps[2], maps[3], l, d, static_cast<bf16*>(out0),
+                                                  static_cast<bf16*>(out1), N, scale);
+  } else {
+    auto kernel = vw::flash_vit_bwd_dq_wgmma_kernel<D>;
+    const cudaError_t rc = allow_dynamic_smem(kernel, C::kSmem);
+    if (rc != cudaSuccess) return (int)rc;
+    kernel<<<grid, vw::kThreads, C::kSmem, st>>>(maps[0], maps[1], maps[2], maps[3], l, d, static_cast<bf16*>(out0),
+                                                  N, scale);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -891,12 +1062,14 @@ int launch_bwd_dq(const void* q, const void* k, const void* v, const void* lse, 
 
 // q / k / v / dO / dK / dV (B, H, N, D) bf16 contiguous, head-major; lse (the
 // forward's residual) and delta = rowsum(O * dO) (B, H, N) fp32. N a multiple
-// of 64, D 64 or 128 (the wrapper checks).
+// of 128, every pointer 16-byte aligned, D 64 or 128, else
+// cudaErrorInvalidValue (the wrapper checks).
 extern "C" int mu_flash_vit_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* lse, const void* dout,
                                          const void* delta, void* dk, void* dv, int B, int H, int N, int D,
                                          float scale, void* stream) {
-  if (D == 64) return launch_bwd_dkv<64>(q, k, v, lse, dout, delta, dk, dv, B, H, N, scale, stream);
-  if (D == 128) return launch_bwd_dkv<128>(q, k, v, lse, dout, delta, dk, dv, B, H, N, scale, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch_vit_bwd<64>(true, q, k, v, lse, dout, delta, dk, dv, B, H, N, scale, st);
+  if (D == 128) return launch_vit_bwd<128>(true, q, k, v, lse, dout, delta, dk, dv, B, H, N, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -904,7 +1077,8 @@ extern "C" int mu_flash_vit_bwd_dkv_bf16(const void* q, const void* k, const voi
 extern "C" int mu_flash_vit_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* lse, const void* dout,
                                         const void* delta, void* dq, int B, int H, int N, int D, float scale,
                                         void* stream) {
-  if (D == 64) return launch_bwd_dq<64>(q, k, v, lse, dout, delta, dq, B, H, N, scale, stream);
-  if (D == 128) return launch_bwd_dq<128>(q, k, v, lse, dout, delta, dq, B, H, N, scale, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch_vit_bwd<64>(false, q, k, v, lse, dout, delta, dq, nullptr, B, H, N, scale, st);
+  if (D == 128) return launch_vit_bwd<128>(false, q, k, v, lse, dout, delta, dq, nullptr, B, H, N, scale, st);
   return (int)cudaErrorInvalidValue;
 }

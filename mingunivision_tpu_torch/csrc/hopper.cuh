@@ -50,6 +50,14 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// A plain bulk copy of `bytes` contiguous bytes (both addresses 16-byte aligned, bytes a multiple of 16),
+// reported to the barrier like a tensor load.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+               : "memory");
+}
+
 // wgmma's descriptor of a 128-byte-swizzled operand in shared memory: start
 // address, leading and stride byte offsets (each in 16-byte units), layout
 // type 1 (128-byte swizzle) in bits 62-63.

@@ -14,8 +14,9 @@ kept out of device memory. On the H100 it is bound by its operations (4 * D
 per allowed query-key pair; q, k, v and the output each move once), so the
 kernel keeps both products on the tensor cores (bf16, fp32 accumulators)
 and the online-softmax state in registers; see the source note: the prefill
-on mma.sync, the ViT forward on wgmma over a TMA-fed ring (N a multiple of
-128, as its gate requires), the ViT backward on mma.sync.
+on mma.sync; the ViT forward and its two backward kernels on wgmma over
+TMA-fed rings (N a multiple of 128, as the forward's gate requires, so every
+shape an entry point hands the backward fits its tile too).
 
 The gates follow the JAX package's TPU dispatch on every device (the port's
 CPU path is the plain version of the same function, not another path).
@@ -33,8 +34,8 @@ from mingunivision_tpu_torch.ops.kernels import build
 from mingunivision_tpu_torch.ops.linear import current_fp32_precision
 
 _KERNEL_HEAD_DIMS = (64, 128)
-_TILE = 64  # the mma.sync bodies' query and key tile (prefill, ViT backward)
-VIT_TILE = 128  # the ViT forward's (wgmma) query and key tile
+_TILE = 64  # the prefill's (mma.sync) query and key tile
+VIT_TILE = 128  # the ViT kernels' (wgmma: forward, dK / dV, dQ) tile of a block's resident rows
 
 
 def flash_usable(T: int) -> bool:
@@ -147,8 +148,10 @@ def flash_vit_bwd_dq_plain(q, k, v, lse, do, delta, *, scale: float):
 
 def flash_vit_delta(o, do):
     """delta = rowsum(O * dO) in fp32, (B, H, N): the backward's per-row term,
-    computed outside the kernels as the library computes it in XLA."""
-    return (o.float() * do.float()).sum(-1)
+    computed outside the kernels as the library computes it in XLA. One fp32
+    copy of o takes the product in place (do is widened on the fly): the same
+    values as o.float() * do.float(), one fp32 tensor fewer written and read."""
+    return o.to(torch.float32, copy=True).mul_(do).sum(-1)
 
 
 def flash_vit_attention_bwd_plain(q, k, v, o, lse, do, *, scale: float):
@@ -159,9 +162,9 @@ def flash_vit_attention_bwd_plain(q, k, v, o, lse, do, *, scale: float):
     return flash_vit_bwd_dq_plain(q, k, v, lse, do, delta, scale=scale), dk, dv
 
 
-def _check_vit(name, *tensors, tile: int = _TILE):
-    """The kernels' contract: bf16 head-major (B, H, N, D) of one shape, D in
-    _KERNEL_HEAD_DIMS, N a multiple of the kernel's tile."""
+def _check_vit(name, *tensors):
+    """The ViT kernels' contract: bf16 head-major (B, H, N, D) of one shape, D
+    in _KERNEL_HEAD_DIMS, N a multiple of VIT_TILE."""
     shape = tensors[0].shape
     for t in tensors:
         if t.dtype is not torch.bfloat16:
@@ -169,8 +172,8 @@ def _check_vit(name, *tensors, tile: int = _TILE):
         if t.shape != shape:
             raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in tensors]}")
     D, N = shape[3], shape[2]
-    if D not in _KERNEL_HEAD_DIMS or N % tile:
-        raise ValueError(f"{name}: needs head_dim in {_KERNEL_HEAD_DIMS} and N a multiple of {tile} (D={D}, N={N})")
+    if D not in _KERNEL_HEAD_DIMS or N % VIT_TILE:
+        raise ValueError(f"{name}: needs head_dim in {_KERNEL_HEAD_DIMS} and N a multiple of {VIT_TILE} (D={D}, N={N})")
     return shape
 
 
@@ -183,7 +186,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def _vit_forward(q, k, v, scale: float, with_lse: bool):
     """Launch the ViT forward on bf16 CUDA tensors: out, and lse when asked."""
-    B, H, N, D = _check_vit("flash_vit_attention", q, k, v, tile=VIT_TILE)
+    B, H, N, D = _check_vit("flash_vit_attention", q, k, v)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device) if with_lse else None
@@ -209,8 +212,7 @@ def flash_vit_bwd_dkv(q, k, v, lse, do, delta, *, scale: float):
     if q.device.type == "cpu":
         return flash_vit_bwd_dkv_plain(q, k, v, lse, do, delta, scale=scale)
     B, H, N, D = _check_vit("flash_vit_bwd_dkv", q, k, v, do)
-    q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
-    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    q, k, v, do, lse, delta = (_aligned(t) for t in (q, k, v, do, lse.float(), delta.float()))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     rc = build.load().mu_flash_vit_bwd_dkv_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
                                                 do.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H,
@@ -225,8 +227,7 @@ def flash_vit_bwd_dq(q, k, v, lse, do, delta, *, scale: float):
     if q.device.type == "cpu":
         return flash_vit_bwd_dq_plain(q, k, v, lse, do, delta, scale=scale)
     B, H, N, D = _check_vit("flash_vit_bwd_dq", q, k, v, do)
-    q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
-    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    q, k, v, do, lse, delta = (_aligned(t) for t in (q, k, v, do, lse.float(), delta.float()))
     dq = torch.empty_like(q)
     rc = build.load().mu_flash_vit_bwd_dq_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
                                                do.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, N, D,
@@ -241,10 +242,15 @@ class FlashViTAttention(torch.autograd.Function):
     (flash_attention.py `_flash_attention_fwd` / `_flash_attention_bwd`): the
     forward saves q, k, v, the output and its log-sum-exp; the backward forms
     delta, then runs the dK / dV kernel and the dQ kernel. bf16 in and out.
-    The three entries are looked up in this module at each call."""
+    On the card q, k and v are made contiguous and aligned once here (the
+    pixel decoder hands in strided views of its qkv), so neither kernel of
+    the backward copies them again. The three entries are looked up in this
+    module at each call."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
+        if q.device.type != "cpu":
+            q, k, v = _aligned(q), _aligned(k), _aligned(v)
         out, lse = flash_vit_attention_lse(q, k, v, scale=scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale = scale

@@ -57,9 +57,9 @@ def test_flash_vit_forward_contract(N, D, dtype, offset, takes):
     q, k, v = _vit(N=N, D=D, dtype=dtype, offset=offset)
     if not takes:
         with pytest.raises(ValueError):
-            flash._check_vit("flash_vit_attention", q, k, v, tile=flash.VIT_TILE)
+            flash._check_vit("flash_vit_attention", q, k, v)
         return
-    assert flash._check_vit("flash_vit_attention", q, k, v, tile=flash.VIT_TILE) == (1, 2, N, D)
+    assert flash._check_vit("flash_vit_attention", q, k, v) == (1, 2, N, D)
     got = flash._aligned(q)
     assert got.data_ptr() % 16 == 0 and torch.equal(got, q)
     assert (got is q) == (q.data_ptr() % 16 == 0)

@@ -31,13 +31,19 @@ def _inputs(B, H, N, D, seed):
     return [rng.standard_normal((B, H, N, D)).astype(np.float32) for _ in range(4)]
 
 
-@pytest.mark.parametrize("N", [128, 512])
-def test_plain_backward_matches_the_library_reference_backward(N):
+# (heads, N, D, seed): the first two as before; head dim 128 (the kernels' other width) and the pixel
+# decoder's 16 heads
+SHAPES = [(2, 128, 64, 128), (2, 512, 64, 512), (2, 128, 128, 7), (16, 128, 64, 8)]
+SHAPE_IDS = ["128", "512", "d128", "16-heads"]
+
+
+@pytest.mark.parametrize("H,N,D,seed", SHAPES, ids=SHAPE_IDS)
+def test_plain_backward_matches_the_library_reference_backward(H, N, D, seed):
     """`mha_reference_bwd` takes only sm_scale=1.0, so q goes in pre-scaled:
     its dq is then the gradient with respect to q * scale (times scale for q's),
     its l and m the residuals of `mha_reference_no_custom_vjp(save_residuals=True)`."""
-    B, H, D = 1, 2, 64
-    q, k, v, do = _inputs(B, H, N, D, seed=N)
+    B = 1
+    q, k, v, do = _inputs(B, H, N, D, seed=seed)
     scale = D**-0.5
     qs = jnp.asarray(q * scale)
     o, l, m = lib.mha_reference_no_custom_vjp(qs, jnp.asarray(k), jnp.asarray(v), save_residuals=True)
@@ -54,12 +60,12 @@ def test_plain_backward_matches_the_library_reference_backward(N):
     np.testing.assert_allclose(got_dv.numpy(), np.asarray(dv), **TOL)
 
 
-@pytest.mark.parametrize("N", [128, 512])
-def test_plain_backward_matches_the_vjp_of_jax_mha(N):
+@pytest.mark.parametrize("H,N,D,seed", SHAPES, ids=SHAPE_IDS)
+def test_plain_backward_matches_the_vjp_of_jax_mha(H, N, D, seed):
     """`jax.vjp` of the JAX package's `mha` (token-major) at fp32 against the
     plain dK / dV and dQ on the plain forward's output and log-sum-exp."""
-    B, H, D = 1, 2, 64
-    q, k, v, do = _inputs(B, H, N, D, seed=N + 1)
+    B = 1
+    q, k, v, do = _inputs(B, H, N, D, seed=seed + 1)
     scale = D**-0.5
     tm = lambda a: jnp.asarray(a).transpose(0, 2, 1, 3)  # noqa: E731  (head-major -> token-major)
     out, vjp = jax.vjp(lambda a, b, c: jax_mha(a, b, c, scale=scale), tm(q), tm(k), tm(v))
@@ -109,6 +115,20 @@ def test_forward_and_backward_entries_take_the_plain_versions_on_the_cpu():
     # nothing launched: the counts move only where a kernel launches
     assert before == (flash.flash_vit_attention.launches, flash.flash_vit_bwd_dkv.launches,
                       flash.flash_vit_bwd_dq.launches)
+
+
+@pytest.mark.parametrize("N,fits", [(128, True), (256, True), (1024, True), (64, False), (192, False), (576, False)])
+def test_backward_contract_is_the_vit_tile(N, fits):
+    """The backward kernels take what the forward takes: N a multiple of
+    `VIT_TILE` (128), checked on CPU tensors too; N 192 is a multiple of 64
+    (the earlier mma.sync bodies' tile) and raises."""
+    q = torch.zeros((1, 2, N, 64), dtype=torch.bfloat16)
+    for name in ("flash_vit_bwd_dkv", "flash_vit_bwd_dq"):
+        if fits:
+            assert flash._check_vit(name, q, q, q, q) == (1, 2, N, 64)
+        else:
+            with pytest.raises(ValueError, match="multiple of 128"):
+                flash._check_vit(name, q, q, q, q)
 
 
 def test_headmajor_projections_round_once_as_the_jax_package(monkeypatch):

@@ -988,8 +988,9 @@ def test_flash_vit_forward_with_residuals_matches_plain(dev, B, H, N, D):
     assert out.equal(flash.flash_vit_attention(q, k, v, scale=D**-0.5))  # the mode only adds the lse
 
 
-@pytest.mark.parametrize("B,H,N,D", [(2, 16, 1024, 64), (1, 4, 512, 128), (1, 2, 128, 64)],
-                         ids=["pixel-decoder-b2", "d128", "one-tile-pair"])
+@pytest.mark.parametrize("B,H,N,D", [(2, 16, 1024, 64), (1, 4, 512, 128), (1, 2, 128, 64), (8, 16, 1024, 64),
+                                     (1, 4, 1024, 128)],
+                         ids=["pixel-decoder-b2", "d128", "one-tile-pair", "pixel-decoder-b8", "d128-n1024"])
 def test_flash_vit_backward_kernels_match_plain(dev, B, H, N, D):
     from mingunivision_tpu_torch.ops.kernels import flash
 
@@ -1031,6 +1032,69 @@ def test_flash_vit_attention_autograd_on_the_card(dev, dtype):
     for got, r in zip(leaves, ref):
         err = (got.grad.float() - r.grad).abs().max().item()
         assert err <= 2e-2 * r.grad.abs().max().item(), err
+
+
+def _vit_bwd_args(dev, B, H, N, D, seed=24):
+    """The backward kernels' inputs: q, k, v, dO and the plain forward's lse and delta."""
+    from mingunivision_tpu_torch.ops.kernels import flash
+
+    q, k, v, do = _vit_inputs(dev, B, H, N, D, seed=seed)
+    out, lse = flash.flash_vit_attention_lse_plain(q, k, v, scale=D**-0.5)
+    return q, k, v, lse, do, flash.flash_vit_delta(out, do)
+
+
+def test_flash_vit_backward_copies_strided_and_misaligned_operands(dev):
+    """q, k, v as the pixel decoder hands them in (views of one (B, N, 3, H, D)
+    projection) and a dO 2 bytes past an aligned start: both wrappers copy them
+    onto the wgmma bodies and match the plain version on the same values."""
+    from mingunivision_tpu_torch.ops.kernels import flash
+
+    B, H, N, D = 2, 16, 1024, 64
+    q, k, v, lse, do, delta = _vit_bwd_args(dev, B, H, N, D)
+    qkv = torch.stack((q, k, v)).permute(1, 3, 0, 2, 4).contiguous()  # (B, N, 3, H, D)
+    views = qkv.permute(2, 0, 3, 1, 4)  # (3, B, H, N, D), as models/vit.py takes q, k, v
+    assert not views[0].is_contiguous() and views[0].equal(q)
+    flat = torch.empty(do.numel() + 1, dtype=do.dtype, device=dev)
+    do_off = flat[1:].view(do.shape)
+    do_off.copy_(do)
+    assert do_off.data_ptr() % 16 != 0
+    before = (flash.flash_vit_bwd_dkv.launches, flash.flash_vit_bwd_dq.launches)
+    dk, dv = flash.flash_vit_bwd_dkv(views[0], views[1], views[2], lse, do_off, delta, scale=D**-0.5)
+    dq = flash.flash_vit_bwd_dq(views[0], views[1], views[2], lse, do_off, delta, scale=D**-0.5)
+    torch.cuda.synchronize()
+    assert (flash.flash_vit_bwd_dkv.launches, flash.flash_vit_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
+    want_dk, want_dv = flash.flash_vit_bwd_dkv_plain(q, k, v, lse, do, delta, scale=D**-0.5)
+    for got, want in ((dq, flash.flash_vit_bwd_dq_plain(q, k, v, lse, do, delta, scale=D**-0.5)), (dk, want_dk),
+                      (dv, want_dv)):
+        _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_vit_backward_repeats_bit_equal(dev, D):
+    """No two blocks write one output and nothing is summed by atomics: two
+    calls on the same inputs give the same dQ, dK and dV to the bit."""
+    from mingunivision_tpu_torch.ops.kernels import flash
+
+    args = _vit_bwd_args(dev, 2, 16 if D == 64 else 4, 1024, D, seed=25)
+    first = (*flash.flash_vit_bwd_dkv(*args, scale=D**-0.5), flash.flash_vit_bwd_dq(*args, scale=D**-0.5))
+    second = (*flash.flash_vit_bwd_dkv(*args, scale=D**-0.5), flash.flash_vit_bwd_dq(*args, scale=D**-0.5))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert a.equal(b)
+
+
+def test_flash_vit_backward_raises_off_its_tile(dev):
+    """N 192, a multiple of 64 but not of the 128-row tile: both wrappers raise
+    and nothing launches."""
+    from mingunivision_tpu_torch.ops.kernels import flash
+
+    args = _vit_bwd_args(dev, 1, 2, 192, 64)
+    before = (flash.flash_vit_bwd_dkv.launches, flash.flash_vit_bwd_dq.launches)
+    with pytest.raises(ValueError):
+        flash.flash_vit_bwd_dkv(*args, scale=0.125)
+    with pytest.raises(ValueError):
+        flash.flash_vit_bwd_dq(*args, scale=0.125)
+    assert (flash.flash_vit_bwd_dkv.launches, flash.flash_vit_bwd_dq.launches) == before
 
 
 def test_flash_vit_backward_wrappers_raise_on_unsupported_input(dev):
