@@ -39,7 +39,11 @@ Phases, one printed line each; any failure exits non-zero:
               backward; the
               gathered-expert matmul at the pool's decode shapes (12-72
               assignments, skewed) beside torch._grouped_mm, and the decode
-              MoE built on it held against the decode-MoE kernel
+              MoE built on it held against the decode-MoE kernel; the bf16
+              decode MoE at 1, 2, 3, 12 and 16 rows and paged decode attention
+              at batch 1, 8 and 16, each with its kernel-alone device time,
+              its device events per call (at most 2 and 1: nothing but its
+              kernels) and one allocation per call (the output)
   4. reference  a small model on the card, bf16, int4 (as shipped and with
               moe_int_dots=False), int8 (as shipped and with
               moe_prefill_int_dots and rf_int_dots on) and NF4 (and, on the
@@ -159,7 +163,12 @@ Then a JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 `--phases` picks the phases (default: the twenty-two above), e.g.
-`--phases device,build,kernels,understand` or `--phases device,build,kernels,serve`. Six more run only when named:
+`--phases device,build,kernels,understand` or `--phases device,build,kernels,serve`. Seven more run only when named:
+  decode_kernels  the kernels phase's cases of the two one-launch decode
+              kernels alone: paged decode attention and the bf16 decode MoE
+              at their main paths' shapes, each with its kernel-alone device
+              time and its kernels per call (the way to time an older tree's
+              kernels beside these: run this script from that tree's root)
   divergence  the small model's plain bf16 path with each kernel swapped in
               alone, and all of them, and with the image head's input moved
               by one bf16 ulp, against plain bf16 and fp32 (`--tier`):
@@ -167,7 +176,8 @@ Then a JSON line with every kernel's numbers, and as the last line
               0 and over the loop, image error
   profile     the slice with a 16-token image loop under torch.profiler:
               device ms per stage, device busy share, device events per token,
-              top kernels, decode attention's device ms per LLM step; then the
+              top kernels, decode attention's and the decode MoE's device ms
+              per LLM step; then the
               same round unprofiled (`--tier int4` or
               `--tier int8` for the quantized slices)
   profile_understand  the understanding round with 8 text tokens under
@@ -506,18 +516,15 @@ def check_kernels(torch, results: dict) -> bool:
         return ok
 
     # bf16 tables: 3 h m bf16 per routed expert
-    for kernel, plain_fn, cases, name in ((moe_experts_stream, moe_experts_stream_plain, decode, "moe_stream"),
-                                          (moe_experts_swiglu_gmm, moe_experts_swiglu_gmm_plain, prefill,
-                                           "moe_swiglu_gmm")):
-        for label, n, choices in cases:
-            x = torch.randn((n, h), device=dev, generator=g).to(bf)
-            idx, w = routing(n, choices)
-            extra = (E,) if name == "moe_swiglu_gmm" else ()
-            nbytes, ops = moe_work(idx, n, 3 * h * m * 2, 2)
-            all_ok &= run_case(torch, results, name, label,
-                               lambda: kernel(experts, x, idx, w, *extra, layer_idx=0),  # noqa: B023
-                               lambda: plain_fn(experts, x, idx, w, *extra, layer_idx=0),  # noqa: B023
-                               nbytes, ops, "bf16")
+    all_ok &= decode_moe_cases(torch, results, experts, routing, g, h, m)
+    for label, n, choices in prefill:
+        x = torch.randn((n, h), device=dev, generator=g).to(bf)
+        idx, w = routing(n, choices)
+        nbytes, ops = moe_work(idx, n, 3 * h * m * 2, 2)
+        all_ok &= run_case(torch, results, "moe_swiglu_gmm", label,
+                           lambda: moe_experts_swiglu_gmm(experts, x, idx, w, E, layer_idx=0),  # noqa: B023
+                           lambda: moe_experts_swiglu_gmm_plain(experts, x, idx, w, E, layer_idx=0),  # noqa: B023
+                           nbytes, ops, "bf16")
     all_ok &= capacity_cases(experts, "moe_swiglu_gmm", 3 * h * m * 2)
     all_ok &= expert_matmul_cases(torch, results, experts, routing, g)
 
@@ -796,6 +803,10 @@ def decode_attention_cases(torch, results, g, cfg) -> bool:
     return ok
 
 
+# paged decode attention's kernels, as torch.profiler names them (the one-launch kernel; before it, the split and
+# combine kernels)
+PAGED_KERNEL = ("paged_split_kernel", "paged_attention")
+
 # the ViT forward's kernel, as torch.profiler names it
 VIT_FORWARD_KERNEL = ("flash_vit_wgmma_kernel<",)
 
@@ -869,14 +880,62 @@ def paged_inputs(torch, g, B: int, Hq: int, Hkv: int, D: int, page: int = 64, ma
     return q, kp, vp, tables.to(dev), torch.tensor(lengths, dtype=torch.int32, device=dev)
 
 
+def kernels_per_call(torch, fn, calls: int = 5):
+    """(device events per call of `fn`, their names) over `calls` calls under
+    torch.profiler, after a warm-up call: kernels, copies and fills alike. The
+    profiler drops launches now and then (once a whole window's), so a count
+    below the launches made is possible, none above; a window with no event
+    is taken again, three times in all."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+    names = {re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", name)[:60] for name in events}
+    return len(events) / calls, sorted(names)
+
+
+def allocations_per_call(torch, fn) -> int:
+    """Device allocations one call of `fn` makes, after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    fn()
+    return torch.cuda.memory_stats()["allocation.all.allocated"] - before
+
+
+def one_launch_checks(torch, results, name, fn, kernels: int) -> bool:
+    """The last case of `name` gains its kernel-alone device time
+    (`kernel_device_ms`), its device events per call (at most `kernels`, all
+    kernels) and its allocations per call (the output's only)."""
+    case = results[name]["cases"][-1]
+    case["device_ms"] = kernel_device_ms(torch, fn)
+    per_call, names = kernels_per_call(torch, fn)
+    case.update(kernels_per_call=per_call, allocations_per_call=allocations_per_call(torch, fn))
+    ok = case["device_ms"] is not None and 0 < per_call <= kernels and case["allocations_per_call"] == 1
+    library = "none" if case["library_ms"] is None else f"{case['library_ms']:.4f}"
+    print(f"kernel {name} [{case['shape']}]: wrapper_ms={case['ms']:.4f} device_ms={fmt_ms(case['device_ms'])} "
+          f"library_ms={library} device events per call {per_call:g} (at most {kernels}) {names}, "
+          f"allocations per call {case['allocations_per_call']} {'ok' if ok else 'FAILED'}")
+    return ok
+
+
 def paged_cases(torch, results, g, cfg) -> bool:
     """The paged decode-attention kernel against its plain version (gather +
     masked attention) at the serving engine's shapes: 16 / 4 heads of 128,
-    page 64, 32 table entries (max_len 2048), batch 1, 8 and 16. Library line:
-    SDPA on the dense view gathered beforehand. Bound: the K/V bytes at the
-    rows' valid positions, q, out, tables and lengths."""
-    from torch.profiler import ProfilerActivity, profile
-
+    page 64, 32 table entries (max_len 2048), batch 1, 8 and 16; each with its
+    kernel-alone device time and one kernel per call. Library line: SDPA on
+    the dense view gathered beforehand. Bound: the K/V bytes at the rows'
+    valid positions, q, out, tables and lengths."""
     from mingunivision_tpu_torch.ops.kernels.paged_attention import paged_decode_attention, paged_gather_attention
 
     Hq, Hkv, D = cfg.llm.num_attention_heads, cfg.llm.num_key_value_heads, cfg.llm.head_dim
@@ -891,25 +950,57 @@ def paged_cases(torch, results, g, cfg) -> bool:
         n_pos = int(lengths.sum())
         nbytes = n_pos * Hkv * D * 2 * 2 + 2 * q.numel() * 2 + tables.numel() * 4 + B * 4
         label = f"B={B} {Hq}/{Hkv}x{D} page {page} maxp {maxp}, lengths {lengths.tolist()}"
-        ok &= run_case(torch, results, "paged_attention", label,
-                       lambda: paged_decode_attention(q, kp, vp, tables, lengths),  # noqa: B023
+        kern = lambda: paged_decode_attention(q, kp, vp, tables, lengths)  # noqa: B023, E731
+        ok &= run_case(torch, results, "paged_attention", label, kern,
                        lambda: paged_gather_attention(q, kp, vp, tables, lengths), nbytes,  # noqa: B023
                        4.0 * Hq * D * n_pos, "bf16",
                        library=lambda: sdpa(q.transpose(1, 2), kg, vg, attn_mask=mask, enable_gqa=True))  # noqa: B023
-        got = paged_decode_attention(q, kp, vp, tables, lengths)
+        got = kern()
         ok &= not bool(got[lengths == 0].any())  # an idle row gives zeros
-        # at these sizes the CUDA-event time above is mostly the wrapper's host work (SDPA shows the same
-        # floor): the device time of the two kernels, from the profiler over 20 launches
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                paged_decode_attention(q, kp, vp, tables, lengths)
-            torch.cuda.synchronize()
-        device_us = {("split" if "split" in e.key else "combine"): e.self_device_time_total / e.count
-                     for e in prof.key_averages() if "paged_attention" in e.key and e.count}
-        results["paged_attention"]["cases"][-1]["device_ms"] = sum(device_us.values()) / 1e3
-        print(f"kernel paged_attention [B={B}]: device us per launch, from the profiler: split "
-              f"{device_us.get('split', float('nan')):.2f} + combine {device_us.get('combine', float('nan')):.2f}")
+        ok &= one_launch_checks(torch, results, "paged_attention", kern, kernels=1)
     return ok
+
+
+def decode_moe_cases(torch, results, experts, routing, g, h: int, m: int) -> bool:
+    """The bf16 decode MoE kernel against its plain version on layer 0 of the
+    stacked 16B-A3B tables, top-6: 1 row (text decode), 2 (the T2I step), 3
+    (editing), 12 (the image pool's 4 slots x 3 rows) and 16 (the 16-slot
+    serving step, 64 experts routed of 96 assignments); each with its
+    kernel-alone device time and at most two kernels per call. Bound: every
+    routed expert's three tables once, x and the output."""
+    from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream, moe_experts_stream_plain
+
+    ok = True
+    for label, n in (("N=2 k=6 (slice decode)", 2), ("N=16 k=6 (A>E dedup, 16-slot serving step)", 16),
+                     ("N=1 k=6 (text decode)", 1), ("N=3 k=6 (editing decode)", 3), ("N=12 k=6 (image pool)", 12)):
+        x = torch.randn((n, h), device="cuda", generator=g).to(torch.bfloat16)
+        idx, w = routing(n)
+        unique = int(torch.unique(idx).numel())
+        nbytes, ops = unique * 3 * h * m * 2 + 2 * n * h * 2, 6.0 * idx.numel() * h * m
+        kern = lambda: moe_experts_stream(experts, x, idx, w, layer_idx=0)  # noqa: B023, E731
+        ok &= run_case(torch, results, "moe_stream", f"{label}, {unique} experts", kern,
+                       lambda: moe_experts_stream_plain(experts, x, idx, w, layer_idx=0),  # noqa: B023
+                       nbytes, ops, "bf16")
+        ok &= one_launch_checks(torch, results, "moe_stream", kern, kernels=2)
+    return ok
+
+
+def run_decode_kernels(torch, results: dict) -> bool:
+    """The decode_kernels phase: paged decode attention and the bf16 decode
+    MoE as the kernels phase checks them, on their own full-width inputs."""
+    from mingunivision_tpu_torch.config import MingUniVisionConfig
+
+    cfg = MingUniVisionConfig()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    E, h, m, k = cfg.llm.num_experts, cfg.llm.hidden_size, cfg.llm.moe_intermediate_size, cfg.llm.num_experts_per_tok
+    shapes = {"gate_proj": (1, E, h, m), "up_proj": (1, E, h, m), "down_proj": (1, E, m, h)}
+    experts = {n: torch.empty(sh, device="cuda", dtype=torch.bfloat16).normal_(0, 0.02, generator=g)
+               for n, sh in shapes.items()}
+    routing, _, _ = moe_cases(torch, g, E, k)
+    ok = decode_moe_cases(torch, results, experts, routing, g, h, m)
+    del experts
+    torch.cuda.empty_cache()
+    return ok & paged_cases(torch, results, g, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -2128,7 +2219,8 @@ def run_serve(torch, cfg, params, device, results: dict, tier="bfloat16", steere
                 eng.step()
         kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
         busy[n] = (sum(e.self_device_time_total for e in kernels) / 2e3,
-                     sum(e.self_device_time_total for e in kernels if "paged_attention" in e.key) / 2e3)
+                     sum(e.self_device_time_total for e in kernels if any(name in e.key for name in PAGED_KERNEL))
+                     / 2e3)
         eng.run_to_completion()
         step_ms[n] = statistics.median(times)
         checks.append((f"{n} requests of 12 tokens", all(len(r.tokens) == 12 for r in reqs)))
@@ -2355,7 +2447,9 @@ def run_recon(torch, cfg, device, results: dict) -> bool:
 STAGES = {"prefill": ("session", "prefill"), "llm_forward": ("generate", "bailing_forward"),
           "vis_head": ("generate", "vis_head_apply"), "rf_sample": ("generate", "rf_sample"),
           "semdec_step": ("generate", "mingtok_feature_decoder"), "linear_proj": ("generate", "linear_proj_apply"),
-          "pixel_decoder": ("generate", "mingtok_pixel_decoder")}
+          "pixel_decoder": ("generate", "mingtok_pixel_decoder"),
+          # the decode MoE (every call: its kernels and, in an older tree, the PyTorch ops that build its list)
+          "decode_moe": ("bailing_moe", "moe_experts_stream")}
 
 
 def stage_device_ms(device_events, stages=None) -> dict:
@@ -2395,13 +2489,30 @@ def run_profile(torch, cfg, device, tier="bfloat16", n_tok: int = 16) -> bool:
 
     from mingunivision_tpu_torch.config import RuntimeConfig
     from mingunivision_tpu_torch.engine import generate, session
+    from mingunivision_tpu_torch.models import bailing_moe
 
     params = full_model(torch, cfg, device, tier)
     prompt = t2i_prompt(cfg.llm.vocab_size, cfg.llm.image_start_token)
     bias_to_image_start(torch, params, cfg, prompt[0], device)
     igen = dataclasses.replace(cfg.image_gen, num_image_tokens=n_tok)
-    _generate(torch, params, cfg, RuntimeConfig(), device, prompt, igen)  # warm-up round
-    modules = {"generate": generate, "session": session}
+    entry, routed = bailing_moe.moe_experts_stream, []
+
+    def note_routing(*args, **kwargs):  # the decode MoE's top-k ids, kept on the device until the round ends
+        routed.append(args[2].clone())
+        return entry(*args, **kwargs)
+
+    bailing_moe.moe_experts_stream = note_routing
+    try:
+        _generate(torch, params, cfg, RuntimeConfig(), device, prompt, igen)  # warm-up round
+    finally:
+        bailing_moe.moe_experts_stream = entry
+    unique = [int(torch.unique(idx).numel()) for idx in routed]
+    llm = cfg.llm
+    expert_bytes = 3 * llm.hidden_size * llm.moe_intermediate_size * 2
+    print(f"profile decode_moe routing (the warm-up round, the same prompt): calls={len(unique)} unique experts per "
+          f"call mean {statistics.mean(unique):.2f} min {min(unique)} max {max(unique)}; byte bound per LLM step "
+          f"{sum(unique) * expert_bytes / HBM_BYTES_S * 1e3 / (len(unique) / llm.num_hidden_layers):.4f} ms")
+    modules = {"generate": generate, "session": session, "bailing_moe": bailing_moe}
     saved = {stage: getattr(modules[mod], attr) for stage, (mod, attr) in STAGES.items()}
 
     def ranged(stage, fn):
@@ -2442,6 +2553,12 @@ def run_profile(torch, cfg, device, tier="bfloat16", n_tok: int = 16) -> bool:
     print(f"profile decode_attention: launches={attn_calls} device_ms={attn_ms:.3f} "
           f"per_llm_step_ms={attn_ms / max(n_llm - 1, 1):.4f} ({n_llm - 1} decode steps) "
           f"per_launch_us={attn_ms * 1e3 / max(attn_calls, 1):.3f}")
+    # the decode MoE (one call per layer and decode step): all device work inside its calls' ranges
+    moe_calls, moe_ms = by_stage["decode_moe"]
+    moe_steps = moe_calls / cfg.llm.num_hidden_layers
+    print(f"profile decode_moe: calls={moe_calls} device_ms={moe_ms:.3f} "
+          f"per_llm_step_ms={moe_ms / max(moe_steps, 1):.4f} ({moe_steps:g} LLM steps) "
+          f"per_call_us={moe_ms * 1e3 / max(moe_calls, 1):.3f}")
     _, sess, wall_s = _generate(torch, params, cfg, RuntimeConfig(), device, prompt, igen)
     t = sess.timings
     print(f"profile (same round, unprofiled): wall_s={wall_s:.3f} prefill_ms={t['prefill_ms']:.2f} "
@@ -3983,6 +4100,8 @@ def main(argv=None) -> int:
         gc.collect()  # a tier's tree is held by reference cycles of the serving phase (engine <-> step clock)
         torch.cuda.empty_cache()
         stamp(f"the {tier} tier's rounds")
+    if "decode_kernels" in phases:
+        ok &= run_decode_kernels(torch, results)
     if "routing" in phases:
         ok &= run_routing(torch, MingUniVisionConfig(), cuda, args.tier)
     if "profile" in phases:

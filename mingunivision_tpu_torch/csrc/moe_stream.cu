@@ -5,262 +5,458 @@
 // of expert weights it reads: at the bf16 16B-A3B shape one expert is
 // 3 x 2048 x 1408 x 2 B = 17.3 MB, and a 2-row CFG decode step routes up to
 // 12 experts per layer (about 208 MB per layer, 62 us at 3.35 TB/s); the
-// activations are a few KB. The design therefore reads every routed expert's
-// weights exactly once, and keeps enough blocks in flight to stream them:
+// activations are a few KB. At a 16-slot serving step some 50 experts are
+// routed and every weight byte meets 16 rows: 16 FLOP per byte, past what the
+// CUDA cores' fp32 FMAs keep up with at 3.35 TB/s, so the products run on the
+// tensor cores.
 //
-//   the wrapper builds, on the device, the list of unique routed experts
-//   (ascending id) and per-expert gate rows (duplicates across rows summed);
-//   phase A  grid (slot, 64-column tile of m): h = silu(x@w1) * (x@w3) for
-//            all token rows, stored in bf16 like the TPU kernel's h; 16-byte
-//            weight loads, the contraction split over the block's threads;
-//   phase B  grid (slot, 128-column tile of h): y[slot] = h[slot] @ w2[e] in fp32;
-//   phase C  out = sum over slots of gate[slot] * y[slot], in ascending slot
-//            order, so the result is deterministic (no atomics).
+// Design: two launches, each a stream of weight tiles through the tensor cores.
 //
-// The TPU kernel carries one fp32 accumulator across a sequential grid; blocks
-// on Hopper run in parallel, so the cross-expert sum is the separate phase C.
-// Tables are (E, h, m) / (E, m, h) row-major with the contraction on rows:
-// threads of a warp take neighbouring columns, so every weight load is
-// coalesced. Slots past the number of unique experts (read from device memory,
-// no host sync) exit at once.
+//   The expert list is built in each block: it reads topk_idx (and, in the
+//   down launch, topk_w) of the N <= 64 rows into shared memory, marks the
+//   routed experts in a bit set, and ranks them: slot s is the s-th routed
+//   expert in ascending id (duplicates across rows are one slot). Blocks of
+//   slots past the number routed exit at once, so the wrapper runs no
+//   PyTorch op and the grid is sized by min(N * k, E) alone. The column tile
+//   is the grid's fastest index, so the blocks of the routed slots come first
+//   and fill the SMs evenly; the blocks past them exit together at the end.
+//   up    grid (64-column tile of m, slot): h = silu(x@w1) * (x@w3) for the
+//         rows, rounded to bf16 like the TPU kernel's h, into a workspace
+//         (slot, m, rows padded to 8) that the down launch reads;
+//   down  grid (128-column tile of h, slot): y = h @ w2 in fp32, written per
+//         slot to the workspace; each block then takes a ticket from its
+//         column tile's counter, and the last of the tile's blocks sums, for
+//         each row, gate * y over the row's routed slots in ascending slot
+//         order (gates of duplicate assignments summed), writes the bf16
+//         output and lowers the counter to 0 for the next launch: the result
+//         does not depend on which block came last, and no output value is
+//         summed by atomics.
+//
+// Each block streams its tile of the (E, h, m) / (E, m, h) tables (row-major,
+// contraction on rows: a tile is 64 contraction rows x the block's columns)
+// through a ring of kStages shared-memory stages filled by 16-byte cp.async
+// (rows padded by 16 bytes, so ldmatrix reads hit distinct banks; what lies
+// past the table's edge is zero-filled), several stages in flight while the
+// block multiplies the oldest: mma.sync.m16n8k16 bf16 with fp32 accumulators,
+// the weight tile as A through ldmatrix .trans (the output columns as M), the
+// rows as B (N: 8 per n-tile, NT n-tiles). Every routed expert is read once
+// whatever N, each block a disjoint column tile of it.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPairs = 64;                 // phase B: bf16x2 column pairs per block (128 columns of h)
-constexpr int kSplit = kThreads / kPairs;  // phase B: contraction splits inside a block
+constexpr int kThreads = 128;  // 4 warps
+constexpr int kTileK = 64;     // contraction rows per stage
+constexpr int kUpCols = 64;    // up: columns of m per block (of w1 and of w3), 16 per warp
+constexpr int kDownCols = 128;  // down: columns of h per block, 32 per warp: one per thread in the merge
+constexpr int kLdUp = kUpCols + 8;      // bf16 elements per staged row
+constexpr int kLdDown = kDownCols + 8;
+constexpr int kMaxK = 8;      // top-k
+constexpr int kMaxRows = 64;  // rows per launch
+constexpr int kMaxE = 1024;   // experts
+static_assert(kDownCols == kThreads, "the merge gives each thread one column");
 
-// Phase A tiling: 64 columns of m per block. Each thread loads VEC columns of
-// one table row at once (16 bytes when ROWS <= 2) and keeps 2 * ROWS * VEC
-// <= 32 running sums; the block's other threads split the contraction.
-template <int ROWS>
-struct UpShape {
-  static constexpr int VEC = ROWS <= 2 ? 8 : 16 / ROWS;
-  static constexpr int COLS = 64;
-  static constexpr int CT = COLS / VEC;         // column threads
-  static constexpr int SPLIT = kThreads / CT;   // contraction splits
+// ring depth by n-tiles: two blocks on an SM where the stages allow it
+template <int NT>
+struct Ring {
+  static constexpr int kStages = NT <= 2 ? 5 : NT == 4 ? 4 : 3;
+  static constexpr int kRowsPad = NT * 8;
+  static constexpr int kLdH = kRowsPad + (NT > 1 ? 8 : 0);  // staged h row: ldmatrix .trans rows on distinct banks
+  static constexpr size_t kUpStage = (2 * kTileK * kLdUp + kRowsPad * kLdUp) * sizeof(bf16);
+  static constexpr size_t kDownStage = (kTileK * kLdDown + kTileK * kLdH) * sizeof(bf16);
 };
 
-template <int VEC> struct VecBits;
-template <> struct VecBits<8> { typedef uint4 T; };
-template <> struct VecBits<4> { typedef uint2 T; };
-template <> struct VecBits<2> { typedef unsigned int T; };
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"((uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
 
-template <int VEC>
-__device__ __forceinline__ void load_bf16(const bf16* p, float (&out)[VEC]) {
-  const typename VecBits<VEC>::T raw = *reinterpret_cast<const typename VecBits<VEC>::T*>(p);
-  const bf162* pairs = reinterpret_cast<const bf162*>(&raw);
+// Four 8x8 bf16 matrices from shared memory, each transposed (lanes 8j..8j+7
+// give the row addresses of matrix j).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const bf16* p) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The A fragment of W^T (16 output columns x 16 contraction rows) from a staged
+// [k][col] tile with ld elements a row: matrices (cols 0-7, k 0-7), (cols 8-15,
+// k 0-7), (cols 0-7, k 8-15), (cols 8-15, k 8-15).
+__device__ __forceinline__ void frag_w(uint32_t (&a)[4], const bf16* s, int ld, int k0, int col0, int lane) {
+  ldmatrix_x4_trans(a, s + (k0 + (lane & 7) + (lane >> 4) * 8) * ld + col0 + ((lane >> 3) & 1) * 8);
+}
+
+// The routing every block builds from the (N, k) top-k ids and gates.
+struct Routing {
+  int idx[kMaxRows * kMaxK];  // the ids, -1 where out of [0, E) (such an assignment is dropped)
+  float w[kMaxRows * kMaxK];  // the gates, fp32 (the down launch's merge only)
+  unsigned bits[kMaxE / 32];  // routed experts
+  int base[kMaxE / 32];       // routed experts in the words before
+  int n_unique;
+  int expert;  // the expert of this block's slot (when the slot is routed)
+};
+
+// Fills R from topk_idx (int32, or int64 with idx64) and, with `gates`,
+// topk_w (bf16, or fp32 with w_f32); every thread of the block calls it.
+__device__ void build_routing(Routing& R, const void* topk_idx, int idx64, const void* topk_w, int w_f32, bool gates,
+                              int N, int K, int E, int slot) {
+  const int tid = threadIdx.x, lane = tid & 31, n_words = (E + 31) / 32;
+  for (int i = tid; i < n_words; i += kThreads) R.bits[i] = 0u;
+  __syncthreads();
+  for (int i = tid; i < N * K; i += kThreads) {
+    const long long e = idx64 ? static_cast<const long long*>(topk_idx)[i] : static_cast<const int*>(topk_idx)[i];
+    const bool ok = e >= 0 && e < E;
+    R.idx[i] = ok ? (int)e : -1;
+    if (ok) atomicOr(&R.bits[e >> 5], 1u << (e & 31));
+    if (gates)
+      R.w[i] = w_f32 ? static_cast<const float*>(topk_w)[i] : __bfloat162float(static_cast<const bf16*>(topk_w)[i]);
+  }
+  __syncthreads();
+  if (tid < 32) {  // one warp ranks the (at most 32) words, then finds the slot's expert
+    const unsigned word = lane < n_words ? R.bits[lane] : 0u;
+    const int count = __popc(word);
+    int incl = count;
 #pragma unroll
-  for (int i = 0; i < VEC / 2; ++i) {
-    const float2 f = __bfloat1622float2(pairs[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int up = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += up;
+    }
+    R.base[lane] = incl - count;
+    if (lane == 31) R.n_unique = incl;
+    if (slot >= incl - count && slot < incl) {  // the slot's expert lies in this lane's word
+      unsigned rest = word;
+      for (int j = incl - count; j < slot; ++j) rest &= rest - 1;
+      R.expert = lane * 32 + __ffs(rest) - 1;
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ int slot_of(const Routing& R, int e) {
+  return R.base[e >> 5] + __popc(R.bits[e >> 5] & ((1u << (e & 31)) - 1u));
+}
+
+// up: hbuf (n_slots, m, NT * 8) bf16 <- silu(x @ w1[e]) * (x @ w3[e]) of slot blockIdx.y,
+// columns [64 * blockIdx.x, + 64); rows past N are zeros.
+template <int NT>
+__global__ void __launch_bounds__(kThreads) moe_up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                                                          const bf16* __restrict__ w3, const void* topk_idx,
+                                                          int idx64, bf16* __restrict__ hbuf, int N, int K, int E,
+                                                          int h, int m) {
+  using Rg = Ring<NT>;
+  constexpr int S = Rg::kStages;
+  __shared__ Routing R;
+  const int slot = blockIdx.y;
+  build_routing(R, topk_idx, idx64, nullptr, 0, false, N, K, E, slot);
+  if (slot >= R.n_unique) return;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t table = (size_t)R.expert * h * m;
+  const bf16* W1 = w1 + table;
+  const bf16* W3 = w3 + table;
+  const int col0 = blockIdx.x * kUpCols;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto stage_w1 = [&](int s) { return reinterpret_cast<bf16*>(smem_raw + s * Rg::kUpStage); };
+  auto stage_w3 = [&](int s) { return stage_w1(s) + kTileK * kLdUp; };
+  auto stage_x = [&](int s) { return stage_w1(s) + 2 * kTileK * kLdUp; };
+
+  auto load = [&](int s, int kt) {
+    const int k0 = kt * kTileK;
+    bf16* d1 = stage_w1(s);
+    bf16* d3 = stage_w3(s);
+    for (int i = tid; i < kTileK * (kUpCols / 8); i += kThreads) {
+      const int r = i / (kUpCols / 8), c = (i % (kUpCols / 8)) * 8;
+      const bool ok = k0 + r < h && col0 + c < m;
+      const size_t src = ok ? (size_t)(k0 + r) * m + col0 + c : 0;
+      cp_async16_zfill(d1 + r * kLdUp + c, W1 + src, ok);
+      cp_async16_zfill(d3 + r * kLdUp + c, W3 + src, ok);
+    }
+    bf16* dx = stage_x(s);
+    for (int i = tid; i < Rg::kRowsPad * (kTileK / 8); i += kThreads) {
+      const int n = i / (kTileK / 8), c = (i % (kTileK / 8)) * 8;
+      const bool ok = n < N && k0 + c < h;
+      cp_async16_zfill(dx + n * kLdUp + c, x + (ok ? (size_t)n * h + k0 + c : 0), ok);
+    }
+  };
+
+  float g[NT][4], u[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) g[nt][i] = u[nt][i] = 0.0f;
+
+  const int KT = (h + kTileK - 1) / kTileK;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < KT) load(s, s);
+    cp_async_commit();
+  }
+  const int gr = lane >> 2, t = lane & 3;
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // stage kt arrived for every thread; every warp is done with the stage overwritten next
+    if (kt + S - 1 < KT) load((kt + S - 1) % S, kt + S - 1);
+    cp_async_commit();
+    const int s = kt % S;
+    const bf16* s1 = stage_w1(s);
+    const bf16* s3 = stage_w3(s);
+    const bf16* sx = stage_x(s);
+#pragma unroll
+    for (int kk = 0; kk < kTileK; kk += 16) {
+      uint32_t a1[4], a3[4];
+      frag_w(a1, s1, kLdUp, kk, warp * 16, lane);
+      frag_w(a3, s3, kLdUp, kk, warp * 16, lane);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const bf16* xr = sx + (nt * 8 + gr) * kLdUp + kk + 2 * t;  // rows as B: [n][k] gives the pairs directly
+        const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(xr), *reinterpret_cast<const uint32_t*>(xr + 8)};
+        mma_bf16(g[nt], a1, b);
+        mma_bf16(u[nt], a3, b);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // c0, c1: column gr, rows 2t, 2t + 1 of the n-tile; c2, c3: column gr + 8
+  bf16* hs = hbuf + (size_t)slot * m * Rg::kRowsPad;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int col = col0 + warp * 16 + gr + half * 8;
+    if (col >= m) continue;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float h0 = silu_f32(g[nt][2 * half]) * u[nt][2 * half];
+      const float h1 = silu_f32(g[nt][2 * half + 1]) * u[nt][2 * half + 1];
+      *reinterpret_cast<bf162*>(hs + (size_t)col * Rg::kRowsPad + nt * 8 + 2 * t) = __floats2bfloat162_rn(h0, h1);
+    }
   }
 }
 
-template <int ROWS>
-__global__ void __launch_bounds__(kThreads) stream_up_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ w1, const bf16* __restrict__ w3,
-    const int* __restrict__ slot_expert, const int* __restrict__ n_unique, bf16* __restrict__ hbuf,
-    int n_rows, int h, int m) {
-  typedef UpShape<ROWS> S;
-  const int slot = blockIdx.x;
-  if (slot >= n_unique[0]) return;
-  const int e = slot_expert[slot];
-  const int ct = threadIdx.x % S::CT;
-  const int split = threadIdx.x / S::CT;
-  const int col0 = blockIdx.y * S::COLS;
-  const int col = col0 + ct * S::VEC;
-  const bool active = col < m;  // m is a multiple of 8, so a vector never straddles the edge
+// down: ypart (n_slots, N, h) fp32 <- hbuf[slot] @ w2[e] for columns [128 * blockIdx.x, + 128);
+// then the tile's last block writes out (N, h) bf16 for those columns.
+template <int NT>
+__global__ void __launch_bounds__(kThreads) moe_down_kernel(
+    const bf16* __restrict__ hbuf, const bf16* __restrict__ w2, const void* topk_idx, int idx64, const void* topk_w,
+    int w_f32, float* __restrict__ ypart, int* __restrict__ tickets, bf16* __restrict__ out, int N, int K, int E,
+    int h, int m) {
+  using Rg = Ring<NT>;
+  constexpr int S = Rg::kStages;
+  __shared__ Routing R;
+  __shared__ int row_slots[kMaxRows][kMaxK];  // the merge: each row's routed slots, ascending
+  __shared__ float row_gates[kMaxRows][kMaxK];
+  __shared__ int row_count[kMaxRows];
+  __shared__ bool last;
+  const int slot = blockIdx.y;
+  build_routing(R, topk_idx, idx64, topk_w, w_f32, true, N, K, E, slot);
+  const int U = R.n_unique;
+  if (slot >= U) return;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bf16* W2 = w2 + (size_t)R.expert * m * h;
+  const bf16* H = hbuf + (size_t)slot * m * Rg::kRowsPad;
+  const int col0 = blockIdx.x * kDownCols;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto stage_w = [&](int s) { return reinterpret_cast<bf16*>(smem_raw + s * Rg::kDownStage); };
+  auto stage_h = [&](int s) { return stage_w(s) + kTileK * kLdDown; };
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);                                                    // [ROWS][h]
-  float2* red = reinterpret_cast<float2*>(smem + align16((size_t)ROWS * h * sizeof(bf16)));  // [SPLIT][ROWS][COLS]
+  auto load = [&](int s, int kt) {
+    const int k0 = kt * kTileK;
+    bf16* dw = stage_w(s);
+    for (int i = tid; i < kTileK * (kDownCols / 8); i += kThreads) {
+      const int r = i / (kDownCols / 8), c = (i % (kDownCols / 8)) * 8;
+      const bool ok = k0 + r < m && col0 + c < h;
+      cp_async16_zfill(dw + r * kLdDown + c, W2 + (ok ? (size_t)(k0 + r) * h + col0 + c : 0), ok);
+    }
+    bf16* dh = stage_h(s);
+    for (int i = tid; i < kTileK * NT; i += kThreads) {
+      const int r = i / NT, c = (i % NT) * 8;
+      const bool ok = k0 + r < m;
+      cp_async16_zfill(dh + r * Rg::kLdH + c, H + (ok ? (size_t)(k0 + r) * Rg::kRowsPad + c : 0), ok);
+    }
+  };
 
-  const bf16* p1 = w1 + (size_t)e * h * m + col;
-  const bf16* p3 = w3 + (size_t)e * h * m + col;
-  const int span = h / S::SPLIT;
-  const int i0 = split * span;
+  float acc[2][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
 
-  for (int r0 = 0; r0 < n_rows; r0 += ROWS) {
-    const int nr = min(ROWS, n_rows - r0);
-    for (int idx = threadIdx.x; idx < ROWS * h; idx += kThreads) {
-      xs[idx] = (idx / h) < nr ? x[(size_t)r0 * h + idx] : __float2bfloat16(0.0f);
-    }
-    __syncthreads();
-
-    float g[ROWS][S::VEC], u[ROWS][S::VEC];
+  const int KT = (m + kTileK - 1) / kTileK;
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-#pragma unroll
-      for (int v = 0; v < S::VEC; ++v) g[r][v] = u[r][v] = 0.0f;
-    }
-    if (active) {
-#pragma unroll 2
-      for (int i = i0; i < i0 + span; ++i) {
-        float a[S::VEC], b[S::VEC];
-        load_bf16<S::VEC>(p1 + (size_t)i * m, a);
-        load_bf16<S::VEC>(p3 + (size_t)i * m, b);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const float xv = __bfloat162float(xs[r * h + i]);
-#pragma unroll
-          for (int v = 0; v < S::VEC; ++v) {
-            g[r][v] = fmaf(xv, a[v], g[r][v]);
-            u[r][v] = fmaf(xv, b[v], u[r][v]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-#pragma unroll
-      for (int v = 0; v < S::VEC; ++v)
-        red[(split * ROWS + r) * S::COLS + ct * S::VEC + v] = make_float2(g[r][v], u[r][v]);
-    }
-    __syncthreads();
-
-    for (int idx = threadIdx.x; idx < nr * S::COLS; idx += kThreads) {
-      const int r = idx / S::COLS;
-      const int c = idx % S::COLS;
-      if (col0 + c >= m) continue;
-      float2 s = make_float2(0.0f, 0.0f);
-      for (int sp = 0; sp < S::SPLIT; ++sp) {
-        const float2 t = red[(sp * ROWS + r) * S::COLS + c];
-        s.x += t.x;
-        s.y += t.y;
-      }
-      hbuf[((size_t)slot * n_rows + r0 + r) * m + col0 + c] = __float2bfloat16(silu_f32(s.x) * s.y);
-    }
-    __syncthreads();
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < KT) load(s, s);
+    cp_async_commit();
   }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    if (kt + S - 1 < KT) load((kt + S - 1) % S, kt + S - 1);
+    cp_async_commit();
+    const int s = kt % S;
+    const bf16* sw = stage_w(s);
+    const bf16* sh = stage_h(s);
+#pragma unroll
+    for (int kk = 0; kk < kTileK; kk += 16) {
+      uint32_t a[2][4];
+      frag_w(a[0], sw, kLdDown, kk, warp * 32, lane);
+      frag_w(a[1], sw, kLdDown, kk, warp * 32 + 16, lane);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t b[2];  // h^T as B from the staged [k][row] tile: matrices (k 0-7), (k 8-15) of rows nt*8..+8
+        ldmatrix_x2_trans(b, sh + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * Rg::kLdH + nt * 8);
+        mma_bf16(acc[0][nt], a[0], b);
+        mma_bf16(acc[1][nt], a[1], b);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const int gr = lane >> 2, t = lane & 3;
+  float* yp = ypart + (size_t)slot * N * h;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int col = col0 + warp * 32 + mt * 16 + gr + half * 8;
+      if (col >= h) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int n = nt * 8 + 2 * t + j;
+          if (n < N) yp[(size_t)n * h + col] = acc[mt][nt][2 * half + j];
+        }
+    }
+
+  // the block's writes, one fence, the ticket; the tile's last block merges
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    last = atomicAdd(&tickets[blockIdx.x], 1) == U - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (tid < N) {  // row tid's routed slots, ascending, each with its assignments' gates summed in order
+    int cnt = 0;
+    for (int j = 0; j < K; ++j) {
+      const int e = R.idx[tid * K + j];
+      if (e < 0) continue;
+      const int sl = slot_of(R, e);
+      const float w = R.w[tid * K + j];
+      int at = 0;
+      while (at < cnt && row_slots[tid][at] < sl) ++at;
+      if (at < cnt && row_slots[tid][at] == sl) {
+        row_gates[tid][at] += w;
+        continue;
+      }
+      for (int q = cnt; q > at; --q) {
+        row_slots[tid][q] = row_slots[tid][q - 1];
+        row_gates[tid][q] = row_gates[tid][q - 1];
+      }
+      row_slots[tid][at] = sl;
+      row_gates[tid][at] = w;
+      ++cnt;
+    }
+    row_count[tid] = cnt;
+  }
+  __syncthreads();
+  const int col = col0 + tid;
+  if (col < h) {
+    for (int n0 = 0; n0 < N; n0 += 4) {  // four rows' loads issued before any is summed
+      float v[4][kMaxK];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int q = 0; q < kMaxK; ++q)
+          v[r][q] = n0 + r < N && q < row_count[n0 + r]
+                        ? __ldcg(ypart + ((size_t)row_slots[n0 + r][q] * N + n0 + r) * h + col)
+                        : 0.0f;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (n0 + r >= N) break;
+        float sum = 0.0f;
+#pragma unroll
+        for (int q = 0; q < kMaxK; ++q)
+          if (q < row_count[n0 + r]) sum = fmaf(row_gates[n0 + r][q], v[r][q], sum);
+        out[(size_t)(n0 + r) * h + col] = __float2bfloat16(sum);
+      }
+    }
+  }
+  if (tid == 0) tickets[blockIdx.x] = 0;
 }
 
-template <int ROWS>
-__global__ void __launch_bounds__(kThreads) stream_down_kernel(
-    const bf16* __restrict__ hbuf, const bf16* __restrict__ w2, const int* __restrict__ slot_expert,
-    const int* __restrict__ n_unique, float* __restrict__ ybuf, int n_rows, int h, int m) {
-  const int slot = blockIdx.x;
-  if (slot >= n_unique[0]) return;
-  const int e = slot_expert[slot];
-  const int pair = threadIdx.x % kPairs;
-  const int split = threadIdx.x / kPairs;
-  const int col = (blockIdx.y * kPairs + pair) * 2;
-  const bool active = col < h;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* hs = reinterpret_cast<bf16*>(smem);                                   // [ROWS][m]
-  float2* red = reinterpret_cast<float2*>(smem + align16((size_t)ROWS * m * sizeof(bf16)));  // [kSplit][ROWS][kPairs]
-
-  const size_t stride = (size_t)h / 2;
-  const bf162* p2 = reinterpret_cast<const bf162*>(w2 + (size_t)e * m * h) + col / 2;
-  const int span = m / kSplit;
-  const int j0 = split * span;
-
-  for (int r0 = 0; r0 < n_rows; r0 += ROWS) {
-    const int nr = min(ROWS, n_rows - r0);
-    const bf16* src = hbuf + ((size_t)slot * n_rows + r0) * m;
-    for (int idx = threadIdx.x; idx < ROWS * m; idx += kThreads) {
-      hs[idx] = (idx / m) < nr ? src[idx] : __float2bfloat16(0.0f);
-    }
-    __syncthreads();
-
-    float acc[ROWS][2];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r][0] = acc[r][1] = 0.0f;
-    if (active) {
-#pragma unroll 4
-      for (int j = j0; j < j0 + span; ++j) {
-        const float2 w = __bfloat1622float2(p2[j * stride]);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const float hv = __bfloat162float(hs[r * m + j]);
-          acc[r][0] = fmaf(hv, w.x, acc[r][0]);
-          acc[r][1] = fmaf(hv, w.y, acc[r][1]);
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) red[(split * ROWS + r) * kPairs + pair] = make_float2(acc[r][0], acc[r][1]);
-    __syncthreads();
-
-    if (split == 0 && active) {
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        if (r < nr) {
-          float2 s = red[r * kPairs + pair];
-#pragma unroll
-          for (int sp = 1; sp < kSplit; ++sp) {
-            const float2 t = red[(sp * ROWS + r) * kPairs + pair];
-            s.x += t.x; s.y += t.y;
-          }
-          *reinterpret_cast<float2*>(ybuf + ((size_t)slot * n_rows + r0 + r) * h + col) = s;
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <int ROWS>
-cudaError_t launch_stream(const bf16* x, const bf16* w1, const bf16* w3, const bf16* w2, const int* slot_expert,
-                          const int* n_unique, const float* gates, bf16* hbuf, float* ybuf, bf16* out, int n_rows,
-                          int n_slots, int h, int m, cudaStream_t stream) {
-  typedef UpShape<ROWS> S;
-  const size_t up_smem = align16((size_t)ROWS * h * sizeof(bf16)) + (size_t)S::SPLIT * ROWS * S::COLS * sizeof(float2);
-  const size_t down_smem = align16((size_t)ROWS * m * sizeof(bf16)) + (size_t)kSplit * ROWS * kPairs * sizeof(float2);
-  cudaError_t err = allow_dynamic_smem(stream_up_kernel<ROWS>, up_smem);
-  if (err != cudaSuccess) return err;
-  err = allow_dynamic_smem(stream_down_kernel<ROWS>, down_smem);
-  if (err != cudaSuccess) return err;
-
-  const int cols_per_block = 2 * kPairs;
-  dim3 up_grid(n_slots, (m + S::COLS - 1) / S::COLS);
-  stream_up_kernel<ROWS><<<up_grid, kThreads, up_smem, stream>>>(x, w1, w3, slot_expert, n_unique, hbuf, n_rows, h, m);
+template <int NT>
+int launch(const bf16* x, const bf16* w1, const bf16* w3, const bf16* w2, const void* topk_idx, const void* topk_w,
+           bf16* hbuf, float* ypart, int* tickets, bf16* out, int N, int K, int E, int h, int m, int idx64,
+           int w_f32, cudaStream_t st) {
+  using Rg = Ring<NT>;
+  const size_t up_smem = Rg::kStages * Rg::kUpStage, down_smem = Rg::kStages * Rg::kDownStage;
+  cudaError_t err = allow_dynamic_smem(moe_up_kernel<NT>, up_smem);
+  if (err == cudaSuccess) err = allow_dynamic_smem(moe_down_kernel<NT>, down_smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_slots = min(N * K, E);
+  moe_up_kernel<NT><<<dim3((m + kUpCols - 1) / kUpCols, n_slots), kThreads, up_smem, st>>>(
+      x, w1, w3, topk_idx, idx64, hbuf, N, K, E, h, m);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  dim3 down_grid(n_slots, (h + cols_per_block - 1) / cols_per_block);
-  stream_down_kernel<ROWS><<<down_grid, kThreads, down_smem, stream>>>(hbuf, w2, slot_expert, n_unique, ybuf, n_rows, h, m);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  dim3 comb_grid(n_rows, (h + kThreads - 1) / kThreads);
-  moe_slot_combine_kernel<<<comb_grid, kThreads, 0, stream>>>(ybuf, gates, n_unique, out, n_rows, h);
-  return cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  moe_down_kernel<NT><<<dim3((h + kDownCols - 1) / kDownCols, n_slots), kThreads, down_smem, st>>>(
+      hbuf, w2, topk_idx, idx64, topk_w, w_f32, ypart, tickets, out, N, K, E, h, m);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x (n_rows, h) bf16; w1/w3 (E, h, m) and w2 (E, m, h) bf16 for ONE layer;
-// slot_expert (n_slots,) int32 unique routed experts first; n_unique (1,) int32;
-// gates (n_slots, n_rows) fp32; scratch hbuf (n_slots, n_rows, m) bf16 and
-// ybuf (n_slots, n_rows, h) fp32; out (n_rows, h) bf16. h must be a multiple
-// of 32 and m of 8 (the wrapper checks).
-extern "C" int mu_moe_stream_bf16(const void* x, const void* w1, const void* w3, const void* w2,
-                                  const void* slot_expert, const void* n_unique, const void* gates, void* hbuf,
-                                  void* ybuf, void* out, int n_rows, int n_slots, int h, int m, void* stream) {
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* w1b = static_cast<const bf16*>(w1);
-  const bf16* w3b = static_cast<const bf16*>(w3);
-  const bf16* w2b = static_cast<const bf16*>(w2);
-  const int* se = static_cast<const int*>(slot_expert);
-  const int* nu = static_cast<const int*>(n_unique);
-  const float* gt = static_cast<const float*>(gates);
-  bf16* hb = static_cast<bf16*>(hbuf);
-  float* yb = static_cast<float*>(ybuf);
-  bf16* ob = static_cast<bf16*>(out);
+// x (N, h) bf16; w1/w3 (E, h, m) and w2 (E, m, h) bf16 for ONE layer, 16-byte
+// aligned; topk_idx (N, K) int32 (int64 with idx64) and topk_w (N, K) bf16
+// (fp32 with w_f32); workspace, with S = min(N K, E) slots (the wrapper's
+// workspace_sizes): hbuf S x m x mu_moe_stream_rows_pad(N) bf16, ypart S x N x
+// h fp32, tickets ceil(h / 128) int32, zero before the first launch (every
+// launch leaves them zero); out (N, h) bf16. 1 <= N <= 64, 1 <= K <= 8, E <=
+// 1024, h a multiple of 32 and m of 8 (the wrapper checks).
+extern "C" int mu_moe_stream_bf16(const void* x, const void* w1, const void* w3, const void* w2, const void* topk_idx,
+                                  const void* topk_w, void* hbuf, void* ypart, void* tickets, void* out, int N, int K,
+                                  int E, int h, int m, int idx64, int w_f32, void* stream) {
+  if (N < 1 || N > kMaxRows || K < 1 || K > kMaxK || E < 1 || E > kMaxE || h % 32 || m % 8)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (n_rows <= 1) {
-    err = launch_stream<1>(xb, w1b, w3b, w2b, se, nu, gt, hb, yb, ob, n_rows, n_slots, h, m, st);
-  } else if (n_rows <= 2) {
-    err = launch_stream<2>(xb, w1b, w3b, w2b, se, nu, gt, hb, yb, ob, n_rows, n_slots, h, m, st);
-  } else if (n_rows <= 4) {
-    err = launch_stream<4>(xb, w1b, w3b, w2b, se, nu, gt, hb, yb, ob, n_rows, n_slots, h, m, st);
-  } else {
-    err = launch_stream<8>(xb, w1b, w3b, w2b, se, nu, gt, hb, yb, ob, n_rows, n_slots, h, m, st);
-  }
-  return (int)err;
+  const bf16 *xb = static_cast<const bf16*>(x), *w1b = static_cast<const bf16*>(w1);
+  const bf16 *w3b = static_cast<const bf16*>(w3), *w2b = static_cast<const bf16*>(w2);
+  bf16* hb = static_cast<bf16*>(hbuf);
+  float* yb = static_cast<float*>(ypart);
+  int* tk = static_cast<int*>(tickets);
+  bf16* ob = static_cast<bf16*>(out);
+  const int tiles = (N + 7) / 8;
+#define MU_MOE_LAUNCH(NT) launch<NT>(xb, w1b, w3b, w2b, topk_idx, topk_w, hb, yb, tk, ob, N, K, E, h, m, idx64, w_f32, st)
+  if (tiles == 1) return MU_MOE_LAUNCH(1);
+  if (tiles == 2) return MU_MOE_LAUNCH(2);
+  if (tiles <= 4) return MU_MOE_LAUNCH(4);
+  return MU_MOE_LAUNCH(8);
+#undef MU_MOE_LAUNCH
+}
+
+// The rows of N the kernel pads the h workspace to (8 per n-tile, 1, 2, 4 or 8 n-tiles).
+extern "C" int mu_moe_stream_rows_pad(int N) {
+  const int tiles = (N + 7) / 8;
+  return 8 * (tiles <= 2 ? tiles : tiles <= 4 ? 4 : 8);
 }

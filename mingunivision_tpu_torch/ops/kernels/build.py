@@ -28,7 +28,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argument types (every one returns a cudaError_t as int)
 _SIGNATURES = {
-    "mu_moe_stream_bf16": [_P] * 10 + [_I] * 4 + [_P],
+    "mu_moe_stream_bf16": [_P] * 10 + [_I] * 7 + [_P],
+    "mu_moe_stream_rows_pad": [_I],
     "mu_swiglu_gmm_bf16": [_P] * 8 + [_I] * 3 + [_P],
     "mu_swiglu_gmm_tile_rows": [],
     "mu_decode_attention_bf16": [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P],
@@ -42,6 +43,7 @@ _SIGNATURES = {
     "mu_flash_vit_bwd_dkv_bf16": [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P],
     "mu_flash_vit_bwd_dq_bf16": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
     "mu_paged_attention_bf16": [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P],
+    "mu_paged_attention_tile": [],
     "mu_moe_stream_q8": [_P] * 13 + [_I] * 5 + [_P],
     "mu_swiglu_gmm_q8": [_P] * 15 + [_I] * 6 + [_P],
     "mu_rf_sampler_q8": [_P] * 19 + [_I] * 11 + [ctypes.c_float] * 3 + [_P],

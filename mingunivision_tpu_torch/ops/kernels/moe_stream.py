@@ -9,10 +9,14 @@ Replaces the TPU kernels of mingunivision_tpu/ops/kernels/moe_stream.py
 int8 tables). What bounds them on the H100 is the bytes of expert weights: a
 2-row CFG decode step reads up to 12 routed experts per layer, 17.3 MB each
 in bf16, 8.65 MB in int8 and 4.33 MB in int4. Each kernel reads each routed
-expert once (the unique-expert list and the per-expert gate rows are built
-here, on the device, with no host sync), streams the tables with coalesced
-loads, and sums the experts' contributions in a separate deterministic pass.
-See the sources for the launch layouts.
+expert once and sums the experts' contributions in a deterministic order.
+The bf16 kernel builds the unique-expert list in each block from the top-k
+ids and streams weight tiles through a shared-memory ring into the tensor
+cores (mma.sync), two launches per call, its scratch in a workspace kept per
+device and stream; the int4 and int8 wrappers build the list and the
+per-expert gate rows here (`expert_slots`, on the device, with no host sync)
+and their kernels stream the tables with coalesced loads. See the sources
+for the launch layouts.
 
 `moe_experts_stream` dispatches on the table kind (`table_kind`) and, for
 linear int4 and int8 tables, on the dot mode its caller passes (`int_dots`:
@@ -27,6 +31,8 @@ int4 tables are not ported and raise.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -127,6 +133,108 @@ def check_tables(op: str, x_flat, w1, w3, w2):
     return E, h, m
 
 
+ROWS_PER_LAUNCH = 64  # csrc/moe_stream.cu's kMaxRows: more rows take one pair of launches per 64
+MAX_TOP_K = 8  # its kMaxK: the top-k ids of the rows are read into shared memory
+MAX_EXPERTS = 1024  # its kMaxE: the routed experts are a bit set in shared memory
+COL_TILE_DOWN = 128  # its kDownCols: a ticket per column tile of h
+
+
+def rows_pad(n: int) -> int:
+    """The rows the bf16 kernel pads its h workspace to: 8 per n-tile, 1, 2, 4
+    or 8 n-tiles (csrc/moe_stream.cu's `mu_moe_stream_rows_pad`)."""
+    tiles = -(-n // 8)
+    return 8 * (tiles if tiles <= 2 else 4 if tiles <= 4 else 8)
+
+
+@functools.lru_cache(maxsize=256)
+def workspace_sizes(N: int, k: int, E: int, h: int, m: int) -> tuple[int, int, int]:
+    """The workspace one launch pair of the bf16 kernel needs for N <=
+    ROWS_PER_LAUNCH rows routed top-k over E experts of (h, m) tables, with
+    min(N k, E) slots: (bf16 h values, slot x m x rows_pad(N); fp32 per-slot
+    down products, slot x N x h; int32 tickets, one per 128-column tile of h)."""
+    slots = min(N * k, E)
+    return slots * m * rows_pad(N), slots * N * h, -(-h // COL_TILE_DOWN)
+
+
+_workspaces: dict = {}  # (device index, stream) -> (bf16 h, fp32 down products, int32 tickets), grown on demand
+
+
+def _workspace(sizes: tuple[int, int, int], device, stream: int):
+    """The bf16 kernel's buffers for launches on `stream`, at least `sizes`
+    (`workspace_sizes`) long: kept per device and stream (launches on one
+    stream run in order, so they can share them), grown when a call needs
+    more. The tickets start at zero and every launch leaves them at zero."""
+    key = (device.index, stream)
+    hbuf, ypart, tickets = _workspaces.get(key, (None, None, None))
+    if hbuf is None or hbuf.numel() < sizes[0]:
+        hbuf = torch.empty(sizes[0], dtype=torch.bfloat16, device=device)
+    if ypart is None or ypart.numel() < sizes[1]:
+        ypart = torch.empty(sizes[1], dtype=torch.float32, device=device)
+    if tickets is None or tickets.numel() < sizes[2]:
+        tickets = torch.zeros(sizes[2], dtype=torch.int32, device=device)
+    _workspaces[key] = (hbuf, ypart, tickets)
+    return hbuf, ypart, tickets
+
+
+def _layer_pointer(op: str, name: str, w, layer_idx, shape: tuple, dev: int) -> int:
+    """The device address of `w`'s (E, a, b) table of layer `layer_idx` (of
+    `w` itself without one), checked as the kernel reads it: bf16 on device
+    `dev`, of `shape`, contiguous, 16-byte aligned. Computed from the stacked
+    table's strides, so a call makes no view."""
+    if not isinstance(w, torch.Tensor) or w.dtype is not torch.bfloat16 or w.get_device() != dev:
+        raise ValueError(f"{op}: {name} must be a contiguous bf16 {shape} table on the rows' device")
+    dims, strides, ptr = w.shape, w.stride(), w.data_ptr()
+    if layer_idx is None:
+        if len(dims) == 4:
+            raise ValueError(f"depth-stacked expert tables {tuple(dims)} need a layer index")
+    else:
+        layer = layer_idx if type(layer_idx) is int else int(layer_idx)
+        if len(dims) != 4 or not -dims[0] <= layer < dims[0]:
+            raise ValueError(f"{op}: {name} {tuple(dims)} has no layer {layer} of a stacked (L, E, ...) table")
+        ptr += (layer % dims[0]) * strides[0] * 2
+        dims, strides = dims[1:], strides[1:]
+    if dims != shape or strides != (shape[1] * shape[2], shape[2], 1):
+        raise ValueError(f"{op}: {name} must be a contiguous bf16 {shape} table, got {tuple(dims)} strided "
+                         f"{strides}")
+    if ptr % 16:
+        raise ValueError(f"{op}: {name} must be 16-byte aligned")
+    return ptr
+
+
+def check_stream_inputs(experts, x_flat, topk_idx, topk_w, layer_idx=None):
+    """What the bf16 kernel takes (the wrapper's checks, callable on any
+    device): contiguous bf16 (E, h, m) / (E, m, h) tables (one layer's, or a
+    stacked table's layer `layer_idx`), 16-byte aligned, with h a multiple of
+    32 and at most 8192, m a multiple of 8, E <= MAX_EXPERTS; bf16 (N, h)
+    rows; (N, k) int32 or int64 ids and bf16 or fp32 gates, k <= MAX_TOP_K;
+    one device. Raises ValueError on anything else. Returns (x, the three
+    tables' addresses, ids, gates, (E, h, m)), x, ids and gates contiguous and
+    x 16-byte aligned."""
+    op = "moe_experts_stream"
+    w1 = experts["gate_proj"]
+    E, h, m = w1.shape[-3:]
+    dev = x_flat.get_device()
+    ptrs = (_layer_pointer(op, "gate_proj", w1, layer_idx, (E, h, m), dev),
+            _layer_pointer(op, "up_proj", experts["up_proj"], layer_idx, (E, h, m), dev),
+            _layer_pointer(op, "down_proj", experts["down_proj"], layer_idx, (E, m, h), dev))
+    if x_flat.dtype is not torch.bfloat16 or x_flat.dim() != 2 or x_flat.shape[-1] != h:
+        raise ValueError(f"{op}: x must be bf16 (N, {h}), got {x_flat.dtype} {tuple(x_flat.shape)}")
+    if h % 32 or m % 8 or h > 8192:
+        raise ValueError(f"{op}: needs h % 32 == 0, m % 8 == 0 and h <= 8192 (h={h}, m={m})")
+    N, k = x_flat.shape[0], topk_idx.shape[-1]
+    for name, t, dtypes in (("topk_idx", topk_idx, (torch.int32, torch.int64)),
+                            ("topk_w", topk_w, (torch.bfloat16, torch.float32))):
+        if t.dtype not in dtypes or t.get_device() != dev or t.shape != (N, k):
+            raise ValueError(f"{op}: {name} must be ({N}, {k}) of {dtypes} on {x_flat.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if not 0 < k <= MAX_TOP_K or E > MAX_EXPERTS:
+        raise ValueError(f"{op}: needs 1 <= k <= {MAX_TOP_K} and at most {MAX_EXPERTS} experts (k={k}, E={E})")
+    x = x_flat
+    if not x.is_contiguous() or x.data_ptr() % 16:  # the kernel copies x by 16-byte pieces
+        x = x.clone(memory_format=torch.contiguous_format)
+    return x, ptrs, topk_idx.contiguous(), topk_w.contiguous(), (E, h, m)
+
+
 def moe_experts_stream(experts, x_flat, topk_idx, topk_w, *, layer_idx=None, int_dots: bool = True):
     """Decode-path MoE. x_flat (N, h); topk_idx/topk_w (N, k) -> (N, h).
 
@@ -134,30 +242,32 @@ def moe_experts_stream(experts, x_flat, topk_idx, topk_w, *, layer_idx=None, int
     tables with `layer_idx`; linear int4 tables go to `moe_experts_stream_q4s8`
     (int_dots) or `moe_experts_stream_q4` (exact dequant), int8 tables to
     `moe_experts_stream_q8s8` or `moe_experts_stream_q8`, NF4 tables to
-    `moe_experts_nf4`; bf16 tables launch `csrc/moe_stream.cu` here."""
-    fn = _decode_impl("moe_experts_stream", experts, int_dots, plain=False)
-    if fn is not moe_experts_stream:
-        return fn(experts, x_flat, topk_idx, topk_w, layer_idx=layer_idx)
+    `moe_experts_nf4`; bf16 tables launch `csrc/moe_stream.cu` here: two
+    launches per ROWS_PER_LAUNCH rows, the expert list built in the kernel,
+    no other device op but the output's allocation. The thousands of calls
+    per image keep the host's part small: the tables' layer is reached by
+    address, not by a view."""
+    if not isinstance(experts["gate_proj"], torch.Tensor):
+        return _decode_impl("moe_experts_stream", experts, int_dots, plain=False)(
+            experts, x_flat, topk_idx, topk_w, layer_idx=layer_idx)
     if x_flat.device.type == "cpu":
         return moe_experts_stream_bf16_plain(experts, x_flat, topk_idx, topk_w, layer_idx=layer_idx)
-    w1, w3, w2 = layer_tables(experts, layer_idx)
-    E, h, m = check_tables("moe_experts_stream", x_flat, w1, w3, w2)
-    if h % 32 or m % 8 or h > 8192:
-        raise ValueError(f"moe_experts_stream: needs h % 32 == 0, m % 8 == 0 and h <= 8192 (h={h}, m={m})")
-    x = x_flat.contiguous()
-    dev = x.device
-    N = x.shape[0]
-    slot_expert, gates, n_unique = expert_slots(topk_idx, topk_w, E)
-    n_slots = slot_expert.numel()
-    hbuf = torch.empty((n_slots, N, m), dtype=torch.bfloat16, device=dev)
-    ybuf = torch.empty((n_slots, N, h), dtype=torch.float32, device=dev)
-    out = torch.empty((N, h), dtype=torch.bfloat16, device=dev)
-    rc = build.load().mu_moe_stream_bf16(
-        x.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(), slot_expert.data_ptr(), n_unique.data_ptr(),
-        gates.data_ptr(), hbuf.data_ptr(), ybuf.data_ptr(), out.data_ptr(), N, n_slots, h, m, build.stream_handle(x),
-    )
-    build.check(rc, "mu_moe_stream_bf16")
-    moe_experts_stream.launches += 1
+    x, (p1, p3, p2), idx, gates, (E, h, m) = check_stream_inputs(experts, x_flat, topk_idx, topk_w, layer_idx)
+    N, k = idx.shape
+    out = torch.empty((N, h), dtype=torch.bfloat16, device=x.device)
+    stream = build.stream_handle(x)
+    lib = build.load()
+    xp, ip, gp, op = x.data_ptr(), idx.data_ptr(), gates.data_ptr(), out.data_ptr()
+    for r0 in range(0, N, ROWS_PER_LAUNCH):
+        n = min(ROWS_PER_LAUNCH, N - r0)
+        hbuf, ypart, tickets = _workspace(workspace_sizes(n, k, E, h, m), x.device, stream)
+        rc = lib.mu_moe_stream_bf16(
+            xp + r0 * h * 2, p1, p3, p2, ip + r0 * k * idx.element_size(), gp + r0 * k * gates.element_size(),
+            hbuf.data_ptr(), ypart.data_ptr(), tickets.data_ptr(), op + r0 * h * 2, n, k, E, h, m,
+            int(idx.dtype is torch.int64), int(gates.dtype is torch.float32), stream,
+        )
+        build.check(rc, "mu_moe_stream_bf16")
+        moe_experts_stream.launches += 1
     return out
 
 

@@ -1302,3 +1302,211 @@ def test_flash_vit_misaligned_operand_is_copied_onto_the_wgmma_body(dev):
     torch.cuda.synchronize()
     assert flash.flash_vit_attention.launches == before + 1
     _close_bf16(out, flash.flash_vit_attention_plain(q, k, v, scale=0.125))
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention, split by page (one launch: partials merged by the last block of each row)
+# ---------------------------------------------------------------------------
+
+
+def _device_events(fn, calls=3):
+    """The device events (kernels, copies, fills) of `calls` calls of fn, by
+    torch.profiler, in no particular order. The profiler drops events now and
+    then, so fewer than were launched may be listed, never more; a window it
+    recorded nothing in is taken again, three times in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events
+    return events
+
+
+def _allocations(fn):
+    """Device allocations one call of fn makes (after a warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    fn()
+    return torch.cuda.memory_stats()["allocation.all.allocated"] - before
+
+
+def _paged_split_inputs(dev, G, D, page, poison, Hkv=2, seed=51):
+    """Rows of lengths 0, 1, 63, 64, 65, 2047; page ids shuffled; the 65-long row
+    sharing the 2047-long row's first page; unused entries on the scratch page;
+    with `poison`, NaN in K and Inf in V at the scratch page, every page's tail
+    past its row's length and the pages no row owns. Returns the inputs and
+    the clean pages."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lengths = [0, 1, 63, 64, 65, 2047]
+    B, maxp = len(lengths), -(-2047 // page)
+    need = [-(-n // page) for n in lengths]
+    P = sum(need) + 3
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(seed)).tolist()
+    tables = torch.full((B, maxp), P, dtype=torch.int32)
+    for b in (5, 0, 1, 2, 3, 4):
+        shared = [int(tables[5, 0])] if b == 4 else []
+        tables[b, :need[b]] = torch.tensor(shared + [perm.pop() for _ in range(need[b] - len(shared))],
+                                           dtype=torch.int32)
+    kp = torch.randn(Hkv, P + 1, page, D, device=dev, generator=g).to(torch.bfloat16)
+    vp = torch.randn(Hkv, P + 1, page, D, device=dev, generator=g).to(torch.bfloat16)
+    q = torch.randn(B, 1, Hkv * G, D, device=dev, generator=g).to(torch.bfloat16)
+    kc, vc = kp.clone(), vp.clone()
+    if poison:
+        valid = torch.zeros(P + 1, page, dtype=torch.bool)
+        for b, n in enumerate(lengths):
+            for i in range(need[b]):
+                valid[int(tables[b, i]), :min(page, n - i * page)] = True
+        hidden = ~valid.to(dev)
+        kc[:, hidden] = float("nan")
+        vc[:, hidden] = float("inf")
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return (q, kc, vc, tables.to(dev), lengths), (kp, vp)
+
+
+@pytest.mark.parametrize("poison", [False, True], ids=["clean", "nan-inf-unread"])
+@pytest.mark.parametrize("G,D,page", [(1, 64, 64), (4, 128, 64), (8, 128, 64), (8, 64, 64), (4, 128, 32),
+                                      (1, 64, 32), (2, 128, 16)])
+def test_paged_attention_split_kernel_matches_plain(dev, G, D, page, poison):
+    """G 1 / 4 / 8, D 64 / 128, page 64, 32 and 16, lengths 0-2047, a shared
+    page: one launch per call; rows within bf16's precision of the plain
+    version on the clean pool, a row of length 0 exactly zero; NaN and Inf
+    where no row's valid position lies change nothing (they are never read);
+    a second launch gives the same bits (the tickets were left at zero)."""
+    (q, kc, vc, tables, lengths), (kp, vp) = _paged_split_inputs(dev, G, D, page, poison)
+    want = paged_gather_attention(q, kp, vp, tables, lengths)
+    before = paged_decode_attention.launches
+    got = paged_decode_attention(q, kc, vc, tables, lengths)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    rows = lengths > 0
+    _close_bf16(got[rows], want[rows])
+    assert torch.equal(got[~rows].float(), torch.zeros_like(got[~rows].float()))
+    assert torch.equal(paged_decode_attention(q, kc, vc, tables, lengths), got)
+
+
+def test_paged_attention_tile_matches_the_kernel(dev):
+    from mingunivision_tpu_torch.ops.kernels import build
+    from mingunivision_tpu_torch.ops.kernels import paged_attention as pa
+
+    assert build.load().mu_paged_attention_tile() == pa.SPLIT_TILE
+
+
+def test_paged_attention_one_kernel_and_no_scratch_allocation_per_call(dev):
+    q, kp, vp, tables, lengths = _paged_inputs(dev, 16)
+    call = lambda: paged_decode_attention(q, kp, vp, tables, lengths)  # noqa: E731
+    events = _device_events(call, calls=3)
+    assert 0 < len(events) <= 3 and all("paged_split_kernel" in e for e in events), events
+    assert _allocations(call) == 1  # the output only: the workspace is kept
+
+
+def test_paged_attention_on_two_streams(dev):
+    """Launches on two streams at once, each with its own workspace, give the
+    default stream's result."""
+    from mingunivision_tpu_torch.ops.kernels import decode_attention as da
+
+    a, b = _paged_inputs(dev, 16, seed=61), _paged_inputs(dev, 8, seed=62)
+    want_a, want_b = paged_decode_attention(*a), paged_decode_attention(*b)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(3):
+        with torch.cuda.stream(s1):
+            outs.append(("a", paged_decode_attention(*a)))
+        with torch.cuda.stream(s2):
+            outs.append(("b", paged_decode_attention(*b)))
+    torch.cuda.synchronize()
+    for which, out in outs:
+        assert torch.equal(out, want_a if which == "a" else want_b)
+    assert {(dev.index or 0, s.cuda_stream) for s in (s1, s2)} <= {(k[0] or 0, k[1]) for k in da._workspaces}
+
+
+# ---------------------------------------------------------------------------
+# the bf16 decode MoE: the expert list built in the kernel, products on the tensor cores
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,k,choices", [(1, 6, None), (2, 6, None), (3, 6, None), (4, 6, None), (8, 6, None),
+                                         (16, 6, None), (12, 8, None), (48, 6, None), (3, 6, [0, 1, 2, 3, 4, 5]),
+                                         (16, 1, [5]), (5, 2, [2, 6])],
+                         ids=["1row", "2rows", "3rows", "4rows", "8rows", "16rows-every-expert", "12rows-k8",
+                              "48rows", "3rows-6-experts", "16rows-one-expert", "5rows-2-experts"])
+def test_moe_stream_tensor_core_kernel_matches_plain(dev, n, k, choices):
+    """N 1-48 (1, 2, 4 and 8 n-tiles), every expert routed (16 rows x top-6 of
+    8), one expert only, on layer 1 of stacked tables: two launches per call,
+    within bf16's precision of the plain version, the same bits again."""
+    ex = _experts(dev, seed=70 + n)
+    idx, w = _routing(dev, n, k, choices, seed=71 + n)
+    x = torch.randn(n, H, device=dev, generator=torch.Generator(device=dev).manual_seed(n)).to(torch.bfloat16)
+    if choices is None and n == 16:
+        assert torch.unique(idx).numel() == E
+    before = moe_experts_stream.launches
+    got = moe_experts_stream(ex, x, idx, w, layer_idx=1)
+    torch.cuda.synchronize()
+    assert moe_experts_stream.launches == before + 1
+    _close_bf16(got, moe_experts_stream_plain(ex, x, idx, w, layer_idx=1))
+    assert torch.equal(moe_experts_stream(ex, x, idx, w, layer_idx=1), got)
+
+
+def test_moe_stream_takes_int32_ids_and_fp32_gates(dev):
+    ex = _experts(dev, seed=80)
+    idx, w = _routing(dev, 3, 6, seed=81)
+    x = torch.randn(3, H, device=dev).to(torch.bfloat16)
+    want = moe_experts_stream(ex, x, idx, w, layer_idx=0)
+    got = moe_experts_stream(ex, x, idx.int(), w.float(), layer_idx=0)
+    _close_bf16(got, moe_experts_stream_plain(ex, x, idx, w.float(), layer_idx=0))
+    _close_bf16(got, want)
+
+
+def test_moe_stream_more_rows_than_one_launch(dev):
+    """80 rows: one pair of launches per 64 rows."""
+    from mingunivision_tpu_torch.ops.kernels import moe_stream as ms
+
+    ex = _experts(dev, seed=82)
+    idx, w = _routing(dev, 80, 6, seed=83)
+    x = torch.randn(80, H, device=dev).to(torch.bfloat16)
+    before = moe_experts_stream.launches
+    got = moe_experts_stream(ex, x, idx, w, layer_idx=1)
+    torch.cuda.synchronize()
+    assert moe_experts_stream.launches == before + -(-80 // ms.ROWS_PER_LAUNCH)
+    _close_bf16(got, moe_experts_stream_plain(ex, x, idx, w, layer_idx=1))
+
+
+def test_moe_stream_rows_pad_matches_the_kernel(dev):
+    from mingunivision_tpu_torch.ops.kernels import build
+    from mingunivision_tpu_torch.ops.kernels import moe_stream as ms
+
+    assert [build.load().mu_moe_stream_rows_pad(n) for n in range(1, 65)] == [ms.rows_pad(n) for n in range(1, 65)]
+
+
+@pytest.mark.parametrize("n", [2, 16])
+def test_moe_stream_two_kernels_and_no_scratch_allocation_per_call(dev, n):
+    ex = _experts(dev, seed=84)
+    idx, w = _routing(dev, n, 6, seed=85)
+    x = torch.randn(n, H, device=dev).to(torch.bfloat16)
+    call = lambda: moe_experts_stream(ex, x, idx, w, layer_idx=1)  # noqa: E731
+    events = _device_events(call, calls=3)
+    ups, downs = (sum(name in e for e in events) for name in ("moe_up_kernel", "moe_down_kernel"))
+    assert 0 < ups <= 3 and 0 < downs <= 3 and ups + downs == len(events), events
+    assert _allocations(call) == 1  # the output only: the workspace is kept
+
+
+def test_moe_stream_at_full_width_matches_plain(dev):
+    """The 16B-A3B tables (64 experts of 2048 x 1408), 2 and 16 rows top-6."""
+    g = torch.Generator(device=dev).manual_seed(86)
+    ex = {"gate_proj": torch.empty(64, 2048, 1408, device=dev, dtype=torch.bfloat16).normal_(0, 0.02, generator=g),
+          "up_proj": torch.empty(64, 2048, 1408, device=dev, dtype=torch.bfloat16).normal_(0, 0.02, generator=g),
+          "down_proj": torch.empty(64, 1408, 2048, device=dev, dtype=torch.bfloat16).normal_(0, 0.02, generator=g)}
+    for n in (2, 16):
+        scores = torch.rand((n, 64), device=dev, generator=g)
+        w, idx = torch.topk(torch.softmax(scores, -1), 6)
+        x = torch.randn(n, 2048, device=dev, generator=g).to(torch.bfloat16)
+        got = moe_experts_stream(ex, x, idx, (w / w.sum(-1, keepdim=True)).to(torch.bfloat16))
+        _close_bf16(got, moe_experts_stream_plain(ex, x, idx, (w / w.sum(-1, keepdim=True)).to(torch.bfloat16)))
