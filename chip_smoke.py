@@ -40,10 +40,11 @@ Phases, one printed line each; any failure exits non-zero:
               gathered-expert matmul at the pool's decode shapes (12-72
               assignments, skewed) beside torch._grouped_mm, and the decode
               MoE built on it held against the decode-MoE kernel; the bf16
-              decode MoE at 1, 2, 3, 12 and 16 rows and paged decode attention
-              at batch 1, 8 and 16, each with its kernel-alone device time,
-              its device events per call (at most 2 and 1: nothing but its
-              kernels) and one allocation per call (the output)
+              decode MoE and the int4 one with s8 dots (held to the bit) at
+              1, 2, 3, 12 and 16 rows and paged decode attention at batch 1,
+              8 and 16, each with its kernel-alone device time, its device
+              events per call (at most 2, 2 and 1: nothing but its kernels)
+              and one allocation per call (the output)
   4. reference  a small model on the card, bf16, int4 (as shipped and with
               moe_int_dots=False), int8 (as shipped and with
               moe_prefill_int_dots and rf_int_dots on) and NF4 (and, on the
@@ -164,11 +165,12 @@ Then a JSON line with every kernel's numbers, and as the last line
 
 `--phases` picks the phases (default: the twenty-two above), e.g.
 `--phases device,build,kernels,understand` or `--phases device,build,kernels,serve`. Seven more run only when named:
-  decode_kernels  the kernels phase's cases of the two one-launch decode
-              kernels alone: paged decode attention and the bf16 decode MoE
-              at their main paths' shapes, each with its kernel-alone device
-              time and its kernels per call (the way to time an older tree's
-              kernels beside these: run this script from that tree's root)
+  decode_kernels  the kernels phase's cases of the decode kernels that run
+              without a PyTorch op: the bf16 decode MoE, the int4 one with s8
+              dots and paged decode attention at their main paths' shapes,
+              each with its kernel-alone device time and its kernels per call
+              (the way to time an older tree's kernels beside these: run this
+              script from that tree's root)
   divergence  the small model's plain bf16 path with each kernel swapped in
               alone, and all of them, and with the image head's input moved
               by one bf16 ulp, against plain bf16 and fp32 (`--tier`):
@@ -578,18 +580,15 @@ def check_kernels(torch, results: dict) -> bool:
     del experts
     torch.cuda.empty_cache()
     per_expert = 3 * h * m // 2 + (2 * m + h) * 4
-    for kernel, plain_fn, cases, name, kind in (
-            (moe_experts_stream, moe_experts_stream_plain, decode, "moe_stream_q4s8", "int8"),
-            (moe_experts_swiglu_gmm, moe_experts_swiglu_gmm_plain, prefill, "moe_swiglu_gmm_q4", "bf16")):
-        for label, n, choices in cases:
-            x = torch.randn((n, h), device=dev, generator=g).to(bf)
-            idx, w = routing(n, choices)
-            extra = (E,) if name == "moe_swiglu_gmm_q4" else ()
-            nbytes, ops = moe_work(idx, n, per_expert, 2)
-            all_ok &= run_case(torch, results, name, label,
-                               lambda: kernel(q4, x, idx, w, *extra, layer_idx=0),  # noqa: B023
-                               lambda: plain_fn(q4, x, idx, w, *extra, layer_idx=0),  # noqa: B023
-                               nbytes, ops, kind)
+    all_ok &= decode_moe_cases(torch, results, q4, routing, g, h, m, name="moe_stream_q4s8")
+    for label, n, choices in prefill:
+        x = torch.randn((n, h), device=dev, generator=g).to(bf)
+        idx, w = routing(n, choices)
+        nbytes, ops = moe_work(idx, n, per_expert, 2)
+        all_ok &= run_case(torch, results, "moe_swiglu_gmm_q4", label,
+                           lambda: moe_experts_swiglu_gmm(q4, x, idx, w, E, layer_idx=0),  # noqa: B023
+                           lambda: moe_experts_swiglu_gmm_plain(q4, x, idx, w, E, layer_idx=0),  # noqa: B023
+                           nbytes, ops, "bf16")
     all_ok &= capacity_cases(q4, "moe_swiglu_gmm_q4", per_expert)
     all_ok &= dot_mode_cases(q4, "moe_stream_q4", "moe_swiglu_gmm_q4s8", per_expert)
     all_ok &= full_block_cases(q4, "moe_swiglu_gmm_q4_full", per_expert,
@@ -961,34 +960,41 @@ def paged_cases(torch, results, g, cfg) -> bool:
     return ok
 
 
-def decode_moe_cases(torch, results, experts, routing, g, h: int, m: int) -> bool:
-    """The bf16 decode MoE kernel against its plain version on layer 0 of the
-    stacked 16B-A3B tables, top-6: 1 row (text decode), 2 (the T2I step), 3
-    (editing), 12 (the image pool's 4 slots x 3 rows) and 16 (the 16-slot
-    serving step, 64 experts routed of 96 assignments); each with its
-    kernel-alone device time and at most two kernels per call. Bound: every
-    routed expert's three tables once, x and the output."""
+def decode_moe_cases(torch, results, experts, routing, g, h: int, m: int, name: str = "moe_stream") -> bool:
+    """A two-launch decode MoE kernel against its plain version on layer 0 of
+    the stacked 16B-A3B tables, top-6: `name` "moe_stream" on bf16 tables
+    (within REL_TOL), "moe_stream_q4s8" on linear int4 tables (s8 dots, held
+    to the bit); through `moe_experts_stream`, as the LLM step calls it. 1 row
+    (text decode), 2 (the T2I step), 3 (editing), 12 (the image pool's 4
+    slots x 3 rows) and 16 (the 16-slot serving step, 64 experts routed of 96
+    assignments); each with its kernel-alone device time and at most two
+    kernels and one allocation per call. Bound: every routed expert's three
+    tables once (int4: the packed bytes and the fp32 scales), x and the output."""
     from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream, moe_experts_stream_plain
 
+    q4 = name == "moe_stream_q4s8"
+    per_expert = 3 * h * m // 2 + (2 * m + h) * 4 if q4 else 3 * h * m * 2
     ok = True
     for label, n in (("N=2 k=6 (slice decode)", 2), ("N=16 k=6 (A>E dedup, 16-slot serving step)", 16),
                      ("N=1 k=6 (text decode)", 1), ("N=3 k=6 (editing decode)", 3), ("N=12 k=6 (image pool)", 12)):
         x = torch.randn((n, h), device="cuda", generator=g).to(torch.bfloat16)
         idx, w = routing(n)
         unique = int(torch.unique(idx).numel())
-        nbytes, ops = unique * 3 * h * m * 2 + 2 * n * h * 2, 6.0 * idx.numel() * h * m
+        nbytes, ops = unique * per_expert + 2 * n * h * 2, 6.0 * idx.numel() * h * m
         kern = lambda: moe_experts_stream(experts, x, idx, w, layer_idx=0)  # noqa: B023, E731
-        ok &= run_case(torch, results, "moe_stream", f"{label}, {unique} experts", kern,
+        ok &= run_case(torch, results, name, f"{label}, {unique} experts", kern,
                        lambda: moe_experts_stream_plain(experts, x, idx, w, layer_idx=0),  # noqa: B023
-                       nbytes, ops, "bf16")
-        ok &= one_launch_checks(torch, results, "moe_stream", kern, kernels=2)
+                       nbytes, ops, "int8" if q4 else "bf16", bitwise=q4)
+        ok &= one_launch_checks(torch, results, name, kern, kernels=2)
     return ok
 
 
 def run_decode_kernels(torch, results: dict) -> bool:
-    """The decode_kernels phase: paged decode attention and the bf16 decode
-    MoE as the kernels phase checks them, on their own full-width inputs."""
+    """The decode_kernels phase: paged decode attention and the decode MoE on
+    bf16 and on int4 tables (s8 dots) as the kernels phase checks them, on
+    their own full-width inputs."""
     from mingunivision_tpu_torch.config import MingUniVisionConfig
+    from mingunivision_tpu_torch.utils.quantize import quantize_array
 
     cfg = MingUniVisionConfig()
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -998,7 +1004,10 @@ def run_decode_kernels(torch, results: dict) -> bool:
                for n, sh in shapes.items()}
     routing, _, _ = moe_cases(torch, g, E, k)
     ok = decode_moe_cases(torch, results, experts, routing, g, h, m)
+    q4 = {n: quantize_array(t, 4) for n, t in experts.items()}
     del experts
+    ok &= decode_moe_cases(torch, results, q4, routing, g, h, m, name="moe_stream_q4s8")
+    del q4
     torch.cuda.empty_cache()
     return ok & paged_cases(torch, results, g, cfg)
 
@@ -2508,7 +2517,10 @@ def run_profile(torch, cfg, device, tier="bfloat16", n_tok: int = 16) -> bool:
         bailing_moe.moe_experts_stream = entry
     unique = [int(torch.unique(idx).numel()) for idx in routed]
     llm = cfg.llm
-    expert_bytes = 3 * llm.hidden_size * llm.moe_intermediate_size * 2
+    h, m = llm.hidden_size, llm.moe_intermediate_size
+    # one expert's three tables: bf16; int8 or int4 bytes and their fp32 column scales (NF4 read as int4)
+    expert_bytes = {"bfloat16": 3 * h * m * 2, "int8": 3 * h * m + (2 * m + h) * 4}.get(
+        tier, 3 * h * m // 2 + (2 * m + h) * 4)
     print(f"profile decode_moe routing (the warm-up round, the same prompt): calls={len(unique)} unique experts per "
           f"call mean {statistics.mean(unique):.2f} min {min(unique)} max {max(unique)}; byte bound per LLM step "
           f"{sum(unique) * expert_bytes / HBM_BYTES_S * 1e3 / (len(unique) / llm.num_hidden_layers):.4f} ms")

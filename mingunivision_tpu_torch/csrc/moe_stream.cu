@@ -40,10 +40,14 @@
 // block multiplies the oldest: mma.sync.m16n8k16 bf16 with fp32 accumulators,
 // the weight tile as A through ldmatrix .trans (the output columns as M), the
 // rows as B (N: 8 per n-tile, NT n-tiles). Every routed expert is read once
-// whatever N, each block a disjoint column tile of it.
-#include "common.cuh"
+// whatever N, each block a disjoint column tile of it. The routing, the
+// cp.async copies and the ticket merge are moe_decode.cuh's, shared with the
+// int4 kernel's s8 mode (moe_stream_q4.cu).
+#include "moe_decode.cuh"
 
 namespace {
+
+using namespace moe_decode;
 
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kTileK = 64;     // contraction rows per stage
@@ -51,9 +55,6 @@ constexpr int kUpCols = 64;    // up: columns of m per block (of w1 and of w3), 
 constexpr int kDownCols = 128;  // down: columns of h per block, 32 per warp: one per thread in the merge
 constexpr int kLdUp = kUpCols + 8;      // bf16 elements per staged row
 constexpr int kLdDown = kDownCols + 8;
-constexpr int kMaxK = 8;      // top-k
-constexpr int kMaxRows = 64;  // rows per launch
-constexpr int kMaxE = 1024;   // experts
 static_assert(kDownCols == kThreads, "the merge gives each thread one column");
 
 // ring depth by n-tiles: two blocks on an SM where the stages allow it
@@ -65,15 +66,6 @@ struct Ring {
   static constexpr size_t kUpStage = (2 * kTileK * kLdUp + kRowsPad * kLdUp) * sizeof(bf16);
   static constexpr size_t kDownStage = (kTileK * kLdDown + kTileK * kLdH) * sizeof(bf16);
 };
-
-__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"((uint32_t)__cvta_generic_to_shared(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
 
 // Four 8x8 bf16 matrices from shared memory, each transposed (lanes 8j..8j+7
 // give the row addresses of matrix j).
@@ -104,56 +96,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 // k 0-7), (cols 0-7, k 8-15), (cols 8-15, k 8-15).
 __device__ __forceinline__ void frag_w(uint32_t (&a)[4], const bf16* s, int ld, int k0, int col0, int lane) {
   ldmatrix_x4_trans(a, s + (k0 + (lane & 7) + (lane >> 4) * 8) * ld + col0 + ((lane >> 3) & 1) * 8);
-}
-
-// The routing every block builds from the (N, k) top-k ids and gates.
-struct Routing {
-  int idx[kMaxRows * kMaxK];  // the ids, -1 where out of [0, E) (such an assignment is dropped)
-  float w[kMaxRows * kMaxK];  // the gates, fp32 (the down launch's merge only)
-  unsigned bits[kMaxE / 32];  // routed experts
-  int base[kMaxE / 32];       // routed experts in the words before
-  int n_unique;
-  int expert;  // the expert of this block's slot (when the slot is routed)
-};
-
-// Fills R from topk_idx (int32, or int64 with idx64) and, with `gates`,
-// topk_w (bf16, or fp32 with w_f32); every thread of the block calls it.
-__device__ void build_routing(Routing& R, const void* topk_idx, int idx64, const void* topk_w, int w_f32, bool gates,
-                              int N, int K, int E, int slot) {
-  const int tid = threadIdx.x, lane = tid & 31, n_words = (E + 31) / 32;
-  for (int i = tid; i < n_words; i += kThreads) R.bits[i] = 0u;
-  __syncthreads();
-  for (int i = tid; i < N * K; i += kThreads) {
-    const long long e = idx64 ? static_cast<const long long*>(topk_idx)[i] : static_cast<const int*>(topk_idx)[i];
-    const bool ok = e >= 0 && e < E;
-    R.idx[i] = ok ? (int)e : -1;
-    if (ok) atomicOr(&R.bits[e >> 5], 1u << (e & 31));
-    if (gates)
-      R.w[i] = w_f32 ? static_cast<const float*>(topk_w)[i] : __bfloat162float(static_cast<const bf16*>(topk_w)[i]);
-  }
-  __syncthreads();
-  if (tid < 32) {  // one warp ranks the (at most 32) words, then finds the slot's expert
-    const unsigned word = lane < n_words ? R.bits[lane] : 0u;
-    const int count = __popc(word);
-    int incl = count;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int up = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += up;
-    }
-    R.base[lane] = incl - count;
-    if (lane == 31) R.n_unique = incl;
-    if (slot >= incl - count && slot < incl) {  // the slot's expert lies in this lane's word
-      unsigned rest = word;
-      for (int j = incl - count; j < slot; ++j) rest &= rest - 1;
-      R.expert = lane * 32 + __ffs(rest) - 1;
-    }
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ int slot_of(const Routing& R, int e) {
-  return R.base[e >> 5] + __popc(R.bits[e >> 5] & ((1u << (e & 31)) - 1u));
 }
 
 // up: hbuf (n_slots, m, NT * 8) bf16 <- silu(x @ w1[e]) * (x @ w3[e]) of slot blockIdx.y,
@@ -261,10 +203,7 @@ __global__ void __launch_bounds__(kThreads) moe_down_kernel(
   using Rg = Ring<NT>;
   constexpr int S = Rg::kStages;
   __shared__ Routing R;
-  __shared__ int row_slots[kMaxRows][kMaxK];  // the merge: each row's routed slots, ascending
-  __shared__ float row_gates[kMaxRows][kMaxK];
-  __shared__ int row_count[kMaxRows];
-  __shared__ bool last;
+  __shared__ MergeLists M;
   const int slot = blockIdx.y;
   build_routing(R, topk_idx, idx64, topk_w, w_f32, true, N, K, E, slot);
   const int U = R.n_unique;
@@ -348,62 +287,7 @@ __global__ void __launch_bounds__(kThreads) moe_down_kernel(
         }
     }
 
-  // the block's writes, one fence, the ticket; the tile's last block merges
-  __syncthreads();
-  if (tid == 0) {
-    __threadfence();
-    last = atomicAdd(&tickets[blockIdx.x], 1) == U - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  if (tid < N) {  // row tid's routed slots, ascending, each with its assignments' gates summed in order
-    int cnt = 0;
-    for (int j = 0; j < K; ++j) {
-      const int e = R.idx[tid * K + j];
-      if (e < 0) continue;
-      const int sl = slot_of(R, e);
-      const float w = R.w[tid * K + j];
-      int at = 0;
-      while (at < cnt && row_slots[tid][at] < sl) ++at;
-      if (at < cnt && row_slots[tid][at] == sl) {
-        row_gates[tid][at] += w;
-        continue;
-      }
-      for (int q = cnt; q > at; --q) {
-        row_slots[tid][q] = row_slots[tid][q - 1];
-        row_gates[tid][q] = row_gates[tid][q - 1];
-      }
-      row_slots[tid][at] = sl;
-      row_gates[tid][at] = w;
-      ++cnt;
-    }
-    row_count[tid] = cnt;
-  }
-  __syncthreads();
-  const int col = col0 + tid;
-  if (col < h) {
-    for (int n0 = 0; n0 < N; n0 += 4) {  // four rows' loads issued before any is summed
-      float v[4][kMaxK];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < kMaxK; ++q)
-          v[r][q] = n0 + r < N && q < row_count[n0 + r]
-                        ? __ldcg(ypart + ((size_t)row_slots[n0 + r][q] * N + n0 + r) * h + col)
-                        : 0.0f;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        if (n0 + r >= N) break;
-        float sum = 0.0f;
-#pragma unroll
-        for (int q = 0; q < kMaxK; ++q)
-          if (q < row_count[n0 + r]) sum = fmaf(row_gates[n0 + r][q], v[r][q], sum);
-        out[(size_t)(n0 + r) * h + col] = __float2bfloat16(sum);
-      }
-    }
-  }
-  if (tid == 0) tickets[blockIdx.x] = 0;
+  merge_tile<true>(R, M, ypart, tickets, out, N, K, h, col0, U);
 }
 
 template <int NT>
@@ -446,17 +330,14 @@ extern "C" int mu_moe_stream_bf16(const void* x, const void* w1, const void* w3,
   float* yb = static_cast<float*>(ypart);
   int* tk = static_cast<int*>(tickets);
   bf16* ob = static_cast<bf16*>(out);
-  const int tiles = (N + 7) / 8;
+  const int pad = rows_pad(N);
 #define MU_MOE_LAUNCH(NT) launch<NT>(xb, w1b, w3b, w2b, topk_idx, topk_w, hb, yb, tk, ob, N, K, E, h, m, idx64, w_f32, st)
-  if (tiles == 1) return MU_MOE_LAUNCH(1);
-  if (tiles == 2) return MU_MOE_LAUNCH(2);
-  if (tiles <= 4) return MU_MOE_LAUNCH(4);
+  if (pad == 8) return MU_MOE_LAUNCH(1);
+  if (pad == 16) return MU_MOE_LAUNCH(2);
+  if (pad == 32) return MU_MOE_LAUNCH(4);
   return MU_MOE_LAUNCH(8);
 #undef MU_MOE_LAUNCH
 }
 
 // The rows of N the kernel pads the h workspace to (8 per n-tile, 1, 2, 4 or 8 n-tiles).
-extern "C" int mu_moe_stream_rows_pad(int N) {
-  const int tiles = (N + 7) / 8;
-  return 8 * (tiles <= 2 ? tiles : tiles <= 4 ? 4 : 8);
-}
+extern "C" int mu_moe_stream_rows_pad(int N) { return rows_pad(N); }

@@ -34,7 +34,8 @@ _SIGNATURES = {
     "mu_swiglu_gmm_tile_rows": [],
     "mu_decode_attention_bf16": [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P],
     "mu_decode_attention_tile": [],
-    "mu_moe_stream_q4": [_P] * 13 + [_I] * 5 + [_P],
+    "mu_moe_stream_q4": [_P] * 13 + [_I] * 4 + [_P],
+    "mu_moe_stream_q4s8": [_P] * 13 + [_I] * 7 + [_P],
     "mu_swiglu_gmm_q4": [_P] * 17 + [_I] * 5 + [_P],
     "mu_rf_sampler_q4s8": [_P] * 20 + [_I] * 10 + [ctypes.c_float] * 3 + [_P],
     "mu_rf_sampler_grid": [],

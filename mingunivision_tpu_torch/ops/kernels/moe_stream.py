@@ -10,10 +10,12 @@ int8 tables). What bounds them on the H100 is the bytes of expert weights: a
 2-row CFG decode step reads up to 12 routed experts per layer, 17.3 MB each
 in bf16, 8.65 MB in int8 and 4.33 MB in int4. Each kernel reads each routed
 expert once and sums the experts' contributions in a deterministic order.
-The bf16 kernel builds the unique-expert list in each block from the top-k
-ids and streams weight tiles through a shared-memory ring into the tensor
-cores (mma.sync), two launches per call, its scratch in a workspace kept per
-device and stream; the int4 and int8 wrappers build the list and the
+The bf16 kernel and the int4 kernel's s8-dot mode build the unique-expert
+list in each block from the top-k ids and stream weight tiles through a
+shared-memory ring into the tensor cores (mma.sync: bf16 products, s8
+integer dots), two launches per call and no other device op, their scratch
+in a workspace kept per device and stream, the layer's tables reached by
+address; the int4 exact mode and the int8 wrappers build the list and the
 per-expert gate rows here (`expert_slots`, on the device, with no host sync)
 and their kernels stream the tables with coalesced loads. See the sources
 for the launch layouts.
@@ -82,14 +84,7 @@ def _decode_impl(op: str, experts, int_dots: bool, plain: bool):
     kind = table_kind(op, experts)
     if kind == "nf4":
         return moe_experts_nf4
-    impls = {
-        ("plain", True): (moe_experts_stream_bf16_plain, moe_experts_stream),
-        ("int4", True): (moe_experts_stream_q4s8_plain, moe_experts_stream_q4s8),
-        ("int4", False): (moe_experts_stream_q4_plain, moe_experts_stream_q4),
-        ("int8", True): (moe_experts_stream_q8s8_plain, moe_experts_stream_q8s8),
-        ("int8", False): (moe_experts_stream_q8_plain, moe_experts_stream_q8),
-    }
-    return impls[(kind, int_dots or kind == "plain")][0 if plain else 1]
+    return _DECODE_IMPLS[(kind, int_dots or kind == "plain")][0 if plain else 1]
 
 
 def expert_gates(topk_idx, topk_w, num_experts: int):
@@ -133,10 +128,18 @@ def check_tables(op: str, x_flat, w1, w3, w2):
     return E, h, m
 
 
-ROWS_PER_LAUNCH = 64  # csrc/moe_stream.cu's kMaxRows: more rows take one pair of launches per 64
+ROWS_PER_LAUNCH = 64  # csrc/moe_decode.cuh's kMaxRows: more rows take one pair of launches per 64
 MAX_TOP_K = 8  # its kMaxK: the top-k ids of the rows are read into shared memory
 MAX_EXPERTS = 1024  # its kMaxE: the routed experts are a bit set in shared memory
-COL_TILE_DOWN = 128  # its kDownCols: a ticket per column tile of h
+COL_TILE_DOWN = 128  # csrc/moe_stream.cu's kDownCols: a ticket per column tile of h
+Q4S8_COL_TILE_DOWN = 256  # csrc/moe_stream_q4.cu (S8): columns of h per down block, a ticket each (h in whole tiles)
+Q4S8_M_ALIGN = 128  # its m: whole up tiles (64 column pairs) and whole stages of 64 packed rows
+Q4S8_MAX_WIDTH = 2048  # its limit on h and m: the rows' s8 operands sit in shared memory
+
+
+def row_chunks(N: int):
+    """(first row, rows) of each launch pair of the two-launch decode kernels: ROWS_PER_LAUNCH rows at a time."""
+    return ((r0, min(ROWS_PER_LAUNCH, N - r0)) for r0 in range(0, N, ROWS_PER_LAUNCH))
 
 
 def rows_pad(n: int) -> int:
@@ -157,6 +160,18 @@ def workspace_sizes(N: int, k: int, E: int, h: int, m: int) -> tuple[int, int, i
 
 
 _workspaces: dict = {}  # (device index, stream) -> (bf16 h, fp32 down products, int32 tickets), grown on demand
+_q4s8_workspaces: dict = {}  # (device index, stream) -> (fp32 h / down products, s8 h, int32 tickets)
+
+
+def _grown(store: dict, key, sizes: tuple[int, int, int], dtypes: tuple, device):
+    """The buffers `store` keeps under `key`, each at least its size long:
+    allocated where missing or too short (the last, the tickets, as zeros)."""
+    bufs = list(store.get(key, (None,) * len(sizes)))
+    for i, (n, dtype) in enumerate(zip(sizes, dtypes)):
+        if bufs[i] is None or bufs[i].numel() < n:
+            bufs[i] = (torch.zeros if i == len(sizes) - 1 else torch.empty)(n, dtype=dtype, device=device)
+    store[key] = tuple(bufs)
+    return store[key]
 
 
 def _workspace(sizes: tuple[int, int, int], device, stream: int):
@@ -164,25 +179,34 @@ def _workspace(sizes: tuple[int, int, int], device, stream: int):
     (`workspace_sizes`) long: kept per device and stream (launches on one
     stream run in order, so they can share them), grown when a call needs
     more. The tickets start at zero and every launch leaves them at zero."""
-    key = (device.index, stream)
-    hbuf, ypart, tickets = _workspaces.get(key, (None, None, None))
-    if hbuf is None or hbuf.numel() < sizes[0]:
-        hbuf = torch.empty(sizes[0], dtype=torch.bfloat16, device=device)
-    if ypart is None or ypart.numel() < sizes[1]:
-        ypart = torch.empty(sizes[1], dtype=torch.float32, device=device)
-    if tickets is None or tickets.numel() < sizes[2]:
-        tickets = torch.zeros(sizes[2], dtype=torch.int32, device=device)
-    _workspaces[key] = (hbuf, ypart, tickets)
-    return hbuf, ypart, tickets
+    return _grown(_workspaces, (device.index, stream), sizes, (torch.bfloat16, torch.float32, torch.int32), device)
 
 
-def _layer_pointer(op: str, name: str, w, layer_idx, shape: tuple, dev: int) -> int:
+@functools.lru_cache(maxsize=256)
+def q4s8_workspace_sizes(N: int, k: int, E: int, h: int, m: int) -> tuple[int, int, int]:
+    """The workspace one launch pair of the int4 kernel's s8 mode needs for N
+    <= ROWS_PER_LAUNCH rows routed top-k over E experts of (h, m) tables, with
+    S = min(N k, E) slots: (fp32, S x N x max(h, m + m / 64): the up launch's h
+    and its tiles' two row maxima (a tile is 128 columns of m), then the down
+    launch's products; bytes, S x rows_pad(N) x (m + 16): each slot's h
+    quantized to the s8 pair with each row's scales; int32 tickets, one per
+    256-column tile of h, then one per slot)."""
+    slots = min(N * k, E)
+    return slots * N * max(h, m + m // 64), slots * rows_pad(N) * (m + 16), h // Q4S8_COL_TILE_DOWN + slots
+
+
+def _q4s8_workspace(sizes: tuple[int, int, int], device, stream: int):
+    """The int4 s8-mode kernel's buffers, kept as `_workspace` keeps the bf16 kernel's."""
+    return _grown(_q4s8_workspaces, (device.index, stream), sizes, (torch.float32, torch.int8, torch.int32), device)
+
+
+def _layer_pointer(op: str, name: str, w, layer_idx, shape: tuple, dev: int, dtype=torch.bfloat16) -> int:
     """The device address of `w`'s (E, a, b) table of layer `layer_idx` (of
-    `w` itself without one), checked as the kernel reads it: bf16 on device
-    `dev`, of `shape`, contiguous, 16-byte aligned. Computed from the stacked
-    table's strides, so a call makes no view."""
-    if not isinstance(w, torch.Tensor) or w.dtype is not torch.bfloat16 or w.get_device() != dev:
-        raise ValueError(f"{op}: {name} must be a contiguous bf16 {shape} table on the rows' device")
+    `w` itself without one), checked as the kernel reads it: `dtype` on
+    device `dev`, of `shape`, contiguous, 16-byte aligned. Computed from the
+    stacked table's strides, so a call makes no view."""
+    if not isinstance(w, torch.Tensor) or w.dtype is not dtype or w.get_device() != dev:
+        raise ValueError(f"{op}: {name} must be a contiguous {dtype} {shape} table on the rows' device")
     dims, strides, ptr = w.shape, w.stride(), w.data_ptr()
     if layer_idx is None:
         if len(dims) == 4:
@@ -191,14 +215,28 @@ def _layer_pointer(op: str, name: str, w, layer_idx, shape: tuple, dev: int) -> 
         layer = layer_idx if type(layer_idx) is int else int(layer_idx)
         if len(dims) != 4 or not -dims[0] <= layer < dims[0]:
             raise ValueError(f"{op}: {name} {tuple(dims)} has no layer {layer} of a stacked (L, E, ...) table")
-        ptr += (layer % dims[0]) * strides[0] * 2
+        ptr += (layer % dims[0]) * strides[0] * w.element_size()
         dims, strides = dims[1:], strides[1:]
     if dims != shape or strides != (shape[1] * shape[2], shape[2], 1):
-        raise ValueError(f"{op}: {name} must be a contiguous bf16 {shape} table, got {tuple(dims)} strided "
+        raise ValueError(f"{op}: {name} must be a contiguous {dtype} {shape} table, got {tuple(dims)} strided "
                          f"{strides}")
     if ptr % 16:
         raise ValueError(f"{op}: {name} must be 16-byte aligned")
     return ptr
+
+
+def _check_routing(op: str, x_flat, topk_idx, topk_w, E: int, dev: int) -> None:
+    """The (N, k) top-k ids (int32 or int64) and gates (bf16 or fp32) the
+    kernels read in each block, on the rows' device: k <= MAX_TOP_K of at most
+    MAX_EXPERTS experts."""
+    N, k = x_flat.shape[0], topk_idx.shape[-1]
+    for name, t, dtypes in (("topk_idx", topk_idx, (torch.int32, torch.int64)),
+                            ("topk_w", topk_w, (torch.bfloat16, torch.float32))):
+        if t.dtype not in dtypes or t.get_device() != dev or t.shape != (N, k):
+            raise ValueError(f"{op}: {name} must be ({N}, {k}) of {dtypes} on {x_flat.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if not 0 < k <= MAX_TOP_K or E > MAX_EXPERTS:
+        raise ValueError(f"{op}: needs 1 <= k <= {MAX_TOP_K} and at most {MAX_EXPERTS} experts (k={k}, E={E})")
 
 
 def check_stream_inputs(experts, x_flat, topk_idx, topk_w, layer_idx=None):
@@ -221,14 +259,7 @@ def check_stream_inputs(experts, x_flat, topk_idx, topk_w, layer_idx=None):
         raise ValueError(f"{op}: x must be bf16 (N, {h}), got {x_flat.dtype} {tuple(x_flat.shape)}")
     if h % 32 or m % 8 or h > 8192:
         raise ValueError(f"{op}: needs h % 32 == 0, m % 8 == 0 and h <= 8192 (h={h}, m={m})")
-    N, k = x_flat.shape[0], topk_idx.shape[-1]
-    for name, t, dtypes in (("topk_idx", topk_idx, (torch.int32, torch.int64)),
-                            ("topk_w", topk_w, (torch.bfloat16, torch.float32))):
-        if t.dtype not in dtypes or t.get_device() != dev or t.shape != (N, k):
-            raise ValueError(f"{op}: {name} must be ({N}, {k}) of {dtypes} on {x_flat.device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
-    if not 0 < k <= MAX_TOP_K or E > MAX_EXPERTS:
-        raise ValueError(f"{op}: needs 1 <= k <= {MAX_TOP_K} and at most {MAX_EXPERTS} experts (k={k}, E={E})")
+    _check_routing(op, x_flat, topk_idx, topk_w, E, dev)
     x = x_flat
     if not x.is_contiguous() or x.data_ptr() % 16:  # the kernel copies x by 16-byte pieces
         x = x.clone(memory_format=torch.contiguous_format)
@@ -258,8 +289,7 @@ def moe_experts_stream(experts, x_flat, topk_idx, topk_w, *, layer_idx=None, int
     stream = build.stream_handle(x)
     lib = build.load()
     xp, ip, gp, op = x.data_ptr(), idx.data_ptr(), gates.data_ptr(), out.data_ptr()
-    for r0 in range(0, N, ROWS_PER_LAUNCH):
-        n = min(ROWS_PER_LAUNCH, N - r0)
+    for r0, n in row_chunks(N):
         hbuf, ypart, tickets = _workspace(workspace_sizes(n, k, E, h, m), x.device, stream)
         rc = lib.mu_moe_stream_bf16(
             xp + r0 * h * 2, p1, p3, p2, ip + r0 * k * idx.element_size(), gp + r0 * k * gates.element_size(),
@@ -356,9 +386,10 @@ def moe_experts_nf4(experts, x_flat, topk_idx, topk_w, *, layer_idx=None):
 
 
 def check_q4_tables(op: str, x_flat, w1, w3, w2):
-    """What the int4 MoE kernels need: contiguous uint8 (E, h/2, m)/(E, m/2, h)
-    packed tables with contiguous fp32 (E, 1, m)/(E, 1, h) scales and bf16
-    (N, h) rows, all on one device. Returns (E, h, m)."""
+    """What the int4 prefill MoE kernels and the exact-dequant decode kernel
+    need: contiguous uint8 (E, h/2, m)/(E, m/2, h) packed tables with
+    contiguous fp32 (E, 1, m)/(E, 1, h) scales and bf16 (N, h) rows, all on
+    one device. Returns (E, h, m)."""
     E, hh, m = w1.q.shape
     h = 2 * hh
     expect = (("gate_proj", w1, (E, hh, m), (E, 1, m)), ("up_proj", w3, (E, hh, m), (E, 1, m)),
@@ -373,8 +404,74 @@ def check_q4_tables(op: str, x_flat, w1, w3, w2):
     return E, h, m
 
 
-def _launch_q4(op: str, experts, x_flat, topk_idx, topk_w, layer_idx, s8_dots: bool):
-    """One launch of `csrc/moe_stream_q4.cu` in the given dot mode."""
+def check_q4s8_inputs(experts, x_flat, topk_idx, topk_w, layer_idx=None):
+    """What the int4 kernel's s8 mode takes (the wrapper's checks, callable on
+    any device): linear int4 tables, their packed uint8 (E, h/2, m) / (E, m/2,
+    h) bytes and fp32 (E, 1, m) / (E, 1, h) scales (one layer's, or a stacked
+    table's layer `layer_idx`), contiguous and 16-byte aligned, h a multiple
+    of Q4S8_COL_TILE_DOWN and m of Q4S8_M_ALIGN, each at most Q4S8_MAX_WIDTH;
+    bf16 (N, h) rows; the
+    routing as `check_stream_inputs` takes it; one device. Raises ValueError on
+    anything else (shard-grouped tables, packed per contraction group).
+    Returns (x, the six addresses q1, s1, q3, s3, q2, s2, ids, gates, (E, h,
+    m)), x, ids and gates contiguous and x 16-byte aligned."""
+    op = "moe_experts_stream_q4s8"
+    tables = [experts[n] for n in ("gate_proj", "up_proj", "down_proj")]
+    if not all(is_int4_linear(t) for t in tables):
+        raise ValueError(f"{op}: needs linear int4 tables packed in one group, got {tables[0]!r}")
+    E, hh, m = tables[0].q.shape[-3:]
+    h = 2 * hh
+    dev = x_flat.get_device()
+    ptrs = []
+    for name, w, qshape, sshape in (("gate_proj", tables[0], (E, hh, m), (E, 1, m)),
+                                    ("up_proj", tables[1], (E, hh, m), (E, 1, m)),
+                                    ("down_proj", tables[2], (E, m // 2, h), (E, 1, h))):
+        ptrs.append(_layer_pointer(op, f"{name}.q", w.q, layer_idx, qshape, dev, torch.uint8))
+        ptrs.append(_layer_pointer(op, f"{name}.s", w.s, layer_idx, sshape, dev, torch.float32))
+    if x_flat.dtype is not torch.bfloat16 or x_flat.dim() != 2 or x_flat.shape[-1] != h:
+        raise ValueError(f"{op}: x must be bf16 (N, {h}), got {x_flat.dtype} {tuple(x_flat.shape)}")
+    if h % Q4S8_COL_TILE_DOWN or m % Q4S8_M_ALIGN or h > Q4S8_MAX_WIDTH or m > Q4S8_MAX_WIDTH:
+        raise ValueError(f"{op}: needs h a multiple of {Q4S8_COL_TILE_DOWN} and m of {Q4S8_M_ALIGN}, each at most "
+                         f"{Q4S8_MAX_WIDTH} (h={h}, m={m})")
+    _check_routing(op, x_flat, topk_idx, topk_w, E, dev)
+    x = x_flat
+    if not x.is_contiguous() or x.data_ptr() % 16:  # the kernel reads x by 16-byte pieces
+        x = x.clone(memory_format=torch.contiguous_format)
+    return x, tuple(ptrs), topk_idx.contiguous(), topk_w.contiguous(), (E, h, m)
+
+
+def moe_experts_stream_q4s8(experts, x_flat, topk_idx, topk_w, *, layer_idx=None):
+    """Decode-path MoE over linear int4 tables with s8 integer dots (the CUDA
+    kernel `csrc/moe_stream_q4.cu`, `mu_moe_stream_q4s8`): two launches per
+    ROWS_PER_LAUNCH rows, the expert list built in the kernel, no other device
+    op but the output's allocation, the layer's six tensors reached by
+    address. x_flat (N, h) bf16 -> (N, h)."""
+    if x_flat.device.type == "cpu":
+        return moe_experts_stream_q4s8_plain(experts, x_flat, topk_idx, topk_w, layer_idx=layer_idx)
+    x, ptrs, idx, gates, (E, h, m) = check_q4s8_inputs(experts, x_flat, topk_idx, topk_w, layer_idx)
+    N, k = idx.shape
+    out = torch.empty((N, h), dtype=torch.bfloat16, device=x.device)
+    stream = build.stream_handle(x)
+    lib = build.load()
+    xp, ip, gp, op = x.data_ptr(), idx.data_ptr(), gates.data_ptr(), out.data_ptr()
+    for r0, n in row_chunks(N):
+        fbuf, qbuf, tickets = _q4s8_workspace(q4s8_workspace_sizes(n, k, E, h, m), x.device, stream)
+        rc = lib.mu_moe_stream_q4s8(
+            xp + r0 * h * 2, *ptrs, ip + r0 * k * idx.element_size(), gp + r0 * k * gates.element_size(),
+            fbuf.data_ptr(), qbuf.data_ptr(), tickets.data_ptr(), op + r0 * h * 2, n, k, E, h, m,
+            int(idx.dtype is torch.int64), int(gates.dtype is torch.float32), stream,
+        )
+        build.check(rc, "mu_moe_stream_q4s8")
+        moe_experts_stream_q4s8.launches += 1
+    return out
+
+
+def moe_experts_stream_q4(experts, x_flat, topk_idx, topk_w, *, layer_idx=None):
+    """Decode-path MoE over linear int4 tables with exact dequant (the CUDA
+    kernel `csrc/moe_stream_q4.cu`, `mu_moe_stream_q4`). x_flat (N, h) bf16 -> (N, h)."""
+    if x_flat.device.type == "cpu":
+        return moe_experts_stream_q4_plain(experts, x_flat, topk_idx, topk_w, layer_idx=layer_idx)
+    op = "moe_experts_stream_q4"
     w1, w3, w2 = layer_tables(experts, layer_idx)
     E, h, m = check_q4_tables(op, x_flat, w1, w3, w2)
     if h % 8 or m % 8:
@@ -389,28 +486,9 @@ def _launch_q4(op: str, experts, x_flat, topk_idx, topk_w, layer_idx, s8_dots: b
     rc = build.load().mu_moe_stream_q4(
         x.data_ptr(), w1.q.data_ptr(), w1.s.data_ptr(), w3.q.data_ptr(), w3.s.data_ptr(), w2.q.data_ptr(),
         w2.s.data_ptr(), slot_expert.data_ptr(), n_unique.data_ptr(), gates.data_ptr(), hbuf.data_ptr(),
-        ybuf.data_ptr(), out.data_ptr(), N, n_slots, h, m, int(s8_dots), build.stream_handle(x),
+        ybuf.data_ptr(), out.data_ptr(), N, n_slots, h, m, build.stream_handle(x),
     )
     build.check(rc, "mu_moe_stream_q4")
-    return out
-
-
-def moe_experts_stream_q4s8(experts, x_flat, topk_idx, topk_w, *, layer_idx=None):
-    """Decode-path MoE over linear int4 tables with s8 integer dots (the CUDA
-    kernel `csrc/moe_stream_q4.cu`, S8). x_flat (N, h) bf16 -> (N, h)."""
-    if x_flat.device.type == "cpu":
-        return moe_experts_stream_q4s8_plain(experts, x_flat, topk_idx, topk_w, layer_idx=layer_idx)
-    out = _launch_q4("moe_experts_stream_q4s8", experts, x_flat, topk_idx, topk_w, layer_idx, s8_dots=True)
-    moe_experts_stream_q4s8.launches += 1
-    return out
-
-
-def moe_experts_stream_q4(experts, x_flat, topk_idx, topk_w, *, layer_idx=None):
-    """Decode-path MoE over linear int4 tables with exact dequant (the CUDA
-    kernel `csrc/moe_stream_q4.cu`, not S8). x_flat (N, h) bf16 -> (N, h)."""
-    if x_flat.device.type == "cpu":
-        return moe_experts_stream_q4_plain(experts, x_flat, topk_idx, topk_w, layer_idx=layer_idx)
-    out = _launch_q4("moe_experts_stream_q4", experts, x_flat, topk_idx, topk_w, layer_idx, s8_dots=False)
     moe_experts_stream_q4.launches += 1
     return out
 
@@ -515,3 +593,12 @@ def moe_experts_stream_q8(experts, x_flat, topk_idx, topk_w, *, layer_idx=None):
 
 moe_experts_stream_q8s8.launches = 0
 moe_experts_stream_q8.launches = 0
+
+# (table kind, integer dots) -> (plain version, wrapper); built once, not at every call
+_DECODE_IMPLS = {
+    ("plain", True): (moe_experts_stream_bf16_plain, moe_experts_stream),
+    ("int4", True): (moe_experts_stream_q4s8_plain, moe_experts_stream_q4s8),
+    ("int4", False): (moe_experts_stream_q4_plain, moe_experts_stream_q4),
+    ("int8", True): (moe_experts_stream_q8s8_plain, moe_experts_stream_q8s8),
+    ("int8", False): (moe_experts_stream_q8_plain, moe_experts_stream_q8),
+}

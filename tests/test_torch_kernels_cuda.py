@@ -1,7 +1,8 @@
 """PyTorch port: each hand-written CUDA kernel against its plain PyTorch version
 on the card, in bf16 (the int4 and int8 kernels on int4 and int8 tables of
 the same weights, in both dot modes, the int8 ones and the new modes also at
-the 16B-A3B width; the int4 and int8 RF samplers (the int4 one in both
+the 16B-A3B width; the int4 decode MoE with s8 dots to the bit, its launches,
+workspace and tickets too; the int4 and int8 RF samplers (the int4 one in both
 schedules) and the per-step RF stack in its four bodies to the bit, since
 their plain versions sum in their order; the s8 prefill MoE kernels to the
 bit, the full-expert-block prefill mode within bf16's precision; both
@@ -164,16 +165,19 @@ def _q4(tables):
     return {k: quantize_array(v, 4) for k, v in tables.items()}
 
 
-@pytest.mark.parametrize("n", [1, 2, 5, 16], ids=["1row", "2rows", "5rows-2chunks", "16rows-A>E"])
+@pytest.mark.parametrize("n", [1, 2, 5, 16, 3, 12, 65],
+                         ids=["1row", "2rows", "5rows-2chunks", "16rows-A>E", "3rows", "12rows", "65rows-2-launch-pairs"])
 def test_moe_stream_q4s8_kernel_matches_plain(dev, n):
+    """The s8-dot int4 kernel (two launches per 64 rows, the expert list built
+    in the kernel): the plain version's bits, on layer 1 of stacked tables."""
     ex = _q4(_experts(dev, seed=4))
     idx, w = _routing(dev, n, 6, seed=5)
     x = torch.randn(n, H, device=dev).to(torch.bfloat16)
     before = moe_experts_stream_q4s8.launches
     got = moe_experts_stream(ex, x, idx, w, layer_idx=1)
     torch.cuda.synchronize()
-    assert moe_experts_stream_q4s8.launches == before + 1
-    _close_bf16(got, moe_experts_stream_plain(ex, x, idx, w, layer_idx=1))
+    assert moe_experts_stream_q4s8.launches == before + -(-n // 64)
+    assert torch.equal(got, moe_experts_stream_plain(ex, x, idx, w, layer_idx=1))
 
 
 @pytest.mark.parametrize("choices", [None, [0, 3, 5]], ids=["spread", "skewed-empty-experts"])
@@ -1510,3 +1514,101 @@ def test_moe_stream_at_full_width_matches_plain(dev):
         x = torch.randn(n, 2048, device=dev, generator=g).to(torch.bfloat16)
         got = moe_experts_stream(ex, x, idx, (w / w.sum(-1, keepdim=True)).to(torch.bfloat16))
         _close_bf16(got, moe_experts_stream_plain(ex, x, idx, (w / w.sum(-1, keepdim=True)).to(torch.bfloat16)))
+
+
+# ---------------------------------------------------------------------------
+# the int4 decode MoE with s8 dots: the expert list built in the kernel, s8 products on the tensor cores
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["int64-ids-fp32-gates", "int32-ids-bf16-gates", "last-layer-of-3", "repeat-and-drop"])
+def test_moe_stream_q4s8_kernel_routing_inputs(dev, case):
+    """int32 or int64 ids, bf16 or fp32 gates; a stacked table's last layer;
+    a row naming one expert twice and ids outside [0, E) (dropped): the plain
+    version's bits."""
+    ex = _q4(_experts(dev, layers=3, seed=90))
+    idx, w = _routing(dev, 3, 6, seed=91)
+    x = torch.randn(3, H, device=dev).to(torch.bfloat16)
+    layer = -1 if case == "last-layer-of-3" else 2
+    if case == "int64-ids-fp32-gates":
+        idx, w = idx.long(), w.float()
+    elif case == "int32-ids-bf16-gates":
+        idx = idx.int()
+    elif case == "repeat-and-drop":
+        idx = idx.clone()
+        idx[0, 1] = idx[0, 0]
+        idx[1, 2], idx[2, 0] = E, -1
+    got = moe_experts_stream_q4s8(ex, x, idx, w, layer_idx=layer)
+    torch.cuda.synchronize()
+    assert torch.equal(got, moe_experts_stream_plain(ex, x, idx, w, layer_idx=layer))
+
+
+@pytest.mark.parametrize("n", [2, 16])
+def test_moe_stream_q4s8_two_kernels_and_no_scratch_allocation_per_call(dev, n):
+    ex = _q4(_experts(dev, seed=92))
+    idx, w = _routing(dev, n, 6, seed=93)
+    x = torch.randn(n, H, device=dev).to(torch.bfloat16)
+    call = lambda: moe_experts_stream_q4s8(ex, x, idx, w, layer_idx=1)  # noqa: E731
+    events = _device_events(call, calls=3)
+    ups, downs = (sum(name in e for e in events) for name in ("q4s8_up_kernel", "q4s8_down_kernel"))
+    assert 0 < ups <= 3 and 0 < downs <= 3 and ups + downs == len(events), events
+    assert _allocations(call) == 1  # the output only: the workspace is kept
+
+
+def test_moe_stream_q4s8_on_two_streams_leaves_the_tickets_at_zero(dev):
+    """Calls on two streams at once, each with its own workspace, give the
+    default stream's bits; every launch leaves its tickets at zero, and a
+    second call on a stream reuses its workspace."""
+    from mingunivision_tpu_torch.ops.kernels import moe_stream as ms
+
+    ex = _q4(_experts(dev, seed=94))
+    cases = []
+    for n, seed in ((16, 95), (3, 96)):
+        idx, w = _routing(dev, n, 6, seed=seed)
+        cases.append((torch.randn(n, H, device=dev).to(torch.bfloat16), idx, w))
+    want = [moe_experts_stream_q4s8(ex, x, idx, w, layer_idx=0) for x, idx, w in cases]
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    outs, spaces = [], {}
+    for _ in range(3):
+        for which, stream in enumerate((s1, s2)):
+            with torch.cuda.stream(stream):
+                x, idx, w = cases[which]
+                outs.append((which, moe_experts_stream_q4s8(ex, x, idx, w, layer_idx=0)))
+                key = (x.device.index, stream.cuda_stream)
+                bufs = tuple(t.data_ptr() for t in ms._q4s8_workspaces[key])
+                assert spaces.setdefault(key, bufs) == bufs  # reused, not allocated again
+    torch.cuda.synchronize()
+    for which, out in outs:
+        assert torch.equal(out, want[which])
+    for key in spaces:
+        assert not ms._q4s8_workspaces[key][2].any()
+
+
+def test_moe_stream_q4s8_raises_on_unsupported_input(dev):
+    ex = _q4(_experts(dev, seed=97))
+    idx, w = _routing(dev, 2, 6, seed=98)
+    x = torch.randn(2, H, device=dev)
+    with pytest.raises(ValueError):
+        moe_experts_stream_q4s8(ex, x, idx, w, layer_idx=0)  # fp32 rows
+    with pytest.raises(ValueError):
+        moe_experts_stream_q4s8(ex, x.to(torch.bfloat16), idx, w)  # a stacked table without its layer
+    narrow = _q4({k: v[..., :320] if k != "down_proj" else v[..., :320, :] for k, v in _experts(dev, seed=99).items()})
+    with pytest.raises(ValueError):
+        moe_experts_stream_q4s8(narrow, x.to(torch.bfloat16), idx, w, layer_idx=0)  # m = 320: not whole tiles
+
+
+def test_moe_stream_q4s8_at_full_width_matches_plain(dev):
+    """The 16B-A3B int4 tables (64 experts of 2048 x 1408), 1, 2, 3, 12 and 16 rows top-6: the plain version's bits."""
+    g = torch.Generator(device=dev).manual_seed(100)
+    shapes = {"gate_proj": (1, 64, 2048, 1408), "up_proj": (1, 64, 2048, 1408), "down_proj": (1, 64, 1408, 2048)}
+    ex = _q4({k: torch.empty(s, device=dev, dtype=torch.bfloat16).normal_(0, 0.02, generator=g)
+              for k, s in shapes.items()})
+    for n in (1, 2, 3, 12, 16):
+        scores = torch.rand((n, 64), device=dev, generator=g)
+        wt, idx = torch.topk(torch.softmax(scores, -1), 6)
+        wt = (wt / wt.sum(-1, keepdim=True)).to(torch.bfloat16)
+        x = torch.randn(n, 2048, device=dev, generator=g).to(torch.bfloat16)
+        got = moe_experts_stream_q4s8(ex, x, idx, wt, layer_idx=0)
+        torch.cuda.synchronize()
+        assert torch.equal(got, moe_experts_stream_plain(ex, x, idx, wt, layer_idx=0)), n
