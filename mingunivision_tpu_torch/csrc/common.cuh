@@ -140,11 +140,19 @@ struct SumOp {
   __device__ T operator()(T a, T b) const { return a + b; }
 };
 
+// The barrier and the warps of the block-wide helpers: the whole block by
+// default; a warp-specialized kernel passes its own (its consumer warps).
+struct BlockSync {
+  __device__ static void sync() { __syncthreads(); }
+  __device__ static int warps() { return blockDim.x >> 5; }
+};
+
 // All-reduce K values per thread over the block (blockDim a multiple of 32, at
-// most 32 warps); every thread gets the K results. `scratch` holds 32 * K values.
-template <int K, typename T, typename Op>
-__device__ __forceinline__ void block_allreduce(T (&v)[K], T* scratch, Op op) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+// most 32 warps), or over Sync's warps; every thread gets the K results.
+// `scratch` holds 32 * K values.
+template <int K, typename T, typename Op, typename Sync = BlockSync>
+__device__ __forceinline__ void block_allreduce(T (&v)[K], T* scratch, Op op, Sync = Sync()) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = Sync::warps();
 #pragma unroll
   for (int k = 0; k < K; ++k) {
 #pragma unroll
@@ -154,13 +162,13 @@ __device__ __forceinline__ void block_allreduce(T (&v)[K], T* scratch, Op op) {
 #pragma unroll
     for (int k = 0; k < K; ++k) scratch[warp * K + k] = v[k];
   }
-  __syncthreads();
+  Sync::sync();
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     v[k] = scratch[k];
     for (int w = 1; w < nwarps; ++w) v[k] = op(v[k], scratch[w * K + k]);
   }
-  __syncthreads();
+  Sync::sync();
 }
 
 // Per-row s8 quantization of the split-halves operand pair (intdot.

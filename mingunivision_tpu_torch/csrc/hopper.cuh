@@ -1,4 +1,4 @@
-// Hopper building blocks shared by the wgmma kernels (gmm.cu, flash_attention.cu):
+// Hopper building blocks shared by the TMA-fed kernels (gmm.cu, flash_attention.cu, rf_sampler_q4.cu):
 // mbarriers, TMA tile loads with tensor maps encoded on the host, wgmma's
 // shared-memory descriptors and fences. sm_90a only (wgmma, setmaxnreg).
 #pragma once
@@ -48,6 +48,21 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "[%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// tma_load_3d with an L2 policy (`l2_evict_first`: data read once, which should not evict what is read again).
+__device__ __forceinline__ void tma_load_3d_hint(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+                                                 int c2, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint [%0], [%1, {%3, %4, "
+      "%5}], [%2], %6;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "l"(policy)
+      : "memory");
+}
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
 }
 
 // A plain bulk copy of `bytes` contiguous bytes (both addresses 16-byte aligned, bytes a multiple of 16),
@@ -113,13 +128,14 @@ static inline EncodeTiled encode_tiled() {
 }
 
 // A tensor map of `rank` dimensions (innermost first; byte strides of the
-// outer ones), 128-byte swizzled boxes, zeros out of bounds.
+// outer ones), 128-byte swizzled boxes (or `swizzle`), zeros out of bounds.
 static inline bool encode(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* ptr,
-                          const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+                          const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                          CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   const cuuint32_t unit[3] = {1, 1, 1};
   return fn != nullptr &&
          fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -78,6 +78,7 @@
 //   phase C  out = sum over slots of gate * y, in ascending slot order
 //            (deterministic, no atomics).
 #include "moe_decode.cuh"
+#include "q4_mma.cuh"
 
 namespace {
 
@@ -116,15 +117,6 @@ __device__ __forceinline__ int swizzled(int k, int c) { return k * kRowBytes + (
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) { cp_async16_zfill(dst, src, true); }
 
-// d (16x8 s32) += a (16x32 s8, row) * b (32x8 s8, col)
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // The byte offset, within a staged row, of the word lane (g, t) reads for the
 // warp's 32 columns at byte `col` of the row (columns col + 4g .. + 3; the
 // swizzle of each row it reads is 2t).
@@ -133,13 +125,11 @@ __device__ __forceinline__ int a_offset(int col, int lane) {
   return ((((col >> 4) + (g >> 2)) ^ (2 * t)) << 4) + ((4 * g) & 15);
 }
 
-// The warp's two integer dots over one staged tile of kTileK packed rows. A:
-// lane (g, t) reads, for contraction rows kk + 4t + r and kk + 16 + 4t + r (r
-// < 4), the word of its 4 columns and transposes each four into a register
-// per column, holding 4 contraction-consecutive bytes of one column; m16 tile
-// p takes columns 4g + 2p (its row g) and 4g + 2p + 1 (row g + 8). B: the
-// rows' s8 operands a1, a2 (pitch ld) from contraction row k0. Accumulator
-// element i of d[p][nt] is column 4g + 2p + i / 2, row nt * 8 + 2t + i % 2.
+// The warp's two integer dots over one staged tile of kTileK packed rows
+// (q4_k32 per k32 step, q4_mma.cuh). A: lane (g, t) reads, for contraction
+// rows kk + 16 hf + 4t + r (r < 4), the word of its 4 columns. B: the rows'
+// s8 operands a1, a2 (pitch ld) from contraction row k0. Accumulator element i
+// of d[p][nt] is column 4g + 2p + i / 2, row nt * 8 + 2t + i % 2.
 template <int NT>
 __device__ __forceinline__ void tile_dots(const unsigned char* stage, int a_off, const int8_t* a1, const int8_t* a2,
                                           int ld, int k0, int (&d1)[2][NT][4], int (&d2)[2][NT][4]) {
@@ -155,27 +145,13 @@ __device__ __forceinline__ void tile_dots(const unsigned char* stage, int a_off,
       b2[nt][0] = *reinterpret_cast<const uint32_t*>(a2 + off);
       b2[nt][1] = *reinterpret_cast<const uint32_t*>(a2 + off + 16);
     }
-    uint32_t cols[2][4];  // [contraction half][column 4g + c]
+    uint32_t w[2][4];
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      uint32_t w[4];
+    for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        w[r] = *reinterpret_cast<const uint32_t*>(stage + (kk + 16 * hf + 4 * t + r) * kRowBytes + a_off);
-      transpose4x4(w, cols[hf]);
-    }
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const uint32_t lo[4] = {(uint32_t)nib_lo(cols[0][2 * p]), (uint32_t)nib_lo(cols[0][2 * p + 1]),
-                              (uint32_t)nib_lo(cols[1][2 * p]), (uint32_t)nib_lo(cols[1][2 * p + 1])};
-      const uint32_t hi[4] = {(uint32_t)nib_x80(cols[0][2 * p]), (uint32_t)nib_x80(cols[0][2 * p + 1]),
-                              (uint32_t)nib_x80(cols[1][2 * p]), (uint32_t)nib_x80(cols[1][2 * p + 1])};
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        mma_s8(d1[p][nt], lo, b1[nt]);
-        mma_s8(d2[p][nt], hi, b2[nt]);
-      }
-    }
+        w[hf][r] = *reinterpret_cast<const uint32_t*>(stage + (kk + 16 * hf + 4 * t + r) * kRowBytes + a_off);
+    q4_k32<NT>(w, b1, b2, d1, d2);
   }
 }
 
@@ -229,16 +205,6 @@ __device__ __forceinline__ void epilogue(const int (&d1)[2][NT][4], const int (&
       }
 }
 
-// The steps of intdot.quant_rows_s8_pair, each rounded as the plain version rounds it.
-__device__ __forceinline__ float pair_c1(float lo, float hi) { return __fsub_rn(lo, __fmul_rn(hi, 0.0625f)); }
-__device__ __forceinline__ float pair_scale(float mx) { return __fadd_rn(__fdiv_rn(mx, 127.0f), 1e-12f); }
-__device__ __forceinline__ int pair_q(float v, float sc) { return (int)rintf(__fdiv_rn(v, sc)); }
-__device__ __forceinline__ float pair_corr(int s1, int s2, float sa1, float sa2) {
-  return __fmul_rn(8.0f, __fadd_rn(__fmul_rn((float)s1, sa1), __fmul_rn((float)s2, __fmul_rn(sa2, 0.0625f))));
-}
-__device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
-  return (uint32_t)(a & 0xFF) | (uint32_t)(b & 0xFF) << 8 | (uint32_t)(c & 0xFF) << 16 | (uint32_t)(d & 0xFF) << 24;
-}
 __device__ __forceinline__ void unpack_bf16x8(const uint4& v, float (&f)[8]) {
   const bf162* p = reinterpret_cast<const bf162*>(&v);
 #pragma unroll

@@ -1,0 +1,84 @@
+// The s8 tensor-core products on split-halves packed int4 bytes that the
+// int4 decode MoE (moe_stream_q4.cu) and the fused int4 RF sampler
+// (rf_sampler_q4.cu) share, and the steps of their activations' s8 pair
+// quantization (ops/kernels/intdot.py quant_rows_s8_pair), each rounded as the
+// plain versions round it.
+//
+// A k32 step of one warp: the weights are A (16 output columns a m16 tile,
+// two tiles a warp: 32 columns), the activation rows B (8 a n-tile). sm_90 has
+// no 8-bit ldmatrix .trans and the tables are column-contiguous, so each lane
+// forms its A fragments in registers: it reads one word (4 columns) from each
+// of 4 contraction rows per 16-row half of the step and byte-transposes them
+// into a register per column, holding 4 contraction-consecutive bytes of one
+// column. Which physical rows a lane's words come from is the caller's choice
+// (its stage layout), as long as B holds the activations in the same order.
+#pragma once
+
+#include "common.cuh"
+
+// d (16x8 s32) += a (16x32 s8, row) * b (32x8 s8, col)
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The warp's two integer dots of one k32 step. Lane (g = lane / 4, t = lane %
+// 4): w[hf][r] is the word of its 4 columns 4g .. 4g + 3 at the step's
+// contraction row 16 hf + 4t + r; b1 / b2 the B fragments of the s8 pair a1
+// (x_lo - x_hi / 16) and a2 (x_hi) for those rows. The low nibble b & 15 meets
+// a1, b ^ 0x80 read as s8 meets a2. m16 tile p takes columns 4g + 2p (its row
+// g) and 4g + 2p + 1 (row g + 8): accumulator element i of d[p][nt] is column
+// 4g + 2p + i / 2, activation row nt * 8 + 2t + i % 2.
+template <int NT>
+__device__ __forceinline__ void q4_k32(const uint32_t (&w)[2][4], const uint32_t (&b1)[NT][2],
+                                       const uint32_t (&b2)[NT][2], int (&d1)[2][NT][4], int (&d2)[2][NT][4]) {
+  uint32_t cols[2][4];  // [contraction half][column 4g + c]
+  transpose4x4(w[0], cols[0]);
+  transpose4x4(w[1], cols[1]);
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const uint32_t lo[4] = {(uint32_t)nib_lo(cols[0][2 * p]), (uint32_t)nib_lo(cols[0][2 * p + 1]),
+                            (uint32_t)nib_lo(cols[1][2 * p]), (uint32_t)nib_lo(cols[1][2 * p + 1])};
+    const uint32_t hi[4] = {(uint32_t)nib_x80(cols[0][2 * p]), (uint32_t)nib_x80(cols[0][2 * p + 1]),
+                            (uint32_t)nib_x80(cols[1][2 * p]), (uint32_t)nib_x80(cols[1][2 * p + 1])};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      mma_s8(d1[p][nt], lo, b1[nt]);
+      mma_s8(d2[p][nt], hi, b2[nt]);
+    }
+  }
+}
+
+// The steps of intdot.quant_rows_s8_pair, each rounded as the plain version rounds it.
+__device__ __forceinline__ float pair_c1(float lo, float hi) { return __fsub_rn(lo, __fmul_rn(hi, 0.0625f)); }
+__device__ __forceinline__ float pair_scale(float mx) { return __fadd_rn(__fdiv_rn(mx, 127.0f), 1e-12f); }
+__device__ __forceinline__ int pair_q(float v, float sc) { return (int)rintf(__fdiv_rn(v, sc)); }
+// pair_q of N values from rc = __frcp_rn(sc) as well, for |v / sc| <= 127 (v from the row whose maximum set sc):
+// v * rc lies within 2.3e-5 of the rounded quotient, so the two round to one integer wherever v * rc is 1e-4 or
+// more from a half; nearer one (rarely), the division decides. The products are formed without a branch, so the
+// N chains run side by side, and rounded to integers by adding 1.5 * 2^23 (round half to even, exact for |t| <
+// 2^22) on the full-rate adders instead of the conversion unit.
+template <int N>
+__device__ __forceinline__ void pair_q_rc(const float (&v)[N], float sc, float rc, int (&q)[N]) {
+  constexpr float kMagic = 12582912.0f;  // 1.5 * 2^23: its bits are 0x4B400000
+  bool near = false;
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    const float t = __fmul_rn(v[e], rc), m = __fadd_rn(t, kMagic), f = __fsub_rn(m, kMagic);
+    q[e] = __float_as_int(m) - 0x4B400000;
+    near |= fabsf(fabsf(__fsub_rn(t, f)) - 0.5f) < 1e-4f;
+  }
+  if (near) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) q[e] = pair_q(v[e], sc);
+  }
+}
+__device__ __forceinline__ float pair_corr(int s1, int s2, float sa1, float sa2) {
+  return __fmul_rn(8.0f, __fadd_rn(__fmul_rn((float)s1, sa1), __fmul_rn((float)s2, __fmul_rn(sa2, 0.0625f))));
+}
+__device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
+  return (uint32_t)(a & 0xFF) | (uint32_t)(b & 0xFF) << 8 | (uint32_t)(c & 0xFF) << 16 | (uint32_t)(d & 0xFF) << 24;
+}

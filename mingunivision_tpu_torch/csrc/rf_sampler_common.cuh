@@ -30,17 +30,16 @@ struct RFArgs {
   const void* q3;
   const float *s3, *b3, *mods, *fmods, *wfin_t, *bfin;
   float *xcur, *hbuf, *out;
-  float* part;  // the int4 kernel's pipelined schedule: down-phase partials (Hh / kc, B, w)
   int B, cfg_rows, renorm, S, L, w, H, C, h_bf16;
   int ch;  // the int8 s8 kernel's down chunk: h re-quantized per row over each ch columns
-  int kc;  // the int4 kernel's pipelined schedule: packed w3 rows per down task (0: the block schedule)
   float text_cfg, image_cfg, ln_eps;
 };
 
 __device__ __forceinline__ float to_compute(float v, int bf) { return bf ? __bfloat162float(__float2bfloat16(v)) : v; }
 
 // Per-row mean and 1/sqrt(var + eps) of x [R][w] in shared memory (two passes).
-template <int R>
+// Sync: the threads taking part (common.cuh's BlockSync: the whole block).
+template <int R, typename Sync = BlockSync>
 __device__ void row_stats(const float* x, int w, float eps, float* stats, float* fscr) {
   float s[R];
 #pragma unroll
@@ -48,7 +47,7 @@ __device__ void row_stats(const float* x, int w, float eps, float* stats, float*
   for (int i = threadIdx.x; i < w; i += kThreads)
 #pragma unroll
     for (int r = 0; r < R; ++r) s[r] = __fadd_rn(s[r], x[r * w + i]);
-  block_allreduce<R>(s, fscr, SumOp<float>());
+  block_allreduce<R>(s, fscr, SumOp<float>(), Sync());
   float mu[R], v[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -61,7 +60,7 @@ __device__ void row_stats(const float* x, int w, float eps, float* stats, float*
       const float d = __fsub_rn(x[r * w + i], mu[r]);
       v[r] = __fadd_rn(v[r], __fmul_rn(d, d));
     }
-  block_allreduce<R>(v, fscr, SumOp<float>());
+  block_allreduce<R>(v, fscr, SumOp<float>(), Sync());
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -69,7 +68,7 @@ __device__ void row_stats(const float* x, int w, float eps, float* stats, float*
       stats[2 * r + 1] = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(__fdiv_rn(v[r], (float)w), eps)));
     }
   }
-  __syncthreads();
+  Sync::sync();
 }
 
 // Per-row s8 quantization (intdot.quant_rows_s8) of n values of each of R
@@ -388,6 +387,44 @@ __device__ void input_proj(const RFArgs& a, const float* lat, float* xs) {
   __syncthreads();
 }
 
+// The velocity vel [R][kLat] of step s through the CFG combine (one thread
+// per image; optional channel renorm) into the Euler update of the latent
+// lat. Sync: the threads taking part (BlockSync: the whole block).
+template <int R, typename Sync = BlockSync>
+__device__ void guide_step(const RFArgs& a, int s, float* lat, float* vel) {
+  const int B = a.B, C = a.C;
+  const int n = B / a.cfg_rows;
+  if (a.cfg_rows > 1 && threadIdx.x < n) {  // one thread per image: guided velocity into row i
+    const int i = threadIdx.x;
+    float nc = 0.0f, ng = 0.0f;
+    for (int c = 0; c < C; ++c) {
+      const float vc = vel[i * kLat + c], vu = vel[(n + i) * kLat + c];
+      float vg;
+      if (a.cfg_rows == 3) {
+        const float vtu = vel[(2 * n + i) * kLat + c];
+        vg = __fadd_rn(__fadd_rn(vu, __fmul_rn(a.image_cfg, __fsub_rn(vtu, vu))),
+                       __fmul_rn(a.text_cfg, __fsub_rn(vc, vtu)));
+      } else {
+        vg = __fadd_rn(vu, __fmul_rn(a.text_cfg, __fsub_rn(vc, vu)));
+      }
+      nc = __fadd_rn(nc, __fmul_rn(vc, vc));
+      ng = __fadd_rn(ng, __fmul_rn(vg, vg));
+      vel[(n + i) * kLat + c] = vg;  // parked in the uncond row until the scale is known
+    }
+    const float scl =
+        a.renorm ? fminf(fmaxf(__fadd_rn(__fdiv_rn(__fsqrt_rn(nc), __fsqrt_rn(ng)), 1e-8f), 0.0f), 1.0f) : 1.0f;
+    for (int c = 0; c < C; ++c) vel[i * kLat + c] = a.renorm ? __fmul_rn(vel[(n + i) * kLat + c], scl) : vel[(n + i) * kLat + c];
+  }
+  Sync::sync();
+  const float dt = a.dts[s];
+  for (int i = threadIdx.x; i < B * C; i += kThreads) {
+    const int r = i / C, c = i % C;
+    const float v = a.cfg_rows > 1 ? vel[(r % n) * kLat + c] : vel[r * kLat + c];
+    lat[r * kLat + c] = __fadd_rn(lat[r * kLat + c], __fmul_rn(dt, v));
+  }
+  Sync::sync();
+}
+
 // After the last block of step s: the velocity of x (read back from a.xcur
 // into xs [R][w]) through the final LN + modulate + linear into vel, the CFG
 // combine, and the Euler update of the latent lat.
@@ -413,43 +450,16 @@ __device__ void step_epilogue(const RFArgs& a, int s, float* xs, float* lat, flo
     if (lane == 0) vel[r * kLat + c] = __fadd_rn(acc, a.bfin[c]);
   }
   __syncthreads();
-  const int n = B / a.cfg_rows;
-  if (a.cfg_rows > 1 && threadIdx.x < n) {  // one thread per image: guided velocity into row i
-    const int i = threadIdx.x;
-    float nc = 0.0f, ng = 0.0f;
-    for (int c = 0; c < C; ++c) {
-      const float vc = vel[i * kLat + c], vu = vel[(n + i) * kLat + c];
-      float vg;
-      if (a.cfg_rows == 3) {
-        const float vtu = vel[(2 * n + i) * kLat + c];
-        vg = __fadd_rn(__fadd_rn(vu, __fmul_rn(a.image_cfg, __fsub_rn(vtu, vu))),
-                       __fmul_rn(a.text_cfg, __fsub_rn(vc, vtu)));
-      } else {
-        vg = __fadd_rn(vu, __fmul_rn(a.text_cfg, __fsub_rn(vc, vu)));
-      }
-      nc = __fadd_rn(nc, __fmul_rn(vc, vc));
-      ng = __fadd_rn(ng, __fmul_rn(vg, vg));
-      vel[(n + i) * kLat + c] = vg;  // parked in the uncond row until the scale is known
-    }
-    const float scl =
-        a.renorm ? fminf(fmaxf(__fadd_rn(__fdiv_rn(__fsqrt_rn(nc), __fsqrt_rn(ng)), 1e-8f), 0.0f), 1.0f) : 1.0f;
-    for (int c = 0; c < C; ++c) vel[i * kLat + c] = a.renorm ? __fmul_rn(vel[(n + i) * kLat + c], scl) : vel[(n + i) * kLat + c];
-  }
-  __syncthreads();
-  const float dt = a.dts[s];
-  for (int i = threadIdx.x; i < B * C; i += kThreads) {
-    const int r = i / C, c = i % C;
-    const float v = a.cfg_rows > 1 ? vel[(r % n) * kLat + c] : vel[r * kLat + c];
-    lat[r * kLat + c] = __fadd_rn(lat[r * kLat + c], __fmul_rn(dt, v));
-  }
-  __syncthreads();
+  guide_step<R>(a, s, lat, vel);
 }
 
-// One cooperative launch of `kernel` (one CTA per SM) with `smem` bytes of
-// dynamic shared memory and `args` (RFArgs, or the stack's arguments) as its
-// one parameter; refused launches are reported.
+// One cooperative launch of `kernel` (one CTA per SM, or `grid` CTAs when
+// positive; `threads` a CTA) with `smem` bytes of dynamic shared memory and
+// `args` (RFArgs, or the stack's arguments) as its one parameter; refused
+// launches are reported.
 template <typename Kernel, typename Args>
-cudaError_t launch_cooperative(Kernel kernel, size_t smem, const Args& args, cudaStream_t stream) {
+cudaError_t launch_cooperative(Kernel kernel, size_t smem, const Args& args, cudaStream_t stream,
+                               int threads = kThreads, int grid = 0) {
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -458,12 +468,13 @@ cudaError_t launch_cooperative(Kernel kernel, size_t smem, const Args& args, cud
   if (!coop) return cudaErrorNotSupported;
   err = allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   Args a = args;
   void* params[] = {&a};
-  return cudaLaunchCooperativeKernel((const void*)kernel, dim3(sms), dim3(kThreads), params, smem, stream);
+  return cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid > 0 ? grid : sms), dim3(threads), params, smem,
+                                     stream);
 }
 
 // The arguments of the C entry points, in their order.
@@ -494,8 +505,6 @@ inline RFArgs make_args(const void* dts, const void* x0, const void* win, const 
   a.out = static_cast<float*>(out);
   a.B = B, a.cfg_rows = cfg_rows, a.renorm = renorm, a.S = S, a.L = L, a.w = w, a.H = H, a.C = C, a.h_bf16 = h_bf16;
   a.ch = H;
-  a.part = nullptr;
-  a.kc = 0;
   a.text_cfg = text_cfg, a.image_cfg = image_cfg, a.ln_eps = ln_eps;
   return a;
 }

@@ -37,8 +37,9 @@ _SIGNATURES = {
     "mu_moe_stream_q4": [_P] * 13 + [_I] * 4 + [_P],
     "mu_moe_stream_q4s8": [_P] * 13 + [_I] * 7 + [_P],
     "mu_swiglu_gmm_q4": [_P] * 17 + [_I] * 5 + [_P],
-    "mu_rf_sampler_q4s8": [_P] * 20 + [_I] * 10 + [ctypes.c_float] * 3 + [_P],
+    "mu_rf_sampler_q4s8": [_P] * 19 + [_I] * 12 + [ctypes.c_float] * 3 + [_P],
     "mu_rf_sampler_grid": [],
+    "mu_rf_sampler_q4s8_workspace": [_I] * 3,
     "mu_flash_prefill_bf16": [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P],
     "mu_flash_vit_bf16": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],
     "mu_flash_vit_bwd_dkv_bf16": [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P],

@@ -17,6 +17,11 @@ int4 (906 MB of int8) per Euler step at the 16B-A3B width (w12 (3072, 16384),
 w3 (8192, 3072) per block), 7.25 GB (14.5 GB) over 16 steps. The kernels are
 persistent cooperative grids: the blocks' phases depend on each other, so
 grid-wide barriers stand in for the TPU's sequential grid (see the sources).
+The int4 one is warp-specialized (a producer warp keeps a TMA ring of weight
+stages full across the barriers) and splits both phases stream-K over its
+CTAs (`run_first`); it reads a workspace kept per device and stream
+(`q4_workspace_sizes`) and operands converted once per head
+(`_kernel_operands`), so a call allocates its output only.
 
 Arithmetic, as the TPU kernels. int4: the modulated LN output and the SwiGLU
 hidden state are quantized per row to the s8 operand pair (`intdot.py`), the
@@ -57,11 +62,13 @@ launches the kernel of the table type or raises.
 from __future__ import annotations
 
 import numbers
+import weakref
 
 import torch
 import torch.nn.functional as F
 
 from mingunivision_tpu_torch.ops.kernels import build
+from mingunivision_tpu_torch.ops.kernels.moe_stream import _grown
 from mingunivision_tpu_torch.ops.kernels.intdot import (
     div_exact,
     int_dot,
@@ -72,13 +79,16 @@ from mingunivision_tpu_torch.ops.kernels.intdot import (
     silu_exact,
     split_bytes,
 )
-from mingunivision_tpu_torch.utils.quantize import dequant_weight, is_int4_linear, is_int8_linear
+from mingunivision_tpu_torch.utils.quantize import QuantizedArray, dequant_weight, is_int4_linear, is_int8_linear
 
 MAX_ROWS = 4  # rows one launch holds (3 CFG rows for an edit, 2 for text-to-image); more go in groups
 THREADS = 256  # the kernel's block: the plain version sums in its order
 CHUNK = 4096  # the int8 s8 sampler's down chunk (the JAX package's rf_sample_fused(chunk=4096))
 DOWN_CHUNK = 1024  # the int4 sampler's pipelined schedule: packed w3 rows per piece (rf_sample_fused(down_chunk=))
 SCHEDULES = ("block", "pipelined")
+# the int4 kernel's units: stages of STAGE packed rows; up tiles of UP_PAIRS column pairs, down tiles of
+# DOWN_COLS columns (csrc/rf_sampler_q4.cu)
+STAGE, UP_PAIRS, DOWN_COLS = 64, 64, 256
 
 
 def fitting_chunk(n: int, c: int) -> int:
@@ -362,6 +372,84 @@ def rf_sample_fused_q8_plain(params, cfg, noise, block_mods, final_mods, dts, te
                                  s8_dots=s8_dots)
 
 
+def q4_units(w: int, H: int) -> tuple[int, int, int, int]:
+    """(up tiles, stages of an up tile, down tiles, stages of a down tile) of
+    the int4 kernel at width w and hidden H: an up tile is UP_PAIRS column
+    pairs of w12 over its w / 2 packed rows, a down tile DOWN_COLS columns of
+    w3 over its H / 2; a stage is STAGE packed rows (the last one padded)."""
+    cdiv = lambda a, b: -(-a // b)  # noqa: E731
+    return cdiv(H // 2, UP_PAIRS), cdiv(w // 2, STAGE), cdiv(w, DOWN_COLS), cdiv(H // 2, STAGE)
+
+
+def run_first(c: int, units: int, grid: int) -> int:
+    """The first unit of CTA c's run: the kernel's CTAs take contiguous runs
+    [run_first(c), run_first(c + 1)) of the tile-major units, within one unit
+    of each other in length."""
+    return c * units // grid
+
+
+def q4_workspace_sizes(w: int, H: int, kc: int) -> tuple[int, int]:
+    """(fp32, int32) elements of the int4 kernel's workspace for width w,
+    hidden H and the pipelined schedule's kc packed rows a piece (0: the
+    block schedule), at MAX_ROWS rows. fp32: h (H a row) and three buffers of
+    x (w a row: a block's input and output, input_proj's). int32 (the
+    library's `mu_rf_sampler_q4s8_workspace`): each up tile's two dots'
+    accumulators (DOWN_COLS columns a row), each down tile's per piece, two
+    buffers of each down tile's sums of h's operands, the tiles' tickets,
+    two buffers of h's row maxima, the barrier's arrival and exit counts."""
+    Tu, _, Td, _ = q4_units(w, H)
+    pieces = (H // 2) // kc if kc and kc != H // 2 else 1
+    acc = 2 * MAX_ROWS * DOWN_COLS
+    return (MAX_ROWS * (H + 3 * w),
+            Tu * acc + pieces * Td * acc + 2 * Td * MAX_ROWS * 2 + Tu + Td + 2 * MAX_ROWS * 2 + 2)
+
+
+_q4_workspaces: dict = {}  # (device index, stream) -> (fp32, int32 zeros), grown on demand
+
+
+def _q4_workspace(sizes: tuple[int, int], device, stream: int):
+    """The int4 kernel's buffers for launches on `stream`, at least `sizes`
+    long: kept per device and stream (launches on one stream run in order),
+    grown when a call needs more. The int32 part starts at zero and every
+    launch leaves it at zero."""
+    return _grown(_q4_workspaces, (device.index, stream), sizes, (torch.float32, torch.int32), device)
+
+
+_operand_cache: dict = {}  # (device, compute dtype) -> (the sources' weak references and versions, operands)
+
+
+def _source_tensors(params):
+    """The tensors the kernels' converted operands come from (the tables themselves are read as they are)."""
+    out = []
+    for leaf in (params["input_proj"], params["final_layer"]["linear"], params["res_blocks"]["in_ln"],
+                 params["res_blocks"]["mlp"]["w12"], params["res_blocks"]["mlp"]["w3"]):
+        for v in leaf.values():
+            if isinstance(v, QuantizedArray):
+                out += [v.q, v.s]
+            elif isinstance(v, torch.Tensor):
+                out.append(v)
+    return out
+
+
+def _kernel_operands(params, compute_dtype):
+    """`_operands` as the CUDA kernels take them (contiguous, wfin also
+    transposed), converted once per head and compute dtype: kept, without the
+    tables, for as long as every source tensor is alive and unchanged (the
+    last head used per device and dtype), so a call allocates none of them."""
+    tables = {k: params["res_blocks"]["mlp"][k]["w"].q for k in ("w12", "w3")}
+    key = (tables["w12"].device, compute_dtype)
+    sources = _source_tensors(params)
+    kept = _operand_cache.get(key)
+    if kept is None or len(kept[0]) != len(sources) or any(
+            ref() is not t or t._version != v for (ref, v), t in zip(kept[0], sources)):
+        o = {k: v.contiguous() for k, v in _operands(params, compute_dtype).items() if k not in ("q12", "q3")}
+        o["wfin_t"] = o["wfin"].t().contiguous()  # (C, w): the kernel's warps read it along w
+        o["win_c"], o["wfin_t_c"] = o["win"].to(compute_dtype), o["wfin_t"].to(compute_dtype)  # exact
+        kept = ([(weakref.ref(t), t._version) for t in sources], o)
+        _operand_cache[key] = kept
+    return {**kept[1], "q12": tables["w12"].contiguous(), "q3": tables["w3"].contiguous()}
+
+
 def rf_sample_fused(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, *, cfg_rows: int,
                     renorm_channel: bool, compute_dtype=torch.bfloat16, s8_dots: bool = False,
                     schedule: str = "block", down_chunk: int = DOWN_CHUNK):
@@ -402,9 +490,10 @@ def rf_sample_fused(params, cfg, noise, block_mods, final_mods, dts, text_cfg, i
 
 
 def _rf_sample_group(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, *, cfg_rows: int,
-                     renorm_channel: bool, compute_dtype, s8_dots: bool, schedule: str, down_chunk: int):
+                     renorm_channel: bool, compute_dtype, s8_dots: bool, schedule: str, down_chunk: int, grid: int = 0):
     """One launch of the table type's CUDA kernel over at most MAX_ROWS
-    block-major rows (the plain version for CPU tensors)."""
+    block-major rows (the plain version for CPU tensors). `grid`: the int4
+    kernel's CTAs (0: one per SM), for tests of its unit partition."""
     if noise.device.type == "cpu":
         return rf_sample_fused_plain(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg,
                                      cfg_rows=cfg_rows, renorm_channel=renorm_channel, compute_dtype=compute_dtype,
@@ -414,7 +503,7 @@ def _rf_sample_group(params, cfg, noise, block_mods, final_mods, dts, text_cfg, 
     bits = table_bits(params)
     if bits is None:
         raise ValueError("rf_sample_fused: needs linear int4 or int8 res_blocks tables")
-    o = {k: v.contiguous() for k, v in _operands(params, compute_dtype).items()}
+    o = _kernel_operands(params, compute_dtype)
     L, h2 = o["q12"].shape[0], o["q12"].shape[2]
     w, H = o["win"].shape[1], h2 // 2
     B, C = noise.shape
@@ -427,36 +516,43 @@ def _rf_sample_group(params, cfg, noise, block_mods, final_mods, dts, text_cfg, 
         (torch.int8, ((L, w, h2), (L, H, w)))
     if (tuple(o["q12"].shape), tuple(o["q3"].shape)) != shapes or o["q12"].dtype != dtype or o["q3"].dtype != dtype:
         raise ValueError(f"rf_sample_fused: w12/w3 must be {dtype} {shapes[0]} / {shapes[1]} tables")
-    tensors = dict(dts=dts.float(), x0=noise.float(), mods=block_mods.float(), fmods=final_mods.float())
+    # the int4 kernel reads bf16 modulations and projections as they are where the compute dtype is bf16; fp32
+    # otherwise
+    bf16_in = bits == 4 and compute_dtype == block_mods.dtype == final_mods.dtype == torch.bfloat16
+    mdt = torch.bfloat16 if bf16_in else torch.float32
+    tensors = dict(dts=dts.float(), x0=noise.float(), mods=block_mods.to(mdt), fmods=final_mods.to(mdt))
     tensors = {k: v.contiguous() for k, v in tensors.items()}
     if tuple(tensors["mods"].shape) != (L, S, B, 3 * w) or tuple(tensors["fmods"].shape) != (S, B, 2 * w):
         raise ValueError("rf_sample_fused: modulations must be (L, S, B, 3w) and (S, B, 2w)")
     for name, t in list(o.items()) + list(tensors.items()):
         if t.device != dev:
             raise ValueError(f"rf_sample_fused: {name} is on {t.device}, not {dev}")
-    wfin_t = o["wfin"].t().contiguous()  # (C, w): the kernel's warps read it along w
-    xcur = torch.empty((B, w), dtype=torch.float32, device=dev)
-    hbuf = torch.empty((B, H), dtype=torch.float32, device=dev)
     out = torch.empty((B, C), dtype=torch.float32, device=dev)
-    s8 = bits == 8 and s8_dots
-    pipelined = bits == 4 and schedule == "pipelined"
-    if bits == 8:  # the int8 kernel's dot mode and down chunk
-        name, part, mode = "mu_rf_sampler_q8", (), (int(s8), fitting_chunk(H, CHUNK))
-    else:  # the int4 kernel's down-phase partials and rows per piece (0: the block schedule)
-        kc = fitting_chunk(H // 2, down_chunk) if pipelined else 0
-        scratch = torch.empty(((H // 2) // kc, B, w), dtype=torch.float32, device=dev) if kc else None
-        name, part, mode = "mu_rf_sampler_q4s8", (scratch.data_ptr() if kc else None,), (kc,)
-    rc = getattr(build.load(), name)(
-        tensors["dts"].data_ptr(), tensors["x0"].data_ptr(), o["win"].data_ptr(), o["binp"].data_ptr(),
-        o["lnw"].data_ptr(), o["lnb"].data_ptr(), o["q12"].data_ptr(), o["s12"].data_ptr(), o["b12"].data_ptr(),
-        o["q3"].data_ptr(), o["s3"].data_ptr(), o["b3"].data_ptr(), tensors["mods"].data_ptr(),
-        tensors["fmods"].data_ptr(), wfin_t.data_ptr(), o["bfin"].data_ptr(), xcur.data_ptr(), hbuf.data_ptr(),
-        out.data_ptr(), *part, B, cfg_rows, int(renorm_channel), S, L, w, H, C, int(compute_dtype == torch.bfloat16),
-        *mode, float(text_cfg), float(image_cfg), float(cfg.ln_eps), build.stream_handle(noise),
-    )
+    win, wfin_t = (o["win_c"], o["wfin_t_c"]) if bf16_in else (o["win"], o["wfin_t"])
+    head = (tensors["dts"].data_ptr(), tensors["x0"].data_ptr(), win.data_ptr(), o["binp"].data_ptr(),
+            o["lnw"].data_ptr(), o["lnb"].data_ptr(), o["q12"].data_ptr(), o["s12"].data_ptr(), o["b12"].data_ptr(),
+            o["q3"].data_ptr(), o["s3"].data_ptr(), o["b3"].data_ptr(), tensors["mods"].data_ptr(),
+            tensors["fmods"].data_ptr(), wfin_t.data_ptr(), o["bfin"].data_ptr())
+    common = (B, cfg_rows, int(renorm_channel), S, L, w, H, C, int(compute_dtype == torch.bfloat16))
+    scales = (float(text_cfg), float(image_cfg), float(cfg.ln_eps), build.stream_handle(noise))
+    if bits == 8:  # the int8 kernel's scratch x and h, its dot mode and down chunk
+        xcur = torch.empty((B, w), dtype=torch.float32, device=dev)
+        hbuf = torch.empty((B, H), dtype=torch.float32, device=dev)
+        name = "mu_rf_sampler_q8"
+        rc = build.load().mu_rf_sampler_q8(*head, xcur.data_ptr(), hbuf.data_ptr(), out.data_ptr(), *common,
+                                           int(s8_dots), fitting_chunk(H, CHUNK), *scales)
+        counter = rf_sample_fused_q8s8 if s8_dots else rf_sample_fused_q8
+    else:  # the int4 kernel's workspace, down pieces (0: the block schedule) and grid
+        kc = fitting_chunk(H // 2, down_chunk) if schedule == "pipelined" else 0
+        if kc and kc % STAGE and kc != H // 2:
+            raise ValueError(f"rf_sample_fused: the pipelined schedule's pieces of {kc} packed w3 rows are not "
+                             f"whole {STAGE}-row stages")
+        fws, iws = _q4_workspace(q4_workspace_sizes(w, H, kc), dev, build.stream_handle(noise))
+        name = "mu_rf_sampler_q4s8"
+        rc = build.load().mu_rf_sampler_q4s8(*head, fws.data_ptr(), iws.data_ptr(), out.data_ptr(), *common,
+                                             int(bf16_in), kc, grid, *scales)
+        counter = rf_sample_fused_q4_pipelined if schedule == "pipelined" else rf_sample_fused
     build.check(rc, name)
-    counter = (rf_sample_fused_q8s8 if s8 else rf_sample_fused_q8) if bits == 8 else \
-        (rf_sample_fused_q4_pipelined if pipelined else rf_sample_fused)
     counter.launches += 1  # one per kernel launch
     return out
 

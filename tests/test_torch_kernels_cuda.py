@@ -653,6 +653,85 @@ def test_rf_sampler_q4_pipelined_kernel_matches_plain(dev, cfg_rows, n_img, reno
                                rtol=0, atol=0)
 
 
+# the int4 sampler's stream-K body: every row count and schedule at grids of 1, 5 and one CTA per SM
+Q4_ROWS = {"1row": (1, 1), "2rows": (2, 1), "3rows": (3, 1), "4rows-2img": (2, 2)}
+
+
+def _q4_sampler_case(dev, rows, renorm, dtype, seed=36):
+    """A width-192 int4 head (w / 2 = 96 packed rows: a stage and a half; 192
+    columns: one down tile, its last box past w), hidden 512, 4 steps x 2
+    blocks; its inputs for `rows` (CFG rows, images), bf16 modulations."""
+    cfg = RFHeadConfig(target_channels=8, z_channels=32, width=192, depth=2, mlp_mult=4, num_sampling_steps=4)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rf = init_rf_head_params(cfg, _Init(dev, torch.bfloat16, g))
+    for leaf in (rf["res_blocks"]["adaLN"], rf["final_layer"]["adaLN"], rf["final_layer"]["linear"]):
+        leaf["w"].normal_(0.0, 0.05, generator=g)
+    quantize_tree_inplace(rf, bits=4, min_size=1024)
+    cfg_rows, n_img = rows
+    ts, dts = _time_grid(cfg, None, device=dev)
+    z = torch.randn(cfg_rows * n_img, cfg.z_channels, device=dev, generator=g).to(torch.bfloat16)
+    block_mods, final_mods = precompute_modulations(rf, cfg, ts, z)
+    noise = torch.randn(n_img, cfg.target_channels, device=dev, generator=g).repeat(cfg_rows, 1)
+    kw = dict(cfg_rows=cfg_rows, renorm_channel=renorm, compute_dtype=dtype)
+    return (rf, cfg, noise, block_mods, final_mods, dts, 3.0, 1.1), kw
+
+
+@pytest.mark.parametrize("schedule", ["block", "pipelined"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("renorm", [False, True], ids=["plain-cfg", "renorm"])
+@pytest.mark.parametrize("rows", list(Q4_ROWS.values()), ids=list(Q4_ROWS))
+def test_rf_sampler_q4_stream_k_matches_plain_at_every_grid(dev, rows, renorm, dtype, schedule):
+    """The int4 sampler's units split over 1 CTA, 5 and one per SM (most of
+    them then with no unit): the plain version's bits in both schedules (the
+    pipelined one in 128-row pieces), bf16 and fp32 modulations alike."""
+    from mingunivision_tpu_torch.ops.kernels import rf_sampler as rs
+
+    args, kw = _q4_sampler_case(dev, rows, renorm, dtype)
+    kw.update(schedule=schedule, down_chunk=128)
+    want = rf_sample_fused_plain(*args, **kw)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for grid in (1, 5, sms):
+        for mods in (torch.bfloat16, torch.float32):
+            rf, cfg, noise, block_mods, final_mods, dts, tcfg, icfg = args
+            got = rs._rf_sample_group(rf, cfg, noise, block_mods.to(mods), final_mods.to(mods), dts, tcfg, icfg,
+                                      s8_dots=False, grid=grid, **kw)
+            torch.testing.assert_close(got, want, rtol=0, atol=0, msg=f"grid {grid}, {mods} modulations")
+
+
+def test_rf_sampler_q4_one_launch_one_allocation_and_a_clean_workspace(dev):
+    """One kernel and one allocation (the output) per call, the operands and
+    the workspace kept; after every call the workspace's accumulators,
+    tickets, row maxima and barrier counts are back at zero; its int32 size
+    is the library's."""
+    from mingunivision_tpu_torch.ops.kernels import build
+    from mingunivision_tpu_torch.ops.kernels import rf_sampler as rs
+
+    args, kw = _q4_sampler_case(dev, (2, 1), False, torch.bfloat16, seed=37)
+    for schedule in ("block", "pipelined"):
+        call = lambda: rf_sample_fused(*args, schedule=schedule, down_chunk=128, **kw)  # noqa: B023, E731
+        events = _device_events(call, calls=3)
+        assert 0 < len(events) <= 3 and all("rf_sampler_q4s8_kernel" in e for e in events), events
+        assert _allocations(call) == 1  # the output only
+        torch.cuda.synchronize()
+        for _, iws in rs._q4_workspaces.values():
+            assert not iws.any()
+    w, H = 192, 512
+    for kc in (0, 128, 256):
+        assert build.load().mu_rf_sampler_q4s8_workspace(w, H, kc) == rs.q4_workspace_sizes(w, H, kc)[1]
+
+
+def test_rf_sampler_q4_raises_on_unsupported_input(dev):
+    args, kw = _q4_sampler_case(dev, (2, 1), False, torch.bfloat16, seed=38)
+    with pytest.raises(ValueError):  # pieces of 32 packed rows: not whole stages
+        rf_sample_fused(*args, schedule="pipelined", down_chunk=32, **kw)
+    with pytest.raises(RuntimeError):  # more CTAs than can be co-resident: the cooperative launch is refused
+        from mingunivision_tpu_torch.ops.kernels import rf_sampler as rs
+
+        rf, cfg, noise, block_mods, final_mods, dts, tcfg, icfg = args
+        rs._rf_sample_group(rf, cfg, noise, block_mods, final_mods, dts, tcfg, icfg, s8_dots=False,
+                            schedule="block", down_chunk=128, grid=100_000, **kw)
+
+
 @pytest.mark.parametrize("bits", [4, 8], ids=["int4", "int8"])
 @pytest.mark.parametrize("choices", [None, [0, 3, 5]], ids=["spread", "skewed-empty-experts"])
 def test_swiglu_gmm_full_block_kernel_matches_plain(dev, bits, choices):
