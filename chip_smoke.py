@@ -171,10 +171,11 @@ Then a JSON line with every kernel's numbers, and as the last line
               each with its kernel-alone device time and its kernels per call
               (the way to time an older tree's kernels beside these: run this
               script from that tree's root)
-  sampler_kernels  the fused int4 RF sampler at full width, 2 CFG rows and 3
-              with renorm, in both schedules, held to the bit, with its
-              kernel-alone device time with the tables warm and cold (run from
-              an older tree's root, as decode_kernels, to time that tree's)
+  sampler_kernels  the fused RF samplers at full width, 2 CFG rows and 3
+              with renorm: the int4 one in both schedules, the int8 one in
+              both dot modes, held to the bit, with their kernel-alone device
+              times with the tables warm and cold (run from an older tree's
+              root, as decode_kernels, to time that tree's)
   divergence  the small model's plain bf16 path with each kernel swapped in
               alone, and all of them, and with the image head's input moved
               by one bf16 ulp, against plain bf16 and fp32 (`--tier`):
@@ -657,8 +658,9 @@ def check_kernels(torch, results: dict) -> bool:
 
     # the RF head at full width, int4 then int8, its AdaLN weights at the slice's std 0.02. The random head is
     # chaotic at the int4 sampler's s8 boundaries and at the int8 sampler's bf16 roundings (a 1-ulp change of
-    # its input moves the sample by several percent over 16 steps, see `--phases rf_sensitivity`), so both
-    # plain versions sum in their kernel's order and each pair agrees to the bit.
+    # its input moves the sample by several percent over 16 steps, see `--phases rf_sensitivity`), so each plain
+    # version gives its kernel's bits (the int4 one summing in its kernel's order, the int8 one's dots exact
+    # before one rounding) and each pair is held to the bit.
     rf_cfg = cfg.rf_head
     L, w, C, St = rf_cfg.depth, rf_cfg.width, rf_cfg.target_channels, rf_cfg.num_sampling_steps
     ts, dts = _time_grid(rf_cfg, None, device=dev)
@@ -1017,15 +1019,16 @@ def run_decode_kernels(torch, results: dict) -> bool:
 
 
 def run_sampler_kernels(torch, results: dict) -> bool:
-    """The sampler_kernels phase: the fused int4 RF sampler at full width on
-    the kernels phase's head (AdaLN weights at std 0.02), 2 CFG rows and 3
-    with channel renorm, in the block and the pipelined schedule (down_chunk
-    1024): each held to the bit against its plain version, with its wrapper
-    time and its kernel-alone device time (`kernel_device_ms`) with the
-    tables warm (calls back to back; a step's 453 MB of tables are past L2
-    either way) and cold (each call behind a 256 MB write that evicts L2, that
+    """The sampler_kernels phase: the fused RF samplers at full width on the
+    kernels phase's heads (AdaLN weights at std 0.02), 2 CFG rows and 3 with
+    channel renorm: the int4 one in the block and the pipelined schedule
+    (down_chunk 1024), then the int8 one in both dot modes (exact; s8 dots):
+    each held to the bit against its plain version, with its wrapper time and
+    its kernel-alone device time (`kernel_device_ms`) with the tables warm
+    (calls back to back; a step's 453 MB / 906 MB of tables are past L2 either
+    way) and cold (each call behind a 256 MB write that evicts L2, that
     write's own time taken off). Public entry points only: run from an older
-    tree's root, it times that tree's kernel."""
+    tree's root, it times that tree's kernels."""
     from mingunivision_tpu_torch.config import MingUniVisionConfig
     from mingunivision_tpu_torch.models.rf_head import _time_grid, precompute_modulations
     from mingunivision_tpu_torch.ops.kernels.rf_sampler import rf_sample_fused, rf_sample_fused_plain
@@ -1034,37 +1037,46 @@ def run_sampler_kernels(torch, results: dict) -> bool:
     rf_cfg = MingUniVisionConfig().rf_head
     L, w, C, St = rf_cfg.depth, rf_cfg.width, rf_cfg.target_channels, rf_cfg.num_sampling_steps
     g = torch.Generator(device=dev).manual_seed(0)
-    rf = full_width_rf(torch, rf_cfg, g, adaln_std=0.02, bits=4)
-    Hd = rf["res_blocks"]["mlp"]["w3"]["w"].q.shape[1] * 2
     ts, dts = _time_grid(rf_cfg, None, device=dev)
     evict = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB, five times L2
     evict_ms = kernel_device_ms(torch, evict.zero_)
-    tables = L * 3 * w * Hd // 2 + L * (2 * Hd + w) * 4 * 2 + 2 * L * w * 4  # as the kernels phase counts them
     ok = evict_ms is not None
-    for rows, renorm in ((2, False), (3, True)):
-        z = torch.randn((rows, rf_cfg.z_channels), device=dev, generator=g).to(bf)
-        block_mods, final_mods = precompute_modulations(rf, rf_cfg, ts, z)
-        noise = torch.randn((1, C), device=dev, generator=g).repeat(rows, 1)
-        args = (rf, rf_cfg, noise, block_mods, final_mods, dts, 3.0, 1.1)
-        kw = dict(cfg_rows=rows, renorm_channel=renorm, compute_dtype=bf)
-        rest = (L * St * rows * 3 * w + St * rows * 2 * w) * 2 + 2 * C * w * 4 + 2 * rows * C * 4
-        for name, schedule in (("rf_sampler_q4s8", "block"), ("rf_sampler_q4s8_pipelined", "pipelined")):
-            kern = lambda: rf_sample_fused(*args, schedule=schedule, **kw)  # noqa: B023, E731
-            label = (f"{rows} CFG rows{' + channel renorm' if renorm else ''}, {schedule} schedule, w={w} H={Hd} "
-                     f"{L} blocks {St} steps")
-            ok &= run_case(torch, results, name, label, kern,
-                           lambda: rf_sample_fused_plain(*args, schedule=schedule, **kw),  # noqa: B023
-                           St * tables + rest, 2.0 * 3 * w * Hd * rows * L * St, "int8", iters=5, plain_iters=1,
-                           bitwise=True)
-            case = results[name]["cases"][-1]
-            case["device_ms"] = kernel_device_ms(torch, kern)
-            cold = kernel_device_ms(torch, lambda: (evict.zero_(), kern()))  # noqa: B023
-            case["device_ms_cold"] = None if cold is None or evict_ms is None else cold - evict_ms
-            ok &= case["device_ms"] is not None and case["device_ms_cold"] is not None
-            print(f"kernel {name} [{label}]: wrapper_ms={case['ms']:.4f} device_ms={fmt_ms(case['device_ms'])} "
-                  f"device_ms_cold={fmt_ms(case['device_ms_cold'])} (the 256 MB write alone {fmt_ms(evict_ms)}) "
-                  f"bound_ms={case['bound_ms']:.4f}")
-    del rf, evict
+    # (bits, [(kernel name, its arguments, the kind of its operations)]): the int8 exact mode's products are of
+    # bf16 activations with int8 weights, counted at the bf16 rate as the kernels phase counts them
+    for bits, cases in ((4, (("rf_sampler_q4s8", dict(schedule="block"), "int8"),
+                             ("rf_sampler_q4s8_pipelined", dict(schedule="pipelined"), "int8"))),
+                        (8, (("rf_sampler_q8", dict(s8_dots=False), "bf16"),
+                             ("rf_sampler_q8s8", dict(s8_dots=True), "int8")))):
+        rf = full_width_rf(torch, rf_cfg, g, adaln_std=0.02, bits=bits)
+        Hd = rf["res_blocks"]["mlp"]["w3"]["w"].q.shape[1] * (8 // bits)
+        tables = L * 3 * w * Hd * bits // 8 + L * (2 * Hd + w) * 4 * 2 + 2 * L * w * 4  # as the kernels phase
+        for rows, renorm in ((2, False), (3, True)):
+            z = torch.randn((rows, rf_cfg.z_channels), device=dev, generator=g).to(bf)
+            block_mods, final_mods = precompute_modulations(rf, rf_cfg, ts, z)
+            noise = torch.randn((1, C), device=dev, generator=g).repeat(rows, 1)
+            args = (rf, rf_cfg, noise, block_mods, final_mods, dts, 3.0, 1.1)
+            kw = dict(cfg_rows=rows, renorm_channel=renorm, compute_dtype=bf)
+            rest = (L * St * rows * 3 * w + St * rows * 2 * w) * 2 + 2 * C * w * 4 + 2 * rows * C * 4
+            for name, extra, kind in cases:
+                kern = lambda: rf_sample_fused(*args, **extra, **kw)  # noqa: B023, E731
+                mode = ", ".join(f"{k}={v}" for k, v in extra.items())
+                label = (f"{rows} CFG rows{' + channel renorm' if renorm else ''}, {mode}, w={w} H={Hd} "
+                         f"{L} blocks {St} steps")
+                ok &= run_case(torch, results, name, label, kern,
+                               lambda: rf_sample_fused_plain(*args, **extra, **kw),  # noqa: B023
+                               St * tables + rest, 2.0 * 3 * w * Hd * rows * L * St, kind, iters=5, plain_iters=1,
+                               bitwise=True)
+                case = results[name]["cases"][-1]
+                case["device_ms"] = kernel_device_ms(torch, kern)
+                cold = kernel_device_ms(torch, lambda: (evict.zero_(), kern()))  # noqa: B023
+                case["device_ms_cold"] = None if cold is None or evict_ms is None else cold - evict_ms
+                ok &= case["device_ms"] is not None and case["device_ms_cold"] is not None
+                print(f"kernel {name} [{label}]: wrapper_ms={case['ms']:.4f} device_ms={fmt_ms(case['device_ms'])} "
+                      f"device_ms_cold={fmt_ms(case['device_ms_cold'])} (the 256 MB write alone {fmt_ms(evict_ms)}) "
+                      f"bound_ms={case['bound_ms']:.4f}")
+        del rf
+        torch.cuda.empty_cache()
+    del evict
     torch.cuda.empty_cache()
     return ok
 

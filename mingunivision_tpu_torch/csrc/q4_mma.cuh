@@ -1,8 +1,9 @@
 // The s8 tensor-core products on split-halves packed int4 bytes that the
 // int4 decode MoE (moe_stream_q4.cu) and the fused int4 RF sampler
-// (rf_sampler_q4.cu) share, and the steps of their activations' s8 pair
-// quantization (ops/kernels/intdot.py quant_rows_s8_pair), each rounded as the
-// plain versions round it.
+// (rf_sampler_q4.cu) share, the same step on int8 bytes (the fused int8 RF
+// sampler, rf_sampler_q8.cu), and the steps of their activations' s8 (pair)
+// quantization (ops/kernels/intdot.py quant_rows_s8_pair, quant_rows_s8),
+// each rounded as the plain versions round it.
 //
 // A k32 step of one warp: the weights are A (16 output columns a m16 tile,
 // two tiles a warp: 32 columns), the activation rows B (8 a n-tile). sm_90 has
@@ -52,7 +53,24 @@ __device__ __forceinline__ void q4_k32(const uint32_t (&w)[2][4], const uint32_t
   }
 }
 
-// The steps of intdot.quant_rows_s8_pair, each rounded as the plain version rounds it.
+// The warp's integer dot of one k32 step on int8 weight bytes, laid out as for
+// q4_k32: the transposed bytes themselves are A; b holds the B fragments of NT
+// n-tiles of s8 activations for the lane's contraction rows; d[p][nt] as
+// q4_k32's d1.
+template <int NT>
+__device__ __forceinline__ void s8_k32(const uint32_t (&w)[2][4], const uint32_t (&b)[NT][2], int (&d)[2][NT][4]) {
+  uint32_t cols[2][4];  // [contraction half][column 4g + c]
+  transpose4x4(w[0], cols[0]);
+  transpose4x4(w[1], cols[1]);
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const uint32_t a[4] = {cols[0][2 * p], cols[0][2 * p + 1], cols[1][2 * p], cols[1][2 * p + 1]};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) mma_s8(d[p][nt], a, b[nt]);
+  }
+}
+
+// The steps of intdot.quant_rows_s8_pair (and of quant_rows_s8: pair_scale, pair_q), each rounded as the plain version rounds it.
 __device__ __forceinline__ float pair_c1(float lo, float hi) { return __fsub_rn(lo, __fmul_rn(hi, 0.0625f)); }
 __device__ __forceinline__ float pair_scale(float mx) { return __fadd_rn(__fdiv_rn(mx, 127.0f), 1e-12f); }
 __device__ __forceinline__ int pair_q(float v, float sc) { return (int)rintf(__fdiv_rn(v, sc)); }

@@ -1,14 +1,18 @@
-// Shared parts of the RF head's persistent cooperative kernels (the fused
-// samplers rf_sampler_q4.cu: int4 tables, s8 dots; rf_sampler_q8.cu: int8
-// tables, exact dequant or s8 dots; and the per-step stack rf_mlp.cu, all four
-// of its bodies): the samplers' arguments, the per-row LN statistics, the
-// per-row s8 quantization, the 32-column task dots of every table type and dot
-// mode, input_proj of the latent, the step epilogue (final layer, CFG combine
-// with optional channel renorm, Euler update) and the cooperative launch. The
-// samplers run every CTA through the input_proj and the epilogue redundantly
-// and identically, from the same inputs in the same order, so no grid barrier
-// guards the latent; every fp32 step is rounded as written (__f*_rn: no fused
-// multiply-add), as the plain versions compute it.
+// Shared parts of the RF head's persistent cooperative kernels: the fused
+// samplers (rf_sampler_q4.cu: int4 tables, s8 dots; rf_sampler_q8.cu: int8
+// tables, exact digit dots or s8 dots; their warp-specialized body is
+// rf_persistent.cuh's) and the per-step stack (rf_mlp.cu, all four of its
+// bodies). Here: the samplers' arguments, the per-row LN statistics, the
+// CFG combine (optional channel renorm) and Euler update, and the cooperative
+// launch, which all of them use; and the stack's own pieces, the per-row s8
+// quantization and the 32-column task dots of every table type and dot mode
+// on the CUDA cores, the exact int8 ones summing their fp32 products in a
+// fixed order that the stack's plain version (ops/kernels/rf_sampler.py
+// `_split_dot`) repeats. The samplers run every CTA through the input_proj
+// and the epilogue redundantly and identically, from the same inputs in the
+// same order, so no grid barrier guards the latent; every fp32 step is
+// rounded as written (__f*_rn: no fused multiply-add), as the plain versions
+// compute it.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -31,7 +35,6 @@ struct RFArgs {
   const float *s3, *b3, *mods, *fmods, *wfin_t, *bfin;
   float *xcur, *hbuf, *out;
   int B, cfg_rows, renorm, S, L, w, H, C, h_bf16;
-  int ch;  // the int8 s8 kernel's down chunk: h re-quantized per row over each ch columns
   float text_cfg, image_cfg, ln_eps;
 };
 
@@ -90,14 +93,14 @@ __device__ void quant_rows(Val val, int n, int8_t* q, int ldq, float (&sc)[R], f
   __syncthreads();
 }
 
-// The 32-column task dots. Each sums, over the K contraction rows it is
-// given, the R-row products with NT tables (leading dim ld, columns
-// p[q]..p[q]+31) into shared memory `red`. Lane = 8 column threads x 4
-// splits, 8 warps: contraction row k = 128 j + 4 s + r goes to split s, each
-// split adds its rows in the order (j, r), the four splits of a warp are
-// combined as (s0 + s1) + (s2 + s3) by shuffles and the 8 warps in order
-// (the plain versions' rf_sampler._split_dot; integer sums are exact in any
-// order). Activation row r starts at act + r * lda.
+// The per-step stack's 32-column task dots. Each sums, over the K
+// contraction rows it is given, the R-row products with NT tables (leading
+// dim ld, columns p[q]..p[q]+31) into shared memory `red`. Lane = 8 column
+// threads x 4 splits, 8 warps: contraction row k = 128 j + 4 s + r goes to
+// split s, each split adds its rows in the order (j, r), the four splits of
+// a warp are combined as (s0 + s1) + (s2 + s3) by shuffles and the 8 warps in
+// order (the plain version's rf_sampler._split_dot; integer sums are exact in
+// any order). Activation row r starts at act + r * lda.
 
 // int4 tables, s8 dots: packed rows (kh of them) byte-transposed into __dp4a
 // operands against the s8 pair a1 (x_lo - x_hi/16) and a2 (x_hi);
@@ -372,21 +375,6 @@ __device__ void task_dots_q4f(const uint8_t* const (&p)[NT], int kh, size_t ld, 
   __syncthreads();
 }
 
-// The latent lat [R][kLat] into x [R][w]: input_proj with compute-dtype
-// operands and fp32 sums, all columns.
-template <int R>
-__device__ void input_proj(const RFArgs& a, const float* lat, float* xs) {
-  const int w = a.w, C = a.C;
-  for (int i = threadIdx.x; i < R * w; i += kThreads) {
-    const int r = i / w, j = i % w;
-    float acc = 0.0f;
-    for (int c = 0; c < C; ++c)
-      acc = __fadd_rn(acc, __fmul_rn(to_compute(lat[r * kLat + c], a.h_bf16), a.win[(size_t)c * w + j]));
-    xs[i] = __fadd_rn(acc, a.binp[j]);
-  }
-  __syncthreads();
-}
-
 // The velocity vel [R][kLat] of step s through the CFG combine (one thread
 // per image; optional channel renorm) into the Euler update of the latent
 // lat. Sync: the threads taking part (BlockSync: the whole block).
@@ -423,34 +411,6 @@ __device__ void guide_step(const RFArgs& a, int s, float* lat, float* vel) {
     lat[r * kLat + c] = __fadd_rn(lat[r * kLat + c], __fmul_rn(dt, v));
   }
   Sync::sync();
-}
-
-// After the last block of step s: the velocity of x (read back from a.xcur
-// into xs [R][w]) through the final LN + modulate + linear into vel, the CFG
-// combine, and the Euler update of the latent lat.
-template <int R>
-__device__ void step_epilogue(const RFArgs& a, int s, float* xs, float* lat, float* vel, float* stats, float* fscr) {
-  const int w = a.w, B = a.B, C = a.C;
-  for (int i = threadIdx.x; i < R * w; i += kThreads) xs[i] = __ldcg(a.xcur + i);
-  __syncthreads();
-  row_stats<R>(xs, w, a.ln_eps, stats, fscr);
-  const float* fm = a.fmods + (size_t)s * B * 2 * w;  // [B][2w]: shift, scale
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = warp; o < B * C; o += kWarps) {
-    const int r = o / C, c = o % C;
-    float acc = 0.0f;
-    for (int k = lane; k < w; k += 32) {
-      const float ln = __fmul_rn(__fsub_rn(xs[r * w + k], stats[2 * r]), stats[2 * r + 1]);
-      const float xm = to_compute(
-          __fadd_rn(__fmul_rn(ln, __fadd_rn(1.0f, fm[(size_t)r * 2 * w + w + k])), fm[(size_t)r * 2 * w + k]),
-          a.h_bf16);
-      acc = __fadd_rn(acc, __fmul_rn(xm, a.wfin_t[(size_t)c * w + k]));
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) vel[r * kLat + c] = __fadd_rn(acc, a.bfin[c]);
-  }
-  __syncthreads();
-  guide_step<R>(a, s, lat, vel);
 }
 
 // One cooperative launch of `kernel` (one CTA per SM, or `grid` CTAs when
@@ -504,7 +464,6 @@ inline RFArgs make_args(const void* dts, const void* x0, const void* win, const 
   a.hbuf = static_cast<float*>(hbuf);
   a.out = static_cast<float*>(out);
   a.B = B, a.cfg_rows = cfg_rows, a.renorm = renorm, a.S = S, a.L = L, a.w = w, a.H = H, a.C = C, a.h_bf16 = h_bf16;
-  a.ch = H;
   a.text_cfg = text_cfg, a.image_cfg = image_cfg, a.ln_eps = ln_eps;
   return a;
 }

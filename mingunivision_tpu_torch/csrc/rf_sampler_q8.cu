@@ -9,222 +9,566 @@
 // r < B, width w, SwiGLU hidden H):
 //   xs   = LN(x) * ln_w + ln_b, modulated by (shift, scale) of mods[l, s],
 //          rounded to the compute dtype
-//   exact: g, u = xs @ Q12[:, :H] * s + b, xs @ Q12[:, H:] * s + b  (int8 ->
-//          fp32, fp32 sums); h = silu(g) * u rounded to the compute dtype;
-//          x += gate * ((h @ Q3) * s3 + b3)
+//   exact: g, u = xs @ Q12[:, :H] * s + b, xs @ Q12[:, H:] * s + b, each dot
+//          the exact sum of its products rounded once to fp32 (digit dots,
+//          below); h = silu(g) * u rounded to the compute dtype;
+//          x += gate * ((h @ Q3) * s3 + b3), the dot exact and rounded once
 //   S8:    xs quantized per row to s8 (intdot.quant_rows_s8); g, u = the s8 x
 //          s8 -> s32 dots times the row scale, then * s + b; h = silu(g) * u
 //          in fp32, re-quantized per row over each CH-column chunk (CH = 4096
 //          of H = 8192, the JAX package's chunk); x += gate * (sum over the
-//          chunks of (hq_c @ Q3_c) * sh_c, then * s3 + b3)
-// then the int4 kernel's step epilogue (rf_sampler_common.cuh): the final
-// layer, the CFG combine (1, 2 or 3 rows, optional channel renorm), the Euler
-// update and input_proj of the next step. On the H100 the sample is bound by
-// the int8 tables it streams: 906 MB per Euler step at the 16B-A3B width
-// (w 3072, H 8192, 12 blocks: w12 (3072, 16384) + w3 (8192, 3072) a block),
-// 14.5 GB per sample, 4.33 ms at 3.35 TB/s.
+//          chunks, in order, of (hq_c @ Q3_c) * sh_c, then * s3 + b3)
+// then v = modulate(LN(x)) @ W_fin + b_fin, the CFG combine (1, 2 or 3 rows,
+// optional channel renorm), latent += dt * v, and x = latent @ W_in + b_in for
+// the next step. On the H100 the sample is bound by the int8 tables it
+// streams: 906 MB per Euler step at the 16B-A3B width (w 3072, H 8192, 12
+// blocks: w12 (3072, 16384) + w3 (8192, 3072) a block), 14.5 GB per sample,
+// 4.33 ms at 3.35 TB/s.
 //
-// Design: rf_sampler_q4.cu's persistent cooperative grid (one CTA per SM,
-// grid-wide barriers between dependent phases; the task dots and the per-row
-// quantization are rf_sampler_common.cuh's):
-//   P1 (every CTA, redundantly)  load x (B x w fp32) into shared memory, LN,
-//        modulate, round to the compute dtype into the activation buffer (S8:
-//        then quantized per row into the s8 buffer);
-//   P2 (32-column tasks over CTAs)  gate/up dots over w rows: a lane loads one
-//        32-bit word (4 columns) of each of four consecutive rows; exact:
-//        converts the bytes to fp32 and multiplies them with the activations
-//        in fp32, 32 contraction splits per CTA, each adding its rounded
-//        products in turn, summed by shuffles and over the warps in order;
-//        S8: byte-transposes the words (__byte_perm) and feeds them to __dp4a
-//        with four s8 activations, the integer sums exact in any order; h to
-//        device memory;                                           -- barrier
-//   P3 (every CTA)  h (B x H, from L2) into the activation buffer, which xs
-//        no longer needs (S8: each row's chunks quantized into the s8 buffer);
-//   P4 (32-column tasks)  down dots over H rows the same way (S8: chunk by
-//        chunk, each descaled and added in order), the residual update of the
-//        CTA's own columns of x;                                  -- barrier
-// Data written by other CTAs is read with __ldcg (L2). The sampler is chaotic
-// at its roundings, so every fp32 step is rounded as written (__f*_rn: no
-// fused multiply-add) and the plain version (ops/kernels/rf_sampler.py,
-// `_split_dot` for the exact mode) sums in this kernel's order: the two then
+// Digit dots (the exact mode). An activation row x (already rounded to the
+// compute dtype) is written on a fixed point of its own: E the exponent of its
+// largest |x| (frexp), X = rint(x * 2^(30 - E)), |X| < 2^30 (exact for every
+// bf16 value within 2^-22 of the row's largest), as four balanced base-256 s8
+// digits X = d0 + 256 d1 + 256^2 d2 + 256^3 d3. Each digit's dot with the
+// int8 table is an exact integer below 2^27 in magnitude, the digits combine
+// into the exact int64 sum of X * q (below 2^52), and that is rounded once:
+// fp32(S * 2^(E - 30)). The result is the same in any contraction order, on
+// any split of the contraction, so the stream-K units and their arrival order
+// cannot move a bit, and the tensor cores can form the products. The plain
+// version (ops/kernels/rf_sampler.py `_digit_dot`) computes the same rounded
+// exact sums.
+//
+// Design: rf_sampler_q4.cu's body (rf_persistent.cuh): a PERSISTENT
+// COOPERATIVE grid (one CTA per SM, or the caller's grid) whose weight stream
+// never waits on the arithmetic. One PRODUCER warp walks the CTA's fixed
+// sequence of weight stages for the whole sample (per step and block: its up
+// units, then its down units) and fills a ring of 16 KB stages by TMA (four
+// 64-row x 64-byte boxes a stage, 64-byte swizzle; full / empty mbarriers),
+// held back only by free slots; eight CONSUMER warps do everything else. Per
+// block, between two grid barriers:
+//   every CTA   x (B x w fp32) into shared memory, the modulated LN in place,
+//               in the compute dtype, with its row maxima; then x's operands
+//               over all w rows (exact: 4 digits a value on the row's fixed
+//               point; S8: 1 s8 value on the row's scale);
+//   up units    (tile of 128 h columns: gate j0..j0+127 and up H+j0..H+j0+127,
+//               its four boxes) x (stage of 64 rows of W12); each CTA takes a
+//               contiguous run of the tile-major units (stream-K), keeps its
+//               int32 partials in registers along the run, adds them once per
+//               tile into the tile's int64 accumulators (red.add; exact: the
+//               four digits' sums combined in registers), then takes the
+//               tile's ticket (acq_rel). The last contributor runs the
+//               epilogue: g, u, h to the workspace (exact: in the compute
+//               dtype) and h's row maxima (S8: per chunk) by atomicMax on
+//               their bits (exact: they are >= 0);                  -- barrier
+//   every CTA   the operands of the h stages its own down units read, from h
+//               and its row maxima in one round trip;
+//   down units  (256 columns of W3) x (64 rows), stream-K as above, the
+//               partials flushed per chunk of h (S8; the exact mode has one);
+//               the last contributor writes the residual update of its
+//               columns into the block's output x (S8: the chunks' descaled
+//               sums added in chunk order).                         -- barrier
+// After the last block, every CTA, redundantly and identically, runs the
+// final layer, CFG combine and Euler update of the latent kept in shared
+// memory, and input_proj of the next step. Accumulators and tickets are left
+// at zero by their last users, the row maxima double-buffered and zeroed by CTA
+// 0 after each block, x triple-buffered, the barrier counts reset by the last
+// CTA out: the workspace needs no memset between launches. bf16 modulations
+// and projections are read as they are where the compute dtype is bf16.
+//
+// The products are s8 tensor-core mma.sync m16n8k32 (q4_mma.cuh's s8_k32): the
+// weight stage as A, byte-transposed in registers from the swizzled stage; the
+// operand rows (row, digit) as B, one n-tile (exact at 1-2 rows, S8) or two
+// (exact at 3-4 rows). Every fp32 step is rounded as written (__f*_rn: no fused
+// multiply-add), 1/sqrt is IEEE, exp is taken in double (silu_exact), and the
+// plain version sums its LN and final layer in this kernel's order: the two
 // agree to the bit.
-#include "rf_sampler_common.cuh"
-
-namespace cg = cooperative_groups;
+#include "q4_mma.cuh"
+#include "rf_persistent.cuh"
 
 namespace {
 
 using namespace rf;
 
-// Shared memory: x [R][w], latent and velocity [R][kLat], the activation
-// buffer (exact: [R][max(w, H)], xs in P1-P2, h in P3-P4; S8: xs [R][w] fp32,
-// with the s8 buffer [R][max(w, H)] bytes and the row scales [R][1 + H / ch]),
-// LN stats, reduction scratch, and the per-warp partial sums of a task
-// [kWarps][R][kTask][2] (fp32 or int32).
-template <bool S8, int R>
-struct Layout {
-  size_t x, lat, vel, act, q, scl, stats, fscr, red, bytes;
-  __host__ __device__ Layout(int w, int H, int ch) {
-    const size_t wide = w > H ? w : H;
-    size_t o = 0;
-    x = o; o += align16((size_t)R * w * 4);
-    lat = o; o += align16((size_t)R * kLat * 4);
-    vel = o; o += align16((size_t)R * kLat * 4);
-    act = o; o += align16((size_t)R * (S8 ? w : wide) * 4);
-    q = o; o += S8 ? align16((size_t)R * wide) : 0;
-    scl = o; o += S8 ? align16((size_t)R * (1 + H / ch) * 4) : 0;
-    stats = o; o += align16(2 * R * 4);
-    fscr = o; o += align16(32 * 2 * R * 4);
-    red = o; o += (size_t)kWarps * R * kTask * 2 * 4;
-    bytes = o;
+constexpr int kUpCols = 2 * kBoxW;  // h columns of an up tile: their gate and up columns fill its four boxes
+constexpr int kDigits = 4;          // the exact mode's s8 digits an activation
+constexpr int kFix = 30;            // its fixed point: X = rint(x * 2^(kFix - E)), E the row's exponent
+
+// The workspace's int32 words (ops/kernels/rf_sampler.py's q8_workspace_sizes; its fp32 part: h (kMaxRows x
+// H), then x's two block buffers and input_proj's (3 x kMaxRows x w)).
+struct Workspace {
+  long long *acc_up, *acc_dn;
+  int* tickets;
+  unsigned *hmax, *bar;
+  __host__ __device__ Workspace(int* base, int Tu, int Td, int pieces) {
+    acc_up = reinterpret_cast<long long*>(base);                          // [Tu][kMaxRows][kTileCols]
+    acc_dn = acc_up + (size_t)Tu * kMaxRows * kTileCols;                   // [pieces][Td][kMaxRows][kTileCols]
+    tickets = reinterpret_cast<int*>(acc_dn + (size_t)pieces * Td * kMaxRows * kTileCols);  // [Tu + Td]
+    hmax = reinterpret_cast<unsigned*>(tickets + Tu + Td);  // [2 parities][kMaxRows][pieces]: h's row maxima
+    bar = hmax + 2 * kMaxRows * pieces;                     // arrivals, exits
+  }
+  __host__ __device__ static size_t words(int Tu, int Td, int pieces) {
+    return 2 * ((size_t)Tu + (size_t)pieces * Td) * kMaxRows * kTileCols + Tu + Td + 2 * kMaxRows * pieces + 2;
   }
 };
 
-template <bool S8, int R>
-__global__ void __launch_bounds__(kThreads) rf_sampler_q8_kernel(RFArgs a) {
-  cg::grid_group grid = cg::this_grid();
-  const int w = a.w, H = a.H, C = a.C, B = a.B, L = a.L, S = a.S;
-  const int CH = a.ch, HC = H / a.ch;
-  const Layout<S8, R> lay(w, H, CH);
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem + lay.x);
-  float* lat = reinterpret_cast<float*>(smem + lay.lat);
-  float* vel = reinterpret_cast<float*>(smem + lay.vel);
-  float* act = reinterpret_cast<float*>(smem + lay.act);
-  int8_t* qa = reinterpret_cast<int8_t*>(smem + lay.q);   // S8: xs, then h, as s8
-  float* scl = reinterpret_cast<float*>(smem + lay.scl);  // S8: sx [R], then sh [R][HC]
-  float* stats = reinterpret_cast<float*>(smem + lay.stats);
-  float* fscr = reinterpret_cast<float*>(smem + lay.fscr);
-  float* red = reinterpret_cast<float*>(smem + lay.red);
-  int* ired = reinterpret_cast<int*>(smem + lay.red);
+struct alignas(64) Params {
+  CUtensorMap m12, m3;  // (2H, w, L) and (w, H, L) int8 bytes, 64-byte x 64-row boxes
+  RFArgs a;             // a.xcur / a.hbuf: the workspace's fp32 parts
+  // the modulations and the input and final projections (wfin transposed), in the kernel's In: bf16 where the
+  // compute dtype is bf16 and the modulations are bf16 (the values are those of fp32 ones), else fp32
+  const void *mods, *fmods, *win, *wfin_t;
+  int* iws;
+  int ch;      // h's columns a piece (S8: re-quantized together; the exact mode: all of H)
+  int pieces;  // H / ch
+  int ring;    // stages of the ring
+  int nslots;  // stages of h's operands a CTA keeps: min(its longest down run, KTd)
+};
 
-  for (int i = threadIdx.x; i < R * kLat; i += kThreads) {
-    const int r = i / kLat, c = i % kLat;
-    lat[i] = c < C ? a.x0[r * C + c] : 0.0f;
+// Shared memory, from a 1024-byte aligned base; nd operand rows a row of x or h (its digits, or 1).
+struct Smem {
+  size_t ring, bars, xs, lat, vel, xd, hd, xsc, hsc, stats, fscr, misc, bytes;
+  int ldx, ldh;
+  __host__ __device__ Smem(int R, int nd, int w, int pieces, int ring_n, int nslots) {
+    ldx = w + 16;  // + 16: a B fragment's rows on distinct banks
+    ldh = nslots * kRows + 16;
+    size_t o = 0;
+    ring = o; o += (size_t)ring_n * kStageBytes;
+    bars = o; o += align16((size_t)ring_n * 16);
+    xs = o; o += align16((size_t)R * w * 4);
+    lat = o; o += align16((size_t)R * kLat * 4);
+    vel = o; o += align16((size_t)R * kLat * 4);
+    xd = o; o += align16((size_t)R * nd * ldx);
+    hd = o; o += align16((size_t)R * nd * ldh);
+    xsc = o; o += align16((size_t)R * 8);
+    hsc = o; o += align16((size_t)R * pieces * 8);
+    stats = o; o += align16(2 * R * 4);
+    fscr = o; o += align16(32 * 2 * R * 4);
+    misc = o; o += 16;
+    bytes = o + 1024;  // the base's alignment
   }
-  __syncthreads();
+};
 
-  for (int s = 0; s < S; ++s) {
-    input_proj<R>(a, lat, xs);
+// The exponent E of a row's largest magnitude mx (frexp: mx = m 2^E, m in [0.5, 1); 0 for 0).
+__device__ __forceinline__ int row_exponent(float mx) {
+  int e;
+  frexpf(mx, &e);
+  return e;
+}
 
-    for (int l = 0; l < L; ++l) {
-      const float* md = a.mods + ((size_t)l * S + s) * B * 3 * w;  // [B][3w]: shift, scale, gate
-      if (l > 0) {
-        for (int i = threadIdx.x; i < R * w; i += kThreads) xs[i] = __ldcg(a.xcur + i);
-        __syncthreads();
-      }
-      // P1: modulated LN in the compute dtype (S8: then quantized per row)
-      row_stats<R>(xs, w, a.ln_eps, stats, fscr);
-      const float* lw = a.lnw + (size_t)l * w;
-      const float* lb = a.lnb + (size_t)l * w;
-      for (int idx = threadIdx.x; idx < R * w; idx += kThreads) {
-        const int r = idx / w, i = idx % w;
-        const float d = __fmul_rn(__fsub_rn(xs[idx], stats[2 * r]), stats[2 * r + 1]);
-        const float ln = __fadd_rn(__fmul_rn(d, lw[i]), lb[i]);
-        act[idx] = to_compute(
-            __fadd_rn(__fmul_rn(ln, __fadd_rn(1.0f, md[(size_t)r * 3 * w + w + i])), md[(size_t)r * 3 * w + i]),
-            a.h_bf16);
-      }
-      __syncthreads();
-      if constexpr (S8) {
-        float sx[R];
-        quant_rows<R>([&](int r, int i) { return act[r * w + i]; }, w, qa, w, sx, fscr);
-        if (threadIdx.x == 0)
+// The ND s8 operands of 4-value groups: exact (ND = kDigits): the balanced base-256 digits, lowest first, of X =
+// rint(v * up), up = 2^(kFix - E) (the product is exact in double; |X| < 2^30); S8: rint(v / sc) (pair_q_rc, rc
+// = 1 / sc).
+template <bool S8, int N>
+__device__ __forceinline__ void operands(const float (&v)[N], double up, float sc, float rc,
+                                         int (&q)[S8 ? 1 : kDigits][N]) {
+  if constexpr (S8) {
+    pair_q_rc(v, sc, rc, q[0]);
+  } else {
 #pragma unroll
-          for (int r = 0; r < R; ++r) scl[r] = sx[r];
-        __syncthreads();
-      }
-
-      // P2: gate / up columns, h = silu(g) * u (exact: in the compute dtype)
-      const int8_t* q12 = static_cast<const int8_t*>(a.q12) + (size_t)l * w * 2 * H;
-      const float* s12 = a.s12 + (size_t)l * 2 * H;
-      const float* b12 = a.b12 + (size_t)l * 2 * H;
-      for (int task = blockIdx.x; task < H / kTask; task += gridDim.x) {
-        const int j0 = task * kTask;
-        const int8_t* const p[2] = {q12 + j0, q12 + H + j0};
-        if constexpr (S8) task_dots_s8<R, 2>(p, w, 2 * (size_t)H, qa, w, ired);
-        else task_dots_f32<R, 2>(p, w, 2 * (size_t)H, act, w, red);
-        for (int idx = threadIdx.x; idx < B * kTask; idx += kThreads) {
-          const int r = idx / kTask, c = idx % kTask, j = j0 + c;
-          float d0, d1;
-          if constexpr (S8) {
-            d0 = __fmul_rn((float)ired[(r * kTask + c) * 2], scl[r]);
-            d1 = __fmul_rn((float)ired[(r * kTask + c) * 2 + 1], scl[r]);
-          } else {
-            d0 = red[(r * kTask + c) * 2];
-            d1 = red[(r * kTask + c) * 2 + 1];
-          }
-          const float g = __fadd_rn(__fmul_rn(d0, s12[j]), b12[j]);
-          const float u = __fadd_rn(__fmul_rn(d1, s12[H + j]), b12[H + j]);
-          const float hv = __fmul_rn(silu_exact(g), u);
-          __stcg(a.hbuf + (size_t)r * H + j, S8 ? hv : to_compute(hv, a.h_bf16));
-        }
-        __syncthreads();
-      }
-      grid.sync();
-
-      // P3: h into the activation buffer (S8: quantized per row over each CH-column chunk)
-      if constexpr (S8) {
-        for (int c = 0; c < HC; ++c) {
-          float sh[R];
-          quant_rows<R>([&](int r, int i) { return __ldcg(a.hbuf + (size_t)r * H + c * CH + i); }, CH, qa + c * CH,
-                        H, sh, fscr);
-          if (threadIdx.x == 0)
+    for (int e = 0; e < N; ++e) {
+      int x = __double2int_rn((double)v[e] * up);
 #pragma unroll
-            for (int r = 0; r < R; ++r) scl[R + r * HC + c] = sh[r];
-        }
-      } else {
-        for (int i = threadIdx.x; i < R * H; i += kThreads) act[i] = __ldcg(a.hbuf + i);
+      for (int i = 0; i < kDigits - 1; ++i) {
+        q[i][e] = ((x + 128) & 255) - 128;
+        x = (x - q[i][e]) >> 8;
       }
-      __syncthreads();
-
-      // P4: down columns and the residual through the gate modulation
-      const int8_t* q3 = static_cast<const int8_t*>(a.q3) + (size_t)l * H * w;
-      const float* s3 = a.s3 + (size_t)l * w;
-      const float* b3 = a.b3 + (size_t)l * w;
-      for (int task = blockIdx.x; task < w / kTask; task += gridDim.x) {
-        const int c0 = task * kTask;
-        float po = 0.0f;  // thread idx < B * kTask holds (row idx / kTask, column idx % kTask)
-        if constexpr (S8) {
-          for (int c = 0; c < HC; ++c) {
-            const int8_t* const p[1] = {q3 + (size_t)c * CH * w + c0};
-            task_dots_s8<R, 1>(p, CH, (size_t)w, qa + c * CH, H, ired);
-            if (threadIdx.x < B * kTask) {
-              const int r = threadIdx.x / kTask, cc = threadIdx.x % kTask;
-              po = __fadd_rn(po, __fmul_rn((float)ired[r * kTask + cc], scl[R + r * HC + c]));
-            }
-            __syncthreads();
-          }
-        } else {
-          const int8_t* const p[1] = {q3 + c0};
-          task_dots_f32<R, 1>(p, H, (size_t)w, act, H, red);
-          if (threadIdx.x < B * kTask) po = red[threadIdx.x];
-        }
-        if (threadIdx.x < B * kTask) {
-          const int r = threadIdx.x / kTask, c = threadIdx.x % kTask, j = c0 + c;
-          const float y = __fadd_rn(__fmul_rn(po, s3[j]), b3[j]);
-          __stcg(a.xcur + (size_t)r * w + j, __fadd_rn(xs[r * w + j], __fmul_rn(md[(size_t)r * 3 * w + 2 * w + j], y)));
-        }
-        __syncthreads();
-      }
-      grid.sync();
+      q[kDigits - 1][e] = x;
     }
-
-    step_epilogue<R>(a, s, xs, lat, vel, stats, fscr);
-  }
-  if (blockIdx.x == 0) {
-    for (int i = threadIdx.x; i < B * C; i += kThreads) a.out[i] = lat[(i / C) * kLat + i % C];
   }
 }
 
+// A dot's fp32 value from its exact integer sum d: exact: d * 2^(E - kFix) rounded once (sc = that power of
+// two; d < 2^52 converts exactly); S8: fp32(d) * sc (int_dot's rounding, then the row scale).
 template <bool S8>
-cudaError_t launch_rows(const RFArgs& a, cudaStream_t st) {
-  switch (a.B) {
-    case 1: return launch_cooperative(rf_sampler_q8_kernel<S8, 1>, Layout<S8, 1>(a.w, a.H, a.ch).bytes, a, st);
-    case 2: return launch_cooperative(rf_sampler_q8_kernel<S8, 2>, Layout<S8, 2>(a.w, a.H, a.ch).bytes, a, st);
-    case 3: return launch_cooperative(rf_sampler_q8_kernel<S8, 3>, Layout<S8, 3>(a.w, a.H, a.ch).bytes, a, st);
-    case 4: return launch_cooperative(rf_sampler_q8_kernel<S8, 4>, Layout<S8, 4>(a.w, a.H, a.ch).bytes, a, st);
-    default: return cudaErrorInvalidValue;
+__device__ __forceinline__ float dot_value(long long d, double sc) {
+  if constexpr (S8) return __fmul_rn(__ll2float_rn(d), (float)sc);
+  else return __double2float_rn(__ll2double_rn(d) * sc);
+}
+
+template <bool S8, int R, typename In>
+__global__ void __launch_bounds__(kAll, 1) rf_sampler_q8_kernel(const __grid_constant__ Params p) {
+  constexpr int ND = S8 ? 1 : kDigits;  // operand rows a row
+  constexpr int NN = R * ND;            // B columns: operand row n = r * ND + digit
+  constexpr int NT = (NN + 7) / 8;      // their n-tiles
+  const RFArgs& a = p.a;
+  const int w = a.w, H = a.H, C = a.C, B = a.B, L = a.L, S = a.S;
+  const int NS = p.ring, CH = p.ch, NP = p.pieces;
+  const int Tu = cdiv(H, kUpCols), KTu = w / kRows, Td = cdiv(w, kTileCols), KTd = H / kRows;
+  const int G = gridDim.x, cta = blockIdx.x;
+  const int u0 = run_first(cta, Tu * KTu, G), u1 = run_first(cta + 1, Tu * KTu, G);
+  const int d0 = run_first(cta, Td * KTd, G), d1 = run_first(cta + 1, Td * KTd, G);
+  const Smem lay(R, ND, w, NP, NS, p.nslots);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t ring_u32 = smem_u32(sm + lay.ring), full0 = smem_u32(sm + lay.bars), empty0 = full0 + 8 * NS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  float* lat = reinterpret_cast<float*>(sm + lay.lat);
+  for (int i = tid; i < R * kLat; i += kAll) {
+    const int r = i / kLat, c = i % kLat;
+    lat[i] = c < C ? a.x0[r * C + c] : 0.0f;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // the producer: one lane issues every stage of the sample in order
+    if (lane == 0) {
+      // stage k of the sequence: per block (k / nb), the CTA's up units, then its down units
+      const int nu = u1 - u0, nb = nu + (d1 - d0), total = S * L * nb;
+      const uint64_t once = l2_evict_first();  // the tables are read once a step: keep L2 for what is read again
+      for (int it = 0; it < total; ++it) {
+        const int j = it % nb, l = (it / nb) % L;
+        const CUtensorMap* map;
+        int col[4], row;
+        bool box[4];  // the boxes loaded (a box wholly past its table's columns is not)
+        if (j < nu) {
+          const int u = u0 + j, j0 = (u / KTu) * kUpCols;
+          const bool second = j0 + kBoxW < H;
+          map = &p.m12, row = (u % KTu) * kRows;
+          col[0] = j0, col[1] = j0 + kBoxW, col[2] = H + j0, col[3] = H + j0 + kBoxW;
+          box[0] = box[2] = true, box[1] = box[3] = second;
+        } else {
+          const int u = d0 + j - nu, c0 = (u / KTd) * kTileCols;
+          map = &p.m3, row = (u % KTd) * kRows;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) col[q] = c0 + q * kBoxW, box[q] = col[q] < w;
+        }
+        const int slot = it % NS;
+        if (it >= NS) wait_phase(empty0 + 8 * slot, ((it / NS) - 1) & 1);
+        mbar_expect_tx(full0 + 8 * slot, (box[0] + box[1] + box[2] + box[3]) * kBoxBytes);
+        for (int q = 0; q < 4; ++q)
+          if (box[q])
+            tma_load_3d_hint(ring_u32 + slot * kStageBytes + q * kBoxBytes, map, full0 + 8 * slot, col[q], row, l,
+                             once);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumers ----
+  float* xs = reinterpret_cast<float*>(sm + lay.xs);
+  float* vel = reinterpret_cast<float*>(sm + lay.vel);
+  int8_t* xd = reinterpret_cast<int8_t*>(sm + lay.xd);  // [R * ND][ldx]: x's operand rows, the lanes' order
+  int8_t* hd = reinterpret_cast<int8_t*>(sm + lay.hd);  // [R * ND][ldh]: those of h's kept stages
+  double* xsc = reinterpret_cast<double*>(sm + lay.xsc);  // [R]: x's 2^(E - kFix) (S8: its scale)
+  double* hsc = reinterpret_cast<double*>(sm + lay.hsc);  // [R][NP]: h's, per piece
+  float* stats = reinterpret_cast<float*>(sm + lay.stats);
+  float* fscr = reinterpret_cast<float*>(sm + lay.fscr);
+  int* flag = reinterpret_cast<int*>(sm + lay.misc);
+  const unsigned char* ring = sm + lay.ring;
+  const Workspace ws(p.iws, Tu, Td, NP);
+  const int ldx = lay.ldx, ldh = lay.ldh;
+  const int g = lane >> 2, t = lane & 3;
+  int bn[NT];  // the lane's B operand row in each n-tile (past NN: row 0, whose D is not read)
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) bn[nt] = 8 * nt + g < NN ? 8 * nt + g : 0;
+  int aoff[4];  // the lane's A words in a stage: its warp's box and 32-byte half, rows phys_row(t, r)
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    aoff[r] = (warp >> 1) * kBoxBytes + phys_row(t, r) * kBoxW +
+              ((((warp & 1) * 2 + (g >> 2)) ^ ((phys_row(t, r) >> 1) & 3)) << 4) + 4 * (g & 3);
+
+  int slot = 0, phase = 0;  // the ring's next slot and its phase, counted (no division in the stage loop)
+  int dv[2][NT][4];
+  auto zero = [&]() {
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dv[q][nt][i] = 0;
+  };
+  // the next stage's products against the operand rows ops (pitch ld) from row k0
+  auto consume = [&](const int8_t* ops, int ld, int k0) {
+    wait_phase(full0 + 8 * slot, phase);
+    const unsigned char* st = ring + slot * kStageBytes;
+#pragma unroll
+    for (int kk = 0; kk < kRows; kk += 32) {
+      uint32_t b[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int off = bn[nt] * ld + k0 + kk + 4 * t;
+        b[nt][0] = *reinterpret_cast<const uint32_t*>(ops + off);
+        b[nt][1] = *reinterpret_cast<const uint32_t*>(ops + off + 16);
+      }
+      uint32_t wd[2][4];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          wd[hf][r] = *reinterpret_cast<const uint32_t*>(st + aoff[r] + (kk + 16 * hf) * kBoxW);
+      s8_k32<NT>(wd, b, dv);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * slot);
+    if (++slot == NS) slot = 0, phase ^= 1;
+  };
+  // the partials into a tile's accumulators acc [kMaxRows][kTileCols], columns where ok(column). Element i of
+  // dv[q][nt] is column 32 warp + 4 g + 2 q + i / 2 and operand row n = 8 nt + 2 t + i % 2 (mma_s8's layout):
+  // S8: row n; exact: row n / 4 = 2 nt + t / 2, digits 2 (t & 1) and 2 (t & 1) + 1, combined with the other two
+  // (lane t ^ 1) into the row's exact sum
+  auto flush = [&](long long* acc, auto ok) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int hc = 0; hc < 2; ++hc) {
+          const int col = 32 * warp + 4 * g + 2 * q + hc;
+          if constexpr (S8) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int n = 2 * t + e, v = dv[q][nt][2 * hc + e];
+              if (n < R && ok(col) && v)
+                atomicAdd(reinterpret_cast<unsigned long long*>(acc + n * kTileCols + col), (unsigned long long)(long long)v);
+            }
+          } else {
+            long long v = (long long)dv[q][nt][2 * hc] + 256ll * dv[q][nt][2 * hc + 1];
+            if (t & 1) v *= 65536ll;
+            v += __shfl_xor_sync(0xffffffffu, v, 1);
+            const int r = 2 * nt + (t >> 1);
+            if (!(t & 1) && r < R && ok(col) && v)
+              atomicAdd(reinterpret_cast<unsigned long long*>(acc + r * kTileCols + col), (unsigned long long)v);
+          }
+        }
+    zero();
+  };
+
+  // x lives in the workspace, by block b: its input xbuf[b & 1] (b a step's first block: xin, input_proj's),
+  // its output xbuf[(b + 1) & 1]; each buffer [kMaxRows][w]
+  float* const xbuf = a.xcur;
+  float* const xin = a.xcur + 2 * kMaxRows * w;
+  unsigned barriers = 0;
+  for (int s = 0; s < S; ++s) {
+    input_proj_rows<R>(a, static_cast<const In*>(p.win), lat, xs, xin, G, cta);
+    for (int l = 0; l < L; ++l) {
+      const int b = s * L + l, par = b & 1;
+      const float* x_in = l == 0 ? xin : xbuf + par * kMaxRows * w;
+      float* const x_out = xbuf + (par ^ 1) * kMaxRows * w;
+      const size_t m0 = ((size_t)l * S + s) * B * 3 * w;  // mods[l, s]: [B][3w] shift, scale, gate
+      const In* md = static_cast<const In*>(p.mods) + m0;
+      if (l > 0) {
+        for (int i = 4 * tid; i < R * w; i += 4 * kConsumers)
+          *reinterpret_cast<float4*>(xs + i) = __ldcg(reinterpret_cast<const float4*>(x_in + i));
+        ConsumerSync::sync();
+      }
+      // x: the modulated LN in the compute dtype (the row statistics in the plain version's order) in place of x,
+      // a thread per 4 columns, with the row maxima; then x's operands over all w rows from shared memory
+      row_stats<R, ConsumerSync>(xs, w, a.ln_eps, stats, fscr);
+      // a thread per 4 columns: the modulated LN in place, and its share of the row maxima
+      float mx[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) mx[r] = 0.0f;
+      {
+        const float* lw = a.lnw + (size_t)l * w;
+        const float* lb = a.lnb + (size_t)l * w;
+#pragma unroll 2
+        for (int i = tid; i < R * (w / 4); i += kConsumers) {
+          const int r = i / (w / 4), c0 = (i % (w / 4)) * 4;
+          const float4 sh = load4(md + (size_t)r * 3 * w + c0), sc = load4(md + (size_t)r * 3 * w + w + c0);
+          const float4 gw = __ldg(reinterpret_cast<const float4*>(lw + c0));
+          const float4 gb = __ldg(reinterpret_cast<const float4*>(lb + c0));
+          float4& x = *reinterpret_cast<float4*>(xs + r * w + c0);
+          float v[4], m = 0.0f;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float d = __fmul_rn(__fsub_rn(lane4(x, e), stats[2 * r]), stats[2 * r + 1]);
+            const float ln = __fadd_rn(__fmul_rn(d, lane4(gw, e)), lane4(gb, e));
+            v[e] = to_compute(__fadd_rn(__fmul_rn(ln, __fadd_rn(1.0f, lane4(sc, e))), lane4(sh, e)), a.h_bf16);
+            m = fmaxf(m, fabsf(v[e]));
+          }
+          x = make_float4(v[0], v[1], v[2], v[3]);
+#pragma unroll
+          for (int rr = 0; rr < R; ++rr)
+            if (rr == r) mx[rr] = fmaxf(mx[rr], m);
+        }
+      }
+      {
+        block_allreduce<R>(mx, fscr, MaxOp<float>(), ConsumerSync());
+        double up[R];
+        float sc[R], rc[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          sc[r] = S8 ? pair_scale(mx[r]) : 0.0f;
+          rc[r] = S8 ? __frcp_rn(sc[r]) : 0.0f;
+          up[r] = S8 ? 0.0 : ldexp(1.0, kFix - row_exponent(mx[r]));
+        }
+        const int xchunks = w / 4, nx = R * xchunks;  // 4-row chunks
+        for (int i = tid; i < cdiv(nx, 32) * 32; i += kConsumers) {  // whole warps: the 4 chunks of a group swap bytes
+          const int r = i < nx ? i / xchunks : 0, row0 = (i % xchunks) * 4;
+          int q[ND][4];
+#pragma unroll
+          for (int k = 0; k < ND; ++k) q[k][0] = q[k][1] = q[k][2] = q[k][3] = 0;
+          if (i < nx) {
+            const float4 x4 = *reinterpret_cast<const float4*>(xs + r * w + row0);
+            const float v[4] = {x4.x, x4.y, x4.z, x4.w};
+            double upr = 0.0;
+            float scr = 0.0f, rcr = 0.0f;
+#pragma unroll
+            for (int rr = 0; rr < R; ++rr)
+              if (rr == r) upr = up[rr], scr = sc[rr], rcr = rc[rr];
+            operands<S8>(v, upr, scr, rcr, q);
+          }
+          // word m of the group holds rows phys_row(m, 0..3): bytes 0, 2 (m even) or 1, 3 (m odd) of chunks m / 2
+          // and m / 2 + 2
+          const int m = i & 3, base = lane & ~3;
+          const uint32_t sel = m & 1 ? 0x7531u : 0x6420u;
+#pragma unroll
+          for (int k = 0; k < ND; ++k) {
+            const uint32_t pk = pack_s8(q[k][0], q[k][1], q[k][2], q[k][3]);
+            const uint32_t wd = __byte_perm(__shfl_sync(0xffffffffu, pk, base + (m >> 1)),
+                                            __shfl_sync(0xffffffffu, pk, base + (m >> 1) + 2), sel);
+            if (i < nx) *reinterpret_cast<uint32_t*>(xd + (r * ND + k) * ldx + row0) = wd;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (tid == r) xsc[r] = S8 ? (double)sc[r] : ldexp(1.0, row_exponent(mx[r]) - kFix);
+        ConsumerSync::sync();
+      }
+
+      // up units: gate / up columns; the tile's last contributor writes h and the row maxima
+      const float* s12 = a.s12 + (size_t)l * 2 * H;
+      const float* b12 = a.b12 + (size_t)l * 2 * H;
+      zero();
+      for (int u = u0, tile = u0 / KTu, ks = u0 % KTu; u < u1; ++u, ks = ks == KTu - 1 ? 0 : ks + 1,
+               tile += ks == 0) {
+        consume(xd, ldx, ks * kRows);
+        if (ks < KTu - 1 && u < u1 - 1) continue;
+        const int j0 = tile * kUpCols;
+        flush(ws.acc_up + (size_t)tile * kMaxRows * kTileCols, [&](int col) { return j0 + col % kUpCols < H; });
+        if (!take_ticket(ws.tickets + tile, u - max(u0, tile * KTu) + 1, KTu, flag)) continue;
+        for (int i = tid; i < R * kUpCols; i += kConsumers) {  // a thread per (row, column): a warp's 32 in one row
+          const int r = i / kUpCols, c = i % kUpCols, j = j0 + c;
+          float m = 0.0f;
+          if (j < H) {
+            long long* acc = ws.acc_up + ((size_t)tile * kMaxRows + r) * kTileCols + c;
+            const long long dg = take(acc), du = take(acc + kUpCols);
+            const float gv = __fadd_rn(__fmul_rn(dot_value<S8>(dg, xsc[r]), s12[j]), b12[j]);
+            const float uv = __fadd_rn(__fmul_rn(dot_value<S8>(du, xsc[r]), s12[H + j]), b12[H + j]);
+            float hv = __fmul_rn(silu_exact(gv), uv);
+            if constexpr (!S8) hv = to_compute(hv, a.h_bf16);
+            __stcg(a.hbuf + (size_t)r * H + j, hv);
+            m = fabsf(hv);
+          }
+          m = warp_max(m);
+          if (lane == 0 && j < H) atomicMax(ws.hmax + (par * kMaxRows + r) * NP + j / CH, __float_as_uint(m));
+        }
+      }
+      grid_barrier(ws.bar, ++barriers * G);
+
+      // h: the operands of the stages this CTA's down units read, a thread per 16-row group of a kept stage and
+      // row, each with its piece's row maximum (one round trip); and every piece's scale, for the down epilogue
+      constexpr int kGroups = kRows / 16;  // 16-row groups a stage
+      const int nsl = min(d1 - d0, KTd), kbase = d1 > d0 ? d0 % KTd : 0, nh = R * nsl * kGroups;
+      for (int i = tid; i < R * NP; i += kConsumers) {
+        const float mxh = __uint_as_float(__ldcg(ws.hmax + par * kMaxRows * NP + i));
+        hsc[i] = S8 ? (double)pair_scale(mxh) : ldexp(1.0, row_exponent(mxh) - kFix);
+      }
+      for (int i = tid; i < nh; i += kConsumers) {
+        const int r = i / (nsl * kGroups), hslot = (i / kGroups) % nsl, grp = i % kGroups;
+        const int row0 = ((kbase + hslot) % KTd) * kRows + grp * 16;
+        const float mxh = __uint_as_float(__ldcg(ws.hmax + (par * kMaxRows + r) * NP + row0 / CH));
+        const float* hr = a.hbuf + (size_t)r * H + row0;
+        float v[16];
+#pragma unroll
+        for (int e = 0; e < 16; e += 4) {
+          const float4 h4 = __ldcg(reinterpret_cast<const float4*>(hr + e));
+          v[e] = h4.x, v[e + 1] = h4.y, v[e + 2] = h4.z, v[e + 3] = h4.w;
+        }
+        const float sch = S8 ? pair_scale(mxh) : 0.0f;
+        int q[ND][16];
+        operands<S8>(v, S8 ? 0.0 : ldexp(1.0, kFix - row_exponent(mxh)), sch, S8 ? __frcp_rn(sch) : 0.0f, q);
+#pragma unroll
+        for (int k = 0; k < ND; ++k)
+#pragma unroll
+          for (int tt = 0; tt < 4; ++tt)  // word tt: rows phys_row(tt, 0..3)
+            reinterpret_cast<uint32_t*>(hd + (r * ND + k) * ldh + hslot * kRows + grp * 16)[tt] =
+                pack_s8(q[k][phys_row(tt, 0)], q[k][phys_row(tt, 1)], q[k][phys_row(tt, 2)], q[k][phys_row(tt, 3)]);
+      }
+      ConsumerSync::sync();
+
+      // down units: the residual through the gate modulation, written by each tile's last contributor
+      const float* s3 = a.s3 + (size_t)l * w;
+      const float* b3 = a.b3 + (size_t)l * w;
+      const int kp = CH / kRows;  // stages a piece
+      zero();
+      for (int u = d0, tile = d0 / KTd, k = kbase, hs = 0; u < d1;  // hs: the stage's slot of h's operands
+           ++u, k = k == KTd - 1 ? 0 : k + 1, tile += k == 0, hs = hs == KTd - 1 ? 0 : hs + 1) {
+        const int c0 = tile * kTileCols;
+        consume(hd, ldh, hs * kRows);
+        const bool tile_end = k == KTd - 1 || u == d1 - 1;
+        if (!tile_end && (k + 1) % kp) continue;
+        flush(ws.acc_dn + ((size_t)(k / kp) * Td + tile) * kMaxRows * kTileCols, [&](int col) { return c0 + col < w; });
+        if (!tile_end) continue;
+        const int kf = max(d0, tile * KTd) - tile * KTd;  // the run's first stage in the tile
+        if (!take_ticket(ws.tickets + Tu + tile, k - kf + 1, KTd, flag)) continue;
+        // a thread per column, every row (S8: the loads of up to 4 pieces in one round trip)
+        for (int col = tid, j = c0 + tid; col < kTileCols && j < w; col += kConsumers, j += kConsumers) {
+          float po[R];
+          if constexpr (S8) {  // the pieces' descaled sums in piece order
+#pragma unroll
+            for (int r = 0; r < R; ++r) po[r] = 0.0f;
+            for (int pc0 = 0; pc0 < NP; pc0 += 4) {
+              long long d[4][R];
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+#pragma unroll
+                for (int r = 0; r < R; ++r)
+                  if (pc0 + q < NP) d[q][r] = take(ws.acc_dn + (((size_t)(pc0 + q) * Td + tile) * kMaxRows + r) * kTileCols + col);
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+#pragma unroll
+                for (int r = 0; r < R; ++r)
+                  if (pc0 + q < NP) po[r] = __fadd_rn(po[r], dot_value<true>(d[q][r], hsc[r * NP + pc0 + q]));
+            }
+          } else {
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+              po[r] = dot_value<false>(take(ws.acc_dn + ((size_t)tile * kMaxRows + r) * kTileCols + col), hsc[r]);
+          }
+          const float s3j = s3[j], b3j = b3[j];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float gate = to_f32(md[(size_t)r * 3 * w + 2 * w + j]), xv = __ldcg(x_in + (size_t)r * w + j);
+            const float y = __fadd_rn(__fmul_rn(po[r], s3j), b3j);
+            __stcg(x_out + (size_t)r * w + j, __fadd_rn(xv, __fmul_rn(gate, y)));
+          }
+        }
+      }
+      grid_barrier(ws.bar, ++barriers * G);
+      if (cta == 0)  // this block's row maxima, read by all before the barrier
+        for (int i = tid; i < kMaxRows * NP; i += kConsumers) ws.hmax[par * kMaxRows * NP + i] = 0u;
+    }
+    // the velocity of x (rf_persistent.cuh), then the CFG combine and the Euler update (rf_sampler_common.cuh)
+    const float* x_last = xbuf + ((s * L + L) & 1) * kMaxRows * w;
+    final_velocity<R>(a, s, static_cast<const In*>(p.fmods), static_cast<const In*>(p.wfin_t), x_last, xs, vel,
+                      stats, fscr);
+    guide_step<R, ConsumerSync>(a, s, lat, vel);
+  }
+  reset_barrier(ws.bar, G);
+  if (cta == 0)
+    for (int i = tid; i < B * C; i += kConsumers) a.out[i] = lat[(i / C) * kLat + i % C];
+}
+
+template <bool S8>
+cudaError_t launch_rows(const Params& p, size_t smem, cudaStream_t st, int G, int B, int bf16_in) {
+  auto go = [&](auto kernel) { return launch_cooperative(kernel, smem, p, st, kAll, G); };
+  switch (B * 2 + (bf16_in ? 1 : 0)) {
+    case 2: return go(rf_sampler_q8_kernel<S8, 1, float>);
+    case 3: return go(rf_sampler_q8_kernel<S8, 1, bf16>);
+    case 4: return go(rf_sampler_q8_kernel<S8, 2, float>);
+    case 5: return go(rf_sampler_q8_kernel<S8, 2, bf16>);
+    case 6: return go(rf_sampler_q8_kernel<S8, 3, float>);
+    case 7: return go(rf_sampler_q8_kernel<S8, 3, bf16>);
+    case 8: return go(rf_sampler_q8_kernel<S8, 4, float>);
+    default: return go(rf_sampler_q8_kernel<S8, 4, bf16>);
   }
 }
 
@@ -232,22 +576,69 @@ cudaError_t launch_rows(const RFArgs& a, cudaStream_t st) {
 
 // One Euler sample (S steps x L blocks) of B <= 4 CFG rows, the arguments of
 // mu_rf_sampler_q4s8 with int8 block tables: q12 (L, w, 2H) and q3 (L, H, w)
-// int8 with fp32 scales s12 (L, 2H) / s3 (L, w); s8_dots: 1 for s8 dots (h
-// re-quantized per `chunk` columns, chunk a multiple of 4 dividing H), 0 for
-// exact dequant. w and H multiples of 64, C <= 128 (the wrapper checks). One
-// cooperative launch: one CTA per SM.
+// int8 with fp32 scales s12 (L, 2H) / s3 (L, w) and biases b12 / b3; win,
+// mods, fmods and wfin_t bf16 with bf16_in (the compute dtype bf16), else
+// fp32. s8_dots: 1 for s8 dots (h re-quantized per `chunk` columns, a multiple
+// of 64 dividing H), 0 for the exact digit dots (chunk unread). The workspace
+// (ops/kernels/rf_sampler.py q8_workspace_sizes, zeroed once when allocated;
+// every launch leaves it so): fws fp32 h (4 x H) then x (3 x 4 x w); iws int32
+// words: int64 accumulators, tickets, row maxima and the barrier counts
+// (mu_rf_sampler_q8_workspace). grid: the CTAs, 0 for one per SM. w and H
+// multiples of 64, C <= 128. One cooperative launch.
 extern "C" int mu_rf_sampler_q8(const void* dts, const void* x0, const void* win, const void* binp, const void* lnw,
                                 const void* lnb, const void* q12, const void* s12, const void* b12, const void* q3,
                                 const void* s3, const void* b3, const void* mods, const void* fmods,
-                                const void* wfin_t, const void* bfin, void* xcur, void* hbuf, void* out, int B,
-                                int cfg_rows, int renorm, int S, int L, int w, int H, int C, int h_bf16, int s8_dots,
-                                int chunk, float text_cfg, float image_cfg, float ln_eps, void* stream) {
-  RFArgs a = rf::make_args(dts, x0, win, binp, lnw, lnb, q12, s12, b12, q3, s3, b3, mods, fmods, wfin_t, bfin, xcur,
-                           hbuf, out, B, cfg_rows, renorm, S, L, w, H, C, h_bf16, text_cfg, image_cfg, ln_eps);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (s8_dots && (chunk <= 0 || chunk % 4 || H % chunk)) return (int)cudaErrorInvalidValue;
-  a.ch = s8_dots ? chunk : H;
-  const cudaError_t err = s8_dots ? launch_rows<true>(a, st) : launch_rows<false>(a, st);
+                                const void* wfin_t, const void* bfin, void* fws, void* iws, void* out, int B,
+                                int cfg_rows, int renorm, int S, int L, int w, int H, int C, int h_bf16,
+                                int bf16_in, int s8_dots, int chunk, int grid, float text_cfg, float image_cfg,
+                                float ln_eps, void* stream) {
+  if (B < 1 || B > kMaxRows || w <= 0 || H <= 0 || w % 64 || H % 64 || C > kLat || grid < 0 ||
+      (s8_dots && (chunk <= 0 || chunk % kRows || H % chunk)))
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  float* f = static_cast<float*>(fws);
+  p.a = rf::make_args(dts, x0, nullptr, binp, lnw, lnb, q12, s12, b12, q3, s3, b3, nullptr, nullptr, nullptr, bfin,
+                      f + (size_t)kMaxRows * H, f, out, B, cfg_rows, renorm, S, L, w, H, C, h_bf16, text_cfg,
+                      image_cfg, ln_eps);
+  p.mods = mods;
+  p.fmods = fmods;
+  p.win = win;
+  p.wfin_t = wfin_t;
+  p.iws = static_cast<int*>(iws);
+  p.ch = s8_dots ? chunk : H;
+  p.pieces = H / p.ch;
+  int dev = 0, sms = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
+  const int G = grid ? grid : sms, Td = cdiv(w, kTileCols), KTd = H / kRows, nd = s8_dots ? 1 : kDigits;
+  p.nslots = min(cdiv(Td * KTd, G), KTd);
+  const size_t rest = Smem(B, nd, w, p.pieces, 0, p.nslots).bytes;
+  p.ring = (int)min((size_t)kMaxRing, ((size_t)optin - min((size_t)optin, rest)) / (kStageBytes + 16));
+  if (p.ring < 2) return (int)cudaErrorInvalidValue;
+  const size_t smem = Smem(B, nd, w, p.pieces, p.ring, p.nslots).bytes;
+  // the tables as 3-D byte tensors (columns, rows, layer), 64-byte x 64-row boxes, 64-byte swizzle
+  const cuuint64_t d12[3] = {(cuuint64_t)2 * H, (cuuint64_t)w, (cuuint64_t)L};
+  const cuuint64_t s12s[2] = {(cuuint64_t)2 * H, (cuuint64_t)w * 2 * H};
+  const cuuint64_t d3[3] = {(cuuint64_t)w, (cuuint64_t)H, (cuuint64_t)L};
+  const cuuint64_t s3s[2] = {(cuuint64_t)w, (cuuint64_t)H * w};
+  const cuuint32_t box[3] = {kBoxW, (cuuint32_t)kRows, 1};
+  if (!encode(&p.m12, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, q12, d12, s12s, box, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !encode(&p.m3, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, q3, d3, s3s, box, CU_TENSOR_MAP_SWIZZLE_64B))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = s8_dots ? launch_rows<true>(p, smem, st, G, B, bf16_in) : launch_rows<false>(p, smem, st, G, B, bf16_in);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch is reported here, not to the next kernel's check
+    return (int)err;
+  }
   return (int)cudaGetLastError();
+}
+
+// Words of the int32 workspace a launch over (w, H) reads: s8 dots with h in `chunk`-column pieces, or the exact
+// mode's one piece (the fp32 one: 4 x (H + 3w)).
+extern "C" int mu_rf_sampler_q8_workspace(int w, int H, int s8_dots, int chunk) {
+  const int pieces = s8_dots ? H / chunk : 1;
+  return (int)Workspace::words(cdiv(H, kUpCols), cdiv(w, kTileCols), pieces);
 }

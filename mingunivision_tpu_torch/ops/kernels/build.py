@@ -48,7 +48,8 @@ _SIGNATURES = {
     "mu_paged_attention_tile": [],
     "mu_moe_stream_q8": [_P] * 13 + [_I] * 5 + [_P],
     "mu_swiglu_gmm_q8": [_P] * 15 + [_I] * 6 + [_P],
-    "mu_rf_sampler_q8": [_P] * 19 + [_I] * 11 + [ctypes.c_float] * 3 + [_P],
+    "mu_rf_sampler_q8": [_P] * 19 + [_I] * 13 + [ctypes.c_float] * 3 + [_P],
+    "mu_rf_sampler_q8_workspace": [_I] * 4,
     "mu_rf_mlp_stack": [_P] * 12 + [_I] * 9 + [ctypes.c_float, _P],
     "mu_swiglu_gmm_full": [_P] * 10 + [_I] * 4 + [_P],
     "mu_gmm": [_P] * 4 + [_I] * 9 + [_P],

@@ -14,46 +14,46 @@ SwiGLU blocks, then the final layer, the CFG combine (optional channel
 renorm) and the Euler update, in ONE launch, with the latent kept on chip.
 What bounds it on the H100 is the bytes of the MLP tables: 453 MB of packed
 int4 (906 MB of int8) per Euler step at the 16B-A3B width (w12 (3072, 16384),
-w3 (8192, 3072) per block), 7.25 GB (14.5 GB) over 16 steps. The kernels are
-persistent cooperative grids: the blocks' phases depend on each other, so
-grid-wide barriers stand in for the TPU's sequential grid (see the sources).
-The int4 one is warp-specialized (a producer warp keeps a TMA ring of weight
-stages full across the barriers) and splits both phases stream-K over its
-CTAs (`run_first`); it reads a workspace kept per device and stream
-(`q4_workspace_sizes`) and operands converted once per head
-(`_kernel_operands`), so a call allocates its output only.
+w3 (8192, 3072) per block), 7.25 GB (14.5 GB) over 16 steps. Both kernels
+are one body (`csrc/rf_persistent.cuh`): a persistent cooperative grid whose
+blocks' phases depend on each other, so grid-wide barriers stand in for the
+TPU's sequential grid; a producer warp keeps a TMA ring of weight stages full
+across the barriers, and both phases split stream-K over the CTAs
+(`run_first`), their integer partials added into each tile's accumulators
+and the tile's last contributor running its epilogue. They read a workspace
+kept per device and stream (`q4_workspace_sizes`, `q8_workspace_sizes`) and
+operands converted once per head (`_kernel_operands`), so a call allocates
+its output only.
 
 Arithmetic, as the TPU kernels. int4: the modulated LN output and the SwiGLU
 hidden state are quantized per row to the s8 operand pair (`intdot.py`), the
 weights enter two integer dots each, the hidden state is rounded to the
 compute dtype before its quantization. int8 (exact dequant): the modulated
 LN output and the hidden state are rounded to the compute dtype, the int8
-weights enter fp32 products as their exact values, the scales and biases are
+weights enter the products as their exact values, the scales and biases are
 applied to the fp32 sums. int8 with s8 dots: the modulated LN output, rounded
 to the compute dtype, quantized per row to s8, the gate/up dots integer, the
 hidden state kept in fp32 and quantized per row over each CHUNK-column
 chunk for the down dots, whose descaled chunk sums add in order. All: the running activation and the latent stay
 fp32, and input_proj / final linear take compute-dtype operands with fp32 sums.
 
-The int4 sampler is chaotic at the s8 rounding boundaries: one quantized
-element that rounds the other way moves the sample measurably after 16 steps.
-So its plain version sums in the kernel's order (its LN and final-layer
-reductions over 256 threads, its sequential input_proj, one exact integer sum
-per down dot, correctly rounded divisions and 1/sqrt: `intdot.div_exact`, exp
-in double: `intdot.silu_exact`), and the two agree to the bit on the card and
-on the CPU; against the TPU kernel they differ by float reassociation only.
-The s8 int8 sampler's integer sums are exact, so its plain version needs no
-special order beyond its fp32 epilogue's. The exact int8 sampler is chaotic
-in the same way at its bf16 roundings (of the
-modulated LN output and of the hidden state): products summed in another
-order flip some of them, and on the card a plain version with PyTorch's
-matrix products lay 1.4e-2 of the sample's maximum from the kernel after 16
-steps of the random 16B-A3B head (PERF.md; `chip_smoke.py --phases
-rf_sensitivity` sets that beside a 1-ulp change). So its plain version also
-sums in the kernel's order: each matrix
-product as the kernel's 32 contraction splits add their rounded products in
-turn, the four splits of a warp pairwise, the eight warps in order
-(`_split_dot`), and the two agree to the bit on the card.
+The samplers are chaotic at their roundings (the s8 ones at the quantization
+boundaries, the exact int8 one at its bf16 roundings of the modulated LN
+output and of the hidden state): one element that rounds the other way moves
+the sample measurably after 16 steps (on the card a plain version with
+PyTorch's fp32 matrix products lay 1.4e-2 of the sample's maximum from the
+first int8 kernel; PERF.md, `chip_smoke.py --phases rf_sensitivity`). So each
+plain version gives its kernel's bits, on the card and on the CPU: its LN and
+final-layer reductions in the kernel's order over 256 threads, its
+sequential input_proj, correctly rounded divisions and 1/sqrt
+(`intdot.div_exact`), exp in double (`intdot.silu_exact`), and every dot
+exact before one rounding: the integer dots of the s8 modes, and the exact
+int8 mode's digit dots (`_digit_dot`): each activation row on a fixed point
+of its own, written as four s8 digits whose integer dots with the table
+combine into the exact sum, rounded once to fp32. An exact sum is the same in
+any order, so neither the kernels' split of the contraction nor their
+arrival order enters. Against the TPU kernels they differ by float
+reassociation only.
 
 The wrapper runs the plain version for CPU tensors only; for CUDA tensors it
 launches the kernel of the table type or raises.
@@ -273,11 +273,12 @@ def _mlp_q4(o, l, xs, H, compute_dtype, kc=None):
     return (acc - corrh) * o["s3"][l] + o["b3"][l]
 
 
-SPLITS = 32  # contraction splits of an int8 sampler task: 8 warps x 4 lane groups (csrc/rf_sampler_q8.cu)
+SPLITS = 32  # contraction splits of a task of the per-step stack's int8 bodies: 8 warps x 4 lane groups (csrc/rf_mlp.cu)
 
 
 def _split_dot(x, w):
-    """x (R, K) @ w (K, N) in fp32 as the int8 sampler's tasks sum it:
+    """x (R, K) @ w (K, N) in fp32 as the per-step stack's int8 tasks sum it
+    (`rf_mlp.py`, `csrc/rf_mlp.cu`, `rf_sampler_common.cuh`'s task_dots_f32):
     contraction row k = 128 j + 4 s + r goes to split s (warp s // 4), each
     split adds its rounded products in the order (j, r), the four splits of a
     warp are combined as (s0 + s1) + (s2 + s3) and the eight warps in order."""
@@ -298,6 +299,47 @@ def _split_dot(x, w):
     return out
 
 
+DIGITS, FIX = 4, 30  # the exact int8 sampler's s8 digits an activation and its fixed point (csrc/rf_sampler_q8.cu)
+
+
+def _pow2(n):
+    """2.0 ** n as float64, exactly (n an integer tensor within the normal range), built from its bits."""
+    return ((n.long() + 1023) << 52).view(torch.float64)
+
+
+def fixed_point(x):
+    """Each row of x (R, K) fp32 on its own fixed point: (E, X), E (R, 1) the
+    exponent of the row's largest |x| (frexp: max |x| = m 2^E, m in [0.5, 1);
+    0 for a row of zeros), X = rint(x * 2^(FIX - E)) int64, |X| < 2^FIX
+    (exact for every bf16 value within 2^-22 of the row's largest)."""
+    e = torch.frexp(x.abs().amax(-1, keepdim=True)).exponent.long()
+    return e, torch.round(x.double() * _pow2(FIX - e)).long()
+
+
+def digits(X):
+    """The DIGITS balanced base-256 s8 digits of int64 X (|X| < 2^FIX), lowest
+    first: X = sum d_i 256^i, each d_i in [-128, 127] -> (DIGITS, *X.shape)."""
+    out = []
+    for _ in range(DIGITS - 1):
+        d = ((X + 128) & 255) - 128
+        out.append(d)
+        X = (X - d) >> 8
+    return torch.stack(out + [X])
+
+
+def _digit_dot(x, q):
+    """x (R, K) @ q (K, N) as the exact int8 sampler computes it: x (rounded
+    to the compute dtype) on its rows' fixed points (`fixed_point`), as four
+    s8 digits (`digits`) whose dots with the integer table q are exact
+    integers (below 2^27; here float64 sums of small integers), combined into
+    the exact sum S of X @ q (below 2^52), rounded once: fp32(S * 2^(E - FIX)).
+    The same in any contraction order and on any split of it -> (R, N) fp32."""
+    e, X = fixed_point(x)
+    d = torch.matmul(digits(X).double(), q.double())  # (DIGITS, R, N)
+    S = d[0] + 256.0 * d[1] + 65536.0 * d[2] + 16777216.0 * d[3]
+    return (S * _pow2(e - FIX)).float()
+
+
 def _mlp_q8s8(o, l, xs, H, compute_dtype):
     """One block's SwiGLU over int8 tables, as `_sampler_q8` with s8_dots=True."""
     xq, sx = quant_rows_s8(xs.to(compute_dtype).float())
@@ -314,13 +356,14 @@ def _mlp_q8s8(o, l, xs, H, compute_dtype):
 
 
 def _mlp_q8(o, l, xs, H, compute_dtype):
-    """One block's SwiGLU over int8 tables, as `_sampler_q8` with s8_dots=False."""
+    """One block's SwiGLU over int8 tables, as `_sampler_q8` with
+    s8_dots=False, its dots exact before one rounding (`_digit_dot`)."""
     xs = xs.to(compute_dtype).float()
-    gu = _split_dot(xs, o["q12"][l].float())
+    gu = _digit_dot(xs, o["q12"][l])
     g = gu[:, :H] * o["s12"][l, :H] + o["b12"][l, :H]
     u = gu[:, H:] * o["s12"][l, H:] + o["b12"][l, H:]
     hf = (silu_exact(g) * u).to(compute_dtype).float()
-    return _split_dot(hf, o["q3"][l].float()) * o["s3"][l] + o["b3"][l]
+    return _digit_dot(hf, o["q3"][l]) * o["s3"][l] + o["b3"][l]
 
 
 def rf_sample_fused_plain(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, *, cfg_rows: int,
@@ -404,15 +447,40 @@ def q4_workspace_sizes(w: int, H: int, kc: int) -> tuple[int, int]:
             Tu * acc + pieces * Td * acc + 2 * Td * MAX_ROWS * 2 + Tu + Td + 2 * MAX_ROWS * 2 + 2)
 
 
-_q4_workspaces: dict = {}  # (device index, stream) -> (fp32, int32 zeros), grown on demand
+UP_COLS = 128  # the int8 kernel's up tile: h columns, their gate and up columns its four 64-column boxes
 
 
-def _q4_workspace(sizes: tuple[int, int], device, stream: int):
-    """The int4 kernel's buffers for launches on `stream`, at least `sizes`
-    long: kept per device and stream (launches on one stream run in order),
-    grown when a call needs more. The int32 part starts at zero and every
-    launch leaves it at zero."""
-    return _grown(_q4_workspaces, (device.index, stream), sizes, (torch.float32, torch.int32), device)
+def q8_units(w: int, H: int) -> tuple[int, int, int, int]:
+    """(up tiles, stages of an up tile, down tiles, stages of a down tile) of
+    the int8 kernel at width w and hidden H: an up tile is UP_COLS columns of
+    h (their gate and up columns of w12) over w rows, a down tile DOWN_COLS
+    columns of w3 over its H rows; a stage is STAGE rows."""
+    cdiv = lambda a, b: -(-a // b)  # noqa: E731
+    return cdiv(H, UP_COLS), w // STAGE, cdiv(w, DOWN_COLS), H // STAGE
+
+
+def q8_workspace_sizes(w: int, H: int, pieces: int) -> tuple[int, int]:
+    """(fp32, int32) elements of the int8 kernel's workspace for width w,
+    hidden H and h in `pieces` chunks (the s8 mode's H / CH; the exact mode:
+    1), at MAX_ROWS rows. fp32: as `q4_workspace_sizes`. int32 words (the
+    library's `mu_rf_sampler_q8_workspace`): each up tile's int64
+    accumulators (DOWN_COLS columns a row: gate and up), each down tile's per
+    piece, the tiles' tickets, two buffers of h's row maxima per piece, the
+    barrier's two counts."""
+    Tu, _, Td, _ = q8_units(w, H)
+    return (MAX_ROWS * (H + 3 * w),
+            2 * (Tu + pieces * Td) * MAX_ROWS * DOWN_COLS + Tu + Td + 2 * MAX_ROWS * pieces + 2)
+
+
+_sampler_workspaces: dict = {}  # (device index, stream) -> (fp32, int32 zeros), grown on demand
+
+
+def _sampler_workspace(sizes: tuple[int, int], device, stream: int):
+    """The fused samplers' buffers for launches on `stream`, at least `sizes`
+    long: kept per device and stream (launches on one stream run in order,
+    so the int4 and int8 kernels share them), grown when a call needs more.
+    The int32 part starts at zero and every launch leaves it at zero."""
+    return _grown(_sampler_workspaces, (device.index, stream), sizes, (torch.float32, torch.int32), device)
 
 
 _operand_cache: dict = {}  # (device, compute dtype) -> (the sources' weak references and versions, operands)
@@ -492,7 +560,7 @@ def rf_sample_fused(params, cfg, noise, block_mods, final_mods, dts, text_cfg, i
 def _rf_sample_group(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg, *, cfg_rows: int,
                      renorm_channel: bool, compute_dtype, s8_dots: bool, schedule: str, down_chunk: int, grid: int = 0):
     """One launch of the table type's CUDA kernel over at most MAX_ROWS
-    block-major rows (the plain version for CPU tensors). `grid`: the int4
+    block-major rows (the plain version for CPU tensors). `grid`: the
     kernel's CTAs (0: one per SM), for tests of its unit partition."""
     if noise.device.type == "cpu":
         return rf_sample_fused_plain(params, cfg, noise, block_mods, final_mods, dts, text_cfg, image_cfg,
@@ -516,9 +584,8 @@ def _rf_sample_group(params, cfg, noise, block_mods, final_mods, dts, text_cfg, 
         (torch.int8, ((L, w, h2), (L, H, w)))
     if (tuple(o["q12"].shape), tuple(o["q3"].shape)) != shapes or o["q12"].dtype != dtype or o["q3"].dtype != dtype:
         raise ValueError(f"rf_sample_fused: w12/w3 must be {dtype} {shapes[0]} / {shapes[1]} tables")
-    # the int4 kernel reads bf16 modulations and projections as they are where the compute dtype is bf16; fp32
-    # otherwise
-    bf16_in = bits == 4 and compute_dtype == block_mods.dtype == final_mods.dtype == torch.bfloat16
+    # the kernels read bf16 modulations and projections as they are where the compute dtype is bf16; fp32 otherwise
+    bf16_in = compute_dtype == block_mods.dtype == final_mods.dtype == torch.bfloat16
     mdt = torch.bfloat16 if bf16_in else torch.float32
     tensors = dict(dts=dts.float(), x0=noise.float(), mods=block_mods.to(mdt), fmods=final_mods.to(mdt))
     tensors = {k: v.contiguous() for k, v in tensors.items()}
@@ -533,24 +600,24 @@ def _rf_sample_group(params, cfg, noise, block_mods, final_mods, dts, text_cfg, 
             o["lnw"].data_ptr(), o["lnb"].data_ptr(), o["q12"].data_ptr(), o["s12"].data_ptr(), o["b12"].data_ptr(),
             o["q3"].data_ptr(), o["s3"].data_ptr(), o["b3"].data_ptr(), tensors["mods"].data_ptr(),
             tensors["fmods"].data_ptr(), wfin_t.data_ptr(), o["bfin"].data_ptr())
-    common = (B, cfg_rows, int(renorm_channel), S, L, w, H, C, int(compute_dtype == torch.bfloat16))
+    common = (B, cfg_rows, int(renorm_channel), S, L, w, H, C, int(compute_dtype == torch.bfloat16), int(bf16_in))
     scales = (float(text_cfg), float(image_cfg), float(cfg.ln_eps), build.stream_handle(noise))
-    if bits == 8:  # the int8 kernel's scratch x and h, its dot mode and down chunk
-        xcur = torch.empty((B, w), dtype=torch.float32, device=dev)
-        hbuf = torch.empty((B, H), dtype=torch.float32, device=dev)
+    if bits == 8:  # the int8 kernel's dot mode and down chunk (the exact mode: one piece)
+        ch = fitting_chunk(H, CHUNK) if s8_dots else H
+        fws, iws = _sampler_workspace(q8_workspace_sizes(w, H, H // ch), dev, build.stream_handle(noise))
         name = "mu_rf_sampler_q8"
-        rc = build.load().mu_rf_sampler_q8(*head, xcur.data_ptr(), hbuf.data_ptr(), out.data_ptr(), *common,
-                                           int(s8_dots), fitting_chunk(H, CHUNK), *scales)
+        rc = build.load().mu_rf_sampler_q8(*head, fws.data_ptr(), iws.data_ptr(), out.data_ptr(), *common,
+                                           int(s8_dots), ch, grid, *scales)
         counter = rf_sample_fused_q8s8 if s8_dots else rf_sample_fused_q8
-    else:  # the int4 kernel's workspace, down pieces (0: the block schedule) and grid
+    else:  # the int4 kernel's down pieces (0: the block schedule)
         kc = fitting_chunk(H // 2, down_chunk) if schedule == "pipelined" else 0
         if kc and kc % STAGE and kc != H // 2:
             raise ValueError(f"rf_sample_fused: the pipelined schedule's pieces of {kc} packed w3 rows are not "
                              f"whole {STAGE}-row stages")
-        fws, iws = _q4_workspace(q4_workspace_sizes(w, H, kc), dev, build.stream_handle(noise))
+        fws, iws = _sampler_workspace(q4_workspace_sizes(w, H, kc), dev, build.stream_handle(noise))
         name = "mu_rf_sampler_q4s8"
-        rc = build.load().mu_rf_sampler_q4s8(*head, fws.data_ptr(), iws.data_ptr(), out.data_ptr(), *common,
-                                             int(bf16_in), kc, grid, *scales)
+        rc = build.load().mu_rf_sampler_q4s8(*head, fws.data_ptr(), iws.data_ptr(), out.data_ptr(), *common, kc,
+                                             grid, *scales)
         counter = rf_sample_fused_q4_pipelined if schedule == "pipelined" else rf_sample_fused
     build.check(rc, name)
     counter.launches += 1  # one per kernel launch

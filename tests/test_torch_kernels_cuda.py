@@ -3,8 +3,9 @@ on the card, in bf16 (the int4 and int8 kernels on int4 and int8 tables of
 the same weights, in both dot modes, the int8 ones and the new modes also at
 the 16B-A3B width; the int4 decode MoE with s8 dots to the bit, its launches,
 workspace and tickets too; the int4 and int8 RF samplers (the int4 one in both
-schedules) and the per-step RF stack in its four bodies to the bit, since
-their plain versions sum in their order; the s8 prefill MoE kernels to the
+schedules, the int8 one in both dot modes; both at grids of 1, 5 and one CTA
+per SM, their workspaces too) and the per-step RF stack in its four bodies to
+the bit, since their plain versions sum in their order or exactly; the s8 prefill MoE kernels to the
 bit, the full-expert-block prefill mode within bf16's precision; both
 flash-attention entry points; the prefill MoE kernels also through the
 capacity-dense dispatch; paged decode attention through block tables). The
@@ -453,9 +454,9 @@ def _rf_q8(dev, seed=19):
                                                    (2, 4, False)],
                          ids=["unguided", "cfg2", "cfg3-renorm", "2img-x3rows", "4img-x2rows"])
 def test_rf_sampler_q8_kernel_matches_plain(dev, cfg_rows, n_img, renorm):
-    """The int8 sampler (exact dequant) against its plain version, which sums
-    in the kernel's order: to the bit; more rows than one launch holds go in
-    groups of whole images."""
+    """The int8 sampler (exact dequant: digit dots) against its plain version,
+    whose dots are the same exact sums rounded once: to the bit; more rows
+    than one launch holds go in groups of whole images."""
     cfg, rf, g = _rf_q8(dev)
     ts, dts = _time_grid(cfg, None, device=dev)
     B = cfg_rows * n_img
@@ -713,7 +714,7 @@ def test_rf_sampler_q4_one_launch_one_allocation_and_a_clean_workspace(dev):
         assert 0 < len(events) <= 3 and all("rf_sampler_q4s8_kernel" in e for e in events), events
         assert _allocations(call) == 1  # the output only
         torch.cuda.synchronize()
-        for _, iws in rs._q4_workspaces.values():
+        for _, iws in rs._sampler_workspaces.values():
             assert not iws.any()
     w, H = 192, 512
     for kc in (0, 128, 256):
@@ -730,6 +731,95 @@ def test_rf_sampler_q4_raises_on_unsupported_input(dev):
         rf, cfg, noise, block_mods, final_mods, dts, tcfg, icfg = args
         rs._rf_sample_group(rf, cfg, noise, block_mods, final_mods, dts, tcfg, icfg, s8_dots=False,
                             schedule="block", down_chunk=128, grid=100_000, **kw)
+
+
+# the int8 sampler on row 6's body: both dot modes (the s8 one also with h in four 128-column pieces), every
+# row count, bf16 and fp32, at grids of 1, 5 and one CTA per SM
+Q8_MODES = {"exact": (False, None), "s8": (True, None), "s8-pieces": (True, 128)}
+
+
+def _q8_sampler_case(dev, rows, renorm, dtype, seed=46):
+    """A width-192 int8 head (three 64-row stages an up tile; one down tile of
+    192 of its 256 columns, its last box past w), hidden 512 (four up tiles of
+    128 h columns), 4 steps x 2 blocks; its inputs for `rows` (CFG rows,
+    images), bf16 modulations."""
+    cfg = RFHeadConfig(target_channels=8, z_channels=32, width=192, depth=2, mlp_mult=4, num_sampling_steps=4)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rf = init_rf_head_params(cfg, _Init(dev, torch.bfloat16, g))
+    for leaf in (rf["res_blocks"]["adaLN"], rf["final_layer"]["adaLN"], rf["final_layer"]["linear"]):
+        leaf["w"].normal_(0.0, 0.05, generator=g)
+    quantize_tree_inplace(rf, bits=8, min_size=1024)
+    cfg_rows, n_img = rows
+    ts, dts = _time_grid(cfg, None, device=dev)
+    z = torch.randn(cfg_rows * n_img, cfg.z_channels, device=dev, generator=g).to(torch.bfloat16)
+    block_mods, final_mods = precompute_modulations(rf, cfg, ts, z)
+    noise = torch.randn(n_img, cfg.target_channels, device=dev, generator=g).repeat(cfg_rows, 1)
+    kw = dict(cfg_rows=cfg_rows, renorm_channel=renorm, compute_dtype=dtype)
+    return (rf, cfg, noise, block_mods, final_mods, dts, 3.0, 1.1), kw
+
+
+@pytest.mark.parametrize("mode", list(Q8_MODES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("renorm", [False, True], ids=["plain-cfg", "renorm"])
+@pytest.mark.parametrize("rows", list(Q4_ROWS.values()), ids=list(Q4_ROWS))
+def test_rf_sampler_q8_stream_k_matches_plain_at_every_grid(dev, rows, renorm, dtype, mode, monkeypatch):
+    """The int8 sampler's units split over 1 CTA, 5 and one per SM: the plain
+    version's bits in both dot modes (digit dots; s8 dots, h in one piece and
+    in four), bf16 and fp32 modulations alike."""
+    from mingunivision_tpu_torch.ops.kernels import rf_sampler as rs
+
+    s8, chunk = Q8_MODES[mode]
+    if chunk:
+        monkeypatch.setattr(rs, "CHUNK", chunk)
+    args, kw = _q8_sampler_case(dev, rows, renorm, dtype)
+    want = rf_sample_fused_plain(*args, s8_dots=s8, **kw)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for grid in (1, 5, sms):
+        for mods in (torch.bfloat16, torch.float32):
+            rf, cfg, noise, block_mods, final_mods, dts, tcfg, icfg = args
+            got = rs._rf_sample_group(rf, cfg, noise, block_mods.to(mods), final_mods.to(mods), dts, tcfg, icfg,
+                                      s8_dots=s8, schedule="block", down_chunk=128, grid=grid, **kw)
+            torch.testing.assert_close(got, want, rtol=0, atol=0, msg=f"grid {grid}, {mods} modulations")
+
+
+def test_rf_sampler_q8_one_launch_one_allocation_and_a_clean_workspace(dev):
+    """In both dot modes: two calls back to back with no memset between them
+    give the plain version's bits; one kernel and one allocation (the output)
+    per call; after every call the workspace's accumulators, tickets, row
+    maxima and barrier counts are back at zero; its int32 size is the
+    library's."""
+    from mingunivision_tpu_torch.ops.kernels import build
+    from mingunivision_tpu_torch.ops.kernels import rf_sampler as rs
+
+    args, kw = _q8_sampler_case(dev, (2, 1), False, torch.bfloat16, seed=47)
+    for s8 in (False, True):
+        want = rf_sample_fused_plain(*args, s8_dots=s8, **kw)
+        call = lambda: rf_sample_fused(*args, s8_dots=s8, **kw)  # noqa: B023, E731
+        first, second = call(), call()
+        torch.testing.assert_close(first, want, rtol=0, atol=0)
+        torch.testing.assert_close(second, want, rtol=0, atol=0)
+        events = _device_events(call, calls=3)
+        assert 0 < len(events) <= 3 and all("rf_sampler_q8_kernel" in e for e in events), events
+        assert _allocations(call) == 1  # the output only
+        torch.cuda.synchronize()
+        for _, iws in rs._sampler_workspaces.values():
+            assert not iws.any()
+    w, H = 192, 512
+    assert build.load().mu_rf_sampler_q8_workspace(w, H, 0, 0) == rs.q8_workspace_sizes(w, H, 1)[1]
+    assert build.load().mu_rf_sampler_q8_workspace(w, H, 1, 128) == rs.q8_workspace_sizes(w, H, 4)[1]
+    assert build.load().mu_rf_sampler_q8_workspace(3072, 8192, 1, 4096) == rs.q8_workspace_sizes(3072, 8192, 2)[1]
+
+
+def test_rf_sampler_q8_raises_on_unsupported_input(dev):
+    """More CTAs than can be co-resident: the cooperative launch is refused, and raised."""
+    from mingunivision_tpu_torch.ops.kernels import rf_sampler as rs
+
+    args, kw = _q8_sampler_case(dev, (2, 1), False, torch.bfloat16, seed=48)
+    rf, cfg, noise, block_mods, final_mods, dts, tcfg, icfg = args
+    for s8 in (False, True):
+        with pytest.raises(RuntimeError):
+            rs._rf_sample_group(rf, cfg, noise, block_mods, final_mods, dts, tcfg, icfg, s8_dots=s8,
+                                schedule="block", down_chunk=128, grid=100_000, **kw)
 
 
 @pytest.mark.parametrize("bits", [4, 8], ids=["int4", "int8"])

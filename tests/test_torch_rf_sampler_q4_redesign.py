@@ -326,16 +326,16 @@ def test_workspace_sizes():
 
 def test_workspace_is_kept_per_device_and_stream_and_grown():
     cpu = torch.device("cpu")
-    rs._q4_workspaces.clear()
-    f1, i1 = rs._q4_workspace((64, 32), cpu, stream=1)
+    rs._sampler_workspaces.clear()
+    f1, i1 = rs._sampler_workspace((64, 32), cpu, stream=1)
     assert not i1.any()
-    f2, i2 = rs._q4_workspace((16, 8), cpu, stream=1)
+    f2, i2 = rs._sampler_workspace((16, 8), cpu, stream=1)
     assert f2.data_ptr() == f1.data_ptr() and i2.data_ptr() == i1.data_ptr()  # reused
-    f3, i3 = rs._q4_workspace((64, 32), cpu, stream=2)
+    f3, i3 = rs._sampler_workspace((64, 32), cpu, stream=2)
     assert i3.data_ptr() != i1.data_ptr()  # another stream: its own
-    f4, i4 = rs._q4_workspace((64, 64), cpu, stream=1)
+    f4, i4 = rs._sampler_workspace((64, 64), cpu, stream=1)
     assert f4.data_ptr() == f1.data_ptr() and i4.numel() == 64 and not i4.any()  # the int32 part grown, as zeros
-    rs._q4_workspaces.clear()
+    rs._sampler_workspaces.clear()
 
 
 def test_operands_are_converted_once_per_head(small_head):

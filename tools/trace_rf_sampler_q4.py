@@ -1,4 +1,5 @@
-"""Phase trace of the fused int4 RF sampler (`csrc/rf_sampler_q4.cu`) on the card.
+"""Phase trace of the fused RF samplers (`csrc/rf_sampler_q4.cu`, and with
+--bits 8 `csrc/rf_sampler_q8.cu`, their shared body) on the card.
 
 Copies `mingunivision_tpu_torch/` into a scratch directory (default
 `chip_trace/`, which `.gitignore` lists), adds `%globaltimer` stamps at the
@@ -8,13 +9,14 @@ random weights from seed 0, AdaLN at std 0.02) at the given CFG rows. It prints
 the kernel's device time (CUDA events, 5 calls) and, from one traced call, the
 mean over CTAs and blocks of each phase in microseconds:
 
-    x      x into shared memory, the modulated LN, x's s8 pair
+    x      x into shared memory, the modulated LN, x's operands (int4: its s8
+           pair; int8: its digits, or with --s8 its s8 values)
            (split: x load, row statistics, modulated LN with the row maxima,
-           the operands and their sums)
+           the operands)
     up     the up units (split: to the last stage consumed, the last tile's
            flush and ticket, the rest: the tile epilogue where last)
     bar1   the first grid barrier
-    hq     h's s8 pair of the CTA's down stages
+    hq     h's operands of the CTA's down stages
     down   the down units (split as up)
     bar2   the second grid barrier
 and the step epilogue (final layer, CFG, Euler update, input_proj) per step.
@@ -23,7 +25,7 @@ the ring (the products run on whatever shared memory holds): the time the
 kernel takes without its weight stream. The copy's results are not the
 kernel's in that mode and are not checked.
 
-    python3 tools/trace_rf_sampler_q4.py --rows 2 3 [--no-stream]
+    python3 tools/trace_rf_sampler_q4.py --rows 2 3 [--no-stream] [--bits 8 [--s8]]
 """
 
 from __future__ import annotations
@@ -88,25 +90,45 @@ PATCHES = [
      "    guide_step<R, ConsumerSync>(a, s, lat, vel);\n"
      f"    if (g_trace && tid == 0) g_trace[((size_t)cta * S * L + s * L + L - 1) * {TR} + 10] = gtime();\n  }}\n"),
 ]
+# the int8 sampler's source: the same body, but for these anchors (int4 anchor -> the text that differs in it and
+# in its replacement, and the int8 source's text)
+SOURCE_Q8 = "mingunivision_tpu_torch/csrc/rf_sampler_q8.cu"
+Q8_ANCHORS = {
+    "        block_allreduce<2 * R>(mx, fscr, MaxOp<float>(), ConsumerSync());\n": ("<2 * R>", "<R>"),
+    "      grid_barrier(ws.bar, ++barriers * G);\n\n      // h: the s8 pair": ("the s8 pair", "the operands"),
+    "      grid_barrier(ws.bar, ++barriers * G);\n      if (cta == 0) {": ("if (cta == 0) {", "if (cta == 0) "),
+}
 BUILD = "mingunivision_tpu_torch/ops/kernels/build.py"
 BUILD_PATCH = ('    "mu_rf_sampler_q4s8_workspace": [_I] * 3,\n',
                '    "mu_rf_sampler_q4s8_workspace": [_I] * 3,\n    "mu_rf_trace_set": [_P, _I],\n')
 
 
-def patched(source: str) -> str:
-    """The kernel source with the stamps (each anchor replaced once; a missing or repeated anchor raises)."""
+def patches(bits: int = 4):
+    """(anchor, replacement) pairs for the int4 or int8 sampler's source."""
+    if bits == 4:
+        return PATCHES
+    out = []
     for anchor, new in PATCHES:
+        four, eight = Q8_ANCHORS.get(anchor, ("", ""))
+        out.append((anchor.replace(four, eight), new.replace(four, eight)) if four else (anchor, new))
+    return out
+
+
+def patched(source: str, bits: int = 4) -> str:
+    """The kernel source with the stamps (each anchor replaced once; a missing or repeated anchor raises)."""
+    for anchor, new in patches(bits):
         if source.count(anchor) != 1:
             raise ValueError(f"anchor found {source.count(anchor)} times: {anchor[:60]!r}")
         source = source.replace(anchor, new)
     return source
 
 
-def make_copy(dest: str) -> None:
+def make_copy(dest: str, bits: int = 4) -> None:
     shutil.rmtree(dest, ignore_errors=True)
     shutil.copytree(os.path.join(ROOT, "mingunivision_tpu_torch"), os.path.join(dest, "mingunivision_tpu_torch"),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    for rel, fn in ((SOURCE, patched), (BUILD, lambda s: s.replace(*BUILD_PATCH))):
+    source = SOURCE if bits == 4 else SOURCE_Q8
+    for rel, fn in ((source, lambda s: patched(s, bits)), (BUILD, lambda s: s.replace(*BUILD_PATCH))):
         path = os.path.join(dest, rel)
         with open(path) as f:
             text = f.read()
@@ -118,9 +140,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, nargs="+", default=[2])
     ap.add_argument("--no-stream", action="store_true")
+    ap.add_argument("--bits", type=int, choices=(4, 8), default=4)
+    ap.add_argument("--s8", action="store_true", help="the int8 sampler's s8 dots (default: its exact digit dots)")
     ap.add_argument("--dir", default=os.path.join(ROOT, "chip_trace"))
     args = ap.parse_args(argv)
-    make_copy(args.dir)
+    make_copy(args.dir, args.bits)
     sys.path.insert(0, args.dir)
     import torch
 
@@ -140,18 +164,19 @@ def main(argv=None) -> int:
     rf = init_rf_head_params(cfg, _Init(dev, torch.bfloat16, g))
     for leaf in (rf["res_blocks"]["adaLN"], rf["final_layer"]["adaLN"], rf["final_layer"]["linear"]):
         leaf["w"].normal_(0.0, 0.02, generator=g)
-    quantize_tree_inplace(rf, bits=4)
+    quantize_tree_inplace(rf, bits=args.bits)
     ts, dts = _time_grid(cfg, None, device=dev)
     S, L = cfg.num_sampling_steps, cfg.depth
     lib = build.load()
     G = lib.mu_rf_sampler_grid()
-    print(f"{torch.cuda.get_device_name(0)}; grid {G}; the stream {'off' if args.no_stream else 'on'}")
+    print(f"{torch.cuda.get_device_name(0)}; int{args.bits}{' s8 dots' if args.s8 else ''} sampler; grid {G}; the "
+          f"stream {'off' if args.no_stream else 'on'}")
     for rows in args.rows:
         z = torch.randn((rows, cfg.z_channels), device=dev, generator=g).to(torch.bfloat16)
         bm, fm = precompute_modulations(rf, cfg, ts, z)
         noise = torch.randn((1, cfg.target_channels), device=dev, generator=g).repeat(rows, 1)
         call = lambda: rs.rf_sample_fused(rf, cfg, noise, bm, fm, dts, 3.0, 1.1, cfg_rows=rows,  # noqa: E731,B023
-                                          renorm_channel=rows == 3)
+                                          renorm_channel=rows == 3, s8_dots=args.s8)
         build.check(lib.mu_rf_trace_set(None, int(args.no_stream)), "trace")
         for _ in range(3):
             call()
