@@ -44,7 +44,9 @@ Phases, one printed line each; any failure exits non-zero:
               1, 2, 3, 12 and 16 rows and paged decode attention at batch 1,
               8 and 16, each with its kernel-alone device time, its device
               events per call (at most 2, 2 and 1: nothing but its kernels)
-              and one allocation per call (the output)
+              and one allocation per call (the output); the same three for
+              the int8 decode MoE with s8 dots (held to the bit) and the
+              int4 one with exact dequant at their cases
   4. reference  a small model on the card, bf16, int4 (as shipped and with
               moe_int_dots=False), int8 (as shipped and with
               moe_prefill_int_dots and rf_int_dots on) and NF4 (and, on the
@@ -166,8 +168,9 @@ Then a JSON line with every kernel's numbers, and as the last line
 `--phases` picks the phases (default: the twenty-two above), e.g.
 `--phases device,build,kernels,understand` or `--phases device,build,kernels,serve`. Eight more run only when named:
   decode_kernels  the kernels phase's cases of the decode kernels that run
-              without a PyTorch op: the bf16 decode MoE, the int4 one with s8
-              dots and paged decode attention at their main paths' shapes,
+              without a PyTorch op: the bf16 decode MoE, the int4 one in both
+              dot modes, the int8 one with s8 dots and paged decode attention
+              at their main paths' shapes,
               each with its kernel-alone device time and its kernels per call
               (the way to time an older tree's kernels beside these: run this
               script from that tree's root)
@@ -538,7 +541,8 @@ def check_kernels(torch, results: dict) -> bool:
     def dot_mode_cases(tables, decode_name, prefill_name, per_expert_bytes):
         """The other dot mode of the quantized kernels: the exact-dequant decode
         MoE (`decode_name`, int4 tables) at 2 rows (its main path: the T2I round
-        with moe_int_dots=False), 1, 3 and 16; the s8-dot prefill MoE
+        with moe_int_dots=False), 1, 3 and 16, each with its kernel-alone time,
+        at most two kernels and one allocation a call; the s8-dot prefill MoE
         (`prefill_name`) first at its main path's shape, the understanding
         prompt's 1,152 tokens through the capacity dispatch (and its overflow),
         then at a 128-token prompt and one skewed to 8 experts."""
@@ -549,10 +553,11 @@ def check_kernels(torch, results: dict) -> bool:
                 x = torch.randn((n, h), device=dev, generator=g).to(bf)
                 idx, w = routing(n, choices)
                 nbytes, ops = moe_work(idx, n, per_expert_bytes, 2)
-                ok &= run_case(torch, results, decode_name, label,
-                               lambda: moe_experts_stream(tables, x, idx, w, layer_idx=0, int_dots=False),  # noqa: B023
+                kern = lambda: moe_experts_stream(tables, x, idx, w, layer_idx=0, int_dots=False)  # noqa: B023, E731
+                ok &= run_case(torch, results, decode_name, label, kern,
                                lambda: moe_experts_stream_plain(tables, x, idx, w, layer_idx=0,  # noqa: B023
                                                                 int_dots=False), nbytes, ops, "bf16")
+                ok &= one_launch_checks(torch, results, decode_name, kern, kernels=2)
         ok &= capacity_cases(tables, prefill_name, per_expert_bytes, s8=True)
         for label, n, choices in prefill:
             x = torch.randn((n, h), device=dev, generator=g).to(bf)
@@ -602,9 +607,9 @@ def check_kernels(torch, results: dict) -> bool:
     del q4
 
     # int8 tables: 3 h m bytes and 2 m + h fp32 scales per routed expert. The decode kernel in both dot modes
-    # (s8 dots: int8 operations; exact dequant: products at the bf16 rate), at the slice's 2 rows, the
-    # editing loop's 3 and a serving step's 16, and the exact one first at the understanding round's 1 row
-    # (its main path: `understand` with moe_int_dots=False)
+    # (s8 dots: int8 operations, held to the bit, with its kernel-alone time; exact dequant: products at the
+    # bf16 rate), at the slice's 2 rows, the editing loop's 3 and a serving step's 16, and the exact one first
+    # at the understanding round's 1 row (its main path: `understand` with moe_int_dots=False)
     per_expert = 3 * h * m + (2 * m + h) * 4
     decode8 = decode[:1] + [("N=3 k=6 (editing decode)", 3, None)] + decode[1:]
     for name, int_dots, kind, cases in (
@@ -615,10 +620,12 @@ def check_kernels(torch, results: dict) -> bool:
             idx, w = routing(n, choices)
             nbytes, ops = moe_work(idx, n, per_expert, 2)
             kw = dict(layer_idx=0, int_dots=int_dots)
-            all_ok &= run_case(torch, results, name, label,
-                               lambda: moe_experts_stream(q8, x, idx, w, **kw),  # noqa: B023
+            kern = lambda: moe_experts_stream(q8, x, idx, w, **kw)  # noqa: B023, E731
+            all_ok &= run_case(torch, results, name, label, kern,
                                lambda: moe_experts_stream_plain(q8, x, idx, w, **kw),  # noqa: B023
-                               nbytes, ops, kind)
+                               nbytes, ops, kind, bitwise=int_dots)
+            if int_dots:  # 7a: two launches, its kernel-alone time
+                all_ok &= one_launch_checks(torch, results, name, kern, kernels=2)
     for label, n, choices in prefill:
         x = torch.randn((n, h), device=dev, generator=g).to(bf)
         idx, w = routing(n, choices)
@@ -966,20 +973,30 @@ def paged_cases(torch, results, g, cfg) -> bool:
     return ok
 
 
+# the two-launch decode MoE kernels: name -> (the tables' bytes per expert from (h, m), integer dots (the dot
+# mode `moe_experts_stream` takes; their operations at the int8 rate), held to the bit)
+DECODE_MOE = {"moe_stream": (lambda h, m: 3 * h * m * 2, True, False),
+              "moe_stream_q4s8": (lambda h, m: 3 * h * m // 2 + (2 * m + h) * 4, True, True),
+              "moe_stream_q8s8": (lambda h, m: 3 * h * m + (2 * m + h) * 4, True, True),
+              "moe_stream_q4": (lambda h, m: 3 * h * m // 2 + (2 * m + h) * 4, False, False)}
+
+
 def decode_moe_cases(torch, results, experts, routing, g, h: int, m: int, name: str = "moe_stream") -> bool:
     """A two-launch decode MoE kernel against its plain version on layer 0 of
     the stacked 16B-A3B tables, top-6: `name` "moe_stream" on bf16 tables
     (within REL_TOL), "moe_stream_q4s8" on linear int4 tables (s8 dots, held
-    to the bit); through `moe_experts_stream`, as the LLM step calls it. 1 row
-    (text decode), 2 (the T2I step), 3 (editing), 12 (the image pool's 4
-    slots x 3 rows) and 16 (the 16-slot serving step, 64 experts routed of 96
-    assignments); each with its kernel-alone device time and at most two
-    kernels and one allocation per call. Bound: every routed expert's three
-    tables once (int4: the packed bytes and the fp32 scales), x and the output."""
+    to the bit), "moe_stream_q8s8" on int8 tables (s8 dots, held to the bit),
+    "moe_stream_q4" on int4 tables (exact dequant, within REL_TOL); through
+    `moe_experts_stream`, as the LLM step calls it. 1 row (text decode), 2 (the
+    T2I step), 3 (editing), 12 (the image pool's 4 slots x 3 rows) and 16 (the
+    16-slot serving step, 64 experts routed of 96 assignments); each with its
+    kernel-alone device time and at most two kernels and one allocation per
+    call. Bound: every routed expert's three tables once (int4 and int8: the
+    bytes and the fp32 scales), x and the output."""
     from mingunivision_tpu_torch.ops.kernels.moe_stream import moe_experts_stream, moe_experts_stream_plain
 
-    q4 = name == "moe_stream_q4s8"
-    per_expert = 3 * h * m // 2 + (2 * m + h) * 4 if q4 else 3 * h * m * 2
+    per_expert, int_dots, bitwise = DECODE_MOE[name]
+    per_expert = per_expert(h, m)
     ok = True
     for label, n in (("N=2 k=6 (slice decode)", 2), ("N=16 k=6 (A>E dedup, 16-slot serving step)", 16),
                      ("N=1 k=6 (text decode)", 1), ("N=3 k=6 (editing decode)", 3), ("N=12 k=6 (image pool)", 12)):
@@ -987,18 +1004,20 @@ def decode_moe_cases(torch, results, experts, routing, g, h: int, m: int, name: 
         idx, w = routing(n)
         unique = int(torch.unique(idx).numel())
         nbytes, ops = unique * per_expert + 2 * n * h * 2, 6.0 * idx.numel() * h * m
-        kern = lambda: moe_experts_stream(experts, x, idx, w, layer_idx=0)  # noqa: B023, E731
+        kern = lambda: moe_experts_stream(experts, x, idx, w, layer_idx=0, int_dots=int_dots)  # noqa: B023, E731
         ok &= run_case(torch, results, name, f"{label}, {unique} experts", kern,
-                       lambda: moe_experts_stream_plain(experts, x, idx, w, layer_idx=0),  # noqa: B023
-                       nbytes, ops, "int8" if q4 else "bf16", bitwise=q4)
+                       lambda: moe_experts_stream_plain(experts, x, idx, w, layer_idx=0,  # noqa: B023
+                                                        int_dots=int_dots),
+                       nbytes, ops, "int8" if bitwise else "bf16", bitwise=bitwise)
         ok &= one_launch_checks(torch, results, name, kern, kernels=2)
     return ok
 
 
 def run_decode_kernels(torch, results: dict) -> bool:
     """The decode_kernels phase: paged decode attention and the decode MoE on
-    bf16 and on int4 tables (s8 dots) as the kernels phase checks them, on
-    their own full-width inputs."""
+    bf16 tables, on int4 tables (s8 dots and exact dequant) and on int8
+    tables (s8 dots) as the kernels phase checks them, on their own
+    full-width inputs."""
     from mingunivision_tpu_torch.config import MingUniVisionConfig
     from mingunivision_tpu_torch.utils.quantize import quantize_array
 
@@ -1011,9 +1030,13 @@ def run_decode_kernels(torch, results: dict) -> bool:
     routing, _, _ = moe_cases(torch, g, E, k)
     ok = decode_moe_cases(torch, results, experts, routing, g, h, m)
     q4 = {n: quantize_array(t, 4) for n, t in experts.items()}
-    del experts
     ok &= decode_moe_cases(torch, results, q4, routing, g, h, m, name="moe_stream_q4s8")
+    ok &= decode_moe_cases(torch, results, q4, routing, g, h, m, name="moe_stream_q4")
     del q4
+    q8 = {n: quantize_array(t, 8) for n, t in experts.items()}
+    del experts
+    ok &= decode_moe_cases(torch, results, q8, routing, g, h, m, name="moe_stream_q8s8")
+    del q8
     torch.cuda.empty_cache()
     return ok & paged_cases(torch, results, g, cfg)
 

@@ -8,18 +8,28 @@
 // weights: one expert is 3 x 1024 x 1408 B = 4.33 MB at the 16B-A3B shape, and
 // a 2-row CFG decode step routes up to 12 experts per layer (52 MB, 15.5 us at
 // 3.35 TB/s); the activations are a few KB. At a 16-slot serving step some 50
-// experts meet 16 rows each: 16 integer dots per weight byte, past what the
-// CUDA cores' dp4a keep up with at 3.35 TB/s, so the s8 mode's products run on
-// the tensor cores.
+// experts meet 16 rows each: 16 dots per weight byte, past what the CUDA cores
+// keep up with at 3.35 TB/s, so the products of both modes run on the tensor
+// cores.
+//
+// Both modes are two launches and no other device op, on the bf16 kernel's
+// design (moe_stream.cu), with the ring of moe_decode.cuh (`ring`: the
+// routing, the 16-byte cp.async copies into swizzled stages of 64 packed rows x
+// 256 bytes, the down launch as the up launch's programmatic dependent, the
+// ticket merge); blocks of 256 threads, 8 warps of 32 columns. Each block
+// streams its tile of the packed (E, h/2, m) / (E, m/2, h) tables through the
+// ring, several stages in flight while the block multiplies the oldest, the
+// weight tile as A (the output columns as M), the rows as B (N: 8 per n-tile).
+// sm_90 has no 8-bit ldmatrix .trans and the tables are column-contiguous, so
+// each lane forms its A fragments in registers from one word (4 columns) of
+// each of 4 staged rows (q4_mma.cuh). Every weight byte is read from device
+// memory once whatever N.
 //
 // S8 (mu_moe_stream_q4s8): the activations quantized per row to the s8
 // operand pair (ops/kernels/intdot.py quant_rows_s8_pair: a1 = x_lo - x_hi/16,
 // a2 = x_hi), two integer dots per packed table, (w & 0x0F0F0F0F) . a1 and
-// (w ^ 0x80808080) . a2, h = silu(g) * u in fp32 re-quantized per row over
-// ALL of m before the down dots. Two launches, no other device op, on the
-// bf16 kernel's design (moe_stream.cu; the routing, the cp.async copies and
-// the ticket merge are moe_decode.cuh's); blocks of 256 threads, 8 warps of
-// 32 columns:
+// (w ^ 0x80808080) . a2 on mma.sync.m16n8k32 s8, h = silu(g) * u in fp32
+// re-quantized per row over ALL of m before the down dots:
 //
 //   up    grid (64 column pairs (j, j + m/2), slot). Each block first stages
 //         the rows of x in its ring, builds the routing (slot s the s-th
@@ -47,83 +57,51 @@
 //         the sum, as the plain version does, writes the bf16 output and
 //         lowers the tile's ticket.
 //
-// Each block streams its tile of the packed (E, h/2, m) / (E, m/2, h) tables
-// (contraction on rows: a stage is 64 packed rows x 256 bytes, up 64 columns
-// of W1 at j and at j + m/2, then of W3, down 256 columns of W2) through a
-// ring of shared-memory stages filled by 16-byte cp.async, several stages in
-// flight while the block multiplies the oldest: mma.sync.m16n8k32 s8 with
-// int32 accumulators, the weight tile as A (the output columns as M), the
-// rows as B (N: 8 per n-tile). sm_90 has no 8-bit ldmatrix .trans and wgmma
-// wants K-major s8 operands while the tables are column-contiguous, so each
-// lane forms its A fragments in registers: it reads one word (4 columns) from
-// each of 4 contraction rows and byte-transposes them (transpose4x4) into a
-// register per column; the staged rows' 16-byte chunks are swizzled so that
-// these reads fall on distinct banks. Every weight byte is read from device
-// memory once whatever N. The integer sums are exact in any order, and the
-// fp32 epilogue, the row maxima, the scales and the merge keep the plain
-// version's steps: the result is its bits.
+// The integer sums are exact in any order, and the fp32 epilogue, the row
+// maxima, the scales and the merge keep the plain version's steps: the
+// result is its bits.
 //
 // Exact (mu_moe_stream_q4, moe_int_dots=False): each nibble (-8..7) converted
-// to fp32 (exact), products with x's bf16 values summed in fp32 per nibble
-// plane (x[:, :h/2] @ lo + x[:, h/2:] @ hi), h = silu(g) * u rounded to bf16
-// before the down dots, the scales on the sums; the wrapper builds the unique
-// routed experts and their gate rows on the device (expert_slots):
-//   phase A  grid (slot, 128-column tile of m): each block stages the rows of
-//            x in shared memory as fp32, then g and u: each warp takes the
-//            4-row groups warp, warp + 8, ... of the K/2 packed rows, a lane
-//            loading one 32-bit word (4 columns) of each row of the group and
-//            converting each byte's two nibbles; the 8 warps' partial sums
-//            are added in order in shared memory; h goes to device memory;
-//   phase B  grid (slot, 128-column tile of h): the down dots the same way;
-//   phase C  out = sum over slots of gate * y, in ascending slot order
-//            (deterministic, no atomics).
+// to bf16 in registers (exact), products with x's bf16 values on
+// mma.sync.m16n8k16 bf16 with fp32 sums per nibble plane (x[:, :h/2] @ lo,
+// x[:, h/2:] @ hi), the scales on the sums, h = silu(g) * u rounded to bf16
+// before the down dots, at most kMaxRowsExact (32) rows a launch pair (their bf16
+// values sit in shared memory):
+//
+//   up    grid (128 columns of m, slot). Each block issues the copies of the
+//         rows of x into shared memory (once, bf16, as B), builds the routing,
+//         then streams its tile of W1 and W3 (a staged row: 128 columns of
+//         each); g and u by the epilogue times the column scales, h = silu(g)
+//         * u rounded to bf16 into the workspace (slot, N, m).
+//   down  grid (256-column tile of h, slot), the up launch's programmatic
+//         dependent: the slot's bf16 h rows staged once beside the first
+//         stage of W2; y by the epilogue into the workspace, and the ticket
+//         merge, each product rounded before the sum, as the plain version.
+//
+// The products are exact and summed in fp32 in the tensor cores' order, the
+// plain version's in its matmul's: the two agree within bf16's precision.
 #include "moe_decode.cuh"
 #include "q4_mma.cuh"
 
 namespace {
 
+using namespace moe_decode;
+using namespace moe_decode::ring;
+
 // ---------------------------------------------------------------------------
-// S8: two launches, the routing built in the kernel, s8 products on the tensor cores
+// S8: s8 products on the tensor cores
 // ---------------------------------------------------------------------------
 
 namespace s8 {
 
-using namespace moe_decode;
-
-constexpr int kThreads = 256;   // 8 warps, 32 columns each
-constexpr int kTileK = 64;      // packed rows per stage: two k32 steps
-constexpr int kRowBytes = 256;  // a staged row: up 64 column pairs of W1 then of W3; down 256 columns of W2
-constexpr int kChunks = kRowBytes / 16;
-constexpr int kStageBytes = kTileK * kRowBytes;
-constexpr int kUpPairs = 64;                 // up: column pairs (j, j + m/2) per block
-constexpr int kDownCols = kThreads;          // down: columns of h per block: one per thread in the merge
-static_assert(8 * 32 == kRowBytes && 4 * kUpPairs == kRowBytes && kDownCols == kRowBytes, "a warp per 32 bytes");
+constexpr int kUpPairs = 64;  // up: column pairs (j, j + m/2) per block
+static_assert(4 * kUpPairs == kRowBytes, "a staged up row: 64 pairs of W1, then of W3");
 
 // ring depth by n-tiles: two blocks on an SM at up to 16 rows
 template <int NT>
 struct Ring {
   static constexpr int kStages = NT <= 2 ? 4 : 3;
 };
-
-// Pitch in bytes of a staged s8 operand row of `half` (a multiple of 64)
-// contraction values: + 16, so that a B fragment's 8 rows x 4 words fall on
-// 32 distinct banks.
-__host__ __device__ constexpr int op_pitch(int half) { return half + 16; }
-
-// Where 16-byte chunk c of staged row k lies: the chunk index XOR 2 * ((k / 4)
-// % 4), so that the four 4-row groups an A fragment's word reads span fall on
-// distinct banks (every row starts on bank 0).
-__device__ __forceinline__ int swizzled(int k, int c) { return k * kRowBytes + ((c ^ (((k >> 2) & 3) << 1)) << 4); }
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) { cp_async16_zfill(dst, src, true); }
-
-// The byte offset, within a staged row, of the word lane (g, t) reads for the
-// warp's 32 columns at byte `col` of the row (columns col + 4g .. + 3; the
-// swizzle of each row it reads is 2t).
-__device__ __forceinline__ int a_offset(int col, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  return ((((col >> 4) + (g >> 2)) ^ (2 * t)) << 4) + ((4 * g) & 15);
-}
 
 // The warp's two integer dots over one staged tile of kTileK packed rows
 // (q4_k32 per k32 step, q4_mma.cuh). A: lane (g, t) reads, for contraction
@@ -146,19 +124,14 @@ __device__ __forceinline__ void tile_dots(const unsigned char* stage, int a_off,
       b2[nt][1] = *reinterpret_cast<const uint32_t*>(a2 + off + 16);
     }
     uint32_t w[2][4];
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        w[hf][r] = *reinterpret_cast<const uint32_t*>(stage + (kk + 16 * hf + 4 * t + r) * kRowBytes + a_off);
+    a_words(stage, kk, a_off, w);
     q4_k32<NT>(w, b1, b2, d1, d2);
   }
 }
 
-// The ring over KT stages: `load(s, kt)` issues stage kt's copies into ring
-// slot s; the caller has committed the first S - 1 groups. Every thread calls it.
+// The two integer dots of a tile over the ring (the caller has committed the first S - 1 groups).
 template <int NT, int S, typename Load>
-__device__ __forceinline__ void stream_dots(unsigned char* ring, Load load, int KT, int a_off, const int8_t* a1,
+__device__ __forceinline__ void stream_dots(unsigned char* smem, Load load, int KT, int a_off, const int8_t* a1,
                                             const int8_t* a2, int ld, int (&d1)[2][NT][4], int (&d2)[2][NT][4]) {
 #pragma unroll
   for (int p = 0; p < 2; ++p)
@@ -166,71 +139,17 @@ __device__ __forceinline__ void stream_dots(unsigned char* ring, Load load, int 
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) d1[p][nt][i] = d2[p][nt][i] = 0;
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<S - 2>();
-    __syncthreads();  // stage kt arrived for every thread; every warp is done with the stage overwritten next
-    if (kt + S - 1 < KT) load((kt + S - 1) % S, kt + S - 1);
-    cp_async_commit();
-    tile_dots<NT>(ring + (kt % S) * kStageBytes, a_off, a1, a2, ld, kt * kTileK, d1, d2);
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring and the staged operands are free
+  stream<S>(smem, load, KT, [&](const unsigned char* stage, int kt) {
+    tile_dots<NT>(stage, a_off, a1, a2, ld, kt * kTileK, d1, d2);
+  });
 }
 
-// The column scales a thread's accumulators need (columns 4g + 2p + q of the
-// warp's 32 at `sc`), read before the ring so that the epilogue waits on none.
-__device__ __forceinline__ void load_scales(const float* sc, float (&v)[2][2]) {
-  const int g = (threadIdx.x & 31) >> 2;
-#pragma unroll
-  for (int p = 0; p < 2; ++p)
-#pragma unroll
-    for (int q = 0; q < 2; ++q) v[p][q] = __ldg(sc + 4 * g + 2 * p + q);
-}
-
-// The accumulators times the column scales through the fp32 epilogue, as
-// `put(row, column of the warp's 32, value)` for the rows < N.
+// The fp32 epilogue of the two integer dots (st: the rows' sa1, sa2, corr, 4 a row).
 template <int NT, typename Put>
-__device__ __forceinline__ void epilogue(const int (&d1)[2][NT][4], const int (&d2)[2][NT][4], const float* st,
-                                         const float (&scale)[2][2], int N, Put put) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int p = 0; p < 2; ++p)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int n = nt * 8 + 2 * t + (i & 1);
-        if (n < N) put(n, 4 * g + 2 * p + (i >> 1), __fmul_rn(mm4_epilogue(d1[p][nt][i], d2[p][nt][i], st + 4 * n),
-                                                               scale[p][i >> 1]));
-      }
-}
-
-__device__ __forceinline__ void unpack_bf16x8(const uint4& v, float (&f)[8]) {
-  const bf162* p = reinterpret_cast<const bf162*>(&v);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 t = __bfloat1622float2(p[j]);
-    f[2 * j] = t.x;
-    f[2 * j + 1] = t.y;
-  }
-}
-
-// Non-negative floats compare as their bits: the row maxima go through atomicMax on unsigned.
-__device__ __forceinline__ void max_to(unsigned* p, float v, bool warp_uniform) {
-  if (warp_uniform) {
-    v = warp_max(v);
-    if ((threadIdx.x & 31) == 0) atomicMax(p, __float_as_uint(v));
-  } else {
-    atomicMax(p, __float_as_uint(v));
-  }
-}
-__device__ __forceinline__ void add_to(int* p, int v, bool warp_uniform) {
-  if (warp_uniform) {
-    v = __reduce_add_sync(0xffffffffu, v);
-    if ((threadIdx.x & 31) == 0) atomicAdd(p, v);
-  } else {
-    atomicAdd(p, v);
-  }
+__device__ __forceinline__ void epilogue2(const int (&d1)[2][NT][4], const int (&d2)[2][NT][4], const float* st,
+                                          const float (&scale)[2][2], int N, Put put) {
+  epilogue<NT>(scale, N, [&](int p, int nt, int i, int n) { return mm4_epilogue(d1[p][nt][i], d2[p][nt][i], st + 4 * n); },
+               put);
 }
 
 // Rows [r0, r0 + nr) of x, staged in shared memory as bf16 (xs, h values a
@@ -308,7 +227,6 @@ __global__ void __launch_bounds__(kThreads) q4s8_up_kernel(
   __shared__ float row_scale[kMaxRows][2];
   __shared__ int row_sum[kMaxRows][2];
   __shared__ unsigned x_max[kMaxRows][2];
-  __shared__ bool last;
   const int slot = blockIdx.y, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int hh = h / 2, mh = m / 2, ldx = op_pitch(hh), p0 = blockIdx.x * kUpPairs, T = gridDim.x;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -347,11 +265,7 @@ __global__ void __launch_bounds__(kThreads) q4s8_up_kernel(
     }
   };
   const int KT = hh / kTileK;
-#pragma unroll
-  for (int s = 0; s < S - 1; ++s) {
-    if (s < KT) load(s, s);
-    cp_async_commit();
-  }
+  prime<S>(load, KT);
   // warp w: table w / 4 (W1, W3), half (w / 2) % 2 (j, j + m/2), pairs 32 (w % 2) .. + 32
   const int table_u = warp >> 2, cw = (warp & 3) * 32;  // cw: the warp's 32 of the tile's 128 (j's, then j + m/2's)
   float scale[2][2];
@@ -361,7 +275,7 @@ __global__ void __launch_bounds__(kThreads) q4s8_up_kernel(
 
   // g (warps 0-3) and u (warps 4-7) into shared memory, then h = silu(g) * u
   float* gu = reinterpret_cast<float*>(smem_raw);  // [2][RP][128]: the 64 j, then the 64 j + m/2
-  epilogue<NT>(d1, d2, st, scale, N, [&](int n, int c, float v) { gu[(table_u * RP + n) * 128 + cw + c] = v; });
+  epilogue2<NT>(d1, d2, st, scale, N, [&](int n, int c, float v) { gu[(table_u * RP + n) * 128 + cw + c] = v; });
   __syncthreads();
   float* hs = hbuf + (size_t)slot * N * m;
   for (int i = tid; i < N * 128; i += kThreads) {
@@ -385,14 +299,7 @@ __global__ void __launch_bounds__(kThreads) q4s8_up_kernel(
   }
 
   // the block's writes, one fence, the slot's ticket; the slot's last block quantizes its h
-  __syncthreads();
-  if (tid == 0) {
-    __threadfence();
-    last = atomicAdd(&tickets[slot], 1) == T - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
+  if (!last_block(&tickets[slot], T)) return;
   const float2* tmax = hmax + (size_t)slot * T * N;
   for (int n = warp; n < N; n += kThreads / 32) {  // the rows' scales over the tiles (T <= 32)
     float2 v = lane < T ? __ldcg(tmax + (size_t)lane * N + n) : make_float2(0.0f, 0.0f);
@@ -468,17 +375,11 @@ __global__ void __launch_bounds__(kThreads) q4s8_down_kernel(
   int8_t* hb2 = hb1 + RP * ldh;
   float* st = reinterpret_cast<float*>(hb2 + RP * ldh);  // [RP][4]
 
-  auto load = [&](int s, int kt) {
-    unsigned char* d = smem_raw + s * kStageBytes;
-    for (int i = tid; i < kTileK * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = i % kChunks;
-      cp_async16(d + swizzled(r, c), W2 + (size_t)(kt * kTileK + r) * h + c * 16);
-    }
-  };
+  auto load = [&](int s, int kt) { load_tile(smem_raw + s * kStageBytes, W2, h, kt); };
   const int KT = mh / kTileK;
   float scale[2][2];
   load_scales(s2 + (size_t)R.expert * h + col0 + warp * 32, scale);
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the up launch is done: hq is written
+  wait_for_up();  // hq is written
   // the first group: stage 0 and the slot's N quantized h rows (a1, a2) with their scales (rows past N unread)
   load(0, 0);
   for (int i = tid; i < N * (mh / 16); i += kThreads) {
@@ -488,17 +389,13 @@ __global__ void __launch_bounds__(kThreads) q4s8_down_kernel(
   }
   for (int n = tid; n < N; n += kThreads) cp_async16(st + 4 * n, Q + (size_t)RP * m + 16 * n);
   cp_async_commit();
-#pragma unroll
-  for (int s = 1; s < S - 1; ++s) {
-    if (s < KT) load(s, s);
-    cp_async_commit();
-  }
+  prime<S>(load, KT, 1);
   int d1[2][NT][4], d2[2][NT][4];
   stream_dots<NT, S>(smem_raw, load, KT, a_offset(warp * 32, lane), hb1, hb2, ldh, d1, d2);
 
   // y into shared memory, then the tile's rows to the workspace
   float* ys = reinterpret_cast<float*>(smem_raw);  // [RP][kDownCols]
-  epilogue<NT>(d1, d2, st, scale, N, [&](int n, int c, float v) { ys[n * kDownCols + warp * 32 + c] = v; });
+  epilogue2<NT>(d1, d2, st, scale, N, [&](int n, int c, float v) { ys[n * kDownCols + warp * 32 + c] = v; });
   __syncthreads();
   float* yp = ypart + (size_t)slot * N * h + col0;
   for (int i = tid; i < N * kDownCols; i += kThreads) yp[(size_t)(i / kDownCols) * h + i % kDownCols] = ys[i];
@@ -513,20 +410,11 @@ int launch(const bf16* x, const uint8_t* q1, const float* s1, const uint8_t* q3,
   constexpr int S = Ring<NT>::kStages, RP = NT * 8;
   const size_t up_smem = (size_t)S * kStageBytes + 2 * RP * op_pitch(h / 2) + RP * 16;
   const size_t down_smem = (size_t)S * kStageBytes + 2 * RP * op_pitch(m / 2) + RP * 16;
-  // once per device: the kernels may take the most this instantiation needs (h = m = 2048), set whatever the
-  // size, as their static shared memory (the routing) counts against the 48 KB default too
-  static unsigned allowed = 0u;  // a bit per device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  // once per device: the most this instantiation needs (h = m = 2048), whatever the size
+  static unsigned allowed = 0u;
+  cudaError_t err = allow_once(allowed, q4s8_up_kernel<NT>, q4s8_down_kernel<NT>,
+                               S * kStageBytes + 2 * RP * op_pitch(1024) + RP * 16);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 32 || !(allowed >> dev & 1u)) {
-    const int most = S * kStageBytes + 2 * RP * op_pitch(1024) + RP * 16;
-    err = cudaFuncSetAttribute(q4s8_up_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(q4s8_down_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 32) allowed |= 1u << dev;
-  }
   const int n_slots = min(N * K, E), down_tiles = h / kDownCols, up_tiles = m / (2 * kUpPairs);
   // the workspace (the wrapper's q4s8_workspace_sizes): fbuf h (slots x N x m), then the up tiles' row maxima;
   // qbuf each slot's quantized h (RP x (m + 16) bytes); tickets the down tiles', then the slots'
@@ -535,218 +423,187 @@ int launch(const bf16* x, const uint8_t* q1, const float* s1, const uint8_t* q3,
       tickets + down_tiles, N, K, E, h, m);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute pdl;
-  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl.val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(down_tiles, n_slots);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = down_smem;
-  cfg.stream = st;
-  cfg.attrs = &pdl;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, q4s8_down_kernel<NT>, qbuf, q2, s2, topk_idx, idx64, topk_w, w_f32, fbuf, tickets,
-                           out, N, K, E, h, m);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return (int)launch_dependent(q4s8_down_kernel<NT>, dim3(down_tiles, n_slots), down_smem, st, qbuf, q2, s2, topk_idx,
+                               idx64, topk_w, w_f32, fbuf, tickets, out, N, K, E, h, m);
 }
 
 }  // namespace s8
 
 // ---------------------------------------------------------------------------
-// exact dequant: three launches over the wrapper's expert list
+// Exact: bf16 products of the converted nibbles on the tensor cores
 // ---------------------------------------------------------------------------
 
 namespace exact {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kCols = 128;  // output columns per block: 32 lanes x 4 bytes
+constexpr int kMaxRowsExact = 32;  // rows per launch pair: their bf16 values sit in shared memory
+constexpr int kUpCols = 128;       // up: columns of m per block, of W1 and of W3
 
-// Shared memory: the staged rows [R][n] fp32, then the per-warp partial sums
-// red [kWarps][R][kCols][NACC].
-template <int R, int NACC>
-struct Smem {
-  __host__ __device__ static size_t rows(int n) { return align16((size_t)R * n * sizeof(float)); }
-  __host__ __device__ static size_t bytes(int n) { return rows(n) + (size_t)kWarps * R * kCols * NACC * 4; }
+// ring depth by n-tiles: two blocks on an SM at 1 n-tile (up and down) and 2 (down); one block a deeper ring else
+template <int NT>
+struct Ring {
+  static constexpr int kUp = NT == 1 ? 4 : NT == 2 ? 5 : 3;
+  static constexpr int kDown = NT == 1 ? 4 : 3;
 };
 
-// Stage R rows of length n (lo half [0, n/2), hi half [n/2, n)) into xf
-// [R][n] as fp32. Rows >= nr are zero. `row(r, i)` gives element i of row r.
-template <int R, typename Row>
-__device__ void stage_rows(Row row, int nr, int n, float* xf) {
-  for (int i = threadIdx.x; i < n; i += kThreads)
-#pragma unroll
-    for (int r = 0; r < R; ++r) xf[r * n + i] = r < nr ? row(r, i) : 0.0f;
-  __syncthreads();
-}
+// Elements of a staged bf16 row of n values: + 16, so that each half-warp's 8-byte B reads (4 rows x 32 bytes) fall
+// on 32 distinct banks.
+__host__ __device__ constexpr int bf16_pitch(int n) { return n + 16; }
 
-// The R-row sums of one 128-column tile of NT packed (K/2, ncols) tables:
-// acc[r][c][2q], acc[r][c][2q+1] are, for table q, the low- and high-plane
-// fp32 sums of column 4 * lane + c. Each warp takes the 4-row groups warp,
-// warp + 8, ... of the kh = K/2 packed rows.
-template <int R, int NT>
-__device__ __forceinline__ void q4_dots(const uint8_t* const (&p)[NT], int kh, size_t ld, const float* xf,
-                                        float (&acc)[R][4][2 * NT]) {
-  const int warp = threadIdx.x >> 5;
-  for (int g = warp; g < kh / 4; g += kWarps) {
-    const int i = 4 * g;
-    uint32_t w[NT][4];
+// The warp's exact dots of one staged tile of kTileK packed rows (q4_bf16_k32 per 32 packed rows): B from the
+// staged bf16 rows `rows` (pitch ld elements), the low plane's values from k0, the high plane's from half + k0.
+template <int NT>
+__device__ __forceinline__ void tile_dots(const unsigned char* stage, int a_off, const bf16* rows, int ld, int half,
+                                          int k0, float (&d)[2][2][NT][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int q = 0; q < NT; ++q)
+  for (int kk = 0; kk < kTileK; kk += 32) {
+    uint2 b[NT][2][2];
 #pragma unroll
-      for (int rr = 0; rr < 4; ++rr) w[q][rr] = __ldg(reinterpret_cast<const uint32_t*>(p[q] + (size_t)(i + rr) * ld));
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int rr = 0; rr < 4; ++rr) {
-      float lo[NT][4], hi[NT][4];
+      for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
-      for (int q = 0; q < NT; ++q)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int b = (w[q][rr] >> (8 * c)) & 0xFF;
-          lo[q][c] = (float)((b & 15) - 8);
-          hi[q][c] = (float)((b >> 4) - 8);
-        }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float xl = xf[r * 2 * kh + i + rr], xh = xf[r * 2 * kh + kh + i + rr];
-#pragma unroll
-        for (int q = 0; q < NT; ++q)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            acc[r][c][2 * q] = fmaf(xl, lo[q][c], acc[r][c][2 * q]);
-            acc[r][c][2 * q + 1] = fmaf(xh, hi[q][c], acc[r][c][2 * q + 1]);
-          }
-      }
-    }
+        for (int q = 0; q < 2; ++q)
+          b[nt][hf][q] =
+              *reinterpret_cast<const uint2*>(rows + (nt * 8 + g) * ld + q * half + k0 + kk + 16 * hf + 4 * t);
+    uint32_t w[2][4];
+    a_words(stage, kk, a_off, w);
+    q4_bf16_k32<NT>(w, b, d);
   }
 }
 
-// The warps' partial sums of one tile into red, then `emit(r, c, sums)` for each
-// row r < nr and column c < valid_cols of the tile, with the NACC sums of all warps.
-template <int R, int NACC, typename Emit>
-__device__ __forceinline__ void reduce_tile(float (&acc)[R][4][NACC], float* red, int nr, int valid_cols, Emit emit) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// The planes' sums of a tile over the ring (the caller has committed the first S - 1 groups).
+template <int NT, int S, typename Load>
+__device__ __forceinline__ void stream_dots(unsigned char* smem, Load load, int KT, int a_off, const bf16* rows,
+                                            int ld, int half, float (&d)[2][2][NT][4]) {
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+  for (int q = 0; q < 2; ++q)
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
+    for (int p = 0; p < 2; ++p)
 #pragma unroll
-      for (int k = 0; k < NACC; ++k) red[((size_t)(warp * R + r) * kCols + 4 * lane + c) * NACC + k] = acc[r][c][k];
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < nr * kCols; idx += kThreads) {
-    const int r = idx / kCols, c = idx % kCols;
-    if (c >= valid_cols) continue;
-    float s[NACC];
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int k = 0; k < NACC; ++k) s[k] = 0;
-    for (int wp = 0; wp < kWarps; ++wp)
-#pragma unroll
-      for (int k = 0; k < NACC; ++k) s[k] += red[((size_t)(wp * R + r) * kCols + c) * NACC + k];
-    emit(r, c, s);
-  }
-  __syncthreads();
+        for (int i = 0; i < 4; ++i) d[q][p][nt][i] = 0.0f;
+  stream<S>(smem, load, KT, [&](const unsigned char* stage, int kt) {
+    tile_dots<NT>(stage, a_off, rows, ld, half, kt * kTileK, d);
+  });
 }
 
-template <int R>
+// up: hbuf (n_slots, N, m) bf16 <- silu(g) * u of slot blockIdx.y at columns [128 * blockIdx.x, + 128): g, u the
+// planes' fp32 sums added, times the column scales. The rows of x are copied into shared memory first, while the
+// routing is built; the block exits without a trigger, so the down launch starts as the blocks exit.
+template <int NT>
 __global__ void __launch_bounds__(kThreads) q4_up_kernel(
     const bf16* __restrict__ x, const uint8_t* __restrict__ q1, const float* __restrict__ s1,
-    const uint8_t* __restrict__ q3, const float* __restrict__ s3, const int* __restrict__ slot_expert,
-    const int* __restrict__ n_unique, float* __restrict__ hbuf, int n_rows, int h, int m) {
-  typedef Smem<R, 4> L;
-  const int slot = blockIdx.x;
-  if (slot >= n_unique[0]) return;
-  const int e = slot_expert[slot];
-  const int hh = h / 2;
-  const int lane = threadIdx.x & 31;
-  const int col0 = blockIdx.y * kCols;
-  const int col = col0 + 4 * lane;
-  const bool active = col < m;  // m % 8 == 0: a word never straddles the edge
+    const uint8_t* __restrict__ q3, const float* __restrict__ s3, const void* topk_idx, int idx64,
+    bf16* __restrict__ hbuf, int N, int K, int E, int h, int m) {
+  constexpr int S = Ring<NT>::kUp, RP = NT * 8;
+  __shared__ Routing R;
+  const int slot = blockIdx.y, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int hh = h / 2, ldx = bf16_pitch(h), p0 = blockIdx.x * kUpCols;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw + S * kStageBytes);  // [RP][ldx]: rows past N unwritten (their
+                                                                    // products unread)
+  for (int i = tid; i < N * (h / 8); i += kThreads) {
+    const int n = i / (h / 8), c = (i % (h / 8)) * 8;
+    cp_async16(xs + n * ldx + c, x + (size_t)n * h + c);
+  }
+  cp_async_commit();  // the first group, while the routing is built
+  build_routing(R, topk_idx, idx64, nullptr, 0, false, N, K, E, slot);
+  if (slot >= R.n_unique) {
+    cp_async_wait<0>();
+    return;
+  }
+  const size_t table = (size_t)R.expert * hh * m;
+  auto load = [&](int s, int kt) { load_pair_tiles(smem_raw + s * kStageBytes, q1 + table, q3 + table, m, kt, p0); };
+  const int KT = hh / kTileK;
+  prime<S>(load, KT);
+  const int table_u = warp >> 2, cw = (warp & 3) * 32;  // warp w: table w / 4 (W1, W3), columns cw .. + 32
+  float scale[2][2];
+  load_scales((table_u ? s3 : s1) + (size_t)R.expert * m + p0 + cw, scale);
+  float d[2][2][NT][4];
+  stream_dots<NT, S>(smem_raw, load, KT, a_offset(warp * 32, lane), xs, ldx, hh, d);
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* xf = reinterpret_cast<float*>(smem);
-  float* red = reinterpret_cast<float*>(smem + L::rows(h));
-
-  const uint8_t* const p[2] = {q1 + (size_t)e * hh * m + (active ? col : 0), q3 + (size_t)e * hh * m + (active ? col : 0)};
-  for (int r0 = 0; r0 < n_rows; r0 += R) {
-    const int nr = min(R, n_rows - r0);
-    const bf16* xr = x + (size_t)r0 * h;
-    stage_rows<R>([&](int r, int i) { return __bfloat162float(xr[(size_t)r * h + i]); }, nr, h, xf);
-    float acc[R][4][4];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[r][c][k] = 0;
-    if (active) q4_dots<R, 2>(p, hh, m, xf, acc);
-    reduce_tile<R, 4>(acc, red, nr, m - col0, [&](int r, int c, const float(&s)[4]) {
-      const size_t j = (size_t)e * m + col0 + c;
-      const float g = __fmul_rn(__fadd_rn(s[0], s[1]), s1[j]);
-      const float u = __fmul_rn(__fadd_rn(s[2], s[3]), s3[j]);
-      // the down dots' bf16 operand
-      const float hv = __fmul_rn(silu_exact(g), u);
-      hbuf[((size_t)slot * n_rows + r0 + r) * m + col0 + c] = __bfloat162float(__float2bfloat16(hv));
-    });
+  // g (warps 0-3) and u (warps 4-7) into shared memory, then h = silu(g) * u rounded to bf16
+  float* gu = reinterpret_cast<float*>(smem_raw);  // [2][RP][128]
+  epilogue<NT>(scale, N, [&](int p, int nt, int i, int) { return __fadd_rn(d[0][p][nt][i], d[1][p][nt][i]); },
+               [&](int n, int c, float v) { gu[(table_u * RP + n) * kUpCols + cw + c] = v; });
+  __syncthreads();
+  bf16* hs = hbuf + (size_t)slot * N * m + p0;
+  for (int i = tid; i < N * kUpCols / 2; i += kThreads) {
+    const int n = i / (kUpCols / 2), c = 2 * (i % (kUpCols / 2));
+    const float* gr = gu + n * kUpCols + c;
+    const float* ur = gu + (RP + n) * kUpCols + c;
+    *reinterpret_cast<bf162*>(hs + (size_t)n * m + c) =
+        __floats2bfloat162_rn(__fmul_rn(silu_exact(gr[0]), ur[0]), __fmul_rn(silu_exact(gr[1]), ur[1]));
   }
 }
 
-template <int R>
+// down: ypart (n_slots, N, h) fp32 <- the slot's bf16 h @ W2[e] times the column scale, for columns [256 *
+// blockIdx.x, + 256); then the tile's last block writes out (N, h) bf16 for those columns. The up launch's
+// programmatic dependent: it waits for the up launch before it reads h.
+template <int NT>
 __global__ void __launch_bounds__(kThreads) q4_down_kernel(
-    const float* __restrict__ hbuf, const uint8_t* __restrict__ q2, const float* __restrict__ s2,
-    const int* __restrict__ slot_expert, const int* __restrict__ n_unique, float* __restrict__ ybuf, int n_rows,
-    int h, int m) {
-  typedef Smem<R, 2> L;
-  const int slot = blockIdx.x;
-  if (slot >= n_unique[0]) return;
-  const int e = slot_expert[slot];
-  const int mh = m / 2;
-  const int lane = threadIdx.x & 31;
-  const int col0 = blockIdx.y * kCols;
-  const int col = col0 + 4 * lane;
-  const bool active = col < h;
+    const bf16* __restrict__ hbuf, const uint8_t* __restrict__ q2, const float* __restrict__ s2, const void* topk_idx,
+    int idx64, const void* topk_w, int w_f32, float* __restrict__ ypart, int* __restrict__ tickets,
+    bf16* __restrict__ out, int N, int K, int E, int h, int m) {
+  constexpr int S = Ring<NT>::kDown, RP = NT * 8;
+  __shared__ Routing R;
+  __shared__ MergeLists M;
+  const int slot = blockIdx.y, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  build_routing(R, topk_idx, idx64, topk_w, w_f32, true, N, K, E, slot);
+  const int U = R.n_unique;
+  if (slot >= U) return;
+  const int mh = m / 2, ldh = bf16_pitch(m), col0 = blockIdx.x * kDownCols;
+  const uint8_t* W2 = q2 + (size_t)R.expert * mh * h + col0;
+  const bf16* H = hbuf + (size_t)slot * N * m;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* hs = reinterpret_cast<bf16*>(smem_raw + S * kStageBytes);  // [RP][ldh], rows past N unwritten
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* xf = reinterpret_cast<float*>(smem);
-  float* red = reinterpret_cast<float*>(smem + L::rows(m));
-
-  const uint8_t* const p[1] = {q2 + (size_t)e * mh * h + (active ? col : 0)};
-  for (int r0 = 0; r0 < n_rows; r0 += R) {
-    const int nr = min(R, n_rows - r0);
-    const float* hr = hbuf + ((size_t)slot * n_rows + r0) * m;
-    stage_rows<R>([&](int r, int i) { return hr[(size_t)r * m + i]; }, nr, m, xf);
-    float acc[R][4][2];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c][0] = acc[r][c][1] = 0;
-    if (active) q4_dots<R, 1>(p, mh, h, xf, acc);
-    reduce_tile<R, 2>(acc, red, nr, h - col0, [&](int r, int c, const float(&s)[2]) {
-      const float d = __fadd_rn(s[0], s[1]);
-      ybuf[((size_t)slot * n_rows + r0 + r) * h + col0 + c] = __fmul_rn(d, s2[(size_t)e * h + col0 + c]);
-    });
+  auto load = [&](int s, int kt) { load_tile(smem_raw + s * kStageBytes, W2, h, kt); };
+  const int KT = mh / kTileK;
+  float scale[2][2];
+  load_scales(s2 + (size_t)R.expert * h + col0 + warp * 32, scale);
+  wait_for_up();  // h is written
+  load(0, 0);  // the first group: stage 0 and the slot's N rows of h
+  for (int i = tid; i < N * (m / 8); i += kThreads) {
+    const int n = i / (m / 8), c = (i % (m / 8)) * 8;
+    cp_async16(hs + n * ldh + c, H + (size_t)n * m + c);
   }
+  cp_async_commit();
+  prime<S>(load, KT, 1);
+  float d[2][2][NT][4];
+  stream_dots<NT, S>(smem_raw, load, KT, a_offset(warp * 32, lane), hs, ldh, mh, d);
+
+  float* ys = reinterpret_cast<float*>(smem_raw);  // [RP][kDownCols]
+  epilogue<NT>(scale, N, [&](int p, int nt, int i, int) { return __fadd_rn(d[0][p][nt][i], d[1][p][nt][i]); },
+               [&](int n, int c, float v) { ys[n * kDownCols + warp * 32 + c] = v; });
+  __syncthreads();
+  float* yp = ypart + (size_t)slot * N * h + col0;
+  for (int i = tid; i < N * kDownCols; i += kThreads) yp[(size_t)(i / kDownCols) * h + i % kDownCols] = ys[i];
+
+  merge_tile<false>(R, M, ypart, tickets, out, N, K, h, col0, U);
 }
 
-template <int R>
-cudaError_t launch(const bf16* x, const uint8_t* q1, const float* s1, const uint8_t* q3, const float* s3,
-                   const uint8_t* q2, const float* s2, const int* slot_expert, const int* n_unique, const float* gates,
-                   float* hbuf, float* ybuf, bf16* out, int n_rows, int n_slots, int h, int m, cudaStream_t stream) {
-  const size_t up_smem = Smem<R, 4>::bytes(h), down_smem = Smem<R, 2>::bytes(m);
-  cudaError_t err = allow_dynamic_smem(q4_up_kernel<R>, up_smem);
-  if (err != cudaSuccess) return err;
-  err = allow_dynamic_smem(q4_down_kernel<R>, down_smem);
-  if (err != cudaSuccess) return err;
-  q4_up_kernel<R><<<dim3(n_slots, (m + kCols - 1) / kCols), kThreads, up_smem, stream>>>(
-      x, q1, s1, q3, s3, slot_expert, n_unique, hbuf, n_rows, h, m);
+template <int NT>
+int launch(const bf16* x, const uint8_t* q1, const float* s1, const uint8_t* q3, const float* s3, const uint8_t* q2,
+           const float* s2, const void* topk_idx, const void* topk_w, float* ypart, bf16* hbuf, int* tickets,
+           bf16* out, int N, int K, int E, int h, int m, int idx64, int w_f32, cudaStream_t st) {
+  using Rg = Ring<NT>;
+  constexpr int RP = NT * 8;
+  auto smem = [](int stages, int n) { return (size_t)stages * kStageBytes + (size_t)RP * bf16_pitch(n) * 2; };
+  static unsigned allowed = 0u;  // once per device: the most this instantiation needs (h = m = 2048)
+  const size_t most = smem(Rg::kUp, 2048) > smem(Rg::kDown, 2048) ? smem(Rg::kUp, 2048) : smem(Rg::kDown, 2048);
+  cudaError_t err = allow_once(allowed, q4_up_kernel<NT>, q4_down_kernel<NT>, (int)most);
+  if (err != cudaSuccess) return (int)err;
+  const int n_slots = min(N * K, E), down_tiles = h / kDownCols;
+  // the workspace (the wrapper's q4_workspace_sizes): ypart, hbuf (slots x N x m bf16), the down tiles' tickets
+  q4_up_kernel<NT><<<dim3(m / kUpCols, n_slots), kThreads, smem(Rg::kUp, h), st>>>(x, q1, s1, q3, s3, topk_idx,
+                                                                                   idx64, hbuf, N, K, E, h, m);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  q4_down_kernel<R><<<dim3(n_slots, (h + kCols - 1) / kCols), kThreads, down_smem, stream>>>(
-      hbuf, q2, s2, slot_expert, n_unique, ybuf, n_rows, h, m);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  moe_slot_combine_kernel<<<dim3(n_rows, (h + 255) / 256), 256, 0, stream>>>(ybuf, gates, n_unique, out, n_rows, h);
-  return cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_dependent(q4_down_kernel<NT>, dim3(down_tiles, n_slots), smem(Rg::kDown, m), st, hbuf, q2, s2,
+                               topk_idx, idx64, topk_w, w_f32, ypart, tickets, out, N, K, E, h, m);
 }
 
 }  // namespace exact
@@ -761,18 +618,13 @@ cudaError_t launch(const bf16* x, const uint8_t* q1, const float* s1, const uint
 // x max(h, m + m / 64) fp32 (h and the up tiles' row maxima, then the down
 // products), qbuf S x RP x (m + 16) bytes (each slot's h quantized), tickets
 // h / 256 + S int32, zero before the first launch (every launch pair leaves
-// them zero); out (N, h) bf16. 1 <= N <= 64, 1 <= K <= 8, E <= 1024, h a
-// multiple of 256 and m of 128 (whole column tiles, whole stages of 64 packed
-// rows), each at most 2048 (the wrapper checks; the rows' s8 operands sit in
-// shared memory).
+// them zero); out (N, h) bf16. 1 <= N <= 64 and the shapes of ring::shape_ok
+// (the wrapper checks).
 extern "C" int mu_moe_stream_q4s8(const void* x, const void* q1, const void* s1, const void* q3, const void* s3,
                                   const void* q2, const void* s2, const void* topk_idx, const void* topk_w, void* fbuf,
                                   void* qbuf, void* tickets, void* out, int N, int K, int E, int h, int m, int idx64,
                                   int w_f32, void* stream) {
-  using namespace moe_decode;
-  if (N < 1 || N > kMaxRows || K < 1 || K > kMaxK || E < 1 || E > kMaxE || h < 256 || h % 256 || m < 128 ||
-      m % 128 || h > 2048 || m > 2048)
-    return (int)cudaErrorInvalidValue;
+  if (!moe_decode::ring::shape_ok(N, moe_decode::kMaxRows, K, E, h, m)) return (int)cudaErrorInvalidValue;
   const bf16* xb = static_cast<const bf16*>(x);
   const uint8_t *a = static_cast<const uint8_t*>(q1), *b = static_cast<const uint8_t*>(q3),
                 *c = static_cast<const uint8_t*>(q2);
@@ -783,7 +635,7 @@ extern "C" int mu_moe_stream_q4s8(const void* x, const void* q1, const void* s1,
   int* tk = static_cast<int*>(tickets);
   bf16* ob = static_cast<bf16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int pad = rows_pad(N);
+  const int pad = moe_decode::rows_pad(N);
 #define MU_Q4S8_LAUNCH(NT) \
   s8::launch<NT>(xb, a, sa, b, sb, c, sc, topk_idx, topk_w, fb, qb, tk, ob, N, K, E, h, m, idx64, w_f32, st)
   if (pad == 8) return MU_Q4S8_LAUNCH(1);
@@ -793,33 +645,32 @@ extern "C" int mu_moe_stream_q4s8(const void* x, const void* q1, const void* s1,
 #undef MU_Q4S8_LAUNCH
 }
 
-// Exact dequant. x (n_rows, h) bf16; q1/q3 (E, h/2, m) and q2 (E, m/2, h)
-// uint8 split-halves packed int4 for ONE layer with fp32 scales s1/s3 (E, 1,
-// m) and s2 (E, 1, h); slot_expert (n_slots,) int32 unique routed experts
-// first; n_unique (1,) int32; gates (n_slots, n_rows) fp32; scratch hbuf
-// (n_slots, n_rows, m) and ybuf (n_slots, n_rows, h) fp32; out (n_rows, h)
-// bf16. h and m must be multiples of 8 (the wrapper checks). Rows are taken
-// up to four at a time.
+// Exact dequant. x, the tables, topk_idx and topk_w as for mu_moe_stream_q4s8;
+// workspace, with S = min(N K, E) slots (the wrapper's q4_workspace_sizes):
+// ypart S x N x h fp32 (the down products), hbuf S x N x m bf16 (h), tickets
+// h / 256 int32, zero before the first launch (every launch pair leaves them
+// zero); out (N, h) bf16. 1 <= N <= 32 and the shapes of ring::shape_ok (the
+// wrapper checks).
 extern "C" int mu_moe_stream_q4(const void* x, const void* q1, const void* s1, const void* q3, const void* s3,
-                                const void* q2, const void* s2, const void* slot_expert, const void* n_unique,
-                                const void* gates, void* hbuf, void* ybuf, void* out, int n_rows, int n_slots, int h,
-                                int m, void* stream) {
+                                const void* q2, const void* s2, const void* topk_idx, const void* topk_w, void* ypart,
+                                void* hbuf, void* tickets, void* out, int N, int K, int E, int h, int m, int idx64,
+                                int w_f32, void* stream) {
+  if (!moe_decode::ring::shape_ok(N, exact::kMaxRowsExact, K, E, h, m)) return (int)cudaErrorInvalidValue;
   const bf16* xb = static_cast<const bf16*>(x);
   const uint8_t *a = static_cast<const uint8_t*>(q1), *b = static_cast<const uint8_t*>(q3),
                 *c = static_cast<const uint8_t*>(q2);
   const float *sa = static_cast<const float*>(s1), *sb = static_cast<const float*>(s3),
               *sc = static_cast<const float*>(s2);
-  const int *se = static_cast<const int*>(slot_expert), *nu = static_cast<const int*>(n_unique);
-  const float* gt = static_cast<const float*>(gates);
-  float *hb = static_cast<float*>(hbuf), *yb = static_cast<float*>(ybuf);
-  bf16* o = static_cast<bf16*>(out);
+  float* yb = static_cast<float*>(ypart);
+  bf16* hb = static_cast<bf16*>(hbuf);
+  int* tk = static_cast<int*>(tickets);
+  bf16* ob = static_cast<bf16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (n_rows <= 1)
-    err = exact::launch<1>(xb, a, sa, b, sb, c, sc, se, nu, gt, hb, yb, o, n_rows, n_slots, h, m, st);
-  else if (n_rows <= 2)
-    err = exact::launch<2>(xb, a, sa, b, sb, c, sc, se, nu, gt, hb, yb, o, n_rows, n_slots, h, m, st);
-  else
-    err = exact::launch<4>(xb, a, sa, b, sb, c, sc, se, nu, gt, hb, yb, o, n_rows, n_slots, h, m, st);
-  return (int)err;
+  const int pad = moe_decode::rows_pad(N);
+#define MU_Q4_LAUNCH(NT) \
+  exact::launch<NT>(xb, a, sa, b, sb, c, sc, topk_idx, topk_w, yb, hb, tk, ob, N, K, E, h, m, idx64, w_f32, st)
+  if (pad == 8) return MU_Q4_LAUNCH(1);
+  if (pad == 16) return MU_Q4_LAUNCH(2);
+  return MU_Q4_LAUNCH(4);
+#undef MU_Q4_LAUNCH
 }

@@ -1,7 +1,9 @@
 // The s8 tensor-core products on split-halves packed int4 bytes that the
 // int4 decode MoE (moe_stream_q4.cu) and the fused int4 RF sampler
 // (rf_sampler_q4.cu) share, the same step on int8 bytes (the fused int8 RF
-// sampler, rf_sampler_q8.cu), and the steps of their activations' s8 (pair)
+// sampler, rf_sampler_q8.cu, and the int8 decode MoE, moe_stream_q8.cu), the
+// exact step on the bf16 tensor cores from the same packed int4 words (the int4
+// decode MoE's exact mode), and the steps of their activations' s8 (pair)
 // quantization (ops/kernels/intdot.py quant_rows_s8_pair, quant_rows_s8),
 // each rounded as the plain versions round it.
 //
@@ -68,6 +70,52 @@ __device__ __forceinline__ void s8_k32(const uint32_t (&w)[2][4], const uint32_t
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) mma_s8(d[p][nt], a, b[nt]);
   }
+}
+
+// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16_f32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two nibbles of v (bits shift .. shift + 3 of its bytes 0 and 2, 0..15 offset-binary) as the bf16 pair of their
+// weights -8..7, exactly: 0x4300 | n is the bf16 128 + n, and 128 + n - 136 is exact.
+__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t v, int shift) {
+  const uint32_t n = ((v >> shift) & 0x000F000Fu) | 0x43004300u;
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(n), "r"(0x3F803F80u), "r"(0xC308C308u));  // n * 1 - 136
+  return r;
+}
+
+// The warp's exact dots of one 32-packed-row step on split-halves packed int4 bytes, on the bf16 tensor cores
+// (mma.sync m16n8k16, fp32 sums). Lane (g, t): w[hf][r] as for q4_k32 (the word of its 4 columns 4g .. 4g + 3 at
+// the step's packed row 16 hf + 4t + r). Each byte's low nibble is the weight at that contraction row of the low
+// plane, its high nibble the high plane's; k16 step (hf, plane) pairs the lane's rows 16 hf + 4t + (0, 1) as
+// k = 2t, 2t + 1 and (2, 3) as k = 2t + 8, 2t + 9, so b[nt][hf][q] is the B fragment of n-tile nt: the rows'
+// four bf16 values at those contraction rows of plane q (8 contiguous bytes of a bf16 row). d[q][p][nt]: plane
+// q's sums, element i column 4g + 2p + i / 2, row nt * 8 + 2t + i % 2 (as q4_k32).
+template <int NT>
+__device__ __forceinline__ void q4_bf16_k32(const uint32_t (&w)[2][4], const uint2 (&b)[NT][2][2],
+                                            float (&d)[2][2][NT][4]) {
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      // bytes 0 and 2 of v: column 4g + 2p (s0) or 4g + 2p + 1 (s1) at rows (0, 1), then (2, 3)
+      const unsigned s0 = p ? 0x6622u : 0x4400u, s1 = p ? 0x7733u : 0x5511u;
+      const uint32_t v[4] = {__byte_perm(w[hf][0], w[hf][1], s0), __byte_perm(w[hf][0], w[hf][1], s1),
+                             __byte_perm(w[hf][2], w[hf][3], s0), __byte_perm(w[hf][2], w[hf][3], s1)};
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const uint32_t a[4] = {nibbles_bf16x2(v[0], 4 * q), nibbles_bf16x2(v[1], 4 * q), nibbles_bf16x2(v[2], 4 * q),
+                               nibbles_bf16x2(v[3], 4 * q)};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_bf16_f32(d[q][p][nt], a, b[nt][hf][q].x, b[nt][hf][q].y);
+      }
+    }
 }
 
 // The steps of intdot.quant_rows_s8_pair (and of quant_rows_s8: pair_scale, pair_q), each rounded as the plain version rounds it.

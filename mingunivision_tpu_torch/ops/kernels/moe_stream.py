@@ -10,15 +10,15 @@ int8 tables). What bounds them on the H100 is the bytes of expert weights: a
 2-row CFG decode step reads up to 12 routed experts per layer, 17.3 MB each
 in bf16, 8.65 MB in int8 and 4.33 MB in int4. Each kernel reads each routed
 expert once and sums the experts' contributions in a deterministic order.
-The bf16 kernel and the int4 kernel's s8-dot mode build the unique-expert
-list in each block from the top-k ids and stream weight tiles through a
-shared-memory ring into the tensor cores (mma.sync: bf16 products, s8
-integer dots), two launches per call and no other device op, their scratch
-in a workspace kept per device and stream, the layer's tables reached by
-address; the int4 exact mode and the int8 wrappers build the list and the
-per-expert gate rows here (`expert_slots`, on the device, with no host sync)
-and their kernels stream the tables with coalesced loads. See the sources
-for the launch layouts.
+The bf16 kernel, both int4 modes and the int8 s8-dot mode build the
+unique-expert list in each block from the top-k ids and stream weight tiles
+through a shared-memory ring into the tensor cores (mma.sync: bf16 products,
+s8 integer dots, or bf16 products of int4 nibbles converted in registers),
+two launches per call and no other device op, their scratch in a workspace
+kept per device and stream, the layer's tables reached by address; the int8
+exact wrapper builds the list and the per-expert gate rows here
+(`expert_slots`, on the device, with no host sync) and its kernel streams the
+tables with coalesced loads. See the sources for the launch layouts.
 
 `moe_experts_stream` dispatches on the table kind (`table_kind`) and, for
 linear int4 and int8 tables, on the dot mode its caller passes (`int_dots`:
@@ -129,17 +129,19 @@ def check_tables(op: str, x_flat, w1, w3, w2):
 
 
 ROWS_PER_LAUNCH = 64  # csrc/moe_decode.cuh's kMaxRows: more rows take one pair of launches per 64
+Q4_ROWS_PER_LAUNCH = 32  # csrc/moe_stream_q4.cu's kMaxRowsExact: the exact mode's bf16 rows sit in shared memory
 MAX_TOP_K = 8  # its kMaxK: the top-k ids of the rows are read into shared memory
 MAX_EXPERTS = 1024  # its kMaxE: the routed experts are a bit set in shared memory
 COL_TILE_DOWN = 128  # csrc/moe_stream.cu's kDownCols: a ticket per column tile of h
-Q4S8_COL_TILE_DOWN = 256  # csrc/moe_stream_q4.cu (S8): columns of h per down block, a ticket each (h in whole tiles)
-Q4S8_M_ALIGN = 128  # its m: whole up tiles (64 column pairs) and whole stages of 64 packed rows
-Q4S8_MAX_WIDTH = 2048  # its limit on h and m: the rows' s8 operands sit in shared memory
+# the quantized two-launch kernels (moe_decode.cuh's `ring`: both int4 modes, the int8 s8 mode)
+RING_COL_TILE_DOWN = 256  # columns of h per down block, a ticket each (h in whole tiles)
+RING_M_ALIGN = 128  # m: whole up tiles (128 columns, or 64 column pairs) and whole stages of 64 (packed) rows
+RING_MAX_WIDTH = 2048  # the limit on h and m: the rows' operands sit in shared memory
 
 
-def row_chunks(N: int):
-    """(first row, rows) of each launch pair of the two-launch decode kernels: ROWS_PER_LAUNCH rows at a time."""
-    return ((r0, min(ROWS_PER_LAUNCH, N - r0)) for r0 in range(0, N, ROWS_PER_LAUNCH))
+def row_chunks(N: int, rows: int = ROWS_PER_LAUNCH):
+    """(first row, rows) of each launch pair of the two-launch decode kernels: `rows` at a time."""
+    return ((r0, min(rows, N - r0)) for r0 in range(0, N, rows))
 
 
 def rows_pad(n: int) -> int:
@@ -161,6 +163,8 @@ def workspace_sizes(N: int, k: int, E: int, h: int, m: int) -> tuple[int, int, i
 
 _workspaces: dict = {}  # (device index, stream) -> (bf16 h, fp32 down products, int32 tickets), grown on demand
 _q4s8_workspaces: dict = {}  # (device index, stream) -> (fp32 h / down products, s8 h, int32 tickets)
+_q4_workspaces: dict = {}  # (device index, stream) -> (fp32 down products, bf16 h, int32 tickets)
+_q8s8_workspaces: dict = {}  # (device index, stream) -> (fp32 h / down products, s8 h, int32 tickets)
 
 
 def _grown(store: dict, key, sizes: tuple[int, int, int], dtypes: tuple, device):
@@ -192,12 +196,46 @@ def q4s8_workspace_sizes(N: int, k: int, E: int, h: int, m: int) -> tuple[int, i
     quantized to the s8 pair with each row's scales; int32 tickets, one per
     256-column tile of h, then one per slot)."""
     slots = min(N * k, E)
-    return slots * N * max(h, m + m // 64), slots * rows_pad(N) * (m + 16), h // Q4S8_COL_TILE_DOWN + slots
+    return slots * N * max(h, m + m // 64), slots * rows_pad(N) * (m + 16), h // RING_COL_TILE_DOWN + slots
 
 
 def _q4s8_workspace(sizes: tuple[int, int, int], device, stream: int):
     """The int4 s8-mode kernel's buffers, kept as `_workspace` keeps the bf16 kernel's."""
     return _grown(_q4s8_workspaces, (device.index, stream), sizes, (torch.float32, torch.int8, torch.int32), device)
+
+
+@functools.lru_cache(maxsize=256)
+def q4_workspace_sizes(N: int, k: int, E: int, h: int, m: int) -> tuple[int, int, int]:
+    """The workspace one launch pair of the int4 kernel's exact mode needs for
+    N <= Q4_ROWS_PER_LAUNCH rows routed top-k over E experts of (h, m) tables,
+    with S = min(N k, E) slots: (fp32, S x N x h: the down launch's products;
+    bf16, S x N x m: the up launch's h; int32 tickets, one per 256-column tile
+    of h)."""
+    slots = min(N * k, E)
+    return slots * N * h, slots * N * m, h // RING_COL_TILE_DOWN
+
+
+def _q4_workspace(sizes: tuple[int, int, int], device, stream: int):
+    """The int4 exact-mode kernel's buffers, kept as `_workspace` keeps the bf16 kernel's."""
+    return _grown(_q4_workspaces, (device.index, stream), sizes, (torch.float32, torch.bfloat16, torch.int32), device)
+
+
+@functools.lru_cache(maxsize=256)
+def q8s8_workspace_sizes(N: int, k: int, E: int, h: int, m: int) -> tuple[int, int, int]:
+    """The workspace one launch pair of the int8 kernel's s8 mode needs for N
+    <= ROWS_PER_LAUNCH rows routed top-k over E experts of (h, m) tables, with
+    S = min(N k, E) slots: (fp32, S x N x max(h, m + m / 128): the up launch's
+    h and its tiles' row maxima (a tile is 128 columns of m), then the down
+    launch's products; bytes, S x rows_pad(N) x (m + 16): each slot's h
+    quantized to s8 with each row's scale; int32 tickets, one per 256-column
+    tile of h, then one per slot)."""
+    slots = min(N * k, E)
+    return slots * N * max(h, m + m // 128), slots * rows_pad(N) * (m + 16), h // RING_COL_TILE_DOWN + slots
+
+
+def _q8s8_workspace(sizes: tuple[int, int, int], device, stream: int):
+    """The int8 s8-mode kernel's buffers, kept as `_workspace` keeps the bf16 kernel's."""
+    return _grown(_q8s8_workspaces, (device.index, stream), sizes, (torch.float32, torch.int8, torch.int32), device)
 
 
 def _layer_pointer(op: str, name: str, w, layer_idx, shape: tuple, dev: int, dtype=torch.bfloat16) -> int:
@@ -386,10 +424,9 @@ def moe_experts_nf4(experts, x_flat, topk_idx, topk_w, *, layer_idx=None):
 
 
 def check_q4_tables(op: str, x_flat, w1, w3, w2):
-    """What the int4 prefill MoE kernels and the exact-dequant decode kernel
-    need: contiguous uint8 (E, h/2, m)/(E, m/2, h) packed tables with
-    contiguous fp32 (E, 1, m)/(E, 1, h) scales and bf16 (N, h) rows, all on
-    one device. Returns (E, h, m)."""
+    """What the int4 prefill MoE kernels need: contiguous uint8 (E, h/2,
+    m)/(E, m/2, h) packed tables with contiguous fp32 (E, 1, m)/(E, 1, h)
+    scales and bf16 (N, h) rows, all on one device. Returns (E, h, m)."""
     E, hh, m = w1.q.shape
     h = 2 * hh
     expect = (("gate_proj", w1, (E, hh, m), (E, 1, m)), ("up_proj", w3, (E, hh, m), (E, 1, m)),
@@ -404,40 +441,74 @@ def check_q4_tables(op: str, x_flat, w1, w3, w2):
     return E, h, m
 
 
-def check_q4s8_inputs(experts, x_flat, topk_idx, topk_w, layer_idx=None):
-    """What the int4 kernel's s8 mode takes (the wrapper's checks, callable on
-    any device): linear int4 tables, their packed uint8 (E, h/2, m) / (E, m/2,
-    h) bytes and fp32 (E, 1, m) / (E, 1, h) scales (one layer's, or a stacked
-    table's layer `layer_idx`), contiguous and 16-byte aligned, h a multiple
-    of Q4S8_COL_TILE_DOWN and m of Q4S8_M_ALIGN, each at most Q4S8_MAX_WIDTH;
-    bf16 (N, h) rows; the
-    routing as `check_stream_inputs` takes it; one device. Raises ValueError on
-    anything else (shard-grouped tables, packed per contraction group).
-    Returns (x, the six addresses q1, s1, q3, s3, q2, s2, ids, gates, (E, h,
-    m)), x, ids and gates contiguous and x 16-byte aligned."""
-    op = "moe_experts_stream_q4s8"
+def _check_ring_inputs(op: str, bits: int, experts, x_flat, topk_idx, topk_w, layer_idx):
+    """What the quantized two-launch kernels take (moe_decode.cuh's `ring`):
+    linear tables of `bits` (4: split-halves packed uint8 (E, h/2, m) / (E,
+    m/2, h) bytes; 8: int8 (E, h, m) / (E, m, h)) with fp32 (E, 1, m) / (E, 1,
+    h) scales (one layer's, or a stacked table's layer `layer_idx`),
+    contiguous and 16-byte aligned, h a multiple of RING_COL_TILE_DOWN and m of
+    RING_M_ALIGN, each at most RING_MAX_WIDTH; bf16 (N, h) rows; the routing as
+    `check_stream_inputs` takes it; one device. Raises ValueError on anything
+    else. Returns (x, the six addresses q1, s1, q3, s3, q2, s2, ids, gates,
+    (E, h, m)), x, ids and gates contiguous and x 16-byte aligned."""
     tables = [experts[n] for n in ("gate_proj", "up_proj", "down_proj")]
-    if not all(is_int4_linear(t) for t in tables):
-        raise ValueError(f"{op}: needs linear int4 tables packed in one group, got {tables[0]!r}")
-    E, hh, m = tables[0].q.shape[-3:]
-    h = 2 * hh
+    linear, pack, dtype = (is_int4_linear, 2, torch.uint8) if bits == 4 else (is_int8_linear, 1, torch.int8)
+    if not all(linear(t) for t in tables):
+        raise ValueError(f"{op}: needs linear int{bits} tables in one group, got {tables[0]!r}")
+    E, rows, m = tables[0].q.shape[-3:]
+    h = pack * rows
     dev = x_flat.get_device()
     ptrs = []
-    for name, w, qshape, sshape in (("gate_proj", tables[0], (E, hh, m), (E, 1, m)),
-                                    ("up_proj", tables[1], (E, hh, m), (E, 1, m)),
-                                    ("down_proj", tables[2], (E, m // 2, h), (E, 1, h))):
-        ptrs.append(_layer_pointer(op, f"{name}.q", w.q, layer_idx, qshape, dev, torch.uint8))
+    for name, w, qshape, sshape in (("gate_proj", tables[0], (E, rows, m), (E, 1, m)),
+                                    ("up_proj", tables[1], (E, rows, m), (E, 1, m)),
+                                    ("down_proj", tables[2], (E, m // pack, h), (E, 1, h))):
+        ptrs.append(_layer_pointer(op, f"{name}.q", w.q, layer_idx, qshape, dev, dtype))
         ptrs.append(_layer_pointer(op, f"{name}.s", w.s, layer_idx, sshape, dev, torch.float32))
     if x_flat.dtype is not torch.bfloat16 or x_flat.dim() != 2 or x_flat.shape[-1] != h:
         raise ValueError(f"{op}: x must be bf16 (N, {h}), got {x_flat.dtype} {tuple(x_flat.shape)}")
-    if h % Q4S8_COL_TILE_DOWN or m % Q4S8_M_ALIGN or h > Q4S8_MAX_WIDTH or m > Q4S8_MAX_WIDTH:
-        raise ValueError(f"{op}: needs h a multiple of {Q4S8_COL_TILE_DOWN} and m of {Q4S8_M_ALIGN}, each at most "
-                         f"{Q4S8_MAX_WIDTH} (h={h}, m={m})")
+    if h % RING_COL_TILE_DOWN or m % RING_M_ALIGN or h > RING_MAX_WIDTH or m > RING_MAX_WIDTH:
+        raise ValueError(f"{op}: needs h a multiple of {RING_COL_TILE_DOWN} and m of {RING_M_ALIGN}, each at most "
+                         f"{RING_MAX_WIDTH} (h={h}, m={m})")
     _check_routing(op, x_flat, topk_idx, topk_w, E, dev)
     x = x_flat
     if not x.is_contiguous() or x.data_ptr() % 16:  # the kernel reads x by 16-byte pieces
         x = x.clone(memory_format=torch.contiguous_format)
     return x, tuple(ptrs), topk_idx.contiguous(), topk_w.contiguous(), (E, h, m)
+
+
+def check_q4s8_inputs(experts, x_flat, topk_idx, topk_w, layer_idx=None, op: str = "moe_experts_stream_q4s8"):
+    """What the int4 kernel takes in both dot modes (`_check_ring_inputs` on
+    int4 tables; shard-grouped tables, packed per contraction group, raise),
+    callable on any device."""
+    return _check_ring_inputs(op, 4, experts, x_flat, topk_idx, topk_w, layer_idx)
+
+
+def check_q8s8_inputs(experts, x_flat, topk_idx, topk_w, layer_idx=None):
+    """What the int8 kernel's s8 mode takes (`_check_ring_inputs` on int8
+    tables), callable on any device."""
+    return _check_ring_inputs("moe_experts_stream_q8s8", 8, experts, x_flat, topk_idx, topk_w, layer_idx)
+
+
+def _launch_pairs(name: str, counter, workspace, sizes, rows: int, checked):
+    """Launches the two-launch kernel `name` on the checked inputs (x, the six
+    table addresses, ids, gates, (E, h, m)), `rows` rows a launch pair, each
+    pair on its workspace `workspace(sizes(n, k, E, h, m), device, stream)`
+    and counted on `counter.launches`. Returns the (N, h) bf16 output, the
+    call's one allocation."""
+    x, ptrs, idx, gates, (E, h, m) = checked
+    N, k = idx.shape
+    out = torch.empty((N, h), dtype=torch.bfloat16, device=x.device)
+    stream = build.stream_handle(x)
+    fn = getattr(build.load(), name)
+    xp, ip, gp, op = x.data_ptr(), idx.data_ptr(), gates.data_ptr(), out.data_ptr()
+    for r0, n in row_chunks(N, rows):
+        a, b, tickets = workspace(sizes(n, k, E, h, m), x.device, stream)
+        rc = fn(xp + r0 * h * 2, *ptrs, ip + r0 * k * idx.element_size(), gp + r0 * k * gates.element_size(),
+                a.data_ptr(), b.data_ptr(), tickets.data_ptr(), op + r0 * h * 2, n, k, E, h, m,
+                int(idx.dtype is torch.int64), int(gates.dtype is torch.float32), stream)
+        build.check(rc, name)
+        counter.launches += 1
+    return out
 
 
 def moe_experts_stream_q4s8(experts, x_flat, topk_idx, topk_w, *, layer_idx=None):
@@ -448,49 +519,21 @@ def moe_experts_stream_q4s8(experts, x_flat, topk_idx, topk_w, *, layer_idx=None
     address. x_flat (N, h) bf16 -> (N, h)."""
     if x_flat.device.type == "cpu":
         return moe_experts_stream_q4s8_plain(experts, x_flat, topk_idx, topk_w, layer_idx=layer_idx)
-    x, ptrs, idx, gates, (E, h, m) = check_q4s8_inputs(experts, x_flat, topk_idx, topk_w, layer_idx)
-    N, k = idx.shape
-    out = torch.empty((N, h), dtype=torch.bfloat16, device=x.device)
-    stream = build.stream_handle(x)
-    lib = build.load()
-    xp, ip, gp, op = x.data_ptr(), idx.data_ptr(), gates.data_ptr(), out.data_ptr()
-    for r0, n in row_chunks(N):
-        fbuf, qbuf, tickets = _q4s8_workspace(q4s8_workspace_sizes(n, k, E, h, m), x.device, stream)
-        rc = lib.mu_moe_stream_q4s8(
-            xp + r0 * h * 2, *ptrs, ip + r0 * k * idx.element_size(), gp + r0 * k * gates.element_size(),
-            fbuf.data_ptr(), qbuf.data_ptr(), tickets.data_ptr(), op + r0 * h * 2, n, k, E, h, m,
-            int(idx.dtype is torch.int64), int(gates.dtype is torch.float32), stream,
-        )
-        build.check(rc, "mu_moe_stream_q4s8")
-        moe_experts_stream_q4s8.launches += 1
-    return out
+    return _launch_pairs("mu_moe_stream_q4s8", moe_experts_stream_q4s8, _q4s8_workspace, q4s8_workspace_sizes,
+                         ROWS_PER_LAUNCH, check_q4s8_inputs(experts, x_flat, topk_idx, topk_w, layer_idx))
 
 
 def moe_experts_stream_q4(experts, x_flat, topk_idx, topk_w, *, layer_idx=None):
     """Decode-path MoE over linear int4 tables with exact dequant (the CUDA
-    kernel `csrc/moe_stream_q4.cu`, `mu_moe_stream_q4`). x_flat (N, h) bf16 -> (N, h)."""
+    kernel `csrc/moe_stream_q4.cu`, `mu_moe_stream_q4`): the s8 mode's design
+    with bf16 products of the nibbles, two launches per Q4_ROWS_PER_LAUNCH
+    rows, no other device op but the output's allocation, the layer's six
+    tensors reached by address. x_flat (N, h) bf16 -> (N, h)."""
     if x_flat.device.type == "cpu":
         return moe_experts_stream_q4_plain(experts, x_flat, topk_idx, topk_w, layer_idx=layer_idx)
-    op = "moe_experts_stream_q4"
-    w1, w3, w2 = layer_tables(experts, layer_idx)
-    E, h, m = check_q4_tables(op, x_flat, w1, w3, w2)
-    if h % 8 or m % 8:
-        raise ValueError(f"{op}: needs h and m multiples of 8 (h={h}, m={m})")
-    x = x_flat.contiguous()
-    N = x.shape[0]
-    slot_expert, gates, n_unique = expert_slots(topk_idx, topk_w, E)
-    n_slots = slot_expert.numel()
-    hbuf = torch.empty((n_slots, N, m), dtype=torch.float32, device=x.device)
-    ybuf = torch.empty((n_slots, N, h), dtype=torch.float32, device=x.device)
-    out = torch.empty((N, h), dtype=torch.bfloat16, device=x.device)
-    rc = build.load().mu_moe_stream_q4(
-        x.data_ptr(), w1.q.data_ptr(), w1.s.data_ptr(), w3.q.data_ptr(), w3.s.data_ptr(), w2.q.data_ptr(),
-        w2.s.data_ptr(), slot_expert.data_ptr(), n_unique.data_ptr(), gates.data_ptr(), hbuf.data_ptr(),
-        ybuf.data_ptr(), out.data_ptr(), N, n_slots, h, m, build.stream_handle(x),
-    )
-    build.check(rc, "mu_moe_stream_q4")
-    moe_experts_stream_q4.launches += 1
-    return out
+    checked = check_q4s8_inputs(experts, x_flat, topk_idx, topk_w, layer_idx, op="moe_experts_stream_q4")
+    return _launch_pairs("mu_moe_stream_q4", moe_experts_stream_q4, _q4_workspace, q4_workspace_sizes,
+                         Q4_ROWS_PER_LAUNCH, checked)
 
 
 moe_experts_stream_q4.launches = 0
@@ -549,8 +592,9 @@ def check_q8_tables(op: str, x_flat, w1, w3, w2):
     return E, h, m
 
 
-def _launch_q8(op: str, experts, x_flat, topk_idx, topk_w, layer_idx, s8_dots: bool):
-    """One launch of `csrc/moe_stream_q8.cu` in the given dot mode."""
+def _launch_q8(op: str, experts, x_flat, topk_idx, topk_w, layer_idx):
+    """One launch of `csrc/moe_stream_q8.cu`'s exact mode over the expert list
+    built here (`expert_slots`)."""
     w1, w3, w2 = layer_tables(experts, layer_idx)
     E, h, m = check_q8_tables(op, x_flat, w1, w3, w2)
     if h % 8 or m % 8:
@@ -565,7 +609,7 @@ def _launch_q8(op: str, experts, x_flat, topk_idx, topk_w, layer_idx, s8_dots: b
     rc = build.load().mu_moe_stream_q8(
         x.data_ptr(), w1.q.data_ptr(), w1.s.data_ptr(), w3.q.data_ptr(), w3.s.data_ptr(), w2.q.data_ptr(),
         w2.s.data_ptr(), slot_expert.data_ptr(), n_unique.data_ptr(), gates.data_ptr(), hbuf.data_ptr(),
-        ybuf.data_ptr(), out.data_ptr(), N, n_slots, h, m, int(s8_dots), build.stream_handle(x),
+        ybuf.data_ptr(), out.data_ptr(), N, n_slots, h, m, build.stream_handle(x),
     )
     build.check(rc, "mu_moe_stream_q8")
     return out
@@ -573,20 +617,22 @@ def _launch_q8(op: str, experts, x_flat, topk_idx, topk_w, layer_idx, s8_dots: b
 
 def moe_experts_stream_q8s8(experts, x_flat, topk_idx, topk_w, *, layer_idx=None):
     """Decode-path MoE over int8 tables with s8 integer dots (the CUDA kernel
-    `csrc/moe_stream_q8.cu`, S8). x_flat (N, h) bf16 -> (N, h)."""
+    `csrc/moe_stream_q8.cu`, `mu_moe_stream_q8s8`): the int4 s8 mode's design,
+    two launches per ROWS_PER_LAUNCH rows, the expert list built in the
+    kernel, no other device op but the output's allocation, the layer's six
+    tensors reached by address. x_flat (N, h) bf16 -> (N, h)."""
     if x_flat.device.type == "cpu":
         return moe_experts_stream_q8s8_plain(experts, x_flat, topk_idx, topk_w, layer_idx=layer_idx)
-    out = _launch_q8("moe_experts_stream_q8s8", experts, x_flat, topk_idx, topk_w, layer_idx, s8_dots=True)
-    moe_experts_stream_q8s8.launches += 1
-    return out
+    return _launch_pairs("mu_moe_stream_q8s8", moe_experts_stream_q8s8, _q8s8_workspace, q8s8_workspace_sizes,
+                         ROWS_PER_LAUNCH, check_q8s8_inputs(experts, x_flat, topk_idx, topk_w, layer_idx))
 
 
 def moe_experts_stream_q8(experts, x_flat, topk_idx, topk_w, *, layer_idx=None):
     """Decode-path MoE over int8 tables with exact dequant (the CUDA kernel
-    `csrc/moe_stream_q8.cu`, not S8). x_flat (N, h) bf16 -> (N, h)."""
+    `csrc/moe_stream_q8.cu`, `mu_moe_stream_q8`). x_flat (N, h) bf16 -> (N, h)."""
     if x_flat.device.type == "cpu":
         return moe_experts_stream_q8_plain(experts, x_flat, topk_idx, topk_w, layer_idx=layer_idx)
-    out = _launch_q8("moe_experts_stream_q8", experts, x_flat, topk_idx, topk_w, layer_idx, s8_dots=False)
+    out = _launch_q8("moe_experts_stream_q8", experts, x_flat, topk_idx, topk_w, layer_idx)
     moe_experts_stream_q8.launches += 1
     return out
 

@@ -1,8 +1,9 @@
 """PyTorch port: each hand-written CUDA kernel against its plain PyTorch version
 on the card, in bf16 (the int4 and int8 kernels on int4 and int8 tables of
 the same weights, in both dot modes, the int8 ones and the new modes also at
-the 16B-A3B width; the int4 decode MoE with s8 dots to the bit, its launches,
-workspace and tickets too; the int4 and int8 RF samplers (the int4 one in both
+the 16B-A3B width; the int4 decode MoE with s8 dots and the int8 one with s8
+dots to the bit, the int4 one with exact dequant within bf16's precision,
+their launches, workspaces and tickets too; the int4 and int8 RF samplers (the int4 one in both
 schedules, the int8 one in both dot modes; both at grids of 1, 5 and one CTA
 per SM, their workspaces too) and the per-step RF stack in its four bodies to
 the bit, since their plain versions sum in their order or exactly; the s8 prefill MoE kernels to the
@@ -387,7 +388,11 @@ def test_moe_stream_q8_kernels_match_plain(dev, n, int_dots):
     got = moe_experts_stream(ex, x, idx, w, layer_idx=1, int_dots=int_dots)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    _close_bf16(got, moe_experts_stream_plain(ex, x, idx, w, layer_idx=1, int_dots=int_dots))
+    want = moe_experts_stream_plain(ex, x, idx, w, layer_idx=1, int_dots=int_dots)
+    if int_dots:  # the s8 mode's integer sums are exact and its fp32 steps the plain version's: its bits
+        assert torch.equal(got, want)
+    else:
+        _close_bf16(got, want)
 
 
 @pytest.mark.parametrize("choices", [None, [0, 3, 5]], ids=["spread", "skewed-empty-experts"])
@@ -1781,3 +1786,149 @@ def test_moe_stream_q4s8_at_full_width_matches_plain(dev):
         got = moe_experts_stream_q4s8(ex, x, idx, wt, layer_idx=0)
         torch.cuda.synchronize()
         assert torch.equal(got, moe_experts_stream_plain(ex, x, idx, wt, layer_idx=0)), n
+
+
+# ---------------------------------------------------------------------------
+# the int8 decode MoE with s8 dots (7a) and the int4 one with exact dequant (7e) on row 4's body: the expert
+# list built in the kernel, two launches, s8 or bf16 products on the tensor cores
+# ---------------------------------------------------------------------------
+
+# name: (wrapper, quantized bits, the dot mode `moe_experts_stream` takes, its two kernels, rows a launch pair)
+_RING = {"q8s8": (moe_experts_stream_q8s8, 8, True, ("q8s8_up_kernel", "q8s8_down_kernel"), 64),
+         "q4": (moe_experts_stream_q4, 4, False, ("q4_up_kernel", "q4_down_kernel"), 32)}
+
+
+def _ring_tables(dev, which, layers=2, seed=0):
+    return {k: quantize_array(v, _RING[which][1]) for k, v in _experts(dev, layers=layers, seed=seed).items()}
+
+
+def _ring_held(which, got, want):
+    """7a gives the plain version's bits (exact integer sums, its fp32 steps); 7e sums fp32 in another order."""
+    if which == "q8s8":
+        assert torch.equal(got, want)
+    else:
+        _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("which", list(_RING))
+@pytest.mark.parametrize("case", ["int64-ids-fp32-gates", "int32-ids-bf16-gates", "last-layer-of-3", "repeat-and-drop"])
+def test_moe_stream_ring_kernel_routing_inputs(dev, which, case):
+    """int32 or int64 ids, bf16 or fp32 gates; a stacked table's last layer; a
+    row naming one expert twice and ids outside [0, E) (dropped)."""
+    ex = _ring_tables(dev, which, layers=3, seed=110)
+    idx, w = _routing(dev, 3, 6, seed=111)
+    x = torch.randn(3, H, device=dev).to(torch.bfloat16)
+    layer = -1 if case == "last-layer-of-3" else 2
+    if case == "int64-ids-fp32-gates":
+        idx, w = idx.long(), w.float()
+    elif case == "int32-ids-bf16-gates":
+        idx = idx.int()
+    elif case == "repeat-and-drop":
+        idx = idx.clone()
+        idx[0, 1] = idx[0, 0]
+        idx[1, 2], idx[2, 0] = E, -1
+    kernel, _, int_dots, _, _ = _RING[which]
+    before = kernel.launches
+    got = kernel(ex, x, idx, w, layer_idx=layer)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _ring_held(which, got, moe_experts_stream_plain(ex, x, idx, w, layer_idx=layer, int_dots=int_dots))
+
+
+@pytest.mark.parametrize("which", list(_RING))
+@pytest.mark.parametrize("n", [2, 16])
+def test_moe_stream_ring_two_kernels_and_no_scratch_allocation_per_call(dev, which, n):
+    ex = _ring_tables(dev, which, seed=112)
+    idx, w = _routing(dev, n, 6, seed=113)
+    x = torch.randn(n, H, device=dev).to(torch.bfloat16)
+    kernel, _, _, names, _ = _RING[which]
+    call = lambda: kernel(ex, x, idx, w, layer_idx=1)  # noqa: E731
+    events = _device_events(call, calls=3)
+    ups, downs = (sum(name in e for e in events) for name in names)
+    assert 0 < ups <= 3 and 0 < downs <= 3 and ups + downs == len(events), events
+    assert _allocations(call) == 1  # the output only: the workspace is kept
+
+
+@pytest.mark.parametrize("which", list(_RING))
+def test_moe_stream_ring_on_two_streams_leaves_the_tickets_at_zero(dev, which):
+    """Calls on two streams at once, each with its own workspace, give the
+    default stream's bits; every launch leaves its tickets at zero, and a
+    second call on a stream reuses its workspace."""
+    from mingunivision_tpu_torch.ops.kernels import moe_stream as ms
+
+    kernel = _RING[which][0]
+    store = ms._q8s8_workspaces if which == "q8s8" else ms._q4_workspaces
+    ex = _ring_tables(dev, which, seed=114)
+    cases = []
+    for n, seed in ((16, 115), (3, 116)):
+        idx, w = _routing(dev, n, 6, seed=seed)
+        cases.append((torch.randn(n, H, device=dev).to(torch.bfloat16), idx, w))
+    want = [kernel(ex, x, idx, w, layer_idx=0) for x, idx, w in cases]
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    outs, spaces = [], {}
+    for _ in range(3):
+        for which_case, stream in enumerate((s1, s2)):
+            with torch.cuda.stream(stream):
+                x, idx, w = cases[which_case]
+                outs.append((which_case, kernel(ex, x, idx, w, layer_idx=0)))
+                key = (x.device.index, stream.cuda_stream)
+                bufs = tuple(t.data_ptr() for t in store[key])
+                assert spaces.setdefault(key, bufs) == bufs  # reused, not allocated again
+    torch.cuda.synchronize()
+    for which_case, out in outs:
+        assert torch.equal(out, want[which_case])
+    for key in spaces:
+        assert not store[key][2].any()
+
+
+@pytest.mark.parametrize("which", list(_RING))
+def test_moe_stream_ring_more_rows_than_one_launch(dev, which):
+    """80 rows: one pair of launches per 64 rows (7a) or per 32 (7e)."""
+    kernel, _, int_dots, _, rows = _RING[which]
+    ex = _ring_tables(dev, which, seed=117)
+    idx, w = _routing(dev, 80, 6, seed=118)
+    x = torch.randn(80, H, device=dev).to(torch.bfloat16)
+    before = kernel.launches
+    got = moe_experts_stream(ex, x, idx, w, layer_idx=1, int_dots=int_dots)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + -(-80 // rows)
+    _ring_held(which, got, moe_experts_stream_plain(ex, x, idx, w, layer_idx=1, int_dots=int_dots))
+
+
+@pytest.mark.parametrize("which", list(_RING))
+def test_moe_stream_ring_raises_on_unsupported_input(dev, which):
+    kernel = _RING[which][0]
+    ex = _ring_tables(dev, which, seed=119)
+    idx, w = _routing(dev, 2, 6, seed=120)
+    x = torch.randn(2, H, device=dev)
+    with pytest.raises(ValueError):
+        kernel(ex, x, idx, w, layer_idx=0)  # fp32 rows
+    with pytest.raises(ValueError):
+        kernel(ex, x.to(torch.bfloat16), idx, w)  # a stacked table without its layer
+    narrow = {k: quantize_array(v[..., :320] if k != "down_proj" else v[..., :320, :], _RING[which][1])
+              for k, v in _experts(dev, seed=121).items()}
+    with pytest.raises(ValueError):
+        kernel(narrow, x.to(torch.bfloat16), idx, w, layer_idx=0)  # m = 320: not whole tiles
+    other = _ring_tables(dev, "q4" if which == "q8s8" else "q8s8", seed=122)
+    with pytest.raises(ValueError):
+        kernel(other, x.to(torch.bfloat16), idx, w, layer_idx=0)  # the other tier's tables
+
+
+@pytest.mark.parametrize("which", list(_RING))
+def test_moe_stream_ring_at_full_width_matches_plain(dev, which):
+    """The 16B-A3B tables (64 experts of 2048 x 1408), 1, 2, 3, 12 and 16 rows
+    top-6: 7a the plain version's bits, 7e within bf16's precision."""
+    kernel, bits, int_dots, _, _ = _RING[which]
+    g = torch.Generator(device=dev).manual_seed(123)
+    shapes = {"gate_proj": (1, 64, 2048, 1408), "up_proj": (1, 64, 2048, 1408), "down_proj": (1, 64, 1408, 2048)}
+    ex = {k: quantize_array(torch.empty(s, device=dev, dtype=torch.bfloat16).normal_(0, 0.02, generator=g), bits)
+          for k, s in shapes.items()}
+    for n in (1, 2, 3, 12, 16):
+        scores = torch.rand((n, 64), device=dev, generator=g)
+        wt, idx = torch.topk(torch.softmax(scores, -1), 6)
+        wt = (wt / wt.sum(-1, keepdim=True)).to(torch.bfloat16)
+        x = torch.randn(n, 2048, device=dev, generator=g).to(torch.bfloat16)
+        got = kernel(ex, x, idx, wt, layer_idx=0)
+        torch.cuda.synchronize()
+        _ring_held(which, got, moe_experts_stream_plain(ex, x, idx, wt, layer_idx=0, int_dots=int_dots))
