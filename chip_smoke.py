@@ -106,9 +106,10 @@ Phases, one printed line each; any failure exits non-zero:
               its RF head swapped for an int8 one, quantized on the card from a
               bf16 copy kept aside; the int4 LLM kernels and the int8 sampler
      slice_int4_exact  the int4 model's round with moe_int_dots=False: the
-              exact-dequant int4 decode MoE (this and the other rounds in
-              another dot mode or RF route below cut to 64 image tokens, a
-              256-px image, to keep the run in its limit)
+              exact-dequant int4 decode MoE (this, the mixed tier's round, the
+              n_images=2 round and the other rounds in another dot mode or RF
+              route below cut to 64 image tokens, a 256-px image, to keep the
+              run in its limit)
      slice_int8  the same round on the int8 quality tier (LLM and RF head int8):
               the int8 decode MoE with s8 dots, the int8 prefill MoE, the int8
               sampler
@@ -166,7 +167,7 @@ Then a JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 `--phases` picks the phases (default: the twenty-two above), e.g.
-`--phases device,build,kernels,understand` or `--phases device,build,kernels,serve`. Eight more run only when named:
+`--phases device,build,kernels,understand` or `--phases device,build,kernels,serve`. Nine more run only when named:
   decode_kernels  the kernels phase's cases of the decode kernels that run
               without a PyTorch op: the bf16 decode MoE, the int4 one in both
               dot modes, the int8 one with s8 dots and paged decode attention
@@ -174,6 +175,16 @@ Then a JSON line with every kernel's numbers, and as the last line
               each with its kernel-alone device time and its kernels per call
               (the way to time an older tree's kernels beside these: run this
               script from that tree's root)
+  prefill_kernels  the prefill MoE on bf16 tables (row 2) and on int4 tables
+              with exact dequant (row 5) at full width: 128 tokens, the same
+              skewed to 8 experts, 384, 1,152 (92 pads) through the sorted and
+              the capacity dispatch, and row 2 at the LM train step's 2,048
+              tokens (12,288 rows): through the wrapper, the kernels alone over
+              the prepared schedule (`kernel_device_ms`), bound, device events
+              and allocations per call, max abs error; row 2 beside a
+              yardstick of three PyTorch calls (`torch._grouped_mm` for W1 and
+              W3, silu * mul, the down `_grouped_mm`); runs from an older
+              tree's root too, as decode_kernels
   sampler_kernels  the fused RF samplers at full width, 2 CFG rows and 3
               with renorm: the int4 one in both schedules, the int8 one in
               both dot modes, held to the bit, with their kernel-alone device
@@ -277,9 +288,10 @@ KERNELS = {
 }
 BF16_KERNELS = ("moe_stream", "moe_swiglu_gmm", "decode_attention")
 NF4_IMAGE_TOKENS = 64  # the slice_nf4 round's image loop (256-304 ms per token), cut to keep the run in its limit
-# the image loops of the rounds that rerun a tier's T2I in another dot mode or RF route (slice_int4_exact,
-# slice_int8_s8, slice_int4_perstep, slice_int8_perstep), cut to keep the run in its limit: each still
-# launches its kernels at every LLM step and image token, held by the same floors
+# the image loops of the rounds that rerun a tier's T2I in another dot mode, RF route or RF tier
+# (slice_int4_exact, slice_int8_s8, slice_int4_perstep, slice_int8_perstep, slice_int4_rf8) and of the
+# n_images=2 round (images_int4), cut to keep the run in its limit: each still launches its kernels at
+# every LLM step and image token, held by the same floors
 VARIANT_IMAGE_TOKENS = 64
 REL_TOL = 1e-2  # kernel vs plain: max |err| <= REL_TOL * max |plain| (bf16 keeps ~3 digits)
 # H100 SXM data sheet: HBM3 bytes/s and dense peak operations/s by operand type
@@ -1039,6 +1051,157 @@ def run_decode_kernels(torch, results: dict) -> bool:
     del q8
     torch.cuda.empty_cache()
     return ok & paged_cases(torch, results, g, cfg)
+
+
+# the prefill MoE kernels' CUDA kernels, as torch.profiler names them: the wgmma body of rows 2 and 5
+# (`swiglu_wgmma.cuh`) and the first versions it replaced (an older tree's, when this script runs from its root)
+PREFILL_MOE_KERNELS = ("::swiglu_wgmma_kernel<", "::gmm_up_kernel(", "::gmm_down_kernel(", "::gmm_q4_up_kernel(",
+                       "::gmm_q4_down_kernel(")
+
+
+def prefill_moe_device_ms(torch, averages) -> tuple:
+    """(device ms, calls) of the prefill MoE's kernels (rows 2 and 5) among a
+    profile's `key_averages()`."""
+    cuda = torch.autograd.DeviceType.CUDA
+    hits = [e for e in averages if e.device_type == cuda and any(k in e.key for k in PREFILL_MOE_KERNELS)]
+    return sum(e.self_device_time_total for e in hits) / 1e3, sum(e.count for e in hits)
+
+
+def prefill_tile_rows(msg, kind: str) -> int:
+    """The tile rows of the prefill kernel for `kind` tables ("plain" or
+    "int4", exact dequant); an older tree's `tile_rows()` takes no arguments
+    (one value for every kernel)."""
+    try:
+        return msg.tile_rows(kind)
+    except TypeError:
+        return msg.tile_rows()
+
+
+def run_prefill_kernels(torch, results: dict) -> bool:
+    """The prefill_kernels phase: row 2 (bf16 tables) and row 5 (int4 tables,
+    exact dequant) at full width (E 64, h 2048, m 1408, top-6) on layer 0 of
+    the kernels phase's tables: a 128-token prompt (T2I), the same skewed to
+    8 experts, 384 tokens (editing), the understanding prompt's 1,152 tokens
+    (92 pads) through the sorted and the capacity dispatch, and for row 2 the
+    LM train step's 2,048 tokens (12,288 rows, sorted, as training's forward
+    takes them). Each case: through the wrapper (`run_case`: ms, plain ms,
+    bound, max abs err against the plain version, valid rows only), and the
+    kernels alone (`swiglu_gmm_rows` over the dispatch's prepared schedule:
+    `kernel_device_ms`, device events and allocations per call). Row 2 also
+    beside a yardstick of three PyTorch calls computing the same function on
+    the sorted rows (`torch._grouped_mm` for W1 and W3, silu * mul, the down
+    `_grouped_mm`; the sort not timed), which nothing on the port's path calls.
+    Runs from an older tree's root too (its kernels, this script's cases)."""
+    import torch.nn.functional as F
+
+    from mingunivision_tpu_torch.config import MingUniVisionConfig
+    from mingunivision_tpu_torch.ops.kernels import moe_swiglu_gmm as msg
+    from mingunivision_tpu_torch.ops.kernels.moe_capacity import (
+        capacity_schedule,
+        default_capacity,
+        expert_rank,
+        moe_experts_capacity_gmm_exact,
+        moe_experts_capacity_gmm_exact_plain,
+    )
+    from mingunivision_tpu_torch.utils.quantize import quantize_array
+
+    cfg = MingUniVisionConfig()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+    E, h, m, k = cfg.llm.num_experts, cfg.llm.hidden_size, cfg.llm.moe_intermediate_size, cfg.llm.num_experts_per_tok
+    shapes = {"gate_proj": (1, E, h, m), "up_proj": (1, E, h, m), "down_proj": (1, E, m, h)}
+    experts = {n: torch.empty(sh, device=dev, dtype=bf).normal_(0, 0.02, generator=g) for n, sh in shapes.items()}
+    routing, _, prefill = moe_cases(torch, g, E, k)
+    n_und, n_pad = 1152, 92
+    cap = default_capacity(n_und, k, E, cfg.llm.moe_prefill_capacity_factor)
+    und_valid = torch.arange(n_und, device=dev) < n_und - n_pad
+    ok = True
+
+    def prepared(tables, kind, x, idx, capacity):
+        """(row_token, row_expert, sched, sorted rows, group offsets) of the
+        sorted dispatch, or of the capacity one (pads routed out, as
+        `moe_experts_capacity_gmm_exact` does), at the kernel's tile rows."""
+        tile = prefill_tile_rows(msg, kind)
+        if capacity is None:
+            order, row_token, sched = msg.group_schedule(idx, E, tile)
+            row_expert = None
+        else:
+            flat = torch.where(und_valid[:, None], idx, E).reshape(-1)
+            rank, sizes = expert_rank(flat, E)
+            dst, row_expert, sched, _ = capacity_schedule(flat, rank, sizes, E, capacity, tile)
+            row_token = torch.zeros(E * capacity + 1, dtype=torch.int32, device=dev)
+            row_token[dst] = (torch.arange(flat.numel(), device=dev) // k).to(torch.int32)
+            row_token = row_token[: E * capacity]
+        flat = idx.reshape(-1).long()
+        xs = x[flat.argsort(stable=True) // k]
+        offs = torch.bincount(flat, minlength=E).cumsum(0).to(torch.int32)
+        return row_token, row_expert, sched, xs, offs
+
+    def cases_of(tables, name, kind, per_expert, extra=()):
+        nonlocal ok
+        for label, n, choices, capacity in ([(lbl, n, ch, None) for lbl, n, ch in prefill]
+                                            + [("384 tok x k=6 (editing prompt)", 384, None, None),
+                                               (f"{n_und} tok ({n_pad} pads) x k=6, sorted dispatch", n_und, None,
+                                                None),
+                                               (f"{n_und} tok ({n_pad} pads) x k=6, capacity dispatch C={cap}", n_und,
+                                                None, cap)] + list(extra)):
+            x = torch.randn((n, h), device=dev, generator=g).to(bf)
+            idx, w = routing(n, choices)
+            valid = und_valid if n == n_und else None
+            if valid is not None:  # the prompt's padding rows: one embedding, one routing
+                x[~valid], idx[~valid], w[~valid] = x[-1].clone(), idx[-1].clone(), w[-1].clone()
+            nbytes, ops = (int(torch.unique(idx if valid is None else idx[valid]).numel()) * per_expert
+                           + 2 * n * h * 2, 6.0 * idx.numel() * h * m)
+            if capacity is None:
+                kern = lambda: msg.moe_experts_swiglu_gmm(tables, x, idx, w, E, layer_idx=0)  # noqa: B023, E731
+                plain = lambda: msg.moe_experts_swiglu_gmm_plain(tables, x, idx, w, E, layer_idx=0)  # noqa: B023, E731
+            else:
+                kw = dict(token_valid=valid, layer_idx=0)
+                kern = lambda: moe_experts_capacity_gmm_exact(tables, x, idx, w, E, capacity, **kw)  # noqa: B023, E731
+                plain = lambda: moe_experts_capacity_gmm_exact_plain(tables, x, idx, w, E, capacity,  # noqa: B023, E731
+                                                                     **kw)
+            row_token, row_expert, sched, xs, offs = prepared(tables, kind, x, idx, capacity)
+            alone = lambda: msg.swiglu_gmm_rows(tables, x, row_token, row_expert, sched, E,  # noqa: B023, E731
+                                                layer_idx=0)
+            others = {}
+            if kind == "plain":  # the yardstick: three PyTorch grouped products and silu * mul
+                w1, w3, w2 = (tables[nm][0] for nm in ("gate_proj", "up_proj", "down_proj"))
+
+                def yardstick(xs=xs, offs=offs, w1=w1, w3=w3, w2=w2):
+                    a = F.silu(torch._grouped_mm(xs, w1, offs=offs)) * torch._grouped_mm(xs, w3, offs=offs)
+                    return torch._grouped_mm(a, w2, offs=offs)
+
+                others["yardstick_3_calls"] = yardstick
+            big = n >= n_und
+            ok &= run_case(torch, results, name, label, kern, plain, nbytes, ops, "bf16", iters=5 if big else 20,
+                           rows=valid, plain_iters=2 if big else None, others=others)
+            case = results[name]["cases"][-1]
+            case["device_ms"] = kernel_device_ms(torch, alone)
+            per_call, names = kernels_per_call(torch, alone)
+            case.update(kernels_per_call=per_call, kernel_names=names,
+                        allocations_per_call=allocations_per_call(torch, alone),
+                        tile_rows=prefill_tile_rows(msg, kind), scheduled_tiles=int((sched[:, 2] > sched[:, 1]).sum()))
+            if "yardstick_3_calls" in others:
+                case["yardstick_3_calls_device_ms"] = kernel_device_ms(torch, others["yardstick_3_calls"])
+            yard = "".join(f" {key}={fmt_ms(case.get(key))}" for key in ("yardstick_3_calls_ms",
+                                                                           "yardstick_3_calls_device_ms")
+                           if key in case)
+            print(f"prefill_kernels {name} [{label}]: wrapper_ms={case['ms']:.4f} alone_ms={fmt_ms(case['device_ms'])} "
+                  f"bound_ms={case['bound_ms']:.4f} max_abs_err={case['max_abs_err']:.3e} tile_rows={case['tile_rows']} "
+                  f"tiles={case['scheduled_tiles']} device events per call {per_call:g} {names} allocations per call "
+                  f"{case['allocations_per_call']}{yard}")
+            ok &= case["device_ms"] is not None
+
+    train = [(f"2048 tok x k=6 (LM train step, {2048 * k} rows), sorted dispatch", 2048, None, None)]
+    cases_of(experts, "moe_swiglu_gmm", "plain", 3 * h * m * 2, extra=train)
+    q4 = {n: quantize_array(t, 4) for n, t in experts.items()}
+    del experts
+    torch.cuda.empty_cache()
+    cases_of(q4, "moe_swiglu_gmm_q4", "int4", 3 * h * m // 2 + (2 * m + h) * 4)
+    del q4
+    torch.cuda.empty_cache()
+    return ok
 
 
 def run_sampler_kernels(torch, results: dict) -> bool:
@@ -2722,6 +2885,9 @@ def run_profile_understand(torch, cfg, device, tier="bfloat16", new_tokens: int 
     print("profile_understand device ms by stage [calls, ms]: " + "; ".join(
         f"{stage} [{n}, {ms:.3f}]" for stage, (n, ms) in by_stage.items()))
     kernels = [e for e in prof.key_averages() if e.device_type == cuda and e.key not in UNDERSTAND_STAGES]
+    moe_ms, moe_calls = prefill_moe_device_ms(torch, kernels)
+    print(f"profile_understand ({tier}) prefill MoE kernels (rows 2 / 5): {moe_ms:.3f} ms device, {moe_calls} kernel "
+          f"launches, {moe_ms / busy_ms:.3f} of busy")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"profile_understand kernel: {e.self_device_time_total / 1e3:9.3f} ms {e.count:7d} calls "
               f"{e.self_device_time_total / max(e.count, 1):9.3f} us/call  {e.key[:90]}")
@@ -3359,6 +3525,10 @@ def profile_train_step(torch, state, step, record: dict, label: str = "train lm 
           + ", ".join(f"{k} {v:.2f}" for k, v in path["by_node_ms"].items()) + "; by kernel: "
           + ", ".join(f"{k} {v:.2f}" for k, v in path["by_kind_ms"].items()))
     top = [e for e in prof.key_averages() if e.device_type == cuda and not annotation(e)]
+    fused_ms, fused_calls = prefill_moe_device_ms(torch, top)
+    record["profile"]["fused_forward_ms"] = fused_ms
+    print(f"{label} fused prefill MoE forward (row 2): {fused_ms:.3f} ms device, {fused_calls} kernel launches, "
+          f"{fused_ms / busy_ms:.3f} of busy")
     for e in sorted(top, key=lambda e: -e.self_device_time_total)[:14]:
         print(f"{label} kernel: {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} calls "
               f"{e.self_device_time_total / max(e.count, 1):10.3f} us/call  {e.key[:90]}")
@@ -3902,7 +4072,7 @@ def run_images(torch, cfg, params, device, results: dict, tier="int4") -> bool:
     t = sess.timings
     decode_moe, prefill_moe, sampler = tier_kernels(tier)
     floors = {decode_moe: L * (n_tok + 1), prefill_moe: L, "decode_attention": L * (n_tok + 1), sampler: n_tok}
-    checks = image_round_checks(out.images, 2) + launch_checks(launches, floors)
+    checks = image_round_checks(out.images, 2, math.isqrt(n_tok) * 32) + launch_checks(launches, floors)
     checks += [("2 CFG rows x 2 images", (t.get("cfg_rows"), t.get("n_images")) == (2, 2)),
                (f"{sampler} launches == {n_tok} (4 rows: one launch)", launches[sampler] == n_tok)]
     print(f"{label} T2I n_images=2: prompt {ids.shape[1]} ids, {L} layers, {tier}, rows=4, "
@@ -4183,12 +4353,12 @@ def main(argv=None) -> int:
             ok &= run_slice(torch, short, params, cuda, results, tier, RuntimeConfig(rf_fused_sampler=False),
                             f"slice_{tier}_perstep")
         if mixed:
-            ok &= run_slice_mixed(torch, cfg, params, cuda, results)
+            ok &= run_slice_mixed(torch, short, params, cuda, results)
         # several images per request: n_images=2, the barrier batcher, the image pool
         for phase, round_fn in (("images", run_images), ("image_batch", run_image_batch),
                                 ("image_pool", run_image_pool)):
             if f"{phase}_{tier}" in run:
-                ok &= round_fn(torch, cfg, params, cuda, results, tier)
+                ok &= round_fn(torch, short if phase == "images" else cfg, params, cuda, results, tier)
                 torch.cuda.empty_cache()
         if "edit" in run:
             ok &= run_edit(torch, cfg, params, cuda, results, tier)
@@ -4206,6 +4376,8 @@ def main(argv=None) -> int:
         stamp(f"the {tier} tier's rounds")
     if "decode_kernels" in phases:
         ok &= run_decode_kernels(torch, results)
+    if "prefill_kernels" in phases:
+        ok &= run_prefill_kernels(torch, results)
     if "sampler_kernels" in phases:
         ok &= run_sampler_kernels(torch, results)
     if "routing" in phases:

@@ -19,8 +19,9 @@
 // 64 x 8.65 MB = 554 MB (165 us at 3.35 TB/s), and does 13 G operations (the
 // understanding prompt's 1,152 tokens: the same bytes, 120 G operations).
 //
-// Design: the bf16 kernel's (moe_swiglu_gmm.cu) group schedule and tiles (the
-// expert-sorted and the capacity dispatch both build it), reading the stacked
+// Design: the bf16 kernel's (moe_swiglu_gmm.cu) group schedule at tiles of 32
+// rows, its own (the expert-sorted and the capacity dispatch both build it;
+// a kernel handed a longer tile traps), reading the stacked
 // tables' layer views, never copies. Exact: two launches, the int8 bytes
 // converted to fp32 in shared memory in the load path. S8: four launches,
 //   quantize  x per token row to s8 (one block per token);
@@ -40,7 +41,7 @@
 
 namespace {
 
-constexpr int TM = 32;  // rows per tile (the schedule's tile, mu_swiglu_gmm_tile_rows)
+constexpr int TM = 32;  // rows per tile (the schedule's tile, mu_swiglu_gmm_q8_tile_rows)
 constexpr int BN = 64;  // output columns per block
 constexpr int BK = 32;  // contraction rows per step
 constexpr int kThreads = 256;  // 16 x 16: each thread owns 2 rows x 4 columns
@@ -75,6 +76,7 @@ __global__ void __launch_bounds__(kThreads) gmm_q8_up_kernel(
   const int r0 = sched[3 * tile + 1];
   const int r1 = sched[3 * tile + 2];
   if (r0 >= r1) return;
+  if (r1 - r0 > TM) __trap();  // a schedule built for longer tiles than the kernel's: refused
   const int n0 = blockIdx.x * BN;
   const int tid = threadIdx.x;
   const int ty = tid / 16;
@@ -134,6 +136,7 @@ __global__ void __launch_bounds__(kThreads) gmm_q8_down_kernel(
   const int r0 = sched[3 * tile + 1];
   const int r1 = sched[3 * tile + 2];
   if (r0 >= r1) return;
+  if (r1 - r0 > TM) __trap();  // a schedule built for longer tiles than the kernel's: refused
   const int n0 = blockIdx.x * BN;
   const int tid = threadIdx.x;
   const int ty = tid / 16;
@@ -233,6 +236,7 @@ __global__ void __launch_bounds__(kThreads) gmm_q8s8_up_kernel(
   const int r0 = sched[3 * tile + 1];
   const int r1 = sched[3 * tile + 2];
   if (r0 >= r1) return;
+  if (r1 - r0 > TM) __trap();  // a schedule built for longer tiles than the kernel's: refused
   const int n0 = blockIdx.x * BN;
   const int tid = threadIdx.x;
   const int ty = tid / 16;
@@ -286,6 +290,7 @@ __global__ void __launch_bounds__(kThreads) gmm_q8s8_down_kernel(
   const int r0 = sched[3 * tile + 1];
   const int r1 = sched[3 * tile + 2];
   if (r0 >= r1) return;
+  if (r1 - r0 > TM) __trap();  // a schedule built for longer tiles than the kernel's: refused
   const int n0 = blockIdx.x * BN;
   const int tid = threadIdx.x;
   const int ty = tid / 16;
@@ -338,12 +343,11 @@ __global__ void __launch_bounds__(kThreads) gmm_q8s8_down_kernel(
 // sa unused. S8 (s8 = 1): scratch hbuf (A, m) fp32, xq (n_tokens, h) s8, sx
 // (n_tokens,) fp32, aq (A, m) s8, sa (A, m / chunk) fp32; chunk a multiple of
 // 32 dividing m. h and m must be multiples of 64 (the wrapper checks); the tile
-// rows are mu_swiglu_gmm_tile_rows().
+// rows are mu_swiglu_gmm_q8_tile_rows() (a longer tile traps).
 extern "C" int mu_swiglu_gmm_q8(const void* x, const void* row_token, const void* q1, const void* s1, const void* q3,
                                 const void* s3, const void* q2, const void* s2, const void* sched, void* hbuf,
                                 void* ys, void* xq, void* sx, void* aq, void* sa, int n_tiles, int h, int m,
                                 int n_tokens, int s8, int chunk, void* stream) {
-  static_assert(TM == 32, "the schedule is built for the bf16 kernel's 32-row tiles");
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* rt = static_cast<const int*>(row_token);
   const int* sc = static_cast<const int*>(sched);
@@ -376,3 +380,6 @@ extern "C" int mu_swiglu_gmm_q8(const void* x, const void* row_token, const void
                                                                    chunk);
   return (int)cudaGetLastError();
 }
+
+// Rows per schedule tile of both modes' kernels; the wrapper builds their schedules with it.
+extern "C" int mu_swiglu_gmm_q8_tile_rows(void) { return TM; }

@@ -30,13 +30,16 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "mu_moe_stream_bf16": [_P] * 10 + [_I] * 7 + [_P],
     "mu_moe_stream_rows_pad": [_I],
-    "mu_swiglu_gmm_bf16": [_P] * 8 + [_I] * 3 + [_P],
+    "mu_swiglu_gmm_bf16": [_P] * 8 + [_I] * 5 + [_P],
     "mu_swiglu_gmm_tile_rows": [],
+    "mu_swiglu_gmm_q4_tile_rows": [_I],
+    "mu_swiglu_gmm_q8_tile_rows": [],
+    "mu_swiglu_gmm_full_tile_rows": [],
     "mu_decode_attention_bf16": [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P],
     "mu_decode_attention_tile": [],
     "mu_moe_stream_q4": [_P] * 13 + [_I] * 7 + [_P],
     "mu_moe_stream_q4s8": [_P] * 13 + [_I] * 7 + [_P],
-    "mu_swiglu_gmm_q4": [_P] * 17 + [_I] * 5 + [_P],
+    "mu_swiglu_gmm_q4": [_P] * 17 + [_I] * 7 + [_P],
     "mu_rf_sampler_q4s8": [_P] * 19 + [_I] * 12 + [ctypes.c_float] * 3 + [_P],
     "mu_rf_sampler_grid": [],
     "mu_rf_sampler_q4s8_workspace": [_I] * 3,

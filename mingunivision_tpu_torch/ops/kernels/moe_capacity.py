@@ -10,7 +10,8 @@ ones, in either dot mode: `s8`, as the JAX package's `s8=` at `:160, 226,
 257, 290-293`). Assignment a (token a // k, expert e) gets slot e * C + rank, where
 rank counts the earlier assignments to e in original order; the kernels read
 x through the slot -> token map and a schedule whose tiles start at each
-expert's first slot and end at its load, so no tile straddles two experts,
+expert's first slot and end at its load (at most the launched kernel's tile
+rows, `tile_rows`), so no tile straddles two experts,
 each routed expert's tables are read once per row tile, and no sort or
 un-sort runs. Each assignment's output row is gathered back by its slot and
 the gate-weighted combine is fp32.
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from mingunivision_tpu_torch.ops.kernels.moe_stream import table_kind
 from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import (
     combine_assignments,
     moe_experts_swiglu_gmm,
@@ -94,7 +96,9 @@ def _capacity_gmm(experts, x_flat, topk_idx, topk_w, num_experts, capacity, laye
     flat_e = topk_idx.reshape(-1)
     rank, sizes = expert_rank(flat_e, E)
     on_kernel = not plain and x_flat.device.type != "cpu"
-    tile = tile_rows() if on_kernel else C  # the plain version reads row_expert, not the tiles
+    kind = table_kind("moe_experts_capacity_gmm", experts)
+    # each kernel's own tile rows; the plain version reads row_expert, not the tiles
+    tile = tile_rows(kind, s8 and kind != "plain") if on_kernel else C
     dst, row_expert, sched, ok = capacity_schedule(flat_e, rank, sizes, E, C, tile)
     token = torch.arange(N * k, device=x_flat.device) // k
     row_token = torch.zeros(E * C + 1, dtype=torch.int32, device=x_flat.device)

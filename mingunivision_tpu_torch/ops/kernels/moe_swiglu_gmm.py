@@ -254,9 +254,27 @@ def moe_experts_swiglu_gmm_q8_plain(experts, x_flat, topk_idx, topk_w, num_exper
                           num_experts, layer_idx, s8)
 
 
-def tile_rows() -> int:
-    """Rows per schedule tile the kernels were compiled for."""
-    return build.load().mu_swiglu_gmm_tile_rows()
+def tile_rows(kind: str = "plain", s8: bool = False, full_block: bool = False) -> int:
+    """Rows per schedule tile of the kernel that `swiglu_gmm_rows` launches for
+    the table kind (`table_kind`), dot mode and block mode, as the library that
+    launches it reports: 128 for bf16 tables and for int4 ones with exact
+    dequant (the wgmma body), 32 for the s8-dot, int8 and full-block kernels
+    (a kernel handed a longer tile traps)."""
+    lib = build.load()
+    if full_block:
+        return lib.mu_swiglu_gmm_full_tile_rows()
+    if kind == "int4":
+        return lib.mu_swiglu_gmm_q4_tile_rows(int(s8))
+    if kind == "int8":
+        return lib.mu_swiglu_gmm_q8_tile_rows()
+    return lib.mu_swiglu_gmm_tile_rows()
+
+
+def sorted_schedule(experts, topk_idx, num_experts: int, *, s8: bool = False, full_block: bool = False):
+    """`group_schedule` at the tile rows of the kernel the expert-sorted
+    dispatch launches for these tables in this mode (`tile_rows`)."""
+    kind = table_kind("sorted_schedule", experts)
+    return group_schedule(topk_idx, num_experts, tile_rows(kind, s8 and kind != "plain", full_block))
 
 
 def swiglu_gmm_rows(experts, x_flat, row_token, row_expert, sched, num_experts: int, *, layer_idx=None,
@@ -314,9 +332,10 @@ def swiglu_gmm_rows(experts, x_flat, row_token, row_expert, sched, num_experts: 
             n_ptrs = 6
         bufs = [torch.empty(shape, dtype=dtype, device=dev) for shape, dtype in scratch]
         extra = tuple(b.data_ptr() for b in bufs) if s8 else (0,) * n_ptrs
+    sizes = () if kind == "int8" else (R, E)  # the wgmma body's tensor maps span the rows and the E tables
     rc = getattr(build.load(), name)(
         x.data_ptr(), row_token.data_ptr(), *tables, sched.data_ptr(), hbuf.data_ptr(), ys.data_ptr(), *extra,
-        sched.shape[0], h, m, *ints, build.stream_handle(x),
+        sched.shape[0], *sizes, h, m, *ints, build.stream_handle(x),
     )
     build.check(rc, name)
     wrapper.launches += 1
@@ -366,7 +385,7 @@ def moe_experts_swiglu_gmm(experts, x_flat, topk_idx, topk_w, num_experts: int, 
     if x_flat.device.type == "cpu" or table_kind("moe_experts_swiglu_gmm", experts) == "nf4":
         return moe_experts_swiglu_gmm_plain(experts, x_flat, topk_idx, topk_w, num_experts, layer_idx=layer_idx,
                                             s8=s8)
-    order, row_token, sched = group_schedule(topk_idx, num_experts, tile_rows())
+    order, row_token, sched = sorted_schedule(experts, topk_idx, num_experts, s8=s8, full_block=full_block)
     ys = swiglu_gmm_rows(experts, x_flat, row_token, None, sched, num_experts, layer_idx=layer_idx, s8=s8,
                          full_block=full_block)
     inv = torch.empty_like(order)

@@ -1932,3 +1932,167 @@ def test_moe_stream_ring_at_full_width_matches_plain(dev, which):
         got = kernel(ex, x, idx, wt, layer_idx=0)
         torch.cuda.synchronize()
         _ring_held(which, got, moe_experts_stream_plain(ex, x, idx, wt, layer_idx=0, int_dots=int_dots))
+
+
+# ---------------------------------------------------------------------------
+# the prefill MoE on its wgmma body (row 2, bf16 tables; row 5, int4 tables with exact dequant): 128-row
+# schedule tiles, each kernel's own tile rows, a longer tile refused
+# ---------------------------------------------------------------------------
+
+# rows per expert of the edge cases (k = 1): 0, 1, 127, 128 and 129 (a full tile and one row past it), and
+# all rows on one expert (three tiles, the last of 44 rows)
+_EDGE_LOADS = {"0-1-127-128-129": [0, 1, 127, 128, 129, 3, 64, 65], "all-on-one": [0, 0, 0, 0, 0, 300, 0, 0]}
+_WGMMA_KERNELS = {"bf16": moe_experts_swiglu_gmm, "int4": moe_experts_swiglu_gmm_q4}
+
+
+def _wgmma_tables(dev, tier, h=H, m=M, seed=0, E_=E):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shapes = {"gate_proj": (2, E_, h, m), "up_proj": (2, E_, h, m), "down_proj": (2, E_, m, h)}
+    ex = {k: torch.empty(s, device=dev, dtype=torch.bfloat16).normal_(0, 0.05, generator=g) for k, s in shapes.items()}
+    return ex if tier == "bf16" else _q4(ex)
+
+
+def _edge_routing(dev, loads):
+    """k = 1 routing with exactly `loads[e]` tokens on expert e, shuffled."""
+    ids = torch.repeat_interleave(torch.arange(len(loads), device=dev), torch.tensor(loads, device=dev))
+    g = torch.Generator(device=dev).manual_seed(3)
+    ids = ids[torch.randperm(ids.numel(), device=dev, generator=g)]
+    return ids[:, None], torch.ones((ids.numel(), 1), device=dev, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("tier", list(_WGMMA_KERNELS))
+@pytest.mark.parametrize("loads", list(_EDGE_LOADS))
+def test_swiglu_gmm_wgmma_body_at_the_tile_edges(dev, tier, loads):
+    """Rows 2 and 5 through the expert-sorted dispatch with experts of 0, 1,
+    127, 128 and 129 rows, and all rows on one expert: one launch pair, the
+    plain version within bf16's precision (both on layer 1 of stacked tables)."""
+    ex = _wgmma_tables(dev, tier, seed=31)
+    idx, w = _edge_routing(dev, _EDGE_LOADS[loads])
+    x = torch.randn(idx.shape[0], H, device=dev).to(torch.bfloat16)
+    kernel = _WGMMA_KERNELS[tier]
+    before = kernel.launches
+    got = moe_experts_swiglu_gmm(ex, x, idx, w, E, layer_idx=1)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _close_bf16(got, moe_experts_swiglu_gmm_plain(ex, x, idx, w, E, layer_idx=1))
+
+
+@pytest.mark.parametrize("tier", list(_WGMMA_KERNELS))
+@pytest.mark.parametrize("h,m", [(320, 192), (192, 448)], ids=["h320-m192", "h192-m448"])
+def test_swiglu_gmm_wgmma_body_at_partial_column_tiles(dev, tier, h, m):
+    """Widths that are multiples of 64 but not of the launches' 128 (up) and
+    256 (down) columns: the tables' columns past the width are never stored."""
+    ex = _wgmma_tables(dev, tier, h=h, m=m, seed=32)
+    idx, w = _routing(dev, 160, 2, seed=33)
+    x = torch.randn(160, h, device=dev).to(torch.bfloat16)
+    got = moe_experts_swiglu_gmm(ex, x, idx, w, E, layer_idx=0)
+    torch.cuda.synchronize()
+    _close_bf16(got, moe_experts_swiglu_gmm_plain(ex, x, idx, w, E, layer_idx=0))
+
+
+@pytest.mark.parametrize("tier", list(_WGMMA_KERNELS))
+@pytest.mark.parametrize("case", ["fits-129-per-expert", "overflow"])
+def test_swiglu_gmm_wgmma_body_through_the_capacity_dispatch(dev, tier, case):
+    """The capacity dispatch at 256 slots an expert, each expert's slots in two
+    128-row tiles (the second of 1 row where an expert holds 129), and on
+    overflow the counted fallback to the sorted dispatch."""
+    ex = _wgmma_tables(dev, tier, seed=34)
+    loads = [129, 128, 127, 1, 0, 64, 256, 2] if case == "fits-129-per-expert" else [300, 10, 0, 0, 0, 0, 0, 0]
+    idx, w = _edge_routing(dev, loads)
+    x = torch.randn(idx.shape[0], H, device=dev).to(torch.bfloat16)
+    before = (moe_experts_capacity_gmm.launches, moe_experts_capacity_gmm_exact.fallbacks)
+    got = moe_experts_capacity_gmm_exact(ex, x, idx, w, E, 256, layer_idx=1)
+    torch.cuda.synchronize()
+    fell = int(case == "overflow")
+    assert (moe_experts_capacity_gmm.launches, moe_experts_capacity_gmm_exact.fallbacks) == \
+        (before[0] + 1 - fell, before[1] + fell)
+    _close_bf16(got, moe_experts_swiglu_gmm_plain(ex, x, idx, w, E, layer_idx=1))
+
+
+@pytest.mark.parametrize("tier", list(_WGMMA_KERNELS))
+def test_swiglu_gmm_wgmma_body_at_full_width(dev, tier):
+    """The 16B-A3B tables (64 experts of 2048 x 1408: 11 up tiles of 128
+    columns, 8 down tiles of 256) at a 128-token prompt and 1,152 tokens, top-6."""
+    ex = _wgmma_tables(dev, tier, h=2048, m=1408, seed=35, E_=64)
+    g = torch.Generator(device=dev).manual_seed(36)
+    for n in (128, 1152):
+        wt, idx = torch.topk(torch.softmax(torch.rand((n, 64), device=dev, generator=g), -1), 6)
+        wt = (wt / wt.sum(-1, keepdim=True)).to(torch.bfloat16)
+        x = torch.randn(n, 2048, device=dev, generator=g).to(torch.bfloat16)
+        got = moe_experts_swiglu_gmm(ex, x, idx, wt, 64, layer_idx=0)
+        torch.cuda.synchronize()
+        _close_bf16(got, moe_experts_swiglu_gmm_plain(ex, x, idx, wt, 64, layer_idx=0))
+
+
+def test_swiglu_gmm_tile_rows_of_each_kernel(dev):
+    """Each (table kind, mode)'s kernel reports its own tile rows: the wgmma
+    body 128, the s8-dot, int8 and full-block kernels 32."""
+    from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import tile_rows
+
+    assert [tile_rows("plain"), tile_rows("int4"), tile_rows("int4", s8=True), tile_rows("int8"),
+            tile_rows("int8", s8=True), tile_rows("int4", full_block=True), tile_rows("int8", full_block=True)] == \
+        [128, 128, 32, 32, 32, 32, 32]
+
+
+_REFUSAL = """
+import sys, torch
+from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import swiglu_gmm_rows, tile_rows
+from mingunivision_tpu_torch.utils.quantize import quantize_array
+kind, s8, full = sys.argv[1], sys.argv[2] == "1", sys.argv[3] == "1"
+g = torch.Generator(device="cuda").manual_seed(0)
+shapes = {"gate_proj": (2, 256, 384), "up_proj": (2, 256, 384), "down_proj": (2, 384, 256)}
+ex = {k: torch.empty(s, device="cuda", dtype=torch.bfloat16).normal_(0, 0.05, generator=g) for k, s in shapes.items()}
+if kind != "plain":
+    ex = {k: quantize_array(v, int(kind[3:])) for k, v in ex.items()}
+tile = tile_rows(kind, s8, full)
+for rows in (tile, tile + 1):  # the kernel's own tile, then one row longer
+    x = torch.randn(rows, 256, device="cuda").to(torch.bfloat16)
+    sched = torch.tensor([[1, 0, rows]], dtype=torch.int32, device="cuda")
+    swiglu_gmm_rows(ex, x, torch.arange(rows, dtype=torch.int32, device="cuda"), None, sched, 2, s8=s8,
+                    full_block=full)
+    torch.cuda.synchronize()
+    print("ran", rows, flush=True)
+"""
+
+
+@pytest.mark.parametrize("kind,s8,full", [("plain", 0, 0), ("int4", 0, 0), ("int4", 1, 0), ("int8", 0, 0),
+                                          ("int8", 1, 0), ("int4", 0, 1)],
+                         ids=["bf16", "int4-exact", "int4-s8", "int8-exact", "int8-s8", "int4-full-block"])
+def test_swiglu_gmm_kernels_refuse_a_tile_longer_than_their_own(dev, kind, s8, full):
+    """A schedule tile one row longer than the kernel's tile rows traps the
+    kernel (run in a child process: a trap ends the CUDA context); a tile of
+    the kernel's own rows runs."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", _REFUSAL, kind, str(s8), str(full)], capture_output=True, text=True,
+                          cwd=root, env=env, timeout=600)
+    ran = [line for line in proc.stdout.splitlines() if line.startswith("ran")]
+    assert len(ran) == 1 and proc.returncode != 0, (proc.stdout, proc.stderr[-2000:])
+
+
+def test_swiglu_gmm_ad_over_two_tiles_an_expert_matches_its_plain_versions(dev, monkeypatch):
+    """The differentiable fused prefill MoE where experts hold 129-300 rows
+    (two or three 128-row tiles of row 2's forward): value and every grad
+    against the same Function through the plain versions, within 1e-2 of each
+    max (tests/test_torch_moe_gmm.py's bf16 bound is 2e-3 of the max plus a
+    bf16 ulp of each value against the JAX package; here both sides are bf16)."""
+    from mingunivision_tpu_torch.ops.kernels import moe_gmm
+    from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import moe_experts_swiglu_gmm as fused
+
+    experts = _experts(dev, seed=46)
+    idx, w = _routing(dev, 640, 3, seed=47)  # 1,920 rows: 240 an expert
+    x = torch.randn(640, H, device=dev).to(torch.bfloat16)
+    before = fused.launches
+    got = _ad_value_and_grads(experts, x, idx, w)
+    torch.cuda.synchronize()
+    assert fused.launches == before + 1
+    with monkeypatch.context() as mp:
+        _plain_training_moe(mp)
+        plain = _ad_value_and_grads(experts, x, idx, w)
+    for a, b in zip(got, plain):
+        assert a.dtype == b.dtype
+        _close(a, b, 1e-2)
