@@ -175,16 +175,20 @@ Then a JSON line with every kernel's numbers, and as the last line
               each with its kernel-alone device time and its kernels per call
               (the way to time an older tree's kernels beside these: run this
               script from that tree's root)
-  prefill_kernels  the prefill MoE on bf16 tables (row 2) and on int4 tables
-              with exact dequant (row 5) at full width: 128 tokens, the same
-              skewed to 8 experts, 384, 1,152 (92 pads) through the sorted and
-              the capacity dispatch, and row 2 at the LM train step's 2,048
-              tokens (12,288 rows): through the wrapper, the kernels alone over
-              the prepared schedule (`kernel_device_ms`), bound, device events
-              and allocations per call, max abs error; row 2 beside a
-              yardstick of three PyTorch calls (`torch._grouped_mm` for W1 and
-              W3, silu * mul, the down `_grouped_mm`); runs from an older
-              tree's root too, as decode_kernels
+  prefill_kernels  the prefill MoE on bf16 tables (row 2), on int4 tables
+              (row 5) and on int8 tables (row 7c), both with exact dequant, at
+              full width: 128 tokens, the same skewed to 8 experts, 384, 1,152
+              (92 pads) through the sorted and the capacity dispatch, and row 2
+              at the LM train step's 2,048 tokens (12,288 rows): through the
+              wrapper, the kernels alone over the prepared schedule
+              (`kernel_device_ms`), bound, device events and allocations per
+              call, max abs error; row 2 beside a yardstick of three PyTorch
+              calls (`torch._grouped_mm` for W1 and W3, silu * mul, the down
+              `_grouped_mm`); then the flash prefill at the understanding
+              prompt's 1 x 1,152 x 16 / 4 x 128, with 92 pads and with none,
+              alone, beside SDPA (is_causal=True, enable_gqa=True without
+              pads; the boolean mask in both cases), alone too; runs from an
+              older tree's root too, as decode_kernels
   sampler_kernels  the fused RF samplers at full width, 2 CFG rows and 3
               with renorm: the int4 one in both schedules, the int8 one in
               both dot modes, held to the bit, with their kernel-alone device
@@ -286,6 +290,12 @@ KERNELS = {
     # point of either package reaches: held on the pool's decode shapes and in context on captured pool inputs
     "gathered_expert_matmul": ("csrc/expert_matmul.cu", "mingunivision_tpu/ops/kernels/expert_matmul.py:33"),
 }
+# the kernels on a second design for the H100 (warp-specialized wgmma or mma.sync bodies fed by TMA or cp.async
+# rings, split or persistent grids); the others are still their simple first versions
+REDESIGNED = {"moe_stream", "moe_swiglu_gmm", "decode_attention", "moe_stream_q4s8", "moe_swiglu_gmm_q4",
+              "rf_sampler_q4s8", "flash_prefill", "flash_vit", "paged_attention", "moe_stream_q8s8",
+              "moe_swiglu_gmm_q8", "rf_sampler_q8", "moe_stream_q4", "rf_sampler_q8s8", "rf_sampler_q4s8_pipelined",
+              "gmm", "gmm_trhs", "tgmm", "flash_vit_bwd_dkv", "flash_vit_bwd_dq"}
 BF16_KERNELS = ("moe_stream", "moe_swiglu_gmm", "decode_attention")
 NF4_IMAGE_TOKENS = 64  # the slice_nf4 round's image loop (256-304 ms per token), cut to keep the run in its limit
 # the image loops of the rounds that rerun a tier's T2I in another dot mode, RF route or RF tier
@@ -470,7 +480,6 @@ def check_kernels(torch, results: dict) -> bool:
     cache, the RF head at full width over 16 Euler steps)."""
     from mingunivision_tpu_torch.config import MingUniVisionConfig
     from mingunivision_tpu_torch.models.rf_head import _time_grid, precompute_modulations
-    from mingunivision_tpu_torch.ops.kernels.flash import flash_prefill_attention, flash_prefill_attention_plain
     from mingunivision_tpu_torch.ops.kernels.moe_capacity import (
         default_capacity,
         moe_experts_capacity_gmm,
@@ -652,27 +661,7 @@ def check_kernels(torch, results: dict) -> bool:
     del q8
 
     all_ok &= decode_attention_cases(torch, results, g, cfg)
-    Hq, Hkv, D = cfg.llm.num_attention_heads, cfg.llm.num_key_value_heads, cfg.llm.head_dim
-
-    # flash prefill at the understanding prompt's shape (T = 1152 of which 92 padding, and none), against
-    # SDPA with the same mask; operations counted over the allowed query-key pairs
-    sdpa_fn = torch.nn.functional.scaled_dot_product_attention
-    T = n_und
-    for label, pads in ((f"1x{T}x{Hq}/{Hkv}x{D}, {n_pad} pads", n_pad), (f"1x{T}x{Hq}/{Hkv}x{D}, no pads", 0)):
-        q = torch.randn((1, T, Hq, D), device=dev, generator=g).to(bf)
-        kk = torch.randn((1, T, Hkv, D), device=dev, generator=g).to(bf)
-        vv = torch.randn((1, T, Hkv, D), device=dev, generator=g).to(bf)
-        valid = (torch.arange(T, device=dev) < T - pads)[None]
-        pos = torch.arange(T, device=dev)
-        allowed2d = (pos[None, :] <= pos[:, None]) & (valid[0][:, None] == valid[0][None, :])
-        pairs = int(allowed2d.sum())
-        nbytes = (2 * q.numel() + kk.numel() + vv.numel()) * 2 + T
-        all_ok &= run_case(torch, results, "flash_prefill", label,
-                           lambda: flash_prefill_attention(q, kk, vv, valid, scale=D**-0.5),  # noqa: B023
-                           lambda: flash_prefill_attention_plain(q, kk, vv, valid, scale=D**-0.5),  # noqa: B023
-                           nbytes, 4.0 * D * Hq * pairs, "bf16",
-                           library=lambda: sdpa_fn(q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),  # noqa: B023
-                                                   attn_mask=allowed2d[None, None], enable_gqa=True))  # noqa: B023
+    all_ok &= flash_prefill_cases(torch, results, g, cfg)
     all_ok &= flash_vit_cases(torch, results, g, cfg)
 
     # the RF head at full width, int4 then int8, its AdaLN weights at the slice's std 0.02. The random head is
@@ -831,8 +820,9 @@ def decode_attention_cases(torch, results, g, cfg) -> bool:
 # combine kernels)
 PAGED_KERNEL = ("paged_split_kernel", "paged_attention")
 
-# the ViT forward's kernel, as torch.profiler names it
-VIT_FORWARD_KERNEL = ("flash_vit_wgmma_kernel<",)
+# the ViT forward's kernel, as torch.profiler names it: the forward body that also runs the prefill, or an
+# older tree's ViT-only kernel
+VIT_FORWARD_KERNEL = ("flash_fwd_wgmma_kernel<", "flash_vit_wgmma_kernel<")
 
 
 def flash_vit_cases(torch, results, g, cfg) -> bool:
@@ -870,6 +860,60 @@ def flash_vit_cases(torch, results, g, cfg) -> bool:
             print(f"kernel flash_vit [{label}]: wrapper_ms={case['ms']:.4f} device_ms={fmt_ms(case['device_ms'])} "
                   f"library_ms={case['library_ms']:.4f}" + (f"; lse max_abs_err={lse_err:.3e}" if with_lse else ""))
         del q, k, v
+    return ok
+
+
+def flash_prefill_cases(torch, results, g, cfg, alone: bool = False) -> bool:
+    """The flash prefill at the understanding prompt's shape (1 x 1,152 tokens x
+    16 / 4 heads x 128; 92 padding rows, and none) against its plain version
+    (every row finite, the valid rows within REL_TOL), beside SDPA: with
+    `is_causal=True, enable_gqa=True` where there is no padding (the same
+    function), with the boolean mask of the same rule in both cases (a
+    boolean mask keeps SDPA off its flash backend); operations counted over
+    the allowed query-key pairs. `alone`: also each one's device time per
+    call with the host out of the way (`kernel_device_ms`), and the kernel's
+    device events and allocations per call."""
+    from mingunivision_tpu_torch.ops.kernels.flash import flash_prefill_attention, flash_prefill_attention_plain
+
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    Hq, Hkv, D, T, n_pad = cfg.llm.num_attention_heads, cfg.llm.num_key_value_heads, cfg.llm.head_dim, 1152, 92
+    ok = True
+    for label, pads in ((f"1x{T}x{Hq}/{Hkv}x{D}, {n_pad} pads", n_pad), (f"1x{T}x{Hq}/{Hkv}x{D}, no pads", 0)):
+        q = torch.randn((1, T, Hq, D), device=dev, generator=g).to(torch.bfloat16)
+        kk = torch.randn((1, T, Hkv, D), device=dev, generator=g).to(torch.bfloat16)
+        vv = torch.randn((1, T, Hkv, D), device=dev, generator=g).to(torch.bfloat16)
+        valid = (torch.arange(T, device=dev) < T - pads)[None]
+        pos = torch.arange(T, device=dev)
+        allowed2d = (pos[None, :] <= pos[:, None]) & (valid[0][:, None] == valid[0][None, :])
+        pairs = int(allowed2d.sum())
+        nbytes = (2 * q.numel() + kk.numel() + vv.numel()) * 2 + T
+        qh, kh, vh = q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2)
+        kern = lambda: flash_prefill_attention(q, kk, vv, valid, scale=D**-0.5)  # noqa: B023, E731
+        masked = lambda: sdpa(qh, kh, vh, attn_mask=allowed2d[None, None], enable_gqa=True)  # noqa: B023, E731
+        causal = lambda: sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)  # noqa: B023, E731
+        ok &= run_case(torch, results, "flash_prefill", label, kern,
+                       lambda: flash_prefill_attention_plain(q, kk, vv, valid, scale=D**-0.5),  # noqa: B023
+                       nbytes, 4.0 * D * Hq * pairs, "bf16", library=masked if pads else causal,
+                       others={} if pads else {"sdpa_bool_mask": masked})
+        ok &= bool(torch.isfinite(kern().float()).all())
+        case = results["flash_prefill"]["cases"][-1]
+        case["library"] = "SDPA, boolean mask" if pads else "SDPA, is_causal=True, enable_gqa=True"
+        if alone:
+            case["device_ms"] = kernel_device_ms(torch, kern)
+            case["library_device_ms"] = kernel_device_ms(torch, masked if pads else causal)
+            if not pads:
+                case["sdpa_bool_mask_device_ms"] = kernel_device_ms(torch, masked)
+            per_call, names = kernels_per_call(torch, kern)
+            case.update(kernels_per_call=per_call, kernel_names=names,
+                        allocations_per_call=allocations_per_call(torch, kern))
+            ok &= case["device_ms"] is not None and 0 < per_call <= 1
+            extra = "" if pads else f" sdpa_bool_mask_alone_ms={fmt_ms(case['sdpa_bool_mask_device_ms'])}"
+            print(f"prefill_kernels flash_prefill [{label}]: wrapper_ms={case['ms']:.4f} "
+                  f"alone_ms={fmt_ms(case['device_ms'])} library ({case['library']}) ms={case['library_ms']:.4f} "
+                  f"alone_ms={fmt_ms(case['library_device_ms'])}{extra} bound_ms={case['bound_ms']:.4f} "
+                  f"max_abs_err={case['max_abs_err']:.3e} device events per call {per_call:g} {names} "
+                  f"allocations per call {case['allocations_per_call']}")
     return ok
 
 
@@ -1053,24 +1097,25 @@ def run_decode_kernels(torch, results: dict) -> bool:
     return ok & paged_cases(torch, results, g, cfg)
 
 
-# the prefill MoE kernels' CUDA kernels, as torch.profiler names them: the wgmma body of rows 2 and 5
-# (`swiglu_wgmma.cuh`) and the first versions it replaced (an older tree's, when this script runs from its root)
-PREFILL_MOE_KERNELS = ("::swiglu_wgmma_kernel<", "::gmm_up_kernel(", "::gmm_down_kernel(", "::gmm_q4_up_kernel(",
-                       "::gmm_q4_down_kernel(")
+# the prefill MoE kernels' CUDA kernels, as torch.profiler names them: the wgmma body of rows 2, 5 and 7c
+# (`swiglu_wgmma.cuh`: 7c's transposed kernel apart) and the first versions it replaced (an older tree's, when
+# this script runs from its root)
+PREFILL_MOE_KERNELS = ("::swiglu_wgmma_kernel<", "::swiglu_ra_kernel<", "::gmm_up_kernel(", "::gmm_down_kernel(",
+                       "::gmm_q4_up_kernel(", "::gmm_q4_down_kernel(", "::gmm_q8_up_kernel(", "::gmm_q8_down_kernel(")
 
 
 def prefill_moe_device_ms(torch, averages) -> tuple:
-    """(device ms, calls) of the prefill MoE's kernels (rows 2 and 5) among a
-    profile's `key_averages()`."""
+    """(device ms, calls) of the prefill MoE's kernels (rows 2, 5 and 7c) among
+    a profile's `key_averages()`."""
     cuda = torch.autograd.DeviceType.CUDA
     hits = [e for e in averages if e.device_type == cuda and any(k in e.key for k in PREFILL_MOE_KERNELS)]
     return sum(e.self_device_time_total for e in hits) / 1e3, sum(e.count for e in hits)
 
 
 def prefill_tile_rows(msg, kind: str) -> int:
-    """The tile rows of the prefill kernel for `kind` tables ("plain" or
-    "int4", exact dequant); an older tree's `tile_rows()` takes no arguments
-    (one value for every kernel)."""
+    """The tile rows of the prefill kernel for `kind` tables ("plain", "int4"
+    or "int8", exact dequant); an older tree's `tile_rows()` takes no
+    arguments (one value for every kernel)."""
     try:
         return msg.tile_rows(kind)
     except TypeError:
@@ -1078,9 +1123,10 @@ def prefill_tile_rows(msg, kind: str) -> int:
 
 
 def run_prefill_kernels(torch, results: dict) -> bool:
-    """The prefill_kernels phase: row 2 (bf16 tables) and row 5 (int4 tables,
-    exact dequant) at full width (E 64, h 2048, m 1408, top-6) on layer 0 of
-    the kernels phase's tables: a 128-token prompt (T2I), the same skewed to
+    """The prefill_kernels phase: row 2 (bf16 tables), row 5 (int4 tables,
+    exact dequant) and row 7c (int8 tables, exact dequant) at full width (E
+    64, h 2048, m 1408, top-6) on layer 0 of the kernels phase's tables: a
+    128-token prompt (T2I), the same skewed to
     8 experts, 384 tokens (editing), the understanding prompt's 1,152 tokens
     (92 pads) through the sorted and the capacity dispatch, and for row 2 the
     LM train step's 2,048 tokens (12,288 rows, sorted, as training's forward
@@ -1091,7 +1137,9 @@ def run_prefill_kernels(torch, results: dict) -> bool:
     beside a yardstick of three PyTorch calls computing the same function on
     the sorted rows (`torch._grouped_mm` for W1 and W3, silu * mul, the down
     `_grouped_mm`; the sort not timed), which nothing on the port's path calls.
-    Runs from an older tree's root too (its kernels, this script's cases)."""
+    Then the flash prefill at the understanding prompt's shape
+    (`flash_prefill_cases`). Runs from an older tree's root too (its kernels,
+    this script's cases)."""
     import torch.nn.functional as F
 
     from mingunivision_tpu_torch.config import MingUniVisionConfig
@@ -1196,12 +1244,16 @@ def run_prefill_kernels(torch, results: dict) -> bool:
     train = [(f"2048 tok x k=6 (LM train step, {2048 * k} rows), sorted dispatch", 2048, None, None)]
     cases_of(experts, "moe_swiglu_gmm", "plain", 3 * h * m * 2, extra=train)
     q4 = {n: quantize_array(t, 4) for n, t in experts.items()}
+    q8 = {n: quantize_array(t, 8) for n, t in experts.items()}
     del experts
     torch.cuda.empty_cache()
     cases_of(q4, "moe_swiglu_gmm_q4", "int4", 3 * h * m // 2 + (2 * m + h) * 4)
     del q4
     torch.cuda.empty_cache()
-    return ok
+    cases_of(q8, "moe_swiglu_gmm_q8", "int8", 3 * h * m + (2 * m + h) * 4)
+    del q8
+    torch.cuda.empty_cache()
+    return ok & flash_prefill_cases(torch, results, g, cfg, alone=True)
 
 
 def run_sampler_kernels(torch, results: dict) -> bool:
@@ -2886,8 +2938,8 @@ def run_profile_understand(torch, cfg, device, tier="bfloat16", new_tokens: int 
         f"{stage} [{n}, {ms:.3f}]" for stage, (n, ms) in by_stage.items()))
     kernels = [e for e in prof.key_averages() if e.device_type == cuda and e.key not in UNDERSTAND_STAGES]
     moe_ms, moe_calls = prefill_moe_device_ms(torch, kernels)
-    print(f"profile_understand ({tier}) prefill MoE kernels (rows 2 / 5): {moe_ms:.3f} ms device, {moe_calls} kernel "
-          f"launches, {moe_ms / busy_ms:.3f} of busy")
+    print(f"profile_understand ({tier}) prefill MoE kernels (rows 2 / 5 / 7c): {moe_ms:.3f} ms device, {moe_calls} "
+          f"kernel launches, {moe_ms / busy_ms:.3f} of busy")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"profile_understand kernel: {e.self_device_time_total / 1e3:9.3f} ms {e.count:7d} calls "
               f"{e.self_device_time_total / max(e.count, 1):9.3f} us/call  {e.key[:90]}")
@@ -4216,14 +4268,16 @@ def kernel_entry(name: str, r: dict, capacity: dict) -> dict:
     round runs; null when that path did not run, and for the pipelined sampler
     and the full-block prefill, which no entry point reaches) and
     `launches_by_path` from every
-    path driven, the worst `max_abs_err` over the kernels phase's cases, and
+    path driven, whether it is on a second design (`REDESIGNED`), the worst
+    `max_abs_err` over the kernels phase's cases, and
     `ms`, `plain_ms`, `library_ms`, `bound_ms`, `bound_by` at that path's own
     shape (the first case); then every case."""
     source, replaces = KERNELS[name]
     cases = r.get("cases", [])
     first = cases[0] if cases else {}
     return {"name": name, "route": "cuda", "source": f"mingunivision_tpu_torch/{source}", "replaces": replaces,
-            "launches": r.get("launches"), "max_abs_err": max((c["max_abs_err"] for c in cases), default=None),
+            "redesigned": name in REDESIGNED, "launches": r.get("launches"),
+            "max_abs_err": max((c["max_abs_err"] for c in cases), default=None),
             **{key: first.get(key) for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "launches_by_path": r.get("launches_by_path", {}),
             # of which through the capacity-dense dispatch (the prefill MoE kernels only)

@@ -1,13 +1,12 @@
 // Flash attention: softmax(Q K^T * scale) V over full sequences, tile by tile,
-// with the scores never written to device memory. Two forward entry points:
+// with the scores never written to device memory. Two forward entry points on
+// one wgmma body fed by a TMA ring:
 //   mu_flash_prefill_bf16  first-round LLM prefill, token-major (B, T, H, D),
 //                          GQA by indexing the kv head, causal, and a row sees
-//                          a key only when both are valid or both are padding
-//                          (an mma.sync body);
+//                          a key only when both are valid or both are padding;
 //   mu_flash_vit_bf16      non-causal ViT attention, head-major (B, H, N, D),
 //                          also writing each row's log-sum-exp (fp32, B x H x N)
-//                          when asked: the residual of the backward (a wgmma
-//                          body fed by a TMA ring);
+//                          when asked: the residual of the backward;
 // and the two backward kernels of the ViT entry, mu_flash_vit_bwd_dkv_bf16 and
 // mu_flash_vit_bwd_dq_bf16 (wgmma bodies fed by TMA rings, built from the
 // forward's pieces; see their note below).
@@ -23,27 +22,16 @@
 // once); what a kernel must do about that is keep the two products on the
 // tensor cores and the (rows, keys) scores on chip.
 //
-// Design of the prefill's mma.sync body. One block of 4 warps per (batch,
-// query head, 64-row query tile);
-// each warp owns 16 query rows. The block loops over 64-key tiles: K and V
-// tiles are staged in shared memory (rows padded by 16 bytes, so ldmatrix
-// reads hit distinct banks), S = Q K^T and O += P V run as
-// mma.sync.m16n8k16 bf16 products with fp32 accumulators in registers, and the
-// running maximum and sum of the online softmax stay in registers (fp32). The
-// softmax scale is applied to the fp32 scores inside the exponent
-// (exp2(s * scale * log2 e - m)), so q is never rounded a second time. The
-// probabilities are rounded to bf16 for the P V product, as the plain version
-// rounds them to V's type. Causal tiles above the diagonal are never visited,
-// and the heaviest query tiles are scheduled first. K and V of a GQA group are
-// read through the query head's kv head; they are never repeated in memory.
-// Loads are plain 16-byte copies followed by a barrier.
-//
-// Design of the ViT forward's wgmma body (N a multiple of 128, 16-byte aligned
-// operands, D 64 or 128; the pixel decoder's 16 heads x 1,024 tokens x 64). One block of three warpgroups per (128-row
-// query tile, head, image). The producer warpgroup gives up registers
+// Design of the forward's wgmma body (N a multiple of 128, 16-byte aligned
+// operands, D 64 or 128; the pixel decoder's 16 heads x 1,024 tokens x 64, the
+// understanding prompt's 1,152 tokens x 16 / 4 heads x 128). One block of
+// three warpgroups per (128-row query tile, head, image or prompt). The producer warpgroup gives up registers
 // (setmaxnreg) and one of its threads loads the block's Q tile once by TMA,
 // then keeps a ring of 128-key K and V tiles full (4 stages at D 64, 2 at D
-// 128; 128-byte swizzled TMA boxes of 64 columns; full and empty mbarriers).
+// 128; 128-byte swizzled TMA boxes of 64 columns; full and empty mbarriers
+// for K and for V apart: a stage's K is refilled once its scores have read it,
+// its V once its P V product has, so at D 128 the next tile's K loads while
+// the current V is still read).
 // Each consumer warpgroup owns 64 query rows: per stage, S = Q K^T is
 // wgmma.m64n128k16 with Q and K both K-major in shared memory (D / 16 k16
 // steps); the online softmax runs on S in fp32 registers, the scale inside
@@ -60,241 +48,36 @@
 // end and stored from registers; the lse beside it when asked. TMA fills
 // zeros only past the tensor's end, so the entry asks N to be a multiple of
 // the tile: no read runs past a head's N keys, and no tile is partial.
+// The prefill mode reads q, k and v where they lie, token-major: tensor maps
+// over (D, heads, B * T) with the head a coordinate (boxes of 64 columns x 1
+// head x 128 tokens land as the ViT's 128 swizzled rows), the kv head
+// hq / group. A block's query tile qt visits key tiles 0..qt only; blocks
+// run the query heads of a tile side by side (a GQA group's heads read the
+// same K and V tiles, which L2 serves) and the heaviest query tiles first.
+// The causal mask applies on the diagonal tile only (the last, peeled); the
+// valid rule (key j allowed for row i iff valid[i] == valid[j]) only in blocks
+// whose rows or keys hold a padding byte, both by predicate on the score
+// registers after the product: ptxas would serialize the products behind a
+// branch between their issue and their wait (C7520), so the two kinds of
+// block run two copies of the loop, chosen once before it. A row that has met
+// no allowed key keeps a maximum of -inf; its exponent's offset is then 0,
+// never -inf - -inf, so a fully masked tile adds zeros and no NaN. Every row
+// allows itself, so its final sum is positive.
+#include <type_traits>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int BM = 64;        // query rows per block
-constexpr int BN = 64;        // keys per tile
-constexpr int kThreads = 128; // 4 warps x 16 query rows
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const bf162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-// Copy a (rows x D) bf16 tile from device memory (row stride `stride`
-// elements) into shared memory (row stride LD), 16 bytes a thread.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, size_t stride, int rows) {
-  constexpr int kChunks = D / 8;
-  for (int idx = threadIdx.x; idx < rows * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int c = idx % kChunks;
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = *reinterpret_cast<const uint4*>(src + (size_t)r * stride + c * 8);
-  }
-}
-
-// q / out: element (b, h, row, d) at b * q_bs + h * q_hs + row * q_rs + d;
-// k / v likewise with k_bs, k_hs, k_rs; valid (B, n_rows) bytes.
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const uint8_t* __restrict__ valid, bf16* __restrict__ out, int n_rows, int group,
-    size_t q_bs, size_t q_hs, size_t q_rs, size_t k_bs, size_t k_hs, size_t k_rs, float scale_log2e) {
-  constexpr int LD = D + 8;  // padded shared row, in elements
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + BM * LD;
-  bf16* Vs = Ks + BN * LD;
-  uint8_t* kval = reinterpret_cast<uint8_t*>(Vs + BN * LD);
-
-  // causal: the last query tiles visit the most key tiles, so they go first
-  const int qt = (int)(gridDim.x - 1 - blockIdx.x);
-  const int hq = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = hq / group;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // row of the thread within an 8-row fragment
-  const int t = lane & 3;   // column pair of the thread within a fragment
-
-  const bf16* qb = q + (size_t)b * q_bs + (size_t)hq * q_hs + (size_t)qt * BM * q_rs;
-  bf16* ob = out + (size_t)b * q_bs + (size_t)hq * q_hs + (size_t)qt * BM * q_rs;
-  const bf16* kb = k + (size_t)b * k_bs + (size_t)hk * k_hs;
-  const bf16* vb = v + (size_t)b * k_bs + (size_t)hk * k_hs;
-  const uint8_t* vrow = valid + (size_t)b * n_rows;
-
-  load_tile<D, LD>(Qs, qb, q_rs, BM);
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + kk * 16 + (lane >> 4) * 8);
-  }
-
-  // this thread's two query rows: r0 = g, r1 = g + 8 of the warp's 16
-  const int row0 = qt * BM + warp * 16 + g;
-  const int row1 = row0 + 8;
-  const uint8_t qv0 = vrow[row0];
-  const uint8_t qv1 = vrow[row1];
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-  }
-  float m0 = -INFINITY, m1 = -INFINITY;  // running maxima of the raw scores
-  float l0 = 0.0f, l1 = 0.0f;            // this thread's share of the running sums
-
-  const int n_kt = qt + 1;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();  // the previous tile's K and V are no longer read
-    load_tile<D, LD>(Ks, kb + (size_t)kt * BN * k_rs, k_rs, BN);
-    load_tile<D, LD>(Vs, vb + (size_t)kt * BN * k_rs, k_rs, BN);
-    if (tid < BN) kval[tid] = vrow[kt * BN + tid];
-    __syncthreads();
-
-    // S = Q K^T for the warp's 16 rows x 64 keys
-    float s[BN / 8][4];
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nj = 0; nj < BN / 16; ++nj) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, Ks + (nj * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * nj], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[2 * nj + 1], qf[kk], kf[2], kf[3]);
-      }
-    }
-
-    // mask, then the online softmax update of the two rows
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kc = j * 8 + 2 * t + (c & 1);
-        const int key = kt * BN + kc;
-        const bool ok = (c < 2) ? (key <= row0 && kval[kc] == qv0) : (key <= row1 && kval[kc] == qv1);
-        if (!ok) s[j][c] = -INFINITY;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    // a row with no allowed key so far keeps m = -inf; its terms are exp2(-inf) = 0
-    const float ms0 = (mn0 == -INFINITY) ? 0.0f : mn0 * scale_log2e;
-    const float ms1 = (mn1 == -INFINITY) ? 0.0f : mn1 * scale_log2e;
-    const float corr0 = exp2f(m0 * scale_log2e - ms0);
-    const float corr1 = exp2f(m1 * scale_log2e - ms1);
-    m0 = mn0;
-    m1 = mn1;
-    float sum0 = 0.0f, sum1 = 0.0f;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      s[j][0] = exp2f(s[j][0] * scale_log2e - ms0);
-      s[j][1] = exp2f(s[j][1] * scale_log2e - ms0);
-      s[j][2] = exp2f(s[j][2] * scale_log2e - ms1);
-      s[j][3] = exp2f(s[j][3] * scale_log2e - ms1);
-      sum0 += s[j][0] + s[j][1];
-      sum1 += s[j][2] + s[j][3];
-    }
-    l0 = l0 * corr0 + sum0;
-    l1 = l1 * corr1 + sum1;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= corr0;
-      acc[j][1] *= corr0;
-      acc[j][2] *= corr1;
-      acc[j][3] *= corr1;
-    }
-
-    // O += P V: the score fragments of two adjacent 8-key tiles are one A fragment
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t pf[4];
-      pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dj = 0; dj < D / 16; ++dj) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dj * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * dj], pf, vf[0], vf[1]);
-        mma_bf16(acc[2 * dj + 1], pf, vf[2], vf[3]);
-      }
-    }
-  }
-
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.0f / fmaxf(l0, 1e-30f);
-  const float inv1 = 1.0f / fmaxf(l1, 1e-30f);
-
-  // Stage the warp's 16 output rows in its own rows of Qs (read for the last
-  // time before the loop's first barrier), then write 16 bytes a thread.
-  bf16* stage = Qs + warp * 16 * LD;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    *reinterpret_cast<bf162*>(stage + g * LD + j * 8 + 2 * t) = __floats2bfloat162_rn(acc[j][0] * inv0, acc[j][1] * inv0);
-    *reinterpret_cast<bf162*>(stage + (g + 8) * LD + j * 8 + 2 * t) =
-        __floats2bfloat162_rn(acc[j][2] * inv1, acc[j][3] * inv1);
-  }
-  __syncwarp();
-  constexpr int kChunks = D / 8;
-  for (int idx = lane; idx < 16 * kChunks; idx += 32) {
-    const int r = idx / kChunks;
-    const int c = idx % kChunks;
-    *reinterpret_cast<uint4*>(ob + (size_t)(warp * 16 + r) * q_rs + c * 8) =
-        *reinterpret_cast<const uint4*>(stage + r * LD + c * 8);
-  }
-}
-
-template <int D>
-int launch_flash(const void* q, const void* k, const void* v, const void* valid, void* out, int B, int heads,
-                 int n_rows, int group, size_t q_bs, size_t q_hs, size_t q_rs, size_t k_bs, size_t k_hs, size_t k_rs,
-                 float scale, void* stream) {
-  const size_t smem = (size_t)(BM + 2 * BN) * (D + 8) * sizeof(bf16) + BN;
-  cudaError_t err = allow_dynamic_smem(flash_kernel<D>, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(n_rows / BM, heads, B);
-  flash_kernel<D><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const uint8_t*>(valid), static_cast<bf16*>(out), n_rows, group, q_bs, q_hs, q_rs, k_bs, k_hs, k_rs,
-      scale * 1.4426950408889634f);
-  return (int)cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
-// The ViT forward on wgmma (mu_flash_vit_bf16): see the note at the head of
-// this file
+// The forward on wgmma (mu_flash_prefill_bf16, mu_flash_vit_bf16): see the
+// note at the head of this file
 // ---------------------------------------------------------------------------
 namespace vw {
 
@@ -312,7 +95,10 @@ struct Cfg {
   static constexpr int kBoxes = D / 64;
   static constexpr uint32_t kTile = kBoxes * kBox;
   static constexpr int kStages = D == 64 ? 4 : 2;
-  static constexpr size_t kSmem = (1 + 2 * kStages) * kTile + (1 + 2 * kStages) * 8 + 1024;
+  // K and V on barriers of their own where the ring has 2 stages (D 128): with one barrier a stage is freed
+  // only once its P V is done, when the next tile's K is already due
+  static constexpr bool kSplitKV = kStages == 2;
+  static constexpr size_t kSmem = (1 + 2 * kStages) * kTile + (1 + 4 * kStages) * 8 + 1024;
 };
 
 // S (64 x 128 fp32, the warpgroup's scores) = Q (64 x 16, shared, K-major) . K^T
@@ -369,46 +155,82 @@ __device__ __forceinline__ void wg_pv(float (&d)[64], const uint32_t (&a)[4], ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// q_map / k_map / v_map over (B * H, N, D) bf16 (innermost first: D, N, B * H;
-// boxes of 64 x 128 x 1); out (B, H, N, D) bf16; lse (B, H, N) fp32 when LSE.
-// N a multiple of BN. Grid (N / BM, H, B).
-template <int D, bool LSE>
+// The forward in its two modes. ViT: q_map / k_map / v_map over (B * H, N, D)
+// bf16 (innermost first: D, N, B * H; boxes of 64 x 128 x 1); out (B, H, N, D)
+// bf16; lse (B, H, N) fp32 when LSE; grid (N / BM, H, B). Prefill (PREFILL):
+// the maps over (B * N, heads, D) token-major (innermost first: D, heads,
+// B * N; boxes of 64 x 1 x 128), q's heads Hq = gridDim.x, k's and v's Hq /
+// group; out (B, N, Hq, D) bf16; valid (B, N) bytes, 0 or 1; grid (Hq, N / BM,
+// B). N a multiple of BN.
+template <int D, bool LSE, bool PREFILL>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_vit_wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
                            const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out, float* __restrict__ lse,
-                           int N, float scale_log2e) {
+                           const uint8_t* __restrict__ valid, int N, int group, float scale_log2e) {
   using C = Cfg<D>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms start on 1024-byte boundaries
   const uint32_t kv0 = q_s + C::kTile;                        // stage s: K at kv0 + 2 s kTile, V after it
+  // barriers: Q's; per stage K's full and empty, V's full and empty (kSplitKV: K is freed once the scores have
+  // read it, V once the P V product has; else K's barriers stand for both, freed after the P V product)
   const uint32_t q_bar = kv0 + 2 * C::kStages * C::kTile, full0 = q_bar + 8, empty0 = full0 + 8 * C::kStages;
-  const int n0 = blockIdx.x * BM, bh = blockIdx.z * gridDim.y + blockIdx.y, n_kt = N / BN;
+  const uint32_t vfull0 = empty0 + 8 * C::kStages, vempty0 = vfull0 + 8 * C::kStages;
+  // prefill: the prompt's valid bytes of keys 0 .. the tile's last row, after the barriers
+  uint8_t* kval = smem_raw + (vempty0 + 8 * C::kStages - smem_u32(smem_raw));
+  // the block's query tile (prefill: the heaviest, the last, first), query head and image or prompt
+  const int qt = PREFILL ? gridDim.y - 1 - blockIdx.y : blockIdx.x, hq = PREFILL ? blockIdx.x : blockIdx.y;
+  const int b = blockIdx.z, n0 = qt * BM, n_kt = PREFILL ? qt + 1 : N / BN;
+  const int bh = b * (PREFILL ? 0 : gridDim.y) + hq;  // ViT: the maps' third coordinate
+  // the maps' second and third coordinates of Q's tile and of key tile kt
+  const int q1 = PREFILL ? hq : n0, q2 = PREFILL ? b * N + n0 : bh, hk = hq / group;
+  auto kv1 = [&](int kt) { return PREFILL ? hk : kt * BN; };
+  auto kv2 = [&](int kt) { return PREFILL ? b * N + kt * BN : bh; };
   if (threadIdx.x == 0) {
     mbar_init(q_bar, 1);
     for (int s = 0; s < C::kStages; ++s) {
       mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, kConsumers);
+      // kSplitKV: lane 0 of each consumer warp arrives on K's (no branch while P V runs)
+      mbar_init(empty0 + 8 * s, C::kSplitKV ? 4 * kConsumers : kConsumers);
+      mbar_init(vfull0 + 8 * s, 1);
+      mbar_init(vempty0 + 8 * s, kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  int masked = 0;  // prefill: a padding byte among the block's keys (and so its rows): the valid rule applies
+  if constexpr (PREFILL) {
+    const uint32_t* vb = reinterpret_cast<const uint32_t*>(valid + (size_t)b * N);
+    int pad = 0;
+    for (int i = threadIdx.x; i < n_kt * BN / 4; i += kThreads) {
+      const uint32_t w = vb[i];
+      reinterpret_cast<uint32_t*>(kval)[i] = w;
+      pad |= w != 0x01010101u;
+    }
+    masked = __syncthreads_or(pad);
+  } else {
+    __syncthreads();
+  }
   const int wgi = threadIdx.x / 128;
   if (wgi == kConsumers) {  // the producer: one thread loads Q once and keeps the ring of K and V tiles full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == kConsumers * 128) {
       mbar_expect_tx(q_bar, C::kTile);
 #pragma unroll
-      for (int c = 0; c < C::kBoxes; ++c) tma_load_3d(q_s + c * kBox, &q_map, q_bar, 64 * c, n0, bh);
+      for (int c = 0; c < C::kBoxes; ++c) tma_load_3d(q_s + c * kBox, &q_map, q_bar, 64 * c, q1, q2);
       for (int kt = 0; kt < n_kt; ++kt) {
-        const int s = kt % C::kStages;
-        const uint32_t full = full0 + 8 * s, k_s = kv0 + 2 * s * C::kTile, v_s = k_s + C::kTile;
-        mbar_wait(empty0 + 8 * s, ((kt / C::kStages) & 1) ^ 1);
-        mbar_expect_tx(full, 2 * C::kTile);
+        const int s = kt % C::kStages, phase = ((kt / C::kStages) & 1) ^ 1;
+        const uint32_t k_s = kv0 + 2 * s * C::kTile, v_s = k_s + C::kTile;
+        mbar_wait(empty0 + 8 * s, phase);
+        mbar_expect_tx(full0 + 8 * s, C::kSplitKV ? C::kTile : 2 * C::kTile);
 #pragma unroll
-        for (int c = 0; c < C::kBoxes; ++c) {
-          tma_load_3d(k_s + c * kBox, &k_map, full, 64 * c, kt * BN, bh);
-          tma_load_3d(v_s + c * kBox, &v_map, full, 64 * c, kt * BN, bh);
+        for (int c = 0; c < C::kBoxes; ++c)
+          tma_load_3d(k_s + c * kBox, &k_map, full0 + 8 * s, 64 * c, kv1(kt), kv2(kt));
+        const uint32_t v_full = C::kSplitKV ? vfull0 + 8 * s : full0 + 8 * s;
+        if constexpr (C::kSplitKV) {
+          mbar_wait(vempty0 + 8 * s, phase);
+          mbar_expect_tx(v_full, C::kTile);
         }
+#pragma unroll
+        for (int c = 0; c < C::kBoxes; ++c) tma_load_3d(v_s + c * kBox, &v_map, v_full, 64 * c, kv1(kt), kv2(kt));
       }
     }
     return;
@@ -416,6 +238,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // a consumer: query rows n0 + 64 wgi .. + 63; thread (warp, g, t) holds rows 16 warp + g and + 8
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int lr0 = wgi * 64 + warp * 16 + g, lr1 = lr0 + 8;  // the thread's rows in the tile
   float o[D / 2], s[BN / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
@@ -434,8 +257,31 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) wg_pv(o, p[kk], smem_desc(v_s + kk * 16 * 128, kBox, kGroup));
   };
+  // Prefill: the masks of key tile kt on S, by predicate: the causal one on the diagonal tile (kCausal), the
+  // valid rule where the block has a padding byte (kValid); column 8 j + 2 t (+ 1) of each row's registers.
+  auto mask = [&](auto causal, auto valid_rule, int kt) {
+    constexpr bool kCausal = decltype(causal)::value, kValid = decltype(valid_rule)::value;
+    if constexpr (kCausal || kValid) {
+      const uint32_t rv0 = kval[n0 + lr0], rv1 = kval[n0 + lr1];
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        bool ok00 = true, ok01 = true, ok10 = true, ok11 = true;  // (row g or g + 8, column c or c + 1)
+        if constexpr (kCausal) ok00 = c <= lr0, ok01 = c + 1 <= lr0, ok10 = c <= lr1, ok11 = c + 1 <= lr1;
+        if constexpr (kValid) {
+          const uint32_t w = *reinterpret_cast<const uint16_t*>(kval + kt * BN + c), k0 = w & 0xFF, k1 = w >> 8;
+          ok00 = ok00 && k0 == rv0, ok01 = ok01 && k1 == rv0, ok10 = ok10 && k0 == rv1, ok11 = ok11 && k1 == rv1;
+        }
+        s[4 * j] = ok00 ? s[4 * j] : -INFINITY;
+        s[4 * j + 1] = ok01 ? s[4 * j + 1] : -INFINITY;
+        s[4 * j + 2] = ok10 ? s[4 * j + 2] : -INFINITY;
+        s[4 * j + 3] = ok11 ? s[4 * j + 3] : -INFINITY;
+      }
+    }
+  };
   float corr0, corr1;
   // The online softmax update of the thread's two rows (each spread over a quad of threads), in place in S.
+  // A row with no allowed key yet keeps m = -inf and subtracts 0: its terms are exp2(-inf) = 0.
   auto softmax = [&]() {
     float mx0 = m0, mx1 = m1;
 #pragma unroll
@@ -480,55 +326,78 @@ __global__ void __launch_bounds__(kThreads, 1)
   // barrier 1 + i for the one before it (warpgroup 0 first). No branch may run while a product is in
   // flight: ptxas would serialize every wgmma (C7520).
   const int my_turn = 1 + wgi, next_turn = 1 + (wgi + 1) % kConsumers;
-  mbar_wait(q_bar, 0);
-  if (wgi == kConsumers - 1) named_bar_arrive(1, 256);
-  mbar_wait(full0, 0);  // tile 0: its scores and softmax; its P V goes with tile 1's scores
-  named_bar(my_turn, 256);
-  fence_regs(s);
-  wgmma_fence();
-  scores(kv0);
-  wgmma_commit();
-  named_bar_arrive(next_turn, 256);
-  wgmma_wait<0>();
-  fence_regs(s);
-  softmax();
-  keep_p();
-  for (int kt = 1; kt < n_kt; ++kt) {
-    const int st = kt % C::kStages, prev = (kt - 1) % C::kStages;
-    mbar_wait(full0 + 8 * st, (kt / C::kStages) & 1);
+  const uint32_t v_empty0 = C::kSplitKV ? vempty0 : empty0;  // where a tile's V is freed
+  constexpr std::false_type no{};
+  constexpr std::true_type yes{};
+  // The loop over the key tiles, under the valid rule or not (one copy each, chosen once before the loop).
+  auto run = [&](auto valid_rule) {
+    mbar_wait(q_bar, 0);
+    if (wgi == kConsumers - 1) named_bar_arrive(1, 256);
+    mbar_wait(full0, 0);  // tile 0: its scores and softmax; its P V goes with tile 1's scores
     named_bar(my_turn, 256);
     fence_regs(s);
-    fence_regs(o);
     wgmma_fence();
-    scores(kv0 + 2 * st * C::kTile);
-    wgmma_commit();
-    products(kv0 + (2 * prev + 1) * C::kTile);
+    scores(kv0);
     wgmma_commit();
     named_bar_arrive(next_turn, 256);
-    wgmma_wait<1>();  // S is ready; the P V product runs on under the softmax
+    wgmma_wait<0>();
     fence_regs(s);
+    if constexpr (C::kSplitKV) mbar_arrive_if(empty0, lane == 0);  // the scores have read K's stage 0
+    if (PREFILL && n_kt == 1) mask(yes, valid_rule, 0);  // the diagonal (nothing in flight: a branch is free)
+    else mask(no, valid_rule, 0);
     softmax();
-    wgmma_wait<0>();
-    fence_regs(o);
-    if (tid == 0) mbar_arrive(empty0 + 8 * prev);  // both products of the tile before have read its stage
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      o[4 * j] *= corr0;
-      o[4 * j + 1] *= corr0;
-      o[4 * j + 2] *= corr1;
-      o[4 * j + 3] *= corr1;
-    }
     keep_p();
-  }
-  {  // the last tile's O += P V
-    const int last = (n_kt - 1) % C::kStages;
-    fence_regs(o);
-    wgmma_fence();
-    products(kv0 + (2 * last + 1) * C::kTile);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(o);
-    if (tid == 0) mbar_arrive(empty0 + 8 * last);
+    // tile kt's scores beside tile kt - 1's P V; `causal`: the diagonal tile
+    auto step = [&](int kt, auto causal) {
+      const int st = kt % C::kStages, prev = (kt - 1) % C::kStages;
+      mbar_wait(full0 + 8 * st, (kt / C::kStages) & 1);
+      if constexpr (C::kSplitKV) mbar_wait(vfull0 + 8 * prev, ((kt - 1) / C::kStages) & 1);
+      named_bar(my_turn, 256);
+      fence_regs(s);
+      fence_regs(o);
+      wgmma_fence();
+      scores(kv0 + 2 * st * C::kTile);
+      wgmma_commit();
+      products(kv0 + (2 * prev + 1) * C::kTile);
+      wgmma_commit();
+      named_bar_arrive(next_turn, 256);
+      wgmma_wait<1>();  // S is ready; the P V product runs on under the softmax
+      fence_regs(s);
+      if constexpr (C::kSplitKV) mbar_arrive_if(empty0 + 8 * st, lane == 0);  // the scores have read K's stage
+      mask(causal, valid_rule, kt);
+      softmax();
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (tid == 0) mbar_arrive(v_empty0 + 8 * prev);  // the P V product of the tile before has read its V
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= corr0;
+        o[4 * j + 1] *= corr0;
+        o[4 * j + 2] *= corr1;
+        o[4 * j + 3] *= corr1;
+      }
+      keep_p();
+    };
+    const int peeled = PREFILL && n_kt > 1;  // prefill: the diagonal tile after the loop
+    for (int kt = 1; kt < n_kt - peeled; ++kt) step(kt, no);
+    if (peeled) step(n_kt - 1, yes);
+    {  // the last tile's O += P V
+      const int last = (n_kt - 1) % C::kStages;
+      if constexpr (C::kSplitKV) mbar_wait(vfull0 + 8 * last, ((n_kt - 1) / C::kStages) & 1);
+      fence_regs(o);
+      wgmma_fence();
+      products(kv0 + (2 * last + 1) * C::kTile);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (tid == 0) mbar_arrive(v_empty0 + 8 * last);
+    }
+  };
+  if constexpr (PREFILL) {
+    if (masked) run(yes);
+    else run(no);
+  } else {
+    run(no);
   }
   if (wgi == 0) named_bar(1, 256);  // the last warpgroup's last arrival
 
@@ -537,13 +406,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.0f / fmaxf(l0, 1e-30f), inv1 = 1.0f / fmaxf(l1, 1e-30f);
-  const int row0 = n0 + wgi * 64 + warp * 16 + g, row1 = row0 + 8;
+  const int row0 = n0 + lr0, row1 = row0 + 8;
   if (LSE && t == 0) {
     lse[(size_t)bh * N + row0] = (m0 * scale_log2e + log2f(l0)) * 0.6931471805599453f;
     lse[(size_t)bh * N + row1] = (m1 * scale_log2e + log2f(l1)) * 0.6931471805599453f;
   }
-  bf16* o0 = out + ((size_t)bh * N + row0) * D;
-  bf16* o1 = out + ((size_t)bh * N + row1) * D;
+  // prefill: row r of prompt b, head hq at ((b N + r) Hq + hq) D; ViT: row r of (image, head) bh at (bh N + r) D
+  const size_t heads = PREFILL ? gridDim.x : 1, head = PREFILL ? hq : 0;
+  const size_t rbase = (size_t)(PREFILL ? b : bh) * N;
+  bf16* o0 = out + ((rbase + row0) * heads + head) * D;
+  bf16* o1 = out + ((rbase + row1) * heads + head) * D;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     *reinterpret_cast<bf162*>(o0 + 8 * j + 2 * t) = __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
@@ -569,12 +441,12 @@ int launch_vit_wgmma(const void* q, const void* k, const void* v, void* out, voi
   for (int i = 0; i < 3; ++i)
     if (!encode(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ops[i], dims, strides, box))
       return (int)cudaErrorInvalidValue;
-  auto kernel = vw::flash_vit_wgmma_kernel<D, LSE>;
+  auto kernel = vw::flash_fwd_wgmma_kernel<D, LSE, false>;
   const cudaError_t rc = allow_dynamic_smem(kernel, C::kSmem);
   if (rc != cudaSuccess) return (int)rc;
   dim3 grid(N / vw::BM, H, B);
   kernel<<<grid, vw::kThreads, C::kSmem, st>>>(maps[0], maps[1], maps[2], static_cast<bf16*>(out),
-                                                 static_cast<float*>(lse), N, scale * 1.4426950408889634f);
+                                                 static_cast<float*>(lse), nullptr, N, 1, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -585,18 +457,48 @@ int launch_vit(const void* q, const void* k, const void* v, void* out, void* lse
                         : launch_vit_wgmma<D, false>(q, k, v, out, lse, B, H, N, scale, st);
 }
 
+// The prefill on the same body: token-major maps over (D, heads, B * T), the valid bytes beside the barriers.
+template <int D>
+int launch_prefill(const void* q, const void* k, const void* v, const void* valid, void* out, int B, int T, int Hq,
+                   int Hkv, float scale, cudaStream_t st) {
+  using C = vw::Cfg<D>;
+  const void* ops[3] = {q, k, v};
+  for (const void* p : ops)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return (int)cudaErrorInvalidValue;  // TMA needs 16-byte rows
+  const size_t smem = C::kSmem + align16((size_t)T);
+  if (T < vw::BN || T % vw::BN != 0 || Hkv < 1 || Hq % Hkv != 0 || smem > 232448 ||
+      reinterpret_cast<uintptr_t>(out) % 4 != 0 || reinterpret_cast<uintptr_t>(valid) % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int heads[3] = {Hq, Hkv, Hkv};
+  const cuuint32_t box[3] = {64, 1, vw::BN};
+  CUtensorMap maps[3];
+  for (int i = 0; i < 3; ++i) {
+    const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)heads[i], (cuuint64_t)B * T};
+    const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)heads[i] * D * 2};
+    if (!encode(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ops[i], dims, strides, box))
+      return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = vw::flash_fwd_wgmma_kernel<D, false, true>;
+  const cudaError_t rc = allow_dynamic_smem(kernel, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  dim3 grid(Hq, T / vw::BM, B);
+  kernel<<<grid, vw::kThreads, smem, st>>>(maps[0], maps[1], maps[2], static_cast<bf16*>(out), nullptr,
+                                           static_cast<const uint8_t*>(valid), T, Hq / Hkv,
+                                           scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// q / out (B, T, Hq, D), k / v (B, T, Hkv, D) bf16 contiguous; valid (B, T)
-// bool as bytes. Row i attends to key j iff j <= i and valid[i] == valid[j].
-// T must be a multiple of 64, D 64 or 128, Hq a multiple of Hkv (the wrapper checks).
+// q / out (B, T, Hq, D), k / v (B, T, Hkv, D) bf16 contiguous, 16-byte
+// aligned; valid (B, T) bool as bytes, 4-byte aligned. Row i attends to key j
+// iff j <= i and valid[i] == valid[j]. T a multiple of 128, D 64 or 128, Hq a
+// multiple of Hkv, else cudaErrorInvalidValue (the wrapper checks the shapes).
 extern "C" int mu_flash_prefill_bf16(const void* q, const void* k, const void* v, const void* valid, void* out, int B,
                                      int T, int Hq, int Hkv, int D, float scale, void* stream) {
-  const size_t qrs = (size_t)Hq * D, krs = (size_t)Hkv * D;
-  if (D == 128)
-    return launch_flash<128>(q, k, v, valid, out, B, Hq, T, Hq / Hkv, T * qrs, D, qrs, T * krs, D, krs, scale, stream);
-  if (D == 64)
-    return launch_flash<64>(q, k, v, valid, out, B, Hq, T, Hq / Hkv, T * qrs, D, qrs, T * krs, D, krs, scale, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128) return launch_prefill<128>(q, k, v, valid, out, B, T, Hq, Hkv, scale, st);
+  if (D == 64) return launch_prefill<64>(q, k, v, valid, out, B, T, Hq, Hkv, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -29,6 +29,14 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
+// mbar_arrive by the threads whose `pred` is nonzero, as a predicated instruction: no branch, so it may sit
+// between a wgmma's issue and its wait without ptxas serializing the products.
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, uint32_t pred) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.u32 p, %1, 0;\n@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+               "r"(pred)
+               : "memory");
+}
+
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
 }

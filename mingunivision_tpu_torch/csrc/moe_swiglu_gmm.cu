@@ -30,8 +30,8 @@
 extern "C" int mu_swiglu_gmm_bf16(const void* x, const void* row_token, const void* w1, const void* w3,
                                   const void* w2, const void* sched, void* hbuf, void* ys, int n_tiles, int R, int E,
                                   int h, int m, void* stream) {
-  return swg::launch_swiglu<false>(x, row_token, w1, nullptr, w3, nullptr, w2, nullptr, sched, hbuf, ys, n_tiles, R,
-                                   E, h, m, static_cast<cudaStream_t>(stream));
+  return swg::launch_swiglu<swg::Tab::kBf16>(x, row_token, w1, nullptr, w3, nullptr, w2, nullptr, sched, hbuf, ys,
+                                             n_tiles, R, E, h, m, static_cast<cudaStream_t>(stream));
 }
 
 // Rows per tile the kernels were compiled for; the wrapper builds its schedule with it.

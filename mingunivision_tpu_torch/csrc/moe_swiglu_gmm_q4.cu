@@ -418,7 +418,8 @@ extern "C" int mu_swiglu_gmm_q4(const void* x, const void* row_token, const void
                                 int R, int E, int h, int m, int n_tokens, int s8, void* stream) {
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (!s8)
-    return swg::launch_swiglu<true>(x, row_token, q1, s1, q3, s3, q2, s2, sched, hbuf, ys, n_tiles, R, E, h, m, cs);
+    return swg::launch_swiglu<swg::Tab::kInt4>(x, row_token, q1, s1, q3, s3, q2, s2, sched, hbuf, ys, n_tiles, R, E,
+                                               h, m, cs);
   const int* rt = static_cast<const int*>(row_token);
   const int* sc = static_cast<const int*>(sched);
   const uint8_t *Q1 = static_cast<const uint8_t*>(q1), *Q3 = static_cast<const uint8_t*>(q3),

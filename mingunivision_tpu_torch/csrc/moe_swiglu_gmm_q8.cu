@@ -1,7 +1,7 @@
 // Prefill MoE over int8 tables: grouped SwiGLU over expert-sorted rows,
 // ys[r] = (silu(x[tok[r]] @ Q1[e] * s1) * (x[tok[r]] @ Q3[e] * s3)) @ Q2[e] * s2
 // for the rows r of expert e, Q the int8 weights, in two dot modes:
-//   exact   Q converted to fp32 (exact), x's bf16 values, fp32 sums, a =
+//   exact   Q converted to bf16 (exact), x's bf16 values, fp32 sums, a =
 //           silu(g) * u rounded to bf16 before the down dot;
 //   S8      x quantized per row to s8 (ops/kernels/intdot.py quant_rows_s8),
 //           gate/up as s8 x s8 -> s32 dots times the row and column scales,
@@ -19,11 +19,17 @@
 // 64 x 8.65 MB = 554 MB (165 us at 3.35 TB/s), and does 13 G operations (the
 // understanding prompt's 1,152 tokens: the same bytes, 120 G operations).
 //
-// Design: the bf16 kernel's (moe_swiglu_gmm.cu) group schedule at tiles of 32
-// rows, its own (the expert-sorted and the capacity dispatch both build it;
-// a kernel handed a longer tile traps), reading the stacked
-// tables' layer views, never copies. Exact: two launches, the int8 bytes
-// converted to fp32 in shared memory in the load path. S8: four launches,
+// Design. Exact: the bf16 kernel's (moe_swiglu_gmm.cu) body, swiglu_wgmma.cuh,
+// over int8 tables (`swiglu_ra_kernel`): 128-row schedule tiles
+// (mu_swiglu_gmm_q8_tile_rows(0)), two launches of wgmma bf16 products with
+// fp32 sums of the transposed product y^T = W^T x^T: TMA streams the table's
+// bytes (64 rows x 256 columns a stage, 64-byte swizzle) beside x's rows
+// (gathered by cp.async), and the consumers convert their bytes in registers
+// into wgmma's A (a byte b beside 0x43 as a bf16, its sign bit cleared, minus
+// the same word masked to 0xFF80: b exactly), so no bf16 copy of the table is
+// written; g * s1 and u * s3 after the dots, a = silu(g) * u rounded to bf16
+// before the down dot, s2 once at the store. S8: 32-row tiles
+// (mu_swiglu_gmm_q8_tile_rows(1)), four launches,
 //   quantize  x per token row to s8 (one block per token);
 //   up        per (64-column tile, row tile) the s8 rows and the int8 tile
 //             (its 32-bit words byte-transposed so that each holds four
@@ -35,144 +41,17 @@
 //             each descaled by its row's chunk scale and added in fp32.
 // The integer sums are exact and every fp32 step is rounded as the plain
 // version writes it (no fused multiply-add), so the S8 mode agrees with its
-// plain version to the bit. Simple smem-tiled CUDA-core dots; tensor cores
-// come later.
-#include "common.cuh"
+// plain version to the bit. Simple smem-tiled CUDA-core dots; its kernels
+// trap on a tile longer than their 32 rows. Both modes read the stacked
+// tables' layer views, never copies.
+#include "swiglu_wgmma.cuh"
 
 namespace {
 
-constexpr int TM = 32;  // rows per tile (the schedule's tile, mu_swiglu_gmm_q8_tile_rows)
+constexpr int TM = 32;  // rows per tile of the s8 kernels (their schedules' tile rows)
 constexpr int BN = 64;  // output columns per block
 constexpr int BK = 32;  // contraction rows per step
 constexpr int kThreads = 256;  // 16 x 16: each thread owns 2 rows x 4 columns
-
-// Convert a BK x BN tile of int8 weights (rows k0.., columns n0.. of a table
-// with `ld` columns) to fp32.
-__device__ __forceinline__ void load_int8_tile(const int8_t* __restrict__ q, size_t ld, int k0, int n0,
-                                               float (*w)[BN]) {
-  for (int idx = threadIdx.x; idx < BK * BN / 4; idx += kThreads) {
-    const int kk = idx / (BN / 4);
-    const int c = 4 * (idx % (BN / 4));
-    const uint32_t v = __ldg(reinterpret_cast<const uint32_t*>(q + (size_t)(k0 + kk) * ld + n0 + c));
-#pragma unroll
-    for (int b = 0; b < 4; ++b) w[kk][c + b] = (float)(int8_t)(v >> (8 * b));
-  }
-}
-
-__device__ __forceinline__ void fma_2x4(float a0, float a1, const float* b, float (&acc)[2][4]) {
-  const float4 v = *reinterpret_cast<const float4*>(b);
-  acc[0][0] = fmaf(a0, v.x, acc[0][0]); acc[0][1] = fmaf(a0, v.y, acc[0][1]);
-  acc[0][2] = fmaf(a0, v.z, acc[0][2]); acc[0][3] = fmaf(a0, v.w, acc[0][3]);
-  acc[1][0] = fmaf(a1, v.x, acc[1][0]); acc[1][1] = fmaf(a1, v.y, acc[1][1]);
-  acc[1][2] = fmaf(a1, v.z, acc[1][2]); acc[1][3] = fmaf(a1, v.w, acc[1][3]);
-}
-
-__global__ void __launch_bounds__(kThreads) gmm_q8_up_kernel(
-    const bf16* __restrict__ x, const int* __restrict__ row_token, const int8_t* __restrict__ q1,
-    const float* __restrict__ s1, const int8_t* __restrict__ q3, const float* __restrict__ s3,
-    const int* __restrict__ sched, bf16* __restrict__ hbuf, int h, int m) {
-  const int tile = blockIdx.y;
-  const int e = sched[3 * tile];
-  const int r0 = sched[3 * tile + 1];
-  const int r1 = sched[3 * tile + 2];
-  if (r0 >= r1) return;
-  if (r1 - r0 > TM) __trap();  // a schedule built for longer tiles than the kernel's: refused
-  const int n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-
-  __shared__ float xs[BK][TM + 1];
-  __shared__ __align__(16) float w1s[BK][BN], w3s[BK][BN];
-  __shared__ int tok[TM];
-  if (tid < TM) tok[tid] = (r0 + tid < r1) ? row_token[r0 + tid] : -1;
-  __syncthreads();
-
-  const int8_t* Q1 = q1 + (size_t)e * h * m;
-  const int8_t* Q3 = q3 + (size_t)e * h * m;
-  float g[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-  float u[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-
-  for (int k0 = 0; k0 < h; k0 += BK) {
-    for (int idx = tid; idx < TM * BK; idx += kThreads) {
-      const int r = idx / BK;
-      const int kk = idx % BK;
-      const int t = tok[r];
-      xs[kk][r] = t >= 0 ? __bfloat162float(x[(size_t)t * h + k0 + kk]) : 0.0f;
-    }
-    load_int8_tile(Q1, m, k0, n0, w1s);
-    load_int8_tile(Q3, m, k0, n0, w3s);
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      const float a0 = xs[kk][2 * ty], a1 = xs[kk][2 * ty + 1];
-      fma_2x4(a0, a1, &w1s[kk][4 * tx], g);
-      fma_2x4(a0, a1, &w3s[kk][4 * tx], u);
-    }
-    __syncthreads();
-  }
-
-  const float* S1 = s1 + (size_t)e * m + n0 + 4 * tx;
-  const float* S3 = s3 + (size_t)e * m + n0 + 4 * tx;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + 2 * ty + i;
-    if (r < r1) {
-      float a[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) a[c] = silu_f32(g[i][c] * S1[c]) * (u[i][c] * S3[c]);
-      bf16* dst = hbuf + (size_t)r * m + n0 + 4 * tx;
-      *reinterpret_cast<bf162*>(dst) = __floats2bfloat162_rn(a[0], a[1]);
-      *reinterpret_cast<bf162*>(dst + 2) = __floats2bfloat162_rn(a[2], a[3]);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) gmm_q8_down_kernel(
-    const bf16* __restrict__ hbuf, const int8_t* __restrict__ q2, const float* __restrict__ s2,
-    const int* __restrict__ sched, bf16* __restrict__ ys, int h, int m) {
-  const int tile = blockIdx.y;
-  const int e = sched[3 * tile];
-  const int r0 = sched[3 * tile + 1];
-  const int r1 = sched[3 * tile + 2];
-  if (r0 >= r1) return;
-  if (r1 - r0 > TM) __trap();  // a schedule built for longer tiles than the kernel's: refused
-  const int n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-
-  __shared__ float as[BK][TM + 1];
-  __shared__ __align__(16) float ws[BK][BN];
-
-  const int8_t* Q2 = q2 + (size_t)e * m * h;
-  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-
-  for (int k0 = 0; k0 < m; k0 += BK) {
-    for (int idx = tid; idx < TM * BK; idx += kThreads) {
-      const int r = idx / BK;
-      const int kk = idx % BK;
-      as[kk][r] = (r0 + r < r1) ? __bfloat162float(hbuf[(size_t)(r0 + r) * m + k0 + kk]) : 0.0f;
-    }
-    load_int8_tile(Q2, h, k0, n0, ws);
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) fma_2x4(as[kk][2 * ty], as[kk][2 * ty + 1], &ws[kk][4 * tx], acc);
-    __syncthreads();
-  }
-
-  const float* S2 = s2 + (size_t)e * h + n0 + 4 * tx;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + 2 * ty + i;
-    if (r < r1) {
-      bf16* dst = ys + (size_t)r * h + n0 + 4 * tx;
-      *reinterpret_cast<bf162*>(dst) = __floats2bfloat162_rn(acc[i][0] * S2[0], acc[i][1] * S2[1]);
-      *reinterpret_cast<bf162*>(dst + 2) = __floats2bfloat162_rn(acc[i][2] * S2[2], acc[i][3] * S2[3]);
-    }
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // S8 mode
@@ -338,32 +217,28 @@ __global__ void __launch_bounds__(kThreads) gmm_q8s8_down_kernel(
 // x (n_tokens, h) bf16 token rows; row_token (A,) int32 token of each
 // scheduled row; q1/q3 (E, h, m) and q2 (E, m, h) int8 for ONE layer with fp32
 // scales s1/s3 (E, 1, m) and s2 (E, 1, h); sched (n_tiles, 3) int32 (expert,
-// first row, end row), empty entries have first == end; out ys (A, h) bf16 in
-// scheduled row order. Exact (s8 = 0): scratch hbuf (A, m) bf16; xq, sx, aq,
-// sa unused. S8 (s8 = 1): scratch hbuf (A, m) fp32, xq (n_tokens, h) s8, sx
-// (n_tokens,) fp32, aq (A, m) s8, sa (A, m / chunk) fp32; chunk a multiple of
-// 32 dividing m. h and m must be multiples of 64 (the wrapper checks); the tile
-// rows are mu_swiglu_gmm_q8_tile_rows() (a longer tile traps).
+// first row, end row), empty entries have first == end, tiles of at most
+// mu_swiglu_gmm_q8_tile_rows(s8) rows (a longer tile traps); out ys (A, h) bf16
+// in scheduled row order. Exact (s8 = 0): scratch hbuf (A, m) bf16; xq, sx, aq,
+// sa and chunk unused; every operand 16-byte aligned (the scales 8-byte), R
+// the rows of hbuf and ys, E the tables' experts. S8 (s8 = 1): scratch hbuf
+// (A, m) fp32, xq (n_tokens, h) s8, sx (n_tokens,) fp32, aq (A, m) s8, sa (A,
+// m / chunk) fp32; chunk a multiple of 32 dividing m. h and m must be
+// multiples of 64 (the wrapper checks).
 extern "C" int mu_swiglu_gmm_q8(const void* x, const void* row_token, const void* q1, const void* s1, const void* q3,
                                 const void* s3, const void* q2, const void* s2, const void* sched, void* hbuf,
-                                void* ys, void* xq, void* sx, void* aq, void* sa, int n_tiles, int h, int m,
-                                int n_tokens, int s8, int chunk, void* stream) {
+                                void* ys, void* xq, void* sx, void* aq, void* sa, int n_tiles, int R, int E, int h,
+                                int m, int n_tokens, int s8, int chunk, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!s8)
+    return swg::launch_swiglu<swg::Tab::kInt8>(x, row_token, q1, s1, q3, s3, q2, s2, sched, hbuf, ys, n_tiles, R, E,
+                                               h, m, st);
   const int* rt = static_cast<const int*>(row_token);
   const int* sc = static_cast<const int*>(sched);
   const int8_t *Q1 = static_cast<const int8_t*>(q1), *Q3 = static_cast<const int8_t*>(q3),
                *Q2 = static_cast<const int8_t*>(q2);
   const float *S1 = static_cast<const float*>(s1), *S3 = static_cast<const float*>(s3),
               *S2 = static_cast<const float*>(s2);
-  if (!s8) {
-    gmm_q8_up_kernel<<<dim3(m / BN, n_tiles), kThreads, 0, st>>>(static_cast<const bf16*>(x), rt, Q1, S1, Q3, S3, sc,
-                                                                 static_cast<bf16*>(hbuf), h, m);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    gmm_q8_down_kernel<<<dim3(h / BN, n_tiles), kThreads, 0, st>>>(static_cast<const bf16*>(hbuf), Q2, S2, sc,
-                                                                   static_cast<bf16*>(ys), h, m);
-    return (int)cudaGetLastError();
-  }
   if (chunk % BK || m % chunk) return (int)cudaErrorInvalidValue;
   int8_t *XQ = static_cast<int8_t*>(xq), *AQ = static_cast<int8_t*>(aq);
   float *SX = static_cast<float*>(sx), *SA = static_cast<float*>(sa), *HB = static_cast<float*>(hbuf);
@@ -381,5 +256,6 @@ extern "C" int mu_swiglu_gmm_q8(const void* x, const void* row_token, const void
   return (int)cudaGetLastError();
 }
 
-// Rows per schedule tile of both modes' kernels; the wrapper builds their schedules with it.
-extern "C" int mu_swiglu_gmm_q8_tile_rows(void) { return TM; }
+// Rows per schedule tile of each mode's kernels: exact (s8 = 0) the wgmma
+// body's 128, s8 dots 32; the wrapper builds each mode's schedule with it.
+extern "C" int mu_swiglu_gmm_q8_tile_rows(int s8) { return s8 ? TM : swg::BM; }

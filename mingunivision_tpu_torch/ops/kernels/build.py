@@ -33,7 +33,7 @@ _SIGNATURES = {
     "mu_swiglu_gmm_bf16": [_P] * 8 + [_I] * 5 + [_P],
     "mu_swiglu_gmm_tile_rows": [],
     "mu_swiglu_gmm_q4_tile_rows": [_I],
-    "mu_swiglu_gmm_q8_tile_rows": [],
+    "mu_swiglu_gmm_q8_tile_rows": [_I],
     "mu_swiglu_gmm_full_tile_rows": [],
     "mu_decode_attention_bf16": [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P],
     "mu_decode_attention_tile": [],
@@ -51,7 +51,7 @@ _SIGNATURES = {
     "mu_paged_attention_tile": [],
     "mu_moe_stream_q8": [_P] * 13 + [_I] * 4 + [_P],
     "mu_moe_stream_q8s8": [_P] * 13 + [_I] * 7 + [_P],
-    "mu_swiglu_gmm_q8": [_P] * 15 + [_I] * 6 + [_P],
+    "mu_swiglu_gmm_q8": [_P] * 15 + [_I] * 8 + [_P],
     "mu_rf_sampler_q8": [_P] * 19 + [_I] * 13 + [ctypes.c_float] * 3 + [_P],
     "mu_rf_sampler_q8_workspace": [_I] * 4,
     "mu_rf_mlp_stack": [_P] * 12 + [_I] * 9 + [ctypes.c_float, _P],

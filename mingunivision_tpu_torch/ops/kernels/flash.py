@@ -14,9 +14,12 @@ kept out of device memory. On the H100 it is bound by its operations (4 * D
 per allowed query-key pair; q, k, v and the output each move once), so the
 kernel keeps both products on the tensor cores (bf16, fp32 accumulators)
 and the online-softmax state in registers; see the source note: the prefill
-on mma.sync; the ViT forward and its two backward kernels on wgmma over
-TMA-fed rings (N a multiple of 128, as the forward's gate requires, so every
-shape an entry point hands the backward fits its tile too).
+and the ViT forward are two modes of one wgmma body over a TMA-fed ring (the
+prefill reading q, k and v token-major where they lie, its query tiles
+visiting the key tiles up to the diagonal only), the ViT backward's two
+kernels wgmma bodies of their own (N a multiple of 128, as the forward's
+gate requires, so every shape an entry point hands the backward fits its
+tile too).
 
 The gates follow the JAX package's TPU dispatch on every device (the port's
 CPU path is the plain version of the same function, not another path).
@@ -34,7 +37,7 @@ from mingunivision_tpu_torch.ops.kernels import build
 from mingunivision_tpu_torch.ops.linear import current_fp32_precision
 
 _KERNEL_HEAD_DIMS = (64, 128)
-_TILE = 64  # the prefill's (mma.sync) query and key tile
+PREFILL_TILE = 128  # the prefill's query and key tile (the forward's wgmma body)
 VIT_TILE = 128  # the ViT kernels' (wgmma: forward, dK / dV, dQ) tile of a block's resident rows
 
 
@@ -87,11 +90,11 @@ def flash_prefill_attention(q, k, v, valid_mask, *, scale: float):
     if k.shape != (B, T, Hkv, D) or v.shape != k.shape or valid_mask.shape != (B, T):
         raise ValueError(f"flash_prefill_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)} "
                          f"valid {tuple(valid_mask.shape)}")
-    if D not in _KERNEL_HEAD_DIMS or T % _TILE or Hq % Hkv:
-        raise ValueError(f"flash_prefill_attention: needs head_dim in {_KERNEL_HEAD_DIMS}, T a multiple of {_TILE} "
-                         f"and Hq a multiple of Hkv (D={D}, T={T}, Hq={Hq}, Hkv={Hkv})")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    valid = valid_mask.to(torch.bool).contiguous()
+    if D not in _KERNEL_HEAD_DIMS or T % PREFILL_TILE or Hq % Hkv:
+        raise ValueError(f"flash_prefill_attention: needs head_dim in {_KERNEL_HEAD_DIMS}, T a multiple of "
+                         f"{PREFILL_TILE} and Hq a multiple of Hkv (D={D}, T={T}, Hq={Hq}, Hkv={Hkv})")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    valid = _aligned(valid_mask.to(torch.bool))
     out = torch.empty_like(q)
     rc = build.load().mu_flash_prefill_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), out.data_ptr(),
                                             B, T, Hq, Hkv, D, float(scale), build.stream_handle(q))

@@ -19,8 +19,12 @@ sorted rows from the expert's first row, so every block reads one expert's
 weight tile for at most the kernel's tile rows, no tile straddles a group
 boundary, and the store mask is the tile's row bound. The tables are read as
 (E, h, m)/(E, m, h) layer views, never copied or cast; int4 and int8 tables
-are converted in the kernels' load paths (a quarter and a half of the bf16
-bytes), or enter the s8 dots as they lie.
+are converted to bf16 on chip (int4 in shared memory by the wgmma body's
+producer, int8 in the consumers' registers as the transposed product's A:
+a quarter and a half of the bf16 bytes), or enter the s8 dots as they lie.
+The bf16 kernel and the exact modes of the int4 and int8 ones run one body,
+`csrc/swiglu_wgmma.cuh`, at 128-row schedule tiles; the s8-dot and
+full-block kernels at 32.
 
 The kernels read x through a row map (the token of each row) and a schedule
 of (expert, first row, end row) tiles, so a dispatch is two steps: build the
@@ -257,8 +261,8 @@ def moe_experts_swiglu_gmm_q8_plain(experts, x_flat, topk_idx, topk_w, num_exper
 def tile_rows(kind: str = "plain", s8: bool = False, full_block: bool = False) -> int:
     """Rows per schedule tile of the kernel that `swiglu_gmm_rows` launches for
     the table kind (`table_kind`), dot mode and block mode, as the library that
-    launches it reports: 128 for bf16 tables and for int4 ones with exact
-    dequant (the wgmma body), 32 for the s8-dot, int8 and full-block kernels
+    launches it reports: 128 for bf16 tables and for int4 and int8 ones with
+    exact dequant (the wgmma body), 32 for the s8-dot and full-block kernels
     (a kernel handed a longer tile traps)."""
     lib = build.load()
     if full_block:
@@ -266,7 +270,7 @@ def tile_rows(kind: str = "plain", s8: bool = False, full_block: bool = False) -
     if kind == "int4":
         return lib.mu_swiglu_gmm_q4_tile_rows(int(s8))
     if kind == "int8":
-        return lib.mu_swiglu_gmm_q8_tile_rows()
+        return lib.mu_swiglu_gmm_q8_tile_rows(int(s8))
     return lib.mu_swiglu_gmm_tile_rows()
 
 
@@ -332,10 +336,9 @@ def swiglu_gmm_rows(experts, x_flat, row_token, row_expert, sched, num_experts: 
             n_ptrs = 6
         bufs = [torch.empty(shape, dtype=dtype, device=dev) for shape, dtype in scratch]
         extra = tuple(b.data_ptr() for b in bufs) if s8 else (0,) * n_ptrs
-    sizes = () if kind == "int8" else (R, E)  # the wgmma body's tensor maps span the rows and the E tables
-    rc = getattr(build.load(), name)(
+    rc = getattr(build.load(), name)(  # R and E: the wgmma body's tensor maps span the rows and the E tables
         x.data_ptr(), row_token.data_ptr(), *tables, sched.data_ptr(), hbuf.data_ptr(), ys.data_ptr(), *extra,
-        sched.shape[0], *sizes, h, m, *ints, build.stream_handle(x),
+        sched.shape[0], R, E, h, m, *ints, build.stream_handle(x),
     )
     build.check(rc, name)
     wrapper.launches += 1

@@ -296,20 +296,33 @@ def test_paged_attention_raises_on_unsupported_input(dev):
     assert paged_decode_attention.launches == before  # nothing was launched, nothing fell back
 
 
+@pytest.mark.parametrize("layout", ["right-pads", "left-pads", "scattered"])
 @pytest.mark.parametrize("T,pads,Hq,Hkv,D", [(1152, 92, 16, 4, 128), (512, 0, 16, 4, 128), (640, 37, 4, 4, 64),
-                                             (128, 100, 8, 2, 128)],
-                         ids=["understanding-1152-92pads", "512-nopads", "640-mha-d64", "128-mostly-pads"])
-def test_flash_prefill_kernel_matches_plain(dev, T, pads, Hq, Hkv, D):
+                                             (128, 100, 8, 2, 128), (1152, 128, 4, 1, 128), (640, 92, 16, 4, 64),
+                                             (512, 300, 4, 4, 128)],
+                         ids=["understanding-1152-92pads", "512-nopads", "640-mha-d64", "128-mostly-pads",
+                              "1152-gqa4to1-128pads", "640-d64-92pads", "512-300pads"])
+def test_flash_prefill_kernel_matches_plain(dev, T, pads, Hq, Hkv, D, layout):
+    """The prefill on the forward's wgmma body (128-row query tiles, key tiles
+    up to the diagonal) against its plain version: batch row 0 padded `pads`
+    rows at its end, at its start (its valid rows' first key tiles all
+    masked, its padding rows' later ones) or at scattered places (a
+    non-prefix mask), batch row 1 unpadded; every row finite (each allows
+    itself), the valid rows and the padding rows (defined by the same rule)
+    within bf16's precision."""
     g = torch.Generator(device=dev).manual_seed(9)
     q = torch.randn(2, T, Hq, D, device=dev, generator=g).to(torch.bfloat16)
     k = torch.randn(2, T, Hkv, D, device=dev, generator=g).to(torch.bfloat16)
     v = torch.randn(2, T, Hkv, D, device=dev, generator=g).to(torch.bfloat16)
     valid = torch.ones(2, T, dtype=torch.bool, device=dev)
-    valid[0, T - pads:] = False  # row 1 of the batch has no padding
+    pad_at = {"right-pads": torch.arange(T - pads, T), "left-pads": torch.arange(pads),
+              "scattered": torch.randperm(T, generator=torch.Generator().manual_seed(pads))[:pads]}[layout]
+    valid[0, pad_at.to(dev)] = False  # row 1 of the batch has no padding
     before = flash_prefill_attention.launches
     got = flash_prefill_attention(q, k, v, valid, scale=D**-0.5)
     torch.cuda.synchronize()
     assert flash_prefill_attention.launches == before + 1
+    assert not got[valid].isnan().any()
     want = flash_prefill_attention_plain(q, k, v, valid, scale=D**-0.5)
     _close_bf16(got[valid], want[valid])
     _close_bf16(got, want)  # the padding rows are defined by the same rule
@@ -395,11 +408,18 @@ def test_moe_stream_q8_kernels_match_plain(dev, n, int_dots):
         _close_bf16(got, want)
 
 
-@pytest.mark.parametrize("choices", [None, [0, 3, 5]], ids=["spread", "skewed-empty-experts"])
+@pytest.mark.parametrize("choices", [None, [0, 3, 5], "0-1-127-128-129", "all-on-one"],
+                         ids=["spread", "skewed-empty-experts", "edges-0-1-127-128-129", "all-on-one"])
 def test_swiglu_gmm_q8_kernel_matches_plain(dev, choices):
+    """7c, the exact int8 prefill MoE on the wgmma body (128-row tiles), through
+    the expert-sorted dispatch: top-2 spread or skewed, and k = 1 with experts
+    of 0, 1, 127, 128 and 129 rows or all rows on one expert."""
     ex = _q8(_experts(dev, seed=16))
-    idx, w = _routing(dev, 96, 2, choices, seed=17)
-    x = torch.randn(96, H, device=dev).to(torch.bfloat16)
+    if isinstance(choices, str):
+        idx, w = _edge_routing(dev, _EDGE_LOADS[choices])
+    else:
+        idx, w = _routing(dev, 96, 2, choices, seed=17)
+    x = torch.randn(idx.shape[0], H, device=dev).to(torch.bfloat16)
     before = moe_experts_swiglu_gmm_q8.launches
     got = moe_experts_swiglu_gmm(ex, x, idx, w, E, layer_idx=0)
     torch.cuda.synchronize()
@@ -1935,21 +1955,21 @@ def test_moe_stream_ring_at_full_width_matches_plain(dev, which):
 
 
 # ---------------------------------------------------------------------------
-# the prefill MoE on its wgmma body (row 2, bf16 tables; row 5, int4 tables with exact dequant): 128-row
-# schedule tiles, each kernel's own tile rows, a longer tile refused
+# the prefill MoE on its wgmma body (row 2, bf16 tables; row 5, int4 tables, and row 7c, int8 tables, with
+# exact dequant): 128-row schedule tiles, each kernel's own tile rows, a longer tile refused
 # ---------------------------------------------------------------------------
 
 # rows per expert of the edge cases (k = 1): 0, 1, 127, 128 and 129 (a full tile and one row past it), and
 # all rows on one expert (three tiles, the last of 44 rows)
 _EDGE_LOADS = {"0-1-127-128-129": [0, 1, 127, 128, 129, 3, 64, 65], "all-on-one": [0, 0, 0, 0, 0, 300, 0, 0]}
-_WGMMA_KERNELS = {"bf16": moe_experts_swiglu_gmm, "int4": moe_experts_swiglu_gmm_q4}
+_WGMMA_KERNELS = {"bf16": moe_experts_swiglu_gmm, "int4": moe_experts_swiglu_gmm_q4, "int8": moe_experts_swiglu_gmm_q8}
 
 
 def _wgmma_tables(dev, tier, h=H, m=M, seed=0, E_=E):
     g = torch.Generator(device=dev).manual_seed(seed)
     shapes = {"gate_proj": (2, E_, h, m), "up_proj": (2, E_, h, m), "down_proj": (2, E_, m, h)}
     ex = {k: torch.empty(s, device=dev, dtype=torch.bfloat16).normal_(0, 0.05, generator=g) for k, s in shapes.items()}
-    return ex if tier == "bf16" else _q4(ex)
+    return {"bf16": dict, "int4": _q4, "int8": _q8}[tier](ex)
 
 
 def _edge_routing(dev, loads):
@@ -2026,12 +2046,12 @@ def test_swiglu_gmm_wgmma_body_at_full_width(dev, tier):
 
 def test_swiglu_gmm_tile_rows_of_each_kernel(dev):
     """Each (table kind, mode)'s kernel reports its own tile rows: the wgmma
-    body 128, the s8-dot, int8 and full-block kernels 32."""
+    body (bf16, int4 and int8 exact) 128, the s8-dot and full-block kernels 32."""
     from mingunivision_tpu_torch.ops.kernels.moe_swiglu_gmm import tile_rows
 
     assert [tile_rows("plain"), tile_rows("int4"), tile_rows("int4", s8=True), tile_rows("int8"),
             tile_rows("int8", s8=True), tile_rows("int4", full_block=True), tile_rows("int8", full_block=True)] == \
-        [128, 128, 32, 32, 32, 32, 32]
+        [128, 128, 32, 128, 32, 32, 32]
 
 
 _REFUSAL = """

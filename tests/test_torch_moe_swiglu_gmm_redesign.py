@@ -1,29 +1,34 @@
 """PyTorch port: what surrounds the prefill MoE's tensor-core body
 (`csrc/swiglu_wgmma.cuh`), which runs the bf16 kernel (`csrc/moe_swiglu_gmm.cu`,
-row 2) and the exact mode of the int4 one (`csrc/moe_swiglu_gmm_q4.cu`,
-row 5), on the CPU.
+row 2) and the exact modes of the int4 one (`csrc/moe_swiglu_gmm_q4.cu`,
+row 5) and of the int8 one (`csrc/moe_swiglu_gmm_q8.cu`, row 7c), on the CPU.
 
 - A plain-torch model of the body's arithmetic: the schedule's tiles of at
   most 128 rows, per tile g and u as fp32 sums over stages of 64 contraction
   rows added in stage order, a = silu(g) * u rounded to bf16, the down dot
-  the same way; for row 5 the nibbles as exact operands, each stage holding
+  the same way; for rows 5 and 7c the table's integers as exact operands
+  (int8: each stage 64 consecutive table rows, the transposed product's
+  register A; int4: each stage holding
   packed rows p0..p0+31, i.e. contraction rows p0..p0+31 (low nibbles) and
   K/2+p0..K/2+p0+31 (high nibbles) against the activations' columns at the
-  same two offsets, the scales after the dots, s2 at the store. Held within
+  same two offsets), the scales after the dots, s2 at the store. Held within
   BF16_REL against the plain version (`swiglu_rows_plain` behind the
   dispatch) and against the JAX package's Pallas kernels (`_kernel`,
-  `_kernel_q4_chunked`) in interpret mode, on numpy-seeded inputs: experts
-  with 0, 1, 127, 128 and 129 rows, all rows on one expert, a spread top-2
-  routing, and through the capacity dispatch (fitting, with an expert of 129
-  slots, and overflowing: the sorted fallback).
+  `_kernel_q4_chunked`, `_kernel_q8_chunked`) in interpret mode, on
+  numpy-seeded inputs: experts with 0, 1, 127, 128 and 129 rows, all rows on
+  one expert, a spread top-2 routing, and through the capacity dispatch
+  (fitting, with an expert of 129 slots, and overflowing: the sorted
+  fallback).
 - In float64, that the stage order and the nibble-plane permutation take
   every contraction row once (the exact dot), that the nibble convert the
-  kernel makes in registers (0x4300 | n is 128 + n, minus 136) is exact, and
-  that the intermediate's column order for int4 tables gives each down
-  stage its two planes' columns as one box.
+  kernel makes in registers (0x4300 | n is 128 + n, minus 136) and the byte
+  convert of int8 tables into register A (a byte r beside 0x43, its sign bit
+  cleared, minus the word masked to 0xFF80) are exact for every value, and that the
+  intermediate's column order for int4 tables gives each down stage its two
+  planes' columns as one box.
 - The schedules: each (table kind, mode) reads its tile rows from the
-  library that launches it (`tile_rows`: the wgmma body's 128, the s8-dot,
-  int8 and full-block kernels' 32, read here from the sources through a
+  library that launches it (`tile_rows`: the wgmma body's 128, the s8-dot
+  and full-block kernels' 32, read here from the sources through a
   stand-in library), and both dispatches' schedules at those rows cover each
   row once, never straddle an expert and never hand a 32-row kernel a longer
   tile; every kernel that reads a schedule traps on a longer tile.
@@ -55,7 +60,7 @@ from mingunivision_tpu_torch.ops.kernels.moe_capacity import (
     expert_rank,
     moe_experts_capacity_gmm_exact_plain,
 )
-from mingunivision_tpu_torch.ops.kernels.moe_stream import layer_tables, nibbles
+from mingunivision_tpu_torch.ops.kernels.moe_stream import layer_tables, nibbles, table_kind
 from mingunivision_tpu_torch.utils.convert import params_from_jax
 from mingunivision_tpu_torch.utils.quantize import quantize_array
 import test_torch_common  # noqa: F401  (one torch thread per test worker)
@@ -63,6 +68,7 @@ import test_torch_common  # noqa: F401  (one torch thread per test worker)
 BF16_REL = 1e-2
 E, H, M = 8, 256, 384  # 128-aligned, as the Pallas kernels need
 BK = 64  # contraction rows per stage of the body's ring (32 packed rows for int4 tables)
+TIERS = ["bf16", "int4", "int8"]  # the body's three table kinds
 CSRC = Path(msg.__file__).resolve().parents[2] / "csrc"
 
 # rows per expert (k = 1): the tile's edges, and all rows on one expert (three tiles, the last of 44 rows)
@@ -75,8 +81,8 @@ def _source_int(name: str, pattern: str) -> int:
 
 # each kernel's tile rows as its source defines them
 BODY_ROWS = _source_int("swiglu_wgmma.cuh", r"constexpr int BM = (\d+);")
-Q4_ROWS = _source_int("moe_swiglu_gmm_q4.cu", r"constexpr int TM = (\d+);")
-Q8_ROWS = _source_int("moe_swiglu_gmm_q8.cu", r"constexpr int TM = (\d+);")
+Q4_ROWS = _source_int("moe_swiglu_gmm_q4.cu", r"constexpr int TM = (\d+);")  # the int4 s8 and full-block kernels
+Q8_ROWS = _source_int("moe_swiglu_gmm_q8.cu", r"constexpr int TM = (\d+);")  # the int8 s8 kernels
 
 
 # ---------------------------------------------------------------------------
@@ -103,27 +109,48 @@ def staged_dot(a, w, q4: bool):
     return acc
 
 
+def _bf16_bits(bits: torch.Tensor) -> torch.Tensor:
+    """int32 bf16 bit patterns (below 0x8000) as float64 values."""
+    return bits.to(torch.int16).view(torch.bfloat16).double()
+
+
+def bytes_bf16(q: torch.Tensor) -> torch.Tensor:
+    """The body's int8 convert (csrc/swiglu_wgmma.cuh `byte_pair_bf16`) of an
+    int8 tensor: each byte r beside 0x43 is the bf16 0x43rr; with its sign bit
+    cleared that is 128 + (r & 127), masked to 0xFF80 it is 128 or 256, and
+    the kernel subtracts the two in bf16. The difference, taken in float64,
+    must be a bf16 value (so the kernel's subtraction rounds nothing)."""
+    t = 0x4300 | (q.to(torch.int32) & 0xFF)
+    d = _bf16_bits(t & 0xFF7F) - _bf16_bits(t & 0xFF80)
+    out = d.to(torch.bfloat16)
+    assert torch.equal(out.double(), d)
+    return out
+
+
 def body_rows_model(experts, xr, sched, layer_idx=None):
     """ys (R, h) bf16 of the two launches over the schedule: rows of no tile
     stay zero. xr (R, h): each scheduled row's activations (x read through
-    the row map); tables bf16 or linear int4."""
+    the row map); tables bf16, linear int4 or int8 (the bytes converted
+    exactly, `bytes_bf16`)."""
+    kind = table_kind("body_rows_model", experts)
     w1, w3, w2 = layer_tables(experts, layer_idx)
-    q4 = not isinstance(w1, torch.Tensor)
-    ys = torch.zeros((xr.shape[0], w2.shape[-1] if not q4 else w2.q.shape[-1]), dtype=torch.bfloat16)
+    q4 = kind == "int4"
+    unscaled = {"int4": nibbles, "int8": lambda q: bytes_bf16(q).float()}.get(kind)
+    ys = torch.zeros((xr.shape[0], w2.shape[-1] if unscaled is None else w2.q.shape[-1]), dtype=torch.bfloat16)
     for e, r0, r1 in sched.tolist():
         if r0 >= r1:
             continue
         assert r1 - r0 <= BODY_ROWS
         xt = xr[r0:r1].float()
-        if q4:
-            t1, t3, t2 = nibbles(w1.q[e]), nibbles(w3.q[e]), nibbles(w2.q[e])
-            g, u = staged_dot(xt, t1, True) * w1.s[e], staged_dot(xt, t3, True) * w3.s[e]
+        if unscaled is not None:
+            t1, t3, t2 = unscaled(w1.q[e]), unscaled(w3.q[e]), unscaled(w2.q[e])
+            g, u = staged_dot(xt, t1, q4) * w1.s[e], staged_dot(xt, t3, q4) * w3.s[e]
         else:
             t1, t3, t2 = w1[e].float(), w3[e].float(), w2[e].float()
             g, u = staged_dot(xt, t1, False), staged_dot(xt, t3, False)
         a = (F.silu(g) * u).to(torch.bfloat16).float()
         y = staged_dot(a, t2, q4)
-        ys[r0:r1] = (y * w2.s[e] if q4 else y).to(torch.bfloat16)
+        ys[r0:r1] = (y if unscaled is None else y * w2.s[e]).to(torch.bfloat16)
     return ys
 
 
@@ -152,8 +179,9 @@ def capacity_dispatch_model(experts, x, idx, w, capacity, layer_idx=None):
 
 
 def _inputs(seed, tier, loads=None, n=96, k=2):
-    """bf16 tables (or int4 tables of fp32 weights, the JAX package's and the
-    port's), bf16 x, routing: k = 1 with the given loads, else top-k spread."""
+    """bf16 tables (or int4 / int8 tables of fp32 weights, the JAX package's
+    and the port's), bf16 x, routing: k = 1 with the given loads, else top-k
+    spread."""
     rng = np.random.default_rng(seed)
     shapes = {"gate_proj": (2, E, H, M), "up_proj": (2, E, H, M), "down_proj": (2, E, M, H)}
     raw = {name: (0.05 * rng.standard_normal(s)).astype(np.float32) for name, s in shapes.items()}
@@ -161,7 +189,7 @@ def _inputs(seed, tier, loads=None, n=96, k=2):
         jex = {name: jnp.asarray(v, jnp.bfloat16) for name, v in raw.items()}
         tex = {name: torch.from_numpy(v).to(torch.bfloat16) for name, v in raw.items()}
     else:
-        jex = {name: jax_quantize_array(jnp.asarray(v), 4) for name, v in raw.items()}
+        jex = {name: jax_quantize_array(jnp.asarray(v), int(tier[3:])) for name, v in raw.items()}
         tex = params_from_jax(jex, "cpu")
     if loads is not None:
         ids = rng.permutation(np.repeat(np.arange(E), loads)).astype(np.int32)[:, None]
@@ -183,7 +211,7 @@ def _close(got, want, rel=BF16_REL):
 CASES = {**{name: dict(loads=loads) for name, loads in LOADS.items()}, "spread-top2": dict(n=96, k=2)}
 
 
-@pytest.mark.parametrize("tier", ["bf16", "int4"])
+@pytest.mark.parametrize("tier", TIERS)
 @pytest.mark.parametrize("case", list(CASES))
 def test_body_model_matches_the_plain_version_and_pallas(tier, case):
     jex, tex, x, idx, w = _inputs(61, tier, **CASES[case])
@@ -194,7 +222,7 @@ def test_body_model_matches_the_plain_version_and_pallas(tier, case):
     _close(got.float(), np.asarray(want.astype(jnp.float32)))
 
 
-@pytest.mark.parametrize("tier", ["bf16", "int4"])
+@pytest.mark.parametrize("tier", TIERS)
 @pytest.mark.parametrize("case", ["fits-with-an-expert-of-129", "overflow"])
 def test_body_model_through_the_capacity_dispatch(tier, case):
     """The capacity dispatch at 256 slots an expert: when the loads fit, the
@@ -295,6 +323,34 @@ def test_nibble_convert_in_registers_is_exact():
             assert got_hi == [float((int(v) >> 4) - 8) for v in others]
 
 
+def test_byte_convert_into_register_a_is_exact():
+    """The int8 convert of a word of table bytes into bf16 pairs (the bytes
+    beside 0x43 by __byte_perm, as `byte_pair_bf16`'s selectors 0x4240 and
+    0x4341 pick them from two rows' byte pairs, the word with the sign bits
+    cleared minus the word masked to 0xFF80), in float64: every byte value in
+    every position of a word gives its signed value, -128..127, and that value
+    is a bf16 (the kernel's bf16 subtraction is exact). Row 5's shortcut,
+    0x4300 | n minus a constant, is not: past n = 127 the bit of 128 leaves
+    bf16's 7-bit mantissa (0x4380 is 256)."""
+    rng = np.random.default_rng(68)
+    for pos in range(4):
+        for b in range(256):
+            others = rng.integers(0, 256, 4)
+            others[pos] = b
+            w = int(sum(int(v) << (8 * i) for i, v in enumerate(others)))
+            got = []
+            for sel in (0x4240, 0x4341):  # bytes (0, 2), then (1, 3)
+                t = _byte_perm(w, 0x43, sel)
+                v, m = t & 0xFF7FFF7F, t & 0xFF80FF80
+                pair = _bf16_pair(v).astype(np.float64) - _bf16_pair(m).astype(np.float64)
+                assert np.array_equal(torch.from_numpy(pair).to(torch.bfloat16).double().numpy(), pair)
+                got += list(pair)
+            assert got == [float(int(others[i]) - 256 * (int(others[i]) >> 7)) for i in (0, 2, 1, 3)]
+    assert float(_bf16_pair(0x4300 | 0x81)[0]) - 128.0 != 0x81  # the nibble trick does not reach a full byte
+    q = torch.arange(-128, 128, dtype=torch.int8)
+    assert torch.equal(bytes_bf16(q).double(), q.double())
+
+
 # ---------------------------------------------------------------------------
 # each kernel's tile rows and the schedules built at them
 # ---------------------------------------------------------------------------
@@ -313,8 +369,8 @@ class _Library:
         return Q4_ROWS if s8 else BODY_ROWS
 
     @staticmethod
-    def mu_swiglu_gmm_q8_tile_rows():
-        return Q8_ROWS
+    def mu_swiglu_gmm_q8_tile_rows(s8):
+        return Q8_ROWS if s8 else BODY_ROWS
 
     @staticmethod
     def mu_swiglu_gmm_full_tile_rows():
@@ -323,7 +379,7 @@ class _Library:
 
 # (table kind, s8, full_block) -> the rows of the kernel `swiglu_gmm_rows` launches for them
 MODES = {("plain", False, False): BODY_ROWS, ("int4", False, False): BODY_ROWS, ("int4", True, False): Q4_ROWS,
-         ("int8", False, False): Q8_ROWS, ("int8", True, False): Q8_ROWS, ("int4", False, True): Q4_ROWS,
+         ("int8", False, False): BODY_ROWS, ("int8", True, False): Q8_ROWS, ("int4", False, True): Q4_ROWS,
          ("int8", False, True): Q4_ROWS}
 
 
@@ -335,8 +391,9 @@ def _tables(kind):
 
 
 def test_the_tile_rows_of_each_kernel(monkeypatch):
-    """The body takes 128 rows; the s8-dot, int8 and full-block kernels 32; each
-    mode asks the library for its own kernel's rows."""
+    """The body (bf16, int4 and int8 exact) takes 128 rows; the s8-dot and
+    full-block kernels 32; each mode asks the library for its own kernel's
+    rows."""
     assert (BODY_ROWS, Q4_ROWS, Q8_ROWS) == (128, 32, 32)
     monkeypatch.setattr(build, "load", _Library)
     assert {mode: msg.tile_rows(*mode) for mode in MODES} == MODES
@@ -391,9 +448,9 @@ def test_capacity_schedule_covers_every_slot_once_at_its_kernels_rows(mode, monk
 
 def test_every_scheduled_kernel_refuses_a_longer_tile():
     """Every CUDA kernel that reads a schedule tile (expert, first row, end
-    row) traps when the tile is longer than its rows: the wgmma body at BM,
-    the 32-row kernels at TM; so a 32-row kernel is never handed a longer tile
-    without an error."""
+    row) traps when the tile is longer than its rows: the wgmma body (of
+    all three table kinds) at BM, the 32-row kernels at TM; so a 32-row
+    kernel is never handed a longer tile without an error."""
     sources = {"swiglu_wgmma.cuh": "BM", "moe_swiglu_gmm_q4.cu": "TM", "moe_swiglu_gmm_q8.cu": "TM"}
     for name, rows in sources.items():
         text = (CSRC / name).read_text()
@@ -403,5 +460,5 @@ def test_every_scheduled_kernel_refuses_a_longer_tile():
         for body in scheduled:
             head = body[: body.index("__syncthreads")]  # before the block's first barrier
             assert f"if (r1 - r0 > {rows}) __trap();" in head, (name, body[:80])
-    assert "swiglu_wgmma.cuh" in (CSRC / "moe_swiglu_gmm.cu").read_text()
-    assert "swiglu_wgmma.cuh" in (CSRC / "moe_swiglu_gmm_q4.cu").read_text()
+    for client in ("moe_swiglu_gmm.cu", "moe_swiglu_gmm_q4.cu", "moe_swiglu_gmm_q8.cu"):
+        assert '#include "swiglu_wgmma.cuh"' in (CSRC / client).read_text(), client

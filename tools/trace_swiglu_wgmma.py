@@ -1,20 +1,22 @@
 """Variants of the prefill MoE's tensor-core body (`csrc/swiglu_wgmma.cuh`,
-rows 2 and 5) timed side by side on the card.
+rows 2, 5 and 7c) timed side by side on the card.
 
 Copies the port's `csrc/` into a scratch directory per variant (default
 `chip_trace/`, which `.gitignore` lists), applies the variant's source patches
-(each anchor must occur exactly once), compiles each copy's two prefill
-sources (`moe_swiglu_gmm.cu`, `moe_swiglu_gmm_q4.cu`) into a small library of
-its own with nvcc (all started together), and calls their C entries on the
-16B-A3B tables (64 experts of 2048 x 1408, random bf16 weights from seed 0
-and their int4 quantization) over the expert-sorted schedule at the body's
-128-row tiles, for each token count (top-6). It prints, per variant, table
+(each anchor must occur exactly once), compiles each copy's three prefill
+sources (`moe_swiglu_gmm.cu`, `moe_swiglu_gmm_q4.cu`, `moe_swiglu_gmm_q8.cu`)
+into a small library of its own with nvcc (all started together), and calls
+their C entries on the 16B-A3B tables (64 experts of 2048 x 1408, random bf16
+weights from seed 0 and their int4 and int8 quantizations) over the
+expert-sorted schedule at the body's 128-row tiles, for each token count
+(top-6). It prints, per variant, table
 kind and token count, the device ms of the two launches (`kernel_device_ms`:
 10 calls queued behind a sleep kernel) and the max abs difference of the
 rows from the unpatched body's (variants that drop work are timing probes:
 their rows are not the kernel's and are not checked).
 
-    python3 tools/trace_swiglu_wgmma.py [--variants base,no-fence,...] [--tokens 128 1152]
+    python3 tools/trace_swiglu_wgmma.py [--kinds bf16,int4,int8] [--variants base,no-fence,...]
+        [--tokens 128 1152]
 
 Variants:
     base         the body as it is
@@ -25,6 +27,8 @@ Variants:
     no-helper    int4: the producer threads convert every packed stage alone, an
                  idle consumer warpgroup (a tile of 64 rows or fewer) not
                  converting half of it
+The variants patch `swiglu_wgmma_kernel` (bf16 and int4 tables); int8 tables
+take `swiglu_ra_kernel`, which only `base` times.
     stamps       %globaltimer stamps (producer thread 0, consumer thread 0):
                  one traced call is broken down per launch into the mean
                  block's microseconds: the producer's waits on the ring's
@@ -97,11 +101,14 @@ VARIANTS["stamps"] = [
     ("        fence_regs(acc);\n      }\n", "        fence_regs(acc);\n      }\n      tc_m += gtime() - t5;\n"),
     ("    if (!active) return;\n",
      "    if (tr && threadIdx.x == 0) tr[8] = tc_w, tr[9] = tc_m, tr[10] = gtime();\n    if (!active) return;\n"),
-    ("  }\n}\n\n// A table's tensor map", "    if (tr && threadIdx.x == 0) tr[11] = gtime();\n  }\n}\n\n// A table's tensor map"),
+    ("  }\n}\n\n// ----", "    if (tr && threadIdx.x == 0) tr[11] = gtime();\n  }\n}\n\n// ----"),
 ]
 # the stamps' setters, one a source (each has its own copy of the header's buffer pointer)
-SETTERS = {"moe_swiglu_gmm.cu": "mu_swg_trace_set_bf16", "moe_swiglu_gmm_q4.cu": "mu_swg_trace_set_q4"}
+SETTERS = {"moe_swiglu_gmm.cu": "mu_swg_trace_set_bf16", "moe_swiglu_gmm_q4.cu": "mu_swg_trace_set_q4",
+           "moe_swiglu_gmm_q8.cu": "mu_swg_trace_set_q8"}
+SOURCE = {"bf16": "moe_swiglu_gmm.cu", "int4": "moe_swiglu_gmm_q4.cu", "int8": "moe_swiglu_gmm_q8.cu"}
 CHECKED = {"base", "lag1", "stamps", "no-helper"}  # variants that keep the kernel's arithmetic
+BODY_END = "// int8 tables (row 7c): the transposed product"  # where swiglu_wgmma_kernel's region ends
 
 
 def patched_copy(out_dir: str, name: str) -> str:
@@ -114,8 +121,10 @@ def patched_copy(out_dir: str, name: str) -> str:
     text = open(path).read()
     for part in name.split("+"):
         for anchor, repl in VARIANTS[part]:
-            assert text.count(anchor) == 1, (part, anchor[:60])
-            text = text.replace(anchor, repl)
+            end = text.index(BODY_END)  # swiglu_ra_kernel shares some anchors' lines: patch the region before it
+            body, rest = text[:end], text[end:]
+            assert body.count(anchor) == 1, (part, anchor[:60])
+            text = body.replace(anchor, repl) + rest
     open(path, "w").write(text)
     if "stamps" in name.split("+"):
         for src_name, setter in SETTERS.items():
@@ -132,8 +141,7 @@ def build_all(dirs: dict) -> dict:
     procs = {}
     for name, d in dirs.items():
         so = os.path.join(d, "libswiglu.so")
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", so,
-               os.path.join(d, "moe_swiglu_gmm.cu"), os.path.join(d, "moe_swiglu_gmm_q4.cu")]
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", so, *(os.path.join(d, f) for f in SETTERS)]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in procs.items():
@@ -144,6 +152,7 @@ def build_all(dirs: dict) -> dict:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.mu_swiglu_gmm_bf16.argtypes = [P] * 8 + [I] * 5 + [P]
         lib.mu_swiglu_gmm_q4.argtypes = [P] * 17 + [I] * 7 + [P]
+        lib.mu_swiglu_gmm_q8.argtypes = [P] * 15 + [I] * 8 + [P]
         for setter in SETTERS.values():
             if hasattr(lib, setter):
                 getattr(lib, setter).argtypes = [P]
@@ -153,7 +162,7 @@ def build_all(dirs: dict) -> dict:
 
 def report_stamps(torch, lib, call, kind: str, n: int, name: str) -> None:
     """One traced call; per launch the mean block's microseconds by part."""
-    setter = getattr(lib, SETTERS["moe_swiglu_gmm.cu" if kind == "bf16" else "moe_swiglu_gmm_q4.cu"])
+    setter = getattr(lib, SETTERS[SOURCE[kind]])
     buf = torch.zeros(2 * 65536 * 12, dtype=torch.int64, device="cuda")
     assert setter(buf.data_ptr()) == 0
     call()
@@ -175,9 +184,9 @@ def report_stamps(torch, lib, call, kind: str, n: int, name: str) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--variants", default="base,lag1,no-fence,no-convert,no-helper")
+    ap.add_argument("--variants", default="base,lag1,no-fence,no-convert,no-helper")  # see the module note
     ap.add_argument("--tokens", type=int, nargs="+", default=[128, 1152])
-    ap.add_argument("--kinds", default="bf16,int4", help="table kinds to time: bf16, int4")
+    ap.add_argument("--kinds", default="bf16,int4,int8", help="table kinds to time: bf16, int4, int8")
     ap.add_argument("--out", default=os.path.join(ROOT, "chip_trace"))
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
@@ -201,6 +210,7 @@ def main(argv=None) -> int:
     shapes = {"gate_proj": (E, h, m), "up_proj": (E, h, m), "down_proj": (E, m, h)}
     bf = {n: torch.empty(s, device=dev, dtype=torch.bfloat16).normal_(0, 0.02, generator=g) for n, s in shapes.items()}
     q4 = {n: quantize_array(t, 4) for n, t in bf.items()}
+    q8 = {n: quantize_array(t, 8) for n, t in bf.items()}
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     for n in args.tokens:
@@ -209,7 +219,7 @@ def main(argv=None) -> int:
         _, row_token, sched = group_schedule(idx, E, 128)
         R = row_token.numel()
         hbuf = torch.empty((R, m), device=dev, dtype=torch.bfloat16)
-        for kind, tables in (("bf16", bf), ("int4", q4)):
+        for kind, tables in (("bf16", bf), ("int4", q4), ("int8", q8)):
             if kind not in args.kinds.split(","):
                 continue
             base = None
@@ -222,7 +232,7 @@ def main(argv=None) -> int:
                         check(lib.mu_swiglu_gmm_bf16(x.data_ptr(), row_token.data_ptr(), *ptrs, sched.data_ptr(),
                                                      hbuf.data_ptr(), ys.data_ptr(), sched.shape[0], R, E, h, m,
                                                      stream_handle(x)), "mu_swiglu_gmm_bf16")
-                else:
+                elif kind == "int4":
                     ptrs = [p for nm in ("gate_proj", "up_proj", "down_proj")
                             for p in (tables[nm].q.data_ptr(), tables[nm].s.data_ptr())]
 
@@ -230,6 +240,14 @@ def main(argv=None) -> int:
                         check(lib.mu_swiglu_gmm_q4(x.data_ptr(), row_token.data_ptr(), *ptrs, sched.data_ptr(),
                                                    hbuf.data_ptr(), ys.data_ptr(), *([0] * 6), sched.shape[0], R, E,
                                                    h, m, n, 0, stream_handle(x)), "mu_swiglu_gmm_q4")
+                else:
+                    ptrs = [p for nm in ("gate_proj", "up_proj", "down_proj")
+                            for p in (tables[nm].q.data_ptr(), tables[nm].s.data_ptr())]
+
+                    def call(lib=lib, ys=ys, ptrs=ptrs):
+                        check(lib.mu_swiglu_gmm_q8(x.data_ptr(), row_token.data_ptr(), *ptrs, sched.data_ptr(),
+                                                   hbuf.data_ptr(), ys.data_ptr(), *([0] * 4), sched.shape[0], R, E,
+                                                   h, m, n, 0, 128, stream_handle(x)), "mu_swiglu_gmm_q8")
                 ms = kernel_device_ms(torch, call)
                 torch.cuda.synchronize()
                 if "stamps" in name.split("+"):
