@@ -167,7 +167,7 @@ Then a JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 `--phases` picks the phases (default: the twenty-two above), e.g.
-`--phases device,build,kernels,understand` or `--phases device,build,kernels,serve`. Nine more run only when named:
+`--phases device,build,kernels,understand` or `--phases device,build,kernels,serve`. Ten more run only when named:
   decode_kernels  the kernels phase's cases of the decode kernels that run
               without a PyTorch op: the bf16 decode MoE, the int4 one in both
               dot modes, the int8 one with s8 dots and paged decode attention
@@ -194,6 +194,14 @@ Then a JSON line with every kernel's numbers, and as the last line
               both dot modes, held to the bit, with their kernel-alone device
               times with the tables warm and cold (run from an older tree's
               root, as decode_kernels, to time that tree's)
+  stack_kernels  the per-step RF stack in its four bodies at full width (one
+              Euler step, 2 and 3 rows, held to the bit) and the
+              gathered-expert matmul at the pool's decode shapes (12-72
+              assignments, the down table, 72 on two experts) beside
+              torch._grouped_mm: each through its wrapper, alone
+              (`kernel_device_ms`, and the kernel's own device time from the
+              profiler), with its bound and device events per call (run from
+              an older tree's root, as decode_kernels, to time that tree's)
   divergence  the small model's plain bf16 path with each kernel swapped in
               alone, and all of them, and with the image head's input moved
               by one bf16 ulp, against plain bf16 and fp32 (`--tier`):
@@ -202,9 +210,10 @@ Then a JSON line with every kernel's numbers, and as the last line
   profile     the slice with a 16-token image loop under torch.profiler:
               device ms per stage, device busy share, device events per token,
               top kernels, decode attention's and the decode MoE's device ms
-              per LLM step; then the
+              per LLM step, the RF head's per image token; then the
               same round unprofiled (`--tier int4` or
-              `--tier int8` for the quantized slices)
+              `--tier int8` for the quantized slices; `--rf-per-step` for the
+              RF head through the per-step stack, rf_fused_sampler=False)
   profile_understand  the understanding round with 8 text tokens under
               torch.profiler: device ms of the encode, prefill and text-decode
               stages, busy share, top kernels (`--tier`)
@@ -264,12 +273,13 @@ KERNELS = {
     "moe_swiglu_gmm_q8s8": ("csrc/moe_swiglu_gmm_q8.cu", "mingunivision_tpu/ops/kernels/moe_swiglu_gmm.py:236"),
     "moe_swiglu_gmm_q4s8": ("csrc/moe_swiglu_gmm_q4.cu", "mingunivision_tpu/ops/kernels/moe_swiglu_gmm.py:432"),
     "rf_sampler_q8s8": ("csrc/rf_sampler_q8.cu", "mingunivision_tpu/ops/kernels/rf_sampler.py:395"),
-    # the per-step RF stack (RuntimeConfig(rf_fused_sampler=False)), one source for its four bodies: int4 with s8
-    # dots (rf_int4_int_dots, on by default) and exact dequant, int8 exact (rf_int_dots off) and with s8 dots
-    "rf_mlp_q4s8": ("csrc/rf_mlp.cu", "mingunivision_tpu/ops/kernels/rf_mlp.py:326"),
-    "rf_mlp_q4": ("csrc/rf_mlp.cu", "mingunivision_tpu/ops/kernels/rf_mlp.py:243"),
-    "rf_mlp_q8": ("csrc/rf_mlp.cu", "mingunivision_tpu/ops/kernels/rf_mlp.py:39"),
-    "rf_mlp_q8s8": ("csrc/rf_mlp.cu", "mingunivision_tpu/ops/kernels/rf_mlp.py:168"),
+    # the per-step RF stack (RuntimeConfig(rf_fused_sampler=False)) in its four bodies, the stack mode of the fused
+    # samplers' body: int4 with s8 dots (rf_int4_int_dots, on by default) in the int4 sampler's source; exact
+    # dequant, int8 exact (rf_int_dots off) and with s8 dots in the int8 sampler's
+    "rf_mlp_q4s8": ("csrc/rf_sampler_q4.cu", "mingunivision_tpu/ops/kernels/rf_mlp.py:326"),
+    "rf_mlp_q4": ("csrc/rf_sampler_q8.cu", "mingunivision_tpu/ops/kernels/rf_mlp.py:243"),
+    "rf_mlp_q8": ("csrc/rf_sampler_q8.cu", "mingunivision_tpu/ops/kernels/rf_mlp.py:39"),
+    "rf_mlp_q8s8": ("csrc/rf_sampler_q8.cu", "mingunivision_tpu/ops/kernels/rf_mlp.py:168"),
     # explicit arguments no entry point passes, as in the JAX package: the int4 sampler's pipelined schedule
     # (rf_sample_fused(schedule="pipelined")) and the full-expert-block prefill (full_block=True) over int4 and
     # int8 tables, the two branches of one TPU kernel body
@@ -295,7 +305,8 @@ KERNELS = {
 REDESIGNED = {"moe_stream", "moe_swiglu_gmm", "decode_attention", "moe_stream_q4s8", "moe_swiglu_gmm_q4",
               "rf_sampler_q4s8", "flash_prefill", "flash_vit", "paged_attention", "moe_stream_q8s8",
               "moe_swiglu_gmm_q8", "rf_sampler_q8", "moe_stream_q4", "rf_sampler_q8s8", "rf_sampler_q4s8_pipelined",
-              "gmm", "gmm_trhs", "tgmm", "flash_vit_bwd_dkv", "flash_vit_bwd_dq"}
+              "gmm", "gmm_trhs", "tgmm", "flash_vit_bwd_dkv", "flash_vit_bwd_dq", "rf_mlp_q4s8", "rf_mlp_q4",
+              "rf_mlp_q8", "rf_mlp_q8s8"}
 BF16_KERNELS = ("moe_stream", "moe_swiglu_gmm", "decode_attention")
 NF4_IMAGE_TOKENS = 64  # the slice_nf4 round's image loop (256-304 ms per token), cut to keep the run in its limit
 # the image loops of the rounds that rerun a tier's T2I in another dot mode, RF route or RF tier
@@ -1315,6 +1326,127 @@ def run_sampler_kernels(torch, results: dict) -> bool:
         del rf
         torch.cuda.empty_cache()
     del evict
+    torch.cuda.empty_cache()
+    return ok
+
+
+# the per-step stack's and the gathered-expert matmul's CUDA kernels, as torch.profiler names them: the stack mode
+# of the fused samplers' body and an older tree's per-step stack (when this script runs from its root); row 12's
+# kernel
+STACK_KERNELS = ("rf_sampler_q8_kernel<", "rf_sampler_q4s8_kernel<", "rf_mlp_kernel<")
+GATHER_KERNELS = ("gathered_expert_matmul_kernel(",)
+
+
+def kernel_event_ms(torch, fn, keys, calls: int = 10):
+    """(mean device ms of the events of `calls` calls of `fn` whose name holds
+    one of `keys`, device events per call): the kernel alone, apart from any
+    other device work its wrapper does, from torch.profiler's device
+    timestamps (a launch the profiler drops is left out of the mean, not
+    counted as zero). None where no such event was recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        mine = [e.time_range.elapsed_us() for e in events if any(k in e.name for k in keys)]
+        if mine:
+            return statistics.mean(mine) / 1e3, len(events) / calls
+    return None, 0
+
+
+def run_stack_kernels(torch, results: dict) -> bool:
+    """The stack_kernels phase: row 8, the per-step RF stack, in its four
+    bodies at full width (one Euler step of the 12 blocks, 2 and 3 rows, bf16,
+    the kernels phase's heads), held to the bit; and row 12, the gathered-
+    expert matmul, at the pool's decode shapes (the kernels phase's cases:
+    12-72 assignments on the gate table, 12 on the down table, 72 on two
+    experts), within REL_TOL. Each through its wrapper (CUDA events), alone
+    (`kernel_device_ms`: the wrapper's device work, 10 calls queued behind a
+    sleep; and the kernel's own device time from the profiler, `kernel_ms`),
+    with its device events per call and its bound; row 12 beside
+    `torch._grouped_mm` over the rows sorted by expert, called and alone (the
+    sort not timed). Public entry points only: run from an older tree's root,
+    it times that tree's kernels."""
+    from mingunivision_tpu_torch.config import MingUniVisionConfig
+    from mingunivision_tpu_torch.models.rf_head import _time_grid, precompute_modulations
+    from mingunivision_tpu_torch.ops.kernels.expert_matmul import gathered_expert_matmul, gathered_expert_matmul_plain
+    from mingunivision_tpu_torch.ops.kernels.rf_mlp import rf_mlp_stack, rf_mlp_stack_plain
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    cfg = MingUniVisionConfig()
+    rf_cfg = cfg.rf_head
+    L, w = rf_cfg.depth, rf_cfg.width
+    g = torch.Generator(device=dev).manual_seed(0)
+    ts, _ = _time_grid(rf_cfg, None, device=dev)
+    ok = True
+
+    def alone(name, kern, keys):
+        case = results[name]["cases"][-1]
+        case["device_ms"] = kernel_device_ms(torch, kern)
+        case["kernel_ms"], case["events_per_call"] = kernel_event_ms(torch, kern, keys)
+        print(f"kernel {name} [{case['shape']}]: wrapper_ms={case['ms']:.4f} device_ms={fmt_ms(case['device_ms'])} "
+              f"kernel_ms={fmt_ms(case['kernel_ms'])} device events per call {case['events_per_call']:g} "
+              f"bound_ms={case['bound_ms']:.4f} max_abs_err={case['max_abs_err']:.3e}")
+        return case["device_ms"] is not None and case["kernel_ms"] is not None
+
+    for bits, bodies in ((4, (("rf_mlp_q4s8", True), ("rf_mlp_q4", False))),
+                         (8, (("rf_mlp_q8", False), ("rf_mlp_q8s8", True)))):
+        rf = full_width_rf(torch, rf_cfg, g, adaln_std=0.02, bits=bits)
+        Hd = rf["res_blocks"]["mlp"]["w3"]["w"].q.shape[1] * (8 // bits)
+        tables = L * 3 * w * Hd * bits // 8 + L * (2 * Hd + w) * 4 * 2 + 2 * L * w * 4  # as the kernels phase
+        for rows in (2, 3):
+            z = torch.randn((rows, rf_cfg.z_channels), device=dev, generator=g).to(bf)
+            mods = precompute_modulations(rf, rf_cfg, ts, z)[0][:, 0]  # step 0's (L, rows, 3w)
+            x = torch.randn((rows, w), device=dev, generator=g).to(bf)
+            nbytes = tables + mods.numel() * 2 + 2 * x.numel() * 2
+            for name, s8 in bodies:
+                kw = dict(ln_eps=rf_cfg.ln_eps, int_dots=s8)
+                kern = lambda: rf_mlp_stack(rf["res_blocks"], x, mods, **kw)  # noqa: B023, E731
+                ok &= run_case(torch, results, name, f"{rows} CFG rows, one Euler step, w={w} H={Hd} {L} blocks",
+                               kern, lambda: rf_mlp_stack_plain(rf["res_blocks"], x, mods, **kw),  # noqa: B023
+                               nbytes, 2.0 * 3 * w * Hd * rows * L, "int8" if s8 else "bf16", plain_iters=1,
+                               bitwise=True)
+                ok &= alone(name, kern, STACK_KERNELS)
+        del rf
+        torch.cuda.empty_cache()
+
+    E, h, m, k = cfg.llm.num_experts, cfg.llm.hidden_size, cfg.llm.moe_intermediate_size, cfg.llm.num_experts_per_tok
+    w1 = torch.empty((E, h, m), device=dev, dtype=bf).normal_(0, 0.02, generator=g)
+    w2 = torch.empty((E, m, h), device=dev, dtype=bf).normal_(0, 0.02, generator=g)
+    routing, _, _ = moe_cases(torch, g, E, k)
+    name = "gathered_expert_matmul"
+    cases = [(f"A={rows * k} ({rows} rows x top-{k}), gate table", rows, w1, None) for rows in (2, 3, 6, 12)]
+    cases += [(f"A={2 * k} (2 rows x top-{k}), down table", 2, w2, None),
+              (f"A={12 * k} skewed: every assignment on experts 3 and 40, gate table", 12, w1, [3, 40])]
+    for label, rows, wt, skew in cases:
+        if skew is None:
+            ids = routing(rows)[0].reshape(-1).to(torch.int32)
+        else:
+            ids = torch.tensor(skew, device=dev, dtype=torch.int32).repeat(rows * k // len(skew))
+        A, (_, K, N) = ids.numel(), wt.shape
+        x = torch.randn((A, K), device=dev, generator=g).to(bf)
+        distinct = int(torch.unique(ids).numel())
+        nbytes = distinct * K * N * 2 + A * K * 2 + A * N * 2
+        order = torch.argsort(ids)
+        xs, offs = x[order], torch.bincount(ids, minlength=E).cumsum(0).to(torch.int32)
+        library = lambda: torch._grouped_mm(xs, wt, offs=offs)  # noqa: B023, E731
+        kern = lambda: gathered_expert_matmul(x, wt, ids)  # noqa: B023, E731
+        ok &= run_case(torch, results, name, f"{label}; {distinct} distinct experts", kern,
+                       lambda: gathered_expert_matmul_plain(x, wt, ids), nbytes, 2.0 * A * K * N, "bf16",  # noqa: B023
+                       library=library)
+        ok &= alone(name, kern, GATHER_KERNELS)
+        case = results[name]["cases"][-1]
+        case["library_device_ms"] = kernel_device_ms(torch, library)
+        print(f"kernel {name} [{case['shape']}]: torch._grouped_mm called {case['library_ms']:.4f} ms, alone "
+              f"{fmt_ms(case['library_device_ms'])} ms; the kernel alone at "
+              f"{case['kernel_ms'] / case['bound_ms']:.2f}x its bound" if case["kernel_ms"] else "")
+        ok &= case["library_device_ms"] is not None
+    del w1, w2
     torch.cuda.empty_cache()
     return ok
 
@@ -2791,8 +2923,10 @@ def stage_device_ms(device_events, stages=None) -> dict:
             for stage, ranges in spans.items()}
 
 
-def run_profile(torch, cfg, device, tier="bfloat16", n_tok: int = 16) -> bool:
-    """Where the slice's time goes (at `tier`): one round at full width with an n_tok-token
+def run_profile(torch, cfg, device, tier="bfloat16", n_tok: int = 16, per_step: bool = False) -> bool:
+    """Where the slice's time goes (at `tier`; with `per_step`, the RF head
+    through the per-step stack, RuntimeConfig(rf_fused_sampler=False)): one
+    round at full width with an n_tok-token
     image loop under torch.profiler, each stage in a profiler range. Prints the
     device (kernel) ms of each stage (llm_forward includes the prefill's
     forward; llm_decode_step is the rest per step; ranges nest, so the stages
@@ -2811,6 +2945,8 @@ def run_profile(torch, cfg, device, tier="bfloat16", n_tok: int = 16) -> bool:
     prompt = t2i_prompt(cfg.llm.vocab_size, cfg.llm.image_start_token)
     bias_to_image_start(torch, params, cfg, prompt[0], device)
     igen = dataclasses.replace(cfg.image_gen, num_image_tokens=n_tok)
+    runtime = RuntimeConfig(rf_fused_sampler=not per_step)
+    route = "per-step RF stack" if per_step else "fused RF sampler"
     entry, routed = bailing_moe.moe_experts_stream, []
 
     def note_routing(*args, **kwargs):  # the decode MoE's top-k ids, kept on the device until the round ends
@@ -2819,7 +2955,7 @@ def run_profile(torch, cfg, device, tier="bfloat16", n_tok: int = 16) -> bool:
 
     bailing_moe.moe_experts_stream = note_routing
     try:
-        _generate(torch, params, cfg, RuntimeConfig(), device, prompt, igen)  # warm-up round
+        _generate(torch, params, cfg, runtime, device, prompt, igen)  # warm-up round
     finally:
         bailing_moe.moe_experts_stream = entry
     unique = [int(torch.unique(idx).numel()) for idx in routed]
@@ -2844,7 +2980,7 @@ def run_profile(torch, cfg, device, tier="bfloat16", n_tok: int = 16) -> bool:
         setattr(modules[mod], attr, ranged(stage, saved[stage]))
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            out, sess, wall_s = _generate(torch, params, cfg, RuntimeConfig(), device, prompt, igen)
+            out, sess, wall_s = _generate(torch, params, cfg, runtime, device, prompt, igen)
     finally:
         for stage, (mod, attr) in STAGES.items():
             setattr(modules[mod], attr, saved[stage])
@@ -2855,7 +2991,7 @@ def run_profile(torch, cfg, device, tier="bfloat16", n_tok: int = 16) -> bool:
     busy_ms = sum(e.time_range.elapsed_us() for e in device_events) / 1e3
     (n_llm, llm_ms), prefill_ms = by_stage["llm_forward"], by_stage["prefill"][1]
     t = sess.timings
-    print(f"profile ({tier} slice, {n_tok} image tokens, profiled): wall_s={wall_s:.3f} device_busy_ms={busy_ms:.1f} "
+    print(f"profile ({tier} slice, {route}, {n_tok} image tokens, profiled): wall_s={wall_s:.3f} device_busy_ms={busy_ms:.1f} "
           f"busy_share={busy_ms / (wall_s * 1e3):.3f} device_events={len(device_events)} "
           f"per_image_token={len(device_events) / n_tok:.0f} prefill_ms={t['prefill_ms']:.2f} "
           f"image_loop_ms={t['image_loop_ms']:.1f} pixel_decode_ms={t['pixel_decode_ms']:.2f}")
@@ -2872,13 +3008,16 @@ def run_profile(torch, cfg, device, tier="bfloat16", n_tok: int = 16) -> bool:
     print(f"profile decode_attention: launches={attn_calls} device_ms={attn_ms:.3f} "
           f"per_llm_step_ms={attn_ms / max(n_llm - 1, 1):.4f} ({n_llm - 1} decode steps) "
           f"per_launch_us={attn_ms * 1e3 / max(attn_calls, 1):.3f}")
+    # the RF head (one call per image token): all device work inside its calls' ranges
+    rf_calls, rf_ms = by_stage["rf_sample"]
+    print(f"profile rf_sample ({route}): calls={rf_calls} device_ms={rf_ms:.3f} per_image_token_ms={rf_ms / n_tok:.4f}")
     # the decode MoE (one call per layer and decode step): all device work inside its calls' ranges
     moe_calls, moe_ms = by_stage["decode_moe"]
     moe_steps = moe_calls / cfg.llm.num_hidden_layers
     print(f"profile decode_moe: calls={moe_calls} device_ms={moe_ms:.3f} "
           f"per_llm_step_ms={moe_ms / max(moe_steps, 1):.4f} ({moe_steps:g} LLM steps) "
           f"per_call_us={moe_ms * 1e3 / max(moe_calls, 1):.3f}")
-    _, sess, wall_s = _generate(torch, params, cfg, RuntimeConfig(), device, prompt, igen)
+    _, sess, wall_s = _generate(torch, params, cfg, runtime, device, prompt, igen)
     t = sess.timings
     print(f"profile (same round, unprofiled): wall_s={wall_s:.3f} prefill_ms={t['prefill_ms']:.2f} "
           f"image_loop_ms={t['image_loop_ms']:.1f} ms_per_image_step={t['image_loop_ms'] / n_tok:.3f} "
@@ -4300,6 +4439,8 @@ def main(argv=None) -> int:
                                         "slice_nf4,understand,edit,recon,serve")
     ap.add_argument("--tier", default="bfloat16", choices=("bfloat16", "int4", "int8", "nf4"),
                     help="the tier of the profile, profile_understand, routing and divergence phases")
+    ap.add_argument("--rf-per-step", action="store_true",
+                    help="the profile phase's RF head through the per-step stack (rf_fused_sampler=False)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -4434,10 +4575,12 @@ def main(argv=None) -> int:
         ok &= run_prefill_kernels(torch, results)
     if "sampler_kernels" in phases:
         ok &= run_sampler_kernels(torch, results)
+    if "stack_kernels" in phases:
+        ok &= run_stack_kernels(torch, results)
     if "routing" in phases:
         ok &= run_routing(torch, MingUniVisionConfig(), cuda, args.tier)
     if "profile" in phases:
-        ok &= run_profile(torch, MingUniVisionConfig(), cuda, args.tier)
+        ok &= run_profile(torch, MingUniVisionConfig(), cuda, args.tier, per_step=args.rf_per_step)
     if "serve_check" in phases:
         ok &= run_serve_check(torch, cuda)
     if "profile_understand" in phases:

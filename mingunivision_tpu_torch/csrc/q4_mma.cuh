@@ -3,7 +3,9 @@
 // (rf_sampler_q4.cu) share, the same step on int8 bytes (the fused int8 RF
 // sampler, rf_sampler_q8.cu, and the int8 decode MoE, moe_stream_q8.cu), the
 // exact step on the bf16 tensor cores from the same packed int4 words (the int4
-// decode MoE's exact mode), and the steps of their activations' s8 (pair)
+// decode MoE's exact mode), the exact s8 step on both nibble planes of those
+// words converted to s8 weights (the per-step stack's exact int4 body on the
+// int8 sampler's digit dots), and the steps of their activations' s8 (pair)
 // quantization (ops/kernels/intdot.py quant_rows_s8_pair, quant_rows_s8),
 // each rounded as the plain versions round it.
 //
@@ -69,6 +71,34 @@ __device__ __forceinline__ void s8_k32(const uint32_t (&w)[2][4], const uint32_t
     const uint32_t a[4] = {cols[0][2 * p], cols[0][2 * p + 1], cols[1][2 * p], cols[1][2 * p + 1]};
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) mma_s8(d[p][nt], a, b[nt]);
+  }
+}
+
+// The nibbles at bits 0..3 of each byte of v (0..15, offset-binary) as the s8 bytes of their weights n - 8: bit 7
+// set first, so that subtracting 8 borrows from no neighbour, then flipped back.
+__device__ __forceinline__ uint32_t plane_s8(uint32_t v) {
+  return (((v & 0x0F0F0F0Fu) | 0x80808080u) - 0x08080808u) ^ 0x80808080u;
+}
+
+// The warp's exact integer dot of one k32 step on split-halves packed int4 bytes, laid out as for s8_k32: each
+// byte's low nibble as the s8 weight (b & 15) - 8 of the low plane meets blo, its high nibble (b >> 4) - 8 of the
+// high plane meets bhi, both into the same sums d[p][nt] (one exact sum over both planes).
+template <int NT>
+__device__ __forceinline__ void q4x_k32(const uint32_t (&w)[2][4], const uint32_t (&blo)[NT][2],
+                                        const uint32_t (&bhi)[NT][2], int (&d)[2][NT][4]) {
+  uint32_t cols[2][4];  // [contraction half][column 4g + c]
+  transpose4x4(w[0], cols[0]);
+  transpose4x4(w[1], cols[1]);
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const uint32_t c[4] = {cols[0][2 * p], cols[0][2 * p + 1], cols[1][2 * p], cols[1][2 * p + 1]};
+    const uint32_t lo[4] = {plane_s8(c[0]), plane_s8(c[1]), plane_s8(c[2]), plane_s8(c[3])};
+    const uint32_t hi[4] = {plane_s8(c[0] >> 4), plane_s8(c[1] >> 4), plane_s8(c[2] >> 4), plane_s8(c[3] >> 4)};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      mma_s8(d[p][nt], lo, blo[nt]);
+      mma_s8(d[p][nt], hi, bhi[nt]);
+    }
   }
 }
 

@@ -82,6 +82,15 @@
 // taken in double (silu_exact), and the plain version (ops/kernels/
 // rf_sampler.py) sums its LN and final layer in this kernel's order: the two
 // agree to the bit.
+//
+// The same body also runs ONE Euler step of the residual stack alone (the
+// stack mode, mu_rf_stack_q4s8: the per-step RF route, replacing the TPU
+// kernel mingunivision_tpu/ops/kernels/rf_mlp.py rf_mlp_stack -> _kernel_q4_s8):
+// x comes in from the caller and leaves after block L-1; no input_proj, final
+// layer, CFG or Euler update. Its down dots run in the pipelined schedule's kc
+// pieces (1,024 packed rows), each piece's two descaled sums added one after
+// the other, (po + d1 * sb1) + d2 * sb2 / 16, as the stack's plain version
+// (ops/kernels/rf_mlp.py) adds them.
 #include "q4_mma.cuh"
 #include "rf_persistent.cuh"
 
@@ -121,6 +130,11 @@ struct alignas(64) Params {
   int pieces;  // H/2 / kc, or 1
   int ring;    // stages of the ring
   int nslots;  // stages of h's operands a CTA keeps: min(its longest down run, KTd)
+  // the stack mode: one step (S = 1), x (B x w fp32) from x_ext, the last block's output to out_ext; a piece's
+  // two descaled sums added one after the other
+  int stack;
+  const float* x_ext;
+  float* out_ext;
 };
 
 // Shared memory, from a 1024-byte aligned base.
@@ -307,14 +321,14 @@ __global__ void __launch_bounds__(kAll, 1) rf_sampler_q4s8_kernel(const __grid_c
   float* const xin = a.xcur + 2 * kMaxRows * w;
   unsigned barriers = 0;
   for (int s = 0; s < S; ++s) {
-    input_proj_rows<R>(a, static_cast<const In*>(p.win), lat, xs, xin, G, cta);
+    if (!p.stack) input_proj_rows<R>(a, static_cast<const In*>(p.win), lat, xs, xin, G, cta);
     for (int l = 0; l < L; ++l) {
       const int b = s * L + l, par = b & 1;
-      const float* x_in = l == 0 ? xin : xbuf + par * kMaxRows * w;
-      float* const x_out = xbuf + (par ^ 1) * kMaxRows * w;
+      const float* x_in = l > 0 ? xbuf + par * kMaxRows * w : p.stack ? p.x_ext : xin;
+      float* const x_out = p.stack && l == L - 1 ? p.out_ext : xbuf + (par ^ 1) * kMaxRows * w;
       const size_t m0 = ((size_t)l * S + s) * B * 3 * w;  // mods[l, s]: [B][3w] shift, scale, gate
       const In* md = static_cast<const In*>(p.mods) + m0;
-      if (l > 0) {
+      if (l > 0 || p.stack) {
         for (int i = 4 * tid; i < R * w; i += 4 * kConsumers)
           *reinterpret_cast<float4*>(xs + i) = __ldcg(reinterpret_cast<const float4*>(x_in + i));
         ConsumerSync::sync();
@@ -523,7 +537,8 @@ __global__ void __launch_bounds__(kAll, 1) rf_sampler_q4s8_kernel(const __grid_c
         if (!take_ticket(ws.tickets + Tu + tile, k - kf + 1, KTd, flag)) continue;
         // a thread per column, every row, the loads of up to 4 pieces in one round trip
         for (int col = tid, j = c0 + tid; col < kTileCols && j < w; col += kConsumers, j += kConsumers) {
-          float sum[R];  // the pieces' descaled sums in piece order (the block schedule: its one sum, as 0 + x == x)
+          float sum[R];  // the pieces' descaled sums in piece order (the block schedule: its one sum, as 0 + x == x;
+                         // the stack: each piece's two added one after the other)
 #pragma unroll
           for (int r = 0; r < R; ++r) sum[r] = 0.0f;
           for (int pc0 = 0; pc0 < p.pieces; pc0 += 4) {
@@ -541,9 +556,11 @@ __global__ void __launch_bounds__(kAll, 1) rf_sampler_q4s8_kernel(const __grid_c
             for (int q = 0; q < 4; ++q)
 #pragma unroll
               for (int r = 0; r < R; ++r)
-                if (pc0 + q < p.pieces)
-                  sum[r] = __fadd_rn(sum[r], __fadd_rn(__fmul_rn((float)d[q][r][0], sth[4 * r]),
-                                                       __fmul_rn((float)d[q][r][1], __fmul_rn(sth[4 * r + 1], 0.0625f))));
+                if (pc0 + q < p.pieces) {
+                  const float d1s = __fmul_rn((float)d[q][r][0], sth[4 * r]);
+                  const float d2s = __fmul_rn((float)d[q][r][1], __fmul_rn(sth[4 * r + 1], 0.0625f));
+                  sum[r] = p.stack ? __fadd_rn(__fadd_rn(sum[r], d1s), d2s) : __fadd_rn(sum[r], __fadd_rn(d1s, d2s));
+                }
           }
           const float s3j = s3[j], b3j = b3[j];
 #pragma unroll
@@ -562,6 +579,7 @@ __global__ void __launch_bounds__(kAll, 1) rf_sampler_q4s8_kernel(const __grid_c
         for (int i = tid; i < Td * kMaxRows * 2; i += kConsumers) dsum[i] = 0;
       }
     }
+    if (p.stack) continue;  // the stack's one step ends with its last block's x
     // the velocity of x (rf_persistent.cuh), then the CFG combine and the Euler update (rf_sampler_common.cuh)
     const float* x_last = xbuf + ((s * L + L) & 1) * kMaxRows * w;
     final_velocity<R>(a, s, static_cast<const In*>(p.fmods), static_cast<const In*>(p.wfin_t), x_last, xs, vel,
@@ -571,6 +589,55 @@ __global__ void __launch_bounds__(kAll, 1) rf_sampler_q4s8_kernel(const __grid_c
   reset_barrier(ws.bar, G);
   if (cta == 0)
     for (int i = tid; i < B * C; i += kConsumers) a.out[i] = lat[(i / C) * kLat + i % C];
+}
+
+// The launch shared by both entries: p.a, the operand pointers, kc and the mode's fields set; here the ring, h's
+// kept stages and the tensor maps.
+int run(Params& p, const void* q12, const void* q3, int grid, int bf16_in, cudaStream_t st) {
+  const int w = p.a.w, H = p.a.H, L = p.a.L, B = p.a.B, Hh = H / 2;
+  int dev = 0, sms = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int G = grid ? grid : sms, Td = cdiv(w, kTileCols), KTd = cdiv(Hh, kRows);
+  p.nslots = min(cdiv(Td * KTd, G), KTd);
+  const size_t rest = Smem(B, w, 0, p.nslots).bytes;
+  p.ring = (int)min((size_t)kMaxRing, ((size_t)optin - min((size_t)optin, rest)) / (kStageBytes + 16));
+  if (p.ring < 2) return (int)cudaErrorInvalidValue;
+  const size_t smem = Smem(B, w, p.ring, p.nslots).bytes;
+  // the packed tables as 3-D byte tensors (columns, packed rows, layer), 64-byte x 64-row boxes, 64-byte swizzle
+  const cuuint64_t d12[3] = {(cuuint64_t)2 * H, (cuuint64_t)w / 2, (cuuint64_t)L};
+  const cuuint64_t s12s[2] = {(cuuint64_t)2 * H, (cuuint64_t)w / 2 * 2 * H};
+  const cuuint64_t d3[3] = {(cuuint64_t)w, (cuuint64_t)Hh, (cuuint64_t)L};
+  const cuuint64_t s3s[2] = {(cuuint64_t)w, (cuuint64_t)Hh * w};
+  const cuuint32_t box[3] = {kBoxW, (cuuint32_t)kRows, 1};
+  if (!encode(&p.m12, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, q12, d12, s12s, box, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !encode(&p.m3, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, q3, d3, s3s, box, CU_TENSOR_MAP_SWIZZLE_64B))
+    return (int)cudaErrorInvalidValue;
+  auto launch = [&](auto kernel) { return launch_cooperative(kernel, smem, p, st, kAll, G); };
+  switch (B * 2 + (bf16_in ? 1 : 0)) {
+    case 2: err = launch(rf_sampler_q4s8_kernel<1, float>); break;
+    case 3: err = launch(rf_sampler_q4s8_kernel<1, bf16>); break;
+    case 4: err = launch(rf_sampler_q4s8_kernel<2, float>); break;
+    case 5: err = launch(rf_sampler_q4s8_kernel<2, bf16>); break;
+    case 6: err = launch(rf_sampler_q4s8_kernel<3, float>); break;
+    case 7: err = launch(rf_sampler_q4s8_kernel<3, bf16>); break;
+    case 8: err = launch(rf_sampler_q4s8_kernel<4, float>); break;
+    default: err = launch(rf_sampler_q4s8_kernel<4, bf16>); break;
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch is reported here, not to the next kernel's check
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// kc (packed w3 rows a piece, 0 or H/2 for one piece) as the kernel takes it, or -1 where it is not a whole
+// number of stages dividing H/2.
+int pieces_kc(int kc, int Hh) {
+  if (kc < 0 || (kc && (Hh % kc || (kc % kRows && kc != Hh)))) return -1;
+  return kc == Hh ? 0 : kc;  // one piece is the block schedule's sum
 }
 
 }  // namespace
@@ -598,10 +665,9 @@ extern "C" int mu_rf_sampler_q4s8(const void* dts, const void* x0, const void* w
                                   int bf16_in, int kc, int grid, float text_cfg, float image_cfg, float ln_eps,
                                   void* stream) {
   const int Hh = H / 2;
-  if (B < 1 || B > kMaxRows || w <= 0 || H <= 0 || w % 64 || H % 64 || C > kLat || grid < 0 || kc < 0 ||
-      (kc && (Hh % kc || (kc % kRows && kc != Hh))))
+  if (B < 1 || B > kMaxRows || w <= 0 || H <= 0 || w % 64 || H % 64 || C > kLat || grid < 0 || pieces_kc(kc, Hh) < 0)
     return (int)cudaErrorInvalidValue;
-  Params p;
+  Params p{};
   float* f = static_cast<float*>(fws);
   p.a = rf::make_args(dts, x0, nullptr, binp, lnw, lnb, q12, s12, b12, q3, s3, b3, nullptr, nullptr, nullptr, bfin,
                       f + (size_t)kMaxRows * H, f, out, B, cfg_rows, renorm, S, L, w, H, C, h_bf16, text_cfg,
@@ -611,45 +677,39 @@ extern "C" int mu_rf_sampler_q4s8(const void* dts, const void* x0, const void* w
   p.win = win;
   p.wfin_t = wfin_t;
   p.iws = static_cast<int*>(iws);
-  p.kc = kc == Hh ? 0 : kc;  // one piece is the block schedule's sum
+  p.kc = pieces_kc(kc, Hh);
   p.pieces = p.kc ? Hh / p.kc : 1;
-  int dev = 0, sms = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  const int G = grid ? grid : sms, Td = cdiv(w, kTileCols), KTd = cdiv(Hh, kRows);
-  p.nslots = min(cdiv(Td * KTd, G), KTd);
-  const size_t rest = Smem(B, w, 0, p.nslots).bytes;
-  p.ring = (int)min((size_t)kMaxRing, ((size_t)optin - min((size_t)optin, rest)) / (kStageBytes + 16));
-  if (p.ring < 2) return (int)cudaErrorInvalidValue;
-  const size_t smem = Smem(B, w, p.ring, p.nslots).bytes;
-  // the packed tables as 3-D byte tensors (columns, packed rows, layer), 64-byte x 64-row boxes, 64-byte swizzle
-  const cuuint64_t d12[3] = {(cuuint64_t)2 * H, (cuuint64_t)w / 2, (cuuint64_t)L};
-  const cuuint64_t s12s[2] = {(cuuint64_t)2 * H, (cuuint64_t)w / 2 * 2 * H};
-  const cuuint64_t d3[3] = {(cuuint64_t)w, (cuuint64_t)Hh, (cuuint64_t)L};
-  const cuuint64_t s3s[2] = {(cuuint64_t)w, (cuuint64_t)Hh * w};
-  const cuuint32_t box[3] = {kBoxW, (cuuint32_t)kRows, 1};
-  if (!encode(&p.m12, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, q12, d12, s12s, box, CU_TENSOR_MAP_SWIZZLE_64B) ||
-      !encode(&p.m3, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, q3, d3, s3s, box, CU_TENSOR_MAP_SWIZZLE_64B))
+  return run(p, q12, q3, grid, bf16_in, static_cast<cudaStream_t>(stream));
+}
+
+// One Euler step of the residual stack (the stack mode, see the top of this
+// file) over B <= 4 rows: x (B, w) fp32 holding compute-dtype values (h_bf16:
+// the compute dtype is bf16); lnw / lnb, the packed tables, their scales and
+// biases as mu_rf_sampler_q4s8's; mods (L, B, 3w) fp32; kc the down pieces'
+// packed w3 rows (as mu_rf_sampler_q4s8's); out (B, w) fp32, x after block
+// L-1. The workspace as mu_rf_sampler_q4s8's (int32 words:
+// mu_rf_sampler_q4s8_workspace(w, H, kc)). grid: the CTAs, 0 for one per SM.
+// One cooperative launch.
+extern "C" int mu_rf_stack_q4s8(const void* x, const void* lnw, const void* lnb, const void* q12, const void* s12,
+                                const void* b12, const void* q3, const void* s3, const void* b3, const void* mods,
+                                void* out, void* fws, void* iws, int B, int L, int w, int H, int h_bf16, int kc,
+                                int grid, float ln_eps, void* stream) {
+  const int Hh = H / 2;
+  if (B < 1 || B > kMaxRows || w <= 0 || H <= 0 || w % 64 || H % 64 || grid < 0 || pieces_kc(kc, Hh) < 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto launch = [&](auto kernel) { return launch_cooperative(kernel, smem, p, st, kAll, G); };
-  switch (B * 2 + (bf16_in ? 1 : 0)) {
-    case 2: err = launch(rf_sampler_q4s8_kernel<1, float>); break;
-    case 3: err = launch(rf_sampler_q4s8_kernel<1, bf16>); break;
-    case 4: err = launch(rf_sampler_q4s8_kernel<2, float>); break;
-    case 5: err = launch(rf_sampler_q4s8_kernel<2, bf16>); break;
-    case 6: err = launch(rf_sampler_q4s8_kernel<3, float>); break;
-    case 7: err = launch(rf_sampler_q4s8_kernel<3, bf16>); break;
-    case 8: err = launch(rf_sampler_q4s8_kernel<4, float>); break;
-    default: err = launch(rf_sampler_q4s8_kernel<4, bf16>); break;
-  }
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // a refused launch is reported here, not to the next kernel's check
-    return (int)err;
-  }
-  return (int)cudaGetLastError();
+  Params p{};
+  float* f = static_cast<float*>(fws);
+  p.a = rf::make_args(nullptr, nullptr, nullptr, nullptr, lnw, lnb, q12, s12, b12, q3, s3, b3, nullptr, nullptr,
+                      nullptr, nullptr, f + (size_t)kMaxRows * H, f, nullptr, B, 1, 0, 1, L, w, H, 0, h_bf16, 0.0f,
+                      0.0f, ln_eps);
+  p.mods = mods;
+  p.iws = static_cast<int*>(iws);
+  p.kc = pieces_kc(kc, Hh);
+  p.pieces = p.kc ? Hh / p.kc : 1;
+  p.stack = 1;
+  p.x_ext = static_cast<const float*>(x);
+  p.out_ext = static_cast<float*>(out);
+  return run(p, q12, q3, grid, 0, static_cast<cudaStream_t>(stream));
 }
 
 // The grid a launch of mu_rf_sampler_q4s8 uses by default: one CTA per SM.

@@ -25,6 +25,21 @@
 // blocks: w12 (3072, 16384) + w3 (8192, 3072) a block), 14.5 GB per sample,
 // 4.33 ms at 3.35 TB/s.
 //
+// The same body also runs ONE Euler step of the residual stack alone (the
+// stack mode, mu_rf_stack_q8: the per-step RF route, replacing the TPU kernel
+// mingunivision_tpu/ops/kernels/rf_mlp.py rf_mlp_stack in three of its bodies,
+// _kernel (int8 exact), _kernel_q8_s8 and _kernel_q4 (int4 exact)): x comes in
+// from the caller and leaves after block L-1; no input_proj, final layer, CFG
+// or Euler update. Its arithmetic differs from the sampler's where the stack's
+// plain version (ops/kernels/rf_mlp.py) says: the s8 body quantizes the fp32
+// modulated LN output (not rounded to the compute dtype), re-quantizes h per
+// `chunk` columns (2,048) and adds each piece's descaled sum times s3 in piece
+// order, then b3; the int4 exact body reads split-halves packed int4 tables
+// (BITS 4: a stage is 64 packed rows; each byte's nibbles converted in
+// registers to the s8 weights n - 8, the low plane meeting the digits of x's
+// first half (h's), the high plane those of its second half, both in one exact
+// sum a column).
+//
 // Digit dots (the exact mode). An activation row x (already rounded to the
 // compute dtype) is written on a fixed point of its own: E the exponent of its
 // largest |x| (frexp), X = rint(x * 2^(30 - E)), |X| < 2^30 (exact for every
@@ -122,13 +137,20 @@ struct alignas(64) Params {
   int pieces;  // H / ch
   int ring;    // stages of the ring
   int nslots;  // stages of h's operands a CTA keeps: min(its longest down run, KTd)
+  // the stack mode: one step (S = 1), x (B x w fp32) from x_ext, the last block's output to out_ext
+  int stack;
+  int round_x;       // x's operands from the modulated LN rounded to the compute dtype (all but the stack's s8 body)
+  int s3_per_piece;  // S8: each piece's descaled sum times s3 before it is added, then b3 (the stack's s8 body)
+  const float* x_ext;
+  float* out_ext;
 };
 
-// Shared memory, from a 1024-byte aligned base; nd operand rows a row of x or h (its digits, or 1).
+// Shared memory, from a 1024-byte aligned base; nd operand rows a row of x or h (its digits, or 1); planes: h's
+// operand rows once (int8 tables) or twice (int4: h's first half for the low nibbles, its second for the high).
 struct Smem {
   size_t ring, bars, xs, lat, vel, xd, hd, xsc, hsc, stats, fscr, misc, bytes;
   int ldx, ldh;
-  __host__ __device__ Smem(int R, int nd, int w, int pieces, int ring_n, int nslots) {
+  __host__ __device__ Smem(int R, int nd, int w, int pieces, int ring_n, int nslots, int planes) {
     ldx = w + 16;  // + 16: a B fragment's rows on distinct banks
     ldh = nslots * kRows + 16;
     size_t o = 0;
@@ -138,7 +160,7 @@ struct Smem {
     lat = o; o += align16((size_t)R * kLat * 4);
     vel = o; o += align16((size_t)R * kLat * 4);
     xd = o; o += align16((size_t)R * nd * ldx);
-    hd = o; o += align16((size_t)R * nd * ldh);
+    hd = o; o += align16((size_t)planes * R * nd * ldh);
     xsc = o; o += align16((size_t)R * 8);
     hsc = o; o += align16((size_t)R * pieces * 8);
     stats = o; o += align16(2 * R * 4);
@@ -185,19 +207,22 @@ __device__ __forceinline__ float dot_value(long long d, double sc) {
   else return __double2float_rn(__ll2double_rn(d) * sc);
 }
 
-template <bool S8, int R, typename In>
+// BITS 8: int8 tables; BITS 4 (exact only): split-halves packed int4 tables, a stage 64 packed rows.
+template <bool S8, int BITS, int R, typename In>
 __global__ void __launch_bounds__(kAll, 1) rf_sampler_q8_kernel(const __grid_constant__ Params p) {
+  static_assert(BITS == 8 || !S8, "the int4 tables' mode here is the exact one");
   constexpr int ND = S8 ? 1 : kDigits;  // operand rows a row
   constexpr int NN = R * ND;            // B columns: operand row n = r * ND + digit
   constexpr int NT = (NN + 7) / 8;      // their n-tiles
+  constexpr int PL = BITS == 4 ? 2 : 1;  // nibble planes a table row
   const RFArgs& a = p.a;
   const int w = a.w, H = a.H, C = a.C, B = a.B, L = a.L, S = a.S;
   const int NS = p.ring, CH = p.ch, NP = p.pieces;
-  const int Tu = cdiv(H, kUpCols), KTu = w / kRows, Td = cdiv(w, kTileCols), KTd = H / kRows;
+  const int Tu = cdiv(H, kUpCols), KTu = w / PL / kRows, Td = cdiv(w, kTileCols), KTd = H / PL / kRows;
   const int G = gridDim.x, cta = blockIdx.x;
   const int u0 = run_first(cta, Tu * KTu, G), u1 = run_first(cta + 1, Tu * KTu, G);
   const int d0 = run_first(cta, Td * KTd, G), d1 = run_first(cta + 1, Td * KTd, G);
-  const Smem lay(R, ND, w, NP, NS, p.nslots);
+  const Smem lay(R, ND, w, NP, NS, p.nslots, PL);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t ring_u32 = smem_u32(sm + lay.ring), full0 = smem_u32(sm + lay.bars), empty0 = full0 + 8 * NS;
@@ -284,18 +309,23 @@ __global__ void __launch_bounds__(kAll, 1) rf_sampler_q8_kernel(const __grid_con
 #pragma unroll
         for (int i = 0; i < 4; ++i) dv[q][nt][i] = 0;
   };
-  // the next stage's products against the operand rows ops (pitch ld) from row k0
-  auto consume = [&](const int8_t* ops, int ld, int k0) {
+  // the next stage's products against the operand rows ops (pitch ld) from row k0; int4: the high plane's
+  // operands hi bytes further on
+  auto consume = [&](const int8_t* ops, int ld, int k0, int hi) {
     wait_phase(full0 + 8 * slot, phase);
     const unsigned char* st = ring + slot * kStageBytes;
 #pragma unroll
     for (int kk = 0; kk < kRows; kk += 32) {
-      uint32_t b[NT][2];
+      uint32_t b[NT][2], bh[NT][2];
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int off = bn[nt] * ld + k0 + kk + 4 * t;
         b[nt][0] = *reinterpret_cast<const uint32_t*>(ops + off);
         b[nt][1] = *reinterpret_cast<const uint32_t*>(ops + off + 16);
+        if constexpr (BITS == 4) {
+          bh[nt][0] = *reinterpret_cast<const uint32_t*>(ops + hi + off);
+          bh[nt][1] = *reinterpret_cast<const uint32_t*>(ops + hi + off + 16);
+        }
       }
       uint32_t wd[2][4];
 #pragma unroll
@@ -303,7 +333,8 @@ __global__ void __launch_bounds__(kAll, 1) rf_sampler_q8_kernel(const __grid_con
 #pragma unroll
         for (int r = 0; r < 4; ++r)
           wd[hf][r] = *reinterpret_cast<const uint32_t*>(st + aoff[r] + (kk + 16 * hf) * kBoxW);
-      s8_k32<NT>(wd, b, dv);
+      if constexpr (BITS == 4) q4x_k32<NT>(wd, b, bh, dv);
+      else s8_k32<NT>(wd, b, dv);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty0 + 8 * slot);
@@ -345,15 +376,16 @@ __global__ void __launch_bounds__(kAll, 1) rf_sampler_q8_kernel(const __grid_con
   float* const xbuf = a.xcur;
   float* const xin = a.xcur + 2 * kMaxRows * w;
   unsigned barriers = 0;
+  const int hb = p.round_x ? a.h_bf16 : 0;  // the rounding of x's modulated LN before its operands
   for (int s = 0; s < S; ++s) {
-    input_proj_rows<R>(a, static_cast<const In*>(p.win), lat, xs, xin, G, cta);
+    if (!p.stack) input_proj_rows<R>(a, static_cast<const In*>(p.win), lat, xs, xin, G, cta);
     for (int l = 0; l < L; ++l) {
       const int b = s * L + l, par = b & 1;
-      const float* x_in = l == 0 ? xin : xbuf + par * kMaxRows * w;
-      float* const x_out = xbuf + (par ^ 1) * kMaxRows * w;
+      const float* x_in = l > 0 ? xbuf + par * kMaxRows * w : p.stack ? p.x_ext : xin;
+      float* const x_out = p.stack && l == L - 1 ? p.out_ext : xbuf + (par ^ 1) * kMaxRows * w;
       const size_t m0 = ((size_t)l * S + s) * B * 3 * w;  // mods[l, s]: [B][3w] shift, scale, gate
       const In* md = static_cast<const In*>(p.mods) + m0;
-      if (l > 0) {
+      if (l > 0 || p.stack) {
         for (int i = 4 * tid; i < R * w; i += 4 * kConsumers)
           *reinterpret_cast<float4*>(xs + i) = __ldcg(reinterpret_cast<const float4*>(x_in + i));
         ConsumerSync::sync();
@@ -380,7 +412,7 @@ __global__ void __launch_bounds__(kAll, 1) rf_sampler_q8_kernel(const __grid_con
           for (int e = 0; e < 4; ++e) {
             const float d = __fmul_rn(__fsub_rn(lane4(x, e), stats[2 * r]), stats[2 * r + 1]);
             const float ln = __fadd_rn(__fmul_rn(d, lane4(gw, e)), lane4(gb, e));
-            v[e] = to_compute(__fadd_rn(__fmul_rn(ln, __fadd_rn(1.0f, lane4(sc, e))), lane4(sh, e)), a.h_bf16);
+            v[e] = to_compute(__fadd_rn(__fmul_rn(ln, __fadd_rn(1.0f, lane4(sc, e))), lane4(sh, e)), hb);
             m = fmaxf(m, fabsf(v[e]));
           }
           x = make_float4(v[0], v[1], v[2], v[3]);
@@ -439,7 +471,7 @@ __global__ void __launch_bounds__(kAll, 1) rf_sampler_q8_kernel(const __grid_con
       zero();
       for (int u = u0, tile = u0 / KTu, ks = u0 % KTu; u < u1; ++u, ks = ks == KTu - 1 ? 0 : ks + 1,
                tile += ks == 0) {
-        consume(xd, ldx, ks * kRows);
+        consume(xd, ldx, ks * kRows, w / 2);  // int4: x's second half meets the high nibbles
         if (ks < KTu - 1 && u < u1 - 1) continue;
         const int j0 = tile * kUpCols;
         flush(ws.acc_up + (size_t)tile * kMaxRows * kTileCols, [&](int col) { return j0 + col % kUpCols < H; });
@@ -466,14 +498,14 @@ __global__ void __launch_bounds__(kAll, 1) rf_sampler_q8_kernel(const __grid_con
       // h: the operands of the stages this CTA's down units read, a thread per 16-row group of a kept stage and
       // row, each with its piece's row maximum (one round trip); and every piece's scale, for the down epilogue
       constexpr int kGroups = kRows / 16;  // 16-row groups a stage
-      const int nsl = min(d1 - d0, KTd), kbase = d1 > d0 ? d0 % KTd : 0, nh = R * nsl * kGroups;
+      const int nsl = min(d1 - d0, KTd), kbase = d1 > d0 ? d0 % KTd : 0, nh = PL * R * nsl * kGroups;
       for (int i = tid; i < R * NP; i += kConsumers) {
         const float mxh = __uint_as_float(__ldcg(ws.hmax + par * kMaxRows * NP + i));
         hsc[i] = S8 ? (double)pair_scale(mxh) : ldexp(1.0, row_exponent(mxh) - kFix);
       }
-      for (int i = tid; i < nh; i += kConsumers) {
-        const int r = i / (nsl * kGroups), hslot = (i / kGroups) % nsl, grp = i % kGroups;
-        const int row0 = ((kbase + hslot) % KTd) * kRows + grp * 16;
+      for (int i = tid; i < nh; i += kConsumers) {  // int4: i past R * nsl * kGroups, the high plane's operands
+        const int pr = i / (nsl * kGroups), r = pr % R, hslot = (i / kGroups) % nsl, grp = i % kGroups;
+        const int row0 = (pr / R) * (H / 2) + ((kbase + hslot) % KTd) * kRows + grp * 16;
         const float mxh = __uint_as_float(__ldcg(ws.hmax + (par * kMaxRows + r) * NP + row0 / CH));
         const float* hr = a.hbuf + (size_t)r * H + row0;
         float v[16];
@@ -489,7 +521,7 @@ __global__ void __launch_bounds__(kAll, 1) rf_sampler_q8_kernel(const __grid_con
         for (int k = 0; k < ND; ++k)
 #pragma unroll
           for (int tt = 0; tt < 4; ++tt)  // word tt: rows phys_row(tt, 0..3)
-            reinterpret_cast<uint32_t*>(hd + (r * ND + k) * ldh + hslot * kRows + grp * 16)[tt] =
+            reinterpret_cast<uint32_t*>(hd + ((pr / R) * NN + r * ND + k) * ldh + hslot * kRows + grp * 16)[tt] =
                 pack_s8(q[k][phys_row(tt, 0)], q[k][phys_row(tt, 1)], q[k][phys_row(tt, 2)], q[k][phys_row(tt, 3)]);
       }
       ConsumerSync::sync();
@@ -502,7 +534,7 @@ __global__ void __launch_bounds__(kAll, 1) rf_sampler_q8_kernel(const __grid_con
       for (int u = d0, tile = d0 / KTd, k = kbase, hs = 0; u < d1;  // hs: the stage's slot of h's operands
            ++u, k = k == KTd - 1 ? 0 : k + 1, tile += k == 0, hs = hs == KTd - 1 ? 0 : hs + 1) {
         const int c0 = tile * kTileCols;
-        consume(hd, ldh, hs * kRows);
+        consume(hd, ldh, hs * kRows, NN * ldh);  // int4: h's second half meets the high nibbles
         const bool tile_end = k == KTd - 1 || u == d1 - 1;
         if (!tile_end && (k + 1) % kp) continue;
         flush(ws.acc_dn + ((size_t)(k / kp) * Td + tile) * kMaxRows * kTileCols, [&](int col) { return c0 + col < w; });
@@ -511,8 +543,9 @@ __global__ void __launch_bounds__(kAll, 1) rf_sampler_q8_kernel(const __grid_con
         if (!take_ticket(ws.tickets + Tu + tile, k - kf + 1, KTd, flag)) continue;
         // a thread per column, every row (S8: the loads of up to 4 pieces in one round trip)
         for (int col = tid, j = c0 + tid; col < kTileCols && j < w; col += kConsumers, j += kConsumers) {
+          const float s3j = s3[j], b3j = b3[j];
           float po[R];
-          if constexpr (S8) {  // the pieces' descaled sums in piece order
+          if constexpr (S8) {  // the pieces' descaled sums in piece order (the stack: each times s3)
 #pragma unroll
             for (int r = 0; r < R; ++r) po[r] = 0.0f;
             for (int pc0 = 0; pc0 < NP; pc0 += 4) {
@@ -526,18 +559,20 @@ __global__ void __launch_bounds__(kAll, 1) rf_sampler_q8_kernel(const __grid_con
               for (int q = 0; q < 4; ++q)
 #pragma unroll
                 for (int r = 0; r < R; ++r)
-                  if (pc0 + q < NP) po[r] = __fadd_rn(po[r], dot_value<true>(d[q][r], hsc[r * NP + pc0 + q]));
+                  if (pc0 + q < NP) {
+                    const float dq = dot_value<true>(d[q][r], hsc[r * NP + pc0 + q]);
+                    po[r] = __fadd_rn(po[r], p.s3_per_piece ? __fmul_rn(dq, s3j) : dq);
+                  }
             }
           } else {
 #pragma unroll
             for (int r = 0; r < R; ++r)
               po[r] = dot_value<false>(take(ws.acc_dn + ((size_t)tile * kMaxRows + r) * kTileCols + col), hsc[r]);
           }
-          const float s3j = s3[j], b3j = b3[j];
 #pragma unroll
           for (int r = 0; r < R; ++r) {
             const float gate = to_f32(md[(size_t)r * 3 * w + 2 * w + j]), xv = __ldcg(x_in + (size_t)r * w + j);
-            const float y = __fadd_rn(__fmul_rn(po[r], s3j), b3j);
+            const float y = __fadd_rn(p.s3_per_piece ? po[r] : __fmul_rn(po[r], s3j), b3j);
             __stcg(x_out + (size_t)r * w + j, __fadd_rn(xv, __fmul_rn(gate, y)));
           }
         }
@@ -546,6 +581,7 @@ __global__ void __launch_bounds__(kAll, 1) rf_sampler_q8_kernel(const __grid_con
       if (cta == 0)  // this block's row maxima, read by all before the barrier
         for (int i = tid; i < kMaxRows * NP; i += kConsumers) ws.hmax[par * kMaxRows * NP + i] = 0u;
     }
+    if (p.stack) continue;  // the stack's one step ends with its last block's x
     // the velocity of x (rf_persistent.cuh), then the CFG combine and the Euler update (rf_sampler_common.cuh)
     const float* x_last = xbuf + ((s * L + L) & 1) * kMaxRows * w;
     final_velocity<R>(a, s, static_cast<const In*>(p.fmods), static_cast<const In*>(p.wfin_t), x_last, xs, vel,
@@ -557,19 +593,66 @@ __global__ void __launch_bounds__(kAll, 1) rf_sampler_q8_kernel(const __grid_con
     for (int i = tid; i < B * C; i += kConsumers) a.out[i] = lat[(i / C) * kLat + i % C];
 }
 
-template <bool S8>
+template <bool S8, int BITS>
 cudaError_t launch_rows(const Params& p, size_t smem, cudaStream_t st, int G, int B, int bf16_in) {
   auto go = [&](auto kernel) { return launch_cooperative(kernel, smem, p, st, kAll, G); };
-  switch (B * 2 + (bf16_in ? 1 : 0)) {
-    case 2: return go(rf_sampler_q8_kernel<S8, 1, float>);
-    case 3: return go(rf_sampler_q8_kernel<S8, 1, bf16>);
-    case 4: return go(rf_sampler_q8_kernel<S8, 2, float>);
-    case 5: return go(rf_sampler_q8_kernel<S8, 2, bf16>);
-    case 6: return go(rf_sampler_q8_kernel<S8, 3, float>);
-    case 7: return go(rf_sampler_q8_kernel<S8, 3, bf16>);
-    case 8: return go(rf_sampler_q8_kernel<S8, 4, float>);
-    default: return go(rf_sampler_q8_kernel<S8, 4, bf16>);
+  if constexpr (BITS == 4) {  // the stack's int4 exact body only: fp32 modulations
+    switch (B) {
+      case 1: return go(rf_sampler_q8_kernel<false, 4, 1, float>);
+      case 2: return go(rf_sampler_q8_kernel<false, 4, 2, float>);
+      case 3: return go(rf_sampler_q8_kernel<false, 4, 3, float>);
+      default: return go(rf_sampler_q8_kernel<false, 4, 4, float>);
+    }
+  } else {
+    switch (B * 2 + (bf16_in ? 1 : 0)) {
+      case 2: return go(rf_sampler_q8_kernel<S8, 8, 1, float>);
+      case 3: return go(rf_sampler_q8_kernel<S8, 8, 1, bf16>);
+      case 4: return go(rf_sampler_q8_kernel<S8, 8, 2, float>);
+      case 5: return go(rf_sampler_q8_kernel<S8, 8, 2, bf16>);
+      case 6: return go(rf_sampler_q8_kernel<S8, 8, 3, float>);
+      case 7: return go(rf_sampler_q8_kernel<S8, 8, 3, bf16>);
+      case 8: return go(rf_sampler_q8_kernel<S8, 8, 4, float>);
+      default: return go(rf_sampler_q8_kernel<S8, 8, 4, bf16>);
+    }
   }
+}
+
+// The launch shared by both entries: p.a, the operand pointers and the mode's fields set; here the pieces, the
+// ring, h's kept stages and the tensor maps. bits 4: split-halves packed int4 tables (exact only).
+int run(Params& p, const void* q12, const void* q3, int bits, int s8_dots, int chunk, int grid, int bf16_in,
+        cudaStream_t st) {
+  const int w = p.a.w, H = p.a.H, L = p.a.L, B = p.a.B, pl = bits == 4 ? 2 : 1;
+  p.ch = s8_dots ? chunk : H;
+  p.pieces = H / p.ch;
+  int dev = 0, sms = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int G = grid ? grid : sms, Td = cdiv(w, kTileCols), KTd = H / pl / kRows, nd = s8_dots ? 1 : kDigits;
+  p.nslots = min(cdiv(Td * KTd, G), KTd);
+  const size_t rest = Smem(B, nd, w, p.pieces, 0, p.nslots, pl).bytes;
+  p.ring = (int)min((size_t)kMaxRing, ((size_t)optin - min((size_t)optin, rest)) / (kStageBytes + 16));
+  if (p.ring < 2) return (int)cudaErrorInvalidValue;
+  const size_t smem = Smem(B, nd, w, p.pieces, p.ring, p.nslots, pl).bytes;
+  // the tables as 3-D byte tensors (columns, rows, layer; int4: packed rows), 64-byte x 64-row boxes, 64-byte
+  // swizzle
+  const cuuint64_t d12[3] = {(cuuint64_t)2 * H, (cuuint64_t)w / pl, (cuuint64_t)L};
+  const cuuint64_t s12s[2] = {(cuuint64_t)2 * H, (cuuint64_t)w / pl * 2 * H};
+  const cuuint64_t d3[3] = {(cuuint64_t)w, (cuuint64_t)H / pl, (cuuint64_t)L};
+  const cuuint64_t s3s[2] = {(cuuint64_t)w, (cuuint64_t)H / pl * w};
+  const cuuint32_t box[3] = {kBoxW, (cuuint32_t)kRows, 1};
+  if (!encode(&p.m12, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, q12, d12, s12s, box, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !encode(&p.m3, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, q3, d3, s3s, box, CU_TENSOR_MAP_SWIZZLE_64B))
+    return (int)cudaErrorInvalidValue;
+  err = bits == 4 ? launch_rows<false, 4>(p, smem, st, G, B, 0)
+        : s8_dots ? launch_rows<true, 8>(p, smem, st, G, B, bf16_in)
+                  : launch_rows<false, 8>(p, smem, st, G, B, bf16_in);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch is reported here, not to the next kernel's check
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -595,7 +678,7 @@ extern "C" int mu_rf_sampler_q8(const void* dts, const void* x0, const void* win
   if (B < 1 || B > kMaxRows || w <= 0 || H <= 0 || w % 64 || H % 64 || C > kLat || grid < 0 ||
       (s8_dots && (chunk <= 0 || chunk % kRows || H % chunk)))
     return (int)cudaErrorInvalidValue;
-  Params p;
+  Params p{};
   float* f = static_cast<float*>(fws);
   p.a = rf::make_args(dts, x0, nullptr, binp, lnw, lnb, q12, s12, b12, q3, s3, b3, nullptr, nullptr, nullptr, bfin,
                       f + (size_t)kMaxRows * H, f, out, B, cfg_rows, renorm, S, L, w, H, C, h_bf16, text_cfg,
@@ -605,35 +688,41 @@ extern "C" int mu_rf_sampler_q8(const void* dts, const void* x0, const void* win
   p.win = win;
   p.wfin_t = wfin_t;
   p.iws = static_cast<int*>(iws);
-  p.ch = s8_dots ? chunk : H;
-  p.pieces = H / p.ch;
-  int dev = 0, sms = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  const int G = grid ? grid : sms, Td = cdiv(w, kTileCols), KTd = H / kRows, nd = s8_dots ? 1 : kDigits;
-  p.nslots = min(cdiv(Td * KTd, G), KTd);
-  const size_t rest = Smem(B, nd, w, p.pieces, 0, p.nslots).bytes;
-  p.ring = (int)min((size_t)kMaxRing, ((size_t)optin - min((size_t)optin, rest)) / (kStageBytes + 16));
-  if (p.ring < 2) return (int)cudaErrorInvalidValue;
-  const size_t smem = Smem(B, nd, w, p.pieces, p.ring, p.nslots).bytes;
-  // the tables as 3-D byte tensors (columns, rows, layer), 64-byte x 64-row boxes, 64-byte swizzle
-  const cuuint64_t d12[3] = {(cuuint64_t)2 * H, (cuuint64_t)w, (cuuint64_t)L};
-  const cuuint64_t s12s[2] = {(cuuint64_t)2 * H, (cuuint64_t)w * 2 * H};
-  const cuuint64_t d3[3] = {(cuuint64_t)w, (cuuint64_t)H, (cuuint64_t)L};
-  const cuuint64_t s3s[2] = {(cuuint64_t)w, (cuuint64_t)H * w};
-  const cuuint32_t box[3] = {kBoxW, (cuuint32_t)kRows, 1};
-  if (!encode(&p.m12, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, q12, d12, s12s, box, CU_TENSOR_MAP_SWIZZLE_64B) ||
-      !encode(&p.m3, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, q3, d3, s3s, box, CU_TENSOR_MAP_SWIZZLE_64B))
+  p.round_x = 1;
+  return run(p, q12, q3, 8, s8_dots, chunk, grid, bf16_in, static_cast<cudaStream_t>(stream));
+}
+
+// One Euler step of the residual stack (the stack mode, see the top of this
+// file) over B <= 4 rows: x (B, w) fp32 holding compute-dtype values (h_bf16:
+// the compute dtype is bf16); lnw / lnb (L, w); bits 8: q12 (L, w, 2H) / q3
+// (L, H, w) int8, exact digit dots or (s8_dots) s8 dots with h re-quantized per
+// `chunk` columns (a multiple of 64 dividing H); bits 4 (exact only): q12 (L,
+// w/2, 2H) / q3 (L, H/2, w) split-halves packed int4 (w and H multiples of
+// 128); fp32 scales s12 (L, 2H) / s3 (L, w), biases b12 / b3; mods (L, B, 3w)
+// fp32; out (B, w) fp32, x after block L-1. The workspace as
+// mu_rf_sampler_q8's (int32 words: mu_rf_sampler_q8_workspace(w, H, s8_dots,
+// chunk) at either bits). grid: the CTAs, 0 for one per SM. One cooperative
+// launch.
+extern "C" int mu_rf_stack_q8(const void* x, const void* lnw, const void* lnb, const void* q12, const void* s12,
+                              const void* b12, const void* q3, const void* s3, const void* b3, const void* mods,
+                              void* out, void* fws, void* iws, int B, int L, int w, int H, int h_bf16, int bits,
+                              int s8_dots, int chunk, int grid, float ln_eps, void* stream) {
+  if (B < 1 || B > kMaxRows || w <= 0 || H <= 0 || w % 64 || H % 64 || grid < 0 || (bits != 8 && bits != 4) ||
+      (bits == 4 && (s8_dots || w % 128 || H % 128)) || (s8_dots && (chunk <= 0 || chunk % kRows || H % chunk)))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = s8_dots ? launch_rows<true>(p, smem, st, G, B, bf16_in) : launch_rows<false>(p, smem, st, G, B, bf16_in);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // a refused launch is reported here, not to the next kernel's check
-    return (int)err;
-  }
-  return (int)cudaGetLastError();
+  Params p{};
+  float* f = static_cast<float*>(fws);
+  p.a = rf::make_args(nullptr, nullptr, nullptr, nullptr, lnw, lnb, q12, s12, b12, q3, s3, b3, nullptr, nullptr,
+                      nullptr, nullptr, f + (size_t)kMaxRows * H, f, nullptr, B, 1, 0, 1, L, w, H, 0, h_bf16, 0.0f,
+                      0.0f, ln_eps);
+  p.mods = mods;
+  p.iws = static_cast<int*>(iws);
+  p.stack = 1;
+  p.round_x = !s8_dots;
+  p.s3_per_piece = s8_dots;
+  p.x_ext = static_cast<const float*>(x);
+  p.out_ext = static_cast<float*>(out);
+  return run(p, q12, q3, bits, s8_dots, chunk, grid, 0, static_cast<cudaStream_t>(stream));
 }
 
 // Words of the int32 workspace a launch over (w, H) reads: s8 dots with h in `chunk`-column pieces, or the exact

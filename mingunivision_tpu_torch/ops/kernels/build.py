@@ -54,7 +54,8 @@ _SIGNATURES = {
     "mu_swiglu_gmm_q8": [_P] * 15 + [_I] * 8 + [_P],
     "mu_rf_sampler_q8": [_P] * 19 + [_I] * 13 + [ctypes.c_float] * 3 + [_P],
     "mu_rf_sampler_q8_workspace": [_I] * 4,
-    "mu_rf_mlp_stack": [_P] * 12 + [_I] * 9 + [ctypes.c_float, _P],
+    "mu_rf_stack_q4s8": [_P] * 13 + [_I] * 7 + [ctypes.c_float, _P],
+    "mu_rf_stack_q8": [_P] * 13 + [_I] * 9 + [ctypes.c_float, _P],
     "mu_swiglu_gmm_full": [_P] * 10 + [_I] * 4 + [_P],
     "mu_gmm": [_P] * 4 + [_I] * 9 + [_P],
     "mu_tgmm": [_P] * 4 + [_I] * 8 + [_P],

@@ -1,6 +1,6 @@
 """Per-step residual stack of the rectified-flow head over linear int4 or int8
-tables: the CUDA kernel `csrc/rf_mlp.cu` in its four bodies and their plain
-versions.
+tables: one Euler step of all 12 AdaLN SwiGLU blocks in one launch of the
+fused samplers' persistent body, in four bodies, and their plain versions.
 
 Replaces the TPU kernel mingunivision_tpu/ops/kernels/rf_mlp.py
 (`rf_mlp_stack`: one pallas_call per Euler step over all 12 AdaLN SwiGLU
@@ -14,16 +14,32 @@ so the port's exact int4 body stands for all of them. What bounds a launch on
 the H100 is the bytes of the tables: 453 MB of packed int4 (906 MB of int8)
 at the 16B-A3B width, read once per Euler step.
 
-Arithmetic, as the TPU kernels (see `csrc/rf_mlp.cu`): x enters in the
-compute dtype and leaves rounded to it after the last block; the running
-activation is fp32. The tiling decides the numbers: CHUNK (2048) hidden
-columns per chunk, whose down sums the int8 bodies add in order (the s8 body
-re-quantizes h per row over each chunk), and the int4 bodies' down chunks of
-KC_Q4 = 512 (exact) and KC_Q4S8 = 1024 (s8) packed rows. The head is
-chaotic at its bf16 and s8 roundings, so each plain version sums in its
-kernel's order (`rf_sampler._split_dot`, `_block_sum` through
-`rf_sampler._modulated_ln`; exact integer dots; `intdot.silu_exact`), and the
-two agree to the bit; against the TPU kernels they differ by float
+The kernels are the stack mode of the fused samplers (`csrc/rf_sampler_q4.cu`
+for the int4 s8 body, `csrc/rf_sampler_q8.cu` for the other three; their body
+is `csrc/rf_persistent.cuh`): a persistent cooperative grid, a producer warp
+keeping a TMA ring of weight stages full across the 24 grid barriers of the
+step, stream-K units of s8 tensor-core products whose integer partials add
+into each tile's accumulators, the tile's last contributor running its
+epilogue; x comes in from the caller and leaves after the last block. They
+read the samplers' workspace, kept per device and stream.
+
+Arithmetic, as the TPU kernels: x enters in the compute dtype and leaves
+rounded to it after the last block; the running activation is fp32. The s8
+bodies: the int8 one quantizes the fp32 modulated LN output per row,
+re-quantizes h per row over each CHUNK (2,048) columns and adds each chunk's
+descaled down sum times s3 in order; the int4 one quantizes to the s8 operand
+pair and sums its down dots in KC_Q4S8 (1,024) packed-row pieces. The exact
+bodies take each dot exact before one rounding (`rf_sampler._digit_dot`: each
+activation row, rounded to the compute dtype, on its own fixed point as four
+s8 digits whose integer dots with the table combine into the exact sum): the
+int8 one is the int8 sampler's exact block (`rf_sampler._mlp_q8`), the int4
+one the same over both nibble planes of the packed tables, the low plane
+meeting the first half of the contraction and the high plane the second, in
+one exact sum a column. The JAX kernels' chunking of these sums only bounds
+VMEM; exact sums change nothing but their last rounding. The head is chaotic at
+its bf16 and s8 roundings, so each plain version gives its kernel's bits
+(exact integer dots; `_block_sum` through `rf_sampler._modulated_ln`;
+`intdot.silu_exact`); against the TPU kernels they differ by float
 reassociation only.
 
 `rf_mlp_stack` runs the plain version for CPU tensors only; for CUDA tensors
@@ -47,16 +63,19 @@ from mingunivision_tpu_torch.ops.kernels.intdot import (
 )
 from mingunivision_tpu_torch.ops.kernels.rf_sampler import (
     MAX_ROWS,
+    _digit_dot,
+    _mlp_q8,
     _modulated_ln,
-    _split_dot,
+    _sampler_workspace,
     block_operands,
     fitting_chunk,
+    q4_workspace_sizes,
+    q8_workspace_sizes,
 )
 from mingunivision_tpu_torch.utils.quantize import is_int4_linear, is_int8_linear
 
-CHUNK = 2048  # the JAX package's rf_mlp_stack(chunk=2048), capped there at 2048 for int4 tables
-KC_Q4 = 512  # packed w3 rows per down chunk of `_kernel_q4`
-KC_Q4S8 = 1024  # and of `_kernel_q4_s8`
+CHUNK = 2048  # the JAX package's rf_mlp_stack(chunk=2048): the int8 s8 body's columns of h quantized together
+KC_Q4S8 = 1024  # packed w3 rows per down piece of `_kernel_q4_s8`
 
 
 def stack_bits(blocks):
@@ -86,25 +105,18 @@ def _width(blocks, bits):
     return (2 * wq if bits == 4 else wq), h2 // 2
 
 
-def _planes(q: torch.Tensor):
-    """Packed int4 bytes -> their low and high nibble planes, (b & 15) - 8 and (b >> 4) - 8, fp32."""
+def _planes(q: torch.Tensor) -> torch.Tensor:
+    """Split-halves packed int4 bytes (K/2, N) -> the integer table (K, N) of
+    their weights: the low nibble plane (b & 15) - 8 for the first K/2 rows,
+    the high plane (b >> 4) - 8 for the rest (int16)."""
     q = q.to(torch.int16)
-    return ((q & 0xF) - 8).float(), ((q >> 4) - 8).float()
+    return torch.cat([(q & 0xF) - 8, (q >> 4) - 8], dim=0)
 
 
-def _block_q8(o, l, xs, H, cdt, ch):
-    """`_kernel`: the gate/up and down products of the compute-dtype values
-    with the exact int8 weights; the down sums per ch-row chunk, each times
-    s3, added in order; b3 once."""
-    xa = xs.to(cdt).float()
-    gu = _split_dot(xa, o["q12"][l].float())
-    g = gu[:, :H] * o["s12"][l, :H] + o["b12"][l, :H]
-    u = gu[:, H:] * o["s12"][l, H:] + o["b12"][l, H:]
-    hf = (silu_exact(g) * u).to(cdt).float()
-    acc = torch.zeros((xs.shape[0], o["q3"].shape[-1]), dtype=torch.float32, device=xs.device)
-    for c0 in range(0, H, ch):
-        acc = acc + _split_dot(hf[:, c0 : c0 + ch], o["q3"][l][c0 : c0 + ch].float()) * o["s3"][l]
-    return acc + o["b3"][l]
+def _block_q8(o, l, xs, H, cdt, _):
+    """`_kernel` with every dot exact before one rounding: the int8 sampler's
+    exact block (`rf_sampler._mlp_q8`)."""
+    return _mlp_q8(o, l, xs, H, cdt)
 
 
 def _block_q8s8(o, l, xs, H, cdt, ch):
@@ -123,24 +135,17 @@ def _block_q8s8(o, l, xs, H, cdt, ch):
     return acc + o["b3"][l]
 
 
-def _block_q4(o, l, xs, H, cdt, kc):
-    """`_kernel_q4`: the compute-dtype activations against both exact nibble
-    planes, one dot per plane; h rounded to the compute dtype; the down sum
-    over kc-row chunks of packed w3, each chunk's two plane dots added first;
-    s3 and b3 after the full sum."""
-    wq, Hh = o["q12"].shape[1], H // 2
+def _block_q4(o, l, xs, H, cdt, _):
+    """`_kernel_q4` with every dot exact before one rounding: the
+    compute-dtype activations' digit dots with both nibble planes of the
+    packed tables in one sum a column (`_planes`); h rounded to the compute
+    dtype; s3 and b3 after the down sum."""
     xa = xs.to(cdt).float()
-    lo, hi = _planes(o["q12"][l])
-    gu = _split_dot(xa[:, :wq], lo) + _split_dot(xa[:, wq:], hi)
+    gu = _digit_dot(xa, _planes(o["q12"][l]))
     g = gu[:, :H] * o["s12"][l, :H] + o["b12"][l, :H]
     u = gu[:, H:] * o["s12"][l, H:] + o["b12"][l, H:]
     hf = (silu_exact(g) * u).to(cdt).float()
-    lo3, hi3 = _planes(o["q3"][l])
-    po = torch.zeros((xs.shape[0], o["q3"].shape[-1]), dtype=torch.float32, device=xs.device)
-    for k0 in range(0, Hh, kc):
-        po = po + (_split_dot(hf[:, k0 : k0 + kc], lo3[k0 : k0 + kc])
-                   + _split_dot(hf[:, Hh + k0 : Hh + k0 + kc], hi3[k0 : k0 + kc]))
-    return po * o["s3"][l] + o["b3"][l]
+    return _digit_dot(hf, _planes(o["q3"][l])) * o["s3"][l] + o["b3"][l]
 
 
 def _block_q4s8(o, l, xs, H, cdt, kc):
@@ -165,10 +170,11 @@ def _block_q4s8(o, l, xs, H, cdt, kc):
 
 
 def _tiling(H: int, chunk: int):
-    """(the int8 bodies' down row chunk, the int4 bodies' packed-row chunks
-    (exact, s8)): the JAX package's CH and KC. Its cap of CH at 2048 for int4
-    tables only tiles the gate/up columns, which changes no sum."""
-    return fitting_chunk(H, chunk), (fitting_chunk(H // 2, KC_Q4), fitting_chunk(H // 2, KC_Q4S8))
+    """(the int8 s8 body's columns of h quantized together, the int4 s8
+    body's packed-row down pieces): the JAX package's CH and KC. Its cap of CH
+    at 2048 for int4 tables only tiles the gate/up columns, which changes no
+    sum; the exact bodies' chunks only bound the TPU kernels' VMEM."""
+    return fitting_chunk(H, chunk), fitting_chunk(H // 2, KC_Q4S8)
 
 
 def rf_mlp_stack_plain(blocks, x, mods, *, ln_eps: float = 1e-6, chunk: int = CHUNK, int_dots: bool):
@@ -181,9 +187,9 @@ def rf_mlp_stack_plain(blocks, x, mods, *, ln_eps: float = 1e-6, chunk: int = CH
     o = block_operands(blocks)
     L = o["q12"].shape[0]
     w, H = _width(blocks, bits)
-    ch, (kc, kc_s8) = _tiling(H, chunk)
-    body, arg = {(8, False): (_block_q8, ch), (8, True): (_block_q8s8, ch), (4, False): (_block_q4, kc),
-                 (4, True): (_block_q4s8, kc_s8)}[(bits, bool(int_dots))]
+    ch, kc = _tiling(H, chunk)
+    body, arg = {(8, False): (_block_q8, None), (8, True): (_block_q8s8, ch), (4, False): (_block_q4, None),
+                 (4, True): (_block_q4s8, kc)}[(bits, bool(int_dots))]
     cdt = x.dtype
     xcur = x.float()
     for l in range(L):
@@ -193,11 +199,12 @@ def rf_mlp_stack_plain(blocks, x, mods, *, ln_eps: float = 1e-6, chunk: int = CH
     return xcur.to(cdt)
 
 
-def rf_mlp_stack(blocks, x, mods, *, ln_eps: float = 1e-6, chunk: int = CHUNK, int_dots: bool):
+def rf_mlp_stack(blocks, x, mods, *, ln_eps: float = 1e-6, chunk: int = CHUNK, int_dots: bool, grid: int = 0):
     """One Euler step of the residual stack (see the module docstring): x (B,
     w) in the compute dtype (bf16 or fp32), mods (L, B, 3w) -> (B, w) in x's
     dtype. CPU tensors run the plain version; CUDA tensors launch the kernel
-    of the table type and dot mode once per group of MAX_ROWS rows."""
+    of the table type and dot mode once per group of MAX_ROWS rows. `grid`:
+    the kernel's CTAs (0: one per SM), for tests of its unit partition."""
     if x.device.type == "cpu":
         return rf_mlp_stack_plain(blocks, x, mods, ln_eps=ln_eps, chunk=chunk, int_dots=int_dots)
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -209,8 +216,9 @@ def rf_mlp_stack(blocks, x, mods, *, ln_eps: float = 1e-6, chunk: int = CHUNK, i
     L = o["q12"].shape[0]
     w, H = _width(blocks, bits)
     B = x.shape[0]
-    if w % 64 or H % 64:
-        raise ValueError(f"rf_mlp_stack: width and hidden must be multiples of 64 (w={w}, H={H})")
+    align = 128 if bits == 4 else 64  # int4: whole 64-row stages of packed rows
+    if w % align or H % align:
+        raise ValueError(f"rf_mlp_stack: width and hidden must be multiples of {align} (w={w}, H={H})")
     dtype, shapes = (torch.uint8, ((L, w // 2, 2 * H), (L, H // 2, w))) if bits == 4 else \
         (torch.int8, ((L, w, 2 * H), (L, H, w)))
     if (tuple(o["q12"].shape), tuple(o["q3"].shape)) != shapes or o["q12"].dtype != dtype or o["q3"].dtype != dtype:
@@ -220,29 +228,35 @@ def rf_mlp_stack(blocks, x, mods, *, ln_eps: float = 1e-6, chunk: int = CHUNK, i
     for name, t in list(o.items()) + [("mods", mods)]:
         if t.device != x.device:
             raise ValueError(f"rf_mlp_stack: {name} is on {t.device}, not {x.device}")
-    ch, (kc, kc_s8) = _tiling(H, chunk)
+    ch, kc = _tiling(H, chunk)
     s8 = bool(int_dots)
     counter = {(4, True): rf_mlp_stack_q4s8, (4, False): rf_mlp_stack_q4, (8, True): rf_mlp_stack_q8s8,
                (8, False): rf_mlp_stack_q8}[(bits, s8)]
     lib = build.load()
-    out = torch.empty((B, w), dtype=x.dtype, device=x.device)
+    stream = build.stream_handle(x)
+    if bits == 4 and s8:
+        fws, iws = _sampler_workspace(q4_workspace_sizes(w, H, kc), x.device, stream)
+    else:
+        fws, iws = _sampler_workspace(q8_workspace_sizes(w, H, H // ch if s8 else 1), x.device, stream)
+    tables = (o["lnw"].data_ptr(), o["lnb"].data_ptr(), o["q12"].data_ptr(), o["s12"].data_ptr(),
+              o["b12"].data_ptr(), o["q3"].data_ptr(), o["s3"].data_ptr(), o["b3"].data_ptr())
+    outs = []
     for r0 in range(0, B, MAX_ROWS):
         rows = slice(r0, min(r0 + MAX_ROWS, B))
         xg = x[rows].float().contiguous()
         mg = mods[:, rows].float().contiguous()
         R = xg.shape[0]
-        xcur = torch.empty((R, w), dtype=torch.float32, device=x.device)
-        hbuf = torch.empty((R, H), dtype=torch.float32, device=x.device)
-        rc = lib.mu_rf_mlp_stack(
-            xg.data_ptr(), o["lnw"].data_ptr(), o["lnb"].data_ptr(), o["q12"].data_ptr(), o["s12"].data_ptr(),
-            o["b12"].data_ptr(), o["q3"].data_ptr(), o["s3"].data_ptr(), o["b3"].data_ptr(), mg.data_ptr(),
-            xcur.data_ptr(), hbuf.data_ptr(), R, L, w, H, int(x.dtype == torch.bfloat16), bits, int(s8), ch,
-            kc_s8 if s8 else kc, float(ln_eps), build.stream_handle(x),
-        )
-        build.check(rc, "mu_rf_mlp_stack")
+        out = torch.empty((R, w), dtype=torch.float32, device=x.device)
+        head = (xg.data_ptr(), *tables, mg.data_ptr(), out.data_ptr(), fws.data_ptr(), iws.data_ptr(), R, L, w, H,
+                int(x.dtype == torch.bfloat16))
+        if bits == 4 and s8:
+            rc, name = lib.mu_rf_stack_q4s8(*head, kc, grid, float(ln_eps), stream), "mu_rf_stack_q4s8"
+        else:
+            rc, name = lib.mu_rf_stack_q8(*head, bits, int(s8), ch, grid, float(ln_eps), stream), "mu_rf_stack_q8"
+        build.check(rc, name)
         counter.launches += 1  # one per kernel launch
-        out[rows] = xcur.to(x.dtype)
-    return out
+        outs.append(out)
+    return (outs[0] if len(outs) == 1 else torch.cat(outs)).to(x.dtype)
 
 
 def rf_mlp_stack_q4s8(blocks, x, mods, *, ln_eps: float = 1e-6, chunk: int = CHUNK):

@@ -273,32 +273,6 @@ def _mlp_q4(o, l, xs, H, compute_dtype, kc=None):
     return (acc - corrh) * o["s3"][l] + o["b3"][l]
 
 
-SPLITS = 32  # contraction splits of a task of the per-step stack's int8 bodies: 8 warps x 4 lane groups (csrc/rf_mlp.cu)
-
-
-def _split_dot(x, w):
-    """x (R, K) @ w (K, N) in fp32 as the per-step stack's int8 tasks sum it
-    (`rf_mlp.py`, `csrc/rf_mlp.cu`, `rf_sampler_common.cuh`'s task_dots_f32):
-    contraction row k = 128 j + 4 s + r goes to split s (warp s // 4), each
-    split adds its rounded products in the order (j, r), the four splits of a
-    warp are combined as (s0 + s1) + (s2 + s3) and the eight warps in order."""
-    R, K = x.shape
-    pad = (-K) % (4 * SPLITS)
-    x, w = F.pad(x, (0, pad)), F.pad(w, (0, 0, 0, pad))
-    J, N = x.shape[1] // (4 * SPLITS), w.shape[1]
-    p = x.view(R, J, SPLITS, 4, 1) * w.view(1, J, SPLITS, 4, N)
-    acc = torch.zeros((R, SPLITS, N), dtype=torch.float32, device=x.device)
-    for j in range(J):
-        for r in range(4):
-            acc = acc + p[:, j, :, r]
-    v = acc.view(R, SPLITS // 4, 4, N)
-    warps = (v[:, :, 0] + v[:, :, 1]) + (v[:, :, 2] + v[:, :, 3])
-    out = torch.zeros((R, N), dtype=torch.float32, device=x.device)
-    for k in range(SPLITS // 4):
-        out = out + warps[:, k]
-    return out
-
-
 DIGITS, FIX = 4, 30  # the exact int8 sampler's s8 digits an activation and its fixed point (csrc/rf_sampler_q8.cu)
 
 

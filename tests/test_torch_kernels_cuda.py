@@ -623,12 +623,13 @@ def _rf_head(dev, bits, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("rows", [2, 3, 6], ids=["2rows", "3rows", "6rows-2launches"])
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 6], ids=["1row", "2rows", "3rows", "4rows", "6rows-2launches"])
 @pytest.mark.parametrize("body", [(4, True), (4, False), (8, True), (8, False)], ids=["q4s8", "q4", "q8s8", "q8"])
 def test_rf_mlp_stack_kernel_matches_plain(dev, body, rows, dtype):
-    """One Euler step of the stack against its plain version, which sums in
-    the kernel's order: to the bit; more rows than one launch holds go in
-    groups (rows never mix)."""
+    """One Euler step of the stack (the samplers' persistent body in its
+    stack mode) against its plain version, whose dots are exact integer sums
+    (s8, or digit dots) rounded as the kernel rounds them: to the bit; more
+    rows than one launch holds go in groups (rows never mix)."""
     bits, s8 = body
     cfg, rf, g = _rf_head(dev, bits, seed=31)
     blocks = rf["res_blocks"]
@@ -643,6 +644,27 @@ def test_rf_mlp_stack_kernel_matches_plain(dev, body, rows, dtype):
     assert got.dtype == dtype
     torch.testing.assert_close(got, rf_mlp.rf_mlp_stack_plain(blocks, x, mods, ln_eps=cfg.ln_eps, int_dots=s8),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("grid", [1, 7], ids=["1cta", "7ctas"])
+@pytest.mark.parametrize("body", [(4, True), (4, False), (8, True), (8, False)], ids=["q4s8", "q4", "q8s8", "q8"])
+def test_rf_mlp_stack_kernel_on_a_small_grid(dev, body, grid, monkeypatch):
+    """The stack's units split over fewer CTAs than the card has SMs (each
+    CTA's run crossing tiles; the int8 s8 body with h in four pieces of 128
+    columns, the int4 s8 one with w3 in two pieces of 128 packed rows): the
+    plain version's bits at 2 and 3 rows, two calls back to back (the
+    workspace left clean)."""
+    bits, s8 = body
+    monkeypatch.setattr(rf_mlp, "KC_Q4S8", 128)
+    cfg, rf, g = _rf_head(dev, bits, seed=33)
+    blocks = rf["res_blocks"]
+    for rows in (2, 3):
+        x = torch.randn(rows, cfg.width, device=dev, generator=g).to(torch.bfloat16)
+        mods = 0.5 * torch.randn(cfg.depth, rows, 3 * cfg.width, device=dev, generator=g)
+        kw = dict(ln_eps=cfg.ln_eps, int_dots=s8, chunk=128)
+        want = rf_mlp.rf_mlp_stack_plain(blocks, x, mods, **kw)
+        for _ in range(2):
+            torch.testing.assert_close(rf_mlp.rf_mlp_stack(blocks, x, mods, grid=grid, **kw), want, rtol=0, atol=0)
 
 
 def test_rf_mlp_stack_raises_on_unsupported_input(dev):
@@ -1345,6 +1367,56 @@ def test_gathered_expert_matmul_kernel_matches_plain(dev, A, N, ragged_h):
     torch.cuda.synchronize()
     assert gathered_expert_matmul.launches == before + 1 and got.dtype == torch.bfloat16
     _close_bf16(got, gathered_expert_matmul_plain(x, w, ids))
+
+
+def _gather_ids(case, A, n_exp, dev, g):
+    """Row 12's routing cases: ids drawn from all experts (repeats among 72
+    of them), all equal, all distinct, 72 on 2 experts, or drawn with one
+    out of range (its row NaN)."""
+    if case == "all-equal":
+        return torch.full((A,), 5, dtype=torch.int32, device=dev)
+    if case == "all-distinct":
+        return torch.randperm(n_exp, device=dev, generator=g)[:A].to(torch.int32)
+    if case == "two-experts":
+        return torch.tensor([3, 60], device=dev, dtype=torch.int32)[torch.randint(0, 2, (A,), device=dev,
+                                                                                   generator=g)]
+    ids = torch.randint(0, n_exp, (A,), device=dev, generator=g, dtype=torch.int32)
+    if case == "out-of-range":
+        ids[A // 2] = n_exp + 3
+        ids[0] = -1
+    return ids
+
+
+@pytest.mark.parametrize("h,N", [(2048, 1408), (1408, 2048)], ids=["gate-table", "down-table"])
+@pytest.mark.parametrize("case", ["drawn", "all-equal", "all-distinct", "two-experts", "out-of-range"])
+@pytest.mark.parametrize("A", [1, 12, 72, 200])
+def test_gathered_expert_matmul_routing_cases(dev, A, case, h, N):
+    """Row 12 at the 16B-A3B slab shapes (64 experts) on every routing case:
+    within one bf16 rounding of its plain version (their fp32 sums in another
+    order), an out-of-range id's row all NaN and the others finite; one
+    launch."""
+    from mingunivision_tpu_torch.ops.kernels.expert_matmul import gathered_expert_matmul, gathered_expert_matmul_plain
+
+    n_exp = 64
+    if case == "all-distinct" and A > n_exp:
+        pytest.skip("more assignments than experts cannot all be distinct")
+    g = torch.Generator(device=dev).manual_seed(A + len(case))
+    w = torch.empty((n_exp, h, N), device=dev, dtype=torch.bfloat16).normal_(0, 0.02, generator=g)
+    x = torch.randn((A, h), device=dev, generator=g).to(torch.bfloat16)
+    ids = _gather_ids(case, A, n_exp, dev, g)
+    before = gathered_expert_matmul.launches
+    got = gathered_expert_matmul(x, w, ids)
+    torch.cuda.synchronize()
+    assert gathered_expert_matmul.launches == before + 1
+    bad = (ids < 0) | (ids >= n_exp)
+    assert torch.isnan(got[bad].float()).all() and torch.isfinite(got[~bad].float()).all()
+    want = gathered_expert_matmul_plain(x[~bad], w, ids[~bad])
+    err, wf = (got[~bad].float() - want.float()).abs(), want.float()
+    ulp = torch.ldexp(torch.ones_like(wf), torch.frexp(wf).exponent - 8)  # one bf16 step at the plain value
+    # beside it, the fp32 sums' reassociation (the kernel's eight warps' partials): 1e-5 of the largest output, which
+    # decides the bf16 rounding of outputs near zero
+    if want.numel():
+        assert (err <= ulp + 1e-5 * wf.abs().max()).all(), (err - ulp).max().item()
 
 
 @pytest.mark.parametrize("n", [2, 6], ids=["2rows", "6rows-shared-experts"])

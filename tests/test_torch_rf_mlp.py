@@ -8,8 +8,9 @@ Pallas kernels run in interpret mode on the CPU. The CUDA kernels themselves
 are held against these plain versions in tests/test_torch_kernels_cuda.py.
 
 Tolerances, relative to the largest output:
-  - fp32, exact dequant: REL = 2e-4 (the same products summed in another
-    order);
+  - fp32, exact dequant: REL = 2e-4 (the port's dots are exact before one
+    rounding, on each row's fixed point: `rf_sampler._digit_dot`; the JAX
+    kernels sum the same products in fp32);
   - fp32, s8 dots: S8_REL = 1e-4 with the port's silu written as the JAX
     package writes it (x * sigmoid(x)): the integer sums are exact, the fp32
     epilogue runs in another order. As shipped, the port's silu differs from
@@ -144,10 +145,13 @@ def test_stack_plain_matches_pallas(heads, body, rows, dtype, monkeypatch):
 
 
 def test_stack_tiling_is_the_jax_package_s():
-    """The chunks that decide the numbers at the 16B-A3B width (H = 8192) and here."""
-    assert rf_mlp._tiling(8192, rf_mlp.CHUNK) == (2048, (512, 1024))
-    assert rf_mlp._tiling(2048, CHUNK) == (256, (512, 1024))
-    assert rf_mlp._tiling(512, rf_mlp.CHUNK) == (512, (256, 256))
+    """The chunks that decide the numbers at the 16B-A3B width (H = 8192) and
+    here: the s8 bodies' (the int8 one's columns of h quantized together, the
+    int4 one's down pieces); the exact bodies' dots are exact, so their
+    chunks decide nothing."""
+    assert rf_mlp._tiling(8192, rf_mlp.CHUNK) == (2048, 1024)
+    assert rf_mlp._tiling(2048, CHUNK) == (256, 1024)
+    assert rf_mlp._tiling(512, rf_mlp.CHUNK) == (512, 256)
 
 
 def test_stack_support_follows_the_tables(heads):

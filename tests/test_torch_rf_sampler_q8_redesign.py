@@ -26,10 +26,12 @@
 - One Euler step of one block from a common state against the JAX kernel.
 - The wrapper's workspace sizes (the library's `mu_rf_sampler_q8_workspace`
   is held to them on the card) and the unit partition at the 16B-A3B width.
-- The plain versions this change leaves alone keep their bits: the per-step
-  stack's four bodies (row 8: the int8 ones still sum in `_split_dot`'s
-  order), the s8 int8 sampler (row 7h) and the int4 sampler (row 6), held to
-  digests of their outputs before the change.
+- The plain versions this change left alone keep their bits: the per-step
+  stack's s8 bodies, the s8 int8 sampler (row 7h) and the int4 sampler (row
+  6), held to digests of their outputs before the change; the stack's exact
+  bodies (row 8), since moved to digit dots as well, give the bits of the
+  exact int8 sampler's block (`_mlp_q8`) block by block, and over int4 tables
+  those of the digit dots with both nibble planes unpacked apart.
 
 The kernel itself runs on the card only (tests/test_torch_kernels_cuda.py).
 """
@@ -465,18 +467,15 @@ def test_one_workspace_per_device_and_stream_for_both_samplers():
 # what the change leaves alone
 # ---------------------------------------------------------------------------
 
-# sha256 prefixes of the plain outputs below, taken before the exact int8 sampler moved to digit dots
+# sha256 prefixes of the plain outputs below, taken before the exact int8 sampler moved to digit dots (the
+# stack's exact bodies, which moved to digit dots later, are held to their new contract instead)
 UNCHANGED = {
-    "stack-int4-exact-float32": "e233c16ff0c69079",
     "stack-int4-s8-float32": "1fcec998878448bc",
     "sampler-int4-q4-float32": "795982f1454e317a",
-    "stack-int4-exact-bfloat16": "31225b5d0018f48e",
     "stack-int4-s8-bfloat16": "17f1fb9b7963ea43",
     "sampler-int4-q4-bfloat16": "d7f37af8182a9a1b",
-    "stack-int8-exact-float32": "2e49247022004eb2",
     "stack-int8-s8-float32": "4053b2caeca8aa61",
     "sampler-int8-s8-float32": "29e1679946c8f755",
-    "stack-int8-exact-bfloat16": "3887f026292b3b9e",
     "stack-int8-s8-bfloat16": "82450e0d756d6f6b",
     "sampler-int8-s8-bfloat16": "15005032e0dfdc47",
 }
@@ -493,11 +492,49 @@ def _port_head(bits):
     return cfg, rf
 
 
+def _int_dot(x, q):
+    """x (R, K) fp32 @ q (K, N) integers as the exact dots' contract says,
+    in numpy int64 apart from the port's digits: each row of x on its own
+    fixed point (E the frexp exponent of its largest |x|, X = rint(x 2^(30 - E))),
+    the exact integer sums of X q, each rounded once to fp32 from S 2^(E - 30)."""
+    xd = x.double().numpy()
+    e = np.frexp(np.abs(xd).max(axis=1, keepdims=True))[1]
+    X = np.rint(np.ldexp(xd, 30 - e)).astype(np.int64)
+    S = X @ q.numpy().astype(np.int64)  # |S| < 2^30 x 128 x K
+    return torch.from_numpy(np.ldexp(S.astype(np.float64), e - 30).astype(np.float32))
+
+
+def _exact_stack(rf, x, mods, eps, bits):
+    """The stack's exact body as its contract says, block by block, its dots
+    by `_int_dot`: over int8 tables the bytes as they are, over int4 tables
+    each nibble plane unpacked apart (numpy) as the integer table of both
+    halves of the contraction."""
+    o = rs.block_operands(rf["res_blocks"])
+    L, H = o["q12"].shape[0], o["q12"].shape[2] // 2
+    w, dt = x.shape[1], x.dtype
+
+    def table(q):
+        b = q.numpy().astype(np.int16)
+        return torch.from_numpy(b if bits == 8 else np.concatenate([(b & 15) - 8, (b >> 4) - 8]))
+
+    xcur = x.float()
+    for l in range(L):
+        md = mods[l].float()
+        xs = rs._modulated_ln(xcur, o["lnw"][l], o["lnb"][l], md, w, eps)
+        gu = _int_dot(xs.to(dt).float(), table(o["q12"][l]))
+        g = gu[:, :H] * o["s12"][l, :H] + o["b12"][l, :H]
+        u = gu[:, H:] * o["s12"][l, H:] + o["b12"][l, H:]
+        hf = (rs.silu_exact(g) * u).to(dt).float()
+        y = _int_dot(hf, table(o["q3"][l])) * o["s3"][l] + o["b3"][l]
+        xcur = xcur + md[:, 2 * w :] * y
+    return xcur.to(dt)
+
+
 def test_untouched_plain_versions_keep_their_bits():
-    """The per-step stack's four bodies (the int8 ones summing in
-    `_split_dot`'s order), the s8 int8 sampler and the int4 sampler give the
-    bits they gave before the exact int8 sampler's change (3 rows with renorm,
-    fp32 and bf16)."""
+    """The per-step stack's s8 bodies, the s8 int8 sampler and the int4
+    sampler give the bits they gave before the exact int8 sampler's change;
+    the stack's exact bodies give the bits of their digit-dot contract (3 rows
+    with renorm, fp32 and bf16)."""
     digest = lambda t: hashlib.sha256(t.detach().float().contiguous().numpy().tobytes()).hexdigest()[:16]  # noqa: E731
     got = {}
     rng = np.random.default_rng(43)
@@ -509,9 +546,12 @@ def test_untouched_plain_versions_keep_their_bits():
         bm, fm = port_precompute_modulations(rf, cfg, ts, z)
         for dt in (torch.float32, torch.bfloat16):
             for int_dots in (False, True):
-                got[f"stack-int{bits}-{'s8' if int_dots else 'exact'}-{str(dt)[6:]}"] = digest(
-                    rf_mlp.rf_mlp_stack_plain(rf["res_blocks"], x.to(dt), bm[:, 0].float(), ln_eps=cfg.ln_eps,
-                                              chunk=128, int_dots=int_dots))
+                out = rf_mlp.rf_mlp_stack_plain(rf["res_blocks"], x.to(dt), bm[:, 0].float(), ln_eps=cfg.ln_eps,
+                                                chunk=128, int_dots=int_dots)
+                if int_dots:
+                    got[f"stack-int{bits}-s8-{str(dt)[6:]}"] = digest(out)
+                else:
+                    assert torch.equal(out, _exact_stack(rf, x.to(dt), bm[:, 0], cfg.ln_eps, bits)), (bits, dt)
             noise = torch.from_numpy(rng.standard_normal((1, cfg.target_channels)).astype(np.float32)).repeat(3, 1)
             out = rs.rf_sample_fused_plain(rf, cfg, noise, bm, fm, dts, 3.0, 1.1, cfg_rows=3, renorm_channel=True,
                                            compute_dtype=dt, s8_dots=bits == 8)
